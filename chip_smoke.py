@@ -1,0 +1,648 @@
+"""Smoke run of the PyTorch port on one NVIDIA GPU (H100).
+
+    python3 chip_smoke.py            # every phase, one card
+    python3 chip_smoke.py --profile  # and a torch.profiler stage breakdown
+
+Phases (any failed check raises and the script exits non-zero):
+
+1. card: name, power limit, TF32 off for float32 products;
+2. build: nvcc builds the three kernels from karanta_tpu_torch/kernels/csrc;
+3. kernels vs plain: each kernel against its plain PyTorch version at the
+   Qwen2.5-VL-7B page shapes and a small ragged shape; times of the kernel,
+   the plain version and one library call (a yardstick the port never uses);
+4. main path: the port's Engine on qwen2.5-vl-7b at full width and depth
+   (random int8 weights, W8A8 prefill, int8 KV cache, bf16) serves synthetic
+   1288x994 pages; the kernels' launch counts prove the path ran through them;
+5. the same engine code on the tiny config on the card and on the CPU: the
+   logits of the prefill and of three decode steps agree, and so do the
+   greedy tokens.
+
+The last two lines are the kernels summary and the result line. Without a
+CUDA device the script exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import base64
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from karanta_tpu_torch import kernels
+from karanta_tpu_torch.bench.pages import make_page_png, page_messages
+from karanta_tpu_torch.bench.randweights import init_params_bench
+from karanta_tpu_torch.inference.engine import Engine, EngineConfig, GenRequest
+from karanta_tpu_torch.inference.tokenizer import ByteTokenizer
+from karanta_tpu_torch.kernels.build import build_all
+from karanta_tpu_torch.models.qwen25_vl.config import (get_config,
+                                                       tiny_config)
+from karanta_tpu_torch.models.qwen25_vl.decoder import quantize_kv_rows
+from karanta_tpu_torch.models.qwen25_vl.layout import build_vision_layout
+from karanta_tpu_torch.models.qwen25_vl.model import init_params
+from karanta_tpu_torch.ops import attention as A
+from karanta_tpu_torch.ops import decode_attention as DA
+from karanta_tpu_torch.ops.image_prep import plan_image
+from karanta_tpu_torch.ops.png import encode_png_rgb
+from karanta_tpu_torch.ops.rotary import vision_rope_cos_sin
+from karanta_tpu_torch.utils.tree import tree_map
+
+# H100 SXM data-sheet peaks: dense bf16 tensor rate and HBM3 bandwidth
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+
+# bf16 kernels vs their plain versions: both accumulate in float32 and round
+# each output once to bf16, so an element may differ by one bf16 ulp, between
+# 2^-8 and 2^-7 of its size. The limit per element is |got - want| <=
+# BF16_REL * |want| + BF16_FLOOR * max|want|: one ulp of the element at most,
+# plus a floor of a quarter to half an ulp of the largest output, for elements
+# near zero.
+BF16_REL = 2.0 ** -7
+BF16_FLOOR = 2.0 ** -9
+F32_ATOL = 1e-4    # float32 kernels vs float32 plain: summation order only
+TINY_LOGIT_TOL = 2e-3  # relative to max |logit|: W8A8 rounding may flip
+
+# the main path's operating point: pages served, decode slots, greedy tokens
+# per page, decode steps per host round trip
+PAGES = 6
+BATCH = 4
+MAX_TOKENS = 24
+CHUNK = 8
+
+
+class NoStopTokenizer(ByteTokenizer):
+    """Fixed-length decode: eos never fires (bench.py's tokenizer)."""
+
+    def __init__(self):
+        super().__init__()
+        self.eos_token_id = -1
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of fn() over iters launches, in CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check(name: str, err: float, tol: float) -> None:
+    if not math.isfinite(err) or err > tol:
+        raise AssertionError(f"{name}: max abs error {err} > {tol}")
+    log(f"  {name}: max abs err {err:.3e} (tol {tol:g}) ok")
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor, rows=None) -> float:
+    d = (a.float() - b.float()).abs()
+    if rows is not None:
+        d = d[rows]
+    return float(d.max())
+
+
+def check_bf16(name: str, got: torch.Tensor, want: torch.Tensor,
+               rows=None) -> float:
+    """Per-element bf16 limit scaled to the reference (see BF16_REL);
+    returns the max abs error."""
+    got, want = got.float(), want.float()
+    if rows is not None:
+        got, want = got[rows], want[rows]
+    d = (got - want).abs()
+    limit = BF16_REL * want.abs() + BF16_FLOOR * float(want.abs().max())
+    err, worst = float(d.max()), float((d / limit).max())
+    rms = float(want.square().mean().sqrt())
+    if not math.isfinite(err) or not worst <= 1.0:
+        raise AssertionError(f"{name}: |err| up to {worst:.3g}x its limit "
+                             f"(max abs err {err}, reference rms {rms:.3e})")
+    log(f"  {name}: max abs err {err:.3e}, worst err/limit {worst:.3f} "
+        f"(reference rms {rms:.3e}, max {float(want.abs().max()):.3e}) ok")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# phase 1-2
+# ---------------------------------------------------------------------------
+
+def phase_card() -> str:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this script runs on the "
+                         "GPU only")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    log(f"[card] {kind}; count {torch.cuda.device_count()}; torch "
+        f"{torch.__version__} cuda {torch.version.cuda}")
+    log(smi)
+    return kind
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    secs = build_all()
+    log(f"[build] {', '.join(f'{k} {v:.1f}s' for k, v in secs.items())}; "
+        f"wall {time.perf_counter() - t0:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels vs plain
+# ---------------------------------------------------------------------------
+
+def _page_layout(cfg):
+    plan = plan_image(1288, 994)
+    return plan, build_vision_layout(plan, cfg.vision)
+
+
+def kernel_window(cfg, dev, gen) -> dict:
+    """Vision window layer: (1, S, 16, 80) bf16 with the page's rope/mask."""
+    _, layout = _page_layout(cfg)
+    vc = cfg.vision
+    s, h, d, w = len(layout.valid), vc.num_heads, vc.head_dim, \
+        vc.window_patches ** 2
+    mask = torch.from_numpy(layout.valid).to(dev)[None]
+    cos, sin = vision_rope_cos_sin(torch.from_numpy(layout.pos_hw).to(dev), d)
+    cos = cos.to(torch.bfloat16).float()[None].contiguous()
+    sin = sin.to(torch.bfloat16).float()[None].contiguous()
+    q, k, v = (torch.randn((1, s, h, d), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    live = mask.reshape(1, s // w, w).amax(-1) > 0
+    rows = live.repeat_interleave(w, dim=1)  # rows whose window has a key
+
+    got = A.window_attention_kernel_call(q, k, v, w, mask, cos=cos, sin=sin)
+    torch.cuda.synchronize()
+    want = A.window_attention_plain(q, k, v, w, mask, cos=cos, sin=sin)
+    err = check_bf16("window_attention 7B (1,5120,16,80) bf16", got, want,
+                     rows)
+    # small ragged case in float32: 3 windows, a window with no live key
+    qs, ks_, vs_ = (torch.randn((2, 192, 3, 16), generator=gen, device=dev)
+                    for _ in range(3))
+    ms = (torch.rand((2, 192), generator=gen, device=dev) > 0.2).float()
+    ms[1, 64:128] = 0.0
+    pos = torch.randint(0, 30, (192, 2), generator=gen, device=dev)
+    cs, sn = vision_rope_cos_sin(pos, 16)
+    cs, sn = cs[None].expand(2, -1, -1).contiguous(), \
+        sn[None].expand(2, -1, -1).contiguous()
+    rs = (ms.reshape(2, 3, 64).amax(-1) > 0).repeat_interleave(64, dim=1)
+    for c, sn_ in ((cs, sn), (None, None)):
+        g2 = A.window_attention_kernel_call(qs, ks_, vs_, 64, ms, cos=c,
+                                            sin=sn_)
+        torch.cuda.synchronize()
+        w2 = A.window_attention_plain(qs, ks_, vs_, 64, ms, cos=c, sin=sn_)
+        check(f"window_attention ragged f32 rope={c is not None}",
+              max_err(g2, w2, rs), F32_ATOL)
+
+    # library yardstick: SDPA over the windows as a batch, key-padding mask
+    # (rope applied beforehand: the library call has no fused rope)
+    from karanta_tpu_torch.ops.rotary import apply_rope
+
+    qr, kr = apply_rope(q, k, cos, sin)
+    nw = s // w
+
+    def windows(x):
+        return x.reshape(nw, w, h, d).transpose(1, 2).contiguous()
+
+    qw, kw, vw = windows(qr), windows(kr), windows(v)
+    mw = (mask.reshape(nw, 1, 1, w) > 0)
+
+    def lib():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qw, kw, vw, attn_mask=mw)
+
+    t_k = cuda_ms(lambda: A.window_attention_kernel_call(
+        q, k, v, w, mask, cos=cos, sin=sin), 20)
+    t_p = cuda_ms(lambda: A.window_attention_plain(q, k, v, w, mask, cos=cos,
+                                                   sin=sin), 5)
+    t_l = cuda_ms(lib, 20)
+    n_bytes = 4 * s * h * d * 2 + 2 * s * d * 4 + s * 4
+    flops = 4.0 * w * d * s * h
+    b, by = bound_ms(n_bytes, flops)
+    return dict(name="window_attention", route="cuda",
+                source="karanta_tpu_torch/kernels/csrc/window_attention.cu",
+                replaces="karanta_tpu/ops/attention.py:403",
+                max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b,
+                bound_by=by, library_ms=t_l)
+
+
+def _flash_case(dev, gen, b, sq, sk, h, kvh, d, dtype, live_len):
+    q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, sk, kvh, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, sk, kvh, d), generator=gen, device=dev).to(dtype)
+    mask = torch.zeros((b, sk), device=dev)
+    mask[:, :live_len] = 1.0
+    return q, k, v, mask
+
+
+def _flash_work(sq, sk, h, kvh, d, live_len, causal, esize=2):
+    """Bytes (each input read once, output written once) and flops of the
+    (query, live key) pairs this input needs."""
+    if causal:
+        pairs = sum(min(i + 1, live_len) for i in range(sq))
+    else:
+        pairs = sq * live_len
+    n_bytes = (2 * sq * h * d + 2 * sk * kvh * d) * esize + sk * 4
+    return n_bytes, 4.0 * d * h * pairs
+
+
+def _sdpa_mask(sq, sk, live_len, causal, dev):
+    m = torch.zeros((sq, sk), dtype=torch.bool, device=dev)
+    m[:, :live_len] = True
+    if causal:
+        m &= torch.ones((sq, sk), dtype=torch.bool, device=dev).tril()
+    return m[None, None]
+
+
+def kernel_flash(cfg, dev, gen) -> dict:
+    """Decoder prefill (1, 1408, 28/4, 128) causal and the vision full
+    layers (1, 5120, 16, 80), bf16, with the bench page's masks."""
+    t, vc = cfg.text, cfg.vision
+    _, layout = _page_layout(cfg)
+    s_vis = len(layout.valid)
+    cases = {
+        "prefill": (1, 1408, 1408, t.num_heads, t.num_kv_heads, t.head_dim,
+                    1390, True),
+        "vision_full": (1, s_vis, s_vis, vc.num_heads, vc.num_heads,
+                        vc.head_dim, None, False),
+    }
+    errs, times = [], {}
+    for name, (b, sq, sk, h, kvh, d, live, causal) in cases.items():
+        q, k, v, mask = _flash_case(dev, gen, b, sq, sk, h, kvh, d,
+                                    torch.bfloat16, live or sk)
+        if name == "vision_full":  # the page's validity mask
+            mask = torch.from_numpy(layout.valid).to(dev)[None]
+        got = A.flash_attention(q, k, v, mask, causal=causal)
+        torch.cuda.synchronize()
+        want = A.flash_attention_plain(q, k, v, mask, causal=causal)
+        errs.append(check_bf16(f"flash_attention {name} {tuple(q.shape)} kv "
+                               f"{tuple(k.shape)} bf16", got, want))
+        live_len = int(mask[0].sum().item())
+        if name == "vision_full":
+            # the page's valid keys are scattered over the window-ordered
+            # sequence: SDPA takes them as a key-padding mask
+            sdpa_mask = (mask > 0)[:, None, None, :]
+        else:
+            sdpa_mask = _sdpa_mask(sq, sk, live_len, causal, dev)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def lib(qt=qt, kt=kt, vt=vt, m=sdpa_mask, g=(h != kvh)):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=m, enable_gqa=g)
+
+        times[name] = (
+            cuda_ms(lambda q=q, k=k, v=v, m=mask, c=causal:
+                    A.flash_attention(q, k, v, m, causal=c), 10),
+            cuda_ms(lambda q=q, k=k, v=v, m=mask, c=causal:
+                    A.flash_attention_plain(q, k, v, m, causal=c), 3),
+            cuda_ms(lib, 10),
+            _flash_work(sq, sk, h, kvh, d, live_len, causal))
+        log(f"  flash {name}: kernel {times[name][0]:.3f} ms, plain "
+            f"{times[name][1]:.3f} ms, sdpa {times[name][2]:.3f} ms")
+    # small ragged cases in float32: GQA, mask, q_offset, Sq != Sk
+    for (b, sq, sk, h, kvh, d, causal, q_off) in (
+            (2, 333, 333, 6, 2, 128, True, 0),
+            (1, 77, 200, 4, 1, 16, True, 123),
+            (1, 150, 150, 4, 4, 80, False, 0)):
+        q, k, v, mask = _flash_case(dev, gen, b, sq, sk, h, kvh, d,
+                                    torch.float32, sk - 13)
+        got = A.flash_attention(q, k, v, mask, causal=causal, q_offset=q_off)
+        torch.cuda.synchronize()
+        want = A.flash_attention_plain(q, k, v, mask, causal=causal,
+                                       q_offset=q_off)
+        check(f"flash_attention ragged f32 {tuple(q.shape)} kv "
+              f"{tuple(k.shape)} q_offset={q_off}", max_err(got, want),
+              F32_ATOL)
+    # the row reports the prefill shape (28 of the 32 launches per page);
+    # the vision-full numbers are printed above
+    t_k, t_p, t_l, (n_bytes, flops) = times["prefill"]
+    b, by = bound_ms(n_bytes, flops)
+    tv = times["vision_full"]
+    bv, _ = bound_ms(*tv[3])
+    log(f"  flash vision_full bound {bv:.4f} ms")
+    return dict(name="flash_attention", route="cuda",
+                source="karanta_tpu_torch/kernels/csrc/flash_attention.cu",
+                replaces="karanta_tpu/ops/attention.py:235",
+                max_abs_err=max(errs), ms=t_k, plain_ms=t_p, bound_ms=b,
+                bound_by=by, library_ms=t_l,
+                vision_full={"ms": tv[0], "plain_ms": tv[1],
+                             "library_ms": tv[2], "bound_ms": bv})
+
+
+def _decode_inputs(dev, gen, n_layers, b, kvh, m, d, h, lens, dtype):
+    def rows(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    kq, ks = quantize_kv_rows(rows((n_layers, b, kvh, m, d)))
+    vq, vs = quantize_kv_rows(rows((n_layers, b, kvh, m, d)))
+    nkq, nks = quantize_kv_rows(rows((b, kvh, d)))
+    nvq, nvs = quantize_kv_rows(rows((b, kvh, d)))
+    q = rows((b, 1, h, d)).to(dtype)
+    caches = (kq, vq, ks.to(dtype), vs.to(dtype))
+    new = (nkq, nvq, nks.to(dtype), nvs.to(dtype))
+    return q, new, caches, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+def kernel_decode(cfg, dev, gen, batch: int) -> dict:
+    """One decode step of one layer over the 7B int8 cache (28 layers,
+    B slots, 4 kv heads, M=1920, D=128), cache_len 0 / mid-block / M-1."""
+    t = cfg.text
+    m, layer = 1920, min(5, t.num_layers - 1)
+    lens = ([0, 700, m - 1, 1390] * batch)[:batch]
+    q, new, caches, lens_t = _decode_inputs(
+        dev, gen, t.num_layers, batch, t.num_kv_heads, m, t.head_dim,
+        t.num_heads, lens, torch.bfloat16)
+    a = [c.clone() for c in caches]
+    b_ = [c.clone() for c in caches]
+    got = DA.paged_decode_append_quant(q, *new, *a, layer, lens_t)
+    torch.cuda.synchronize()
+    want = DA.paged_decode_append_quant_plain(q, *new, *b_, layer, lens_t)
+    err = check_bf16(f"paged_decode_append_quant 7B B={batch} lens={lens} "
+                     f"bf16", got, want)
+    for x, y, name in zip(a, b_, ("k", "v", "ks", "vs")):
+        if not torch.equal(x, y):
+            raise AssertionError(f"decode kernel: cache {name} differs from "
+                                 f"the plain version")
+    log("  paged_decode_append_quant: all four caches bit-equal")
+    # small ragged case in float32 (tiny-config heads: D=16, G=2)
+    q2, new2, c2, l2 = _decode_inputs(dev, gen, 2, 3, 2, 200, 16, 4,
+                                      [0, 77, 199], torch.float32)
+    a2 = [c.clone() for c in c2]
+    b2 = [c.clone() for c in c2]
+    g2 = DA.paged_decode_append_quant(q2, *new2, *a2, 1, l2)
+    torch.cuda.synchronize()
+    w2 = DA.paged_decode_append_quant_plain(q2, *new2, *b2, 1, l2)
+    check("paged_decode_append_quant ragged f32 (B=3, M=200)",
+          max_err(g2, w2), F32_ATOL)
+    if not all(torch.equal(x, y) for x, y in zip(a2, b2)):
+        raise AssertionError("decode kernel: small-case caches differ")
+
+    t_k = cuda_ms(lambda: DA.paged_decode_append_quant(q, *new, *a, layer,
+                                                       lens_t), 50)
+    t_p = cuda_ms(lambda: DA.paged_decode_append_quant_plain(
+        q, *new, *b_, layer, lens_t), 5)
+    live = sum(lens)
+    d, kvh, g = t.head_dim, t.num_kv_heads, t.num_heads // t.num_kv_heads
+    n_bytes = (kvh * live * (d + 2) * 2            # old K/V rows + scales
+               + batch * kvh * (d + 2) * 2 * 2     # new rows: read + write
+               + 2 * batch * t.num_heads * d * 2)  # q in, attn out
+    flops = 4.0 * d * g * kvh * (live + batch)
+    bd, by = bound_ms(n_bytes, flops)
+    return dict(name="paged_decode_append_quant", route="cuda",
+                source="karanta_tpu_torch/kernels/csrc/decode_append_quant.cu",
+                replaces="karanta_tpu/ops/decode_attention.py:887",
+                max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bd,
+                bound_by=by, library_ms=None)
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path
+# ---------------------------------------------------------------------------
+
+def phase_main_path(cfg, dev, profile: bool = False) -> dict:
+    n_pages, batch, max_tokens, chunk = PAGES, BATCH, MAX_TOKENS, CHUNK
+    t0 = time.perf_counter()
+    params, engine_quantize = init_params_bench(cfg, torch.bfloat16, "int8",
+                                                device=dev)
+    tok = NoStopTokenizer()
+    ecfg = EngineConfig(
+        max_batch_size=batch, max_seq_len=1920, decode_chunk=chunk,
+        prefill_buckets=(512, 1024, 1408), image_token_buckets=(2048,),
+        dtype=torch.bfloat16, quantize=engine_quantize, kv_quantize="int8",
+        act_quant="int8")
+    engine = Engine(params, cfg, tok, ecfg, device=dev)
+    del params
+    torch.cuda.synchronize()
+    log(f"[main] {cfg.name}: {cfg.text.num_layers} decoder layers, "
+        f"{cfg.vision.depth} vision blocks, weights + cache in "
+        f"{time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    pages = [make_page_png(seed=i) for i in range(n_pages + 1)]
+
+    def requests(idx):
+        return [GenRequest(messages=page_messages(pages[i]),
+                           max_tokens=max_tokens, temperature=0.0,
+                           request_id=f"page-{i}") for i in idx]
+
+    # warm-up (cuBLAS handles, allocator): one short page, not counted
+    engine.generate([GenRequest(messages=page_messages(pages[-1]),
+                                max_tokens=2, request_id="warm")])
+    torch.cuda.synchronize()
+
+    steps = 0
+    decode_chunk = engine.decode_chunk
+
+    def counted_chunk(n=None):
+        nonlocal steps
+        steps += n or chunk
+        return decode_chunk(n)
+
+    engine.decode_chunk = counted_chunk
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t_run = time.perf_counter()
+    results = engine.generate(requests(range(n_pages)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    engine.decode_chunk = decode_chunk
+
+    vocab = cfg.text.vocab_size
+    for r in results:
+        if len(r.token_ids) != max_tokens or not all(
+                0 <= t < vocab for t in r.token_ids):
+            raise AssertionError(f"{r.request_id}: bad tokens {r.token_ids}")
+    n_vis_full = len(cfg.vision.fullatt_block_indexes)
+    want = {"window_attention": (cfg.vision.depth - n_vis_full) * n_pages,
+            "flash_attention": (n_vis_full + cfg.text.num_layers) * n_pages,
+            "paged_decode_append_quant": cfg.text.num_layers * steps}
+    log(f"[main] launches {launches}; expected {want} "
+        f"({steps} decode steps)")
+    for name, n in want.items():
+        if launches[name] != n or n == 0:
+            raise AssertionError(f"{name}: {launches[name]} launches on the "
+                                 f"main path, expected {n}")
+    total_tokens = sum(r.completion_tokens for r in results)
+    log(f"[main] {n_pages} pages x {max_tokens} tokens in {wall:.3f}s: "
+        f"{n_pages / wall:.4f} pages/s, {total_tokens / wall:.1f} tokens/s "
+        f"end to end; prompt {results[0].prompt_tokens} tokens; peak "
+        f"{peak / 2**30:.2f} GiB")
+
+    # per-stage times (not counted): prepare, prefill+insert, decode
+    prep_ms, prefill_ms = [], []
+    for i in range(min(batch, 2)):
+        t1 = time.perf_counter()
+        prepared = engine.prepare(requests([i])[0])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        engine.prefill_insert(i, prepared)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        prep_ms.append((t2 - t1) * 1e3)
+        prefill_ms.append((t3 - t2) * 1e3)
+    t4 = time.perf_counter()
+    toks = engine.decode_chunk(chunk)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t4) * 1e3 / chunk
+    if not np.isfinite(toks).all():
+        raise AssertionError("decode produced non-finite tokens")
+    if profile:
+        profile_stages(engine, requests, chunk)
+    for i in range(batch):
+        engine.free_slot(i)
+    log(f"[main] prepare (PNG decode + device resize) "
+        f"{np.mean(prep_ms):.1f} ms/page, prefill+insert "
+        f"{np.mean(prefill_ms):.1f} ms/page, decode {step_ms:.2f} ms/step "
+        f"at B={batch} ({batch / step_ms * 1e3:.1f} tokens/s)")
+    del engine
+    torch.cuda.empty_cache()
+    return dict(launches=launches, pages_per_s=n_pages / wall,
+                tokens_per_s=total_tokens / wall,
+                prefill_ms=float(np.mean(prefill_ms)),
+                prepare_ms=float(np.mean(prep_ms)), decode_step_ms=step_ms,
+                peak_gib=peak / 2**30)
+
+
+def profile_stages(engine, requests, chunk: int) -> None:
+    """torch.profiler over one page's prefill+insert and one decode chunk:
+    device time by kernel and the device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for stage in ("prefill", "decode"):
+        prepared = engine.prepare(requests([0])[0])
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            if stage == "prefill":
+                engine.prefill_insert(0, prepared)
+            else:
+                engine.decode_chunk(chunk)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages()
+                  if e.device_type.name == "CUDA"]
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        log(f"[profile] {stage}: wall {wall_ms:.2f} ms, device busy "
+            f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%)")
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:14]
+        for e in top:
+            log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
+                f"{e.count:6d}x  {e.key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: tiny config, card vs CPU
+# ---------------------------------------------------------------------------
+
+def phase_tiny(dev) -> float:
+    tok = NoStopTokenizer()
+    cfg = tiny_config(vocab_size=tok.vocab_size)
+    params_cpu = init_params(cfg, 0, torch.float32, device="cpu")
+    params_gpu = tree_map(lambda x, _: x.to(dev), params_cpu)
+    ecfg = EngineConfig(max_batch_size=2, max_seq_len=256, decode_chunk=4,
+                        prefill_buckets=(128, 256), dtype=torch.float32,
+                        quantize="int8", kv_quantize="int8", act_quant="int8")
+    rng = np.random.default_rng(0)
+    page = rng.integers(0, 255, size=(84, 112, 3), dtype=np.uint8)
+    png = base64.b64encode(encode_png_rgb(page)).decode()
+    req = GenRequest(messages=page_messages(png), max_tokens=8,
+                     request_id="tiny")
+    n_steps = 3
+    logits, tokens, kv = {}, {}, {}
+    for name, device, params in (("cpu", "cpu", params_cpu),
+                                 ("cuda", dev, params_gpu)):
+        eng = Engine(params, cfg, tok, ecfg, device=device)
+        prepared = eng.prepare(req)
+        steps = [eng.prefill(prepared)[0][None]]
+        eng.prefill_insert(0, prepared)
+        eng.decode_chunk(n_steps, logits_out=steps)  # the decode kernel
+        n_rows = int(eng.cache_len[0])
+        kv[name] = torch.stack((eng.cache.k[:, 0, :, :n_rows],
+                                eng.cache.v[:, 0, :, :n_rows])).cpu()
+        eng.free_slot(0)
+        # (1 + n_steps, V): the prefill's logits, then slot 0's per step
+        logits[name] = torch.stack([x[0] for x in steps]).float().cpu()
+        tokens[name] = eng.generate([req])[0].token_ids
+    log(f"[tiny] greedy tokens cpu {tokens['cpu']} cuda {tokens['cuda']}")
+    # float32 rounding differences can move a value across an int8 rounding
+    # boundary; each such flip shifts the later logits by a quantization step
+    n_prompt = len(prepared.ids)
+    diff = (kv["cpu"].int() - kv["cuda"].int()).abs()
+    for part, d in (("prompt", diff[..., :n_prompt, :]),
+                    ("decode", diff[..., n_prompt:, :])):
+        log(f"[tiny] int8 K/V entries of the {part} rows that differ card vs "
+            f"CPU: {int((d > 0).sum())} of {d.numel()} (max "
+            f"{int(d.max()) if d.numel() else 0} steps)")
+    if tokens["cpu"] != tokens["cuda"]:
+        raise AssertionError("tiny config: greedy tokens differ between the "
+                             "card and the CPU")
+    worst = 0.0
+    for i in range(1 + n_steps):
+        want, got = logits["cpu"][i], logits["cuda"][i]
+        scale = float(want.abs().max())
+        err = float((want - got).abs().max())
+        stage = "prefill" if i == 0 else f"decode step {i}"
+        log(f"[tiny] {stage} logits card vs CPU: max abs err {err:.3e} "
+            f"(max |logit| {scale:.3f})")
+        check(f"tiny {stage} logits card vs CPU", err,
+              TINY_LOGIT_TOL * max(scale, 1.0))
+        worst = max(worst, err)
+    return worst
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="trace one page's prefill and one decode chunk "
+                             "with torch.profiler and print the breakdown")
+    args = parser.parse_args(argv)
+
+    kind = phase_card()
+    phase_build()
+    dev = torch.device("cuda")
+    cfg = get_config("qwen2.5-vl-7b")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    log("[kernels] each kernel vs its plain version at the 7B page shapes")
+    rows = [kernel_window(cfg, dev, gen), kernel_flash(cfg, dev, gen),
+            kernel_decode(cfg, dev, gen, BATCH)]
+    main_stats = phase_main_path(cfg, dev, args.profile)
+    phase_tiny(dev)
+    for row in rows:
+        row["launches"] = main_stats["launches"][row["name"]]
+        log(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, library "
+            f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)}"
+            f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    log(json.dumps({"main_path": {k: v for k, v in main_stats.items()
+                                  if k != "launches"}}))
+    log(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

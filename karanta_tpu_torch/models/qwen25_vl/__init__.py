@@ -1,0 +1,1 @@
+"""Port of the matching karanta_tpu sub-package (see the package docstring)."""

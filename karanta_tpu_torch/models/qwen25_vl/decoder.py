@@ -1,0 +1,218 @@
+"""Qwen2.5-VL text decoder (port of ``karanta_tpu/models/qwen25_vl/decoder.py``).
+
+GQA attention with q/k/v biases, SwiGLU MLP, RMSNorm and M-RoPE, with the JAX
+package's layouts: per-layer weights stacked on a leading layer axis, weights
+``(in, out)``, KV caches ``(layers, batch, kv_heads, max_len, head_dim)``.
+
+- ``prefill_forward`` runs the causal prompt forward through the flash
+  kernel and returns the prompt's KV rows.
+- ``decode_step`` runs one token per slot over the int8 cache
+  (``QuantKVCache``); the fused append+attention kernel updates the cache
+  tensors IN PLACE, layer by layer.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from karanta_tpu_torch.models.qwen25_vl.config import TextConfig
+from karanta_tpu_torch.ops.attention import attention
+from karanta_tpu_torch.ops.decode_attention import paged_decode_append_quant
+from karanta_tpu_torch.ops.norms import rms_norm
+from karanta_tpu_torch.ops.quantization import INV_127
+from karanta_tpu_torch.ops.quantization import matmul as qmm
+from karanta_tpu_torch.ops.quantization import matmul_w8a8
+from karanta_tpu_torch.ops.rotary import apply_rope, mrope_cos_sin
+from karanta_tpu_torch.utils.tree import layer_slice
+
+Params = Any
+
+
+def init_decoder_params(cfg: TextConfig, generator: torch.Generator,
+                        dtype=torch.bfloat16, device=None) -> Params:
+    """Random init with the JAX package's shapes."""
+    h, n_layers = cfg.hidden_size, cfg.num_layers
+    qd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    inter = cfg.intermediate_size
+    device = generator.device if device is None else device
+
+    def randn(shape):
+        return torch.randn(shape, generator=generator, device=device,
+                           dtype=torch.float32)
+
+    def stack(shape):
+        return (randn((n_layers,) + shape) / np.sqrt(shape[-2])).to(dtype)
+
+    def const(shape, value):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    params = {
+        "embed": (randn((cfg.vocab_size, h)) * 0.02).to(dtype),
+        "layers": {
+            "ln1": const((n_layers, h), 1.0),
+            "ln2": const((n_layers, h), 1.0),
+            "attn": {
+                "wq": stack((h, qd)), "bq": const((n_layers, qd), 0.0),
+                "wk": stack((h, kvd)), "bk": const((n_layers, kvd), 0.0),
+                "wv": stack((h, kvd)), "bv": const((n_layers, kvd), 0.0),
+                "wo": stack((qd, h)),
+            },
+            "mlp": {"gate": stack((h, inter)), "up": stack((h, inter)),
+                    "down": stack((inter, h))},
+        },
+        "final_norm": const((h,), 1.0),
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = (randn((h, cfg.vocab_size)) / np.sqrt(h)).to(dtype)
+    return params
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Key/value rows (layers, batch, kv_heads, len, head_dim): the prefill's
+    output, quantized into the serving cache at insert."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+@dataclasses.dataclass
+class QuantKVCache:
+    """int8 KV cache with per-row (token, kv head) absmax scales.
+
+    k/v int8 (L, B, KVH, M, D); ks/vs (L, B, KVH, M) in the activation dtype.
+    The decode step updates these tensors in place."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    ks: torch.Tensor
+    vs: torch.Tensor
+
+    @classmethod
+    def zeros(cls, cfg: TextConfig, batch: int, max_len: int,
+              dtype=torch.bfloat16, device=None) -> "QuantKVCache":
+        shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len,
+                 cfg.head_dim)
+        return cls(torch.zeros(shape, dtype=torch.int8, device=device),
+                   torch.zeros(shape, dtype=torch.int8, device=device),
+                   torch.ones(shape[:-1], dtype=dtype, device=device),
+                   torch.ones(shape[:-1], dtype=dtype, device=device))
+
+
+def quantize_kv_rows(x: torch.Tensor):
+    """(..., D) -> (int8 (..., D), bf16 scale (...,)) with per-row absmax."""
+    xf = x.float()
+    a = torch.amax(torch.abs(xf), dim=-1)
+    s = torch.clamp(a * INV_127, min=1e-8)
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
+    return q, s.to(torch.bfloat16)
+
+
+def _rope_tables(cfg: TextConfig, positions: torch.Tensor, dtype):
+    """positions (3, *lead) -> cos/sin (*lead, head_dim) in dtype."""
+    lead = positions.shape[1:]
+    cos, sin = mrope_cos_sin(positions.reshape(3, -1), cfg.head_dim,
+                             cfg.mrope_section, cfg.rope_theta)
+    shape = tuple(lead) + (cfg.head_dim,)
+    return cos.reshape(shape).to(dtype), sin.reshape(shape).to(dtype)
+
+
+def _project_qkv(x, p, cfg: TextConfig, mm=qmm):
+    b, s, _ = x.shape
+    q = (mm(x, p["wq"]) + p["bq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = (mm(x, p["wk"]) + p["bk"]).reshape(b, s, cfg.num_kv_heads,
+                                           cfg.head_dim)
+    v = (mm(x, p["wv"]) + p["bv"]).reshape(b, s, cfg.num_kv_heads,
+                                           cfg.head_dim)
+    return q, k, v
+
+
+def _mlp(x, p, mm=qmm):
+    return mm(F.silu(mm(x, p["gate"])) * mm(x, p["up"]), p["down"])
+
+
+def prefill_forward(params: Params, cfg: TextConfig,
+                    embeds: torch.Tensor,          # (B, S, hidden)
+                    positions: torch.Tensor,       # (3, B, S) int
+                    kv_mask: Optional[torch.Tensor] = None,  # (B, S) f32
+                    act_quant: bool = False,
+                    ) -> tuple[torch.Tensor, KVCache]:
+    """Full-sequence causal forward -> (hidden_states, KV rows of S).
+
+    act_quant=True runs the layer matmuls W8A8 (dynamic per-token int8
+    activations x int8 weights); plain weight leaves pass through."""
+    mm = matmul_w8a8 if act_quant else qmm
+    b, s, _ = embeds.shape
+    cos, sin = _rope_tables(cfg, positions, embeds.dtype)
+    if kv_mask is not None:
+        kv_mask = kv_mask.float().contiguous()
+    x = embeds
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        layer = layer_slice(params["layers"], i)
+        xn = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
+        q, k, v = _project_qkv(xn, layer["attn"], cfg, mm=mm)
+        q, k = apply_rope(q, k, cos, sin)
+        attn = attention(q, k, v, kv_mask=kv_mask, causal=True)
+        x = x + mm(attn.reshape(b, s, -1), layer["attn"]["wo"])
+        x = x + _mlp(rms_norm(x, layer["ln2"], cfg.rms_norm_eps),
+                     layer["mlp"], mm=mm)
+        # store (B, KVH, S, D): contiguous per-head slabs, as the cache is
+        ks.append(k.transpose(1, 2))
+        vs.append(v.transpose(1, 2))
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return x, KVCache(torch.stack(ks), torch.stack(vs))
+
+
+def decode_step(params: Params, cfg: TextConfig,
+                embeds: torch.Tensor,       # (B, 1, hidden)
+                positions: torch.Tensor,    # (3, B) int
+                cache: QuantKVCache,        # updated in place
+                cache_len: torch.Tensor,    # (B,) int32 rows already cached
+                ) -> tuple[torch.Tensor, QuantKVCache]:
+    """One decode step over the int8 cache: each layer appends this token's
+    K/V rows at cache_len (in place, inside the kernel) and attends over
+    cache_len + 1 rows. Returns (hidden (B, 1, hidden), the same cache)."""
+    if not isinstance(cache, QuantKVCache):
+        raise NotImplementedError(
+            "decode_step is ported for the int8 KV cache only (the bf16 "
+            "cache's paged_decode_append kernel is not ported yet)")
+    b = embeds.shape[0]
+    cos, sin = _rope_tables(cfg, positions[:, :, None], embeds.dtype)
+    cache_len = cache_len.to(torch.int32).contiguous()
+    x = embeds
+    for i in range(cfg.num_layers):
+        layer = layer_slice(params["layers"], i)
+        xn = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
+        q, k, v = _project_qkv(xn, layer["attn"], cfg)
+        q, k = apply_rope(q, k, cos, sin)
+        kq, ksc = quantize_kv_rows(k[:, 0])
+        vq, vsc = quantize_kv_rows(v[:, 0])
+        attn = paged_decode_append_quant(
+            q.contiguous(), kq, vq, ksc.to(cache.ks.dtype),
+            vsc.to(cache.vs.dtype), cache.k, cache.v, cache.ks, cache.vs, i,
+            cache_len)
+        x = x + qmm(attn.reshape(b, 1, -1), layer["attn"]["wo"])
+        x = x + _mlp(rms_norm(x, layer["ln2"], cfg.rms_norm_eps), layer["mlp"])
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return x, cache
+
+
+def logits_from_hidden(params: Params, cfg: TextConfig, hidden: torch.Tensor,
+                       act_quant: bool = False) -> torch.Tensor:
+    """Hidden -> vocab logits (W8A8 with act_quant, as in every JAX path)."""
+    mm = matmul_w8a8 if act_quant else qmm
+    if "logits_head" in params:  # int8 table for tied embeddings
+        return mm(hidden, params["logits_head"])
+    if cfg.tie_word_embeddings:
+        return hidden @ params["embed"].t()
+    return mm(hidden, params["lm_head"])
+
+
+def embed_tokens(params: Params, token_ids: torch.Tensor) -> torch.Tensor:
+    return params["embed"][token_ids.long()]

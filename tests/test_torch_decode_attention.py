@@ -1,0 +1,99 @@
+"""The port's int8 append+decode kernel's plain version against the JAX
+Pallas kernel (``interpret=True``), at the shapes of the JAX package's own
+test: attention within atol 5e-3 (the Pallas kernel rounds its V
+probabilities to the activation dtype), all four caches exactly equal."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from karanta_tpu.models.qwen25_vl.decoder import quantize_kv_rows as j_qkv_rows
+from karanta_tpu.ops.attention import decode_attention as j_decode_attention
+from karanta_tpu.ops.decode_attention import (
+    paged_decode_append_quant as j_append_quant,
+)
+from karanta_tpu_torch.ops.attention import decode_attention
+from karanta_tpu_torch.ops.decode_attention import (
+    paged_decode_append_quant, paged_decode_append_quant_plain)
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x).copy())
+
+
+def _inputs(seed, L, B, M, H, KVH, D):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, 1, H, D)).astype(np.float32)
+    kq, ks = j_qkv_rows(jnp.asarray(rng.normal(size=(L, B, KVH, M, D)),
+                                    jnp.float32))
+    vq, vs = j_qkv_rows(jnp.asarray(rng.normal(size=(L, B, KVH, M, D)),
+                                    jnp.float32))
+    nkq, nks = j_qkv_rows(jnp.asarray(rng.normal(size=(B, KVH, D)),
+                                      jnp.float32))
+    nvq, nvs = j_qkv_rows(jnp.asarray(rng.normal(size=(B, KVH, D)),
+                                      jnp.float32))
+    return q, kq, ks, vq, vs, nkq, nks, nvq, nvs
+
+
+@pytest.mark.parametrize("layer,lens", [(0, [0, 5, 200, 255]),
+                                        (1, [255, 128, 1, 64])])
+def test_plain_matches_pallas(layer, lens):
+    L, B, M, H, KVH, D = 2, 4, 256, 8, 2, 64
+    q, kq, ks, vq, vs, nkq, nks, nvq, nvs = _inputs(7 + layer, L, B, M, H,
+                                                    KVH, D)
+    # the JAX cache stores scales as bf16 (quantize_kv_rows); so does ours
+    attn_j, k2, v2, ks2, vs2 = j_append_quant(
+        jnp.asarray(q), nkq, nvq, nks, nvs, kq, vq, ks, vs,
+        jnp.asarray(layer), jnp.asarray(lens, jnp.int32), block=128,
+        interpret=True)
+    tk, tv = _t(kq), _t(vq)
+    tks = _t(np.asarray(ks, np.float32)).to(torch.bfloat16)
+    tvs = _t(np.asarray(vs, np.float32)).to(torch.bfloat16)
+    attn_t = paged_decode_append_quant(
+        _t(q), _t(nkq), _t(nvq),
+        _t(np.asarray(nks, np.float32)).to(torch.bfloat16),
+        _t(np.asarray(nvs, np.float32)).to(torch.bfloat16),
+        tk, tv, tks, tvs, layer, torch.tensor(lens, dtype=torch.int32))
+    np.testing.assert_allclose(attn_t.numpy(), np.asarray(attn_j), atol=5e-3)
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(k2))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(v2))
+    np.testing.assert_array_equal(tks.float().numpy(),
+                                  np.asarray(ks2, np.float32))
+    np.testing.assert_array_equal(tvs.float().numpy(),
+                                  np.asarray(vs2, np.float32))
+
+
+def test_plain_matches_dense_decode_attention():
+    """The two-part sum equals dense attention over the appended cache (the
+    JAX decode_attention with scales) to float32 rounding."""
+    L, B, M, H, KVH, D = 1, 3, 64, 4, 2, 16
+    q, kq, ks, vq, vs, nkq, nks, nvq, nvs = _inputs(3, L, B, M, H, KVH, D)
+    lens = np.asarray([0, 17, 63], np.int32)
+    ks32, vs32 = np.asarray(ks, np.float32), np.asarray(vs, np.float32)
+    tk, tv, tks, tvs = _t(kq), _t(vq), _t(ks32), _t(vs32)
+    got = paged_decode_append_quant_plain(
+        _t(q), _t(nkq), _t(nvq), _t(np.asarray(nks, np.float32)),
+        _t(np.asarray(nvs, np.float32)), tk, tv, tks, tvs, 0, _t(lens))
+    mask = (np.arange(M)[None] <= lens[:, None]).astype(np.float32)
+    want = j_decode_attention(jnp.asarray(q), jnp.asarray(tk[0].numpy()),
+                              jnp.asarray(tv[0].numpy()), jnp.asarray(mask),
+                              k_scale=jnp.asarray(tks[0].numpy()),
+                              v_scale=jnp.asarray(tvs[0].numpy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    torch_dense = decode_attention(_t(q), tk[0], tv[0], _t(mask),
+                                   k_scale=tks[0], v_scale=tvs[0])
+    np.testing.assert_allclose(torch_dense.numpy(), np.asarray(want),
+                               atol=1e-5)
+
+
+def test_rejects_mismatched_shapes():
+    q = torch.zeros(2, 1, 4, 16)
+    cache = torch.zeros(1, 2, 2, 8, 16, dtype=torch.int8)
+    sc = torch.ones(1, 2, 2, 8)
+    with pytest.raises(ValueError):
+        paged_decode_append_quant(q, torch.zeros(2, 2, 16, dtype=torch.int8),
+                                  torch.zeros(2, 2, 16, dtype=torch.int8),
+                                  torch.ones(2, 2), torch.ones(2, 2), cache,
+                                  cache, sc, sc, 1,
+                                  torch.zeros(2, dtype=torch.int32))

@@ -1,0 +1,168 @@
+"""The PyTorch port's engine against the JAX engine, and the port's rules.
+
+The slice as a whole: greedy tokens of ``karanta_tpu_torch`` Engine.generate
+equal the JAX engine's on the tiny config (float32, int8 weights, W8A8
+prefill and head, int8 KV cache), for a text request and a page image.
+"""
+
+import base64
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from karanta_tpu.inference.engine import Engine as JEngine
+from karanta_tpu.inference.engine import EngineConfig as JEngineConfig
+from karanta_tpu.inference.engine import GenRequest as JGenRequest
+from karanta_tpu.inference.tokenizer import ByteTokenizer as JByteTokenizer
+from karanta_tpu.models.qwen25_vl.config import tiny_config as j_tiny_config
+from karanta_tpu.models.qwen25_vl.model import init_params as j_init_params
+from karanta_tpu_torch.inference.engine import Engine, EngineConfig, GenRequest
+from karanta_tpu_torch.inference.tokenizer import ByteTokenizer
+from karanta_tpu_torch.models.qwen25_vl.config import tiny_config
+from karanta_tpu_torch.models.qwen25_vl.convert import from_jax_params
+from karanta_tpu_torch.ops.png import encode_png_rgb
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+class _NoStopJ(JByteTokenizer):
+    def __init__(self):
+        super().__init__()
+        self.eos_token_id = -1
+
+
+class _NoStop(ByteTokenizer):
+    def __init__(self):
+        super().__init__()
+        self.eos_token_id = -1
+
+
+def _messages(png_b64=None, text="Return the plain text of this page.\n"):
+    if png_b64 is None:
+        return [{"role": "user", "content": "page zero"}]
+    return [{"role": "user", "content": [
+        {"type": "text", "text": text},
+        {"type": "image_url",
+         "image_url": {"url": f"data:image/png;base64,{png_b64}"}}]}]
+
+
+ENGINE_KW = dict(max_batch_size=2, max_seq_len=256, decode_chunk=4,
+                 prefill_buckets=(128, 256), quantize="int8",
+                 kv_quantize="int8", act_quant="int8")
+
+
+@pytest.mark.parametrize("kind", ["text", "page", "page_host_resize"])
+def test_greedy_tokens_match_jax_engine(kind):
+    """Port Engine.generate == JAX Engine.generate, token for token."""
+    jtok = _NoStopJ()
+    jcfg = j_tiny_config(vocab_size=jtok.vocab_size)
+    jparams = j_init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
+    rng = np.random.default_rng(12)
+    png = None
+    if kind == "page":
+        # sides that are multiples of 28: the page is not resized, so both
+        # engines see bit-identical pixels (a real resize may differ by one
+        # uint8 step between XLA and PyTorch; tests/test_torch_ops.py holds
+        # resize_patchify to that bound)
+        page = rng.integers(0, 255, size=(84, 112, 3), dtype=np.uint8)
+        png = base64.b64encode(encode_png_rgb(page)).decode()
+    elif kind == "page_host_resize":
+        # a page that needs resizing, resized on the host by PIL in both
+        # engines (device_resize=False)
+        page = rng.integers(0, 255, size=(70, 130, 3), dtype=np.uint8)
+        png = base64.b64encode(encode_png_rgb(page)).decode()
+    kw = dict(ENGINE_KW, device_resize=kind != "page_host_resize")
+    max_tokens = 10
+
+    jeng = JEngine(jparams, jcfg, jtok,
+                   JEngineConfig(dtype=jnp.float32, **kw))
+    want = jeng.generate([JGenRequest(messages=_messages(png),
+                                      max_tokens=max_tokens,
+                                      temperature=0.0, request_id="r")])
+
+    tok = _NoStop()
+    cfg = tiny_config(vocab_size=tok.vocab_size)
+    params = from_jax_params(jax.tree.map(np.asarray, jparams), cfg,
+                             device="cpu", dtype=torch.float32)
+    eng = Engine(params, cfg, tok, EngineConfig(dtype=torch.float32, **kw),
+                 device="cpu")
+    got = eng.generate([GenRequest(messages=_messages(png),
+                                   max_tokens=max_tokens, temperature=0.0,
+                                   request_id="r")])
+    assert got[0].prompt_tokens == want[0].prompt_tokens
+    assert len(got[0].token_ids) == max_tokens
+    assert got[0].token_ids == want[0].token_ids
+
+
+def test_unported_features_raise():
+    tok = _NoStop()
+    cfg = tiny_config(vocab_size=tok.vocab_size)
+    params = {"text": {"layers": {"attn": {"wq": None}}}}
+    for bad in (dict(speculative_ngram=3), dict(prefix_cache=True),
+                dict(kv_quantize="int4"), dict(kv_quantize=None),
+                dict(teacher_force=True), dict(prefill_batch=4),
+                dict(vision_quant="int8")):
+        kw = {**dict(kv_quantize="int8"), **bad}
+        with pytest.raises(NotImplementedError):
+            Engine(params, cfg, tok, EngineConfig(**kw), device="cpu")
+
+
+def test_unported_request_options_raise():
+    from karanta_tpu_torch.models.qwen25_vl.model import init_params
+
+    tok = _NoStop()
+    cfg = tiny_config(vocab_size=tok.vocab_size)
+    eng = Engine(init_params(cfg, 0, torch.float32, device="cpu"), cfg, tok,
+                 EngineConfig(max_batch_size=1, max_seq_len=128,
+                              prefill_buckets=(128,), dtype=torch.float32,
+                              kv_quantize="int8"), device="cpu")
+    for req in (GenRequest(messages=_messages(), guided_regex="[0-9]+"),
+                GenRequest(messages=_messages(), logprobs=True)):
+        with pytest.raises(NotImplementedError):
+            eng.prepare(req)
+
+
+def test_entry_points_need_cuda_or_explicit_cpu():
+    """Without device= the entry points run on CUDA; with no card they raise
+    instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from karanta_tpu_torch.bench.randweights import init_params_bench
+    from karanta_tpu_torch.models.qwen25_vl.model import init_params
+
+    tok = _NoStop()
+    cfg = tiny_config(vocab_size=tok.vocab_size)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg, 0, torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params_bench(cfg, torch.float32, "int8")
+    params = init_params(cfg, 0, torch.float32, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(params, cfg, tok, EngineConfig(kv_quantize="int8"))
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module of karanta_tpu_torch, and chip_smoke.py's imports, load
+    without JAX and without karanta_tpu."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import karanta_tpu_torch\n"
+        "for m in pkgutil.walk_packages(karanta_tpu_torch.__path__, "
+        "'karanta_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' "
+        "or n.startswith('jax.') or n == 'karanta_tpu' "
+        "or n.startswith('karanta_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

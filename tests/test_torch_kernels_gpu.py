@@ -1,0 +1,126 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need a CUDA device and skip without one. They import neither
+JAX nor the JAX package, so the GPU machine (which has no JAX) runs them
+with the JAX-pinning conftest switched off:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
+
+Tolerances: 2e-5 in float32 (summation order only); in bf16, per element
+2^-7 |want| + 2^-9 max|want| (kernel and plain version each round the
+float32 result to bf16 once, so they may differ by one ulp, at most 2^-7 of
+the element); int8 caches bit-equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from karanta_tpu_torch.ops import attention as A
+from karanta_tpu_torch.ops import decode_attention as DA
+from karanta_tpu_torch.ops.rotary import vision_rope_cos_sin
+
+pytestmark = pytest.mark.gpu
+
+DTYPES = [torch.float32, torch.bfloat16]
+
+FLASH_CASES = [
+    # (b, sq, sk, h, kvh, d, causal, masked, q_offset)
+    (1, 128, 128, 2, 2, 64, False, False, 0),
+    (1, 128, 128, 2, 2, 64, True, False, 0),
+    (2, 200, 200, 4, 2, 32, True, True, 0),
+    (1, 96, 160, 4, 1, 16, True, True, 64),
+    (2, 130, 130, 6, 2, 80, False, True, 0),
+    (1, 300, 300, 7, 1, 128, True, True, 0),
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are compiled and run "
+                    "only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(gen, shape, dev, dtype):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def _assert_close(got, want, dtype):
+    got, want = got.float().cpu(), want.float().cpu()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, atol=2e-5)
+        return
+    limit = 2.0 ** -7 * want.abs() + 2.0 ** -9 * want.abs().max()
+    excess = (got - want).abs() - limit
+    assert torch.isfinite(got).all() and (excess <= 0).all(), (
+        f"max excess over the bf16 limit {float(excess.max()):.3e}")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernel_matches_plain(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for b, sq, sk, h, kvh, d, causal, masked, q_offset in FLASH_CASES:
+        q = _randn(gen, (b, sq, h, d), cuda, dtype)
+        k = _randn(gen, (b, sk, kvh, d), cuda, dtype)
+        v = _randn(gen, (b, sk, kvh, d), cuda, dtype)
+        mask = None
+        if masked:
+            mask = torch.ones(b, sk, device=cuda)
+            mask[-1, sk - sk // 5:] = 0.0
+        got = A.flash_attention(q, k, v, mask, causal=causal,
+                                q_offset=q_offset)
+        want = A.flash_attention_plain(q, k, v, mask, causal=causal,
+                                       q_offset=q_offset)
+        torch.cuda.synchronize()
+        _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rope", [False, True])
+def test_window_kernel_matches_plain(cuda, dtype, rope):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    b, s, h, d, w = 1, 512, 4, 80, 64
+    q, k, v = (_randn(gen, (b, s, h, d), cuda, dtype) for _ in range(3))
+    mask = (torch.rand((b, s), generator=gen, device=cuda) > 0.1).float()
+    mask[0, 128:192] = 0.0  # a window with no live key: outputs unspecified
+    cos = sin = None
+    if rope:
+        pos = torch.randint(0, 40, (s, 2), generator=gen, device=cuda)
+        cos, sin = vision_rope_cos_sin(pos, d)
+        cos, sin = cos[None].contiguous(), sin[None].contiguous()
+    got = A.window_attention_kernel_call(q, k, v, w, mask, cos=cos, sin=sin)
+    want = A.window_attention_plain(q, k, v, w, mask, cos=cos, sin=sin)
+    torch.cuda.synchronize()
+    rows = (mask.reshape(b, s // w, w).amax(-1) > 0).repeat_interleave(w, 1)
+    _assert_close(got[rows], want[rows], dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_matches_plain(cuda, dtype):
+    from karanta_tpu_torch.models.qwen25_vl.decoder import quantize_kv_rows
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    n_layers, b, m, h, kvh, d = 2, 4, 256, 8, 2, 64
+
+    def rows(shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    kq, ks = quantize_kv_rows(rows((n_layers, b, kvh, m, d)))
+    vq, vs = quantize_kv_rows(rows((n_layers, b, kvh, m, d)))
+    nkq, nks = quantize_kv_rows(rows((b, kvh, d)))
+    nvq, nvs = quantize_kv_rows(rows((b, kvh, d)))
+    q = rows((b, 1, h, d)).to(dtype)
+    new = (nkq, nvq, nks.to(dtype), nvs.to(dtype))
+    lens = torch.tensor([0, 5, 200, 255], dtype=torch.int32, device=cuda)
+    a = [kq.clone(), vq.clone(), ks.to(dtype), vs.to(dtype)]
+    c = [x.clone() for x in a]
+    got = DA.paged_decode_append_quant(q, *new, *a, 1, lens)
+    want = DA.paged_decode_append_quant_plain(q, *new, *c, 1, lens)
+    torch.cuda.synchronize()
+    _assert_close(got, want, dtype)
+    for x, y in zip(a, c):
+        assert torch.equal(x, y)

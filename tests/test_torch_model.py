@@ -1,0 +1,168 @@
+"""The port's model functions against the JAX package on the tiny config.
+
+Weights come from the JAX package's init_params through from_jax_params;
+inputs are made from seeds with numpy. float32 throughout, atol 1e-4: the
+two frameworks sum in different orders, so agreement is to float32 rounding
+accumulated over the layers, not bit-exact.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from karanta_tpu.models.qwen25_vl import decoder as jdec
+from karanta_tpu.models.qwen25_vl import vision as jvis
+from karanta_tpu.models.qwen25_vl.config import tiny_config as j_tiny_config
+from karanta_tpu.models.qwen25_vl.layout import build_vision_layout as j_layout
+from karanta_tpu.models.qwen25_vl.model import init_params as j_init_params
+from karanta_tpu.ops.image_prep import plan_image as j_plan_image
+from karanta_tpu.ops.quantization import (
+    quantize_decoder_params as j_quantize_decoder_params,
+)
+from karanta_tpu_torch.models.qwen25_vl import decoder as dec
+from karanta_tpu_torch.models.qwen25_vl import vision as vis
+from karanta_tpu_torch.models.qwen25_vl.config import tiny_config
+from karanta_tpu_torch.models.qwen25_vl.convert import from_jax_params
+from karanta_tpu_torch.models.qwen25_vl.layout import build_vision_layout
+from karanta_tpu_torch.models.qwen25_vl.model import merge_image_embeddings
+from karanta_tpu_torch.ops.image_prep import plan_image
+
+ATOL = 1e-4
+JCFG = j_tiny_config()
+CFG = tiny_config()
+
+
+@pytest.fixture(scope="module")
+def jparams():
+    return j_init_params(JCFG, jax.random.PRNGKey(3), jnp.float32)
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _t(x, dtype=None):
+    t = torch.from_numpy(np.asarray(x).copy())
+    return t if dtype is None else t.to(dtype)
+
+
+@pytest.mark.parametrize("hw", [(56, 84), (150, 230)])
+def test_encode_image_matches_jax(jparams, hw):
+    rng = np.random.default_rng(hw[0])
+    plan = plan_image(*hw)
+    assert dataclasses.astuple(plan) == dataclasses.astuple(j_plan_image(*hw))
+    layout = build_vision_layout(plan, CFG.vision)
+    jl = j_layout(plan, JCFG.vision)
+    np.testing.assert_array_equal(layout.perm, jl.perm)
+    pix = rng.normal(size=(plan.pad_tokens, CFG.vision.patch_input_dim))
+    pix = pix.astype(np.float32)
+    want = jvis.encode_image(jparams["visual"], JCFG.vision, jnp.asarray(pix),
+                             jnp.asarray(jl.perm), jnp.asarray(jl.valid),
+                             jnp.asarray(jl.pos_hw), jl.n_windows)
+    want = np.asarray(jvis.extract_image_tokens(want, jl))
+    params = from_jax_params(_np(jparams), CFG, "cpu", torch.float32)
+    got = vis.encode_image(params["visual"], CFG.vision, _t(pix),
+                           _t(layout.perm), _t(layout.valid),
+                           _t(layout.pos_hw))
+    got = vis.extract_image_tokens(got, layout).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def _prompt(batch=2, s=24, pad=4):
+    rng = np.random.default_rng(4)
+    emb = rng.normal(size=(batch, s, JCFG.text.hidden_size)).astype(np.float32)
+    pos = np.stack([np.tile(np.arange(s), (3, 1)) + 5 * b
+                    for b in range(batch)], axis=1).astype(np.int32)
+    mask = np.ones((batch, s), np.float32)
+    mask[1, s - pad:] = 0.0
+    return emb, pos, mask
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+def test_prefill_forward_matches_jax(jparams, act_quant):
+    emb, pos, mask = _prompt()
+    jtext = jparams["text"]
+    if act_quant:
+        jtext = j_quantize_decoder_params(jtext)
+    h_j, kv_j = jdec.prefill_forward(jtext, JCFG.text, jnp.asarray(emb),
+                                     jnp.asarray(pos), jnp.asarray(mask),
+                                     act_quant=act_quant)
+    text = from_jax_params(_np({"text": jtext, "visual": jparams["visual"]}),
+                           CFG, "cpu", torch.float32)["text"]
+    h_t, kv_t = dec.prefill_forward(text, CFG.text, _t(emb), _t(pos),
+                                    _t(mask), act_quant=act_quant)
+    np.testing.assert_allclose(h_t.numpy(), np.asarray(h_j), atol=ATOL)
+    np.testing.assert_allclose(kv_t.k.numpy(), np.asarray(kv_j.k), atol=ATOL)
+    np.testing.assert_allclose(kv_t.v.numpy(), np.asarray(kv_j.v), atol=ATOL)
+    logit_j = jdec.logits_from_hidden(jtext, JCFG.text, h_j[:, -1],
+                                      act_quant=act_quant)
+    logit_t = dec.logits_from_hidden(text, CFG.text, h_t[:, -1],
+                                     act_quant=act_quant)
+    np.testing.assert_allclose(logit_t.numpy(), np.asarray(logit_j),
+                               atol=ATOL)
+
+
+def test_decode_steps_over_int8_cache_match_jax(jparams):
+    """Three decode steps over the int8 cache: hidden states and all four
+    cache tensors agree with the JAX decode_step (its XLA path on the CPU)."""
+    batch, m = 2, 32
+    emb, pos, mask = _prompt(batch=batch, s=12, pad=0)
+    jtext = j_quantize_decoder_params(jparams["text"])
+    text = from_jax_params(_np({"text": jtext, "visual": jparams["visual"]}),
+                           CFG, "cpu", torch.float32)["text"]
+    _, pre = jdec.prefill_forward(jtext, JCFG.text, jnp.asarray(emb),
+                                  jnp.asarray(pos))
+    kq, ks = jdec.quantize_kv_rows(pre.k)
+    vq, vs = jdec.quantize_kv_rows(pre.v)
+    jc = jdec.QuantKVCache.zeros(JCFG.text, batch, m, jnp.float32)
+    jc = jdec.QuantKVCache(jc.k.at[:, :, :, :12].set(kq),
+                           jc.v.at[:, :, :, :12].set(vq),
+                           jc.ks.at[:, :, :, :12].set(ks),
+                           jc.vs.at[:, :, :, :12].set(vs))
+    tc = dec.QuantKVCache(_t(jc.k), _t(jc.v), _t(jc.ks), _t(jc.vs))
+    lens = np.asarray([12, 9], np.int32)
+    rng = np.random.default_rng(9)
+    for step in range(3):
+        x = rng.normal(size=(batch, 1, JCFG.text.hidden_size))
+        x = x.astype(np.float32)
+        p = (pos[:, :, -1] + 1 + step).astype(np.int32)
+        h_j, jc = jdec.decode_step(jtext, JCFG.text, jnp.asarray(x),
+                                   jnp.asarray(p), jc, jnp.asarray(lens))
+        h_t, tc = dec.decode_step(text, CFG.text, _t(x), _t(p), tc,
+                                  _t(lens))
+        np.testing.assert_allclose(h_t.numpy(), np.asarray(h_j), atol=ATOL)
+        lens = lens + 1
+    np.testing.assert_array_equal(tc.k.numpy(), np.asarray(jc.k))
+    np.testing.assert_array_equal(tc.v.numpy(), np.asarray(jc.v))
+    np.testing.assert_array_equal(tc.ks.numpy(), np.asarray(jc.ks))
+    np.testing.assert_array_equal(tc.vs.numpy(), np.asarray(jc.vs))
+
+
+def test_quantize_kv_rows_exact():
+    rng = np.random.default_rng(0)
+    x = (rng.normal(size=(3, 2, 5, 64)) * 5).astype(np.float32)
+    qj, sj = jdec.quantize_kv_rows(jnp.asarray(x))
+    qt, st = dec.quantize_kv_rows(_t(x))
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+    assert st.dtype == torch.bfloat16
+    np.testing.assert_array_equal(st.float().numpy(),
+                                  np.asarray(sj, np.float32))
+
+
+def test_merge_image_embeddings_drops_padding():
+    rng = np.random.default_rng(1)
+    emb = rng.normal(size=(10, 4)).astype(np.float32)
+    img = rng.normal(size=(5, 4)).astype(np.float32)
+    pos = np.asarray([2, 3, 7, 10, 10], np.int32)
+    from karanta_tpu.models.qwen25_vl.model import (
+        merge_image_embeddings as j_merge,
+    )
+
+    want = np.asarray(j_merge(jnp.asarray(emb), jnp.asarray(img),
+                              jnp.asarray(pos)))
+    got = merge_image_embeddings(_t(emb), _t(img), _t(pos)).numpy()
+    np.testing.assert_array_equal(got, want)
