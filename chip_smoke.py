@@ -1,34 +1,54 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py            # every phase, one card
-    python3 chip_smoke.py --profile  # and a torch.profiler stage breakdown
+    python3 chip_smoke.py --profile  # and torch.profiler stage breakdowns
 
 Phases (any failed check raises and the script exits non-zero):
 
 1. card: name, power limit, TF32 off for float32 products;
-2. build: nvcc builds the three kernels from karanta_tpu_torch/kernels/csrc;
+2. build: nvcc builds the five kernels from karanta_tpu_torch/kernels/csrc,
+   one process per source, all at once;
 3. kernels vs plain: each kernel against its plain PyTorch version at the
-   Qwen2.5-VL-7B page shapes and a small ragged shape; times of the kernel,
-   the plain version and one library call (a yardstick the port never uses);
-4. main path: the port's Engine on qwen2.5-vl-7b at full width and depth
-   (random int8 weights, W8A8 prefill, int8 KV cache, bf16) serves synthetic
-   1288x994 pages; the kernels' launch counts prove the path ran through them;
-5. the same engine code on the tiny config on the card and on the CPU: the
-   logits of the prefill and of three decode steps agree, and so do the
-   greedy tokens.
+   Qwen2.5-VL-7B shapes of the paths below and a small ragged shape; times
+   of the kernel, the plain version and one library call where there is one
+   (a yardstick the port never uses);
+4. engine path: the port's Engine on qwen2.5-vl-7b at full width and depth
+   (random int8 weights, W8A8 prefill, int8 KV cache, per-step decode)
+   serves synthetic 1288x994 pages; launch counts prove the path ran
+   through the window, flash and int8 decode kernels;
+5. served path, int8 point: the port's OpenAI server in process on
+   127.0.0.1, built by its CLI (--quantize int8 --kv-quantize int8
+   --act-quant int8, 4 slots, chunk 8, speculation and prefix caching at
+   their defaults), answers concurrent page requests over HTTP, one as an
+   SSE stream; every verify pass goes through the multi-token int8 kernel;
+6. served path, CLI defaults: the server built from the CLI with nothing but
+   the preset (bf16 weights and KV cache, 32 slots, context 4096, chunk 64,
+   speculation and prefix caching on): a wave that opts out of speculation
+   decodes per step through the bf16 append kernel, a default wave runs the
+   bf16 verify pass;
+7. the same engine code on the tiny config on the card and on the CPU: the
+   logits of the prefill, of three decode steps and of three verify passes
+   agree, and so do the greedy tokens, with and without speculation.
 
-The last two lines are the kernels summary and the result line. Without a
-CUDA device the script exits non-zero and prints no result.
+Each path's launch counts are set to 0 just before it runs and read just
+after. The last two lines are the kernels summary and the result line.
+Without a CUDA device the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
 import base64
+import contextlib
+import gc
+import http.client
 import json
 import math
+import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -38,6 +58,9 @@ from karanta_tpu_torch import kernels
 from karanta_tpu_torch.bench.pages import make_page_png, page_messages
 from karanta_tpu_torch.bench.randweights import init_params_bench
 from karanta_tpu_torch.inference.engine import Engine, EngineConfig, GenRequest
+from karanta_tpu_torch.inference.server import (InferenceServer,
+                                                build_engine_from_args,
+                                                make_arg_parser)
 from karanta_tpu_torch.inference.tokenizer import ByteTokenizer
 from karanta_tpu_torch.kernels.build import build_all
 from karanta_tpu_torch.models.qwen25_vl.config import (get_config,
@@ -67,12 +90,26 @@ BF16_FLOOR = 2.0 ** -9
 F32_ATOL = 1e-4    # float32 kernels vs float32 plain: summation order only
 TINY_LOGIT_TOL = 2e-3  # relative to max |logit|: W8A8 rounding may flip
 
-# the main path's operating point: pages served, decode slots, greedy tokens
-# per page, decode steps per host round trip
+# the engine path's operating point: pages served, decode slots, greedy
+# tokens per page, decode steps per host round trip
 PAGES = 6
 BATCH = 4
 MAX_TOKENS = 24
 CHUNK = 8
+# the served paths: pages of the int8 server, pages per wave of the CLI
+# default server, greedy tokens per request
+SERVED_PAGES = 6
+DEFAULT_WAVE = 4
+SERVED_TOKENS = 32
+# one fixed instruction of >= 300 bytes before every page: its ~400 tokens
+# clear the server's 256-token prefix-cache gate from the second page on
+INSTRUCTION = (
+    "Below is the image of one page of a document. Return the plain text "
+    "representation of this document as if you were reading it naturally. "
+    "Keep headings, paragraphs and lists in reading order, render tables as "
+    "markdown and equations as LaTeX, and leave out running headers, footers "
+    "and page numbers. Do not add text that is not on the page, and keep "
+    "every diacritic and special character exactly as printed.\n")
 
 
 class NoStopTokenizer(ByteTokenizer):
@@ -81,6 +118,20 @@ class NoStopTokenizer(ByteTokenizer):
     def __init__(self):
         super().__init__()
         self.eos_token_id = -1
+
+
+class CountingTokenizer(NoStopTokenizer):
+    """Fixed-length decode whose text spells out every token id as "<id>",
+    so the text of a response, or of an SSE stream put together, gives back
+    its token count (the byte tokenizer's text drops the 7B vocabulary's ids
+    above 271)."""
+
+    def decode(self, ids) -> str:
+        return "".join(f"<{int(i)}>" for i in ids)
+
+
+def n_tokens(text: str) -> int:
+    return len(re.findall(r"<\d+>", text))
 
 
 def log(msg: str) -> None:
@@ -255,55 +306,69 @@ def _flash_case(dev, gen, b, sq, sk, h, kvh, d, dtype, live_len):
     return q, k, v, mask
 
 
-def _flash_work(sq, sk, h, kvh, d, live_len, causal, esize=2):
+def _flash_work(sq, sk, h, kvh, d, live_len, causal, q_offset=0, esize=2):
     """Bytes (each input read once, output written once) and flops of the
     (query, live key) pairs this input needs."""
     if causal:
-        pairs = sum(min(i + 1, live_len) for i in range(sq))
+        pairs = sum(min(q_offset + i + 1, live_len) for i in range(sq))
     else:
         pairs = sq * live_len
     n_bytes = (2 * sq * h * d + 2 * sk * kvh * d) * esize + sk * 4
     return n_bytes, 4.0 * d * h * pairs
 
 
-def _sdpa_mask(sq, sk, live_len, causal, dev):
+def _sdpa_mask(sq, sk, live_len, causal, dev, q_offset=0):
     m = torch.zeros((sq, sk), dtype=torch.bool, device=dev)
     m[:, :live_len] = True
     if causal:
-        m &= torch.ones((sq, sk), dtype=torch.bool, device=dev).tril()
+        m &= torch.ones((sq, sk), dtype=torch.bool,
+                        device=dev).tril(diagonal=q_offset)
     return m[None, None]
 
 
+# the served paths' prefix continuation: a ~1,700-token page prompt whose
+# first 384 tokens come from the prefix cache; the suffix's 1,316 tokens pad
+# to the 2048 bucket
+PREFIX_LEN, SUFFIX_LEN, SUFFIX_BUCKET = 384, 1316, 2048
+
+
 def kernel_flash(cfg, dev, gen) -> dict:
-    """Decoder prefill (1, 1408, 28/4, 128) causal and the vision full
-    layers (1, 5120, 16, 80), bf16, with the bench page's masks."""
+    """Decoder prefill (1, 1408, 28/4, 128) causal, the vision full layers
+    (1, 5120, 16, 80), and the prefix continuation (queries over the 2048
+    suffix bucket, keys 384 + 2048, q_offset 384), bf16, with the bench
+    page's masks."""
     t, vc = cfg.text, cfg.vision
     _, layout = _page_layout(cfg)
     s_vis = len(layout.valid)
     cases = {
         "prefill": (1, 1408, 1408, t.num_heads, t.num_kv_heads, t.head_dim,
-                    1390, True),
+                    1390, True, 0),
         "vision_full": (1, s_vis, s_vis, vc.num_heads, vc.num_heads,
-                        vc.head_dim, None, False),
+                        vc.head_dim, None, False, 0),
+        "prefix": (1, SUFFIX_BUCKET, PREFIX_LEN + SUFFIX_BUCKET, t.num_heads,
+                   t.num_kv_heads, t.head_dim, PREFIX_LEN + SUFFIX_LEN, True,
+                   PREFIX_LEN),
     }
     errs, times = [], {}
-    for name, (b, sq, sk, h, kvh, d, live, causal) in cases.items():
+    for name, (b, sq, sk, h, kvh, d, live, causal, q_off) in cases.items():
         q, k, v, mask = _flash_case(dev, gen, b, sq, sk, h, kvh, d,
                                     torch.bfloat16, live or sk)
         if name == "vision_full":  # the page's validity mask
             mask = torch.from_numpy(layout.valid).to(dev)[None]
-        got = A.flash_attention(q, k, v, mask, causal=causal)
+        got = A.flash_attention(q, k, v, mask, causal=causal, q_offset=q_off)
         torch.cuda.synchronize()
-        want = A.flash_attention_plain(q, k, v, mask, causal=causal)
+        want = A.flash_attention_plain(q, k, v, mask, causal=causal,
+                                       q_offset=q_off)
         errs.append(check_bf16(f"flash_attention {name} {tuple(q.shape)} kv "
-                               f"{tuple(k.shape)} bf16", got, want))
+                               f"{tuple(k.shape)} q_offset={q_off} bf16",
+                               got, want))
         live_len = int(mask[0].sum().item())
         if name == "vision_full":
             # the page's valid keys are scattered over the window-ordered
             # sequence: SDPA takes them as a key-padding mask
             sdpa_mask = (mask > 0)[:, None, None, :]
         else:
-            sdpa_mask = _sdpa_mask(sq, sk, live_len, causal, dev)
+            sdpa_mask = _sdpa_mask(sq, sk, live_len, causal, dev, q_off)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
         def lib(qt=qt, kt=kt, vt=vt, m=sdpa_mask, g=(h != kvh)):
@@ -311,12 +376,13 @@ def kernel_flash(cfg, dev, gen) -> dict:
                 qt, kt, vt, attn_mask=m, enable_gqa=g)
 
         times[name] = (
-            cuda_ms(lambda q=q, k=k, v=v, m=mask, c=causal:
-                    A.flash_attention(q, k, v, m, causal=c), 10),
-            cuda_ms(lambda q=q, k=k, v=v, m=mask, c=causal:
-                    A.flash_attention_plain(q, k, v, m, causal=c), 3),
+            cuda_ms(lambda q=q, k=k, v=v, m=mask, c=causal, o=q_off:
+                    A.flash_attention(q, k, v, m, causal=c, q_offset=o), 10),
+            cuda_ms(lambda q=q, k=k, v=v, m=mask, c=causal, o=q_off:
+                    A.flash_attention_plain(q, k, v, m, causal=c,
+                                            q_offset=o), 3),
             cuda_ms(lib, 10),
-            _flash_work(sq, sk, h, kvh, d, live_len, causal))
+            _flash_work(sq, sk, h, kvh, d, live_len, causal, q_off))
         log(f"  flash {name}: kernel {times[name][0]:.3f} ms, plain "
             f"{times[name][1]:.3f} ms, sdpa {times[name][2]:.3f} ms")
     # small ragged cases in float32: GQA, mask, q_offset, Sq != Sk
@@ -334,19 +400,21 @@ def kernel_flash(cfg, dev, gen) -> dict:
               f"{tuple(k.shape)} q_offset={q_off}", max_err(got, want),
               F32_ATOL)
     # the row reports the prefill shape (28 of the 32 launches per page);
-    # the vision-full numbers are printed above
+    # the vision-full and prefix numbers ride along
     t_k, t_p, t_l, (n_bytes, flops) = times["prefill"]
     b, by = bound_ms(n_bytes, flops)
-    tv = times["vision_full"]
-    bv, _ = bound_ms(*tv[3])
-    log(f"  flash vision_full bound {bv:.4f} ms")
+    extra = {}
+    for name in ("vision_full", "prefix"):
+        tv = times[name]
+        bv, _ = bound_ms(*tv[3])
+        log(f"  flash {name} bound {bv:.4f} ms")
+        extra[name] = {"ms": tv[0], "plain_ms": tv[1], "library_ms": tv[2],
+                       "bound_ms": bv}
     return dict(name="flash_attention", route="cuda",
                 source="karanta_tpu_torch/kernels/csrc/flash_attention.cu",
                 replaces="karanta_tpu/ops/attention.py:235",
                 max_abs_err=max(errs), ms=t_k, plain_ms=t_p, bound_ms=b,
-                bound_by=by, library_ms=t_l,
-                vision_full={"ms": tv[0], "plain_ms": tv[1],
-                             "library_ms": tv[2], "bound_ms": bv})
+                bound_by=by, library_ms=t_l, **extra)
 
 
 def _decode_inputs(dev, gen, n_layers, b, kvh, m, d, h, lens, dtype):
@@ -415,9 +483,189 @@ def kernel_decode(cfg, dev, gen, batch: int) -> dict:
                 bound_by=by, library_ms=None)
 
 
+def _check_caches(name: str, got, want) -> None:
+    for x, y, part in zip(got, want, ("k", "v", "ks", "vs")):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{name}: cache {part} differs from the "
+                                 f"plain version")
+    log(f"  {name}: all {len(got)} caches bit-equal")
+
+
+def kernel_decode_multi(cfg, dev, gen) -> dict:
+    """One verify pass of one layer over the 7B int8 cache: T = 4 rows per
+    slot (gamma 3) at B = 4, M = 4096 (the served context), cache_len 0, a
+    page prompt's length, a longer one and M - T - 1."""
+    t = cfg.text
+    m, layer, batch, tq = 4096, 5, 4, 4
+    lens = [0, 1700, 2100, m - tq - 1]
+    d, kvh, g = t.head_dim, t.num_kv_heads, t.num_heads // t.num_kv_heads
+
+    def rows(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def inputs(n_layers, b, kvh_, m_, d_, h, tq_, dtype):
+        kq, ks = quantize_kv_rows(rows((n_layers, b, kvh_, m_, d_)))
+        vq, vs = quantize_kv_rows(rows((n_layers, b, kvh_, m_, d_)))
+        nkq, nks = quantize_kv_rows(rows((b, tq_, kvh_, d_)))
+        nvq, nvs = quantize_kv_rows(rows((b, tq_, kvh_, d_)))
+        q = rows((b, tq_, h, d_)).to(dtype)
+        return (q, (nkq, nvq, nks.to(dtype), nvs.to(dtype)),
+                (kq, vq, ks.to(dtype), vs.to(dtype)))
+
+    q, new, caches = inputs(t.num_layers, batch, kvh, m, d, t.num_heads, tq,
+                            torch.bfloat16)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    a = [c.clone() for c in caches]
+    b_ = [c.clone() for c in caches]
+    got = DA.paged_decode_append_multi_quant(q, *new, *a, layer, lens_t)
+    torch.cuda.synchronize()
+    want = DA.paged_decode_append_multi_quant_plain(q, *new, *b_, layer,
+                                                    lens_t)
+    err = check_bf16(f"paged_decode_append_multi_quant 7B B={batch} T={tq} "
+                     f"lens={lens} bf16", got, want)
+    _check_caches("paged_decode_append_multi_quant", a, b_)
+    # small ragged case in float32 (tiny-config heads: D=16, G=2, T=5)
+    q2, new2, c2 = inputs(2, 3, 2, 200, 16, 4, 5, torch.float32)
+    l2 = torch.tensor([0, 77, 194], dtype=torch.int32, device=dev)
+    a2 = [c.clone() for c in c2]
+    b2 = [c.clone() for c in c2]
+    g2 = DA.paged_decode_append_multi_quant(q2, *new2, *a2, 1, l2)
+    torch.cuda.synchronize()
+    w2 = DA.paged_decode_append_multi_quant_plain(q2, *new2, *b2, 1, l2)
+    check("paged_decode_append_multi_quant ragged f32 (B=3, T=5, M=200)",
+          max_err(g2, w2), F32_ATOL)
+    _check_caches("paged_decode_append_multi_quant ragged", a2, b2)
+
+    t_k = cuda_ms(lambda: DA.paged_decode_append_multi_quant(
+        q, *new, *a, layer, lens_t), 50)
+    t_p = cuda_ms(lambda: DA.paged_decode_append_multi_quant_plain(
+        q, *new, *b_, layer, lens_t), 5)
+    live = sum(lens)
+    n_bytes = (kvh * live * (d + 2) * 2                 # old K/V rows + scales
+               + batch * tq * kvh * (d + 2) * 2 * 2     # new rows: read + write
+               + 2 * batch * tq * t.num_heads * d * 2)  # q in, attn out
+    # query t of a slot sees its cache_len old rows and fresh rows 0..t
+    pairs = sum(tq * n + tq * (tq + 1) // 2 for n in lens)
+    flops = 4.0 * d * g * kvh * pairs
+    bd, by = bound_ms(n_bytes, flops)
+    return dict(name="paged_decode_append_multi_quant", route="cuda",
+                source="karanta_tpu_torch/kernels/csrc/"
+                       "decode_append_multi_quant.cu",
+                replaces="karanta_tpu/ops/decode_attention.py:1245",
+                max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bd,
+                bound_by=by, library_ms=None)
+
+
+def kernel_append(cfg, dev, gen) -> dict:
+    """One decode step of one layer over the 7B bf16 cache at the CLI
+    defaults: B = 32 slots, M = 4096, ragged lengths from 0 to M - 1. Four
+    layers of cache stand in for 28 (the kernel reads one)."""
+    t = cfg.text
+    m, n_layers, layer, batch = 4096, 4, 3, 32
+    d, kvh, h = t.head_dim, t.num_kv_heads, t.num_heads
+    rng = np.random.default_rng(5)
+    lens = [0, m - 1] + sorted(int(x) for x in rng.integers(1, m - 1,
+                                                            batch - 2))
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def inputs(n_l, b, kvh_, m_, d_, h_, dtype):
+        return (randn((b, 1, h_, d_), dtype), randn((b, kvh_, d_), dtype),
+                randn((b, kvh_, d_), dtype),
+                randn((n_l, b, kvh_, m_, d_), dtype),
+                randn((n_l, b, kvh_, m_, d_), dtype))
+
+    q, nk, nv, kc, vc = inputs(n_layers, batch, kvh, m, d, h, torch.bfloat16)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    a = [kc.clone(), vc.clone()]
+    b_ = [kc, vc]
+    got = DA.paged_decode_append(q, nk, nv, *a, layer, lens_t)
+    torch.cuda.synchronize()
+    want = DA.paged_decode_append_plain(q, nk, nv, *b_, layer, lens_t)
+    err = check_bf16(f"paged_decode_append 7B B={batch} M={m} ragged bf16",
+                     got, want)
+    _check_caches("paged_decode_append", a, b_)
+    # small ragged case in float32 (tiny-config heads: D=16, G=2)
+    q2, nk2, nv2, k2, v2 = inputs(2, 3, 2, 200, 16, 4, torch.float32)
+    l2 = torch.tensor([0, 77, 199], dtype=torch.int32, device=dev)
+    a2 = [k2.clone(), v2.clone()]
+    b2 = [k2, v2]
+    g2 = DA.paged_decode_append(q2, nk2, nv2, *a2, 1, l2)
+    torch.cuda.synchronize()
+    w2 = DA.paged_decode_append_plain(q2, nk2, nv2, *b2, 1, l2)
+    check("paged_decode_append ragged f32 (B=3, M=200)", max_err(g2, w2),
+          F32_ATOL)
+    _check_caches("paged_decode_append ragged", a2, b2)
+
+    t_k = cuda_ms(lambda: DA.paged_decode_append(q, nk, nv, *a, layer,
+                                                 lens_t), 50)
+    t_p = cuda_ms(lambda: DA.paged_decode_append_plain(q, nk, nv, *b_, layer,
+                                                       lens_t), 5)
+    live = sum(lens)
+    n_bytes = (kvh * live * d * 2 * 2             # old K/V rows
+               + batch * kvh * d * 2 * 2 * 2      # new rows: read + write
+               + 2 * batch * h * d * 2)           # q in, attn out
+    flops = 4.0 * d * h * (live + batch)
+    bd, by = bound_ms(n_bytes, flops)
+    return dict(name="paged_decode_append", route="cuda",
+                source="karanta_tpu_torch/kernels/csrc/decode_append.cu",
+                replaces="karanta_tpu/ops/decode_attention.py:582",
+                max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bd,
+                bound_by=by, library_ms=None)
+
+
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# phase 4: the engine path
 # ---------------------------------------------------------------------------
+
+def instrument(engine) -> dict:
+    """Count what an engine runs, through wrappers on its instance: decode
+    steps and verify passes with their host-clock time (each chunk ends in
+    a copy of its tokens to the host), prefix-continuation prefills and
+    prefix builds."""
+    c = dict(decode_steps=0, decode_s=0.0, verify_passes=0, verify_s=0.0,
+             prefix_hits=0, prefix_builds=0)
+    decode_async, chunk_spec = engine.decode_chunk_async, \
+        engine.decode_chunk_spec
+    prefill_insert, get_prefix = engine.prefill_insert, \
+        engine._get_prefix_cache
+
+    def counted_decode(steps=None, logits_out=None):
+        c["decode_steps"] += steps or engine.ecfg.decode_chunk
+        t0 = time.perf_counter()
+        collect = decode_async(steps, logits_out)
+
+        def timed_collect():
+            toks = collect()
+            # launch to tokens on the host; overlaps the next chunk's time
+            # when the caller launched one ahead
+            c["decode_s"] += time.perf_counter() - t0
+            return toks
+
+        return timed_collect
+
+    def counted_spec(steps=None, logits_out=None):
+        t0 = time.perf_counter()
+        toks, n_new = chunk_spec(steps, logits_out)
+        c["verify_s"] += time.perf_counter() - t0
+        c["verify_passes"] += toks.shape[0]
+        return toks, n_new
+
+    def counted_prefill(slot, prepared):
+        c["prefix_hits"] += bool(prepared.prefix_len)
+        return prefill_insert(slot, prepared)
+
+    def counted_prefix(ids):
+        c["prefix_builds"] += ids.tobytes() not in engine._prefix_kv
+        return get_prefix(ids)
+
+    engine.decode_chunk_async = counted_decode
+    engine.decode_chunk_spec = counted_spec
+    engine.prefill_insert = counted_prefill
+    engine._get_prefix_cache = counted_prefix
+    return c
+
 
 def phase_main_path(cfg, dev, profile: bool = False) -> dict:
     n_pages, batch, max_tokens, chunk = PAGES, BATCH, MAX_TOKENS, CHUNK
@@ -449,15 +697,7 @@ def phase_main_path(cfg, dev, profile: bool = False) -> dict:
                                 max_tokens=2, request_id="warm")])
     torch.cuda.synchronize()
 
-    steps = 0
-    decode_chunk = engine.decode_chunk
-
-    def counted_chunk(n=None):
-        nonlocal steps
-        steps += n or chunk
-        return decode_chunk(n)
-
-    engine.decode_chunk = counted_chunk
+    counts = instrument(engine)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t_run = time.perf_counter()
@@ -466,7 +706,7 @@ def phase_main_path(cfg, dev, profile: bool = False) -> dict:
     wall = time.perf_counter() - t_run
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    engine.decode_chunk = decode_chunk
+    steps = counts["decode_steps"]
 
     vocab = cfg.text.vocab_size
     for r in results:
@@ -524,36 +764,282 @@ def phase_main_path(cfg, dev, profile: bool = False) -> dict:
                 peak_gib=peak / 2**30)
 
 
-def profile_stages(engine, requests, chunk: int) -> None:
-    """torch.profiler over one page's prefill+insert and one decode chunk:
-    device time by kernel and the device's busy share of the wall time."""
+def profile_run(stage: str, fn) -> None:
+    """torch.profiler over fn(): device time by kernel and the device's busy
+    share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    for stage in ("prefill", "decode"):
-        prepared = engine.prepare(requests([0])[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            if stage == "prefill":
-                engine.prefill_insert(0, prepared)
-            else:
-                engine.decode_chunk(chunk)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        events = [e for e in prof.key_averages()
-                  if e.device_type.name == "CUDA"]
-        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-        log(f"[profile] {stage}: wall {wall_ms:.2f} ms, device busy "
-            f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%)")
-        top = sorted(events, key=lambda e: -e.self_device_time_total)[:14]
-        for e in top:
-            log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
-                f"{e.count:6d}x  {e.key[:90]}")
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"[profile] {stage}: wall {wall_ms:.2f} ms, device busy "
+        f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%)")
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:14]
+    for e in top:
+        log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:6d}x  {e.key[:90]}")
+
+
+def profile_stages(engine, requests, chunk: int) -> None:
+    """One page's prefill+insert and one decode chunk of the engine path."""
+    prepared = engine.prepare(requests([0])[0])
+    profile_run("prefill", lambda: engine.prefill_insert(0, prepared))
+    profile_run("decode", lambda: engine.decode_chunk(chunk))
+
+
+def profile_verify(engine, stage: str) -> None:
+    """Two verify passes of a served engine with four page prompts in its
+    slots (after its server stopped)."""
+    for i in range(4):
+        png = make_page_png(seed=300 + i)
+        engine.prefill_insert(i, engine.prepare(GenRequest(
+            messages=page_messages(png, INSTRUCTION),
+            max_tokens=SERVED_TOKENS)))
+    engine.decode_chunk_spec(1)
+    profile_run(stage, lambda: engine.decode_chunk_spec(2))
+    for i in range(4):
+        engine.free_slot(i)
 
 
 # ---------------------------------------------------------------------------
-# phase 5: tiny config, card vs CPU
+# phases 5-6: the served paths
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def serving(engine):
+    """The port's InferenceServer in this process on 127.0.0.1 at a free
+    port, its event loop in a thread; stopped and joined on exit."""
+    server = InferenceServer(engine, model_name="smoke")
+    loop = asyncio.new_event_loop()
+    started = threading.Event()
+    holder = {}
+
+    def run():
+        asyncio.set_event_loop(loop)
+        holder["port"] = loop.run_until_complete(server.start("127.0.0.1", 0))
+        started.set()
+        loop.run_forever()
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    if not started.wait(120):
+        raise AssertionError("server did not start")
+    try:
+        yield server, holder["port"]
+    finally:
+        asyncio.run_coroutine_threadsafe(server.stop(), loop).result(120)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(120)
+        loop.close()
+
+
+def http_call(port: int, method: str, path: str, body=None):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    data = None if body is None else json.dumps(body).encode()
+    conn.request(method, path, body=data,
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    raw = resp.read()
+    conn.close()
+    return resp.status, raw
+
+
+def page_body(png_b64: str, stream: bool = False, **extra) -> dict:
+    return {"model": "smoke", "max_tokens": SERVED_TOKENS,
+            "temperature": 0.0, "stream": stream,
+            "messages": page_messages(png_b64, INSTRUCTION), **extra}
+
+
+def post_pages(port: int, bodies: list) -> list:
+    """POST the bodies concurrently. Checks each answer: status 200, and
+    SERVED_TOKENS tokens, from the usage count and from the text; a stream
+    ends with a finish_reason chunk and [DONE], and its deltas put together
+    spell SERVED_TOKENS tokens. Returns the completion texts."""
+    out = [None] * len(bodies)
+
+    def post(i):
+        status, raw = http_call(port, "POST", "/v1/chat/completions",
+                                bodies[i])
+        out[i] = (status, raw)
+
+    threads = [threading.Thread(target=post, args=(i,))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    texts = []
+    for body, (status, raw) in zip(bodies, out):
+        if status != 200:
+            raise AssertionError(f"HTTP {status}: {raw[:300]!r}")
+        if body["stream"]:
+            events = [ln[len("data: "):] for ln in raw.decode().split("\n")
+                      if ln.startswith("data: ")]
+            chunks = [json.loads(e) for e in events[:-1]]
+            if events[-1] != "[DONE]" or \
+                    chunks[-1]["choices"][0]["finish_reason"] != "length":
+                raise AssertionError(f"SSE did not end with a finish_reason "
+                                     f"chunk and [DONE]: {events[-2:]}")
+            text = "".join(c["choices"][0]["delta"].get("content", "")
+                           for c in chunks)
+            n_usage = SERVED_TOKENS
+        else:
+            data = json.loads(raw)
+            text = data["choices"][0]["message"]["content"]
+            n_usage = data["usage"]["completion_tokens"]
+        if n_usage != SERVED_TOKENS or n_tokens(text) != SERVED_TOKENS:
+            raise AssertionError(f"a response has {n_usage} / "
+                                 f"{n_tokens(text)} tokens, expected "
+                                 f"{SERVED_TOKENS}")
+        texts.append(text)
+    return texts
+
+
+def served_engine(argv: list):
+    """The engine the server CLI builds from argv (random weights), with a
+    tokenizer that counts tokens in the text (CountingTokenizer)."""
+    t0 = time.perf_counter()
+    engine, _ = build_engine_from_args(make_arg_parser().parse_args(argv))
+    engine.tok = CountingTokenizer()
+    torch.cuda.synchronize()
+    log(f"[served] {' '.join(argv)}: engine in "
+        f"{time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return engine
+
+
+def expected_prefill_launches(cfg, n_pages: int, n_builds: int) -> dict:
+    """Per page: the vision encoder's window and full layers and the
+    decoder prefill; per prefix build one more decoder prefill."""
+    n_full = len(cfg.vision.fullatt_block_indexes)
+    return {"window_attention": (cfg.vision.depth - n_full) * n_pages,
+            "flash_attention": (n_full + cfg.text.num_layers) * n_pages
+            + cfg.text.num_layers * n_builds}
+
+
+def check_launches(path: str, launches: dict, want: dict) -> None:
+    log(f"[{path}] launches {launches}; expected {want}")
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{name}: {launches[name]} launches on the "
+                                 f"{path} path, expected {n}")
+
+
+def phase_served_int8(cfg, profile: bool = False) -> dict:
+    """The server at the int8 operating point; every verify pass runs the
+    multi-token int8 kernel in each of the 28 layers."""
+    engine = served_engine(
+        ["--preset", "qwen2.5-vl-7b", "--quantize", "int8", "--kv-quantize",
+         "int8", "--act-quant", "int8", "--max-batch-size", "4",
+         "--decode-chunk", "8"])
+    counts = instrument(engine)
+    pages = [make_page_png(seed=100 + i) for i in range(SERVED_PAGES)]
+    bodies = [page_body(png, stream=(i == 1)) for i, png in enumerate(pages)]
+    with serving(engine) as (server, port):
+        if http_call(port, "GET", "/health")[0] != 200:
+            raise AssertionError("/health did not answer 200")
+        status, raw = http_call(port, "GET", "/v1/models")
+        if status != 200 or json.loads(raw)["data"][0]["id"] != "smoke":
+            raise AssertionError(f"/v1/models: {status} {raw[:200]!r}")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        post_pages(port, bodies)
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        metrics = json.loads(http_call(port, "GET", "/metrics")[1])
+    layers = cfg.text.num_layers
+    want = expected_prefill_launches(cfg, SERVED_PAGES,
+                                     counts["prefix_builds"])
+    want.update(paged_decode_append_multi_quant=layers
+                * counts["verify_passes"],
+                paged_decode_append_quant=layers * counts["decode_steps"],
+                paged_decode_append=0)
+    check_launches("served int8", launches, want)
+    if not counts["verify_passes"] or not metrics.get("spec_passes"):
+        raise AssertionError(f"no verify pass ran: {counts}, {metrics}")
+    if counts["prefix_hits"] < 1 or counts["prefix_builds"] != 1:
+        raise AssertionError(f"prefix cache: {counts}")
+    verify_ms = counts["verify_s"] / counts["verify_passes"] * 1e3
+    stats = dict(pages_per_s=SERVED_PAGES / wall,
+                 tokens_per_pass=metrics["spec_tokens_per_pass"],
+                 verify_ms=verify_ms, verify_passes=counts["verify_passes"],
+                 decode_steps=counts["decode_steps"],
+                 prefix_hits=counts["prefix_hits"], launches=launches)
+    log(f"[served int8] {SERVED_PAGES} pages x {SERVED_TOKENS} tokens over "
+        f"HTTP in {wall:.3f}s: {SERVED_PAGES / wall:.4f} pages/s; "
+        f"{metrics['spec_tokens_per_pass']} tokens per verify pass, "
+        f"{verify_ms:.2f} ms per verify pass (host clock, B=4, T=4); "
+        f"{counts['prefix_hits']} prefix hits; /metrics {metrics}")
+    if profile:
+        profile_verify(engine, "verify pass, int8 KV, W8A8, B=4, T=4")
+    del server, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase_served_defaults(cfg, profile: bool = False) -> dict:
+    """The server with the CLI's own defaults: a wave that opts out of
+    speculation decodes per step through the bf16 append kernel, then a
+    default wave runs the bf16 verify pass."""
+    engine = served_engine(["--preset", "qwen2.5-vl-7b"])
+    counts = instrument(engine)
+    layers = cfg.text.num_layers
+    stats = {}
+    with serving(engine) as (server, port):
+        for wave, vote in (("per-step", False), ("speculative", None)):
+            for key in counts:
+                counts[key] = 0
+            pages = [make_page_png(seed=200 + 10 * (vote is None) + i)
+                     for i in range(DEFAULT_WAVE)]
+            extra = {} if vote is None else {"speculative": vote}
+            bodies = [page_body(png, **extra) for png in pages]
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            post_pages(port, bodies)
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            want = expected_prefill_launches(cfg, DEFAULT_WAVE,
+                                             counts["prefix_builds"])
+            want.update(paged_decode_append=layers * counts["decode_steps"],
+                        paged_decode_append_quant=0,
+                        paged_decode_append_multi_quant=0)
+            check_launches(f"served defaults, {wave} wave", launches, want)
+            key = "decode_steps" if vote is False else "verify_passes"
+            if not counts[key]:
+                raise AssertionError(f"{wave} wave: no {key}: {counts}")
+            per = (counts["verify_s"] / counts["verify_passes"] * 1e3
+                   if counts["verify_passes"] else None)
+            step = (counts["decode_s"] / counts["decode_steps"] * 1e3
+                    if counts["decode_steps"] else None)
+            stats[wave] = dict(pages_per_s=DEFAULT_WAVE / wall,
+                               launches=launches, verify_ms=per,
+                               decode_step_ms=step,
+                               **{k: counts[k] for k in
+                                  ("decode_steps", "verify_passes",
+                                   "prefix_hits")})
+            log(f"[served defaults] {wave} wave: {DEFAULT_WAVE} pages x "
+                f"{SERVED_TOKENS} tokens in {wall:.3f}s "
+                f"({DEFAULT_WAVE / wall:.4f} pages/s); {counts}")
+        metrics = json.loads(http_call(port, "GET", "/metrics")[1])
+    stats["tokens_per_pass"] = metrics.get("spec_tokens_per_pass")
+    log(f"[served defaults] /metrics {metrics}")
+    if profile:
+        profile_verify(engine, "verify pass, bf16 KV and weights, B=32, T=4")
+    del server, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# phase 7: tiny config, card vs CPU
 # ---------------------------------------------------------------------------
 
 def phase_tiny(dev) -> float:
@@ -609,14 +1095,56 @@ def phase_tiny(dev) -> float:
         check(f"tiny {stage} logits card vs CPU", err,
               TINY_LOGIT_TOL * max(scale, 1.0))
         worst = max(worst, err)
+    return max(worst, phase_tiny_spec(dev, tok, cfg, params_cpu, params_gpu))
+
+
+def phase_tiny_spec(dev, tok, cfg, params_cpu, params_gpu) -> float:
+    """The speculative engine (gamma 3, int8 weights and KV, no W8A8) on the
+    card and on the CPU: the logits of three verify passes (the multi-token
+    kernel on the card, its plain version on the CPU) and the greedy tokens
+    of a whole request agree."""
+    ecfg = EngineConfig(max_batch_size=2, max_seq_len=256, decode_chunk=8,
+                        prefill_buckets=(128, 256), dtype=torch.float32,
+                        quantize="int8", kv_quantize="int8",
+                        speculative_ngram=3)
+    req = GenRequest(messages=[{"role": "user",
+                                "content": "abcabcabcabcabcabc"}],
+                     max_tokens=24, request_id="tiny-spec")
+    n_passes = 3
+    logits, tokens, accepted = {}, {}, {}
+    for name, device, params in (("cpu", "cpu", params_cpu),
+                                 ("cuda", dev, params_gpu)):
+        eng = Engine(params, cfg, tok, ecfg, device=device)
+        eng.prefill_insert(0, eng.prepare(req))
+        passes = []
+        _, n_new = eng.decode_chunk_spec(n_passes, logits_out=passes)
+        eng.free_slot(0)
+        logits[name] = torch.stack([x[0] for x in passes]).float().cpu()
+        accepted[name] = n_new[:, 0].tolist()
+        tokens[name] = eng.generate([req])[0].token_ids
+    log(f"[tiny spec] tokens per verify pass cpu {accepted['cpu']} cuda "
+        f"{accepted['cuda']}; greedy tokens cpu {tokens['cpu']} cuda "
+        f"{tokens['cuda']}")
+    if tokens["cpu"] != tokens["cuda"] or accepted["cpu"] != accepted["cuda"]:
+        raise AssertionError("tiny config: speculative decoding differs "
+                             "between the card and the CPU")
+    worst = 0.0
+    for i in range(n_passes):
+        want, got = logits["cpu"][i], logits["cuda"][i]
+        scale = float(want.abs().max())
+        err = float((want - got).abs().max())
+        check(f"tiny verify pass {i + 1} logits (T=4) card vs CPU", err,
+              TINY_LOGIT_TOL * max(scale, 1.0))
+        worst = max(worst, err)
     return worst
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="trace one page's prefill and one decode chunk "
-                             "with torch.profiler and print the breakdown")
+                        help="trace one page's prefill, one decode chunk and "
+                             "two verify passes of each served engine with "
+                             "torch.profiler and print the breakdowns")
     args = parser.parse_args(argv)
 
     kind = phase_card()
@@ -624,19 +1152,31 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     cfg = get_config("qwen2.5-vl-7b")
     gen = torch.Generator(device=dev).manual_seed(0)
-    log("[kernels] each kernel vs its plain version at the 7B page shapes")
+    log("[kernels] each kernel vs its plain version at the 7B shapes")
     rows = [kernel_window(cfg, dev, gen), kernel_flash(cfg, dev, gen),
-            kernel_decode(cfg, dev, gen, BATCH)]
+            kernel_decode(cfg, dev, gen, BATCH),
+            kernel_decode_multi(cfg, dev, gen), kernel_append(cfg, dev, gen)]
     main_stats = phase_main_path(cfg, dev, args.profile)
+    int8_stats = phase_served_int8(cfg, args.profile)
+    default_stats = phase_served_defaults(cfg, args.profile)
     phase_tiny(dev)
+    # each kernel's launches on the path that runs it
+    launches = dict(main_stats["launches"])
+    launches["paged_decode_append_multi_quant"] = \
+        int8_stats["launches"]["paged_decode_append_multi_quant"]
+    launches["paged_decode_append"] = \
+        default_stats["per-step"]["launches"]["paged_decode_append"]
     for row in rows:
-        row["launches"] = main_stats["launches"][row["name"]]
+        row["launches"] = launches[row["name"]]
         log(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, library "
             f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)}"
-            f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+            f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+            f"{row['launches']} launches")
     log(json.dumps({"main_path": {k: v for k, v in main_stats.items()
-                                  if k != "launches"}}))
+                                  if k != "launches"},
+                    "served_int8": int8_stats,
+                    "served_defaults": default_stats}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -12,7 +12,8 @@ import ctypes
 import torch
 
 LAUNCHES = {"window_attention": 0, "flash_attention": 0,
-            "paged_decode_append_quant": 0}
+            "paged_decode_append_quant": 0,
+            "paged_decode_append_multi_quant": 0, "paged_decode_append": 0}
 
 # element-type codes of the C interfaces (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -5,10 +5,16 @@ package's layouts: per-layer weights stacked on a leading layer axis, weights
 ``(in, out)``, KV caches ``(layers, batch, kv_heads, max_len, head_dim)``.
 
 - ``prefill_forward`` runs the causal prompt forward through the flash
-  kernel and returns the prompt's KV rows.
+  kernel and returns the prompt's KV rows; ``prefill_with_prefix`` runs only
+  a suffix over a cached prefix's rows (the flash kernel at ``q_offset`` =
+  prefix length).
 - ``decode_step`` runs one token per slot over the int8 cache
-  (``QuantKVCache``); the fused append+attention kernel updates the cache
-  tensors IN PLACE, layer by layer.
+  (``QuantKVCache``) or the cache in the activations' dtype (``KVCache``);
+  the fused append+attention kernel of each updates the cache tensors IN
+  PLACE, layer by layer.
+- ``decode_multi`` runs T tokens per slot, the speculative verify pass: the
+  int8 cache through the multi-token append kernel, the bf16 cache through a
+  scatter and ``decode_attention_multi`` (the JAX package's XLA path).
 """
 
 from __future__ import annotations
@@ -21,8 +27,10 @@ import torch
 import torch.nn.functional as F
 
 from karanta_tpu_torch.models.qwen25_vl.config import TextConfig
-from karanta_tpu_torch.ops.attention import attention
-from karanta_tpu_torch.ops.decode_attention import paged_decode_append_quant
+from karanta_tpu_torch.ops.attention import attention, decode_attention_multi
+from karanta_tpu_torch.ops.decode_attention import (
+    paged_decode_append, paged_decode_append_multi_quant,
+    paged_decode_append_quant)
 from karanta_tpu_torch.ops.norms import rms_norm
 from karanta_tpu_torch.ops.quantization import INV_127
 from karanta_tpu_torch.ops.quantization import matmul as qmm
@@ -75,10 +83,19 @@ def init_decoder_params(cfg: TextConfig, generator: torch.Generator,
 @dataclasses.dataclass
 class KVCache:
     """Key/value rows (layers, batch, kv_heads, len, head_dim): the prefill's
-    output, quantized into the serving cache at insert."""
+    output, and the serving cache in the activations' dtype (the bf16 cache).
+    The decode paths update the serving cache's tensors in place."""
 
     k: torch.Tensor
     v: torch.Tensor
+
+    @classmethod
+    def zeros(cls, cfg: TextConfig, batch: int, max_len: int,
+              dtype=torch.bfloat16, device=None) -> "KVCache":
+        shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len,
+                 cfg.head_dim)
+        return cls(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
 
 
 @dataclasses.dataclass
@@ -169,19 +186,64 @@ def prefill_forward(params: Params, cfg: TextConfig,
     return x, KVCache(torch.stack(ks), torch.stack(vs))
 
 
+def prefill_with_prefix(params: Params, cfg: TextConfig,
+                        embeds: torch.Tensor,         # (B, S, hidden) suffix
+                        positions: torch.Tensor,      # (3, B, S) absolute
+                        prefix: KVCache,              # (L, B, KVH, P, D)
+                        prefix_mask: torch.Tensor,    # (B, P) 1 = valid
+                        kv_mask: Optional[torch.Tensor] = None,  # (B, S)
+                        act_quant: bool = False,
+                        ) -> tuple[torch.Tensor, KVCache]:
+    """Continuation prefill over a cached prompt prefix.
+
+    The prefix rows (rope-rotated at positions 0..P-1) are reused, so only
+    the suffix runs through the layers: its queries attend over P + S keys
+    with causal positions shifted by P (the flash kernel's ``q_offset``).
+    Returns the suffix's hidden states and the FULL prefix + suffix rows."""
+    mm = matmul_w8a8 if act_quant else qmm
+    b, s, _ = embeds.shape
+    p = prefix.k.shape[3]
+    cos, sin = _rope_tables(cfg, positions, embeds.dtype)
+    suffix_mask = (kv_mask if kv_mask is not None
+                   else torch.ones((b, s), device=embeds.device))
+    full_mask = torch.cat([prefix_mask.float(), suffix_mask.float()],
+                          dim=1).contiguous()
+    x = embeds
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        layer = layer_slice(params["layers"], i)
+        xn = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
+        q, k, v = _project_qkv(xn, layer["attn"], cfg, mm=mm)
+        q, k = apply_rope(q, k, cos, sin)
+        k_full = torch.cat([prefix.k[i].to(k.dtype).transpose(1, 2), k], 1)
+        v_full = torch.cat([prefix.v[i].to(v.dtype).transpose(1, 2), v], 1)
+        attn = attention(q, k_full, v_full, kv_mask=full_mask, causal=True,
+                         q_offset=p)
+        x = x + mm(attn.reshape(b, s, -1), layer["attn"]["wo"])
+        x = x + _mlp(rms_norm(x, layer["ln2"], cfg.rms_norm_eps),
+                     layer["mlp"], mm=mm)
+        ks.append(k_full.transpose(1, 2))
+        vs.append(v_full.transpose(1, 2))
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return x, KVCache(torch.stack(ks), torch.stack(vs))
+
+
 def decode_step(params: Params, cfg: TextConfig,
                 embeds: torch.Tensor,       # (B, 1, hidden)
                 positions: torch.Tensor,    # (3, B) int
-                cache: QuantKVCache,        # updated in place
+                cache,                      # QuantKVCache | KVCache, in place
                 cache_len: torch.Tensor,    # (B,) int32 rows already cached
-                ) -> tuple[torch.Tensor, QuantKVCache]:
-    """One decode step over the int8 cache: each layer appends this token's
-    K/V rows at cache_len (in place, inside the kernel) and attends over
-    cache_len + 1 rows. Returns (hidden (B, 1, hidden), the same cache)."""
-    if not isinstance(cache, QuantKVCache):
-        raise NotImplementedError(
-            "decode_step is ported for the int8 KV cache only (the bf16 "
-            "cache's paged_decode_append kernel is not ported yet)")
+                ):
+    """One decode step: each layer appends this token's K/V rows at
+    cache_len (in place, inside the kernel) and attends over cache_len + 1
+    rows. Returns (hidden (B, 1, hidden), the same cache).
+
+    The int8 cache goes through ``paged_decode_append_quant``; the cache in
+    the activations' dtype through ``paged_decode_append`` at every length.
+    (The JAX decoder takes its Pallas kernel for that cache only from 8192
+    rows on, because each Pallas call costs about 125 us of TPU dispatch;
+    the kernel computes the dense path's values and reads only live rows.)"""
+    quant = isinstance(cache, QuantKVCache)
     b = embeds.shape[0]
     cos, sin = _rope_tables(cfg, positions[:, :, None], embeds.dtype)
     cache_len = cache_len.to(torch.int32).contiguous()
@@ -191,14 +253,68 @@ def decode_step(params: Params, cfg: TextConfig,
         xn = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
         q, k, v = _project_qkv(xn, layer["attn"], cfg)
         q, k = apply_rope(q, k, cos, sin)
-        kq, ksc = quantize_kv_rows(k[:, 0])
-        vq, vsc = quantize_kv_rows(v[:, 0])
-        attn = paged_decode_append_quant(
-            q.contiguous(), kq, vq, ksc.to(cache.ks.dtype),
-            vsc.to(cache.vs.dtype), cache.k, cache.v, cache.ks, cache.vs, i,
-            cache_len)
+        if quant:
+            kq, ksc = quantize_kv_rows(k[:, 0])
+            vq, vsc = quantize_kv_rows(v[:, 0])
+            attn = paged_decode_append_quant(
+                q.contiguous(), kq, vq, ksc.to(cache.ks.dtype),
+                vsc.to(cache.vs.dtype), cache.k, cache.v, cache.ks, cache.vs,
+                i, cache_len)
+        else:
+            attn = paged_decode_append(
+                q.contiguous(), k[:, 0].to(cache.k.dtype).contiguous(),
+                v[:, 0].to(cache.v.dtype).contiguous(), cache.k, cache.v, i,
+                cache_len)
         x = x + qmm(attn.reshape(b, 1, -1), layer["attn"]["wo"])
         x = x + _mlp(rms_norm(x, layer["ln2"], cfg.rms_norm_eps), layer["mlp"])
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return x, cache
+
+
+def decode_multi(params: Params, cfg: TextConfig,
+                 embeds: torch.Tensor,       # (B, T, hidden)
+                 positions: torch.Tensor,    # (3, B, T) int
+                 cache,                      # QuantKVCache | KVCache, in place
+                 cache_len: torch.Tensor,    # (B,) int32 rows already cached
+                 act_quant: bool = False,
+                 ):
+    """T-token decode for speculative verification: writes T K/V rows per
+    slot at cache_len + [0, T) and attends causally within them plus the
+    existing cache. The caller keeps cache_len + T <= M - 1.
+
+    act_quant=True runs the layer matmuls W8A8, as the JAX decoder does, so
+    the verify pass and the per-step decode (weight-only) differ in rounding.
+    Rollback is free: rejected rows stay past the slot's cache_len and every
+    later read is bounded by it. Returns (hidden (B, T, hidden), cache)."""
+    mm = matmul_w8a8 if act_quant else qmm
+    quant = isinstance(cache, QuantKVCache)
+    b, tq, _ = embeds.shape
+    cos, sin = _rope_tables(cfg, positions, embeds.dtype)
+    cache_len = cache_len.to(torch.int32).contiguous()
+    bidx = torch.arange(b, device=embeds.device)[:, None]
+    wpos = cache_len.long()[:, None] + torch.arange(tq, device=embeds.device)
+    x = embeds
+    for i in range(cfg.num_layers):
+        layer = layer_slice(params["layers"], i)
+        xn = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
+        q, k, v = _project_qkv(xn, layer["attn"], cfg, mm=mm)
+        q, k = apply_rope(q, k, cos, sin)
+        if quant:
+            kq, ksc = quantize_kv_rows(k)                # (B, T, KVH, D)
+            vq, vsc = quantize_kv_rows(v)
+            attn = paged_decode_append_multi_quant(
+                q.contiguous(), kq, vq, ksc.to(cache.ks.dtype),
+                vsc.to(cache.vs.dtype), cache.k, cache.v, cache.ks, cache.vs,
+                i, cache_len)
+        else:
+            # the JAX package's XLA path: scatter the T rows, dense attention
+            cache.k[i, bidx, :, wpos] = k.to(cache.k.dtype)
+            cache.v[i, bidx, :, wpos] = v.to(cache.v.dtype)
+            attn = decode_attention_multi(q, cache.k[i], cache.v[i],
+                                          cache_len)
+        x = x + mm(attn.reshape(b, tq, -1), layer["attn"]["wo"])
+        x = x + _mlp(rms_norm(x, layer["ln2"], cfg.rms_norm_eps),
+                     layer["mlp"], mm=mm)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return x, cache
 

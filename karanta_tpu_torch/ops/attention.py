@@ -85,6 +85,41 @@ def decode_attention(q: torch.Tensor,        # (B, 1, H, D)
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
+def decode_attention_multi(q: torch.Tensor,          # (B, T, H, D)
+                           k_cache: torch.Tensor,    # (B, KVH, M, D)
+                           v_cache: torch.Tensor,    # (B, KVH, M, D)
+                           cache_len: torch.Tensor,  # (B,) rows before the T
+                           scale: Optional[float] = None,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None,
+                           ) -> torch.Tensor:
+    """T-query decode attention for speculative verification, over caches in
+    which the T new rows are already written at cache_len + [0, T): query t
+    attends rows [0, cache_len + t]. With k_scale/v_scale (B, KVH, M) the
+    caches hold int8 rows whose scales fold into the float32 scores and
+    probabilities. This is the bf16 cache's verify attention (the JAX
+    package's XLA path) and the oracle of the int8 multi-token kernel."""
+    b, tq, h, d = q.shape
+    kvh, m = k_cache.shape[1], k_cache.shape[2]
+    group = h // kvh
+    scale = d ** -0.5 if scale is None else scale
+    qg = q.reshape(b, tq, kvh, group, d).float()
+    s = torch.einsum("btkgd,bkmd->bkgtm", qg, k_cache.float()) * scale
+    if k_scale is not None:
+        s = s * k_scale.float()[:, :, None, None, :]
+    cols = torch.arange(m, device=q.device)[None, None, :]
+    horizon = (cache_len.long()[:, None, None]
+               + torch.arange(tq, device=q.device)[None, :, None])
+    valid = cols <= horizon                                   # (B, T, M)
+    s = torch.where(valid[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    if v_scale is not None:
+        p = p * v_scale.float()[:, :, None, None, :]
+    out = torch.einsum("bkgtm,bkmd->bkgtd", p, v_cache.float())
+    out = out.permute(0, 3, 1, 2, 4)                          # (B, T, KVH, G, D)
+    return out.reshape(b, tq, h, d).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # flash attention: kernel wrapper + plain version
 # ---------------------------------------------------------------------------

@@ -97,3 +97,103 @@ def test_rejects_mismatched_shapes():
                                   torch.ones(2, 2), torch.ones(2, 2), cache,
                                   cache, sc, sc, 1,
                                   torch.zeros(2, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("tq,lens", [(3, [0, 5, 200, 248]),
+                                     (5, [31, 32, 63, 127])])
+def test_multi_plain_matches_pallas_and_dense(tq, lens):
+    """Kernel #4's plain version against the JAX Pallas kernel
+    (``interpret=True``) and against scatter + ``decode_attention_multi``, at
+    the cases of the JAX package's own test (layer 1): attention within atol
+    5e-3, int8 caches bit-equal, scales within 1e-6."""
+    from karanta_tpu.ops.attention import (
+        decode_attention_multi as j_decode_multi,
+    )
+    from karanta_tpu.ops.decode_attention import (
+        paged_decode_append_multi_quant as j_multi,
+    )
+    from karanta_tpu_torch.ops.attention import decode_attention_multi
+    from karanta_tpu_torch.ops.decode_attention import (
+        paged_decode_append_multi_quant)
+
+    rng = np.random.default_rng(11)
+    L, B, M, H, KVH, D = 2, 4, 256, 8, 2, 64
+    q = rng.normal(size=(B, tq, H, D)).astype(np.float32)
+    kq, ks = j_qkv_rows(jnp.asarray(rng.normal(size=(L, B, KVH, M, D)),
+                                    jnp.float32))
+    vq, vs = j_qkv_rows(jnp.asarray(rng.normal(size=(L, B, KVH, M, D)),
+                                    jnp.float32))
+    nkq, nks = j_qkv_rows(jnp.asarray(rng.normal(size=(B, tq, KVH, D)),
+                                      jnp.float32))
+    nvq, nvs = j_qkv_rows(jnp.asarray(rng.normal(size=(B, tq, KVH, D)),
+                                      jnp.float32))
+    lens_j = jnp.asarray(lens, jnp.int32)
+    attn_j, k2, v2, ks2, vs2 = j_multi(
+        jnp.asarray(q), nkq, nvq, nks, nvs, kq, vq, ks, vs, jnp.asarray(1),
+        lens_j, block=128, interpret=True)
+    bidx = jnp.arange(B)[:, None]
+    wpos = lens_j[:, None] + jnp.arange(tq)[None]
+    want = j_decode_multi(
+        jnp.asarray(q), kq.at[1, bidx, :, wpos].set(nkq)[1],
+        vq.at[1, bidx, :, wpos].set(nvq)[1], lens_j,
+        k_scale=ks.at[1, bidx, :, wpos].set(nks)[1],
+        v_scale=vs.at[1, bidx, :, wpos].set(nvs)[1])
+
+    def bf(x):
+        return _t(np.asarray(x, np.float32)).to(torch.bfloat16)
+
+    tk, tv, tks, tvs = _t(kq), _t(vq), bf(ks), bf(vs)
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    attn_t = paged_decode_append_multi_quant(
+        _t(q), _t(nkq), _t(nvq), bf(nks), bf(nvs), tk, tv, tks, tvs, 1,
+        lens_t)
+    np.testing.assert_allclose(attn_t.numpy(), np.asarray(attn_j), atol=5e-3)
+    np.testing.assert_allclose(attn_t.numpy(), np.asarray(want), atol=5e-3)
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(k2))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(v2))
+    np.testing.assert_allclose(tks.float().numpy(),
+                               np.asarray(ks2, np.float32), atol=1e-6)
+    np.testing.assert_allclose(tvs.float().numpy(),
+                               np.asarray(vs2, np.float32), atol=1e-6)
+    # the port's own dense verify attention over the appended caches
+    dense = decode_attention_multi(_t(q), tk[1], tv[1], lens_t,
+                                   k_scale=tks[1], v_scale=tvs[1])
+    np.testing.assert_allclose(dense.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("layer,lens", [(0, [0, 5, 200, 255]),
+                                        (1, [64, 64, 63, 1])])
+def test_append_plain_matches_pallas(layer, lens):
+    """Kernel #5's plain version against the JAX Pallas kernel
+    (``interpret=True``) and scatter + dense attention, float32, with the
+    tolerances of the JAX package's own test: atol 3e-6, caches exact."""
+    from karanta_tpu.ops.decode_attention import (
+        paged_decode_append as j_append,
+    )
+    from karanta_tpu_torch.ops.decode_attention import paged_decode_append
+
+    rng = np.random.default_rng(5)
+    L, B, M, H, KVH, D = 2, 4, 256, 8, 2, 64
+    q = rng.normal(size=(B, 1, H, D)).astype(np.float32)
+    nk = rng.normal(size=(B, KVH, D)).astype(np.float32)
+    nv = rng.normal(size=(B, KVH, D)).astype(np.float32)
+    k = rng.normal(size=(L, B, KVH, M, D)).astype(np.float32)
+    v = rng.normal(size=(L, B, KVH, M, D)).astype(np.float32)
+    lens_j = jnp.asarray(lens, jnp.int32)
+    attn_j, k2, v2 = j_append(jnp.asarray(q), jnp.asarray(nk),
+                              jnp.asarray(nv), jnp.asarray(k), jnp.asarray(v),
+                              jnp.asarray(layer), lens_j, block=128,
+                              interpret=True)
+    bidx = jnp.arange(B)
+    k_ref = jnp.asarray(k).at[layer, bidx, :, lens_j].set(nk)
+    v_ref = jnp.asarray(v).at[layer, bidx, :, lens_j].set(nv)
+    mask = (jnp.arange(M)[None, :] <= lens_j[:, None]).astype(jnp.float32)
+    want = j_decode_attention(jnp.asarray(q), k_ref[layer], v_ref[layer], mask)
+    tk, tv = _t(k), _t(v)
+    attn_t = paged_decode_append(_t(q), _t(nk), _t(nv), tk, tv, layer,
+                                 torch.tensor(lens, dtype=torch.int32))
+    np.testing.assert_allclose(attn_t.numpy(), np.asarray(attn_j), atol=3e-6)
+    np.testing.assert_allclose(attn_t.numpy(), np.asarray(want), atol=3e-6)
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(k2))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(v2))
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(k_ref))

@@ -2,7 +2,10 @@
 
 The slice as a whole: greedy tokens of ``karanta_tpu_torch`` Engine.generate
 equal the JAX engine's on the tiny config (float32, int8 weights, W8A8
-prefill and head, int8 KV cache), for a text request and a page image.
+prefill and head, int8 KV cache), for a text request and a page image; with
+n-gram speculation over the int8 and the float cache they equal the JAX
+speculative engine's and the port's own per-step decoding; prefix caching
+changes no token.
 """
 
 import base64
@@ -104,10 +107,8 @@ def test_unported_features_raise():
     tok = _NoStop()
     cfg = tiny_config(vocab_size=tok.vocab_size)
     params = {"text": {"layers": {"attn": {"wq": None}}}}
-    for bad in (dict(speculative_ngram=3), dict(prefix_cache=True),
-                dict(kv_quantize="int4"), dict(kv_quantize=None),
-                dict(teacher_force=True), dict(prefill_batch=4),
-                dict(vision_quant="int8")):
+    for bad in (dict(kv_quantize="int4"), dict(teacher_force=True),
+                dict(prefill_batch=4), dict(vision_quant="int8")):
         kw = {**dict(kv_quantize="int8"), **bad}
         with pytest.raises(NotImplementedError):
             Engine(params, cfg, tok, EngineConfig(**kw), device="cpu")
@@ -166,3 +167,151 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+# ---------------------------------------------------------------------------
+# n-gram speculation and prefix caching
+# ---------------------------------------------------------------------------
+
+SPEC_KW = dict(max_batch_size=2, max_seq_len=128, decode_chunk=6,
+               prefill_buckets=(128,))
+
+
+@pytest.fixture(scope="module")
+def tiny_weights():
+    jtok = _NoStopJ()
+    jcfg = j_tiny_config(vocab_size=jtok.vocab_size)
+    jparams = j_init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
+    tok = _NoStop()
+    cfg = tiny_config(vocab_size=tok.vocab_size)
+    params = from_jax_params(jax.tree.map(np.asarray, jparams), cfg,
+                             device="cpu", dtype=torch.float32)
+    return dict(jtok=jtok, jcfg=jcfg, jparams=jparams, tok=tok, cfg=cfg,
+                params=params)
+
+
+def _spec_msgs():
+    # the JAX package's speculation cases: a repeating prompt (drafts hit)
+    # and a prompt without repeats
+    return [[{"role": "user", "content": "abcabcabcabcabcabc"}],
+            [{"role": "user", "content": "The quick brown fox."}]]
+
+
+def _port_engine(w, **kw):
+    return Engine(w["params"], w["cfg"], w["tok"],
+                  EngineConfig(dtype=torch.float32, **kw), device="cpu")
+
+
+def _count_spec(engine, reqs):
+    calls = {"n": 0}
+    orig = engine.decode_chunk_spec
+
+    def counted(*a, **k):
+        calls["n"] += 1
+        return orig(*a, **k)
+
+    engine.decode_chunk_spec = counted
+    try:
+        outs = engine.generate(reqs)
+    finally:
+        engine.decode_chunk_spec = orig
+    return calls["n"], outs
+
+
+@pytest.mark.parametrize("kv", ["int8", None])
+def test_speculative_tokens_match_jax_and_plain(tiny_weights, kv):
+    """Greedy speculation (gamma 3) over the int8 cache (the multi-token
+    kernel's plain version) and the float cache (scatter + dense verify
+    attention): tokens equal the JAX speculative engine's, the port's
+    per-step decoding, and the acceptance counts equal JAX's."""
+    w = tiny_weights
+    kw = dict(SPEC_KW, kv_quantize=kv)
+    jeng = JEngine(w["jparams"], w["jcfg"], w["jtok"],
+                   JEngineConfig(dtype=jnp.float32, speculative_ngram=3, **kw))
+    want = jeng.generate([JGenRequest(messages=m, max_tokens=24,
+                                      request_id=str(i))
+                          for i, m in enumerate(_spec_msgs())])
+    reqs = [GenRequest(messages=m, max_tokens=24, request_id=str(i))
+            for i, m in enumerate(_spec_msgs())]
+    spec = _port_engine(w, speculative_ngram=3, **kw)
+    n_spec, got = _count_spec(spec, reqs)
+    plain = _port_engine(w, **kw).generate(reqs)
+    assert n_spec > 0
+    for a, b, c in zip(want, got, plain):
+        assert len(b.token_ids) == 24
+        assert b.token_ids == a.token_ids == c.token_ids
+    assert (spec.spec_passes, spec.spec_tokens) == (jeng.spec_passes,
+                                                    jeng.spec_tokens)
+    assert spec.spec_tokens > spec.spec_passes  # the repeating prompt hits
+
+
+@pytest.mark.parametrize("votes,spec_calls", [
+    ((False, False), 0),      # opted-out majority: per-step decode
+    ((True, False), 0),       # a split vote is no majority
+    ((None, None), 1),        # the default speculates
+])
+def test_per_request_speculation_votes(tiny_weights, votes, spec_calls):
+    eng = _port_engine(tiny_weights, speculative_ngram=3,
+                       kv_quantize="int8", **SPEC_KW)
+    reqs = [GenRequest(messages=m, max_tokens=24, speculative=v)
+            for m, v in zip(_spec_msgs(), votes)]
+    n, outs = _count_spec(eng, reqs)
+    assert (n > 0) == bool(spec_calls)
+    assert all(len(o.token_ids) == 24 for o in outs)
+
+
+def test_sampled_rows_verify_by_rejection_sampling(tiny_weights):
+    """temperature > 0 still speculates (rejection sampling); at 1e-6 the
+    verifier collapses to argmax and gives the greedy tokens."""
+    eng = _port_engine(tiny_weights, speculative_ngram=3, **SPEC_KW)
+    msgs = [{"role": "user", "content": "abcabcabcabc"}]
+    n, outs = _count_spec(eng, [GenRequest(messages=msgs, max_tokens=8,
+                                           temperature=0.7)])
+    assert n > 0 and len(outs[0].token_ids) == 8
+    greedy = _port_engine(tiny_weights, **SPEC_KW).generate(
+        [GenRequest(messages=msgs, max_tokens=24)])[0]
+    tiny_t = eng.generate([GenRequest(messages=msgs, max_tokens=24,
+                                      temperature=1e-6)])[0]
+    assert tiny_t.token_ids == greedy.token_ids
+
+
+def _prefix_request(page_text, seed=0):
+    page = np.random.default_rng(seed).integers(0, 255, (56, 56, 3),
+                                                dtype=np.uint8)
+    png = base64.b64encode(encode_png_rgb(page)).decode()
+    return GenRequest(messages=[{"role": "user", "content": [
+        {"type": "text",
+         "text": "Read the page as plain text, keep every diacritic. "},
+        {"type": "image_url",
+         "image_url": {"url": f"data:image/png;base64,{png}"}},
+        {"type": "text", "text": page_text}]}], max_tokens=10)
+
+
+@pytest.mark.parametrize("kv", ["int8", None])
+def test_prefix_cache_keeps_tokens_and_hits(tiny_weights, kv):
+    """Pages sharing an instruction head: the same tokens with the prefix
+    cache as without it, and the second and third page reuse one cached
+    prefix (a suffix-only prefill, the flash path at q_offset > 0)."""
+    kw = dict(max_batch_size=1, max_seq_len=256, decode_chunk=4,
+              prefill_buckets=(32, 64, 128, 256), image_token_buckets=(16,),
+              kv_quantize=kv)
+    reqs = [_prefix_request(t) for t in ("alpha", "beta", "gamma")]
+    want = [r.token_ids for r in _port_engine(tiny_weights, **kw)
+            .generate(reqs)]
+    cached = _port_engine(tiny_weights, prefix_cache=True,
+                          prefix_min_tokens=16, **kw)
+    built = []
+    orig = cached._get_prefix_cache
+
+    def spy(ids):
+        built.append(len(ids))
+        return orig(ids)
+
+    cached._get_prefix_cache = spy
+    got = [r.token_ids for r in cached.generate(reqs)]
+    assert got == want
+    assert len(built) == 2 and len(cached._prefix_kv) == 1
+    short = _port_engine(tiny_weights, prefix_cache=True,
+                         prefix_min_tokens=500, **kw)
+    short.generate(reqs[:2])
+    assert len(short._prefix_kv) == 0

@@ -32,6 +32,9 @@ FLASH_CASES = [
     (1, 96, 160, 4, 1, 16, True, True, 64),
     (2, 130, 130, 6, 2, 80, False, True, 0),
     (1, 300, 300, 7, 1, 128, True, True, 0),
+    # prefix continuation: queries over the suffix, keys prefix + suffix,
+    # q_offset = prefix length, the suffix's padded tail masked
+    (1, 256, 640, 7, 1, 128, True, True, 384),
 ]
 
 
@@ -120,6 +123,66 @@ def test_decode_kernel_matches_plain(cuda, dtype):
     c = [x.clone() for x in a]
     got = DA.paged_decode_append_quant(q, *new, *a, 1, lens)
     want = DA.paged_decode_append_quant_plain(q, *new, *c, 1, lens)
+    torch.cuda.synchronize()
+    _assert_close(got, want, dtype)
+    for x, y in zip(a, c):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [
+    # (layers, b, m, h, kvh, d, tq, lens): tiny config heads, then the 7B
+    # verify pass (G = 7, T = 4) with cache_len 0 and M - T - 1
+    (2, 4, 256, 4, 2, 16, 3, [0, 5, 200, 252]),
+    (2, 4, 256, 4, 2, 16, 5, [31, 32, 63, 127]),
+    (2, 4, 384, 28, 4, 128, 4, [0, 1, 200, 379]),
+])
+def test_multi_quant_kernel_matches_plain(cuda, dtype, shape):
+    from karanta_tpu_torch.models.qwen25_vl.decoder import quantize_kv_rows
+
+    n_layers, b, m, h, kvh, d, tq, lens = shape
+    gen = torch.Generator(device=cuda).manual_seed(13)
+
+    def rows(shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    kq, ks = quantize_kv_rows(rows((n_layers, b, kvh, m, d)))
+    vq, vs = quantize_kv_rows(rows((n_layers, b, kvh, m, d)))
+    nkq, nks = quantize_kv_rows(rows((b, tq, kvh, d)))
+    nvq, nvs = quantize_kv_rows(rows((b, tq, kvh, d)))
+    q = rows((b, tq, h, d)).to(dtype)
+    new = (nkq, nvq, nks.to(dtype), nvs.to(dtype))
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    a = [kq.clone(), vq.clone(), ks.to(dtype), vs.to(dtype)]
+    c = [x.clone() for x in a]
+    got = DA.paged_decode_append_multi_quant(q, *new, *a, 1, lens)
+    want = DA.paged_decode_append_multi_quant_plain(q, *new, *c, 1, lens)
+    torch.cuda.synchronize()
+    _assert_close(got, want, dtype)
+    for x, y in zip(a, c):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [
+    # (layers, b, m, h, kvh, d, lens)
+    (2, 4, 256, 8, 2, 64, [0, 5, 200, 255]),
+    (2, 3, 200, 4, 2, 16, [0, 77, 199]),
+    (2, 6, 512, 28, 4, 128, [0, 1, 130, 300, 511, 64]),
+])
+def test_append_kernel_matches_plain(cuda, dtype, shape):
+    n_layers, b, m, h, kvh, d, lens = shape
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    k = _randn(gen, (n_layers, b, kvh, m, d), cuda, dtype)
+    v = _randn(gen, (n_layers, b, kvh, m, d), cuda, dtype)
+    nk = _randn(gen, (b, kvh, d), cuda, dtype)
+    nv = _randn(gen, (b, kvh, d), cuda, dtype)
+    q = _randn(gen, (b, 1, h, d), cuda, dtype)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    a = [k.clone(), v.clone()]
+    c = [k.clone(), v.clone()]
+    got = DA.paged_decode_append(q, nk, nv, *a, 1, lens)
+    want = DA.paged_decode_append_plain(q, nk, nv, *c, 1, lens)
     torch.cuda.synchronize()
     _assert_close(got, want, dtype)
     for x, y in zip(a, c):

@@ -166,3 +166,125 @@ def test_merge_image_embeddings_drops_padding():
                               jnp.asarray(pos)))
     got = merge_image_embeddings(_t(emb), _t(img), _t(pos)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def _random_caches(rng, quant, batch, m):
+    """A populated cache of each kind (the JAX package's own test inputs):
+    int8 rows with scales in [0.01, 0.1), or float rows."""
+    shape = (JCFG.text.num_layers, batch, JCFG.text.num_kv_heads, m,
+             JCFG.text.head_dim)
+    if quant:
+        jc = jdec.QuantKVCache(
+            jnp.asarray(rng.integers(-127, 127, size=shape), jnp.int8),
+            jnp.asarray(rng.integers(-127, 127, size=shape), jnp.int8),
+            jnp.asarray(rng.uniform(0.01, 0.1, size=shape[:-1]), jnp.float32),
+            jnp.asarray(rng.uniform(0.01, 0.1, size=shape[:-1]), jnp.float32))
+        return jc, dec.QuantKVCache(_t(jc.k), _t(jc.v), _t(jc.ks), _t(jc.vs))
+    jc = jdec.KVCache(jnp.asarray(rng.normal(size=shape), jnp.float32),
+                      jnp.asarray(rng.normal(size=shape), jnp.float32))
+    return jc, dec.KVCache(_t(jc.k), _t(jc.v))
+
+
+def _assert_caches(tc, jc, quant):
+    """int8 rows bit-equal and scales within 1e-6; float rows within 2e-5."""
+    if quant:
+        np.testing.assert_array_equal(tc.k.numpy(), np.asarray(jc.k))
+        np.testing.assert_array_equal(tc.v.numpy(), np.asarray(jc.v))
+        np.testing.assert_allclose(tc.ks.numpy(), np.asarray(jc.ks),
+                                   atol=1e-6)
+        np.testing.assert_allclose(tc.vs.numpy(), np.asarray(jc.vs),
+                                   atol=1e-6)
+    else:
+        np.testing.assert_allclose(tc.k.numpy(), np.asarray(jc.k), atol=2e-5)
+        np.testing.assert_allclose(tc.v.numpy(), np.asarray(jc.v), atol=2e-5)
+
+
+@pytest.mark.parametrize("quant,act_quant", [(True, False), (True, True),
+                                             (False, False)])
+def test_decode_multi_matches_jax(jparams, quant, act_quant):
+    """The verify pass (T = 4) over each cache: the int8 cache through the
+    multi-token kernel's plain version, the float cache through scatter +
+    decode_attention_multi; the JAX decode_multi takes its XLA path. Hidden
+    states within atol/rtol 2e-4, as the JAX package's own kernel test
+    (W8A8: see below); int8 caches bit-equal."""
+    batch, m, tq = 2, 64, 4
+    rng = np.random.default_rng(3)
+    jc, tc = _random_caches(rng, quant, batch, m)
+    jtext = (j_quantize_decoder_params(jparams["text"]) if act_quant
+             else jparams["text"])
+    text = from_jax_params(_np({"text": jtext, "visual": jparams["visual"]}),
+                           CFG, "cpu", torch.float32)["text"]
+    emb = rng.normal(size=(batch, tq, JCFG.text.hidden_size))
+    emb = emb.astype(np.float32)
+    pos = rng.integers(0, 40, size=(3, batch, tq)).astype(np.int32)
+    lens = np.asarray([7, 33], np.int32)
+    h_j, jc = jdec.decode_multi(jtext, JCFG.text, jnp.asarray(emb),
+                                jnp.asarray(pos), jc, jnp.asarray(lens),
+                                act_quant=act_quant)
+    h_t, tc = dec.decode_multi(text, CFG.text, _t(emb), _t(pos), tc,
+                               _t(lens), act_quant=act_quant)
+    # W8A8: a float32 summation-order difference can move an activation
+    # across an int8 rounding boundary, one quantization step (~7e-4 here)
+    tol = 2e-3 if act_quant else 2e-4
+    np.testing.assert_allclose(h_t.numpy(), np.asarray(h_j), atol=tol,
+                               rtol=2e-4)
+    _assert_caches(tc, jc, quant)
+
+
+def test_decode_steps_over_float_cache_match_jax(jparams):
+    """Three decode steps over the cache in the activations' dtype (the bf16
+    cache's path, float32 here): kernel #5's plain version against the JAX
+    decode_step's dense path."""
+    batch, m = 2, 64
+    rng = np.random.default_rng(5)
+    jc, tc = _random_caches(rng, False, batch, m)
+    text = from_jax_params(_np(jparams), CFG, "cpu", torch.float32)["text"]
+    lens = np.asarray([12, 40], np.int32)
+    for step in range(3):
+        x = rng.normal(size=(batch, 1, JCFG.text.hidden_size))
+        x = x.astype(np.float32)
+        p = (lens + 3).astype(np.int32)[None].repeat(3, 0)
+        h_j, jc = jdec.decode_step(jparams["text"], JCFG.text, jnp.asarray(x),
+                                   jnp.asarray(p), jc, jnp.asarray(lens))
+        h_t, tc = dec.decode_step(text, CFG.text, _t(x), _t(p), tc,
+                                  _t(lens))
+        np.testing.assert_allclose(h_t.numpy(), np.asarray(h_j), atol=ATOL)
+        lens = lens + 1
+    _assert_caches(tc, jc, False)
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+def test_prefill_with_prefix_matches_jax_and_full_prefill(jparams,
+                                                          act_quant):
+    """A suffix over a cached 10-token prefix: equal to the JAX
+    prefill_with_prefix, and to the full prefill's suffix rows within the
+    JAX package's own bounds (atol 2e-5, rtol 1e-4)."""
+    emb, pos, _ = _prompt(batch=2, s=24, pad=0)
+    emb, pos = emb[:1], pos[:, :1]
+    jtext = jparams["text"]
+    if act_quant:
+        jtext = j_quantize_decoder_params(jtext)
+    text = from_jax_params(_np({"text": jtext, "visual": jparams["visual"]}),
+                           CFG, "cpu", torch.float32)["text"]
+    p = 10
+    _, jpre = jdec.prefill_forward(jtext, JCFG.text, jnp.asarray(emb[:, :p]),
+                                   jnp.asarray(pos[:, :, :p]),
+                                   act_quant=act_quant)
+    h_j, kv_j = jdec.prefill_with_prefix(
+        jtext, JCFG.text, jnp.asarray(emb[:, p:]), jnp.asarray(pos[:, :, p:]),
+        jpre, jnp.ones((1, p), jnp.float32), act_quant=act_quant)
+    h_full, kv_full = dec.prefill_forward(text, CFG.text, _t(emb), _t(pos),
+                                          act_quant=act_quant)
+    _, pre = dec.prefill_forward(text, CFG.text, _t(emb[:, :p]),
+                                 _t(pos[:, :, :p]), act_quant=act_quant)
+    h_t, kv_t = dec.prefill_with_prefix(text, CFG.text, _t(emb[:, p:]),
+                                        _t(pos[:, :, p:]), pre,
+                                        torch.ones((1, p)),
+                                        act_quant=act_quant)
+    np.testing.assert_allclose(h_t.numpy(), np.asarray(h_j), atol=ATOL)
+    np.testing.assert_allclose(kv_t.k.numpy(), np.asarray(kv_j.k), atol=ATOL)
+    if not act_quant:  # per-token activation scales differ with the split
+        np.testing.assert_allclose(h_t.numpy(), h_full[:, p:].numpy(),
+                                   atol=2e-5, rtol=1e-4)
+        np.testing.assert_allclose(kv_t.k.numpy(), kv_full.k.numpy(),
+                                   atol=2e-5)
