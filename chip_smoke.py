@@ -6,12 +6,14 @@
 Phases (any failed check raises and the script exits non-zero):
 
 1. card: name, power limit, TF32 off for float32 products;
-2. build: nvcc builds the five kernels from karanta_tpu_torch/kernels/csrc,
-   one process per source, all at once;
-3. kernels vs plain: each kernel against its plain PyTorch version at the
-   Qwen2.5-VL-7B shapes of the paths below and a small ragged shape; times
-   of the kernel, the plain version and one library call where there is one
-   (a yardstick the port never uses);
+2. build: nvcc builds the eight kernel sources from
+   karanta_tpu_torch/kernels/csrc, one process per source, all at once;
+3. kernels vs plain: each of the nine kernels against its plain PyTorch
+   version at the Qwen2.5-VL-7B shapes of the paths below and at small
+   ragged shapes (the int4 kernels at lengths on the 32-row and 64-token
+   window boundaries); every cache a kernel writes is bit-equal to the plain
+   version's; times of the kernel, the plain version and one library call
+   where there is one (a yardstick the port never uses);
 4. engine path: the port's Engine on qwen2.5-vl-7b at full width and depth
    (random int8 weights, W8A8 prefill, int8 KV cache, per-step decode)
    serves synthetic 1288x994 pages; launch counts prove the path ran
@@ -21,14 +23,22 @@ Phases (any failed check raises and the script exits non-zero):
    --act-quant int8, 4 slots, chunk 8, speculation and prefix caching at
    their defaults), answers concurrent page requests over HTTP, one as an
    SSE stream; every verify pass goes through the multi-token int8 kernel;
-6. served path, CLI defaults: the server built from the CLI with nothing but
+6. served path, int4 point: the server built by its CLI with --quantize
+   int8 --kv-quantize int4 --act-quant int8, 8 slots, chunk 8, context 4096,
+   speculation and prefix caching on: a wave that opts out of speculation
+   decodes per step through the int4 append kernel, a default wave verifies
+   through the multi-token int4 kernel, and no other decode kernel runs;
+7. served path, CLI defaults: the server built from the CLI with nothing but
    the preset (bf16 weights and KV cache, 32 slots, context 4096, chunk 64,
    speculation and prefix caching on): a wave that opts out of speculation
-   decodes per step through the bf16 append kernel, a default wave runs the
-   bf16 verify pass;
-7. the same engine code on the tiny config on the card and on the CPU: the
-   logits of the prefill, of three decode steps and of three verify passes
-   agree, and so do the greedy tokens, with and without speculation.
+   decodes per step through the bf16 append kernel, the same wave under
+   KARANTA_PAGED_DECODE=stacked through a scatter and the read-only stacked
+   kernel, and a default wave runs the bf16 verify pass;
+8. the same engine code on the tiny config on the card and on the CPU, with
+   the int8 and the int4 cache: the logits of the prefill, of three decode
+   steps and of three verify passes agree, and so do the greedy tokens, with
+   and without speculation; the stacked mode gives the append kernel's
+   tokens on the card.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. The last two lines are the kernels summary and the result line.
@@ -45,6 +55,7 @@ import gc
 import http.client
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -65,7 +76,11 @@ from karanta_tpu_torch.inference.tokenizer import ByteTokenizer
 from karanta_tpu_torch.kernels.build import build_all
 from karanta_tpu_torch.models.qwen25_vl.config import (get_config,
                                                        tiny_config)
-from karanta_tpu_torch.models.qwen25_vl.decoder import quantize_kv_rows
+from karanta_tpu_torch.models.qwen25_vl.decoder import (Q4KVCache,
+                                                        q4_pack_prefill,
+                                                        quantize_kv_rows,
+                                                        quantize_kv_rows_q4,
+                                                        unpack_q4_rows)
 from karanta_tpu_torch.models.qwen25_vl.layout import build_vision_layout
 from karanta_tpu_torch.models.qwen25_vl.model import init_params
 from karanta_tpu_torch.ops import attention as A
@@ -615,6 +630,215 @@ def kernel_append(cfg, dev, gen) -> dict:
                 bound_by=by, library_ms=None)
 
 
+def _q4_live_rows(n: int) -> int:
+    """Packed rows holding a token below n (whole windows, then the partial
+    window's rows whose low token is live)."""
+    return (n // 64) * 32 + min(n % 64, 32)
+
+
+def _q4_inputs(dev, gen, n_layers, b, kvh, m, d, h, tq, dtype):
+    """int4 caches as an insert writes them (random rows, quantized and
+    nibble-packed), new rows quantized to int4 (leading shape (b,) for
+    tq None, else (b, tq)), and q."""
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    k4, v4, ks4, vs4 = q4_pack_prefill(randn((n_layers, b, kvh, m, d)),
+                                       randn((n_layers, b, kvh, m, d)))
+    lead = (b,) if tq is None else (b, tq)
+    nkq, nks = quantize_kv_rows_q4(randn(lead + (kvh, d)))
+    nvq, nvs = quantize_kv_rows_q4(randn(lead + (kvh, d)))
+    q = randn((b, 1 if tq is None else tq, h, d)).to(dtype)
+    return (q, (nkq, nvq, nks.to(dtype), nvs.to(dtype)),
+            (k4, v4, ks4.to(dtype), vs4.to(dtype)))
+
+
+def _q4_bytes(lens, kvh, d, h, b, tq, esize=2) -> int:
+    """Bytes of an int4 append call: the live packed K/V rows and their
+    tokens' scales read once, each fresh byte row read and written with its
+    scales, q in and attention out."""
+    old = sum(kvh * (_q4_live_rows(n) * d * 2 + n * 2 * esize) for n in lens)
+    fresh = b * tq * kvh * (d * 2 + 2 * esize) * 2
+    return old + fresh + 2 * b * tq * h * d * esize
+
+
+def kernel_q4(cfg, dev, gen) -> dict:
+    """One decode step of one layer over the 7B int4 cache: B = 4, M = 2048,
+    kernel #3's lengths (0, mid-window, 1919, a page prompt); four layers of
+    cache stand in for 28 (the kernel reads one). Then the window
+    boundaries."""
+    t = cfg.text
+    m, n_layers, layer, batch = 2048, 4, 3, 4
+    lens = [0, 700, 1919, 1390]
+    d, kvh, h = t.head_dim, t.num_kv_heads, t.num_heads
+    q, new, caches = _q4_inputs(dev, gen, n_layers, batch, kvh, m, d, h, None,
+                                torch.bfloat16)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    a = [c.clone() for c in caches]
+    b_ = [c.clone() for c in caches]
+    got = DA.paged_decode_append_q4(q, *new, *a, layer, lens_t)
+    torch.cuda.synchronize()
+    want = DA.paged_decode_append_q4_plain(q, *new, *b_, layer, lens_t)
+    err = check_bf16(f"paged_decode_append_q4 7B B={batch} M={m} lens={lens} "
+                     f"bf16", got, want)
+    _check_caches("paged_decode_append_q4", a, b_)
+    # small ragged case in float32 (tiny-config heads: D=16, G=2), every
+    # length on or beside a 32-row or 64-token window boundary
+    small = [0, 1, 31, 32, 33, 63, 64, 127]
+    q2, new2, c2 = _q4_inputs(dev, gen, 2, len(small), 2, 128, 16, 4, None,
+                              torch.float32)
+    l2 = torch.tensor(small, dtype=torch.int32, device=dev)
+    a2 = [c.clone() for c in c2]
+    b2 = [c.clone() for c in c2]
+    g2 = DA.paged_decode_append_q4(q2, *new2, *a2, 1, l2)
+    torch.cuda.synchronize()
+    w2 = DA.paged_decode_append_q4_plain(q2, *new2, *b2, 1, l2)
+    check(f"paged_decode_append_q4 ragged f32 (M=128, lens {small})",
+          max_err(g2, w2), F32_ATOL)
+    _check_caches("paged_decode_append_q4 ragged", a2, b2)
+
+    t_k = cuda_ms(lambda: DA.paged_decode_append_q4(q, *new, *a, layer,
+                                                    lens_t), 50)
+    t_p = cuda_ms(lambda: DA.paged_decode_append_q4_plain(
+        q, *new, *b_, layer, lens_t), 5)
+    flops = 4.0 * d * h * sum(n + 1 for n in lens)
+    bd, by = bound_ms(_q4_bytes(lens, kvh, d, h, batch, 1), flops)
+    return dict(name="paged_decode_append_q4", route="cuda",
+                source="karanta_tpu_torch/kernels/csrc/decode_append_q4.cu",
+                replaces="karanta_tpu/ops/decode_attention.py:1622",
+                max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bd,
+                bound_by=by, library_ms=None)
+
+
+def kernel_multi_q4(cfg, dev, gen) -> dict:
+    """One verify pass of one layer over the 7B int4 cache: T = 4, B = 4,
+    M = 4096 (the served context), cache_len 0, a page prompt's length, a
+    longer one and M - T - 1. Then spans that cross the 32-row tile and the
+    64-token window (the JAX package's own cases)."""
+    t = cfg.text
+    m, n_layers, layer, batch, tq = 4096, 4, 3, 4, 4
+    lens = [0, 1700, 2100, m - tq - 1]
+    d, kvh, h = t.head_dim, t.num_kv_heads, t.num_heads
+    q, new, caches = _q4_inputs(dev, gen, n_layers, batch, kvh, m, d, h, tq,
+                                torch.bfloat16)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    a = [c.clone() for c in caches]
+    b_ = [c.clone() for c in caches]
+    got = DA.paged_decode_append_multi_q4(q, *new, *a, layer, lens_t)
+    torch.cuda.synchronize()
+    want = DA.paged_decode_append_multi_q4_plain(q, *new, *b_, layer, lens_t)
+    err = check_bf16(f"paged_decode_append_multi_q4 7B B={batch} T={tq} "
+                     f"lens={lens} bf16", got, want)
+    _check_caches("paged_decode_append_multi_q4", a, b_)
+    for tq2, small in ((5, [31, 32, 63, 127]), (4, [60, 62, 95, 126])):
+        q2, new2, c2 = _q4_inputs(dev, gen, 2, 4, 2, 256, 16, 4, tq2,
+                                  torch.float32)
+        l2 = torch.tensor(small, dtype=torch.int32, device=dev)
+        a2 = [c.clone() for c in c2]
+        b2 = [c.clone() for c in c2]
+        g2 = DA.paged_decode_append_multi_q4(q2, *new2, *a2, 1, l2)
+        torch.cuda.synchronize()
+        w2 = DA.paged_decode_append_multi_q4_plain(q2, *new2, *b2, 1, l2)
+        check(f"paged_decode_append_multi_q4 ragged f32 (T={tq2}, lens "
+              f"{small})", max_err(g2, w2), F32_ATOL)
+        _check_caches("paged_decode_append_multi_q4 ragged", a2, b2)
+
+    t_k = cuda_ms(lambda: DA.paged_decode_append_multi_q4(
+        q, *new, *a, layer, lens_t), 50)
+    t_p = cuda_ms(lambda: DA.paged_decode_append_multi_q4_plain(
+        q, *new, *b_, layer, lens_t), 5)
+    pairs = sum(tq * n + tq * (tq + 1) // 2 for n in lens)
+    bd, by = bound_ms(_q4_bytes(lens, kvh, d, h, batch, tq),
+                      4.0 * d * h * pairs)
+    return dict(name="paged_decode_append_multi_q4", route="cuda",
+                source="karanta_tpu_torch/kernels/csrc/"
+                       "decode_append_multi_q4.cu",
+                replaces="karanta_tpu/ops/decode_attention.py:1998",
+                max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bd,
+                bound_by=by, library_ms=None)
+
+
+def kernel_read_only(cfg, dev, gen) -> list:
+    """Kernels #8 and #9 at the CLI defaults' decode shape: B = 32 slots,
+    M = 4096, ragged lengths from 0 to M - 1 (this step's row already at
+    cache_len). #8 over a per-slot cache (B, KVH, M, D), #9 over layer 3 of
+    a four-layer stacked cache. The library yardstick: one
+    scaled_dot_product_attention call over the bucket with a boolean length
+    mask."""
+    t = cfg.text
+    m, n_layers, layer, batch = 4096, 4, 3, 32
+    d, kvh, h = t.head_dim, t.num_kv_heads, t.num_heads
+    rng = np.random.default_rng(7)
+    lens = [0, m - 1] + sorted(int(x) for x in rng.integers(1, m - 1,
+                                                            batch - 2))
+
+    def randn(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    q = randn((batch, 1, h, d))
+    kc, vc = randn((n_layers, batch, kvh, m, d)), randn((n_layers, batch, kvh,
+                                                         m, d))
+    k1, v1 = kc[layer].clone(), vc[layer].clone()
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    k0, v0 = kc.clone(), vc.clone()
+    want = DA.paged_decode_attention_plain(q, k1, v1, lens_t)
+    got8 = DA.paged_decode_attention(q, k1, v1, lens_t)
+    got9 = DA.paged_decode_attention_stacked(q, kc, vc, layer, lens_t)
+    torch.cuda.synchronize()
+    want9 = DA.paged_decode_attention_stacked_plain(q, kc, vc, layer, lens_t)
+    err8 = check_bf16(f"paged_decode_attention 7B B={batch} M={m} ragged "
+                      f"bf16", got8, want)
+    err9 = check_bf16(f"paged_decode_attention_stacked 7B B={batch} M={m} "
+                      f"layer {layer} ragged bf16", got9, want9)
+    if not (torch.equal(kc, k0) and torch.equal(vc, v0)):
+        raise AssertionError("paged_decode_attention_stacked wrote its cache")
+    # small ragged case in float32 (tiny-config heads: D=16, G=2)
+    q2 = randn((3, 1, 4, 16), torch.float32)
+    k2 = randn((2, 3, 2, 200, 16), torch.float32)
+    v2 = randn((2, 3, 2, 200, 16), torch.float32)
+    l2 = torch.tensor([0, 77, 199], dtype=torch.int32, device=dev)
+    w2 = DA.paged_decode_attention_stacked_plain(q2, k2, v2, 1, l2)
+    for name, g2 in (("paged_decode_attention",
+                      DA.paged_decode_attention(q2, k2[1].contiguous(),
+                                                v2[1].contiguous(), l2)),
+                     ("paged_decode_attention_stacked",
+                      DA.paged_decode_attention_stacked(q2, k2, v2, 1, l2))):
+        torch.cuda.synchronize()
+        check(f"{name} ragged f32 (B=3, M=200)", max_err(g2, w2), F32_ATOL)
+
+    mask = (torch.arange(m, device=dev)[None, :]
+            <= lens_t[:, None].long())[:, None, None, :]      # (B, 1, 1, M)
+    qt = q.transpose(1, 2)
+
+    def lib(kk, vv):
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kk, vv, attn_mask=mask, enable_gqa=True)
+
+    live = sum(n + 1 for n in lens)
+    n_bytes = kvh * live * d * 2 * 2 + 2 * batch * h * d * 2
+    bd, by = bound_ms(n_bytes, 4.0 * d * h * live)
+    rows = []
+    for name, err, kernel, plain, args, line in (
+            ("paged_decode_attention", err8, DA.paged_decode_attention,
+             DA.paged_decode_attention_plain, (q, k1, v1, lens_t), 120),
+            ("paged_decode_attention_stacked", err9,
+             DA.paged_decode_attention_stacked,
+             DA.paged_decode_attention_stacked_plain,
+             (q, kc, vc, layer, lens_t), 272)):
+        t_k = cuda_ms(lambda: kernel(*args), 50)
+        t_p = cuda_ms(lambda: plain(*args), 5)
+        t_l = cuda_ms(lambda: lib(k1, v1) if line == 120
+                      else lib(kc[layer], vc[layer]), 20)
+        rows.append(dict(name=name, route="cuda",
+                         source="karanta_tpu_torch/kernels/csrc/"
+                                "decode_attention.cu",
+                         replaces=f"karanta_tpu/ops/decode_attention.py:"
+                                  f"{line}",
+                         max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bd,
+                         bound_by=by, library_ms=t_l))
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the engine path
 # ---------------------------------------------------------------------------
@@ -808,7 +1032,7 @@ def profile_verify(engine, stage: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 5-6: the served paths
+# phases 5-7: the served paths
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
@@ -956,10 +1180,10 @@ def phase_served_int8(cfg, profile: bool = False) -> dict:
     layers = cfg.text.num_layers
     want = expected_prefill_launches(cfg, SERVED_PAGES,
                                      counts["prefix_builds"])
+    want.update({name: 0 for name in DECODE_KERNELS})
     want.update(paged_decode_append_multi_quant=layers
                 * counts["verify_passes"],
-                paged_decode_append_quant=layers * counts["decode_steps"],
-                paged_decode_append=0)
+                paged_decode_append_quant=layers * counts["decode_steps"])
     check_launches("served int8", launches, want)
     if not counts["verify_passes"] or not metrics.get("spec_passes"):
         raise AssertionError(f"no verify pass ran: {counts}, {metrics}")
@@ -984,33 +1208,65 @@ def phase_served_int8(cfg, profile: bool = False) -> dict:
     return stats
 
 
-def phase_served_defaults(cfg, profile: bool = False) -> dict:
-    """The server with the CLI's own defaults: a wave that opts out of
-    speculation decodes per step through the bf16 append kernel, then a
-    default wave runs the bf16 verify pass."""
-    engine = served_engine(["--preset", "qwen2.5-vl-7b"])
+# the kernels a decode step or a verify pass may launch: in a wave, all but
+# the wave's own must stay at 0
+DECODE_KERNELS = ("paged_decode_append_quant",
+                  "paged_decode_append_multi_quant", "paged_decode_append",
+                  "paged_decode_append_q4", "paged_decode_append_multi_q4",
+                  "paged_decode_attention", "paged_decode_attention_stacked")
+
+
+@contextlib.contextmanager
+def paged_decode_env(mode):
+    """KARANTA_PAGED_DECODE set to mode (None: unset) inside the block, and
+    restored after it."""
+    before = os.environ.get("KARANTA_PAGED_DECODE")
+    if mode is None:
+        os.environ.pop("KARANTA_PAGED_DECODE", None)
+    else:
+        os.environ["KARANTA_PAGED_DECODE"] = mode
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("KARANTA_PAGED_DECODE", None)
+        else:
+            os.environ["KARANTA_PAGED_DECODE"] = before
+
+
+def served_waves(cfg, label: str, argv: list, waves: list, seed: int,
+                 profile_stage=None) -> dict:
+    """The server built from argv answers one wave of DEFAULT_WAVE pages per
+    entry of `waves`: (name, speculative vote, KARANTA_PAGED_DECODE, the
+    per-step kernel, the verify kernel or None). In each wave the per-step
+    kernel launches 28 x decode steps, the verify kernel 28 x verify passes,
+    and no other decode kernel launches."""
+    engine = served_engine(argv)
     counts = instrument(engine)
     layers = cfg.text.num_layers
     stats = {}
     with serving(engine) as (server, port):
-        for wave, vote in (("per-step", False), ("speculative", None)):
+        for w, (wave, vote, mode, step_kernel, verify_kernel) in \
+                enumerate(waves):
             for key in counts:
                 counts[key] = 0
-            pages = [make_page_png(seed=200 + 10 * (vote is None) + i)
+            pages = [make_page_png(seed=seed + 10 * w + i)
                      for i in range(DEFAULT_WAVE)]
             extra = {} if vote is None else {"speculative": vote}
             bodies = [page_body(png, **extra) for png in pages]
-            kernels.reset_launches()
-            t0 = time.perf_counter()
-            post_pages(port, bodies)
-            wall = time.perf_counter() - t0
-            launches = dict(kernels.LAUNCHES)
+            with paged_decode_env(mode):
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                post_pages(port, bodies)
+                wall = time.perf_counter() - t0
+                launches = dict(kernels.LAUNCHES)
             want = expected_prefill_launches(cfg, DEFAULT_WAVE,
                                              counts["prefix_builds"])
-            want.update(paged_decode_append=layers * counts["decode_steps"],
-                        paged_decode_append_quant=0,
-                        paged_decode_append_multi_quant=0)
-            check_launches(f"served defaults, {wave} wave", launches, want)
+            want.update({name: 0 for name in DECODE_KERNELS})
+            want[step_kernel] = layers * counts["decode_steps"]
+            if verify_kernel is not None:
+                want[verify_kernel] = layers * counts["verify_passes"]
+            check_launches(f"{label}, {wave} wave", launches, want)
             key = "decode_steps" if vote is False else "verify_passes"
             if not counts[key]:
                 raise AssertionError(f"{wave} wave: no {key}: {counts}")
@@ -1023,40 +1279,93 @@ def phase_served_defaults(cfg, profile: bool = False) -> dict:
                                decode_step_ms=step,
                                **{k: counts[k] for k in
                                   ("decode_steps", "verify_passes",
-                                   "prefix_hits")})
-            log(f"[served defaults] {wave} wave: {DEFAULT_WAVE} pages x "
+                                   "prefix_hits", "prefix_builds")})
+            log(f"[{label}] {wave} wave: {DEFAULT_WAVE} pages x "
                 f"{SERVED_TOKENS} tokens in {wall:.3f}s "
                 f"({DEFAULT_WAVE / wall:.4f} pages/s); {counts}")
         metrics = json.loads(http_call(port, "GET", "/metrics")[1])
     stats["tokens_per_pass"] = metrics.get("spec_tokens_per_pass")
-    log(f"[served defaults] /metrics {metrics}")
-    if profile:
-        profile_verify(engine, "verify pass, bf16 KV and weights, B=32, T=4")
+    log(f"[{label}] /metrics {metrics}")
+    if profile_stage:
+        profile_verify(engine, profile_stage)
     del server, engine
     gc.collect()
     torch.cuda.empty_cache()
     return stats
 
 
+def phase_served_int4(cfg, profile: bool = False) -> dict:
+    """The server at the int4 capacity point: per-step decode through the
+    int4 append kernel, verify passes through the multi-token int4 kernel,
+    and the shared instruction served from the prefix cache."""
+    stats = served_waves(
+        cfg, "served int4",
+        ["--preset", "qwen2.5-vl-7b", "--quantize", "int8", "--kv-quantize",
+         "int4", "--act-quant", "int8", "--max-batch-size", "8",
+         "--decode-chunk", "8"],
+        [("per-step", False, None, "paged_decode_append_q4", None),
+         ("speculative", None, None, "paged_decode_append_q4",
+          "paged_decode_append_multi_q4")],
+        seed=400, profile_stage="verify pass, int4 KV, W8A8, B=8, T=4"
+        if profile else None)
+    hits = sum(stats[w]["prefix_hits"] for w in ("per-step", "speculative"))
+    if hits < 1:
+        raise AssertionError(f"served int4: no prefix hit: {stats}")
+    return stats
+
+
+def phase_served_defaults(cfg, profile: bool = False) -> dict:
+    """The server with the CLI's own defaults: a wave that opts out of
+    speculation decodes per step through the bf16 append kernel, the same
+    under KARANTA_PAGED_DECODE=stacked through the read-only stacked kernel,
+    then a default wave runs the bf16 verify pass (no kernel: the JAX
+    package's XLA path)."""
+    return served_waves(
+        cfg, "served defaults", ["--preset", "qwen2.5-vl-7b"],
+        [("per-step", False, None, "paged_decode_append", None),
+         ("stacked", False, "stacked", "paged_decode_attention_stacked",
+          None),
+         ("speculative", None, None, "paged_decode_append", None)],
+        seed=200, profile_stage="verify pass, bf16 KV and weights, B=32, T=4"
+        if profile else None)
+
+
 # ---------------------------------------------------------------------------
-# phase 7: tiny config, card vs CPU
+# phase 8: tiny config, card vs CPU
 # ---------------------------------------------------------------------------
 
-def phase_tiny(dev) -> float:
+def token_rows(cache, slot: int, n_rows: int) -> torch.Tensor:
+    """K and V of one slot's first n_rows tokens, in token order (the int4
+    cache unpacked), on the host."""
+    k, v = cache.k[:, slot], cache.v[:, slot]
+    if isinstance(cache, Q4KVCache):
+        k, v = unpack_q4_rows(k), unpack_q4_rows(v)
+    return torch.stack((k[:, :, :n_rows], v[:, :, :n_rows])).cpu()
+
+
+def tiny_setup(dev):
     tok = NoStopTokenizer()
     cfg = tiny_config(vocab_size=tok.vocab_size)
     params_cpu = init_params(cfg, 0, torch.float32, device="cpu")
     params_gpu = tree_map(lambda x, _: x.to(dev), params_cpu)
+    return tok, cfg, params_cpu, params_gpu
+
+
+def phase_tiny(dev, kv: str) -> float:
+    """The engine (int8 weights, W8A8, the `kv` cache) on the card and on the
+    CPU: the logits of the prefill and three decode steps, and the greedy
+    tokens of a page request, agree; then the speculative engine."""
+    tok, cfg, params_cpu, params_gpu = tiny_setup(dev)
     ecfg = EngineConfig(max_batch_size=2, max_seq_len=256, decode_chunk=4,
                         prefill_buckets=(128, 256), dtype=torch.float32,
-                        quantize="int8", kv_quantize="int8", act_quant="int8")
+                        quantize="int8", kv_quantize=kv, act_quant="int8")
     rng = np.random.default_rng(0)
     page = rng.integers(0, 255, size=(84, 112, 3), dtype=np.uint8)
     png = base64.b64encode(encode_png_rgb(page)).decode()
     req = GenRequest(messages=page_messages(png), max_tokens=8,
                      request_id="tiny")
     n_steps = 3
-    logits, tokens, kv = {}, {}, {}
+    logits, tokens, rows = {}, {}, {}
     for name, device, params in (("cpu", "cpu", params_cpu),
                                  ("cuda", dev, params_gpu)):
         eng = Engine(params, cfg, tok, ecfg, device=device)
@@ -1064,48 +1373,49 @@ def phase_tiny(dev) -> float:
         steps = [eng.prefill(prepared)[0][None]]
         eng.prefill_insert(0, prepared)
         eng.decode_chunk(n_steps, logits_out=steps)  # the decode kernel
-        n_rows = int(eng.cache_len[0])
-        kv[name] = torch.stack((eng.cache.k[:, 0, :, :n_rows],
-                                eng.cache.v[:, 0, :, :n_rows])).cpu()
+        rows[name] = token_rows(eng.cache, 0, int(eng.cache_len[0]))
         eng.free_slot(0)
         # (1 + n_steps, V): the prefill's logits, then slot 0's per step
         logits[name] = torch.stack([x[0] for x in steps]).float().cpu()
         tokens[name] = eng.generate([req])[0].token_ids
-    log(f"[tiny] greedy tokens cpu {tokens['cpu']} cuda {tokens['cuda']}")
-    # float32 rounding differences can move a value across an int8 rounding
-    # boundary; each such flip shifts the later logits by a quantization step
+    log(f"[tiny {kv}] greedy tokens cpu {tokens['cpu']} cuda "
+        f"{tokens['cuda']}")
+    # float32 rounding differences can move a value across an int8 or int4
+    # rounding boundary; each such flip shifts the later logits by a
+    # quantization step
     n_prompt = len(prepared.ids)
-    diff = (kv["cpu"].int() - kv["cuda"].int()).abs()
+    diff = (rows["cpu"].int() - rows["cuda"].int()).abs()
     for part, d in (("prompt", diff[..., :n_prompt, :]),
                     ("decode", diff[..., n_prompt:, :])):
-        log(f"[tiny] int8 K/V entries of the {part} rows that differ card vs "
+        log(f"[tiny {kv}] K/V entries of the {part} rows that differ card vs "
             f"CPU: {int((d > 0).sum())} of {d.numel()} (max "
             f"{int(d.max()) if d.numel() else 0} steps)")
     if tokens["cpu"] != tokens["cuda"]:
-        raise AssertionError("tiny config: greedy tokens differ between the "
-                             "card and the CPU")
+        raise AssertionError(f"tiny config, {kv} KV: greedy tokens differ "
+                             f"between the card and the CPU")
     worst = 0.0
     for i in range(1 + n_steps):
         want, got = logits["cpu"][i], logits["cuda"][i]
         scale = float(want.abs().max())
         err = float((want - got).abs().max())
         stage = "prefill" if i == 0 else f"decode step {i}"
-        log(f"[tiny] {stage} logits card vs CPU: max abs err {err:.3e} "
+        log(f"[tiny {kv}] {stage} logits card vs CPU: max abs err {err:.3e} "
             f"(max |logit| {scale:.3f})")
-        check(f"tiny {stage} logits card vs CPU", err,
+        check(f"tiny {kv} {stage} logits card vs CPU", err,
               TINY_LOGIT_TOL * max(scale, 1.0))
         worst = max(worst, err)
-    return max(worst, phase_tiny_spec(dev, tok, cfg, params_cpu, params_gpu))
+    return max(worst, phase_tiny_spec(dev, kv, tok, cfg, params_cpu,
+                                      params_gpu))
 
 
-def phase_tiny_spec(dev, tok, cfg, params_cpu, params_gpu) -> float:
-    """The speculative engine (gamma 3, int8 weights and KV, no W8A8) on the
-    card and on the CPU: the logits of three verify passes (the multi-token
-    kernel on the card, its plain version on the CPU) and the greedy tokens
-    of a whole request agree."""
+def phase_tiny_spec(dev, kv, tok, cfg, params_cpu, params_gpu) -> float:
+    """The speculative engine (gamma 3, int8 weights, the `kv` cache, no
+    W8A8) on the card and on the CPU: the logits of three verify passes (the
+    multi-token kernel on the card, its plain version on the CPU) and the
+    greedy tokens of a whole request agree."""
     ecfg = EngineConfig(max_batch_size=2, max_seq_len=256, decode_chunk=8,
                         prefill_buckets=(128, 256), dtype=torch.float32,
-                        quantize="int8", kv_quantize="int8",
+                        quantize="int8", kv_quantize=kv,
                         speculative_ngram=3)
     req = GenRequest(messages=[{"role": "user",
                                 "content": "abcabcabcabcabcabc"}],
@@ -1122,21 +1432,51 @@ def phase_tiny_spec(dev, tok, cfg, params_cpu, params_gpu) -> float:
         logits[name] = torch.stack([x[0] for x in passes]).float().cpu()
         accepted[name] = n_new[:, 0].tolist()
         tokens[name] = eng.generate([req])[0].token_ids
-    log(f"[tiny spec] tokens per verify pass cpu {accepted['cpu']} cuda "
+    log(f"[tiny {kv} spec] tokens per verify pass cpu {accepted['cpu']} cuda "
         f"{accepted['cuda']}; greedy tokens cpu {tokens['cpu']} cuda "
         f"{tokens['cuda']}")
     if tokens["cpu"] != tokens["cuda"] or accepted["cpu"] != accepted["cuda"]:
-        raise AssertionError("tiny config: speculative decoding differs "
-                             "between the card and the CPU")
+        raise AssertionError(f"tiny config, {kv} KV: speculative decoding "
+                             f"differs between the card and the CPU")
     worst = 0.0
     for i in range(n_passes):
         want, got = logits["cpu"][i], logits["cuda"][i]
         scale = float(want.abs().max())
         err = float((want - got).abs().max())
-        check(f"tiny verify pass {i + 1} logits (T=4) card vs CPU", err,
+        check(f"tiny {kv} verify pass {i + 1} logits (T=4) card vs CPU", err,
               TINY_LOGIT_TOL * max(scale, 1.0))
         worst = max(worst, err)
     return worst
+
+
+def phase_tiny_stacked(dev) -> None:
+    """Per-step decoding over the cache in the activations' dtype on the
+    card: KARANTA_PAGED_DECODE=stacked (scatter + kernel #9) gives the
+    tokens of the default mode (kernel #5), and launches only #9."""
+    tok, cfg, _, params_gpu = tiny_setup(dev)
+    ecfg = EngineConfig(max_batch_size=2, max_seq_len=256, decode_chunk=4,
+                        prefill_buckets=(128, 256), dtype=torch.float32)
+    req = GenRequest(messages=[{"role": "user",
+                                "content": "The quick brown fox."}],
+                     max_tokens=24, request_id="tiny-stacked")
+    tokens = {}
+    for mode in (None, "stacked"):
+        eng = Engine(params_gpu, cfg, tok, ecfg, device=dev)
+        with paged_decode_env(mode):
+            kernels.reset_launches()
+            tokens[mode] = eng.generate([req])[0].token_ids
+            launches = dict(kernels.LAUNCHES)
+        step_kernel = ("paged_decode_attention_stacked" if mode
+                       else "paged_decode_append")
+        others = {k: v for k, v in launches.items()
+                  if k in DECODE_KERNELS and k != step_kernel and v}
+        if not launches[step_kernel] or others:
+            raise AssertionError(f"tiny, mode {mode}: launches {launches}")
+    log(f"[tiny stacked] greedy tokens append {tokens[None]} stacked "
+        f"{tokens['stacked']}")
+    if tokens[None] != tokens["stacked"]:
+        raise AssertionError("tiny config: the stacked mode's tokens differ "
+                             "from the append kernel's")
 
 
 def main(argv=None) -> int:
@@ -1155,27 +1495,49 @@ def main(argv=None) -> int:
     log("[kernels] each kernel vs its plain version at the 7B shapes")
     rows = [kernel_window(cfg, dev, gen), kernel_flash(cfg, dev, gen),
             kernel_decode(cfg, dev, gen, BATCH),
-            kernel_decode_multi(cfg, dev, gen), kernel_append(cfg, dev, gen)]
+            kernel_decode_multi(cfg, dev, gen), kernel_append(cfg, dev, gen),
+            kernel_q4(cfg, dev, gen), kernel_multi_q4(cfg, dev, gen),
+            *kernel_read_only(cfg, dev, gen)]
+    torch.cuda.empty_cache()
     main_stats = phase_main_path(cfg, dev, args.profile)
     int8_stats = phase_served_int8(cfg, args.profile)
+    int4_stats = phase_served_int4(cfg, args.profile)
     default_stats = phase_served_defaults(cfg, args.profile)
-    phase_tiny(dev)
-    # each kernel's launches on the path that runs it
-    launches = dict(main_stats["launches"])
-    launches["paged_decode_append_multi_quant"] = \
-        int8_stats["launches"]["paged_decode_append_multi_quant"]
-    launches["paged_decode_append"] = \
-        default_stats["per-step"]["launches"]["paged_decode_append"]
+    for kv in ("int8", "int4"):
+        phase_tiny(dev, kv)
+    phase_tiny_stacked(dev)
+    # each kernel's launches on the path that runs it; kernel #8 is on no
+    # path (the JAX package calls it from its tests only)
+    paths = {
+        "window_attention": ("engine", main_stats["launches"]),
+        "flash_attention": ("engine", main_stats["launches"]),
+        "paged_decode_append_quant": ("engine", main_stats["launches"]),
+        "paged_decode_append_multi_quant": ("served int8",
+                                            int8_stats["launches"]),
+        "paged_decode_append": ("served defaults, per-step wave",
+                                default_stats["per-step"]["launches"]),
+        "paged_decode_append_q4": ("served int4, per-step wave",
+                                   int4_stats["per-step"]["launches"]),
+        "paged_decode_append_multi_q4": (
+            "served int4, speculative wave",
+            int4_stats["speculative"]["launches"]),
+        "paged_decode_attention_stacked": (
+            "served defaults, stacked wave",
+            default_stats["stacked"]["launches"]),
+    }
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        path, launches = paths.get(row["name"], (None, {}))
+        row["launches"] = launches.get(row["name"], 0)
+        row["path"] = path
         log(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, library "
             f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)}"
             f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
-            f"{row['launches']} launches")
+            f"{row['launches']} launches ({path})")
     log(json.dumps({"main_path": {k: v for k, v in main_stats.items()
                                   if k != "launches"},
                     "served_int8": int8_stats,
+                    "served_int4": int4_stats,
                     "served_defaults": default_stats}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,10 @@
 - A fixed batch of decode slots (continuous batching). Each request is
   prefilled on its own (vision encoder, embedding merge, causal prefill,
   first token) and its KV rows go into a free slot of the KV cache: int8
-  rows with per-row scales (``kv_quantize="int8"``) or rows in the
-  activations' dtype (``kv_quantize=None``, the bf16 cache on the card).
+  rows with per-row scales (``kv_quantize="int8"``), nibble-packed int4 rows
+  (``kv_quantize="int4"``, the capacity point: half the int8 cache's memory)
+  or rows in the activations' dtype (``kv_quantize=None``, the bf16 cache on
+  the card).
   All active slots then decode together, ``decode_chunk`` steps per host
   round trip. Finished slots keep cycling harmlessly inside a chunk.
 - n-gram speculation (``speculative_ngram`` = gamma > 0): each verify pass
@@ -20,8 +22,8 @@
 - Temperature 0 is exact greedy.
 
 Features of the JAX engine that the port does not have yet raise
-``NotImplementedError`` when requested: the int4 KV cache, teacher forcing,
-batched prefill, vision quantization, guided decoding and logprobs.
+``NotImplementedError`` when requested: teacher forcing, batched prefill,
+vision quantization, guided decoding and logprobs.
 """
 
 from __future__ import annotations
@@ -67,6 +69,7 @@ class EngineConfig:
     dtype: Any = torch.bfloat16
     quantize: Optional[str] = None       # None | "int8" (decoder weights)
     kv_quantize: Optional[str] = None    # None (cache in dtype) | "int8"
+    #                                      | "int4" (nibble-packed)
     act_quant: Optional[str] = None      # None | "int8": W8A8 prefill, head
     #                                      and speculative verify pass
     vision_quant: Optional[str] = None   # not ported
@@ -139,9 +142,6 @@ def _reject_unported(ecfg: EngineConfig) -> None:
     if ecfg.kv_quantize not in (None, "int8", "int4"):
         raise ValueError(f"unknown kv_quantize {ecfg.kv_quantize!r}")
     unported = []
-    if ecfg.kv_quantize == "int4":
-        unported.append("kv_quantize='int4' (needs the paged_decode_append_q4 "
-                        "and paged_decode_append_multi_q4 kernels)")
     if ecfg.teacher_force:
         unported.append("teacher_force")
     if ecfg.prefill_batch > 1:
@@ -191,6 +191,24 @@ class Engine:
         if engine_cfg.kv_quantize == "int8":
             self.cache = dec.QuantKVCache.zeros(cfg.text, b, m,
                                                 engine_cfg.dtype, dev)
+        elif engine_cfg.kv_quantize == "int4":
+            # the JAX engine's limits (its engine.py:283-297), so that both
+            # engines take the same configurations
+            if engine_cfg.speculative_ngram > 0 and m < 128:
+                raise ValueError(
+                    "kv_quantize='int4' speculation needs max_seq_len >= 128 "
+                    "(the multi-token kernel's slab spans two 64-token "
+                    "windows)")
+            if m >= 256 and m % 256:
+                # a TPU tile rule of the JAX kernels (a scale slab is 128
+                # packed rows); the CUDA kernels need only whole windows,
+                # but the port keeps the rule so both engines agree
+                raise ValueError(
+                    f"kv_quantize='int4' needs max_seq_len % 256 == 0 "
+                    f"(nibble packing: 128 packed rows per scale tile), "
+                    f"got {m}; round up to {-(-m // 256) * 256}")
+            self.cache = dec.Q4KVCache.zeros(cfg.text, b, m,
+                                             engine_cfg.dtype, dev)
         else:
             self.cache = dec.KVCache.zeros(cfg.text, b, m, engine_cfg.dtype,
                                            dev)
@@ -451,7 +469,8 @@ class Engine:
 
     def prefill_insert(self, slot: int, prepared: _Prepared) -> torch.Tensor:
         """Prefill a request, pick its first token, and write its KV rows
-        into `slot` of the cache (in place; quantized for the int8 cache).
+        into `slot` of the cache (in place; quantized for the int8 cache,
+        quantized and nibble-packed for the int4 cache).
         Returns the first token as a device scalar."""
         dev = self.device
         s = len(prepared.ids)
@@ -468,7 +487,17 @@ class Engine:
                 torch.tensor([prepared.top_p], device=dev))[0]
 
         c = self.cache
-        if isinstance(c, dec.QuantKVCache):
+        if isinstance(c, dec.Q4KVCache):
+            # ceil64(rows) / 2 packed rows; the pad's nibbles lie past the
+            # prompt, where cache_len masks them
+            k4, v4, ks4, vs4 = dec.q4_pack_prefill(pcache.k[:, 0],
+                                                   pcache.v[:, 0])
+            ps = k4.shape[-2]
+            c.k[:, slot, :, :ps] = k4
+            c.v[:, slot, :, :ps] = v4
+            c.ks[:, slot, :, :ps] = ks4.to(c.ks.dtype)
+            c.vs[:, slot, :, :ps] = vs4.to(c.vs.dtype)
+        elif isinstance(c, dec.QuantKVCache):
             kq, ksc = dec.quantize_kv_rows(pcache.k[:, 0])
             vq, vsc = dec.quantize_kv_rows(pcache.v[:, 0])
             c.k[:, slot, :, :rows] = kq

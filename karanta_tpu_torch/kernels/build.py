@@ -21,7 +21,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("window_attention", "flash_attention", "decode_append_quant",
-           "decode_append_multi_quant", "decode_append")
+           "decode_append_multi_quant", "decode_append", "decode_append_q4",
+           "decode_append_multi_q4", "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -41,7 +42,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         digest.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 

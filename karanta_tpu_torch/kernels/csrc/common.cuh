@@ -66,6 +66,37 @@ __device__ __forceinline__ void store_row(T* __restrict__ dst, const float (&src
   }
 }
 
+// an unsigned type of N bytes, for one vector load of N int8 values
+template <int N> struct Bytes;
+template <> struct Bytes<16> { using type = uint4; };
+template <> struct Bytes<8> { using type = uint2; };
+template <> struct Bytes<4> { using type = unsigned int; };
+template <> struct Bytes<2> { using type = unsigned short; };
+
+// The int4 KV cache's layout (models/qwen25_vl/decoder.py Q4KVCache): in each
+// 64-token window w, token 64w + j (j < 32) sits in the low nibble of packed
+// row 32w + j and token 64w + 32 + j in the high nibble of the same row; the
+// scale of kv head h sits in plane 2h + nibble, column = packed row.
+__device__ __forceinline__ int q4_row(int tok) { return ((tok >> 6) << 5) + (tok & 31); }
+__device__ __forceinline__ int q4_nib(int tok) { return (tok >> 5) & 1; }
+// packed rows that hold a token below len: whole windows, then the partial
+// window's rows whose low token is live (decode_attention.py:1421-1422)
+__device__ __forceinline__ int q4_live_rows(int len) {
+  return (len >> 6) * 32 + min(len & 63, 32);
+}
+// sign-extended nibbles of a packed byte b (an int8 widened to int)
+__device__ __forceinline__ int q4_lo(int b) {
+  return static_cast<int>(static_cast<unsigned>(b) << 28) >> 28;
+}
+__device__ __forceinline__ int q4_hi(int b) { return b >> 4; }
+// the packed byte `old` with nibble `nib` replaced by the low 4 bits of v
+__device__ __forceinline__ int8_t q4_merge(int8_t old, int8_t v, int nib) {
+  const int o = static_cast<unsigned char>(old);
+  const int n4 = v & 0xF;
+  const int merged = nib ? ((o & 0x0F) | (n4 << 4)) : ((o & 0xF0) | n4);
+  return static_cast<int8_t>(static_cast<unsigned char>(merged));
+}
+
 // Opt a kernel into more than the default 48 KB of dynamic shared memory.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {

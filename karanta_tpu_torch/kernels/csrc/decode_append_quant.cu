@@ -31,12 +31,6 @@ constexpr int kDecThreads = 128;
 constexpr int kDecChunk = 128;  // cache rows staged per chunk
 constexpr int kDecLanesPerRow = 8;
 
-template <int N> struct Bytes;
-template <> struct Bytes<16> { using type = uint4; };
-template <> struct Bytes<8> { using type = uint2; };
-template <> struct Bytes<4> { using type = unsigned int; };
-template <> struct Bytes<2> { using type = unsigned short; };
-
 template <typename T, int D, int G>
 __global__ void __launch_bounds__(kDecThreads) decode_append_quant_kernel(
     const T* __restrict__ q,                                   // (B, KVH*G, D)

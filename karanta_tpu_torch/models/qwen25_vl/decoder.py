@@ -9,17 +9,21 @@ package's layouts: per-layer weights stacked on a leading layer axis, weights
   a suffix over a cached prefix's rows (the flash kernel at ``q_offset`` =
   prefix length).
 - ``decode_step`` runs one token per slot over the int8 cache
-  (``QuantKVCache``) or the cache in the activations' dtype (``KVCache``);
-  the fused append+attention kernel of each updates the cache tensors IN
-  PLACE, layer by layer.
+  (``QuantKVCache``), the nibble-packed int4 cache (``Q4KVCache``) or the
+  cache in the activations' dtype (``KVCache``); the fused append+attention
+  kernel of each updates the cache tensors IN PLACE, layer by layer.
+  ``KARANTA_PAGED_DECODE=stacked`` runs the last one as a scatter and the
+  read-only stacked kernel instead.
 - ``decode_multi`` runs T tokens per slot, the speculative verify pass: the
-  int8 cache through the multi-token append kernel, the bf16 cache through a
-  scatter and ``decode_attention_multi`` (the JAX package's XLA path).
+  int8 and int4 caches through their multi-token append kernels, the bf16
+  cache through a scatter and ``decode_attention_multi`` (the JAX package's
+  XLA path).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Optional
 
 import numpy as np
@@ -28,9 +32,12 @@ import torch.nn.functional as F
 
 from karanta_tpu_torch.models.qwen25_vl.config import TextConfig
 from karanta_tpu_torch.ops.attention import attention, decode_attention_multi
-from karanta_tpu_torch.ops.decode_attention import (
-    paged_decode_append, paged_decode_append_multi_quant,
-    paged_decode_append_quant)
+from karanta_tpu_torch.ops.decode_attention import (  # noqa: F401 (re-exports)
+    bits_to_int8, pack_q4_rows, pack_q4_scales, paged_decode_append,
+    paged_decode_append_multi_q4, paged_decode_append_multi_quant,
+    paged_decode_append_q4, paged_decode_append_quant,
+    paged_decode_attention_stacked, q4_row_nib, unpack_q4_rows,
+    unpack_q4_scales)
 from karanta_tpu_torch.ops.norms import rms_norm
 from karanta_tpu_torch.ops.quantization import INV_127
 from karanta_tpu_torch.ops.quantization import matmul as qmm
@@ -128,6 +135,98 @@ def quantize_kv_rows(x: torch.Tensor):
     s = torch.clamp(a * INV_127, min=1e-8)
     q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
     return q, s.to(torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# int4 (nibble-packed) KV cache: the capacity operating point. Rows quantize
+# to [-7, 7] with per-row absmax scales, and pairs of token rows pack into
+# one byte along the sequence axis, so the cache takes half the memory of
+# the int8 cache. The layout (ops/decode_attention.py, kept from the JAX
+# package): token 64w + j in the low nibble of packed row 32w + j, token
+# 64w + 32 + j in its high nibble; scales per token in nibble-plane order
+# (L, B, 2*KVH, M/2), row 2h + nib.
+# ---------------------------------------------------------------------------
+
+Q4_WINDOW = 64  # tokens per packing window
+# XLA compiles the JAX package's `amax / 7.0` inside jit (its decode step and
+# insert) into a multiply by the float32 reciprocal, as for 127; the port
+# multiplies too, so scales agree with the jitted paths to the bit
+INV_7 = 1.0 / 7.0
+
+
+def quantize_kv_rows_q4(x: torch.Tensor):
+    """(..., D) -> (int8 nibbles in [-7, 7] (..., D), bf16 scale (...,))."""
+    xf = x.float()
+    a = torch.amax(torch.abs(xf), dim=-1)
+    s = torch.clamp(a * INV_7, min=1e-8)
+    q = torch.clamp(torch.round(xf / s[..., None]), -7, 7).to(torch.int8)
+    return q, s.to(torch.bfloat16)
+
+
+def q4_pack_prefill(k_rows: torch.Tensor, v_rows: torch.Tensor):
+    """Quantize + pack prefill KV rows (..., KVH, S, D) for a slot insert.
+
+    Returns (k4, v4, ks, vs): packed bytes (..., KVH, ceil64(S)/2, D) and
+    nibble-plane scales (..., 2*KVH, ceil64(S)/2). S pads up to a whole
+    window with zero rows (dead nibbles, masked by cache_len downstream)."""
+    kq, ks = quantize_kv_rows_q4(k_rows)
+    vq, vs = quantize_kv_rows_q4(v_rows)
+    pad = (-kq.shape[-2]) % Q4_WINDOW
+    if pad:
+        kq, vq = (F.pad(x, (0, 0, 0, pad)) for x in (kq, vq))
+        ks, vs = (F.pad(x, (0, pad)) for x in (ks, vs))
+    return (pack_q4_rows(kq), pack_q4_rows(vq), pack_q4_scales(ks),
+            pack_q4_scales(vs))
+
+
+@dataclasses.dataclass
+class Q4KVCache:
+    """Nibble-packed int4 KV cache (see above): half the memory and half the
+    decode cache-read bytes of QuantKVCache. k/v int8 packed
+    (L, B, KVH, M/2, D); ks/vs (L, B, 2*KVH, M/2) in the activations' dtype.
+    The decode paths update these tensors in place."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    ks: torch.Tensor
+    vs: torch.Tensor
+
+    @classmethod
+    def zeros(cls, cfg: TextConfig, batch: int, max_len: int,
+              dtype=torch.bfloat16, device=None) -> "Q4KVCache":
+        if max_len % Q4_WINDOW:
+            raise ValueError(f"int4 KV cache needs max_seq_len % {Q4_WINDOW} "
+                             f"== 0, got {max_len}")
+        shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len // 2,
+                 cfg.head_dim)
+        sshape = (cfg.num_layers, batch, 2 * cfg.num_kv_heads, max_len // 2)
+        return cls(torch.zeros(shape, dtype=torch.int8, device=device),
+                   torch.zeros(shape, dtype=torch.int8, device=device),
+                   torch.ones(sshape, dtype=dtype, device=device),
+                   torch.ones(sshape, dtype=dtype, device=device))
+
+
+def _paged_decode_mode() -> str:
+    """The decode kernel for the cache in the activations' dtype, from
+    KARANTA_PAGED_DECODE at call time: unset, "1" or "append" -> the fused
+    append kernel; "stacked" -> a scatter of the new row and the read-only
+    stacked kernel (the JAX package's A/B mode). "0", the JAX package's
+    dense XLA path, exists there only to spare the TPU its per-call dispatch
+    cost and would run no kernel here: it raises, as other unported features
+    do. The int8 and int4 caches keep their append kernels in every mode
+    (the JAX package's dense choice for them is a TPU dispatch choice too),
+    so this is read for the activations'-dtype cache only."""
+    mode = os.environ.get("KARANTA_PAGED_DECODE", "")
+    if mode in ("", "1", "append"):
+        return "append"
+    if mode == "stacked":
+        return "stacked"
+    if mode == "0":
+        raise NotImplementedError(
+            "KARANTA_PAGED_DECODE=0 (the JAX package's dense XLA decode path) "
+            "is not ported (ROADMAP.md, modules: KARANTA_PAGED_DECODE=0)")
+    raise ValueError(f"KARANTA_PAGED_DECODE={mode!r}: expected unset, 1, "
+                     f"append, stacked or 0")
 
 
 def _rope_tables(cfg: TextConfig, positions: torch.Tensor, dtype):
@@ -231,22 +330,29 @@ def prefill_with_prefix(params: Params, cfg: TextConfig,
 def decode_step(params: Params, cfg: TextConfig,
                 embeds: torch.Tensor,       # (B, 1, hidden)
                 positions: torch.Tensor,    # (3, B) int
-                cache,                      # QuantKVCache | KVCache, in place
+                cache,                      # a KV cache of any kind, in place
                 cache_len: torch.Tensor,    # (B,) int32 rows already cached
                 ):
     """One decode step: each layer appends this token's K/V rows at
     cache_len (in place, inside the kernel) and attends over cache_len + 1
     rows. Returns (hidden (B, 1, hidden), the same cache).
 
-    The int8 cache goes through ``paged_decode_append_quant``; the cache in
-    the activations' dtype through ``paged_decode_append`` at every length.
-    (The JAX decoder takes its Pallas kernel for that cache only from 8192
-    rows on, because each Pallas call costs about 125 us of TPU dispatch;
-    the kernel computes the dense path's values and reads only live rows.)"""
+    The int8 cache goes through ``paged_decode_append_quant``, the int4
+    cache through ``paged_decode_append_q4``, and the cache in the
+    activations' dtype through ``paged_decode_append`` at every length, or
+    with ``KARANTA_PAGED_DECODE=stacked`` through a scatter and
+    ``paged_decode_attention_stacked`` (see ``_paged_decode_mode``). (The JAX
+    decoder takes its Pallas kernels only from 8192 rows on or for the
+    quantized caches, because each Pallas call costs about 125 us of TPU
+    dispatch; the kernels compute the dense path's values and read only live
+    rows.)"""
     quant = isinstance(cache, QuantKVCache)
+    q4 = isinstance(cache, Q4KVCache)
+    mode = "append" if quant or q4 else _paged_decode_mode()
     b = embeds.shape[0]
     cos, sin = _rope_tables(cfg, positions[:, :, None], embeds.dtype)
     cache_len = cache_len.to(torch.int32).contiguous()
+    bidx = torch.arange(b, device=embeds.device)
     x = embeds
     for i in range(cfg.num_layers):
         layer = layer_slice(params["layers"], i)
@@ -260,6 +366,21 @@ def decode_step(params: Params, cfg: TextConfig,
                 q.contiguous(), kq, vq, ksc.to(cache.ks.dtype),
                 vsc.to(cache.vs.dtype), cache.k, cache.v, cache.ks, cache.vs,
                 i, cache_len)
+        elif q4:
+            kq, ksc = quantize_kv_rows_q4(k[:, 0])
+            vq, vsc = quantize_kv_rows_q4(v[:, 0])
+            attn = paged_decode_append_q4(
+                q.contiguous(), kq, vq, ksc.to(cache.ks.dtype),
+                vsc.to(cache.vs.dtype), cache.k, cache.v, cache.ks, cache.vs,
+                i, cache_len)
+        elif mode == "stacked":
+            # the JAX package's stacked mode: scatter the row at cache_len,
+            # then read the layer in place over cache_len + 1 rows
+            lens = cache_len.long()
+            cache.k[i, bidx, :, lens] = k[:, 0].to(cache.k.dtype)
+            cache.v[i, bidx, :, lens] = v[:, 0].to(cache.v.dtype)
+            attn = paged_decode_attention_stacked(q.contiguous(), cache.k,
+                                                  cache.v, i, cache_len)
         else:
             attn = paged_decode_append(
                 q.contiguous(), k[:, 0].to(cache.k.dtype).contiguous(),
@@ -274,7 +395,7 @@ def decode_step(params: Params, cfg: TextConfig,
 def decode_multi(params: Params, cfg: TextConfig,
                  embeds: torch.Tensor,       # (B, T, hidden)
                  positions: torch.Tensor,    # (3, B, T) int
-                 cache,                      # QuantKVCache | KVCache, in place
+                 cache,                      # a KV cache of any kind, in place
                  cache_len: torch.Tensor,    # (B,) int32 rows already cached
                  act_quant: bool = False,
                  ):
@@ -288,6 +409,7 @@ def decode_multi(params: Params, cfg: TextConfig,
     later read is bounded by it. Returns (hidden (B, T, hidden), cache)."""
     mm = matmul_w8a8 if act_quant else qmm
     quant = isinstance(cache, QuantKVCache)
+    q4 = isinstance(cache, Q4KVCache)
     b, tq, _ = embeds.shape
     cos, sin = _rope_tables(cfg, positions, embeds.dtype)
     cache_len = cache_len.to(torch.int32).contiguous()
@@ -303,6 +425,13 @@ def decode_multi(params: Params, cfg: TextConfig,
             kq, ksc = quantize_kv_rows(k)                # (B, T, KVH, D)
             vq, vsc = quantize_kv_rows(v)
             attn = paged_decode_append_multi_quant(
+                q.contiguous(), kq, vq, ksc.to(cache.ks.dtype),
+                vsc.to(cache.vs.dtype), cache.k, cache.v, cache.ks, cache.vs,
+                i, cache_len)
+        elif q4:
+            kq, ksc = quantize_kv_rows_q4(k)             # (B, T, KVH, D)
+            vq, vsc = quantize_kv_rows_q4(v)
+            attn = paged_decode_append_multi_q4(
                 q.contiguous(), kq, vq, ksc.to(cache.ks.dtype),
                 vsc.to(cache.vs.dtype), cache.k, cache.v, cache.ks, cache.vs,
                 i, cache_len)

@@ -1,11 +1,11 @@
-"""Fused KV append + decode attention (port of three functions of
+"""Paged decode attention (port of seven functions of
 ``karanta_tpu/ops/decode_attention.py``).
 
-Each writes this step's K/V rows into one layer of the stacked
-``(L, B, KVH, M, D)`` cache IN PLACE (the TPU kernels alias the buffers
-through ``input_output_aliases``; here the tensors themselves are updated),
-attends over the live rows ``[0, cache_len)`` and then folds the new rows in
-last, in float32:
+The fused append kernels write this step's K/V rows into one layer of the
+stacked cache IN PLACE (the TPU kernels alias the buffers through
+``input_output_aliases``; here the tensors themselves are updated), attend
+over the live rows ``[0, cache_len)`` and then fold the new rows in last, in
+float32:
 
 - ``paged_decode_append_quant`` (``:887``): one int8 row and its scale per
   slot, ``kernels/csrc/decode_append_quant.cu``;
@@ -13,10 +13,22 @@ last, in float32:
   ``cache_len + [0, T)``, query t seeing the fresh rows ``t_k <= t`` (the
   speculative verify pass), ``kernels/csrc/decode_append_multi_quant.cu``;
 - ``paged_decode_append`` (``:582``): one row per slot in the cache's own
-  dtype (the bf16 cache), ``kernels/csrc/decode_append.cu``.
+  dtype (the bf16 cache), ``kernels/csrc/decode_append.cu``;
+- ``paged_decode_append_q4`` (``:1622``) and ``paged_decode_append_multi_q4``
+  (``:1998``): the int8 kernels' work over the nibble-packed int4 cache
+  (layout below), ``kernels/csrc/decode_append_q4.cu`` and
+  ``decode_append_multi_q4.cu``.
+
+The read-only kernels attend over rows ``[0, cache_len]``, this step's row
+having been written at ``cache_len`` before the call
+(``kernels/csrc/decode_attention.cu``):
+
+- ``paged_decode_attention`` (``:120``): a per-slot cache ``(B, KVH, M, D)``;
+- ``paged_decode_attention_stacked`` (``:272``): one layer of the stacked
+  cache, read in place (the decoder's stacked mode).
 
 On CUDA tensors each wrapper launches its kernel; CPU tensors take the plain
-version beside it, which does the same two-part sum.
+version beside it.
 """
 
 from __future__ import annotations
@@ -29,6 +41,8 @@ import torch
 
 from karanta_tpu_torch import kernels
 from karanta_tpu_torch.kernels.build import library
+from karanta_tpu_torch.ops.attention import (decode_attention,
+                                             decode_attention_multi)
 
 NEG_INF = -1e30
 
@@ -433,3 +447,446 @@ def paged_decode_append(
     kernels.raise_on_error("paged_decode_append", code)
     kernels.LAUNCHES["paged_decode_append"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# the nibble-packed int4 cache (models/qwen25_vl/decoder.py Q4KVCache)
+# ---------------------------------------------------------------------------
+#
+# Within each 64-token window w, packed row 32w + j (j < 32) holds token
+# 64w + j in its LOW nibble and token 64w + 32 + j in its HIGH nibble. Scales
+# stay per token, in nibble-plane order (L, B, 2*KVH, M/2): row 2h + nib is
+# kv head h, nibble plane nib, column = packed row. This is the JAX package's
+# layout (chosen for the TPU's 32-row int8 tiles), kept so that the caches of
+# the two packages compare byte for byte; the decoder re-exports these.
+
+def bits_to_int8(u: torch.Tensor) -> torch.Tensor:
+    """int32 byte values in [0, 255] -> bit-identical int8."""
+    return (((u & 0xFF) ^ 0x80) - 0x80).to(torch.int8)
+
+
+def pack_q4_rows(q: torch.Tensor) -> torch.Tensor:
+    """(..., S, D) int8 nibbles -> (..., S/2, D) packed bytes (S % 64 == 0)."""
+    *lead, s, d = q.shape
+    if s % 64:
+        raise ValueError(f"pack_q4_rows: {s} tokens is not a whole number of "
+                         f"64-token windows")
+    r = q.reshape(*lead, s // 64, 2, 32, d).to(torch.int32)
+    b = (r[..., 0, :, :] & 0xF) | ((r[..., 1, :, :] & 0xF) << 4)
+    return bits_to_int8(b).reshape(*lead, s // 2, d)
+
+
+def unpack_q4_rows(p: torch.Tensor) -> torch.Tensor:
+    """(..., S/2, D) packed -> (..., S, D) int8 nibble values, token order."""
+    *lead, pm, d = p.shape
+    b = p.to(torch.int32)
+    both = torch.stack([(b << 28) >> 28, b >> 4], dim=-3)  # (..., 2, S/2, D)
+    both = both.reshape(*lead, 2, pm // 32, 32, d).transpose(-4, -3)
+    return both.reshape(*lead, 2 * pm, d).to(torch.int8)
+
+
+def pack_q4_scales(s: torch.Tensor) -> torch.Tensor:
+    """Per-token scales (..., KVH, S) -> nibble planes (..., 2*KVH, S/2)."""
+    *lead, kvh, seq = s.shape
+    if seq % 64:
+        raise ValueError(f"pack_q4_scales: {seq} tokens is not a whole number "
+                         f"of 64-token windows")
+    r = s.reshape(*lead, kvh, seq // 64, 2, 32).movedim(-2, -3)
+    return r.reshape(*lead, 2 * kvh, seq // 2)
+
+
+def unpack_q4_scales(p: torch.Tensor) -> torch.Tensor:
+    """Nibble planes (..., 2*KVH, S/2) -> per-token scales (..., KVH, S)."""
+    *lead, kvh2, pm = p.shape
+    r = p.reshape(*lead, kvh2 // 2, 2, pm // 32, 32).movedim(-3, -2)
+    return r.reshape(*lead, kvh2 // 2, 2 * pm)
+
+
+def q4_row_nib(pos: torch.Tensor):
+    """Token position -> (packed row, nibble plane) under the pairing."""
+    w, j = pos >> 6, pos & 63
+    return (w << 5) + (j & 31), j >> 5
+
+
+def _q4_write(k_cache, v_cache, ks_cache, vs_cache, layer: int, pos, new_k,
+              new_v, new_ks, new_vs) -> None:
+    """Merge one token per slot (tokens pos (B,), nibbles (B, KVH, D),
+    scales (B, KVH)) into layer `layer` of the packed caches, in place: a
+    read-modify-write of each token's byte that keeps its other nibble."""
+    b, kvh = new_k.shape[:2]
+    r, nib = q4_row_nib(pos.long())
+    bidx = torch.arange(b, device=pos.device)
+    low = (nib == 0)[:, None, None]
+    for cache, new in ((k_cache, new_k), (v_cache, new_v)):
+        old = cache[layer, bidx, :, r].to(torch.int32)        # (B, KVH, D)
+        n4 = new.to(torch.int32) & 0xF
+        cache[layer, bidx, :, r] = bits_to_int8(
+            torch.where(low, (old & 0xF0) | n4, (old & 0x0F) | (n4 << 4)))
+    rows2 = 2 * torch.arange(kvh, device=pos.device)[None, :] + nib[:, None]
+    for cache, new in ((ks_cache, new_ks), (vs_cache, new_vs)):
+        cache[layer, bidx[:, None], rows2, r[:, None]] = new.to(cache.dtype)
+
+
+def _q4_layer(k_cache, v_cache, ks_cache, vs_cache, layer: int):
+    """Layer `layer` of the packed caches unpacked to token order: nibble
+    values (B, KVH, M, D) and scales (B, KVH, M)."""
+    return (unpack_q4_rows(k_cache[layer]), unpack_q4_rows(v_cache[layer]),
+            unpack_q4_scales(ks_cache[layer]),
+            unpack_q4_scales(vs_cache[layer]))
+
+
+def _check_q4(name: str, q, new_k, new_v, new_ks, new_vs, k_cache, v_cache,
+              ks_cache, vs_cache, layer, cache_len, tq=None) -> None:
+    """Shape checks shared by the int4 wrappers."""
+    b, h, d = q.shape[0], q.shape[2], q.shape[3]
+    if k_cache.dim() != 5 or v_cache.shape != k_cache.shape:
+        raise ValueError(f"{name}: caches must be (L, B, KVH, M/2, D) packed "
+                         f"and equal in shape")
+    n_layers, cb, kvh, pm, cd = k_cache.shape
+    if cb != b or cd != d or h % kvh or pm % 32:
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not fit packed "
+                         f"cache {tuple(k_cache.shape)} (M/2 must be a "
+                         f"multiple of 32)")
+    lead = (b,) if tq is None else (b, tq)
+    for key, t, shape in (("new_k", new_k, lead + (kvh, d)),
+                          ("new_v", new_v, lead + (kvh, d)),
+                          ("new_ks", new_ks, lead + (kvh,)),
+                          ("new_vs", new_vs, lead + (kvh,)),
+                          ("ks_cache", ks_cache, (n_layers, b, 2 * kvh, pm)),
+                          ("vs_cache", vs_cache, (n_layers, b, 2 * kvh, pm)),
+                          ("cache_len", cache_len, (b,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {key} {tuple(t.shape)} != {shape}")
+    if not 0 <= int(layer) < n_layers:
+        raise ValueError(f"{name}: layer {layer} out of range for {n_layers} "
+                         f"layers")
+
+
+def _check_q4_cuda(name: str, q, new_k, new_v, new_ks, new_vs, k_cache,
+                   v_cache, ks_cache, vs_cache, cache_len) -> None:
+    for key, t in (("new_k", new_k), ("new_v", new_v), ("k_cache", k_cache),
+                   ("v_cache", v_cache)):
+        if t.dtype != torch.int8:
+            raise TypeError(f"{name}: {key} must be int8")
+    for key, t in (("new_ks", new_ks), ("new_vs", new_vs),
+                   ("ks_cache", ks_cache), ("vs_cache", vs_cache)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name}: {key} must have q's dtype {q.dtype}")
+    if cache_len.dtype != torch.int32:
+        raise TypeError(f"{name}: cache_len must be int32")
+    kernels.check_cuda_inputs(
+        name, q.dtype, q=q, new_k=new_k, new_v=new_v, new_ks=new_ks,
+        new_vs=new_vs, k_cache=k_cache, v_cache=v_cache, ks_cache=ks_cache,
+        vs_cache=vs_cache, cache_len=cache_len)
+
+
+# ---------------------------------------------------------------------------
+# single-token append over the int4 cache
+# ---------------------------------------------------------------------------
+
+def paged_decode_append_q4_plain(q, new_k, new_v, new_ks, new_vs, k_cache,
+                                 v_cache, ks_cache, vs_cache, layer: int,
+                                 cache_len, scale: Optional[float] = None
+                                 ) -> torch.Tensor:
+    """The plain PyTorch version of the int4 kernel (the JAX decoder's dense
+    branch, ``decoder.py:570-597``); updates the caches in place.
+
+    Merges the new token's nibbles and scales at cache_len, unpacks the
+    layer to token order and runs ``decode_attention`` with the scales over
+    tokens [0, cache_len], in float32. The kernel sums the same terms in
+    another order (old tokens, then the new one)."""
+    m = 2 * k_cache.shape[3]
+    lens = cache_len.long().clamp(0, m - 1)
+    _q4_write(k_cache, v_cache, ks_cache, vs_cache, layer, lens, new_k, new_v,
+              new_ks, new_vs)
+    kt, vt, kst, vst = _q4_layer(k_cache, v_cache, ks_cache, vs_cache, layer)
+    mask = (torch.arange(m, device=q.device)[None, :] <= lens[:, None]).float()
+    return decode_attention(q, kt, vt, mask, scale=scale, k_scale=kst,
+                            v_scale=vst)
+
+
+@functools.cache
+def _q4_fns():
+    lib = library("decode_append_q4")
+    fn = lib.karanta_decode_append_q4
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    supported = lib.karanta_decode_q4_supported
+    supported.restype = ctypes.c_int
+    supported.argtypes = [ctypes.c_int, ctypes.c_int]
+    return fn, supported
+
+
+def paged_decode_append_q4(
+    q: torch.Tensor,          # (B, 1, H, D)
+    new_k: torch.Tensor,      # (B, KVH, D) int8 nibble values in [-7, 7]
+    new_v: torch.Tensor,      # (B, KVH, D)
+    new_ks: torch.Tensor,     # (B, KVH) row scales, the caches' scale dtype
+    new_vs: torch.Tensor,     # (B, KVH)
+    k_cache: torch.Tensor,    # (L, B, KVH, M/2, D) int8 packed, in place
+    v_cache: torch.Tensor,    # (L, B, KVH, M/2, D)
+    ks_cache: torch.Tensor,   # (L, B, 2*KVH, M/2) nibble planes, in place
+    vs_cache: torch.Tensor,   # (L, B, 2*KVH, M/2)
+    layer: int,
+    cache_len: torch.Tensor,  # (B,) int32 TOKENS already present (< M)
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Merge this step's nibbles into their bytes at token cache_len (in
+    place) and attend over the live tokens plus the new one. Returns attn
+    (B, 1, H, D). The JAX wrapper's plane-duplicated scale rows are a Mosaic
+    workaround (``:1733-1736``); this one takes the (B, KVH) scales."""
+    b, one, h, d = q.shape
+    if one != 1:
+        raise ValueError(f"paged_decode_append_q4: q {tuple(q.shape)} must "
+                         f"hold one token per slot")
+    _check_q4("paged_decode_append_q4", q, new_k, new_v, new_ks, new_vs,
+              k_cache, v_cache, ks_cache, vs_cache, layer, cache_len)
+    scale = float(d ** -0.5 if scale is None else scale)
+    if not q.is_cuda:
+        return paged_decode_append_q4_plain(
+            q, new_k, new_v, new_ks, new_vs, k_cache, v_cache, ks_cache,
+            vs_cache, int(layer), cache_len, scale)
+    _check_q4_cuda("paged_decode_append_q4", q, new_k, new_v, new_ks, new_vs,
+                   k_cache, v_cache, ks_cache, vs_cache, cache_len)
+    kvh = k_cache.shape[2]
+    fn, supported = _q4_fns()
+    if not supported(d, h // kvh):
+        raise ValueError(f"paged_decode_append_q4: no kernel for head dim {d} "
+                         f"with {h // kvh} query heads per kv head")
+    out = torch.empty_like(q)
+    code = fn(kernels.ptr(q), kernels.ptr(new_k), kernels.ptr(new_v),
+              kernels.ptr(new_ks), kernels.ptr(new_vs), kernels.ptr(k_cache),
+              kernels.ptr(v_cache), kernels.ptr(ks_cache),
+              kernels.ptr(vs_cache), kernels.ptr(cache_len), kernels.ptr(out),
+              b, kvh, h // kvh, k_cache.shape[3], d, int(layer), scale,
+              kernels.DTYPE_CODES[q.dtype], kernels.stream_ptr(q.device))
+    kernels.raise_on_error("paged_decode_append_q4", code)
+    kernels.LAUNCHES["paged_decode_append_q4"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# multi-token append over the int4 cache (the speculative verify pass)
+# ---------------------------------------------------------------------------
+
+def paged_decode_append_multi_q4_plain(q, new_k, new_v, new_ks, new_vs,
+                                       k_cache, v_cache, ks_cache, vs_cache,
+                                       layer: int, cache_len,
+                                       scale: Optional[float] = None
+                                       ) -> torch.Tensor:
+    """The plain PyTorch version of the multi-token int4 kernel (the JAX
+    decoder's dense branch, ``decoder.py:727-762``); updates the caches in
+    place. Merges the T tokens one at a time, then runs
+    ``decode_attention_multi`` with the scales over the unpacked layer, in
+    float32: query t sees tokens [0, cache_len + t]."""
+    tq = q.shape[1]
+    m = 2 * k_cache.shape[3]
+    lens = cache_len.long().clamp(0, m - tq)
+    for t in range(tq):
+        _q4_write(k_cache, v_cache, ks_cache, vs_cache, layer, lens + t,
+                  new_k[:, t], new_v[:, t], new_ks[:, t], new_vs[:, t])
+    kt, vt, kst, vst = _q4_layer(k_cache, v_cache, ks_cache, vs_cache, layer)
+    return decode_attention_multi(q, kt, vt, lens, scale=scale, k_scale=kst,
+                                  v_scale=vst)
+
+
+@functools.cache
+def _multi_q4_fns():
+    lib = library("decode_append_multi_q4")
+    fn = lib.karanta_decode_append_multi_q4
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    supported = lib.karanta_decode_multi_q4_supported
+    supported.restype = ctypes.c_int
+    supported.argtypes = [ctypes.c_int, ctypes.c_int]
+    return fn, supported
+
+
+def paged_decode_append_multi_q4(
+    q: torch.Tensor,          # (B, T, H, D)
+    new_k: torch.Tensor,      # (B, T, KVH, D) int8 nibble values in [-7, 7]
+    new_v: torch.Tensor,      # (B, T, KVH, D)
+    new_ks: torch.Tensor,     # (B, T, KVH) row scales, the caches' dtype
+    new_vs: torch.Tensor,     # (B, T, KVH)
+    k_cache: torch.Tensor,    # (L, B, KVH, M/2, D) int8 packed, in place
+    v_cache: torch.Tensor,    # (L, B, KVH, M/2, D)
+    ks_cache: torch.Tensor,   # (L, B, 2*KVH, M/2) nibble planes, in place
+    vs_cache: torch.Tensor,   # (L, B, 2*KVH, M/2)
+    layer: int,
+    cache_len: torch.Tensor,  # (B,) int32 TOKENS present before the T new
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Merge T tokens per slot at cache_len + [0, T) (in place) and attend:
+    query t sees tokens [0, cache_len + t]. Returns attn (B, T, H, D).
+
+    T <= 32, so no two fresh tokens share a byte. The caller keeps
+    cache_len + T <= M - 1 (the engine clamps exactly that); the kernel
+    clamps cache_len to M - T only so that a bad value cannot write outside
+    the slot."""
+    b, tq, h, d = q.shape
+    if not 1 <= tq <= 32:
+        raise ValueError(f"paged_decode_append_multi_q4: {tq} tokens per "
+                         f"slot; 1 to 32 fit the packing (two tokens of a "
+                         f"byte are 32 apart)")
+    _check_q4("paged_decode_append_multi_q4", q, new_k, new_v, new_ks, new_vs,
+              k_cache, v_cache, ks_cache, vs_cache, layer, cache_len, tq=tq)
+    scale = float(d ** -0.5 if scale is None else scale)
+    if not q.is_cuda:
+        return paged_decode_append_multi_q4_plain(
+            q, new_k, new_v, new_ks, new_vs, k_cache, v_cache, ks_cache,
+            vs_cache, int(layer), cache_len, scale)
+    _check_q4_cuda("paged_decode_append_multi_q4", q, new_k, new_v, new_ks,
+                   new_vs, k_cache, v_cache, ks_cache, vs_cache, cache_len)
+    kvh = k_cache.shape[2]
+    g = h // kvh
+    fn, supported = _multi_q4_fns()
+    if not supported(d, g * tq):
+        raise ValueError(f"paged_decode_append_multi_q4: no kernel for head "
+                         f"dim {d} with {g} query heads per kv head x {tq} "
+                         f"tokens")
+    out = torch.empty_like(q)
+    code = fn(kernels.ptr(q), kernels.ptr(new_k), kernels.ptr(new_v),
+              kernels.ptr(new_ks), kernels.ptr(new_vs), kernels.ptr(k_cache),
+              kernels.ptr(v_cache), kernels.ptr(ks_cache),
+              kernels.ptr(vs_cache), kernels.ptr(cache_len), kernels.ptr(out),
+              b, tq, kvh, g, k_cache.shape[3], d, int(layer), scale,
+              kernels.DTYPE_CODES[q.dtype], kernels.stream_ptr(q.device))
+    kernels.raise_on_error("paged_decode_append_multi_q4", code)
+    kernels.LAUNCHES["paged_decode_append_multi_q4"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# read-only decode attention over a cache in the activations' dtype
+# ---------------------------------------------------------------------------
+
+def paged_decode_attention_plain(q, k_cache, v_cache, cache_len,
+                                 scale: Optional[float] = None
+                                 ) -> torch.Tensor:
+    """The plain PyTorch version of kernels #8 and #9 over a per-slot cache
+    (B, KVH, M, D): dense attention over rows [0, cache_len], in float32.
+    The JAX kernels round the probabilities to the value dtype before the PV
+    product (``decode_attention.py:107``, ``:244``); the port keeps them in
+    float32, as kernel #5 (``paged_decode_append``) does."""
+    m = k_cache.shape[2]
+    lens = cache_len.long().clamp(0, m - 1)
+    mask = (torch.arange(m, device=q.device)[None, :] <= lens[:, None]).float()
+    return decode_attention(q, k_cache, v_cache, mask, scale=scale)
+
+
+def paged_decode_attention_stacked_plain(q, k_cache, v_cache, layer: int,
+                                         cache_len,
+                                         scale: Optional[float] = None
+                                         ) -> torch.Tensor:
+    """The plain version of kernel #9: kernel #8's over layer `layer`."""
+    return paged_decode_attention_plain(q, k_cache[layer], v_cache[layer],
+                                        cache_len, scale)
+
+
+@functools.cache
+def _attention_fns():
+    lib = library("decode_attention")
+    per_slot = lib.karanta_decode_attention
+    per_slot.restype = ctypes.c_int
+    per_slot.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    stacked = lib.karanta_decode_attention_stacked
+    stacked.restype = ctypes.c_int
+    stacked.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    supported = lib.karanta_decode_attention_supported
+    supported.restype = ctypes.c_int
+    supported.argtypes = [ctypes.c_int, ctypes.c_int]
+    return per_slot, stacked, supported
+
+
+def _attention_launch(name: str, q, k_cache, v_cache, cache_len,
+                      layer: Optional[int], scale: float) -> torch.Tensor:
+    """Launch kernel #8 (layer None, cache (B, KVH, M, D)) or #9 (cache
+    (L, B, KVH, M, D) at `layer`)."""
+    b, _, h, d = q.shape
+    kvh, m = k_cache.shape[-3], k_cache.shape[-2]
+    for key, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name}: {key} must have q's dtype {q.dtype}")
+    if cache_len.dtype != torch.int32:
+        raise TypeError(f"{name}: cache_len must be int32")
+    per_slot, stacked, supported = _attention_fns()
+    if not supported(d, h // kvh):
+        raise ValueError(f"{name}: no kernel for head dim {d} with "
+                         f"{h // kvh} query heads per kv head")
+    kernels.check_cuda_inputs(name, q.dtype, q=q, k_cache=k_cache,
+                              v_cache=v_cache, cache_len=cache_len)
+    out = torch.empty_like(q)
+    args = (kernels.ptr(q), kernels.ptr(k_cache), kernels.ptr(v_cache),
+            kernels.ptr(cache_len), kernels.ptr(out), b, kvh, h // kvh, m, d)
+    tail = (scale, kernels.DTYPE_CODES[q.dtype], kernels.stream_ptr(q.device))
+    if layer is None:
+        code = per_slot(*args, *tail)
+    else:
+        code = stacked(*args, int(layer), *tail)
+    kernels.raise_on_error(name, code)
+    kernels.LAUNCHES[name] += 1
+    return out
+
+
+def _check_attention(name: str, q, k_cache, v_cache, cache_len, n_lead: int
+                     ) -> None:
+    b, one, h, d = q.shape
+    if k_cache.dim() != 4 + n_lead or v_cache.shape != k_cache.shape:
+        raise ValueError(f"{name}: caches must be "
+                         f"{'(L, ' if n_lead else '('}B, KVH, M, D) and equal "
+                         f"in shape")
+    cb, kvh, _, cd = k_cache.shape[n_lead:]
+    if one != 1 or cb != b or cd != d or h % kvh:
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not fit cache "
+                         f"{tuple(k_cache.shape)}")
+    if tuple(cache_len.shape) != (b,):
+        raise ValueError(f"{name}: cache_len {tuple(cache_len.shape)} != "
+                         f"{(b,)}")
+
+
+def paged_decode_attention(
+    q: torch.Tensor,          # (B, 1, H, D)
+    k_cache: torch.Tensor,    # (B, KVH, M, D)
+    v_cache: torch.Tensor,    # (B, KVH, M, D)
+    cache_len: torch.Tensor,  # (B,) int32: this step's row sits AT this index
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Length-bounded decode attention over per-slot caches: slot b attends
+    rows [0, cache_len[b]]. Returns attn (B, 1, H, D)."""
+    _check_attention("paged_decode_attention", q, k_cache, v_cache, cache_len,
+                     0)
+    scale = float(q.shape[-1] ** -0.5 if scale is None else scale)
+    if not q.is_cuda:
+        return paged_decode_attention_plain(q, k_cache, v_cache, cache_len,
+                                            scale)
+    return _attention_launch("paged_decode_attention", q, k_cache, v_cache,
+                             cache_len, None, scale)
+
+
+def paged_decode_attention_stacked(
+    q: torch.Tensor,          # (B, 1, H, D)
+    k_cache: torch.Tensor,    # (L, B, KVH, M, D), read in place
+    v_cache: torch.Tensor,    # (L, B, KVH, M, D)
+    layer: int,
+    cache_len: torch.Tensor,  # (B,) int32
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Kernel #8 reading layer `layer` of the stacked cache in place (no
+    per-layer slice is made). Returns attn (B, 1, H, D); the caches are not
+    written, so unlike the JAX function it does not return them."""
+    _check_attention("paged_decode_attention_stacked", q, k_cache, v_cache,
+                     cache_len, 1)
+    if not 0 <= int(layer) < k_cache.shape[0]:
+        raise ValueError(f"paged_decode_attention_stacked: layer {layer} out "
+                         f"of range for {k_cache.shape[0]} layers")
+    scale = float(q.shape[-1] ** -0.5 if scale is None else scale)
+    if not q.is_cuda:
+        return paged_decode_attention_stacked_plain(q, k_cache, v_cache,
+                                                    int(layer), cache_len,
+                                                    scale)
+    return _attention_launch("paged_decode_attention_stacked", q, k_cache,
+                             v_cache, cache_len, int(layer), scale)

@@ -197,3 +197,59 @@ def test_append_plain_matches_pallas(layer, lens):
     np.testing.assert_array_equal(tk.numpy(), np.asarray(k2))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(v2))
     np.testing.assert_array_equal(tk.numpy(), np.asarray(k_ref))
+
+
+@pytest.mark.parametrize("lens", [[5, 200, 511, 0], [63, 64, 65, 255]])
+def test_read_only_plain_matches_pallas(lens):
+    """Kernel #8's plain version (through its wrapper on CPU tensors) against
+    the JAX Pallas kernel (``interpret=True``) and the dense reference, at
+    the shape of the JAX package's own test, float32: atol 3e-6."""
+    from karanta_tpu.ops.decode_attention import (
+        paged_decode_attention as j_paged,
+    )
+    from karanta_tpu_torch.ops.decode_attention import paged_decode_attention
+
+    rng = np.random.default_rng(0)
+    B, M, H, KVH, D = 4, 512, 8, 2, 64
+    q = rng.normal(size=(B, 1, H, D)).astype(np.float32)
+    k = rng.normal(size=(B, KVH, M, D)).astype(np.float32)
+    v = rng.normal(size=(B, KVH, M, D)).astype(np.float32)
+    lens_j = jnp.asarray(lens, jnp.int32)
+    attn_j = j_paged(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), lens_j,
+                     block=128, interpret=True)
+    mask = (jnp.arange(M)[None, :] <= lens_j[:, None]).astype(jnp.float32)
+    want = j_decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              mask)
+    got = paged_decode_attention(_t(q), _t(k), _t(v),
+                                 torch.tensor(lens, dtype=torch.int32))
+    np.testing.assert_allclose(got.numpy(), np.asarray(attn_j), atol=3e-6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-6)
+
+
+def test_stacked_plain_matches_pallas():
+    """Kernel #9's plain version against the JAX stacked kernel at layer 2
+    (``interpret=True``): atol 2e-6, caches untouched."""
+    from karanta_tpu.ops.decode_attention import (
+        paged_decode_attention_stacked as j_stacked,
+    )
+    from karanta_tpu_torch.ops.decode_attention import (
+        paged_decode_attention_stacked)
+
+    rng = np.random.default_rng(1)
+    L, B, M, H, KVH, D = 3, 4, 256, 8, 2, 64
+    q = rng.normal(size=(B, 1, H, D)).astype(np.float32)
+    k = rng.normal(size=(L, B, KVH, M, D)).astype(np.float32)
+    v = rng.normal(size=(L, B, KVH, M, D)).astype(np.float32)
+    lens = [5, 100, 255, 64]
+    attn_j, _, _ = j_stacked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             jnp.asarray(2), jnp.asarray(lens, jnp.int32),
+                             block=128, interpret=True)
+    tk, tv = _t(k), _t(v)
+    got = paged_decode_attention_stacked(_t(q), tk, tv, 2,
+                                         torch.tensor(lens, dtype=torch.int32))
+    np.testing.assert_allclose(got.numpy(), np.asarray(attn_j), atol=2e-6)
+    np.testing.assert_array_equal(tk.numpy(), k)
+    np.testing.assert_array_equal(tv.numpy(), v)
+    with pytest.raises(ValueError, match="layer"):
+        paged_decode_attention_stacked(_t(q), tk, tv, 3,
+                                       torch.tensor(lens, dtype=torch.int32))

@@ -5,7 +5,9 @@ equal the JAX engine's on the tiny config (float32, int8 weights, W8A8
 prefill and head, int8 KV cache), for a text request and a page image; with
 n-gram speculation over the int8 and the float cache they equal the JAX
 speculative engine's and the port's own per-step decoding; prefix caching
-changes no token.
+changes no token. Over the int4 cache the tokens equal the JAX int4
+engine's with and without speculation and with the prefix cache, and both
+engines refuse the same int4 configurations.
 """
 
 import base64
@@ -107,8 +109,8 @@ def test_unported_features_raise():
     tok = _NoStop()
     cfg = tiny_config(vocab_size=tok.vocab_size)
     params = {"text": {"layers": {"attn": {"wq": None}}}}
-    for bad in (dict(kv_quantize="int4"), dict(teacher_force=True),
-                dict(prefill_batch=4), dict(vision_quant="int8")):
+    for bad in (dict(teacher_force=True), dict(prefill_batch=4),
+                dict(vision_quant="int8")):
         kw = {**dict(kv_quantize="int8"), **bad}
         with pytest.raises(NotImplementedError):
             Engine(params, cfg, tok, EngineConfig(**kw), device="cpu")
@@ -315,3 +317,71 @@ def test_prefix_cache_keeps_tokens_and_hits(tiny_weights, kv):
                          prefix_min_tokens=500, **kw)
     short.generate(reqs[:2])
     assert len(short._prefix_kv) == 0
+
+
+# ---------------------------------------------------------------------------
+# the int4 KV cache
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("gamma,prefix", [(0, False), (3, False), (3, True)])
+def test_int4_engine_matches_jax(tiny_weights, gamma, prefix):
+    """Greedy tokens over the int4 cache (kernels #6 and #7's plain
+    versions) equal the JAX int4 engine's (its dense nibble paths), with and
+    without speculation and with the prefix cache; with speculation the
+    acceptance counts agree too."""
+    w = tiny_weights
+    if prefix:
+        # pages sharing an instruction head: the second reuses its rows
+        kw = dict(max_batch_size=1, max_seq_len=256, decode_chunk=4,
+                  prefill_buckets=(32, 64, 128, 256),
+                  image_token_buckets=(16,), prefix_cache=True,
+                  prefix_min_tokens=16)
+        msgs = [_prefix_request(t).messages for t in ("alpha", "beta")]
+        n = 10
+    else:
+        kw = dict(SPEC_KW)
+        msgs = _spec_msgs()
+        n = 24
+    kw.update(kv_quantize="int4", speculative_ngram=gamma)
+    jeng = JEngine(w["jparams"], w["jcfg"], w["jtok"],
+                   JEngineConfig(dtype=jnp.float32, **kw))
+    want = jeng.generate([JGenRequest(messages=m, max_tokens=n,
+                                      request_id=str(i))
+                          for i, m in enumerate(msgs)])
+    eng = _port_engine(w, **kw)
+    got = eng.generate([GenRequest(messages=m, max_tokens=n,
+                                   request_id=str(i))
+                        for i, m in enumerate(msgs)])
+    assert tuple(eng.cache.k.shape[-2:]) == (kw["max_seq_len"] // 2,
+                                             w["cfg"].text.head_dim)
+    for a, b in zip(want, got):
+        assert len(b.token_ids) == n
+        assert b.token_ids == a.token_ids
+    if gamma:
+        assert (eng.spec_passes, eng.spec_tokens) == (jeng.spec_passes,
+                                                      jeng.spec_tokens)
+    if prefix:
+        assert len(eng._prefix_kv) == 1
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(max_seq_len=64, speculative_ngram=2), "128"),
+    (dict(max_seq_len=320), "256"),
+])
+def test_int4_limits_match_jax(kw, match):
+    """The JAX engine's int4 limits, with the same messages."""
+    jtok = _NoStopJ()
+    jcfg = j_tiny_config(vocab_size=jtok.vocab_size)
+    jparams = j_init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
+    with pytest.raises(ValueError, match=match) as want:
+        JEngine(jparams, jcfg, jtok, JEngineConfig(
+            max_batch_size=2, dtype=jnp.float32, kv_quantize="int4", **kw))
+    tok = _NoStop()
+    cfg = tiny_config(vocab_size=tok.vocab_size)
+    params = from_jax_params(jax.tree.map(np.asarray, jparams), cfg,
+                             device="cpu", dtype=torch.float32)
+    with pytest.raises(ValueError, match=match) as got:
+        Engine(params, cfg, tok, EngineConfig(
+            max_batch_size=2, dtype=torch.float32, kv_quantize="int4", **kw),
+            device="cpu")
+    assert str(got.value) == str(want.value)

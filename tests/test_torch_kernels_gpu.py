@@ -187,3 +187,98 @@ def test_append_kernel_matches_plain(cuda, dtype, shape):
     _assert_close(got, want, dtype)
     for x, y in zip(a, c):
         assert torch.equal(x, y)
+
+
+def _q4_inputs(gen, dev, dtype, n_layers, b, kvh, m, d, lead):
+    """Random int4 caches in the packed layout (random bytes: both nibbles
+    in [-8, 7]), scales in [0.01, 0.1), and new rows quantized to int4."""
+    from karanta_tpu_torch.models.qwen25_vl.decoder import quantize_kv_rows_q4
+
+    def packed():
+        return torch.randint(-128, 128, (n_layers, b, kvh, m // 2, d),
+                             generator=gen, device=dev, dtype=torch.int8)
+
+    def scales():
+        return (torch.rand((n_layers, b, 2 * kvh, m // 2), generator=gen,
+                           device=dev) * 0.09 + 0.01).to(dtype)
+
+    nkq, nks = quantize_kv_rows_q4(torch.randn(lead + (kvh, d),
+                                               generator=gen, device=dev))
+    nvq, nvs = quantize_kv_rows_q4(torch.randn(lead + (kvh, d),
+                                               generator=gen, device=dev))
+    return ([packed(), packed(), scales(), scales()],
+            (nkq, nvq, nks.to(dtype), nvs.to(dtype)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [
+    # (layers, b, m, h, kvh, d, lens): the window and row-tile boundaries,
+    # the JAX test's shape, the 7B heads
+    (2, 8, 128, 4, 2, 16, [0, 1, 31, 32, 33, 63, 64, 127]),
+    (2, 4, 256, 8, 2, 64, [0, 5, 200, 255]),
+    (2, 4, 512, 28, 4, 128, [0, 95, 300, 511]),
+])
+def test_q4_kernel_matches_plain(cuda, dtype, shape):
+    n_layers, b, m, h, kvh, d, lens = shape
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    a, new = _q4_inputs(gen, cuda, dtype, n_layers, b, kvh, m, d, (b,))
+    c = [x.clone() for x in a]
+    q = _randn(gen, (b, 1, h, d), cuda, dtype)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    got = DA.paged_decode_append_q4(q, *new, *a, 1, lens)
+    want = DA.paged_decode_append_q4_plain(q, *new, *c, 1, lens)
+    torch.cuda.synchronize()
+    _assert_close(got, want, dtype)
+    for x, y in zip(a, c):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [
+    # (layers, b, m, h, kvh, d, tq, lens): the JAX test's window-crossing
+    # spans (tiny heads), then the 7B verify pass at cache_len 0 and M - T - 1
+    (2, 4, 256, 4, 2, 16, 5, [31, 32, 63, 127]),
+    (2, 4, 256, 4, 2, 16, 4, [60, 62, 95, 126]),
+    (2, 4, 256, 4, 2, 16, 3, [0, 5, 200, 248]),
+    (2, 4, 512, 28, 4, 128, 4, [0, 61, 300, 507]),
+])
+def test_multi_q4_kernel_matches_plain(cuda, dtype, shape):
+    n_layers, b, m, h, kvh, d, tq, lens = shape
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    a, new = _q4_inputs(gen, cuda, dtype, n_layers, b, kvh, m, d, (b, tq))
+    c = [x.clone() for x in a]
+    q = _randn(gen, (b, tq, h, d), cuda, dtype)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    got = DA.paged_decode_append_multi_q4(q, *new, *a, 1, lens)
+    want = DA.paged_decode_append_multi_q4_plain(q, *new, *c, 1, lens)
+    torch.cuda.synchronize()
+    _assert_close(got, want, dtype)
+    for x, y in zip(a, c):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [
+    # (layers, b, m, h, kvh, d, lens)
+    (3, 4, 512, 8, 2, 64, [5, 200, 511, 0]),
+    (3, 4, 256, 4, 2, 16, [63, 64, 65, 255]),
+    (3, 6, 512, 28, 4, 128, [0, 1, 130, 300, 511, 64]),
+])
+def test_read_only_kernels_match_plain(cuda, dtype, shape):
+    """Kernels #8 (per-slot cache) and #9 (layer 2 of the stacked cache)
+    against their plain version; neither writes the caches."""
+    n_layers, b, m, h, kvh, d, lens = shape
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    k = _randn(gen, (n_layers, b, kvh, m, d), cuda, dtype)
+    v = _randn(gen, (n_layers, b, kvh, m, d), cuda, dtype)
+    q = _randn(gen, (b, 1, h, d), cuda, dtype)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    k0, v0 = k.clone(), v.clone()
+    want = DA.paged_decode_attention_stacked_plain(q, k, v, 2, lens)
+    got = DA.paged_decode_attention_stacked(q, k, v, 2, lens)
+    per_slot = DA.paged_decode_attention(q, k[2].contiguous(),
+                                         v[2].contiguous(), lens)
+    torch.cuda.synchronize()
+    _assert_close(got, want, dtype)
+    _assert_close(per_slot, want, dtype)
+    assert torch.equal(k, k0) and torch.equal(v, v0)

@@ -288,3 +288,124 @@ def test_prefill_with_prefix_matches_jax_and_full_prefill(jparams,
                                    atol=2e-5, rtol=1e-4)
         np.testing.assert_allclose(kv_t.k.numpy(), kv_full.k.numpy(),
                                    atol=2e-5)
+
+
+def _q4_caches(rng, batch, m):
+    """A populated int4 cache (random packed bytes and scales in
+    [0.01, 0.1), the JAX package's own test inputs) for both packages."""
+    shape = (JCFG.text.num_layers, batch, JCFG.text.num_kv_heads, m // 2,
+             JCFG.text.head_dim)
+    sshape = shape[:2] + (2 * JCFG.text.num_kv_heads, m // 2)
+    jc = jdec.Q4KVCache(
+        jnp.asarray(rng.integers(-128, 128, size=shape), jnp.int8),
+        jnp.asarray(rng.integers(-128, 128, size=shape), jnp.int8),
+        jnp.asarray(rng.uniform(0.01, 0.1, size=sshape), jnp.float32),
+        jnp.asarray(rng.uniform(0.01, 0.1, size=sshape), jnp.float32))
+    return jc, dec.Q4KVCache(_t(jc.k), _t(jc.v), _t(jc.ks), _t(jc.vs))
+
+
+def test_decode_steps_over_int4_cache_match_jax(jparams):
+    """A prompt's rows packed by q4_pack_prefill, then three decode steps
+    over the int4 cache (kernel #6's plain version; the JAX decode_step's
+    dense nibble path): hidden states within atol/rtol 2e-4, packed caches
+    bit-equal, scales within 1e-6."""
+    batch, m = 2, 128
+    emb, pos, _ = _prompt(batch=batch, s=12, pad=0)
+    jtext = j_quantize_decoder_params(jparams["text"])
+    text = from_jax_params(_np({"text": jtext, "visual": jparams["visual"]}),
+                           CFG, "cpu", torch.float32)["text"]
+    _, pre = jdec.prefill_forward(jtext, JCFG.text, jnp.asarray(emb),
+                                  jnp.asarray(pos))
+    k4, v4, ks4, vs4 = jdec.q4_pack_prefill(pre.k, pre.v)
+    ps = k4.shape[-2]
+    jc = jdec.Q4KVCache.zeros(JCFG.text, batch, m, jnp.float32)
+    jc = jdec.Q4KVCache(jc.k.at[:, :, :, :ps].set(k4),
+                        jc.v.at[:, :, :, :ps].set(v4),
+                        jc.ks.at[:, :, :, :ps].set(ks4),
+                        jc.vs.at[:, :, :, :ps].set(vs4))
+    tc = dec.Q4KVCache.zeros(CFG.text, batch, m, torch.float32)
+    tk4, tv4, tks4, tvs4 = dec.q4_pack_prefill(_t(pre.k), _t(pre.v))
+    for dst, src in ((tc.k, tk4), (tc.v, tv4), (tc.ks, tks4), (tc.vs, tvs4)):
+        dst[:, :, :, :ps] = src.to(dst.dtype)
+    _assert_caches(tc, jc, True)
+    lens = np.asarray([12, 9], np.int32)
+    rng = np.random.default_rng(9)
+    for step in range(3):
+        x = rng.normal(size=(batch, 1, JCFG.text.hidden_size))
+        x = x.astype(np.float32)
+        p = (pos[:, :, -1] + 1 + step).astype(np.int32)
+        h_j, jc = jdec.decode_step(jtext, JCFG.text, jnp.asarray(x),
+                                   jnp.asarray(p), jc, jnp.asarray(lens))
+        h_t, tc = dec.decode_step(text, CFG.text, _t(x), _t(p), tc,
+                                  _t(lens))
+        np.testing.assert_allclose(h_t.numpy(), np.asarray(h_j), atol=2e-4,
+                                   rtol=2e-4)
+        lens = lens + 1
+    _assert_caches(tc, jc, True)
+
+
+@pytest.mark.parametrize("act_quant", [False, True])
+def test_decode_multi_over_int4_cache_matches_jax(jparams, act_quant):
+    """The verify pass (T = 4) over the int4 cache, one slot's span crossing
+    a 64-token window (lens 7 and 62): kernel #7's plain version against
+    the JAX decode_multi's dense nibble path; tolerances as for the int8
+    cache."""
+    batch, m, tq = 2, 128, 4
+    rng = np.random.default_rng(5)
+    jc, tc = _q4_caches(rng, batch, m)
+    jtext = (j_quantize_decoder_params(jparams["text"]) if act_quant
+             else jparams["text"])
+    text = from_jax_params(_np({"text": jtext, "visual": jparams["visual"]}),
+                           CFG, "cpu", torch.float32)["text"]
+    emb = rng.normal(size=(batch, tq, JCFG.text.hidden_size))
+    emb = emb.astype(np.float32)
+    pos = rng.integers(0, 40, size=(3, batch, tq)).astype(np.int32)
+    lens = np.asarray([7, 62], np.int32)
+    h_j, jc = jdec.decode_multi(jtext, JCFG.text, jnp.asarray(emb),
+                                jnp.asarray(pos), jc, jnp.asarray(lens),
+                                act_quant=act_quant)
+    h_t, tc = dec.decode_multi(text, CFG.text, _t(emb), _t(pos), tc,
+                               _t(lens), act_quant=act_quant)
+    tol = 2e-3 if act_quant else 2e-4
+    np.testing.assert_allclose(h_t.numpy(), np.asarray(h_j), atol=tol,
+                               rtol=2e-4)
+    _assert_caches(tc, jc, True)
+
+
+def test_stacked_decode_mode_equals_default(jparams, monkeypatch):
+    """KARANTA_PAGED_DECODE=stacked (scatter + kernel #9's plain version)
+    gives the default mode's hidden states and caches within 1e-6 (kernel
+    #5's plain version sums in another order, and a layer's rows follow
+    the layers below it); the JAX package's dense mode "0" is not ported and
+    raises; other values raise ValueError; the quantized caches ignore the
+    variable."""
+    batch, m = 2, 64
+    text = from_jax_params(_np(jparams), CFG, "cpu", torch.float32)["text"]
+    rng = np.random.default_rng(8)
+    x = _t(rng.normal(size=(batch, 1, JCFG.text.hidden_size))
+           .astype(np.float32))
+    p = _t(np.asarray([[20, 41]] * 3, np.int32))
+    lens = _t(np.asarray([20, 41], np.int32))
+    out = {}
+    for mode in (None, "1", "stacked"):
+        if mode is None:
+            monkeypatch.delenv("KARANTA_PAGED_DECODE", raising=False)
+        else:
+            monkeypatch.setenv("KARANTA_PAGED_DECODE", mode)
+        _, tc = _random_caches(np.random.default_rng(4), False, batch, m)
+        h, tc = dec.decode_step(text, CFG.text, x, p, tc, lens)
+        out[mode] = (h, tc)
+    for mode in ("1", "stacked"):
+        np.testing.assert_allclose(out[mode][0].numpy(), out[None][0].numpy(),
+                                   atol=1e-6)
+        for part in ("k", "v"):
+            np.testing.assert_allclose(getattr(out[mode][1], part).numpy(),
+                                       getattr(out[None][1], part).numpy(),
+                                       atol=1e-6)
+    for mode, err in (("0", NotImplementedError), ("dense", ValueError)):
+        monkeypatch.setenv("KARANTA_PAGED_DECODE", mode)
+        _, tc = _random_caches(np.random.default_rng(4), False, batch, m)
+        with pytest.raises(err, match="ROADMAP" if mode == "0" else "dense"):
+            dec.decode_step(text, CFG.text, x, p, tc, lens)
+        _, qc = _random_caches(np.random.default_rng(4), True, batch, m)
+        dec.decode_step(text, CFG.text, x, p, qc, lens)

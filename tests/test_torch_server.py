@@ -111,13 +111,14 @@ def _completions(port, bodies):
     return out
 
 
-@pytest.fixture(scope="module")
-def servers():
+@contextlib.contextmanager
+def _server_pair(**engine_kw):
+    """The JAX server and the port's, over the same weights, running."""
     jtok = JByteTokenizer()
     jcfg = j_tiny_config(vocab_size=jtok.vocab_size)
     jparams = j_init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
     jserver = JServer(JEngine(jparams, jcfg, jtok,
-                              JEngineConfig(dtype=jnp.float32, **ENGINE_KW)),
+                              JEngineConfig(dtype=jnp.float32, **engine_kw)),
                       model_name="tiny-test")
     tok = ByteTokenizer()
     cfg = tiny_config(vocab_size=tok.vocab_size)
@@ -125,10 +126,16 @@ def servers():
                              device="cpu", dtype=torch.float32)
     server = S.InferenceServer(
         Engine(params, cfg, tok, EngineConfig(dtype=torch.float32,
-                                              **ENGINE_KW), device="cpu"),
+                                              **engine_kw), device="cpu"),
         model_name="tiny-test")
     with _running(jserver) as jport, _running(server) as port:
         yield {"jax": jport, "port": port, "server": server}
+
+
+@pytest.fixture(scope="module")
+def servers():
+    with _server_pair(**ENGINE_KW) as pair:
+        yield pair
 
 
 def test_health_models_and_metrics(servers):
@@ -162,6 +169,21 @@ def test_completions_equal_the_jax_server(servers):
             w["choices"][0]["finish_reason"]
         assert g["usage"] == w["usage"]
     assert len(servers["server"].engine._prefix_kv) >= 1
+
+
+def test_int4_completions_equal_the_jax_server():
+    """Both servers at --kv-quantize int4 with the product defaults: a text
+    and a page request (one opting out of speculation) give the same texts
+    and token counts."""
+    bodies = [_body("alpha alpha alpha", max_tokens=16),
+              _body("beta", image_seed=5, speculative=False)]
+    with _server_pair(**ENGINE_KW, kv_quantize="int4") as pair:
+        want = _completions(pair["jax"], bodies)
+        got = _completions(pair["port"], bodies)
+        assert pair["server"].engine.cache.k.shape[-2] == 128  # packed rows
+    for w, g in zip(want, got):
+        assert g["choices"][0]["message"] == w["choices"][0]["message"]
+        assert g["usage"] == w["usage"]
 
 
 def test_stream_concatenates_to_the_completion(servers):
@@ -214,6 +236,9 @@ def test_build_engine_from_args_on_cpu():
     assert engine.device.type == "cpu" and engine.ecfg.dtype == torch.float32
     assert engine.ecfg.speculative_ngram == 3 and engine.ecfg.prefix_cache
     assert engine.cache.k.dtype == torch.int8
+    args.kv_quantize = "int4"
+    engine, _ = S.build_engine_from_args(args)
+    assert engine.cache.ks.shape[2] == 2 * engine.cfg.text.num_kv_heads
     for bad in (["--model-path", "/nowhere"], ["--native-checkpoint", "x"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             S.build_engine_from_args(S.make_arg_parser().parse_args(
