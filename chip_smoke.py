@@ -6,14 +6,22 @@
 Phases (any failed check raises and the script exits non-zero):
 
 1. card: name, power limit, TF32 off for float32 products;
-2. build: nvcc builds the eight kernel sources from
+2. build: nvcc builds the nine kernel sources from
    karanta_tpu_torch/kernels/csrc, one process per source, all at once;
-3. kernels vs plain: each of the nine kernels against its plain PyTorch
+3. kernels vs plain: each of the eleven kernels against its plain PyTorch
    version at the Qwen2.5-VL-7B shapes of the paths below and at small
    ragged shapes (the int4 kernels at lengths on the 32-row and 64-token
    window boundaries); every cache a kernel writes is bit-equal to the plain
    version's; times of the kernel, the plain version and one library call
-   where there is one (a yardstick the port never uses);
+   where there is one (a yardstick the port never uses); kernels #10 and
+   #11, the decode weight streams, at full 7B width and depth: checked at
+   B = 4 over ragged lengths, timed at the JAX package's decode A/B point
+   (B = 80, 1920-row bucket filled to 1650);
+   decode-stream A/B: the megakernel step, the split decode_step and
+   dense_stream, each chained 20 times at a fixed cache_len, at B = 80 and
+   B = 4 (ms/step, GB/s of the bytes bound, peak memory, one launch of #11
+   per step and none of #3, 28 of #3 per split step), and a probe of the
+   grid barriers' cost;
 4. engine path: the port's Engine on qwen2.5-vl-7b at full width and depth
    (random int8 weights, W8A8 prefill, int8 KV cache, per-step decode)
    serves synthetic 1288x994 pages; launch counts prove the path ran
@@ -840,6 +848,436 @@ def kernel_read_only(cfg, dev, gen) -> list:
 
 
 # ---------------------------------------------------------------------------
+# kernels #10 and #11 and the decode-stream A/B (ops/decode_stream.py)
+# ---------------------------------------------------------------------------
+
+# the JAX package's decode A/B point (scratch/mega_meas.py): 80 slots, the
+# 1920-row bucket filled to 1650 rows, 20 chained steps per variant
+AB_BATCH, AB_BUCKET, AB_FILL, AB_ITERS = 80, 1920, 1650, 20
+STREAM_CHECK_LENS = [0, 33, 1390, AB_BUCKET - 1]  # B = 4, ragged
+STREAM_NORM_TOL = 2e-2  # normwise relative error after 28 layers
+
+
+def normwise(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
+def stream_work(cfg, b: int, lens, mega: bool) -> tuple[float, float]:
+    """Bytes (each input read once, each output written once: the int8
+    weights with their scales, norms and biases, the activations, and for
+    the megakernel the live K/V rows with their scales and the new rows) and
+    flops (the products, and the megakernel's attention over cache_len + 1
+    rows) of one call."""
+    t = cfg.text
+    n, h, ff, d, kvh = t.num_layers, t.hidden_size, t.intermediate_size, \
+        t.head_dim, t.num_kv_heads
+    qd, qkv = t.num_heads * d, t.num_heads * d + 2 * kvh * d
+    weights = n * (h * qkv + qd * h + 3 * h * ff)
+    n_bytes = (weights + 4 * n * (qkv + 2 * h + 2 * ff) + 2 * n * (2 * h + qkv)
+               + 2 * b * h * 2)
+    flops = 2.0 * b * weights
+    if mega:
+        n_bytes += (2 * b * d * 4 + b * 4
+                    + n * kvh * (d + 2) * 2 * (sum(lens) + b))
+        flops += 4.0 * d * t.num_heads * n * sum(x + 1 for x in lens)
+    else:
+        n_bytes += n * b * (h + qkv) * 2  # attention outputs in, qkv out
+    return n_bytes, flops
+
+
+def stream_inputs(cfg, dev, gen, b: int, lens):
+    """x (B, H) bf16, cos/sin (B, D) at positions lens, an int8 cache of
+    AB_BUCKET rows (random bytes, scales in [0.002, 0.022)), lens, and the
+    per-layer attention outputs (L, B, H) bf16 that #10 takes."""
+    from karanta_tpu_torch.ops.rotary import mrope_cos_sin
+
+    t = cfg.text
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    cos, sin = mrope_cos_sin(lens_t[None].expand(3, b), t.head_dim,
+                             t.mrope_section, t.rope_theta)
+    x = (torch.randn((b, t.hidden_size), generator=gen, device=dev)
+         * 0.3).bfloat16()
+    shape = (t.num_layers, b, t.num_kv_heads, AB_BUCKET, t.head_dim)
+    caches = [torch.randint(-127, 128, shape, generator=gen, device=dev,
+                            dtype=torch.int8) for _ in range(2)]
+    caches += [(torch.rand(shape[:-1], generator=gen, device=dev) * 0.02
+                + 0.002).bfloat16() for _ in range(2)]
+    attn = (torch.randn((t.num_layers, b, t.hidden_size), generator=gen,
+                        device=dev) * 0.3).bfloat16()
+    return x, cos.contiguous(), sin.contiguous(), caches, lens_t, attn
+
+
+def check_streams(cfg, sp, x, cos, sin, caches, lens_t, attn,
+                  label: str) -> tuple[float, float]:
+    """#10 and #11 against their plain versions on the same inputs, full
+    depth: #10's layer-0 qkv per element, its x_final and last-layer qkv
+    normwise; #11's x_final normwise, the caches outside each slot's new row
+    bit-equal to the input, layer-0 new int8 entries within one step, all
+    layers' new rows dequantized normwise; two calls of each bit-equal.
+    Then stream_layer_witness. Returns the two max abs errors."""
+    from karanta_tpu_torch.ops import decode_stream as DS
+
+    t = cfg.text
+    b = x.shape[0]
+    qd, kvd = t.num_heads * t.head_dim, t.num_kv_heads * t.head_dim
+    got_x, got_q = DS.dense_stream(x, attn, sp)
+    again = DS.dense_stream(x, attn, sp)
+    torch.cuda.synchronize()
+    want_x, want_q = DS.dense_stream_plain(x, attn, sp)
+    check_bf16(f"dense_stream {label} layer-0 qkv bf16", got_q[0], want_q[0])
+    for name, got, want in (("x_final", got_x, want_x),
+                            ("last-layer qkv", got_q[-1], want_q[-1])):
+        err = normwise(got, want)
+        log(f"  dense_stream {label} {name}: normwise rel err {err:.3e} "
+            f"(tol {STREAM_NORM_TOL})")
+        if not err <= STREAM_NORM_TOL:
+            raise AssertionError(f"dense_stream {label} {name}: normwise "
+                                 f"error {err}")
+    if not (torch.equal(got_x, again[0]) and torch.equal(got_q, again[1])):
+        raise AssertionError(f"dense_stream {label}: two calls on the same "
+                             f"inputs differ")
+    log(f"  dense_stream {label}: two calls bit-equal")
+    err10 = max(max_err(got_x, want_x), max_err(got_q, want_q))
+
+    runs = [[c.clone() for c in caches] for _ in range(3)]
+    mx = [DS.decode_megakernel(x, cos, sin, sp, *runs[i], lens_t, qd=qd,
+                               kvd=kvd)[0] for i in range(2)]
+    torch.cuda.synchronize()
+    want = DS.decode_megakernel_plain(x, cos, sin, sp, *runs[2], lens_t, qd,
+                                      kvd, t.head_dim ** -0.5)
+    err = normwise(mx[0], want)
+    per_slot = [normwise(mx[0][i], want[i]) for i in range(b)]
+    slots = ([f"{e:.2e}" for e in per_slot] if b <= 8
+             else f"worst {max(per_slot):.2e}")
+    log(f"  decode_megakernel {label} x_final: normwise rel err {err:.3e} "
+        f"(tol {STREAM_NORM_TOL}); per slot {slots}")
+    if not err <= STREAM_NORM_TOL:
+        raise AssertionError(f"decode_megakernel {label} x_final: normwise "
+                             f"error {err}")
+    if not (torch.equal(mx[0], mx[1])
+            and all(torch.equal(p, q) for p, q in zip(runs[0], runs[1]))):
+        raise AssertionError(f"decode_megakernel {label}: two calls on the "
+                             f"same inputs differ")
+    new = (torch.arange(AB_BUCKET, device=x.device)[None, :]
+           == lens_t[:, None])[None, :, None, :]              # (1, B, 1, M)
+    for part, got, plain, inp in zip(("k", "v", "ks", "vs"), runs[0],
+                                     runs[2], caches):
+        keep = ~new if got.dim() == 4 else ~new[..., None]
+        if not torch.equal(torch.where(keep, got, 0),
+                           torch.where(keep, inp, 0)):
+            raise AssertionError(f"decode_megakernel {label}: cache {part} "
+                                 f"changed outside the new rows")
+        if got.dim() == 5:
+            # (L, B, KVH, D): each layer's new row per slot
+            sel = ~keep.expand_as(got)
+            steps = (got[sel].int() - plain[sel].int()).abs().reshape(
+                t.num_layers, -1)
+            per_layer = (steps > 0).sum(dim=1).tolist()
+            log(f"  decode_megakernel {label} new {part} rows: "
+                f"{sum(per_layer)} of {steps.numel()} int8 entries differ "
+                f"from the plain version's (max {int(steps.max())} step); "
+                f"layer 0: {per_layer[0]} of {steps.shape[1]} (max "
+                f"{int(steps[0].max())}); per layer {per_layer}")
+            # layer 0 sees the same inputs in both up to float32 summation
+            # order; deeper layers see hidden states that drifted apart
+            # through earlier roundings (stream_layer_witness holds every
+            # layer to one step from matched inputs)
+            if int(steps[0].max()) > 1:
+                raise AssertionError(f"decode_megakernel {label}: layer-0 "
+                                     f"new {part} entries more than one "
+                                     f"step from the plain version's")
+            scale_k = runs[0][2 + (part == "v")]
+            scale_p = runs[2][2 + (part == "v")]
+            deq = (got[sel].float().reshape(-1, t.head_dim)
+                   * scale_k[new.expand_as(scale_k)].float()[:, None])
+            deq_p = (plain[sel].float().reshape(-1, t.head_dim)
+                     * scale_p[new.expand_as(scale_p)].float()[:, None])
+            row_err = normwise(deq, deq_p)
+            log(f"  decode_megakernel {label} new {part} rows dequantized, "
+                f"all layers: normwise rel err {row_err:.3e}")
+            if not row_err <= STREAM_NORM_TOL:
+                raise AssertionError(f"decode_megakernel {label}: new {part} "
+                                     f"rows normwise error {row_err}")
+    log(f"  decode_megakernel {label}: untouched cache entries bit-equal to "
+        f"the input; two calls bit-equal")
+    err11 = max_err(mx[0], want)
+    x_full = mx[0]
+    del runs, mx, want
+    stream_layer_witness(cfg, sp, x, cos, sin, caches, lens_t, x_full, label)
+    return err10, err11
+
+
+def stream_layer_witness(cfg, sp, x, cos, sin, caches, lens_t, x_full,
+                         label: str) -> None:
+    """Tells depth drift from a kernel fault: #11 and its plain version run
+    one layer at a time, each layer from the same input (the kernel's own
+    output of the layer before), and every layer's new int8 K/V entries are
+    held to one step of the plain version's. The chained one-layer launches
+    must give the full-depth launch's x_final bit for bit, so each layer
+    here is the arithmetic of the fused call."""
+    from karanta_tpu_torch.ops import decode_stream as DS
+
+    t = cfg.text
+    qd, kvd = t.num_heads * t.head_dim, t.num_kv_heads * t.head_dim
+    kern = [c.clone() for c in caches]
+    plain = [c.clone() for c in caches]
+    slots, rows = torch.arange(x.shape[0], device=x.device), lens_t.long()
+    h, per_layer, worst = x, [], 0
+    for l in range(t.num_layers):
+        sp_l = {k: v[l:l + 1] for k, v in sp.items()}
+        got = [c[l:l + 1] for c in kern]
+        want = [c[l:l + 1] for c in plain]
+        out = DS.decode_megakernel(h, cos, sin, sp_l, *got, lens_t, qd=qd,
+                                   kvd=kvd)[0]
+        DS.decode_megakernel_plain(h, cos, sin, sp_l, *want, lens_t, qd, kvd,
+                                   t.head_dim ** -0.5)
+        n = 0
+        for g, w in zip(got[:2], want[:2]):
+            steps = (g[0, slots, :, rows].int()
+                     - w[0, slots, :, rows].int()).abs()
+            n += int((steps > 0).sum())
+            worst = max(worst, int(steps.max()))
+        per_layer.append(n)
+        h = out
+    torch.cuda.synchronize()
+    same = torch.equal(h, x_full)
+    log(f"  decode_megakernel {label} layer by layer from matched inputs: "
+        f"new K/V entries that differ per layer {per_layer} of "
+        f"{2 * x.shape[0] * kvd} (max {worst} step); chained one-layer "
+        f"launches bit-equal to the full-depth launch: {same}")
+    if worst > 1:
+        raise AssertionError(f"decode_megakernel {label}: from matched "
+                             f"inputs a new K/V entry is {worst} steps from "
+                             f"the plain version's")
+    if not same:
+        raise AssertionError(f"decode_megakernel {label}: chained one-layer "
+                             f"launches differ from the full-depth launch")
+
+
+def _renorm(x: torch.Tensor) -> torch.Tensor:
+    """The A/B chain's next input (scratch/mega_meas.py _norm)."""
+    xf = x.float()
+    return (xf * torch.rsqrt(xf.square().mean() + 1e-6)).to(x.dtype)
+
+
+def decode_stream_ab(cfg, dev, gen, params, sp, b: int) -> dict:
+    """The decode-stream A/B at B slots, the bucket filled to AB_FILL rows:
+    the megakernel step, the split decode_step and dense_stream, each
+    chained AB_ITERS times at a fixed cache_len (the same row is rewritten),
+    in the order mega, split, dense, split, mega. Returns ms/step (CUDA
+    events around each chain), GB/s over the bytes bound, peak memory and
+    the launches of each chain."""
+    from karanta_tpu_torch.models.qwen25_vl import decoder as dec
+    from karanta_tpu_torch.ops import decode_stream as DS
+
+    t = cfg.text
+    qd, kvd = t.num_heads * t.head_dim, t.num_kv_heads * t.head_dim
+    lens = [AB_FILL] * b
+    x0, cos, sin, caches, lens_t, attn = stream_inputs(cfg, dev, gen, b,
+                                                       lens)
+    cache = dec.QuantKVCache(*caches)
+    positions = lens_t[None].expand(3, b)
+
+    def mega(x):
+        return _renorm(DS.decode_megakernel(x, cos, sin, sp, cache.k, cache.v,
+                                            cache.ks, cache.vs, lens_t, qd=qd,
+                                            kvd=kvd)[0])
+
+    def split(x):
+        return _renorm(dec.decode_step(params, t, x[:, None], positions, cache,
+                                       lens_t)[0][:, 0])
+
+    def dense(x):
+        return _renorm(DS.dense_stream(x, attn, sp)[0])
+
+    variants = {"megakernel": (mega, {"decode_megakernel": AB_ITERS,
+                                      "paged_decode_append_quant": 0}),
+                "split": (split, {"paged_decode_append_quant":
+                                  t.num_layers * AB_ITERS,
+                                  "decode_megakernel": 0}),
+                "dense_stream": (dense, {"dense_stream": AB_ITERS})}
+    out = {}
+    for name in ("megakernel", "split", "dense_stream", "split", "megakernel"):
+        fn, want = variants[name]
+        x = fn(x0)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(AB_ITERS):
+            x = fn(x)
+        end.record()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        ms = start.elapsed_time(end) / AB_ITERS
+        if not torch.isfinite(x.float()).all():
+            raise AssertionError(f"A/B {name} B={b}: non-finite output")
+        for kname, n in want.items():
+            if launches[kname] != n:
+                raise AssertionError(f"A/B {name} B={b}: {kname} launched "
+                                     f"{launches[kname]} times, expected {n}")
+        n_bytes, _ = stream_work(cfg, b, lens, mega=name != "dense_stream")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[A/B B={b}] {name}: {ms:.3f} ms/step, "
+            f"{n_bytes / ms / 1e6:.1f} GB/s of the bytes bound "
+            f"({n_bytes / 1e9:.3f} GB, bound {n_bytes / PEAK_BYTES * 1e3:.3f} "
+            f"ms), peak {peak:.2f} GiB; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        entry = out.setdefault(name, dict(ms=[], launches=launches,
+                                          bytes=n_bytes, peak_gib=peak))
+        entry["ms"].append(ms)
+        entry["peak_gib"] = max(entry["peak_gib"], peak)
+    del cache, caches, attn
+    return out
+
+
+def barrier_probe(cfg, dev, gen) -> dict:
+    """The grid barriers' cost: both kernels at 28 layers but tiny widths
+    (hidden 256, ffn 512, one kv head with the 7B's 7 query heads of 128,
+    B = 4, a 128-row bucket), where each phase has almost no work; the time
+    per barrier (7 a layer for #11, 5 for #10) is an upper bound, since it
+    includes each phase's own least time."""
+    from karanta_tpu_torch.ops import decode_stream as DS
+    from karanta_tpu_torch.ops.quantization import quantize_weight
+
+    n, b, h, g, d, ff, m = cfg.text.num_layers, 4, 256, 7, 128, 512, 128
+    qd, kvd = g * d, d
+
+    def q(shape):
+        return quantize_weight(torch.randn((n,) + shape, generator=gen,
+                                           device=dev) * 0.05)
+
+    def small(shape):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * 0.02).bfloat16()
+
+    layers = {"ln1": small((n, h)) + 1, "ln2": small((n, h)) + 1,
+              "attn": {"wq": q((h, qd)), "wk": q((h, kvd)), "wv": q((h, kvd)),
+                       "wo": q((qd, h)), "bq": small((n, qd)),
+                       "bk": small((n, kvd)), "bv": small((n, kvd))},
+              "mlp": {"gate": q((h, ff)), "up": q((h, ff)),
+                      "down": q((ff, h))}}
+    sp = DS.pack_stream_params(layers)
+    sp_dense = DS.pack_stream_params({**layers, "attn": {
+        **layers["attn"], "wq": q((h, h)), "wo": q((h, h)),
+        "bq": small((n, h))}})
+    x = small((b, h))
+    cos = torch.ones((b, d), device=dev)
+    sin = torch.zeros((b, d), device=dev)
+    caches = [torch.zeros((n, b, 1, m, d), dtype=torch.int8, device=dev)
+              for _ in range(2)]
+    caches += [torch.ones((n, b, 1, m), dtype=torch.bfloat16, device=dev)
+               for _ in range(2)]
+    lens = torch.full((b,), 64, dtype=torch.int32, device=dev)
+    attn = small((n, b, h))
+    t_mega = cuda_ms(lambda: DS.decode_megakernel(
+        x, cos, sin, sp, *caches, lens, qd=qd, kvd=kvd), 20)
+    t_dense = cuda_ms(lambda: DS.dense_stream(x, attn, sp_dense), 20)
+    out = {"megakernel": t_mega * 1e3 / (7 * n + 0.0),
+           "dense_stream": t_dense * 1e3 / (5 * n + 0.0),
+           "megakernel_call_ms": t_mega, "dense_stream_call_ms": t_dense}
+    log(f"[streams] barrier probe at 28 layers, tiny widths: megakernel "
+        f"{t_mega:.3f} ms a call ({out['megakernel']:.2f} us per barrier, "
+        f"upper bound), dense_stream {t_dense:.3f} ms "
+        f"({out['dense_stream']:.2f} us)")
+    return out
+
+
+def phase_decode_streams(cfg, dev, gen) -> tuple[list, dict, dict]:
+    """Kernels #10 and #11 at full 7B width and depth (random int8 weights
+    from init_params_bench): checks at B = 4 with ragged lengths and at
+    the A/B point (B = 80), times there beside the plain versions and their
+    yardsticks, then the A/B at B = 80 and B = 4. Returns the two kernel
+    rows and the A/B numbers."""
+    from karanta_tpu_torch.models.qwen25_vl import decoder as dec
+    from karanta_tpu_torch.ops import decode_stream as DS
+
+    t0 = time.perf_counter()
+    params, _ = init_params_bench(cfg, torch.bfloat16, "int8", device=dev)
+    text = {"layers": params["text"]["layers"],
+            "final_norm": params["text"]["final_norm"]}
+    del params
+    sp = DS.pack_stream_params(text["layers"])
+    torch.cuda.synchronize()
+    log(f"[streams] 7B int8 decoder layers + packed copy in "
+        f"{time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    t = cfg.text
+    b, lens = len(STREAM_CHECK_LENS), STREAM_CHECK_LENS
+    errs = [check_streams(cfg, sp, *stream_inputs(cfg, dev, gen, b, lens),
+                          f"7B B={b} lens={lens}")]
+    b, lens = AB_BATCH, [AB_FILL] * AB_BATCH
+    qd, kvd = t.num_heads * t.head_dim, t.num_kv_heads * t.head_dim
+    x, cos, sin, caches, lens_t, attn = stream_inputs(cfg, dev, gen, b, lens)
+    errs.append(check_streams(cfg, sp, x, cos, sin, caches, lens_t, attn,
+                              f"7B B={b} fill {AB_FILL}"))
+    err10, err11 = (max(e) for e in zip(*errs))
+    positions = lens_t[None].expand(3, b)
+    cache = dec.QuantKVCache(*caches)
+    times = {
+        "dense_stream": (
+            cuda_ms(lambda: DS.dense_stream(x, attn, sp), 5),
+            cuda_ms(lambda: DS.dense_stream_plain(x, attn, sp), 2, 1)),
+        "decode_megakernel": (
+            cuda_ms(lambda: DS.decode_megakernel(
+                x, cos, sin, sp, *caches, lens_t, qd=qd, kvd=kvd), 5),
+            cuda_ms(lambda: DS.decode_megakernel_plain(
+                x, cos, sin, sp, *caches, lens_t, qd, kvd,
+                t.head_dim ** -0.5), 1, 1)),
+    }
+    # yardsticks: #11 beside the port's split decode_step over the same
+    # cache; #10 beside the same 28 layers' products as a loop of cuBLAS
+    # calls over weights dequantized to bf16 beforehand (out-major, x @ W.T)
+    t_split = cuda_ms(lambda: dec.decode_step(text, t, x[:, None], positions,
+                                              cache, lens_t), 5)
+    lay = text["layers"]
+    w16 = [[lay[g][n]["int8_q"][i].t().to(torch.bfloat16)
+            for g, n in (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
+                         ("attn", "wo"), ("mlp", "gate"), ("mlp", "up"),
+                         ("mlp", "down"))] for i in range(t.num_layers)]
+    h_mid = (torch.randn((b, t.intermediate_size), generator=gen, device=dev)
+             * 0.3).bfloat16()
+
+    def cublas_products():
+        for ws in w16:
+            for w in ws[:3]:
+                x @ w.t()
+            attn[0] @ ws[3].t()
+            x @ ws[4].t()
+            x @ ws[5].t()
+            h_mid @ ws[6].t()
+
+    t_lib10 = cuda_ms(cublas_products, 5)
+    del w16, cache, caches, attn
+    torch.cuda.empty_cache()
+    rows = []
+    for name, line, err, (t_k, t_p), t_l in (
+            ("dense_stream", 173, err10, times["dense_stream"], t_lib10),
+            ("decode_megakernel", 589, err11, times["decode_megakernel"],
+             t_split)):
+        bd, by = bound_ms(*stream_work(cfg, b, lens,
+                                       mega=name == "decode_megakernel"))
+        rows.append(dict(name=name, route="cuda",
+                         source="karanta_tpu_torch/kernels/csrc/"
+                                "decode_stream.cu",
+                         replaces=f"karanta_tpu/ops/decode_stream.py:{line}",
+                         max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bd,
+                         bound_by=by, library_ms=t_l))
+        log(f"  {name} B={b}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
+            f"yardstick {t_l:.3f} ms, bound {bd:.3f} ms ({by})")
+    ab = {f"B={bb}": decode_stream_ab(cfg, dev, gen, text, sp, bb)
+          for bb in (AB_BATCH, 4)}
+    barrier = barrier_probe(cfg, dev, gen)
+    del text, sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, ab, barrier
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the engine path
 # ---------------------------------------------------------------------------
 
@@ -1499,6 +1937,8 @@ def main(argv=None) -> int:
             kernel_q4(cfg, dev, gen), kernel_multi_q4(cfg, dev, gen),
             *kernel_read_only(cfg, dev, gen)]
     torch.cuda.empty_cache()
+    stream_rows, ab_stats, barrier_us = phase_decode_streams(cfg, dev, gen)
+    rows += stream_rows
     main_stats = phase_main_path(cfg, dev, args.profile)
     int8_stats = phase_served_int8(cfg, args.profile)
     int4_stats = phase_served_int4(cfg, args.profile)
@@ -1524,6 +1964,13 @@ def main(argv=None) -> int:
         "paged_decode_attention_stacked": (
             "served defaults, stacked wave",
             default_stats["stacked"]["launches"]),
+        # one launch per chained step or call at B = 80
+        "dense_stream": ("decode-stream A/B",
+                         ab_stats[f"B={AB_BATCH}"]["dense_stream"]
+                         ["launches"]),
+        "decode_megakernel": ("decode-stream A/B",
+                              ab_stats[f"B={AB_BATCH}"]["megakernel"]
+                              ["launches"]),
     }
     for row in rows:
         path, launches = paths.get(row["name"], (None, {}))
@@ -1538,7 +1985,13 @@ def main(argv=None) -> int:
                                   if k != "launches"},
                     "served_int8": int8_stats,
                     "served_int4": int4_stats,
-                    "served_defaults": default_stats}))
+                    "served_defaults": default_stats,
+                    "decode_stream_ab": {
+                        key: {name: {k: v for k, v in e.items()
+                                     if k != "launches"}
+                              for name, e in per.items()}
+                        for key, per in ab_stats.items()},
+                    "stream_barrier_us": barrier_us}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -15,7 +15,8 @@ LAUNCHES = {"window_attention": 0, "flash_attention": 0,
             "paged_decode_append_quant": 0,
             "paged_decode_append_multi_quant": 0, "paged_decode_append": 0,
             "paged_decode_append_q4": 0, "paged_decode_append_multi_q4": 0,
-            "paged_decode_attention": 0, "paged_decode_attention_stacked": 0}
+            "paged_decode_attention": 0, "paged_decode_attention_stacked": 0,
+            "dense_stream": 0, "decode_megakernel": 0}
 
 # element-type codes of the C interfaces (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("window_attention", "flash_attention", "decode_append_quant",
            "decode_append_multi_quant", "decode_append", "decode_append_q4",
-           "decode_append_multi_q4", "decode_attention")
+           "decode_append_multi_q4", "decode_attention", "decode_stream")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

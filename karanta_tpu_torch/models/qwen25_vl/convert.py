@@ -61,6 +61,29 @@ def from_jax_params(np_params: Any, cfg: VLMConfig,
     return tree_map(convert, np_params)
 
 
+def stream_params_from_jax(np_sp: dict, device: DeviceLike = None,
+                           dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The JAX ``pack_stream_params`` dict (numpy leaves) -> the port's
+    (``ops/decode_stream.pack_stream_params``): the same keys, shapes and
+    values in the stream kernels' layout. ``wqkv``/``wo``/``wd`` go through
+    ``out_major``; ``wg_t``/``wu_t`` are already (out, in) and stay
+    contiguous; float32 scales stay float32; norms and biases become
+    ``dtype``."""
+    device = resolve_device(device)
+    out = {}
+    for key, leaf in np_sp.items():
+        arr = np.asarray(leaf)
+        if arr.dtype == np.int8:
+            t = torch.from_numpy(arr.copy()).to(device)
+            out[key] = out_major(t) if key in ("wqkv", "wo", "wd") else t
+        elif key in ("qs", "os", "gs", "us", "ds"):
+            out[key] = torch.from_numpy(arr.astype(np.float32)).to(device)
+        else:
+            out[key] = torch.from_numpy(arr.astype(np.float32)).to(device,
+                                                                   dtype)
+    return out
+
+
 def _lookup(tree, path):
     for key in path:
         if not isinstance(tree, dict) or key not in tree:

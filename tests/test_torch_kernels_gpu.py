@@ -282,3 +282,124 @@ def test_read_only_kernels_match_plain(cuda, dtype, shape):
     _assert_close(got, want, dtype)
     _assert_close(per_slot, want, dtype)
     assert torch.equal(k, k0) and torch.equal(v, v0)
+
+
+# ---------------------------------------------------------------------------
+# kernels #10 and #11: the decode weight streams (ops/decode_stream.py)
+# ---------------------------------------------------------------------------
+
+def _stream_params(gen, dev, n_layers, h, qd, kvd, ff):
+    """Random int8 layers in the port's layout, packed for the streams."""
+    from karanta_tpu_torch.ops.decode_stream import pack_stream_params
+    from karanta_tpu_torch.ops.quantization import quantize_weight
+
+    def randn(shape, s):
+        return torch.randn(shape, generator=gen, device=dev) * s
+
+    def q(shape):
+        return quantize_weight(randn((n_layers,) + shape, shape[0] ** -0.5))
+
+    layers = {"ln1": (1 + 0.1 * randn((n_layers, h), 1)).bfloat16(),
+              "ln2": (1 + 0.1 * randn((n_layers, h), 1)).bfloat16(),
+              "attn": {"wq": q((h, qd)), "wk": q((h, kvd)), "wv": q((h, kvd)),
+                       "wo": q((qd, h)),
+                       "bq": randn((n_layers, qd), 0.02).bfloat16(),
+                       "bk": randn((n_layers, kvd), 0.02).bfloat16(),
+                       "bv": randn((n_layers, kvd), 0.02).bfloat16()},
+              "mlp": {"gate": q((h, ff)), "up": q((h, ff)),
+                      "down": q((ff, h))}}
+    return pack_stream_params(layers)
+
+
+def _normwise(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
+@pytest.mark.parametrize("shape", [
+    # (layers, b, h, kvd, ff): a ragged qkv width (416 = 6.5 column units),
+    # the row tiles of 1, 4, 10 and 16 rows a thread
+    (2, 3, 256, 80, 512),
+    (2, 20, 512, 128, 768),
+    (2, 80, 256, 64, 512),
+    (2, 128, 256, 64, 512),
+])
+def test_dense_stream_kernel_matches_plain(cuda, shape):
+    from karanta_tpu_torch import kernels
+    from karanta_tpu_torch.ops import decode_stream as DS
+
+    n_layers, b, h, kvd, ff = shape
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    sp = _stream_params(gen, cuda, n_layers, h, h, kvd, ff)
+    x = _randn(gen, (b, h), cuda, torch.bfloat16)
+    attn = _randn(gen, (n_layers, b, h), cuda, torch.bfloat16)
+    before = kernels.LAUNCHES["dense_stream"]
+    got_x, got_q = DS.dense_stream(x, attn, sp)
+    again_x, again_q = DS.dense_stream(x, attn, sp)
+    want_x, want_q = DS.dense_stream_plain(x, attn, sp)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["dense_stream"] == before + 2
+    _assert_close(got_q[0], want_q[0], torch.bfloat16)
+    assert _normwise(got_q, want_q) < 2e-2
+    assert _normwise(got_x, want_x) < 2e-2
+    assert torch.equal(got_x, again_x) and torch.equal(got_q, again_q)
+
+
+@pytest.mark.parametrize("shape", [
+    # (layers, b, h, kvh, g, d, ff, m, lens): the JAX test's tiny config,
+    # the 7B heads (G = 7, D = 128) on one kv head, each (D, G) at the row
+    # tiles of 1, 4, 10 and 16 rows a thread; lens outside [0, M) are
+    # clamped into it, as in the plain version
+    (2, 4, 256, 2, 2, 64, 512, 128, [0, 5, 33, 100]),
+    (2, 4, 256, 2, 2, 64, 512, 128, [128, 200, -3, 5]),
+    (2, 20, 256, 2, 2, 64, 512, 128, None),
+    (2, 80, 256, 2, 2, 64, 512, 128, None),
+    (2, 128, 256, 2, 2, 64, 512, 128, None),
+    (2, 5, 256, 1, 7, 128, 512, 256, [0, 1, 127, 128, 255]),
+    (2, 20, 256, 1, 7, 128, 512, 128, None),
+    (2, 80, 256, 1, 7, 128, 512, 128, None),
+    (2, 128, 256, 1, 7, 128, 512, 128, None),
+])
+def test_megakernel_matches_plain(cuda, shape):
+    from karanta_tpu_torch import kernels
+    from karanta_tpu_torch.ops import decode_stream as DS
+    from karanta_tpu_torch.ops.rotary import mrope_cos_sin
+
+    n_layers, b, h, kvh, g, d, ff, m, lens = shape
+    gen = torch.Generator(device=cuda).manual_seed(37)
+    if lens is None:
+        lens = torch.randint(0, m, (b,), generator=gen, device=cuda).tolist()
+    qd, kvd = kvh * g * d, kvh * d
+    sp = _stream_params(gen, cuda, n_layers, h, qd, kvd, ff)
+    x = _randn(gen, (b, h), cuda, torch.bfloat16)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    sec = (d // 8, 3 * d // 16, 3 * d // 16)
+    cos, sin = mrope_cos_sin(lens_t[None].expand(3, b), d, sec, 1e6)
+    shape5 = (n_layers, b, kvh, m, d)
+    caches = [torch.randint(-127, 128, shape5, generator=gen, device=cuda,
+                            dtype=torch.int8) for _ in range(2)]
+    caches += [(torch.rand(shape5[:-1], generator=gen, device=cuda) * 0.02
+                + 0.002).bfloat16() for _ in range(2)]
+    runs = [[c.clone() for c in caches] for _ in range(3)]
+    before = kernels.LAUNCHES["decode_megakernel"]
+    got_x = DS.decode_megakernel(x, cos, sin, sp, *runs[0], lens_t, qd=qd,
+                                 kvd=kvd)[0]
+    again_x = DS.decode_megakernel(x, cos, sin, sp, *runs[1], lens_t, qd=qd,
+                                   kvd=kvd)[0]
+    want_x = DS.decode_megakernel_plain(x, cos, sin, sp, *runs[2], lens_t,
+                                        qd, kvd, d ** -0.5)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["decode_megakernel"] == before + 2
+    assert _normwise(got_x, want_x) < 2e-2
+    assert torch.equal(got_x, again_x)
+    assert all(torch.equal(p, q) for p, q in zip(runs[0], runs[1]))
+    rows = (torch.arange(m, device=cuda)[None, :]
+            == lens_t.clamp(0, m - 1)[:, None])                     # (B, M)
+    for got, want, inp in zip(runs[0], runs[2], caches):
+        keep = ~rows[None, :, None, :]
+        if got.dim() == 5:
+            keep = keep[..., None]
+        assert torch.equal(torch.where(keep, got, 0), torch.where(keep, inp, 0))
+    for got, want in zip(runs[0][:2], runs[2][:2]):
+        new = rows[None, :, None, :, None].expand_as(got)
+        assert int((got[new].int() - want[new].int()).abs().max()) <= 1
