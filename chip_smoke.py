@@ -13,7 +13,10 @@ Phases (any failed check raises and the script exits non-zero):
    ragged shapes (the int4 kernels at lengths on the 32-row and 64-token
    window boundaries); every cache a kernel writes is bit-equal to the plain
    version's; times of the kernel, the plain version and one library call
-   where there is one (a yardstick the port never uses); kernels #10 and
+   where there is one (a yardstick the port never uses); flash attention's
+   TFLOP/s on the live pairs and share of its bound at the decoder-prefill,
+   vision-full and prefix shapes, and the registers, shared memory and
+   blocks per SM of its tensor-core instance; kernels #10 and
    #11, the decode weight streams, at full 7B width and depth: checked at
    B = 4 over ragged lengths, timed at the JAX package's decode A/B point
    (B = 80, 1920-row bucket filled to 1650);
@@ -422,22 +425,31 @@ def kernel_flash(cfg, dev, gen) -> dict:
         check(f"flash_attention ragged f32 {tuple(q.shape)} kv "
               f"{tuple(k.shape)} q_offset={q_off}", max_err(got, want),
               F32_ATOL)
+    # the bf16 instances' resources, as the CUDA runtime reports them
+    for d in sorted({t.head_dim, vc.head_dim}):
+        log(f"  flash bf16 D={d}: {A.flash_attention_info(d)}")
     # the row reports the prefill shape (28 of the 32 launches per page);
     # the vision-full and prefix numbers ride along
+    rates = {}
+    for name, (t_k, _, t_l, work) in times.items():
+        bound, _ = bound_ms(*work)
+        rates[name] = {"tflops": work[1] / t_k * 1e-9,
+                       "bound_share": bound / t_k}
+        log(f"  flash {name}: bound {bound:.4f} ms; kernel "
+            f"{rates[name]['tflops']:.1f} TFLOP/s on the live pairs, "
+            f"{100 * rates[name]['bound_share']:.1f}% of the bound; "
+            f"{t_k / t_l:.2f}x SDPA's time")
     t_k, t_p, t_l, (n_bytes, flops) = times["prefill"]
     b, by = bound_ms(n_bytes, flops)
-    extra = {}
-    for name in ("vision_full", "prefix"):
-        tv = times[name]
-        bv, _ = bound_ms(*tv[3])
-        log(f"  flash {name} bound {bv:.4f} ms")
-        extra[name] = {"ms": tv[0], "plain_ms": tv[1], "library_ms": tv[2],
-                       "bound_ms": bv}
+    extra = {name: {"ms": times[name][0], "plain_ms": times[name][1],
+                    "library_ms": times[name][2],
+                    "bound_ms": bound_ms(*times[name][3])[0], **rates[name]}
+             for name in ("vision_full", "prefix")}
     return dict(name="flash_attention", route="cuda",
                 source="karanta_tpu_torch/kernels/csrc/flash_attention.cu",
                 replaces="karanta_tpu/ops/attention.py:235",
                 max_abs_err=max(errs), ms=t_k, plain_ms=t_p, bound_ms=b,
-                bound_by=by, library_ms=t_l, **extra)
+                bound_by=by, library_ms=t_l, **rates["prefill"], **extra)
 
 
 def _decode_inputs(dev, gen, n_layers, b, kvh, m, d, h, lens, dtype):
@@ -1442,10 +1454,11 @@ def profile_run(stage: str, fn) -> None:
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     log(f"[profile] {stage}: wall {wall_ms:.2f} ms, device busy "
         f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%)")
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:14]
-    for e in top:
-        log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
-            f"{e.count:6d}x  {e.key[:90]}")
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    for i, e in enumerate(ranked):  # the top 14, and every kernel of the port
+        if i < 14 or e.key.startswith("void karanta::"):
+            log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
+                f"{e.count:6d}x  {e.key[:90]}")
 
 
 def profile_stages(engine, requests, chunk: int) -> None:

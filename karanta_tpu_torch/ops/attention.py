@@ -179,6 +179,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def flash_attention_info(d: int) -> dict:
+    """Registers and spilled bytes per thread, dynamic shared bytes per block
+    and resident blocks per SM of the flash kernel's bf16 (tensor-core)
+    instance for head dim d, as the CUDA runtime reports them (needs the
+    card)."""
+    fn = library("flash_attention").karanta_flash_attention_info
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    info = (ctypes.c_int * 4)()
+    kernels.raise_on_error("flash_attention_info", fn(d, info))
+    return dict(zip(("registers", "spill_bytes", "smem_bytes",
+                     "blocks_per_sm"), info))
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               kv_mask: Optional[torch.Tensor] = None, causal: bool = False,
               scale: Optional[float] = None, q_offset: int = 0

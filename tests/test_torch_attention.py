@@ -63,6 +63,34 @@ def test_flash_plain_matches_pallas(b, sq, sk, h, kvh, d, causal, masked,
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,masked,q_offset",
+                         FLASH_CASES)
+def test_flash_plain_matches_pallas_bf16(b, sq, sk, h, kvh, d, causal, masked,
+                                         q_offset):
+    """bf16 inputs through the plain version and the Pallas kernel, held to
+    the card's bf16 rule: per element 2^-7 |want| + 2^-9 max|want| (each
+    rounds its float32 result to bf16 once; the Pallas kernel also rounds P
+    to bf16 before P.V)."""
+    rng = np.random.default_rng(sq * 11 + d)
+    q, k, v = _qkv(rng, b, sq, sk, h, kvh, d)
+    mask = None
+    if masked:
+        mask = np.ones((b, sk), np.float32)
+        mask[-1, sk - sk // 5:] = 0.0
+        mask[0, 3] = 0.0
+    want = np.asarray(j_flash(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+        None if mask is None else jnp.asarray(mask), causal=causal,
+        q_offset=q_offset, block_q=128, block_k=128,
+        interpret=True)).astype(np.float32)
+    got = A.flash_attention(*(_t(x).to(torch.bfloat16) for x in (q, k, v)),
+                            None if mask is None else _t(mask),
+                            causal=causal, q_offset=q_offset)
+    assert got.dtype == torch.bfloat16
+    limit = 2.0 ** -7 * np.abs(want) + 2.0 ** -9 * np.abs(want).max()
+    assert (np.abs(got.float().numpy() - want) <= limit).all()
+
+
 def test_flash_plain_matches_jax_reference_dense():
     rng = np.random.default_rng(3)
     q, k, v = _qkv(rng, 1, 40, 40, 4, 2, 16)

@@ -25,17 +25,32 @@ pytestmark = pytest.mark.gpu
 DTYPES = [torch.float32, torch.bfloat16]
 
 FLASH_CASES = [
-    # (b, sq, sk, h, kvh, d, causal, masked, q_offset)
-    (1, 128, 128, 2, 2, 64, False, False, 0),
-    (1, 128, 128, 2, 2, 64, True, False, 0),
-    (2, 200, 200, 4, 2, 32, True, True, 0),
-    (1, 96, 160, 4, 1, 16, True, True, 64),
-    (2, 130, 130, 6, 2, 80, False, True, 0),
-    (1, 300, 300, 7, 1, 128, True, True, 0),
+    # (b, sq, sk, h, kvh, d, causal, mask, q_offset); mask None, "tail" (the
+    # last batch row's final fifth), "scattered" (the vision page's pattern:
+    # isolated holes, a whole dead run and a dead tail) or "all" (the last
+    # batch row has no live key, so its rows average V uniformly)
+    (1, 128, 128, 2, 2, 64, False, None, 0),
+    (1, 128, 128, 2, 2, 64, True, None, 0),
+    (2, 200, 200, 4, 2, 32, True, "tail", 0),
+    (1, 96, 160, 4, 1, 16, True, "tail", 64),
+    (2, 130, 130, 6, 2, 80, False, "tail", 0),
+    (1, 300, 300, 7, 1, 128, True, "tail", 0),
     # prefix continuation: queries over the suffix, keys prefix + suffix,
     # q_offset = prefix length, the suffix's padded tail masked
-    (1, 256, 640, 7, 1, 128, True, True, 384),
-]
+    (1, 256, 640, 7, 1, 128, True, "tail", 384),
+    # vision full layer: D = 80, the page's scattered mask, several tiles
+    (1, 640, 640, 4, 4, 80, False, "scattered", 0),
+    # decoder: D = 128, G = 7, causal, Sq not a multiple of 128, Sk < a tile
+    (1, 300, 40, 7, 1, 128, True, "tail", 0),
+    # prefix continuation with q_offset and Sk off the 64-key tile
+    (1, 200, 517, 7, 1, 128, True, "tail", 317),
+    # a batch row whose every key is masked
+    (2, 150, 100, 4, 2, 64, False, "all", 0),
+] + [
+    # each head dim over many tiles (the cp.async ring wraps), GQA, causal
+    # at a q_offset, scattered mask
+    (1, 257, 400, 4, 2, d, True, "scattered", 143)
+    for d in A.FLASH_HEAD_DIMS]
 
 
 @pytest.fixture
@@ -63,23 +78,53 @@ def _assert_close(got, want, dtype):
         f"max excess over the bf16 limit {float(excess.max()):.3e}")
 
 
+def _flash_mask(gen, kind, b, sk, dev):
+    if kind is None:
+        return None
+    mask = torch.ones(b, sk, device=dev)
+    if kind == "tail":
+        mask[-1, sk - sk // 5:] = 0.0
+    elif kind == "scattered":
+        mask = (torch.rand((b, sk), generator=gen, device=dev) > 0.25).float()
+        mask[:, sk // 3:sk // 3 + 64] = 0.0
+        mask[:, sk - sk // 7:] = 0.0
+    else:  # "all"
+        mask[-1] = 0.0
+    return mask
+
+
+def _flash_inputs(gen, case, dev, dtype):
+    b, sq, sk, h, kvh, d, causal, kind, q_offset = case
+    q = _randn(gen, (b, sq, h, d), dev, dtype)
+    k = _randn(gen, (b, sk, kvh, d), dev, dtype)
+    v = _randn(gen, (b, sk, kvh, d), dev, dtype)
+    return q, k, v, _flash_mask(gen, kind, b, sk, dev)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_kernel_matches_plain(cuda, dtype):
     gen = torch.Generator(device=cuda).manual_seed(5)
-    for b, sq, sk, h, kvh, d, causal, masked, q_offset in FLASH_CASES:
-        q = _randn(gen, (b, sq, h, d), cuda, dtype)
-        k = _randn(gen, (b, sk, kvh, d), cuda, dtype)
-        v = _randn(gen, (b, sk, kvh, d), cuda, dtype)
-        mask = None
-        if masked:
-            mask = torch.ones(b, sk, device=cuda)
-            mask[-1, sk - sk // 5:] = 0.0
+    for case in FLASH_CASES:
+        q, k, v, mask = _flash_inputs(gen, case, cuda, dtype)
+        causal, q_offset = case[6], case[8]
         got = A.flash_attention(q, k, v, mask, causal=causal,
                                 q_offset=q_offset)
         want = A.flash_attention_plain(q, k, v, mask, causal=causal,
                                        q_offset=q_offset)
         torch.cuda.synchronize()
         _assert_close(got, want, dtype)
+
+
+def test_flash_kernel_is_deterministic(cuda):
+    """Two calls give the same bits: no atomics, a fixed reduction order."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for case in (FLASH_CASES[7], FLASH_CASES[9]):
+        q, k, v, mask = _flash_inputs(gen, case, cuda, torch.bfloat16)
+        first, second = (A.flash_attention(q, k, v, mask, causal=case[6],
+                                           q_offset=case[8])
+                         for _ in range(2))
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
