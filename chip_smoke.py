@@ -15,8 +15,10 @@ Phases (any failed check raises and the script exits non-zero):
    version's; times of the kernel, the plain version and one library call
    where there is one (a yardstick the port never uses); flash attention's
    TFLOP/s on the live pairs and share of its bound at the decoder-prefill,
-   vision-full and prefix shapes, and the registers, shared memory and
-   blocks per SM of its tensor-core instance; kernels #10 and
+   vision-full and prefix shapes, window attention's TFLOP/s and the read-
+   only decode kernels' GB/s of live bytes, each with its share of the
+   bound and its ratio to SDPA's time, and the registers, shared memory and
+   blocks per SM of these three kernels' tensor-core instances; kernels #10 and
    #11, the decode weight streams, at full 7B width and depth: checked at
    B = 4 over ragged lengths, timed at the JAX package's decode A/B point
    (B = 80, 1920-row bucket filled to 1650);
@@ -316,11 +318,19 @@ def kernel_window(cfg, dev, gen) -> dict:
     n_bytes = 4 * s * h * d * 2 + 2 * s * d * 4 + s * 4
     flops = 4.0 * w * d * s * h
     b, by = bound_ms(n_bytes, flops)
+    # the bf16 instance's rate, share of the bound and resources
+    rates = {"tflops": flops / t_k * 1e-9, "bound_share": b / t_k,
+             "sdpa_ratio": t_k / t_l,
+             "resources": A.window_attention_info(d, w)}
+    log(f"  window: kernel {t_k:.4f} ms, {rates['tflops']:.1f} TFLOP/s, "
+        f"{100 * rates['bound_share']:.1f}% of the bound {b:.4f} ms; "
+        f"{rates['sdpa_ratio']:.2f}x SDPA's {t_l:.4f} ms; bf16 instance "
+        f"{rates['resources']}")
     return dict(name="window_attention", route="cuda",
                 source="karanta_tpu_torch/kernels/csrc/window_attention.cu",
                 replaces="karanta_tpu/ops/attention.py:403",
                 max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b,
-                bound_by=by, library_ms=t_l)
+                bound_by=by, library_ms=t_l, **rates)
 
 
 def _flash_case(dev, gen, b, sq, sk, h, kvh, d, dtype, live_len):
@@ -837,6 +847,7 @@ def kernel_read_only(cfg, dev, gen) -> list:
     live = sum(n + 1 for n in lens)
     n_bytes = kvh * live * d * 2 * 2 + 2 * batch * h * d * 2
     bd, by = bound_ms(n_bytes, 4.0 * d * h * live)
+    resources = DA.paged_decode_attention_info(d, h // kvh)
     rows = []
     for name, err, kernel, plain, args, line in (
             ("paged_decode_attention", err8, DA.paged_decode_attention,
@@ -849,13 +860,20 @@ def kernel_read_only(cfg, dev, gen) -> list:
         t_p = cuda_ms(lambda: plain(*args), 5)
         t_l = cuda_ms(lambda: lib(k1, v1) if line == 120
                       else lib(kc[layer], vc[layer]), 20)
+        # the bf16 instance's rate over the live bytes, share of the bound
+        rates = {"live_gbps": n_bytes / t_k * 1e-6, "bound_share": bd / t_k,
+                 "sdpa_ratio": t_k / t_l, "resources": resources}
+        log(f"  {name}: kernel {t_k:.4f} ms, {rates['live_gbps']:.0f} GB/s "
+            f"of live bytes, {100 * rates['bound_share']:.1f}% of the bound "
+            f"{bd:.4f} ms; {rates['sdpa_ratio']:.2f}x SDPA's {t_l:.4f} ms; "
+            f"bf16 instance {resources}")
         rows.append(dict(name=name, route="cuda",
                          source="karanta_tpu_torch/kernels/csrc/"
                                 "decode_attention.cu",
                          replaces=f"karanta_tpu/ops/decode_attention.py:"
                                   f"{line}",
                          max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bd,
-                         bound_by=by, library_ms=t_l))
+                         bound_by=by, library_ms=t_l, **rates))
     return rows
 
 

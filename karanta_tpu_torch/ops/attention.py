@@ -224,7 +224,10 @@ def _window_reference(q, k, v, window: int, kv_mask, scale):
 def window_attention_plain(q, k, v, window: int, kv_mask=None, scale=None,
                            cos=None, sin=None):
     """The plain PyTorch version of the window kernel: rope (when cos/sin
-    are given) rounded to the activations' dtype, then dense windows."""
+    are given) rounded to the activations' dtype, then dense windows. The
+    kernel's bf16 instance, like the TPU kernel (``attention.py:342-343``),
+    rounds the normalised probabilities to bf16 before P.V; this version
+    keeps them in float32."""
     if cos is not None:
         q, k = apply_rope(q, k, cos, sin)
     return _window_reference(q, k, v, window, kv_mask, scale)
@@ -292,6 +295,20 @@ def window_attention_kernel_call(q: torch.Tensor, k: torch.Tensor,
     kernels.raise_on_error("window_attention", code)
     kernels.LAUNCHES["window_attention"] += 1
     return out
+
+
+def window_attention_info(d: int, window: int) -> dict:
+    """Registers and spilled bytes per thread, dynamic shared bytes per block,
+    resident blocks per SM and heads per block of the window kernel's bf16
+    (tensor-core) instance for head dim d and `window`, as the CUDA runtime
+    reports them (needs the card)."""
+    fn = library("window_attention").karanta_window_attention_info
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    info = (ctypes.c_int * 5)()
+    kernels.raise_on_error("window_attention_info", fn(d, window, info))
+    return dict(zip(("registers", "spill_bytes", "smem_bytes",
+                     "blocks_per_sm", "heads_per_block"), info))
 
 
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

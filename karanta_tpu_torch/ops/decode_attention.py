@@ -768,8 +768,9 @@ def paged_decode_attention_plain(q, k_cache, v_cache, cache_len,
     """The plain PyTorch version of kernels #8 and #9 over a per-slot cache
     (B, KVH, M, D): dense attention over rows [0, cache_len], in float32.
     The JAX kernels round the probabilities to the value dtype before the PV
-    product (``decode_attention.py:107``, ``:244``); the port keeps them in
-    float32, as kernel #5 (``paged_decode_append``) does."""
+    product (``decode_attention.py:107``, ``:244``), and so does the kernels'
+    bf16 instance (relative to each warp's running max); this version keeps
+    them in float32, as kernel #5 (``paged_decode_append``) does."""
     m = k_cache.shape[2]
     lens = cache_len.long().clamp(0, m - 1)
     mask = (torch.arange(m, device=q.device)[None, :] <= lens[:, None]).float()
@@ -790,16 +791,51 @@ def _attention_fns():
     lib = library("decode_attention")
     per_slot = lib.karanta_decode_attention
     per_slot.restype = ctypes.c_int
-    per_slot.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    per_slot.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     stacked = lib.karanta_decode_attention_stacked
     stacked.restype = ctypes.c_int
-    stacked.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+    stacked.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     supported = lib.karanta_decode_attention_supported
     supported.restype = ctypes.c_int
     supported.argtypes = [ctypes.c_int, ctypes.c_int]
     return per_slot, stacked, supported
+
+
+# the bf16 instance's merge counters per (device, stream): zero between
+# calls (each call resets the ones it used), so they are allocated once
+_SPLIT_COUNTERS: dict = {}
+
+
+def _split_workspace(q, b: int, kvh: int, m: int, d: int, g: int):
+    """Partials (float32, one (O, m, l) record per slot, kv head and run of
+    the kernel's ``split_rows`` cache rows) and merge counters for the bf16
+    instance."""
+    n_runs = -(-m // paged_decode_attention_info(d, g)["split_rows"])
+    partials = torch.empty(b * kvh * n_runs * (8 * d + 16),
+                           dtype=torch.float32, device=q.device)
+    key = (q.device, torch.cuda.current_stream(q.device).cuda_stream)
+    counters = _SPLIT_COUNTERS.get(key)
+    if counters is None or counters.numel() < b * kvh:
+        counters = torch.zeros(b * kvh, dtype=torch.int32, device=q.device)
+        _SPLIT_COUNTERS[key] = counters
+    return partials, counters
+
+
+@functools.cache
+def paged_decode_attention_info(d: int, g: int) -> dict:
+    """Registers and spilled bytes per thread, dynamic shared bytes per block,
+    resident blocks per SM and cache rows per block of the read-only
+    kernels' bf16 (tensor-core) instance for head dim d with g query heads
+    per kv head, as the CUDA runtime reports them (needs the card)."""
+    fn = library("decode_attention").karanta_decode_attention_info
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    info = (ctypes.c_int * 5)()
+    kernels.raise_on_error("paged_decode_attention_info", fn(d, g, info))
+    return dict(zip(("registers", "spill_bytes", "smem_bytes",
+                     "blocks_per_sm", "split_rows"), info))
 
 
 def _attention_launch(name: str, q, k_cache, v_cache, cache_len,
@@ -820,8 +856,12 @@ def _attention_launch(name: str, q, k_cache, v_cache, cache_len,
     kernels.check_cuda_inputs(name, q.dtype, q=q, k_cache=k_cache,
                               v_cache=v_cache, cache_len=cache_len)
     out = torch.empty_like(q)
+    partials = counters = None
+    if q.dtype == torch.bfloat16:
+        partials, counters = _split_workspace(q, b, kvh, m, d, h // kvh)
     args = (kernels.ptr(q), kernels.ptr(k_cache), kernels.ptr(v_cache),
-            kernels.ptr(cache_len), kernels.ptr(out), b, kvh, h // kvh, m, d)
+            kernels.ptr(cache_len), kernels.ptr(out), kernels.ptr(partials),
+            kernels.ptr(counters), b, kvh, h // kvh, m, d)
     tail = (scale, kernels.DTYPE_CODES[q.dtype], kernels.stream_ptr(q.device))
     if layer is None:
         code = per_slot(*args, *tail)

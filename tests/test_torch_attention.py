@@ -32,6 +32,13 @@ def _qkv(rng, b, sq, sk, h, kvh, d):
     return q, k, v
 
 
+def _assert_bf16_rule(got, want):
+    """The card's bf16 rule, per element: 2^-7 |want| + 2^-9 max|want|."""
+    limit = 2.0 ** -7 * np.abs(want) + 2.0 ** -9 * np.abs(want).max()
+    assert np.isfinite(got).all() and (np.abs(got - want) <= limit).all(), (
+        f"worst error/limit {float((np.abs(got - want) / limit).max()):.3g}")
+
+
 FLASH_CASES = [
     # (b, sq, sk, h, kvh, d, causal, masked, q_offset)
     (1, 128, 128, 2, 2, 64, False, False, 0),
@@ -87,8 +94,7 @@ def test_flash_plain_matches_pallas_bf16(b, sq, sk, h, kvh, d, causal, masked,
                             None if mask is None else _t(mask),
                             causal=causal, q_offset=q_offset)
     assert got.dtype == torch.bfloat16
-    limit = 2.0 ** -7 * np.abs(want) + 2.0 ** -9 * np.abs(want).max()
-    assert (np.abs(got.float().numpy() - want) <= limit).all()
+    _assert_bf16_rule(got.float().numpy(), want)
 
 
 def test_flash_plain_matches_jax_reference_dense():
@@ -133,6 +139,39 @@ def test_window_plain_matches_pallas(rope):
                                             jnp.asarray(v), w,
                                             jnp.asarray(mask), None))
         np.testing.assert_allclose(got, ref, atol=ATOL)
+
+
+@pytest.mark.parametrize("rope", [False, True])
+def test_window_plain_matches_pallas_bf16(rope):
+    """bf16 inputs through the window plain version and the Pallas kernel,
+    with and without fused rope, held to the card's bf16 rule on rows whose
+    window has a live key (the Pallas kernel also rounds the normalised P to
+    bf16 before P.V, as the card's kernel does; the plain version does
+    not)."""
+    rng = np.random.default_rng(20 + rope)
+    b, s, h, d, w = 1, 512, 4, 80, 64
+    q, k, v = (rng.normal(size=(b, s, h, d)).astype(np.float32)
+               for _ in range(3))
+    mask = (rng.random(size=(b, s)) > 0.1).astype(np.float32)
+    mask[0, 320:384] = 0.0   # one window with no live key
+    cos = sin = None
+    if rope:
+        pos = rng.integers(0, 40, size=(s, 2)).astype(np.int32)
+        jc, js = j_vision_rope(jnp.asarray(pos), d)
+        cos, sin = np.asarray(jc)[None], np.asarray(js)[None]
+    want = np.asarray(j_window(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), w,
+        kv_mask=jnp.asarray(mask),
+        cos=None if cos is None else jnp.asarray(cos),
+        sin=None if sin is None else jnp.asarray(sin),
+        interpret=True)).astype(np.float32)
+    got = A.window_attention_kernel_call(
+        *(_t(x).to(torch.bfloat16) for x in (q, k, v)), w, kv_mask=_t(mask),
+        cos=None if cos is None else _t(cos),
+        sin=None if sin is None else _t(sin))
+    assert got.dtype == torch.bfloat16
+    rows = np.repeat(mask.reshape(b, s // w, w).max(-1) > 0, w, axis=1)
+    _assert_bf16_rule(got.float().numpy()[rows], want[rows])
 
 
 def test_wrappers_reject_bad_shapes():

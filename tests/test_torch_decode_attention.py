@@ -253,3 +253,67 @@ def test_stacked_plain_matches_pallas():
     with pytest.raises(ValueError, match="layer"):
         paged_decode_attention_stacked(_t(q), tk, tv, 3,
                                        torch.tensor(lens, dtype=torch.int32))
+
+
+def _assert_bf16_rule(got, want):
+    """The card's bf16 rule, per element: 2^-7 |want| + 2^-9 max|want|."""
+    limit = 2.0 ** -7 * np.abs(want) + 2.0 ** -9 * np.abs(want).max()
+    assert np.isfinite(got).all() and (np.abs(got - want) <= limit).all(), (
+        f"worst error/limit {float((np.abs(got - want) / limit).max()):.3g}")
+
+
+def _bf16(rng, shape):
+    x = rng.normal(size=shape).astype(np.float32)
+    return jnp.asarray(x, jnp.bfloat16), _t(x).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("lens", [[5, 200, 511, 0], [63, 64, 65, 255]])
+def test_read_only_plain_matches_pallas_bf16(lens):
+    """Kernel #8's plain version against the JAX Pallas kernel
+    (``interpret=True``) on a bf16 cache, under the card's bf16 rule (the
+    Pallas kernel rounds P to bf16 before P.V, the plain version does
+    not)."""
+    from karanta_tpu.ops.decode_attention import (
+        paged_decode_attention as j_paged,
+    )
+    from karanta_tpu_torch.ops.decode_attention import paged_decode_attention
+
+    rng = np.random.default_rng(30 + lens[0])
+    B, M, H, KVH, D = 4, 512, 8, 2, 64
+    (jq, tq), (jk, tk), (jv, tv) = (_bf16(rng, s) for s in
+                                    ((B, 1, H, D), (B, KVH, M, D),
+                                     (B, KVH, M, D)))
+    want = np.asarray(j_paged(jq, jk, jv, jnp.asarray(lens, jnp.int32),
+                              block=128, interpret=True)).astype(np.float32)
+    got = paged_decode_attention(tq, tk, tv,
+                                 torch.tensor(lens, dtype=torch.int32))
+    assert got.dtype == torch.bfloat16
+    _assert_bf16_rule(got.float().numpy(), want)
+
+
+def test_stacked_plain_matches_pallas_bf16():
+    """Kernel #9's plain version against the JAX stacked kernel at layer 2
+    (``interpret=True``) on a bf16 cache, under the card's bf16 rule; the
+    caches are untouched."""
+    from karanta_tpu.ops.decode_attention import (
+        paged_decode_attention_stacked as j_stacked,
+    )
+    from karanta_tpu_torch.ops.decode_attention import (
+        paged_decode_attention_stacked)
+
+    rng = np.random.default_rng(41)
+    L, B, M, H, KVH, D = 3, 4, 256, 8, 2, 64
+    (jq, tq), (jk, tk), (jv, tv) = (_bf16(rng, s) for s in
+                                    ((B, 1, H, D), (L, B, KVH, M, D),
+                                     (L, B, KVH, M, D)))
+    lens = [5, 100, 255, 64]
+    k0, v0 = tk.clone(), tv.clone()
+    attn_j, _, _ = j_stacked(jq, jk, jv, jnp.asarray(2),
+                             jnp.asarray(lens, jnp.int32), block=128,
+                             interpret=True)
+    got = paged_decode_attention_stacked(tq, tk, tv, 2,
+                                         torch.tensor(lens, dtype=torch.int32))
+    assert got.dtype == torch.bfloat16
+    _assert_bf16_rule(got.float().numpy(),
+                      np.asarray(attn_j).astype(np.float32))
+    assert torch.equal(tk, k0) and torch.equal(tv, v0)

@@ -147,6 +147,61 @@ def test_window_kernel_matches_plain(cuda, dtype, rope):
     _assert_close(got[rows], want[rows], dtype)
 
 
+WINDOW_CASES = [
+    # (b, s, h, d, w, rope): the vision width with a head count that does
+    # not fill the kernel's head group, the narrowest and the widest window
+    # (several 64-key score chunks), and head dims 16 and 64
+    (1, 320, 3, 80, 64, True),
+    (2, 256, 5, 80, 16, True),
+    (1, 512, 2, 80, 256, True),
+    (1, 256, 5, 16, 32, True),
+    (2, 384, 4, 64, 128, False),
+    (1, 512, 3, 16, 256, False),
+    (1, 256, 16, 64, 64, True),
+]
+
+
+def _window_inputs(gen, case, dev, dtype):
+    """q, k, v, a scattered mask whose second window has no live key, and
+    the vision rope's cos/sin (or None)."""
+    b, s, h, d, w, rope = case
+    q, k, v = (_randn(gen, (b, s, h, d), dev, dtype) for _ in range(3))
+    mask = (torch.rand((b, s), generator=gen, device=dev) > 0.25).float()
+    mask[:, w:2 * w] = 0.0
+    cos = sin = None
+    if rope:
+        pos = torch.randint(0, 40, (s, 2), generator=gen, device=dev)
+        cos, sin = vision_rope_cos_sin(pos, d)
+        cos = cos[None].expand(b, -1, -1).contiguous()
+        sin = sin[None].expand(b, -1, -1).contiguous()
+    return q, k, v, mask, cos, sin
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", WINDOW_CASES)
+def test_window_kernel_shapes_match_plain(cuda, dtype, case):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v, mask, cos, sin = _window_inputs(gen, case, cuda, dtype)
+    b, s, w = case[0], case[1], case[4]
+    got = A.window_attention_kernel_call(q, k, v, w, mask, cos=cos, sin=sin)
+    want = A.window_attention_plain(q, k, v, w, mask, cos=cos, sin=sin)
+    torch.cuda.synchronize()
+    rows = (mask.reshape(b, s // w, w).amax(-1) > 0).repeat_interleave(w, 1)
+    _assert_close(got[rows], want[rows], dtype)
+
+
+def test_window_kernel_is_deterministic(cuda):
+    """Two calls give the same bits (the 7B vision heads, rope, mask)."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v, mask, cos, sin = _window_inputs(
+        gen, (1, 512, 16, 80, 64, True), cuda, torch.bfloat16)
+    first, second = (A.window_attention_kernel_call(q, k, v, 64, mask,
+                                                    cos=cos, sin=sin)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_decode_kernel_matches_plain(cuda, dtype):
     from karanta_tpu_torch.models.qwen25_vl.decoder import quantize_kv_rows
@@ -327,6 +382,52 @@ def test_read_only_kernels_match_plain(cuda, dtype, shape):
     _assert_close(got, want, dtype)
     _assert_close(per_slot, want, dtype)
     assert torch.equal(k, k0) and torch.equal(v, v0)
+
+
+def _read_only_case(gen, dev, dtype, n_layers, b, kvh, g, m, d, lens):
+    k = _randn(gen, (n_layers, b, kvh, m, d), dev, dtype)
+    v = _randn(gen, (n_layers, b, kvh, m, d), dev, dtype)
+    q = _randn(gen, (b, 1, kvh * g, d), dev, dtype)
+    return q, k, v, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("g", [7, 8, 4, 2])
+def test_read_only_kernels_split_boundaries(cuda, dtype, g):
+    """D = 128 at layer 1 of 3, cache_len on each side of the bf16
+    instance's run of R rows (R - 1 fills one run exactly, R starts a
+    second with one row), 0 and M - 1."""
+    r = DA.paged_decode_attention_info(128, g)["split_rows"]
+    m = 4 * r
+    lens = [r - 1, r, r + 1, 0, m - 1, r - 2, 2 * r, 3 * r + 5]
+    gen = torch.Generator(device=cuda).manual_seed(31 + g)
+    q, k, v, lens = _read_only_case(gen, cuda, dtype, 3, len(lens), 2, g, m,
+                                    128, lens)
+    k0, v0 = k.clone(), v.clone()
+    want = DA.paged_decode_attention_stacked_plain(q, k, v, 1, lens)
+    got = DA.paged_decode_attention_stacked(q, k, v, 1, lens)
+    per_slot = DA.paged_decode_attention(q, k[1].contiguous(),
+                                         v[1].contiguous(), lens)
+    torch.cuda.synchronize()
+    _assert_close(got, want, dtype)
+    _assert_close(per_slot, want, dtype)
+    assert torch.equal(k, k0) and torch.equal(v, v0)
+
+
+def test_read_only_kernels_are_deterministic(cuda):
+    """Two calls of #8 and of #9 give the same bits: the runs' partials
+    merge in a fixed order, and each call leaves its counters at 0."""
+    gen = torch.Generator(device=cuda).manual_seed(37)
+    lens = torch.randint(0, 2048, (16,), generator=gen,
+                         device=cuda).tolist()
+    q, k, v, lens = _read_only_case(gen, cuda, torch.bfloat16, 2, 16, 4, 7,
+                                    2048, 128, lens)
+    k1, v1 = k[1].contiguous(), v[1].contiguous()
+    for call in (lambda: DA.paged_decode_attention_stacked(q, k, v, 1, lens),
+                 lambda: DA.paged_decode_attention(q, k1, v1, lens)):
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
 
 
 # ---------------------------------------------------------------------------
