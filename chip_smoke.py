@@ -18,7 +18,13 @@ Phases (any failed check raises and the script exits non-zero):
    vision-full and prefix shapes, window attention's TFLOP/s and the read-
    only decode kernels' GB/s of live bytes, each with its share of the
    bound and its ratio to SDPA's time, and the registers, shared memory and
-   blocks per SM of these three kernels' tensor-core instances; kernels #10 and
+   blocks per SM of these three kernels' tensor-core instances; the int8
+   verify kernel and the bf16 append kernel likewise (GB/s of live bytes,
+   share of the bound, resources; the verify kernel also at B = 32 with
+   ragged lengths, checked against its plain version; beside the append
+   kernel, SDPA over the bucket with the new row scattered, for context);
+   the split decode kernels' device time without the host's launch
+   overhead, from a CUDA graph of 20 calls; kernels #10 and
    #11, the decode weight streams, at full 7B width and depth: checked at
    B = 4 over ragged lengths, timed at the JAX package's decode A/B point
    (B = 80, 1920-row bucket filled to 1650);
@@ -179,6 +185,33 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device time of one fn() call without the host's launch overhead: fn()
+    captured `calls` times in a CUDA graph, the graph replayed `replays`
+    times between two CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
@@ -583,22 +616,67 @@ def kernel_decode_multi(cfg, dev, gen) -> dict:
 
     t_k = cuda_ms(lambda: DA.paged_decode_append_multi_quant(
         q, *new, *a, layer, lens_t), 50)
+    t_dev = graph_ms(lambda: DA.paged_decode_append_multi_quant(
+        q, *new, *a, layer, lens_t))
     t_p = cuda_ms(lambda: DA.paged_decode_append_multi_quant_plain(
         q, *new, *b_, layer, lens_t), 5)
-    live = sum(lens)
-    n_bytes = (kvh * live * (d + 2) * 2                 # old K/V rows + scales
-               + batch * tq * kvh * (d + 2) * 2 * 2     # new rows: read + write
-               + 2 * batch * tq * t.num_heads * d * 2)  # q in, attn out
-    # query t of a slot sees its cache_len old rows and fresh rows 0..t
-    pairs = sum(tq * n + tq * (tq + 1) // 2 for n in lens)
-    flops = 4.0 * d * g * kvh * pairs
+
+    def work(lens_, b):
+        n_bytes = (kvh * sum(lens_) * (d + 2) * 2       # old K/V rows + scales
+                   + b * tq * kvh * (d + 2) * 2 * 2     # new rows: read + write
+                   + 2 * b * tq * t.num_heads * d * 2)  # q in, attn out
+        # query t of a slot sees its cache_len old rows and fresh rows 0..t
+        pairs = sum(tq * n + tq * (tq + 1) // 2 for n in lens_)
+        return n_bytes, 4.0 * d * g * kvh * pairs
+
+    n_bytes, flops = work(lens, batch)
     bd, by = bound_ms(n_bytes, flops)
+    resources = DA.paged_decode_append_multi_quant_info(d, g * tq, batch, kvh,
+                                                        m)
+    del a, b_, caches
+    torch.cuda.empty_cache()
+    # the second timed shape: B = 32 slots, ragged lengths, two layers of
+    # cache (the kernel reads one)
+    b32 = 32
+    rng = np.random.default_rng(11)
+    lens32 = [0, m - tq - 1] + sorted(int(x) for x in rng.integers(
+        1, m - tq - 1, b32 - 2))
+    q3, new3, c3 = inputs(2, b32, kvh, m, d, t.num_heads, tq, torch.bfloat16)
+    l3 = torch.tensor(lens32, dtype=torch.int32, device=dev)
+    a3 = [c.clone() for c in c3]
+    got3 = DA.paged_decode_append_multi_quant(q3, *new3, *a3, 1, l3)
+    torch.cuda.synchronize()
+    want3 = DA.paged_decode_append_multi_quant_plain(q3, *new3, *c3, 1, l3)
+    err3 = check_bf16(f"paged_decode_append_multi_quant 7B B={b32} T={tq} "
+                      f"M={m} ragged bf16", got3, want3)
+    _check_caches("paged_decode_append_multi_quant B=32", a3, c3)
+    t3 = cuda_ms(lambda: DA.paged_decode_append_multi_quant(
+        q3, *new3, *a3, 1, l3), 50)
+    t3_dev = graph_ms(lambda: DA.paged_decode_append_multi_quant(
+        q3, *new3, *a3, 1, l3))
+    n3, f3 = work(lens32, b32)
+    bd3, _ = bound_ms(n3, f3)
+    res3 = DA.paged_decode_append_multi_quant_info(d, g * tq, b32, kvh, m)
+    del a3, c3
+    torch.cuda.empty_cache()
+    rates = {"device_ms": t_dev, "live_gbps": n_bytes / t_k * 1e-6,
+             "bound_share": bd / t_k, "resources": resources,
+             "b32": {"ms": t3, "device_ms": t3_dev, "bound_ms": bd3,
+                     "bound_share": bd3 / t3, "live_gbps": n3 / t3 * 1e-6,
+                     "max_abs_err": err3, "run_rows": res3["run_rows"]}}
+    log(f"  paged_decode_append_multi_quant B={batch}: kernel {t_k:.4f} ms "
+        f"({t_dev:.4f} ms of device time), {rates['live_gbps']:.0f} GB/s of "
+        f"live bytes, {100 * rates['bound_share']:.1f}% of the bound "
+        f"{bd:.4f} ms; B={b32}: {t3:.4f} ms ({t3_dev:.4f} device), "
+        f"{100 * bd3 / t3:.1f}% of its bound {bd3:.4f} ms, "
+        f"{n3 / t3 * 1e-6:.0f} GB/s; bf16 instance {resources}, runs of "
+        f"{res3['run_rows']} rows at B={b32}")
     return dict(name="paged_decode_append_multi_quant", route="cuda",
                 source="karanta_tpu_torch/kernels/csrc/"
                        "decode_append_multi_quant.cu",
                 replaces="karanta_tpu/ops/decode_attention.py:1245",
                 max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bd,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=None, **rates)
 
 
 def kernel_append(cfg, dev, gen) -> dict:
@@ -645,6 +723,8 @@ def kernel_append(cfg, dev, gen) -> dict:
 
     t_k = cuda_ms(lambda: DA.paged_decode_append(q, nk, nv, *a, layer,
                                                  lens_t), 50)
+    t_dev = graph_ms(lambda: DA.paged_decode_append(q, nk, nv, *a, layer,
+                                                    lens_t))
     t_p = cuda_ms(lambda: DA.paged_decode_append_plain(q, nk, nv, *b_, layer,
                                                        lens_t), 5)
     live = sum(lens)
@@ -653,11 +733,27 @@ def kernel_append(cfg, dev, gen) -> dict:
                + 2 * batch * h * d * 2)           # q in, attn out
     flops = 4.0 * d * h * (live + batch)
     bd, by = bound_ms(n_bytes, flops)
+    # #9's yardstick, for context only (no PyTorch call appends): SDPA over
+    # the bucket with this step's row already in the cache
+    mask = (torch.arange(m, device=dev)[None, :]
+            <= lens_t[:, None].long())[:, None, None, :]      # (B, 1, 1, M)
+    qt = q.transpose(1, 2)
+    t_sdpa = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, a[0][layer], a[1][layer], attn_mask=mask, enable_gqa=True), 20)
+    resources = DA.paged_decode_append_info(d, h // kvh)
+    rates = {"device_ms": t_dev, "live_gbps": n_bytes / t_k * 1e-6,
+             "bound_share": bd / t_k, "sdpa_after_scatter_ms": t_sdpa,
+             "sdpa_ratio": t_k / t_sdpa, "resources": resources}
+    log(f"  paged_decode_append: kernel {t_k:.4f} ms ({t_dev:.4f} ms of "
+        f"device time), {rates['live_gbps']:.0f} GB/s of live bytes, "
+        f"{100 * rates['bound_share']:.1f}% of the bound {bd:.4f} ms; "
+        f"{rates['sdpa_ratio']:.2f}x SDPA's {t_sdpa:.4f} ms over the bucket "
+        f"with the row scattered (no append); bf16 instance {resources}")
     return dict(name="paged_decode_append", route="cuda",
                 source="karanta_tpu_torch/kernels/csrc/decode_append.cu",
                 replaces="karanta_tpu/ops/decode_attention.py:582",
                 max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bd,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=None, **rates)
 
 
 def _q4_live_rows(n: int) -> int:
@@ -857,13 +953,16 @@ def kernel_read_only(cfg, dev, gen) -> list:
              DA.paged_decode_attention_stacked_plain,
              (q, kc, vc, layer, lens_t), 272)):
         t_k = cuda_ms(lambda: kernel(*args), 50)
+        t_dev = graph_ms(lambda: kernel(*args))
         t_p = cuda_ms(lambda: plain(*args), 5)
         t_l = cuda_ms(lambda: lib(k1, v1) if line == 120
                       else lib(kc[layer], vc[layer]), 20)
         # the bf16 instance's rate over the live bytes, share of the bound
-        rates = {"live_gbps": n_bytes / t_k * 1e-6, "bound_share": bd / t_k,
-                 "sdpa_ratio": t_k / t_l, "resources": resources}
-        log(f"  {name}: kernel {t_k:.4f} ms, {rates['live_gbps']:.0f} GB/s "
+        rates = {"device_ms": t_dev, "live_gbps": n_bytes / t_k * 1e-6,
+                 "bound_share": bd / t_k, "sdpa_ratio": t_k / t_l,
+                 "resources": resources}
+        log(f"  {name}: kernel {t_k:.4f} ms ({t_dev:.4f} ms of device "
+            f"time), {rates['live_gbps']:.0f} GB/s "
             f"of live bytes, {100 * rates['bound_share']:.1f}% of the bound "
             f"{bd:.4f} ms; {rates['sdpa_ratio']:.2f}x SDPA's {t_l:.4f} ms; "
             f"bf16 instance {resources}")

@@ -15,11 +15,24 @@
 // while the JAX decoder takes its Pallas kernel only from 8192 rows on (each
 // Pallas call costs ~125 us of TPU dispatch, a launch here a few us).
 //
-// Design: one block per (kv head, slot) owns that slab: it writes row
-// cache_len itself and only reads rows below it, so nothing races. The rows
-// below cache_len go through attend_rows (decode_rows.cuh, shared with the
-// read-only kernels #8 and #9); the new row folds in last, from registers.
+// The bf16 instance is decode_split_kernel (decode_split.cuh, with
+// kAppend = true), the one body it shares with the read-only kernels #8 and
+// #9: each slot's rows [0, cache_len) split into runs of 1,024 rows over
+// blocks, a cp.async ring per warp, Q.K^T and P.V on the tensor cores
+// (mma.sync bf16, float32 accumulators) with P rounded to bf16 before P.V as
+// the TPU kernel rounds it (decode_attention.py:487), and a last-block merge
+// of the runs' partials in a fixed order. The block of run 0 writes the new
+// row at cache_len (no block reads it), and the block that finishes the
+// slot folds it in last, in float32, from the inputs, then normalises.
+//
+// The float32 instance stays on the CUDA cores (the tensor cores would
+// multiply in TF32): one block per (kv head, slot) owns that slab: it writes
+// row cache_len itself and only reads rows below it, so nothing races. The
+// rows below cache_len go through attend_rows (decode_rows.cuh, shared with
+// the read-only kernels' float32 instance); the new row folds in last, from
+// registers, and the probabilities stay in float32.
 #include "decode_rows.cuh"
+#include "decode_split.cuh"
 
 namespace karanta {
 
@@ -97,17 +110,33 @@ cudaError_t launch_append(const void* q, const void* nk, const void* nv, void* k
   return cudaGetLastError();
 }
 
-#define KARANTA_APPEND_CASE(DD, GG)                                                   \
-  if (D == DD && G == GG)                                                              \
-    return launch_append<T, DD, GG>(q, nk, nv, kc, vc, lens, out, B, KVH, M, layer, \
-                                    scale, st);
-
-template <typename T>
-cudaError_t dispatch_append(int D, int G, const void* q, const void* nk, const void* nv,
-                            void* kc, void* vc, const int* lens, void* out, int B,
-                            int KVH, int M, int layer, float scale, cudaStream_t st) {
-  KARANTA_ROW_PAIRS(KARANTA_APPEND_CASE)
+template <int D, int G>
+cudaError_t launch_pair(int dtype, const void* q, const void* nk, const void* nv, void* kc,
+                        void* vc, const int* lens, void* out, float* partials, int* counters,
+                        int B, int KVH, int M, int layer, float scale, cudaStream_t st) {
+  if (dtype == kBFloat16) {
+    return launch_split<D, G, true>(q, nk, nv, kc, vc, lens, out, partials, counters, B, KVH,
+                                    M, layer, scale, st);
+  }
+  if (dtype == kFloat32) {
+    return launch_append<float, D, G>(q, nk, nv, kc, vc, lens, out, B, KVH, M, layer, scale,
+                                      st);
+  }
   return cudaErrorInvalidValue;
+}
+
+#define KARANTA_APPEND_CASE(DD, GG)                                                         \
+  if (D == DD && G == GG)                                                                    \
+    return static_cast<int>(launch_pair<DD, GG>(dtype, q, nk, nv, kc, vc, lens, out, partials, \
+                                                counters, B, KVH, M, layer, scale,           \
+                                                static_cast<cudaStream_t>(stream)));
+
+inline int append_entry(const void* q, const void* nk, const void* nv, void* kc, void* vc,
+                        const int* lens, void* out, float* partials, int* counters, int B,
+                        int KVH, int G, int M, int D, int layer, float scale, int dtype,
+                        void* stream) {
+  KARANTA_ROW_PAIRS(KARANTA_APPEND_CASE)
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 #undef KARANTA_APPEND_CASE
@@ -116,24 +145,19 @@ cudaError_t dispatch_append(int D, int G, const void* q, const void* nk, const v
 
 // C interface (loaded with ctypes). The caches are updated in place and hold
 // the activations' dtype. Returns the CUDA error code of the launch;
-// cudaErrorInvalidValue for a (D, G) pair without an instantiation.
+// cudaErrorInvalidValue for a (D, G) pair without an instantiation. The bf16
+// instance needs `partials`, float32 (B * KVH * ceil(M / split_rows) *
+// (8 D + 16), split_rows from karanta_decode_append_info), and `counters`,
+// int32 (B * KVH), zero before the first call (each call leaves them zero;
+// the read-only kernels' counters may be the same array on one stream); the
+// float32 instance ignores both.
 extern "C" int karanta_decode_append(const void* q, const void* new_k, const void* new_v,
                                      void* k_cache, void* v_cache, const int* cache_len,
-                                     void* out, int B, int KVH, int G, int M, int D,
-                                     int layer, float scale, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == karanta::kBFloat16) {
-    err = karanta::dispatch_append<__nv_bfloat16>(D, G, q, new_k, new_v, k_cache, v_cache,
-                                                  cache_len, out, B, KVH, M, layer, scale,
-                                                  st);
-  } else if (dtype == karanta::kFloat32) {
-    err = karanta::dispatch_append<float>(D, G, q, new_k, new_v, k_cache, v_cache,
-                                          cache_len, out, B, KVH, M, layer, scale, st);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+                                     void* out, float* partials, int* counters, int B,
+                                     int KVH, int G, int M, int D, int layer, float scale,
+                                     int dtype, void* stream) {
+  return karanta::append_entry(q, new_k, new_v, k_cache, v_cache, cache_len, out, partials,
+                               counters, B, KVH, G, M, D, layer, scale, dtype, stream);
 }
 
 #define KARANTA_APPEND_SUPPORTED(DD, GG) \
@@ -143,4 +167,15 @@ extern "C" int karanta_decode_append(const void* q, const void* new_k, const voi
 extern "C" int karanta_decode_append_supported(int D, int G) {
   KARANTA_ROW_PAIRS(KARANTA_APPEND_SUPPORTED)
   return 0;
+}
+
+#define KARANTA_APPEND_INFO(DD, GG) \
+  if (D == DD && G == GG) return static_cast<int>(karanta::split_info<DD, GG, true>(info));
+
+// info[5] = registers per thread, local (spilled) bytes per thread, dynamic
+// shared bytes per block, resident blocks per SM and rows per block of the
+// bf16 instance for (D, G). Returns the CUDA error code.
+extern "C" int karanta_decode_append_info(int D, int G, int* info) {
+  KARANTA_ROW_PAIRS(KARANTA_APPEND_INFO)
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -17,334 +17,20 @@
 // for about G flops, so device-memory bytes bound it:
 // KVH * sum_b (cache_len[b] + 1) * D * 2 * sizeof(T) at 3.35 TB/s.
 //
-// The bf16 instance (decode_split_kernel) is flash-decoding on the tensor
-// cores. The rows of one (slot, kv head) are split into runs of kSplitRows
-// (1,024) rows, one block of 4 warps each, so a 4,096-row slot spreads over
-// 4 blocks instead of one. The wrapper cannot read cache_len without a host
-// sync, so the grid is sized from M and a block whose run starts past its
-// slot's rows exits at once. Inside a block each warp takes every fourth
-// 16-row chunk of the run and streams it through its own cp.async ring
-// (kDecodeStages = 3 chunks of K and V, rows padded by 16 bytes for
-// conflict-free ldmatrix; rows past the slot's length are zero-filled), so
-// no block barrier sits in the row loop and the next chunks load while this
-// one computes. Q.K^T and P.V are mma.sync.m16n8k16 in bf16 with float32
-// accumulators, the flash kernel's mapping: the G query heads of the kv head
-// are rows of the 16-row A tile (G <= 8 live; the dead rows cost nothing in
-// a byte-bound kernel), K through ldmatrix is the B operand of Q.K^T, and
-// P, rounded to bf16 as the TPU kernel rounds it (decode_attention.py:107,
-// :244), is the A operand of P.V with V through ldmatrix.trans. Each warp
-// keeps an online softmax (log2 domain, ex2, quad shuffles) and a float32
-// (m, l, O); the block merges its 4 warps in shared memory in a fixed
-// order. A slot that fits in one run writes its output there; otherwise
-// the block stores its (m, l, O) partial in a float32 workspace the wrapper
-// allocates, and the last block of the (slot, kv head) to finish, which it
-// learns from a counter it then resets to 0, merges the partials in split
-// order. The merge order is fixed, so two calls give the same bits, and no
-// second launch is needed.
-//
-// Measured on the card at B = 32, M = 4096 with ragged lengths (PERF.md):
-// runs of 1,024 rows with a 3-stage ring (two blocks an SM, 150 registers)
-// were fastest; runs of 256 rows were much slower (more partials, more
-// merges), runs of 512 or 2,048 rows and rings of 2 or 4 stages a little
-// slower.
+// The bf16 instance is decode_split_kernel (decode_split.cuh, with
+// kAppend = false), the one body it shares with kernel #5's bf16 instance:
+// flash-decoding on the tensor cores, each slot's rows split into runs of
+// 1,024 over blocks, a cp.async ring per warp, a last-block merge of the
+// runs' partials in a fixed order (two calls give the same bits).
 //
 // The float32 instance (decode_attention_kernel) stays on the CUDA cores
 // (the tensor cores would multiply in TF32): one block per (kv head, slot)
 // runs attend_rows (decode_rows.cuh, shared with kernel #5) over its
 // cache_len + 1 rows and normalises, keeping the probabilities in float32.
 #include "decode_rows.cuh"
-#include "mma.cuh"
+#include "decode_split.cuh"
 
 namespace karanta {
-
-// ---------------------------------------------------------------------------
-// bf16: tensor cores, rows split over blocks
-// ---------------------------------------------------------------------------
-
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kSplitWarps = 4;
-constexpr int kSplitThreads = kSplitWarps * 32;
-// 16-row chunks a warp takes from one run, and its ring depth (measured on
-// the card: PERF.md)
-constexpr int kDecodeChunks = 16;
-constexpr int kDecodeStages = 3;
-static_assert(kDecodeStages >= 2, "the ring needs two stages");
-constexpr int kSplitRows = kSplitWarps * 16 * kDecodeChunks;
-
-template <int D>
-struct SplitTile {
-  static constexpr int kPitch = D + 8;                // shared row pitch (elements)
-  static constexpr int kStageElems = 2 * 16 * kPitch;  // K and V of one chunk
-  static constexpr size_t kSmem =
-      (16 * kPitch + static_cast<size_t>(kSplitWarps) * kDecodeStages * kStageElems) *
-      sizeof(__nv_bfloat16);
-  // one (slot, kv head, run) partial: O [8][D], m [8], l [8], float32
-  static constexpr int kPartial = 8 * D + 16;
-  // the warps' merge (O, m, l and factors of each warp, then m and l per
-  // row) reuses the ring
-  static_assert((kSplitWarps * (8 * D + 24) + 16) * sizeof(float) <=
-                    static_cast<size_t>(kSplitWarps) * kDecodeStages * kStageElems *
-                        sizeof(__nv_bfloat16),
-                "the warps' merge does not fit in the ring");
-};
-
-template <int D, int G>
-__global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(
-    const __nv_bfloat16* __restrict__ q,                                 // (B, KVH*G, D)
-    const __nv_bfloat16* __restrict__ k_cache,                           // (L, B, KVH, M, D)
-    const __nv_bfloat16* __restrict__ v_cache, const int* __restrict__ cache_len,
-    __nv_bfloat16* __restrict__ out,  // (B, KVH*G, D)
-    float* __restrict__ partials,     // (B*KVH, gridDim.x, kPartial)
-    int* __restrict__ counters,       // (B*KVH,), 0 between calls
-    int B, int KVH, int M, int layer, float scale_log2) {
-  static_assert(G <= 8, "the query heads fill at most half the 16-row tile");
-  using Tile = SplitTile<D>;
-  constexpr int P = Tile::kPitch, kVecs = D / 8, kKT = D / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [16][P]
-  __nv_bfloat16* ring = q_s + 16 * P;  // [warps][stages][K, V][16][P]
-
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  // rows [0, len]; the clamp keeps a bad value inside the slab
-  const int n_rows = min(max(cache_len[b], 0), M - 1) + 1;
-  const int r0 = split * kSplitRows;
-  if (r0 >= n_rows) return;  // past this slot's rows
-  const int r_end = min(r0 + kSplitRows, n_rows);
-  const int n_splits = (n_rows + kSplitRows - 1) / kSplitRows;
-  const int bh = b * KVH + kvh;
-  const size_t slab = ((static_cast<size_t>(layer) * B + b) * KVH + kvh) * M;
-  const __nv_bfloat16* k_rows = k_cache + slab * D;
-  const __nv_bfloat16* v_rows = v_cache + slab * D;
-
-  // this warp's chunks start at w0 + 64 i
-  constexpr int kStride = 16 * kSplitWarps;
-  const int w0 = r0 + 16 * warp;
-  const int n_mine = w0 < r_end ? (r_end - w0 + kStride - 1) / kStride : 0;
-  __nv_bfloat16* my_ring = ring + warp * kDecodeStages * Tile::kStageElems;
-  auto load_chunk = [&](int i) {
-    const int c0 = w0 + kStride * i;
-    __nv_bfloat16* ks = my_ring + (i % kDecodeStages) * Tile::kStageElems;
-    __nv_bfloat16* vs = ks + 16 * P;
-#pragma unroll
-    for (int c = lane; c < 16 * kVecs; c += 32) {
-      const int r = c / kVecs, col = (c % kVecs) * 8;
-      const bool ok = c0 + r < r_end;  // rows past the slot are zeros
-      const size_t off = static_cast<size_t>(ok ? c0 + r : r0) * D + col;
-      cp_async16(ks + r * P + col, k_rows + off, ok ? 16 : 0);
-      cp_async16(vs + r * P + col, v_rows + off, ok ? 16 : 0);
-    }
-  };
-#pragma unroll
-  for (int st = 0; st < kDecodeStages - 1; ++st) {
-    if (st < n_mine) load_chunk(st);
-    cp_async_commit();
-  }
-
-  // the G query heads as rows of the A tile, zero rows below them (loaded
-  // while the ring fills)
-  for (int c = tid; c < 16 * kVecs; c += kSplitThreads) {
-    const int r = c / kVecs, col = (c % kVecs) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < G) {
-      val = *reinterpret_cast<const uint4*>(
-          q + (static_cast<size_t>(b) * KVH * G + kvh * G + r) * D + col);
-    }
-    *reinterpret_cast<uint4*>(q_s + r * P + col) = val;
-  }
-  __syncthreads();
-  uint32_t qa[kKT][4];
-#pragma unroll
-  for (int kk = 0; kk < kKT; ++kk) {
-    ldmatrix_x4(qa[kk], q_s + (lane & 15) * P + (lane >> 4) * 8 + kk * 16);
-  }
-
-  // lane offsets as in flash_attention.cu: K as B of Q.K^T, V as B of P.V
-  const int k_lane = ((lane & 7) + ((lane >> 4) << 3)) * P + ((lane >> 3) & 1) * 8;
-  const int v_lane = ((lane & 7) + (((lane >> 3) & 1) << 3)) * P + (lane >> 4) * 8;
-  // only row g of each fragment is a query head (rows g + 8 are padding)
-  float o[D / 8][2];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = 0.f;
-  float m = kNegInf, l = 0.f;
-
-  for (int i = 0; i < n_mine; ++i) {
-    cp_async_wait<kDecodeStages - 2>();
-    __syncwarp();  // chunk i landed for every lane; chunk i - 1's stage is free
-    if (i + kDecodeStages - 1 < n_mine) load_chunk(i + kDecodeStages - 1);
-    cp_async_commit();
-    const __nv_bfloat16* ks = my_ring + (i % kDecodeStages) * Tile::kStageElems;
-    const __nv_bfloat16* vs = ks + 16 * P;
-    const int c0 = w0 + kStride * i;
-
-    // S = Q K^T over the chunk's 16 rows: fragment j, element e of row g is
-    // key c0 + 8j + 2t + e
-    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-    for (int kk = 0; kk < kKT; ++kk) {
-      uint32_t bb[4];
-      ldmatrix_x4(bb, ks + k_lane + kk * 16);
-      mma_bf16_16816(s[0], qa[kk], bb[0], bb[1]);
-      mma_bf16_16816(s[1], qa[kk], bb[2], bb[3]);
-    }
-    float mx = m;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool live = c0 + 8 * j + 2 * t + e < r_end;
-        s[j][e] = live ? s[j][e] * scale_log2 : -CUDART_INF_F;
-        mx = fmaxf(mx, s[j][e]);
-      }
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float alpha = fast_exp2(m - mx);
-    m = mx;
-    l *= alpha;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[j][e] = fast_exp2(s[j][e] - mx);
-        l += s[j][e];  // this lane's share of the row sum, unrounded P
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= alpha;
-      o[n][1] *= alpha;
-    }
-    // O += P V: P rounded to bf16, the padding rows zero
-    const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), 0u, pack_bf16(s[1][0], s[1][1]), 0u};
-#pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
-      uint32_t bb[4];
-      ldmatrix_x4_trans(bb, vs + v_lane + np * 16);
-      float c0f[4] = {o[2 * np][0], o[2 * np][1], 0.f, 0.f};
-      float c1f[4] = {o[2 * np + 1][0], o[2 * np + 1][1], 0.f, 0.f};
-      mma_bf16_16816(c0f, pa, bb[0], bb[1]);
-      mma_bf16_16816(c1f, pa, bb[2], bb[3]);
-      o[2 * np][0] = c0f[0];
-      o[2 * np][1] = c0f[1];
-      o[2 * np + 1][0] = c1f[0];
-      o[2 * np + 1][1] = c1f[1];
-    }
-  }
-  cp_async_wait<0>();
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  l += __shfl_xor_sync(0xffffffffu, l, 2);
-
-  // merge the 4 warps in shared memory (the ring is free), warp order fixed
-  __syncthreads();
-  float* red_o = reinterpret_cast<float*>(ring);  // [warps][8][D]
-  float* red_m = red_o + kSplitWarps * 8 * D;     // [warps][8]
-  float* red_l = red_m + kSplitWarps * 8;         // [warps][8]
-  float* fac = red_l + kSplitWarps * 8;           // [warps][8]
-  float* row_m = fac + kSplitWarps * 8;           // [8]
-  float* row_l = row_m + 8;                       // [8]
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    *reinterpret_cast<float2*>(red_o + (warp * 8 + g) * D + 8 * n + 2 * t) =
-        make_float2(o[n][0], o[n][1]);
-  }
-  if (t == 0) {
-    red_m[warp * 8 + g] = m;
-    red_l[warp * 8 + g] = l;
-  }
-  __syncthreads();
-  if (tid < G) {
-    float mx = red_m[tid];
-    for (int w = 1; w < kSplitWarps; ++w) mx = fmaxf(mx, red_m[w * 8 + tid]);
-    float sum = 0.f;
-    for (int w = 0; w < kSplitWarps; ++w) {
-      const float f = fast_exp2(red_m[w * 8 + tid] - mx);  // a warp without rows: 0
-      fac[w * 8 + tid] = f;
-      sum += red_l[w * 8 + tid] * f;
-    }
-    row_m[tid] = mx;
-    row_l[tid] = sum;
-  }
-  __syncthreads();
-  __nv_bfloat16* out_bh = out + static_cast<size_t>(bh) * G * D;
-  float* part = partials + (static_cast<size_t>(bh) * gridDim.x + split) * Tile::kPartial;
-  for (int e = tid; e < G * D; e += kSplitThreads) {
-    const int gg = e / D, d = e % D;
-    float acc = 0.f;
-    for (int w = 0; w < kSplitWarps; ++w) acc += red_o[(w * 8 + gg) * D + d] * fac[w * 8 + gg];
-    if (n_splits == 1) {
-      out_bh[e] = __float2bfloat16_rn(acc / row_l[gg]);  // >= 1: the max row's exp2(0)
-    } else {
-      part[gg * D + d] = acc;
-    }
-  }
-  if (n_splits == 1) return;
-  if (tid < G) {
-    part[8 * D + tid] = row_m[tid];
-    part[8 * D + 8 + tid] = row_l[tid];
-  }
-
-  // the last block of this (slot, kv head) merges the runs' partials
-  __shared__ int is_last;
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) is_last = atomicAdd(counters + bh, 1) == n_splits - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-  const float* parts = partials + static_cast<size_t>(bh) * gridDim.x * Tile::kPartial;
-  for (int e = tid; e < G * D; e += kSplitThreads) {
-    const int gg = e / D;
-    float mx = kNegInf;
-    for (int sp = 0; sp < n_splits; ++sp) {
-      mx = fmaxf(mx, __ldcg(parts + sp * Tile::kPartial + 8 * D + gg));
-    }
-    float acc = 0.f, sum = 0.f;
-    for (int sp = 0; sp < n_splits; ++sp) {
-      const float* ps = parts + sp * Tile::kPartial;
-      const float f = fast_exp2(__ldcg(ps + 8 * D + gg) - mx);
-      acc += __ldcg(ps + e) * f;
-      sum += __ldcg(ps + 8 * D + 8 + gg) * f;
-    }
-    out_bh[e] = __float2bfloat16_rn(acc / sum);
-  }
-  if (tid == 0) counters[bh] = 0;  // ready for the next call
-}
-
-template <int D, int G>
-cudaError_t launch_split(const void* q, const void* kc, const void* vc, const int* lens,
-                         void* out, float* partials, int* counters, int B, int KVH, int M,
-                         int layer, float scale, cudaStream_t stream) {
-  using Tile = SplitTile<D>;
-  auto kernel = decode_split_kernel<D, G>;
-  cudaError_t err = allow_smem(kernel, Tile::kSmem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((M + kSplitRows - 1) / kSplitRows, KVH, B);
-  kernel<<<grid, kSplitThreads, Tile::kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kc),
-      static_cast<const __nv_bfloat16*>(vc), lens, static_cast<__nv_bfloat16*>(out),
-      partials, counters, B, KVH, M, layer, scale * kLog2e);
-  return cudaGetLastError();
-}
-
-// registers, local (spilled) bytes, dynamic shared bytes, resident blocks per
-// SM and rows per run of the bf16 instance
-template <int D, int G>
-cudaError_t split_info(int* info) {
-  using Tile = SplitTile<D>;
-  const void* fn = reinterpret_cast<const void*>(decode_split_kernel<D, G>);
-  cudaError_t err = allow_smem(decode_split_kernel<D, G>, Tile::kSmem);
-  cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
-  if (err != cudaSuccess) return err;
-  info[0] = attr.numRegs;
-  info[1] = static_cast<int>(attr.localSizeBytes);
-  info[2] = static_cast<int>(Tile::kSmem);
-  info[4] = kSplitRows;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[3], fn, kSplitThreads,
-                                                       Tile::kSmem);
-}
 
 // ---------------------------------------------------------------------------
 // float32: CUDA cores (attend_rows, shared with kernel #5)
@@ -396,8 +82,8 @@ cudaError_t launch_pair(int dtype, const void* q, const void* kc, const void* vc
                         const int* lens, void* out, float* partials, int* counters, int B,
                         int KVH, int M, int layer, float scale, cudaStream_t st) {
   if (dtype == kBFloat16) {
-    return launch_split<D, G>(q, kc, vc, lens, out, partials, counters, B, KVH, M, layer,
-                              scale, st);
+    return launch_split<D, G, false>(q, nullptr, nullptr, kc, vc, lens, out, partials,
+                                     counters, B, KVH, M, layer, scale, st);
   }
   if (dtype == kFloat32) {
     return launch_attention<float, D, G>(q, kc, vc, lens, out, B, KVH, M, layer, scale, st);
@@ -460,7 +146,7 @@ extern "C" int karanta_decode_attention_supported(int D, int G) {
 }
 
 #define KARANTA_ATTENTION_INFO(DD, GG) \
-  if (D == DD && G == GG) return static_cast<int>(karanta::split_info<DD, GG>(info));
+  if (D == DD && G == GG) return static_cast<int>(karanta::split_info<DD, GG, false>(info));
 
 // info[5] = registers per thread, local (spilled) bytes per thread, dynamic
 // shared bytes per block, resident blocks per SM and rows per block of the

@@ -1,7 +1,8 @@
 // Length-bounded decode attention of one (slot, kv head) over the rows of its
-// cache slab, for a cache in the activations' dtype T (the bf16 KV cache).
-// Shared by decode_append.cu (kernel #5: append, then attend) and
-// decode_attention.cu (kernels #8 and #9: attend over rows already written).
+// cache slab, for a cache in the activations' dtype T. Shared by the float32
+// instances of decode_append.cu (kernel #5: append, then attend) and
+// decode_attention.cu (kernels #8 and #9: attend over rows already written);
+// their bf16 instances run decode_split.cuh.
 //
 // One block of kRowThreads threads per (kv head, slot). Rows stream in chunks
 // of 16 KB per cache, staged in shared memory with 16-byte loads; eight lanes

@@ -192,7 +192,10 @@ def paged_decode_append_multi_quant_plain(q, new_k, new_v, new_ks, new_vs,
     Writes the T rows at cache_len + [0, T), sums the old rows
     [0, cache_len) for all T queries, then folds the fresh rows in one at a
     time, t_k = 0..T-1, each dequantized in float32 and visible to the
-    queries t_q >= t_k, as the kernel does."""
+    queries t_q >= t_k, as the kernel does. The kernel's bf16 instance, like
+    the JAX kernel (``decode_attention.py:1192``), rounds p * vsc to bf16
+    before P.V (relative to each warp's running max); this version keeps it
+    in float32."""
     b, tq, h, d = q.shape
     kvh, m = k_cache.shape[2], k_cache.shape[3]
     g = h // kvh
@@ -239,12 +242,64 @@ def _multi_fns():
     lib = library("decode_append_multi_quant")
     fn = lib.karanta_decode_append_multi_quant
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     supported = lib.karanta_decode_multi_supported
     supported.restype = ctypes.c_int
     supported.argtypes = [ctypes.c_int, ctypes.c_int]
     return fn, supported
+
+
+# the bf16 instance's partial record holds this many query rows (G * T);
+# it folds in at most this many fresh rows
+MULTI_PARTIAL_ROWS = 32
+MULTI_MAX_TOKENS = 8
+# The bf16 instance's run-length rule (measured on an H100 at B = 1..64,
+# M = 4096 with ``python -m karanta_tpu_torch.bench.verify_runs``): the
+# shortest run of cache rows, a power of two from MULTI_MIN_RUN to
+# MULTI_MAX_RUN, that gives at most one live block per two SMs when the
+# slots are half full (B * KVH * ceil(M / 2 / run) blocks); longer if a
+# slot would otherwise have more runs than the last block can merge.
+# Shorter runs put more SMs to work; longer runs leave fewer partials for
+# the last block of a slot to merge, which costs more than it saves.
+MULTI_MIN_RUN, MULTI_MAX_RUN = 256, 1024
+
+
+@functools.cache
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def multi_quant_run_rows(b: int, kvh: int, m: int, n_sm: int,
+                         max_runs: int) -> int:
+    """Rows per run of the multi-token kernel's bf16 instance for B slots,
+    KVH kv heads and M cache rows on a card with n_sm SMs (the rule above)."""
+    run = MULTI_MIN_RUN
+    while run < MULTI_MAX_RUN and 2 * b * kvh * -(-m // (2 * run)) > n_sm:
+        run *= 2
+    while -(-m // run) > max_runs:
+        run *= 2
+    return run
+
+
+@functools.cache
+def paged_decode_append_multi_quant_info(d: int, nq: int,
+                                         b: Optional[int] = None,
+                                         kvh: Optional[int] = None,
+                                         m: Optional[int] = None) -> dict:
+    """Registers and spilled bytes per thread, dynamic shared bytes per block,
+    resident blocks per SM and the most runs a slot may have of the
+    multi-token kernel's bf16 (tensor-core) instance for head dim d with
+    nq = G * T query rows per kv head, as the CUDA runtime reports them
+    (needs the card); given a shape (B slots, KVH kv heads, M cache rows),
+    also its rows per run on the current card."""
+    info = _info("decode_append_multi_quant",
+                 "karanta_decode_append_multi_quant_info", d, nq, "max_runs")
+    if b is not None:
+        info["run_rows"] = multi_quant_run_rows(
+            b, kvh, m, _sm_count(torch.cuda.current_device()),
+            info["max_runs"])
+    return info
 
 
 def paged_decode_append_multi_quant(
@@ -313,17 +368,30 @@ def paged_decode_append_multi_quant(
         raise ValueError(f"paged_decode_append_multi_quant: no kernel for "
                          f"head dim {d} with {g} query heads per kv head x "
                          f"{tq} tokens")
+    if q.dtype == torch.bfloat16 and tq > MULTI_MAX_TOKENS:
+        raise ValueError(f"paged_decode_append_multi_quant: the bf16 kernel "
+                         f"folds in at most {MULTI_MAX_TOKENS} fresh rows, "
+                         f"not {tq}")
     kernels.check_cuda_inputs(
         "paged_decode_append_multi_quant", q.dtype, q=q, new_k=new_k,
         new_v=new_v, new_ks=new_ks, new_vs=new_vs, k_cache=k_cache,
         v_cache=v_cache, ks_cache=ks_cache, vs_cache=vs_cache,
         cache_len=cache_len)
     out = torch.empty_like(q)
+    partials = counters = None
+    run_rows = 0
+    if q.dtype == torch.bfloat16:
+        run_rows = multi_quant_run_rows(
+            b, kvh, m, _sm_count(q.device),
+            paged_decode_append_multi_quant_info(d, g * tq)["max_runs"])
+        partials, counters = _split_workspace(q, b * kvh, -(-m // run_rows),
+                                              MULTI_PARTIAL_ROWS)
     code = fn(kernels.ptr(q), kernels.ptr(new_k), kernels.ptr(new_v),
               kernels.ptr(new_ks), kernels.ptr(new_vs), kernels.ptr(k_cache),
               kernels.ptr(v_cache), kernels.ptr(ks_cache),
               kernels.ptr(vs_cache), kernels.ptr(cache_len), kernels.ptr(out),
-              b, tq, kvh, g, m, d, int(layer), scale,
+              kernels.ptr(partials), kernels.ptr(counters),
+              b, tq, kvh, g, m, d, int(layer), run_rows, scale,
               kernels.DTYPE_CODES[q.dtype], kernels.stream_ptr(q.device))
     kernels.raise_on_error("paged_decode_append_multi_quant", code)
     kernels.LAUNCHES["paged_decode_append_multi_quant"] += 1
@@ -339,7 +407,10 @@ def paged_decode_append_plain(q, new_k, new_v, k_cache, v_cache, layer: int,
                               ) -> torch.Tensor:
     """The plain PyTorch version of the bf16-cache kernel; updates the caches
     in place. The new row is cast to the cache dtype, written at cache_len,
-    and folded in after the old rows [0, cache_len), as the kernel does."""
+    and folded in after the old rows [0, cache_len), as the kernel does. The
+    kernel's bf16 instance, like the JAX kernel (``decode_attention.py:487``),
+    rounds P to bf16 before P.V (relative to each warp's running max); this
+    version keeps it in float32."""
     b, _, h, d = q.shape
     kvh, m = k_cache.shape[2], k_cache.shape[3]
     g = h // kvh
@@ -376,12 +447,21 @@ def _append_fns():
     lib = library("decode_append")
     fn = lib.karanta_decode_append
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     supported = lib.karanta_decode_append_supported
     supported.restype = ctypes.c_int
     supported.argtypes = [ctypes.c_int, ctypes.c_int]
     return fn, supported
+
+
+@functools.cache
+def paged_decode_append_info(d: int, g: int) -> dict:
+    """The resources of the bf16-cache append kernel's bf16 instance (the
+    read-only kernels' body with the append), as
+    ``paged_decode_attention_info`` reports them (needs the card)."""
+    return _info("decode_append", "karanta_decode_append_info", d, g,
+                 "split_rows")
 
 
 def paged_decode_append(
@@ -439,10 +519,15 @@ def paged_decode_append(
         "paged_decode_append", q.dtype, q=q, new_k=new_k, new_v=new_v,
         k_cache=k_cache, v_cache=v_cache, cache_len=cache_len)
     out = torch.empty_like(q)
+    partials = counters = None
+    if q.dtype == torch.bfloat16:
+        runs = -(-m // paged_decode_append_info(d, h // kvh)["split_rows"])
+        partials, counters = _split_workspace(q, b * kvh, runs,
+                                              SPLIT_PARTIAL_ROWS)
     code = fn(kernels.ptr(q), kernels.ptr(new_k), kernels.ptr(new_v),
               kernels.ptr(k_cache), kernels.ptr(v_cache),
-              kernels.ptr(cache_len), kernels.ptr(out),
-              b, kvh, h // kvh, m, d, int(layer), scale,
+              kernels.ptr(cache_len), kernels.ptr(out), kernels.ptr(partials),
+              kernels.ptr(counters), b, kvh, h // kvh, m, d, int(layer), scale,
               kernels.DTYPE_CODES[q.dtype], kernels.stream_ptr(q.device))
     kernels.raise_on_error("paged_decode_append", code)
     kernels.LAUNCHES["paged_decode_append"] += 1
@@ -803,24 +888,36 @@ def _attention_fns():
     return per_slot, stacked, supported
 
 
-# the bf16 instance's merge counters per (device, stream): zero between
-# calls (each call resets the ones it used), so they are allocated once
+# the split kernels' merge counters per (device, stream): zero between calls
+# (each call resets the ones it used), so they are allocated once and shared
+# by kernels #4, #5, #8 and #9 on one stream
 _SPLIT_COUNTERS: dict = {}
+# the read-only and bf16-append kernels' partial record holds 8 query rows
+SPLIT_PARTIAL_ROWS = 8
 
 
-def _split_workspace(q, b: int, kvh: int, m: int, d: int, g: int):
-    """Partials (float32, one (O, m, l) record per slot, kv head and run of
-    the kernel's ``split_rows`` cache rows) and merge counters for the bf16
-    instance."""
-    n_runs = -(-m // paged_decode_attention_info(d, g)["split_rows"])
-    partials = torch.empty(b * kvh * n_runs * (8 * d + 16),
+def _split_workspace(q, n_slabs: int, n_runs: int, rows: int):
+    """Partials (float32: one record (O [rows][D], m [rows], l [rows]) per
+    (slot, kv head) slab and run of cache rows) and merge counters for a
+    bf16 split kernel."""
+    partials = torch.empty(n_slabs * n_runs * rows * (q.shape[-1] + 2),
                            dtype=torch.float32, device=q.device)
     key = (q.device, torch.cuda.current_stream(q.device).cuda_stream)
     counters = _SPLIT_COUNTERS.get(key)
-    if counters is None or counters.numel() < b * kvh:
-        counters = torch.zeros(b * kvh, dtype=torch.int32, device=q.device)
+    if counters is None or counters.numel() < n_slabs:
+        counters = torch.zeros(n_slabs, dtype=torch.int32, device=q.device)
         _SPLIT_COUNTERS[key] = counters
     return partials, counters
+
+
+def _info(source: str, entry: str, d: int, n: int, *keys: str) -> dict:
+    fn = getattr(library(source), entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    keys = ("registers", "spill_bytes", "smem_bytes", "blocks_per_sm", *keys)
+    info = (ctypes.c_int * len(keys))()
+    kernels.raise_on_error(entry, fn(d, n, info))
+    return dict(zip(keys, info))
 
 
 @functools.cache
@@ -829,13 +926,8 @@ def paged_decode_attention_info(d: int, g: int) -> dict:
     resident blocks per SM and cache rows per block of the read-only
     kernels' bf16 (tensor-core) instance for head dim d with g query heads
     per kv head, as the CUDA runtime reports them (needs the card)."""
-    fn = library("decode_attention").karanta_decode_attention_info
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    info = (ctypes.c_int * 5)()
-    kernels.raise_on_error("paged_decode_attention_info", fn(d, g, info))
-    return dict(zip(("registers", "spill_bytes", "smem_bytes",
-                     "blocks_per_sm", "split_rows"), info))
+    return _info("decode_attention", "karanta_decode_attention_info", d, g,
+                 "split_rows")
 
 
 def _attention_launch(name: str, q, k_cache, v_cache, cache_len,
@@ -858,7 +950,9 @@ def _attention_launch(name: str, q, k_cache, v_cache, cache_len,
     out = torch.empty_like(q)
     partials = counters = None
     if q.dtype == torch.bfloat16:
-        partials, counters = _split_workspace(q, b, kvh, m, d, h // kvh)
+        runs = -(-m // paged_decode_attention_info(d, h // kvh)["split_rows"])
+        partials, counters = _split_workspace(q, b * kvh, runs,
+                                              SPLIT_PARTIAL_ROWS)
     args = (kernels.ptr(q), kernels.ptr(k_cache), kernels.ptr(v_cache),
             kernels.ptr(cache_len), kernels.ptr(out), kernels.ptr(partials),
             kernels.ptr(counters), b, kvh, h // kvh, m, d)

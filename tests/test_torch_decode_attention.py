@@ -317,3 +317,79 @@ def test_stacked_plain_matches_pallas_bf16():
     _assert_bf16_rule(got.float().numpy(),
                       np.asarray(attn_j).astype(np.float32))
     assert torch.equal(tk, k0) and torch.equal(tv, v0)
+
+
+@pytest.mark.parametrize("layer,lens", [(1, [0, 37, 128, 251]),
+                                        (0, [5, 100, 200, 250])])
+def test_multi_plain_matches_pallas_bf16(layer, lens):
+    """Kernel #4's plain version against the JAX Pallas kernel
+    (``interpret=True``) at the 7B's heads (H = 28, KVH = 4, D = 128, T = 4)
+    with bf16 activations, under the card's bf16 rule (the Pallas kernel
+    rounds p * vsc to bf16 before P.V, the plain version does not); all four
+    caches bit-equal."""
+    from karanta_tpu.ops.decode_attention import (
+        paged_decode_append_multi_quant as j_multi,
+    )
+    from karanta_tpu_torch.ops.decode_attention import (
+        paged_decode_append_multi_quant)
+
+    rng = np.random.default_rng(50 + layer)
+    L, B, M, H, KVH, D, tq = 2, 4, 256, 28, 4, 128, 4
+    jq, tq_ = _bf16(rng, (B, tq, H, D))
+
+    def rows(shape):
+        return j_qkv_rows(jnp.asarray(rng.normal(size=shape), jnp.float32))
+
+    (kq, ks), (vq, vs) = rows((L, B, KVH, M, D)), rows((L, B, KVH, M, D))
+    (nkq, nks), (nvq, nvs) = rows((B, tq, KVH, D)), rows((B, tq, KVH, D))
+    attn_j, k2, v2, ks2, vs2 = j_multi(
+        jq, nkq, nvq, nks, nvs, kq, vq, ks, vs, jnp.asarray(layer),
+        jnp.asarray(lens, jnp.int32), block=128, interpret=True)
+
+    def bf(x):
+        return _t(np.asarray(x, np.float32)).to(torch.bfloat16)
+
+    tk, tv, tks, tvs = _t(kq), _t(vq), bf(ks), bf(vs)
+    got = paged_decode_append_multi_quant(
+        tq_, _t(nkq), _t(nvq), bf(nks), bf(nvs), tk, tv, tks, tvs, layer,
+        torch.tensor(lens, dtype=torch.int32))
+    assert got.dtype == torch.bfloat16
+    _assert_bf16_rule(got.float().numpy(),
+                      np.asarray(attn_j).astype(np.float32))
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(k2))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(v2))
+    np.testing.assert_array_equal(tks.float().numpy(),
+                                  np.asarray(ks2, np.float32))
+    np.testing.assert_array_equal(tvs.float().numpy(),
+                                  np.asarray(vs2, np.float32))
+
+
+@pytest.mark.parametrize("layer,lens", [(1, [0, 5, 200, 255]),
+                                        (0, [64, 128, 63, 1])])
+def test_append_plain_matches_pallas_bf16(layer, lens):
+    """Kernel #5's plain version against the JAX Pallas kernel
+    (``interpret=True``) at the 7B's heads (H = 28, KVH = 4, D = 128) on a
+    bf16 cache, under the card's bf16 rule (the Pallas kernel rounds P to
+    bf16 before P.V, the plain version does not); caches bit-equal."""
+    from karanta_tpu.ops.decode_attention import (
+        paged_decode_append as j_append,
+    )
+    from karanta_tpu_torch.ops.decode_attention import paged_decode_append
+
+    rng = np.random.default_rng(60 + layer)
+    L, B, M, H, KVH, D = 2, 4, 256, 28, 4, 128
+    (jq, tq), (jnk, tnk), (jnv, tnv), (jk, tk), (jv, tv) = (
+        _bf16(rng, s) for s in ((B, 1, H, D), (B, KVH, D), (B, KVH, D),
+                                (L, B, KVH, M, D), (L, B, KVH, M, D)))
+    attn_j, k2, v2 = j_append(jq, jnk, jnv, jk, jv, jnp.asarray(layer),
+                              jnp.asarray(lens, jnp.int32), block=128,
+                              interpret=True)
+    got = paged_decode_append(tq, tnk, tnv, tk, tv, layer,
+                              torch.tensor(lens, dtype=torch.int32))
+    assert got.dtype == torch.bfloat16
+    _assert_bf16_rule(got.float().numpy(),
+                      np.asarray(attn_j).astype(np.float32))
+    np.testing.assert_array_equal(tk.float().numpy(),
+                                  np.asarray(k2).astype(np.float32))
+    np.testing.assert_array_equal(tv.float().numpy(),
+                                  np.asarray(v2).astype(np.float32))

@@ -430,6 +430,136 @@ def test_read_only_kernels_are_deterministic(cuda):
         assert torch.equal(first, second)
 
 
+def _multi_quant_case(gen, dev, dtype, n_layers, b, kvh, g, tq, m, d, lens):
+    """int8 caches, T new int8 rows per slot, q and lengths for kernel #4."""
+    from karanta_tpu_torch.models.qwen25_vl.decoder import quantize_kv_rows
+
+    def rows(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    kq, ks = quantize_kv_rows(rows((n_layers, b, kvh, m, d)))
+    vq, vs = quantize_kv_rows(rows((n_layers, b, kvh, m, d)))
+    nkq, nks = quantize_kv_rows(rows((b, tq, kvh, d)))
+    nvq, nvs = quantize_kv_rows(rows((b, tq, kvh, d)))
+    q = rows((b, tq, kvh * g, d)).to(dtype)
+    return (q, (nkq, nvq, nks.to(dtype), nvs.to(dtype)),
+            [kq, vq, ks.to(dtype), vs.to(dtype)],
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("g,tq", [(7, 4), (8, 4), (7, 2), (2, 5)])
+def test_multi_quant_kernel_split_boundaries(cuda, dtype, g, tq):
+    """Kernel #4, D = 128 at layer 1 of 3, B = 7, M = 4096: cache_len on
+    each side of the bf16 instance's run of R rows at this shape (R - 1
+    fills one run short of a row, R fills it exactly, R + 1 starts a
+    second), 2R, 3R + 5, 0 (run 0 only appends) and M - T - 1; all four
+    caches bit-equal."""
+    m, b = 4096, 7
+    r = DA.paged_decode_append_multi_quant_info(128, g * tq, b, 2, m)["run_rows"]
+    lens = [r - 1, r, r + 1, 2 * r, 3 * r + 5, 0, m - tq - 1]
+    gen = torch.Generator(device=cuda).manual_seed(41 + g + tq)
+    q, new, caches, lens = _multi_quant_case(gen, cuda, dtype, 3, b, 2, g, tq,
+                                             m, 128, lens)
+    a = [x.clone() for x in caches]
+    got = DA.paged_decode_append_multi_quant(q, *new, *a, 1, lens)
+    want = DA.paged_decode_append_multi_quant_plain(q, *new, *caches, 1, lens)
+    torch.cuda.synchronize()
+    _assert_close(got, want, dtype)
+    for x, y in zip(a, caches):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("g", [7, 8, 4, 2])
+def test_append_kernel_split_boundaries(cuda, dtype, g):
+    """Kernel #5, D = 128 at layer 1 of 3: cache_len on each side of the
+    bf16 instance's run of R rows, 2R, 0 (the output is the new V row) and
+    M - 1; caches bit-equal."""
+    r = DA.paged_decode_append_info(128, g)["split_rows"]
+    m = 4 * r
+    lens = [r - 1, r, r + 1, 2 * r, 0, m - 1]
+    gen = torch.Generator(device=cuda).manual_seed(47 + g)
+    b, kvh, d = len(lens), 2, 128
+    k = _randn(gen, (3, b, kvh, m, d), cuda, dtype)
+    v = _randn(gen, (3, b, kvh, m, d), cuda, dtype)
+    nk = _randn(gen, (b, kvh, d), cuda, dtype)
+    nv = _randn(gen, (b, kvh, d), cuda, dtype)
+    q = _randn(gen, (b, 1, kvh * g, d), cuda, dtype)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    a = [k.clone(), v.clone()]
+    got = DA.paged_decode_append(q, nk, nv, *a, 1, lens)
+    want = DA.paged_decode_append_plain(q, nk, nv, k, v, 1, lens)
+    torch.cuda.synchronize()
+    _assert_close(got, want, dtype)
+    assert torch.equal(a[0], k) and torch.equal(a[1], v)
+
+
+def test_multi_quant_kernel_is_deterministic(cuda):
+    """Two calls of #4's bf16 instance give the same bits (and the same
+    caches: the second call rewrites the same rows): the runs' partials
+    merge in a fixed order."""
+    gen = torch.Generator(device=cuda).manual_seed(53)
+    lens = torch.randint(0, 2048 - 5, (8,), generator=gen,
+                         device=cuda).tolist()
+    q, new, caches, lens = _multi_quant_case(gen, cuda, torch.bfloat16, 2, 8,
+                                             4, 7, 4, 2048, 128, lens)
+    first = DA.paged_decode_append_multi_quant(q, *new, *caches, 1, lens)
+    after_first = [x.clone() for x in caches]
+    second = DA.paged_decode_append_multi_quant(q, *new, *caches, 1, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    for x, y in zip(after_first, caches):
+        assert torch.equal(x, y)
+
+
+def test_append_kernel_is_deterministic(cuda):
+    """Two calls of #5's bf16 instance give the same bits and caches."""
+    gen = torch.Generator(device=cuda).manual_seed(59)
+    lens = torch.randint(0, 4095, (16,), generator=gen, device=cuda)
+    lens = lens.to(torch.int32)
+    q, k, v, _ = _read_only_case(gen, cuda, torch.bfloat16, 2, 16, 4, 7,
+                                 4096, 128, [0] * 16)
+    nk = _randn(gen, (16, 4, 128), cuda, torch.bfloat16)
+    nv = _randn(gen, (16, 4, 128), cuda, torch.bfloat16)
+    first = DA.paged_decode_append(q, nk, nv, k, v, 1, lens)
+    k1, v1 = k.clone(), v.clone()
+    second = DA.paged_decode_append(q, nk, nv, k, v, 1, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(k, k1) and torch.equal(v, v1)
+
+
+def test_split_kernels_leave_counters_zero(cuda):
+    """Kernels #4, #5 and #9 one after another on one stream share the merge
+    counters; each call leaves them at 0, and each output still meets its
+    plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(61)
+    m, tq = 4096, 4
+    lens_l = [m - tq - 1, 3000, 1500, 0]
+    q4, new4, c4, lens = _multi_quant_case(gen, cuda, torch.bfloat16, 2, 4, 4,
+                                           7, tq, m, 128, lens_l)
+    want4 = DA.paged_decode_append_multi_quant_plain(
+        q4, *new4, *[x.clone() for x in c4], 1, lens)
+    q, k, v, _ = _read_only_case(gen, cuda, torch.bfloat16, 2, 4, 4, 7, m,
+                                 128, lens_l)
+    nk = _randn(gen, (4, 4, 128), cuda, torch.bfloat16)
+    nv = _randn(gen, (4, 4, 128), cuda, torch.bfloat16)
+    want5 = DA.paged_decode_append_plain(q, nk, nv, k.clone(), v.clone(), 1,
+                                         lens)
+    got4 = DA.paged_decode_append_multi_quant(q4, *new4, *c4, 1, lens)
+    got5 = DA.paged_decode_append(q, nk, nv, k, v, 1, lens)
+    got9 = DA.paged_decode_attention_stacked(q, k, v, 1, lens)
+    want9 = DA.paged_decode_attention_stacked_plain(q, k, v, 1, lens)
+    torch.cuda.synchronize()
+    counters = DA._SPLIT_COUNTERS[
+        (q.device, torch.cuda.current_stream(q.device).cuda_stream)]
+    assert int(counters.abs().sum()) == 0
+    _assert_close(got4, want4, torch.bfloat16)
+    _assert_close(got5, want5, torch.bfloat16)
+    _assert_close(got9, want9, torch.bfloat16)
+
+
 # ---------------------------------------------------------------------------
 # kernels #10 and #11: the decode weight streams (ops/decode_stream.py)
 # ---------------------------------------------------------------------------
