@@ -19,12 +19,15 @@ Phases (any failed check raises and the script exits non-zero):
    only decode kernels' GB/s of live bytes, each with its share of the
    bound and its ratio to SDPA's time, and the registers, shared memory and
    blocks per SM of these three kernels' tensor-core instances; the int8
-   verify kernel and the bf16 append kernel likewise (GB/s of live bytes,
-   share of the bound, resources; the verify kernel also at B = 32 with
-   ragged lengths, checked against its plain version; beside the append
-   kernel, SDPA over the bucket with the new row scattered, for context);
-   the split decode kernels' device time without the host's launch
-   overhead, from a CUDA graph of 20 calls; kernels #10 and
+   and int4 verify kernels, the int8 decode kernel and the bf16 append
+   kernel likewise (GB/s of live bytes, share of the bound, resources; the
+   int8 verify kernel also at B = 32 with ragged lengths, the int4 verify
+   kernel at the served int4 point's B = 8 with ragged lengths, the int8
+   decode kernel at the decode A/B point, B = 80 with every slot filled to
+   1,650 of 1,920 rows, each checked against its plain version; beside the
+   append kernel, SDPA over the bucket with the new row scattered, for
+   context); the split decode kernels' device time without the host's
+   launch overhead, from a CUDA graph of 20 calls; kernels #10 and
    #11, the decode weight streams, at full 7B width and depth: checked at
    B = 4 over ragged lengths, timed at the JAX package's decode A/B point
    (B = 80, 1920-row bucket filled to 1650);
@@ -511,7 +514,8 @@ def _decode_inputs(dev, gen, n_layers, b, kvh, m, d, h, lens, dtype):
 
 def kernel_decode(cfg, dev, gen, batch: int) -> dict:
     """One decode step of one layer over the 7B int8 cache (28 layers,
-    B slots, 4 kv heads, M=1920, D=128), cache_len 0 / mid-block / M-1."""
+    B slots, 4 kv heads, M=1920, D=128), cache_len 0 / mid-block / M-1;
+    then the decode A/B point (B = 80, every slot filled to 1,650 rows)."""
     t = cfg.text
     m, layer = 1920, min(5, t.num_layers - 1)
     lens = ([0, 700, m - 1, 1390] * batch)[:batch]
@@ -545,20 +549,61 @@ def kernel_decode(cfg, dev, gen, batch: int) -> dict:
 
     t_k = cuda_ms(lambda: DA.paged_decode_append_quant(q, *new, *a, layer,
                                                        lens_t), 50)
+    t_dev = graph_ms(lambda: DA.paged_decode_append_quant(q, *new, *a, layer,
+                                                          lens_t))
     t_p = cuda_ms(lambda: DA.paged_decode_append_quant_plain(
         q, *new, *b_, layer, lens_t), 5)
-    live = sum(lens)
     d, kvh, g = t.head_dim, t.num_kv_heads, t.num_heads // t.num_kv_heads
-    n_bytes = (kvh * live * (d + 2) * 2            # old K/V rows + scales
-               + batch * kvh * (d + 2) * 2 * 2     # new rows: read + write
-               + 2 * batch * t.num_heads * d * 2)  # q in, attn out
-    flops = 4.0 * d * g * kvh * (live + batch)
-    bd, by = bound_ms(n_bytes, flops)
+
+    def work(lens_, b):
+        live = sum(lens_)
+        n_bytes = (kvh * live * (d + 2) * 2            # old K/V rows + scales
+                   + b * kvh * (d + 2) * 2 * 2         # new rows: read + write
+                   + 2 * b * t.num_heads * d * 2)      # q in, attn out
+        return n_bytes, 4.0 * d * g * kvh * (live + b)
+
+    bd, by = bound_ms(*work(lens, batch))
+    res = DA.paged_decode_append_quant_info(d, g, batch, kvh, m)
+    del a, b_, caches
+    torch.cuda.empty_cache()
+    # the second timed shape: the decode A/B point, B = 80 slots each filled
+    # to 1,650 of 1,920 rows; two layers of cache (the kernel reads one)
+    lens80 = [AB_FILL] * AB_BATCH
+    q8, new8, c8, l8 = _decode_inputs(dev, gen, 2, AB_BATCH, kvh, AB_BUCKET,
+                                      d, t.num_heads, lens80, torch.bfloat16)
+    a8 = [c.clone() for c in c8]
+    got8 = DA.paged_decode_append_quant(q8, *new8, *a8, 1, l8)
+    torch.cuda.synchronize()
+    want8 = DA.paged_decode_append_quant_plain(q8, *new8, *c8, 1, l8)
+    err8 = check_bf16(f"paged_decode_append_quant 7B B={AB_BATCH} "
+                      f"M={AB_BUCKET} fill {AB_FILL} bf16", got8, want8)
+    _check_caches(f"paged_decode_append_quant B={AB_BATCH}", a8, c8)
+    t8 = cuda_ms(lambda: DA.paged_decode_append_quant(q8, *new8, *a8, 1, l8),
+                 50)
+    t8_dev = graph_ms(lambda: DA.paged_decode_append_quant(q8, *new8, *a8, 1,
+                                                           l8))
+    n8, f8 = work(lens80, AB_BATCH)
+    bd8, _ = bound_ms(n8, f8)
+    res8 = DA.paged_decode_append_quant_info(d, g, AB_BATCH, kvh, AB_BUCKET)
+    del a8, c8
+    torch.cuda.empty_cache()
+    rates = {"device_ms": t_dev, "bound_share": bd / t_dev,
+             "resources": res,
+             "b80": {"ms": t8, "device_ms": t8_dev, "bound_ms": bd8,
+                     "bound_share": bd8 / t8_dev,
+                     "live_gbps": n8 / t8_dev * 1e-6, "max_abs_err": err8,
+                     "run_rows": res8["run_rows"]}}
+    log(f"  paged_decode_append_quant B={batch}: kernel {t_k:.4f} ms "
+        f"({t_dev:.4f} ms of device time), {100 * bd / t_dev:.1f}% of the "
+        f"bound {bd:.4f} ms; B={AB_BATCH}: {t8:.4f} ms ({t8_dev:.4f} "
+        f"device), {100 * bd8 / t8_dev:.1f}% of its bound {bd8:.4f} ms, "
+        f"{n8 / t8_dev * 1e-6:.0f} GB/s; bf16 instance {res}, runs of "
+        f"{res8['run_rows']} rows at B={AB_BATCH}")
     return dict(name="paged_decode_append_quant", route="cuda",
                 source="karanta_tpu_torch/kernels/csrc/decode_append_quant.cu",
                 replaces="karanta_tpu/ops/decode_attention.py:887",
                 max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bd,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=None, **rates)
 
 
 def _check_caches(name: str, got, want) -> None:
@@ -871,17 +916,63 @@ def kernel_multi_q4(cfg, dev, gen) -> dict:
 
     t_k = cuda_ms(lambda: DA.paged_decode_append_multi_q4(
         q, *new, *a, layer, lens_t), 50)
+    t_dev = graph_ms(lambda: DA.paged_decode_append_multi_q4(
+        q, *new, *a, layer, lens_t))
     t_p = cuda_ms(lambda: DA.paged_decode_append_multi_q4_plain(
         q, *new, *b_, layer, lens_t), 5)
-    pairs = sum(tq * n + tq * (tq + 1) // 2 for n in lens)
-    bd, by = bound_ms(_q4_bytes(lens, kvh, d, h, batch, tq),
-                      4.0 * d * h * pairs)
+
+    def work(lens_, b):
+        pairs = sum(tq * n + tq * (tq + 1) // 2 for n in lens_)
+        return _q4_bytes(lens_, kvh, d, h, b, tq), 4.0 * d * h * pairs
+
+    bd, by = bound_ms(*work(lens, batch))
+    g = h // kvh
+    res = DA.paged_decode_append_multi_q4_info(d, g * tq, batch, kvh, m)
+    del a, b_, caches
+    torch.cuda.empty_cache()
+    # the second timed shape: the served int4 point's 8 slots, ragged
+    # lengths up to M - T - 1; two layers of cache (the kernel reads one)
+    b8 = 8
+    rng = np.random.default_rng(13)
+    lens8 = [0, m - tq - 1] + sorted(int(x) for x in rng.integers(
+        1, m - tq - 1, b8 - 2))
+    q8, new8, c8 = _q4_inputs(dev, gen, 2, b8, kvh, m, d, h, tq,
+                              torch.bfloat16)
+    l8 = torch.tensor(lens8, dtype=torch.int32, device=dev)
+    a8 = [c.clone() for c in c8]
+    got8 = DA.paged_decode_append_multi_q4(q8, *new8, *a8, 1, l8)
+    torch.cuda.synchronize()
+    want8 = DA.paged_decode_append_multi_q4_plain(q8, *new8, *c8, 1, l8)
+    err8 = check_bf16(f"paged_decode_append_multi_q4 7B B={b8} T={tq} M={m} "
+                      f"ragged bf16", got8, want8)
+    _check_caches("paged_decode_append_multi_q4 B=8", a8, c8)
+    t8 = cuda_ms(lambda: DA.paged_decode_append_multi_q4(
+        q8, *new8, *a8, 1, l8), 50)
+    t8_dev = graph_ms(lambda: DA.paged_decode_append_multi_q4(
+        q8, *new8, *a8, 1, l8))
+    n8, f8 = work(lens8, b8)
+    bd8, _ = bound_ms(n8, f8)
+    res8 = DA.paged_decode_append_multi_q4_info(d, g * tq, b8, kvh, m)
+    del a8, c8
+    torch.cuda.empty_cache()
+    rates = {"device_ms": t_dev, "bound_share": bd / t_dev,
+             "resources": res,
+             "b8": {"ms": t8, "device_ms": t8_dev, "bound_ms": bd8,
+                    "bound_share": bd8 / t8_dev,
+                    "live_gbps": n8 / t8_dev * 1e-6, "max_abs_err": err8,
+                    "run_tokens": res8["run_tokens"]}}
+    log(f"  paged_decode_append_multi_q4 B={batch}: kernel {t_k:.4f} ms "
+        f"({t_dev:.4f} ms of device time), {100 * bd / t_dev:.1f}% of the "
+        f"bound {bd:.4f} ms; B={b8}: {t8:.4f} ms ({t8_dev:.4f} device), "
+        f"{100 * bd8 / t8_dev:.1f}% of its bound {bd8:.4f} ms, "
+        f"{n8 / t8_dev * 1e-6:.0f} GB/s; bf16 instance {res}, runs of "
+        f"{res8['run_tokens']} tokens at B={b8}")
     return dict(name="paged_decode_append_multi_q4", route="cuda",
                 source="karanta_tpu_torch/kernels/csrc/"
                        "decode_append_multi_q4.cu",
                 replaces="karanta_tpu/ops/decode_attention.py:1998",
                 max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bd,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=None, **rates)
 
 
 def kernel_read_only(cfg, dev, gen) -> list:

@@ -14,23 +14,37 @@
 //
 // What bounds it on this card: each packed byte is used once per verify pass
 // for about 4 * G * T flops (two tokens, G query heads per kv head, T
-// tokens) on the CUDA cores in float32, so the arithmetic sets its pace; the
-// bound it is held to is the bytes one, B * KVH * (live_packed_rows * D * 2 +
-// live_tokens * 2 * sizeof(T)) per layer at 3.35 TB/s. One read of the cache
-// serves all T queries.
+// tokens), far below the card's ~295 bf16 flops per byte, so the bound is
+// the bytes one, B * KVH * (live_packed_rows * D * 2 + live_tokens * 2 * 2)
+// per layer at 3.35 TB/s. One read of the cache serves all T queries.
 //
-// Design: decode_append_multi_quant.cu's over packed rows. One block per
-// (kv head, slot) owns that slab. It merges the T fresh tokens' bytes
-// itself, one thread and one store per byte: with T <= 32 no two fresh tokens
-// share a byte (tokens of one byte are 32 apart), and each byte's other
-// nibble (an older token, or one not yet written) is kept as it was. The
-// NQ = G * T query rows (row r = t * G + g) live in shared memory and in
-// registers, 4 dims each; packed rows stream one 64-token window (32 rows) at
-// a time; D/4 lanes share a row, unpack one nibble plane after the other and
-// dot it against all NQ queries; each nibble is masked by its own token index
+// The bf16 instance is verify_split_kernel (verify_split.cuh, with
+// kBits = 4), the int8 verify kernel's (#4) body with a nibble unpack in
+// place of its int8 conversion: each slot's tokens in runs over blocks (the
+// run length, in tokens, a multiple of 64, so no window is split; the
+// wrapper's rule, multi_q4_run_tokens, was measured on the card), a chunk of
+// 16 packed rows unpacked in shared memory into two 16-key bf16 tiles (the
+// low plane, tokens 64w + r, and the high plane, 64w + 32 + r, each with its
+// own scale plane), Q.K^T and P.V on the tensor cores, each key masked by its
+// own token index, a last-block merge of the runs' partials in a fixed
+// order, then the T fresh tokens folded in float32. Run 0 merges the fresh
+// nibbles into their bytes (one thread and one store per byte, the other
+// nibble kept) and writes their scales after its row loop.
+//
+// The float32 instance (decode_append_multi_q4_kernel) stays on the CUDA
+// cores (the tensor cores would multiply in TF32): one block per (kv head,
+// slot) owns that slab. It merges the T fresh tokens' bytes itself, one
+// thread and one store per byte: with T <= 32 no two fresh tokens share a
+// byte (tokens of one byte are 32 apart), and each byte's other nibble (an
+// older token, or one not yet written) is kept as it was. The NQ = G * T
+// query rows (row r = t * G + g) live in shared memory and in registers, 4
+// dims each; packed rows stream one 64-token window (32 rows) at a time; D/4
+// lanes share a row, unpack one nibble plane after the other and dot it
+// against all NQ queries; each nibble is masked by its own token index
 // against cache_len. The T rows may cross a 32-row or 64-token window
-// boundary; nothing in the kernel depends on where they fall.
+// boundary; nothing in either instance depends on where they fall.
 #include "common.cuh"
+#include "verify_split.cuh"
 
 namespace karanta {
 
@@ -267,25 +281,45 @@ cudaError_t launch_multi_q4(const void* q, const int8_t* nk, const int8_t* nv,
   return cudaGetLastError();
 }
 
-#define KARANTA_MQ4_CASE(DD, NN)                                                      \
-  if (D == DD && NQ == NN)                                                             \
-    return launch_multi_q4<T, DD, NN>(q, nk, nv, nks, nvs, kc, vc, ksc, vsc, lens, out, \
-                                      B, TQ, KVH, G, PM, layer, scale, st);
-
-// (D, G * T) pairs: Qwen2.5-VL-7B (G = 7) and -3B (G = 8) at T = 2..5, the
-// tiny test config (D = 16, G = 2) at T = 2..6
-#define KARANTA_MQ4_PAIRS(X)                                          \
-  X(128, 14) X(128, 21) X(128, 28) X(128, 16) X(128, 24) X(128, 32) \
+// (D, G * T) pairs: Qwen2.5-VL-7B (G = 7) and -3B (G = 8) at T = 2..5, two
+// query heads per kv head at T = 5, the tiny test config (D = 16, G = 2) at
+// T = 2..6 (the int8 verify kernel's pairs)
+#define KARANTA_MQ4_PAIRS(X)                                                     \
+  X(128, 14) X(128, 21) X(128, 28) X(128, 16) X(128, 24) X(128, 32) X(128, 10) \
   X(16, 4) X(16, 6) X(16, 8) X(16, 10) X(16, 12)
 
-template <typename T>
-cudaError_t dispatch_multi_q4(int D, int NQ, const void* q, const int8_t* nk,
-                              const int8_t* nv, const void* nks, const void* nvs,
-                              int8_t* kc, int8_t* vc, void* ksc, void* vsc,
-                              const int* lens, void* out, int B, int TQ, int KVH, int G,
-                              int PM, int layer, float scale, cudaStream_t st) {
-  KARANTA_MQ4_PAIRS(KARANTA_MQ4_CASE)
+template <int D, int NQ>
+cudaError_t launch_pair_q4(int dtype, const void* q, const int8_t* nk, const int8_t* nv,
+                           const void* nks, const void* nvs, int8_t* kc, int8_t* vc,
+                           void* ksc, void* vsc, const int* lens, void* out, float* partials,
+                           int* counters, int B, int TQ, int KVH, int G, int PM, int layer,
+                           int run_tokens, float scale, cudaStream_t st) {
+  if (dtype == kBFloat16) {
+    return launch_verify<D, NQ, 4>(q, nk, nv, nks, nvs, kc, vc, ksc, vsc, lens, out,
+                                   partials, counters, B, TQ, KVH, G, PM, layer, run_tokens,
+                                   scale, st);
+  }
+  if (dtype == kFloat32) {
+    return launch_multi_q4<float, D, NQ>(q, nk, nv, nks, nvs, kc, vc, ksc, vsc, lens, out, B,
+                                         TQ, KVH, G, PM, layer, scale, st);
+  }
   return cudaErrorInvalidValue;
+}
+
+#define KARANTA_MQ4_CASE(DD, NN)                                                             \
+  if (D == DD && NQ == NN)                                                                    \
+    return static_cast<int>(launch_pair_q4<DD, NN>(dtype, q, nk, nv, nks, nvs, kc, vc, ksc,   \
+                                                   vsc, lens, out, partials, counters, B, TQ, \
+                                                   KVH, G, PM, layer, run_tokens, scale,      \
+                                                   static_cast<cudaStream_t>(stream)));
+
+inline int multi_q4_entry(int D, int NQ, const void* q, const int8_t* nk, const int8_t* nv,
+                          const void* nks, const void* nvs, int8_t* kc, int8_t* vc, void* ksc,
+                          void* vsc, const int* lens, void* out, float* partials,
+                          int* counters, int B, int TQ, int KVH, int G, int PM, int layer,
+                          int run_tokens, float scale, int dtype, void* stream) {
+  KARANTA_MQ4_PAIRS(KARANTA_MQ4_CASE)
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 #undef KARANTA_MQ4_CASE
@@ -294,26 +328,22 @@ cudaError_t dispatch_multi_q4(int D, int NQ, const void* q, const int8_t* nk,
 
 // C interface (loaded with ctypes). Caches are updated in place; PM is the
 // packed row count (M / 2 tokens). Returns the CUDA error code of the launch;
-// cudaErrorInvalidValue for a (D, G * T) pair without an instantiation.
+// cudaErrorInvalidValue for a (D, G * T) pair without an instantiation. The
+// bf16 instance needs `partials`, float32 (B * KVH * ceil(M / run_tokens) *
+// (32 D + 64)), and `counters`, int32 (B * KVH), zero before the first call
+// (each call leaves them zero; the other split kernels' counters may be the
+// same array on one stream), and takes runs of `run_tokens` tokens (a
+// multiple of 64, at most info[4] of karanta_decode_append_multi_q4_info
+// runs a slot; the wrapper's rule picks it) and T <= 8; the float32 instance
+// ignores the three.
 extern "C" int karanta_decode_append_multi_q4(
     const void* q, const int8_t* new_k, const int8_t* new_v, const void* new_ks,
     const void* new_vs, int8_t* k_cache, int8_t* v_cache, void* ks_cache, void* vs_cache,
-    const int* cache_len, void* out, int B, int TQ, int KVH, int G, int PM, int D,
-    int layer, float scale, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == karanta::kBFloat16) {
-    err = karanta::dispatch_multi_q4<__nv_bfloat16>(
-        D, G * TQ, q, new_k, new_v, new_ks, new_vs, k_cache, v_cache, ks_cache, vs_cache,
-        cache_len, out, B, TQ, KVH, G, PM, layer, scale, st);
-  } else if (dtype == karanta::kFloat32) {
-    err = karanta::dispatch_multi_q4<float>(
-        D, G * TQ, q, new_k, new_v, new_ks, new_vs, k_cache, v_cache, ks_cache, vs_cache,
-        cache_len, out, B, TQ, KVH, G, PM, layer, scale, st);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+    const int* cache_len, void* out, float* partials, int* counters, int B, int TQ, int KVH,
+    int G, int PM, int D, int layer, int run_tokens, float scale, int dtype, void* stream) {
+  return karanta::multi_q4_entry(D, G * TQ, q, new_k, new_v, new_ks, new_vs, k_cache, v_cache,
+                                 ks_cache, vs_cache, cache_len, out, partials, counters, B, TQ,
+                                 KVH, G, PM, layer, run_tokens, scale, dtype, stream);
 }
 
 #define KARANTA_MQ4_SUPPORTED(DD, NN) \
@@ -323,4 +353,16 @@ extern "C" int karanta_decode_append_multi_q4(
 extern "C" int karanta_decode_multi_q4_supported(int D, int NQ) {
   KARANTA_MQ4_PAIRS(KARANTA_MQ4_SUPPORTED)
   return 0;
+}
+
+#define KARANTA_MQ4_INFO(DD, NN) \
+  if (D == DD && NQ == NN) return static_cast<int>(karanta::verify_info<DD, NN, 4>(info));
+
+// info[5] = registers per thread, local (spilled) bytes per thread, dynamic
+// shared bytes per block, resident blocks per SM and the most runs a slot
+// may have (ceil(M / run_tokens)) of the bf16 instance for (D, G * T).
+// Returns the CUDA error code.
+extern "C" int karanta_decode_append_multi_q4_info(int D, int NQ, int* info) {
+  KARANTA_MQ4_PAIRS(KARANTA_MQ4_INFO)
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -13,17 +13,33 @@
 // device-memory bytes: B * KVH * live_rows * (D + 2) * 2 per layer at
 // 3.35 TB/s.
 //
-// Design: one block per (kv head, slot) owns that slab of the cache: it
-// writes row cache_len itself and only ever reads rows below it, so no block
-// reads a row that is being written and no other block touches the slab.
-// Rows stream in chunks of 128, staged in shared memory with 16-byte loads;
-// eight lanes share a 128-byte int8 row (16 bytes each), dot it against all
-// G query heads held in registers and reduce with three shuffles; one warp
-// per head turns the chunk's scores into
-// probabilities (online softmax across chunks); then each thread owns one
-// output dim and accumulates the chunk's int8 V column for all G heads.
-// Dequantization happens in registers; the dequantized cache never exists.
-#include "common.cuh"
+// The bf16 instance is decode_split_kernel (decode_split.cuh, with
+// kAppend = true, kInt8 = true), the one body it shares with kernels #5, #8
+// and #9: each slot's rows [0, cache_len) split into runs over blocks (the
+// run length an argument; the wrapper's rule, quant_run_rows, was measured on
+// the card), a cp.async ring of int8 rows and their scales per warp (half
+// the bytes of bf16 rows), each landed chunk converted exactly into a bf16
+// stage before ldmatrix, Q.K^T and P.V on the tensor cores (mma.sync bf16,
+// float32 accumulators) with ksc on the scores and p * vsc rounded to bf16
+// before P.V as the TPU kernel rounds it (decode_attention.py:821-846), and
+// a last-block merge of the runs' partials in a fixed order. The block of
+// run 0 writes the new row and its scales at cache_len (no block reads
+// them), and the block that finishes the slot folds the new row in last, in
+// float32 from its int8 values times its scales, then normalises.
+//
+// The float32 instance stays on the CUDA cores (the tensor cores would
+// multiply in TF32): one block per (kv head, slot) owns that slab of the
+// cache: it writes row cache_len itself and only ever reads rows below it,
+// so no block reads a row that is being written and no other block touches
+// the slab. Rows stream in chunks of 128, staged in shared memory with
+// 16-byte loads; eight lanes share a 128-byte int8 row (16 bytes each), dot
+// it against all G query heads held in registers and reduce with three
+// shuffles; one warp per head turns the chunk's scores into probabilities
+// (online softmax across chunks); then each thread owns one output dim and
+// accumulates the chunk's int8 V column for all G heads. Dequantization
+// happens in registers; the dequantized cache never exists.
+#include "decode_rows.cuh"
+#include "decode_split.cuh"
 
 namespace karanta {
 
@@ -224,26 +240,38 @@ cudaError_t launch_decode(const void* q, const int8_t* nk, const int8_t* nv,
   return cudaGetLastError();
 }
 
-#define KARANTA_DECODE_CASE(DD, GG)                                                  \
-  if (D == DD && G == GG)                                                             \
-    return launch_decode<T, DD, GG>(q, nk, nv, nks, nvs, kc, vc, ksc, vsc, lens, out, \
-                                    B, KVH, M, layer, scale, st);
-
-template <typename T>
-cudaError_t dispatch_decode(int D, int G, const void* q, const int8_t* nk,
-                            const int8_t* nv, const void* nks, const void* nvs,
-                            int8_t* kc, int8_t* vc, void* ksc, void* vsc,
-                            const int* lens, void* out, int B, int KVH, int M, int layer,
-                            float scale, cudaStream_t st) {
-  KARANTA_DECODE_CASE(128, 7)  // Qwen2.5-VL-7B: 28 heads over 4 kv heads
-  KARANTA_DECODE_CASE(128, 8)  // Qwen2.5-VL-3B: 16 over 2
-  KARANTA_DECODE_CASE(128, 4)
-  KARANTA_DECODE_CASE(128, 2)
-  KARANTA_DECODE_CASE(64, 4)
-  KARANTA_DECODE_CASE(64, 2)
-  KARANTA_DECODE_CASE(32, 2)
-  KARANTA_DECODE_CASE(16, 2)   // tiny test config: 4 heads over 2
+template <int D, int G>
+cudaError_t launch_pair(int dtype, const void* q, const int8_t* nk, const int8_t* nv,
+                        const void* nks, const void* nvs, int8_t* kc, int8_t* vc, void* ksc,
+                        void* vsc, const int* lens, void* out, float* partials, int* counters,
+                        int B, int KVH, int M, int layer, int run_rows, float scale,
+                        cudaStream_t st) {
+  if (dtype == kBFloat16) {
+    return launch_split<D, G, true, true>(q, nk, nv, nks, nvs, kc, vc, ksc, vsc, lens, out,
+                                          partials, counters, B, KVH, M, layer, run_rows, scale,
+                                          st);
+  }
+  if (dtype == kFloat32) {
+    return launch_decode<float, D, G>(q, nk, nv, nks, nvs, kc, vc, ksc, vsc, lens, out, B, KVH,
+                                      M, layer, scale, st);
+  }
   return cudaErrorInvalidValue;
+}
+
+#define KARANTA_DECODE_CASE(DD, GG)                                                          \
+  if (D == DD && G == GG)                                                                     \
+    return static_cast<int>(launch_pair<DD, GG>(dtype, q, nk, nv, nks, nvs, kc, vc, ksc, vsc, \
+                                                lens, out, partials, counters, B, KVH, M,     \
+                                                layer, run_rows, scale,                      \
+                                                static_cast<cudaStream_t>(stream)));
+
+inline int decode_entry(int D, int G, const void* q, const int8_t* nk, const int8_t* nv,
+                        const void* nks, const void* nvs, int8_t* kc, int8_t* vc, void* ksc,
+                        void* vsc, const int* lens, void* out, float* partials, int* counters,
+                        int B, int KVH, int M, int layer, int run_rows, float scale, int dtype,
+                        void* stream) {
+  KARANTA_ROW_PAIRS(KARANTA_DECODE_CASE)
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 #undef KARANTA_DECODE_CASE
@@ -252,35 +280,44 @@ cudaError_t dispatch_decode(int D, int G, const void* q, const int8_t* nk,
 
 // C interface (loaded with ctypes). Caches are updated in place. Returns the
 // CUDA error code of the launch; cudaErrorInvalidValue for a (D, G) pair
-// without an instantiation.
+// without an instantiation. The bf16 instance needs `partials`, float32
+// (B * KVH * ceil(M / run_rows) * (8 D + 16)), and `counters`, int32
+// (B * KVH), zero before the first call (each call leaves them zero; the
+// other split kernels' counters may be the same array on one stream), and
+// takes runs of `run_rows` rows (a multiple of 16, at most info[4] of
+// karanta_decode_append_quant_info runs a slot; the wrapper's rule picks
+// it); the float32 instance ignores the three.
 extern "C" int karanta_decode_append_quant(
     const void* q, const int8_t* new_k, const int8_t* new_v, const void* new_ks,
     const void* new_vs, int8_t* k_cache, int8_t* v_cache, void* ks_cache, void* vs_cache,
-    const int* cache_len, void* out, int B, int KVH, int G, int M, int D, int layer,
-    float scale, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == karanta::kBFloat16) {
-    err = karanta::dispatch_decode<__nv_bfloat16>(D, G, q, new_k, new_v, new_ks, new_vs,
-                                                  k_cache, v_cache, ks_cache, vs_cache,
-                                                  cache_len, out, B, KVH, M, layer, scale,
-                                                  st);
-  } else if (dtype == karanta::kFloat32) {
-    err = karanta::dispatch_decode<float>(D, G, q, new_k, new_v, new_ks, new_vs, k_cache,
-                                          v_cache, ks_cache, vs_cache, cache_len, out, B,
-                                          KVH, M, layer, scale, st);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+    const int* cache_len, void* out, float* partials, int* counters, int B, int KVH, int G,
+    int M, int D, int layer, int run_rows, float scale, int dtype, void* stream) {
+  return karanta::decode_entry(D, G, q, new_k, new_v, new_ks, new_vs, k_cache, v_cache,
+                               ks_cache, vs_cache, cache_len, out, partials, counters, B, KVH,
+                               M, layer, run_rows, scale, dtype, stream);
 }
+
+#define KARANTA_DECODE_SUPPORTED(DD, GG) \
+  if (D == DD && G == GG) return 1;
 
 // (D, G) pairs with an instantiation, for the wrapper's checks
 extern "C" int karanta_decode_supported(int D, int G) {
-  const int pairs[][2] = {{128, 7}, {128, 8}, {128, 4}, {128, 2},
-                          {64, 4},  {64, 2},  {32, 2},  {16, 2}};
-  for (const auto& p : pairs) {
-    if (p[0] == D && p[1] == G) return 1;
-  }
+  KARANTA_ROW_PAIRS(KARANTA_DECODE_SUPPORTED)
   return 0;
+}
+
+#define KARANTA_DECODE_INFO(DD, GG)                                               \
+  if (D == DD && G == GG) {                                                        \
+    const cudaError_t err = karanta::split_info<DD, GG, true, true>(info);         \
+    info[4] = karanta::SplitTile<DD, true>::kMaxSplits;                            \
+    return static_cast<int>(err);                                                  \
+  }
+
+// info[5] = registers per thread, local (spilled) bytes per thread, dynamic
+// shared bytes per block, resident blocks per SM and the most runs a slot
+// may have (ceil(M / run_rows)) of the bf16 instance for (D, G). Returns the
+// CUDA error code.
+extern "C" int karanta_decode_append_quant_info(int D, int G, int* info) {
+  KARANTA_ROW_PAIRS(KARANTA_DECODE_INFO)
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,61 +1,82 @@
-// Flash-decoding over a bf16 cache on the tensor cores, rows split over
-// blocks: the one kernel body of the bf16 instances of
+// Flash-decoding over a bf16 or int8 cache on the tensor cores, rows split
+// over blocks: the one kernel body of the bf16 instances of
 //
 // - kernel #5, paged_decode_append (decode_append.cu, kAppend = true): slot b
 //   attends over the rows [0, cache_len[b]) already in the cache; the block
 //   of run 0 writes this step's K/V row at cache_len[b], and the block that
 //   finishes the slot folds that row in last, in float32, from the inputs
 //   (karanta_tpu/ops/decode_attention.py:496-512);
+// - kernel #3, paged_decode_append_quant (decode_append_quant.cu, kAppend =
+//   true, kInt8 = true): the same over the int8 cache with a bf16 scale per
+//   row: ksc multiplies the scores, vsc multiplies p before p is rounded
+//   (decode_attention.py:821-846), and the new row folds in float32 from its
+//   int8 values times its scales (:852-873);
 // - kernels #8 and #9, paged_decode_attention(_stacked) (decode_attention.cu,
 //   kAppend = false): slot b attends over the rows [0, cache_len[b]], this
 //   step's row having been written at cache_len[b] before the call.
 //
 // What bounds it on this card: every live cache byte is used once per call
 // for about G flops, so device-memory bytes bound it:
-// KVH * sum_b live_rows[b] * D * 2 * sizeof(bf16) at 3.35 TB/s.
+// KVH * sum_b live_rows[b] * 2 * (D * sizeof(row) + scale bytes) at
+// 3.35 TB/s.
 //
-// The rows of one (slot, kv head) are split into runs of kSplitRows (1,024)
-// rows, one block of 4 warps each, so a 4,096-row slot spreads over 4 blocks
-// instead of one. The wrapper cannot read cache_len without a host sync, so
-// the grid is sized from M and a block whose run starts past its slot's rows
-// exits at once; run 0 always runs (with kAppend it is the block that writes
-// the new row, and the only block of a slot with no old rows). No block
-// reads row cache_len, so the write cannot race. Inside a block each warp
-// takes every fourth 16-row chunk of the run and streams it through its own
-// cp.async ring (kDecodeStages = 3 chunks of K and V, rows padded by 16
-// bytes for conflict-free ldmatrix; rows past the slot's length are
-// zero-filled), so no block barrier sits in the row loop and the next chunks
-// load while this one computes. Q.K^T and P.V are mma.sync.m16n8k16 in bf16
-// with float32 accumulators, the flash kernel's mapping: the G query heads of
-// the kv head are rows of the 16-row A tile (G <= 8 live; the dead rows cost
-// nothing in a byte-bound kernel), K through ldmatrix is the B operand of
-// Q.K^T, and P, rounded to bf16 as the TPU kernels round it
-// (decode_attention.py:107, :244, :487), is the A operand of P.V with V
-// through ldmatrix.trans. Each warp keeps an online softmax (log2 domain,
-// ex2, quad shuffles) and a float32 (m, l, O); the block merges its 4 warps
-// in shared memory in a fixed order. A slot that fits in one run finishes
-// there; otherwise the block stores its (m, l, O) partial in a float32
-// workspace the wrapper allocates, and the last block of the (slot, kv head)
-// to finish, which it learns from a counter it then resets to 0, merges the
-// partials in split order. The merge order is fixed, so two calls give the
-// same bits, and no second launch is needed. The finishing block then folds
-// in the new row (kAppend) and normalises. The running max starts at the
-// finite kNegInf, so a slot with no old rows (m = -1e30, l = 0) meets the
-// new row's score without a -inf - -inf: its weight is exp2(-1e30 - s) = 0.
+// The rows of one (slot, kv head) are split into runs of run_rows rows (an
+// argument: kSplitRows = 1,024 for the bf16 cache; the int8 cache's wrapper
+// picks it by a rule measured on the card), one block of 4 warps each, so a
+// 4,096-row slot spreads over 4 blocks instead of one. The wrapper cannot
+// read cache_len without a host sync, so the grid is sized from M and a
+// block whose run starts past its slot's rows exits at once; run 0 always
+// runs (with kAppend it is the block that writes the new row, and the only
+// block of a slot with no old rows). No block reads row cache_len, so the
+// write cannot race. Inside a block each warp takes every fourth 16-row
+// chunk of the run and streams it through its own cp.async ring
+// (kDecodeStages = 3 chunks of K and V; rows past the slot's length are
+// zero-filled), so no block barrier sits in the row loop and the next
+// chunks load while this one computes. bf16 rows land padded by 16 bytes
+// for conflict-free ldmatrix; int8 rows land as they are stored, half the
+// bytes, with the chunk's 32 scales (plain loads issued with the rows and
+// stored beside them one iteration later; a row past the slot reads 0), and
+// the warp converts the landed chunk into its own bf16 stage
+// (int8x8_to_bf16, exact) before ldmatrix. Q.K^T and P.V are
+// mma.sync.m16n8k16 in bf16 with float32 accumulators, the flash kernel's
+// mapping: the G query heads of the kv head are rows of the 16-row A tile
+// (G <= 8 live; the dead rows cost nothing in a byte-bound kernel), K
+// through ldmatrix is the B operand of Q.K^T, and P, rounded to bf16 as the
+// TPU kernels round it (decode_attention.py:107, :244, :487, :846), is the A
+// operand of P.V with V through ldmatrix.trans. Each warp keeps an online
+// softmax (log2 domain, ex2, quad shuffles) and a float32 (m, l, O); the
+// block merges its 4 warps in shared memory in a fixed order. A slot that
+// fits in one run finishes there; otherwise the block stores its (m, l, O)
+// partial in a float32 workspace the wrapper allocates, and the last block
+// of the (slot, kv head) to finish, which it learns from a counter it then
+// resets to 0, merges the partials in split order: every run's m and l
+// loaded at once, then each thread's output elements with all of a run's
+// loads in flight. The merge order is fixed, so two calls give the same
+// bits, and no second launch is needed. The finishing block then folds in
+// the new row (kAppend; every block copies it into shared memory with its
+// first chunk, so the fold waits on no global load) and normalises.
+// The running max starts at the finite kNegInf, so a slot with no old rows
+// (m = -1e30, l = 0) meets the new row's score without a -inf - -inf: its
+// weight is exp2(-1e30 - s) = 0.
 //
-// Measured on the card at B = 32, M = 4096 with ragged lengths (PERF.md):
-// runs of 1,024 rows with a 3-stage ring (two blocks an SM, 150 registers)
-// were fastest; runs of 256 rows were much slower (more partials, more
-// merges), runs of 512 or 2,048 rows and rings of 2 or 4 stages a little
-// slower.
+// Measured on the card at B = 32, M = 4096 with ragged lengths over the
+// bf16 cache (PERF.md): runs of 1,024 rows with a 3-stage ring (two blocks
+// an SM, 150 registers) were fastest; runs of 256 rows were much slower
+// (more partials, more merges), runs of 512 or 2,048 rows and rings of 2 or
+// 4 stages a little slower. Over the int8 cache a 4-stage ring was no
+// faster either. A per-phase timer trace showed the finishing block's tail
+// (the runs' merge, the new row's fold, the output) as a third of a call
+// at B = 4 while it loaded the partials' m and the new row one global load
+// at a time; the batched loads above shortened the call by about a fifth.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
 
 namespace karanta {
 
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kSplitWarps = 4;
 constexpr int kSplitThreads = kSplitWarps * 32;
 // 16-row chunks a warp takes from one run, and its ring depth (measured on
@@ -63,42 +84,60 @@ constexpr int kSplitThreads = kSplitWarps * 32;
 constexpr int kDecodeChunks = 16;
 constexpr int kDecodeStages = 3;
 static_assert(kDecodeStages >= 2, "the ring needs two stages");
+// rows per run over the bf16 cache
 constexpr int kSplitRows = kSplitWarps * 16 * kDecodeChunks;
 
-template <int D>
+template <int D, bool kInt8>
 struct SplitTile {
-  static constexpr int kPitch = D + 8;                // shared row pitch (elements)
-  static constexpr int kStageElems = 2 * 16 * kPitch;  // K and V of one chunk
+  static constexpr int kPitch = D + 8;  // bf16 rows in shared memory (elements)
+  static constexpr int kStageBytes = 2 * 16 * kPitch * 2;  // bf16 K and V of one chunk
+  // one ring stage: bf16 K and V rows (pitch kPitch), or int8 K and V rows
+  // (pitch D) and the 16 K and 16 V scales
+  static constexpr int kRingStage = kInt8 ? 2 * 16 * D + 64 : kStageBytes;
+  static constexpr int kWarpBytes = kDecodeStages * kRingStage + (kInt8 ? kStageBytes : 0);
+  static constexpr int kNewRowBytes = 2 * D * 2;  // the new K and V rows (append kernels)
   static constexpr size_t kSmem =
-      (16 * kPitch + static_cast<size_t>(kSplitWarps) * kDecodeStages * kStageElems) *
-      sizeof(__nv_bfloat16);
+      16 * kPitch * 2 + static_cast<size_t>(kSplitWarps) * kWarpBytes + kNewRowBytes;
   // one (slot, kv head, run) partial: O [8][D], m [8], l [8], float32
   static constexpr int kPartial = 8 * D + 16;
   // the warps' merge (O, m, l and factors of each warp, then m, l and the
-  // new row's two factors per row) reuses the ring
-  static_assert((kSplitWarps * (8 * D + 24) + 32) * sizeof(float) <=
-                    static_cast<size_t>(kSplitWarps) * kDecodeStages * kStageElems *
-                        sizeof(__nv_bfloat16),
-                "the warps' merge does not fit in the ring");
+  // new row's two factors per row) reuses the rings; behind it the last
+  // block of a slot puts every run's m and l, 8 rows each
+  static constexpr int kMergeFloats = kSplitWarps * (8 * D + 24) + 32;
+  static constexpr int kMaxSplits = (kSplitWarps * kWarpBytes / 4 - kMergeFloats) / 16;
+  static_assert(kMaxSplits >= 8, "the warps' merge does not fit in the ring");
+  static_assert(kRingStage % 16 == 0 && kWarpBytes % 16 == 0, "16-byte aligned regions");
 };
 
-template <int D, int G, bool kAppend>
+template <int D, int G, bool kAppend, bool kInt8 = false>
 __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(
-    const __nv_bfloat16* __restrict__ q,      // (B, KVH*G, D)
-    const __nv_bfloat16* __restrict__ new_k,  // (B, KVH, D); kAppend only
-    const __nv_bfloat16* __restrict__ new_v,
-    const __nv_bfloat16* k_cache,  // (L, B, KVH, M, D); written if kAppend
-    const __nv_bfloat16* v_cache, const int* __restrict__ cache_len,
+    const __nv_bfloat16* __restrict__ q,  // (B, KVH*G, D)
+    const void* __restrict__ new_k_,      // (B, KVH, D) rows of the cache's type; kAppend only
+    const void* __restrict__ new_v_,
+    const __nv_bfloat16* __restrict__ new_ks,  // (B, KVH); kInt8 only
+    const __nv_bfloat16* __restrict__ new_vs,
+    const void* k_cache_,  // (L, B, KVH, M, D); written if kAppend
+    const void* v_cache_,
+    __nv_bfloat16* ks_cache,  // (L, B, KVH, M); kInt8 only, written
+    __nv_bfloat16* vs_cache,
+    const int* __restrict__ cache_len,
     __nv_bfloat16* __restrict__ out,  // (B, KVH*G, D)
     float* __restrict__ partials,     // (B*KVH, gridDim.x, kPartial)
     int* __restrict__ counters,       // (B*KVH,), 0 between calls
-    int B, int KVH, int M, int layer, float scale_log2) {
+    int B, int KVH, int M, int layer, int run_rows, float scale_log2) {
   static_assert(G <= 8, "the query heads fill at most half the 16-row tile");
-  using Tile = SplitTile<D>;
+  static_assert(kAppend || !kInt8, "the int8 cache is read by the append kernel only");
+  using Tile = SplitTile<D, kInt8>;
+  using Row = typename std::conditional<kInt8, int8_t, __nv_bfloat16>::type;
   constexpr int P = Tile::kPitch, kVecs = D / 8, kKT = D / 16;
+  constexpr int kRowVecs = D * sizeof(Row) / 16;  // 16-byte vectors of a stored row
+  const Row* new_k = static_cast<const Row*>(new_k_);
+  const Row* new_v = static_cast<const Row*>(new_v_);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [16][P]
-  __nv_bfloat16* ring = q_s + 16 * P;  // [warps][stages][K, V][16][P]
+  unsigned char* ring = smem_raw + 16 * P * 2;  // [warps][stages][ring stage] (+ bf16 stage)
+  // append kernels: this step's K row, then its V row, as the inputs hold them
+  Row* new_s = reinterpret_cast<Row*>(ring + kSplitWarps * Tile::kWarpBytes);
 
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -107,25 +146,30 @@ __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(
   // append: rows [0, len), the new row goes to len.
   const int len = min(max(cache_len[b], 0), M - 1);
   const int n_rows = kAppend ? len : len + 1;
-  const int r0 = split * kSplitRows;
+  const int r0 = split * run_rows;
   if (split > 0 && r0 >= n_rows) return;  // past this slot's rows
-  const int r_end = min(r0 + kSplitRows, n_rows);
-  const int n_splits = max((n_rows + kSplitRows - 1) / kSplitRows, 1);
+  const int r_end = min(r0 + run_rows, n_rows);
+  const int n_splits = max((n_rows + run_rows - 1) / run_rows, 1);
   const int bh = b * KVH + kvh;
   const size_t slab = ((static_cast<size_t>(layer) * B + b) * KVH + kvh) * M;
-  const __nv_bfloat16* k_rows = k_cache + slab * D;
-  const __nv_bfloat16* v_rows = v_cache + slab * D;
+  const Row* k_rows = static_cast<const Row*>(k_cache_) + slab * D;
+  const Row* v_rows = static_cast<const Row*>(v_cache_) + slab * D;
+  __nv_bfloat16* k_sc = kInt8 ? ks_cache + slab : nullptr;
+  __nv_bfloat16* v_sc = kInt8 ? vs_cache + slab : nullptr;
 
   if constexpr (kAppend) {
-    // run 0 writes this step's row at len (read by no block of this call)
+    // run 0 writes this step's row (and its scales) at len (read by no
+    // block of this call)
     if (split == 0) {
-      for (int c = tid; c < 2 * kVecs; c += kSplitThreads) {
-        const bool is_v = c >= kVecs;
-        const int col = (is_v ? c - kVecs : c) * 8;
-        const __nv_bfloat16* src = (is_v ? new_v : new_k) + static_cast<size_t>(bh) * D;
-        __nv_bfloat16* dst = const_cast<__nv_bfloat16*>(is_v ? v_rows : k_rows) +
-                             static_cast<size_t>(len) * D;
+      for (int c = tid; c < 2 * kRowVecs; c += kSplitThreads) {
+        const bool is_v = c >= kRowVecs;
+        const int col = (is_v ? c - kRowVecs : c) * (16 / sizeof(Row));
+        const Row* src = (is_v ? new_v : new_k) + static_cast<size_t>(bh) * D;
+        Row* dst = const_cast<Row*>(is_v ? v_rows : k_rows) + static_cast<size_t>(len) * D;
         *reinterpret_cast<uint4*>(dst + col) = *reinterpret_cast<const uint4*>(src + col);
+      }
+      if constexpr (kInt8) {
+        if (tid < 2) (tid ? v_sc : k_sc)[len] = (tid ? new_vs : new_ks)[bh];
       }
     }
   }
@@ -134,24 +178,62 @@ __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(
   constexpr int kStride = 16 * kSplitWarps;
   const int w0 = r0 + 16 * warp;
   const int n_mine = w0 < r_end ? (r_end - w0 + kStride - 1) / kStride : 0;
-  __nv_bfloat16* my_ring = ring + warp * kDecodeStages * Tile::kStageElems;
+  unsigned char* my_ring = ring + warp * Tile::kWarpBytes;
+  // int8: the warp's bf16 stage, after its ring stages
+  __nv_bfloat16* stage =
+      reinterpret_cast<__nv_bfloat16*>(my_ring + kDecodeStages * Tile::kRingStage);
   auto load_chunk = [&](int i) {
     const int c0 = w0 + kStride * i;
-    __nv_bfloat16* ks = my_ring + (i % kDecodeStages) * Tile::kStageElems;
-    __nv_bfloat16* vs = ks + 16 * P;
+    unsigned char* st = my_ring + (i % kDecodeStages) * Tile::kRingStage;
 #pragma unroll
-    for (int c = lane; c < 16 * kVecs; c += 32) {
-      const int r = c / kVecs, col = (c % kVecs) * 8;
+    for (int c = lane; c < 16 * kRowVecs; c += 32) {
+      const int r = c / kRowVecs, col = (c % kRowVecs) * (16 / sizeof(Row));
       const bool ok = c0 + r < r_end;  // rows past the slot are zeros
       const size_t off = static_cast<size_t>(ok ? c0 + r : r0) * D + col;
-      cp_async16(ks + r * P + col, k_rows + off, ok ? 16 : 0);
-      cp_async16(vs + r * P + col, v_rows + off, ok ? 16 : 0);
+      if constexpr (kInt8) {
+        cp_async16(st + r * D + col, k_rows + off, ok ? 16 : 0);
+        cp_async16(st + (16 + r) * D + col, v_rows + off, ok ? 16 : 0);
+      } else {
+        __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(st);
+        cp_async16(ks + r * P + col, k_rows + off, ok ? 16 : 0);
+        cp_async16(ks + (16 + r) * P + col, v_rows + off, ok ? 16 : 0);
+      }
     }
   };
+  // int8: lane l carries scale l of each chunk (K scales 0..15, V 16..31),
+  // loaded one iteration ahead and stored beside the rows
+  auto load_scale = [&](int i) {
+    const int r = w0 + kStride * i + (lane & 15);
+    return r < r_end ? (lane < 16 ? k_sc : v_sc)[r] : __float2bfloat16_rn(0.f);
+  };
+  auto store_scale = [&](int i, __nv_bfloat16 v) {
+    reinterpret_cast<__nv_bfloat16*>(my_ring + (i % kDecodeStages) * Tile::kRingStage +
+                                     32 * D)[lane] = v;
+  };
+  if constexpr (kAppend) {
+    // every block copies the new row now, for whichever block finishes the
+    // slot (it lands with the ring's first chunk)
+    for (int c = tid; c < 2 * kRowVecs; c += kSplitThreads) {
+      const bool is_v = c >= kRowVecs;
+      const int col = (is_v ? c - kRowVecs : c) * (16 / sizeof(Row));
+      cp_async16(new_s + is_v * D + col,
+                 (is_v ? new_v : new_k) + static_cast<size_t>(bh) * D + col, 16);
+    }
+  }
+  __nv_bfloat16 sc_first[kDecodeStages - 1];
 #pragma unroll
   for (int st = 0; st < kDecodeStages - 1; ++st) {
     if (st < n_mine) load_chunk(st);
     cp_async_commit();
+    if constexpr (kInt8) {
+      sc_first[st] = st < n_mine ? load_scale(st) : __float2bfloat16_rn(0.f);
+    }
+  }
+  if constexpr (kInt8) {
+#pragma unroll
+    for (int st = 0; st < kDecodeStages - 1; ++st) {
+      if (st < n_mine) store_scale(st, sc_first[st]);
+    }
   }
 
   // the G query heads as rows of the A tile, zero rows below them (loaded
@@ -181,12 +263,46 @@ __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(
   for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = 0.f;
   float m = kNegInf, l = 0.f;
 
+  __nv_bfloat16 sc_pending = __float2bfloat16_rn(0.f);
   for (int i = 0; i < n_mine; ++i) {
     cp_async_wait<kDecodeStages - 2>();
     __syncwarp();  // chunk i landed for every lane; chunk i - 1's stage is free
-    if (i + kDecodeStages - 1 < n_mine) load_chunk(i + kDecodeStages - 1);
+    if constexpr (kInt8) {
+      if (i >= 1 && i + kDecodeStages - 2 < n_mine) store_scale(i + kDecodeStages - 2, sc_pending);
+    }
+    const bool more = i + kDecodeStages - 1 < n_mine;
+    if (more) load_chunk(i + kDecodeStages - 1);
     cp_async_commit();
-    const __nv_bfloat16* ks = my_ring + (i % kDecodeStages) * Tile::kStageElems;
+    const unsigned char* st = my_ring + (i % kDecodeStages) * Tile::kRingStage;
+    const __nv_bfloat16* ks;
+    float ksc[2][2], vsc[2][2];
+    if constexpr (kInt8) {
+      if (more) sc_pending = load_scale(i + kDecodeStages - 1);
+      // the landed int8 chunk into the bf16 stage (K rows 0..15, V 16..31)
+#pragma unroll
+      for (int c = lane; c < 32 * (D / 8); c += 32) {
+        const int r = c / (D / 8), col = (c % (D / 8)) * 8;
+        *reinterpret_cast<uint4*>(stage + r * P + col) =
+            int8x8_to_bf16(*reinterpret_cast<const uint2*>(st + r * D + col));
+      }
+      __syncwarp();
+      ks = stage;
+      // the scales of this lane's keys c0 + 8j + 2t + e
+      const __nv_bfloat16* sc = reinterpret_cast<const __nv_bfloat16*>(st + 32 * D);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float2 kf =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sc + 8 * j + 2 * t));
+        const float2 vf = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(sc + 16 + 8 * j + 2 * t));
+        ksc[j][0] = kf.x;
+        ksc[j][1] = kf.y;
+        vsc[j][0] = vf.x;
+        vsc[j][1] = vf.y;
+      }
+    } else {
+      ks = reinterpret_cast<const __nv_bfloat16*>(st);
+    }
     const __nv_bfloat16* vs = ks + 16 * P;
     const int c0 = w0 + kStride * i;
 
@@ -206,7 +322,9 @@ __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const bool live = c0 + 8 * j + 2 * t + e < r_end;
-        s[j][e] = live ? s[j][e] * scale_log2 : -CUDART_INF_F;
+        float x = s[j][e];
+        if constexpr (kInt8) x *= ksc[j][e];  // the K scale, then the softmax scale
+        s[j][e] = live ? x * scale_log2 : -CUDART_INF_F;
         mx = fmaxf(mx, s[j][e]);
       }
     }
@@ -221,6 +339,7 @@ __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(
       for (int e = 0; e < 2; ++e) {
         s[j][e] = fast_exp2(s[j][e] - mx);
         l += s[j][e];  // this lane's share of the row sum, unrounded P
+        if constexpr (kInt8) s[j][e] *= vsc[j][e];  // the V scale folds into p
       }
     }
 #pragma unroll
@@ -258,6 +377,8 @@ __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(
   float* row_l = row_m + 8;                       // [8]
   float* new_a = row_l + 8;                       // [8] the new row's factors
   float* new_p = new_a + 8;                       // [8]
+  float* run_w = new_p + 8;                       // [runs][8] the last block's
+  float* run_l = run_w + 8 * n_splits;            // [runs][8]
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     *reinterpret_cast<float2*>(red_o + (warp * 8 + g) * D + 8 * n + 2 * t) =
@@ -304,15 +425,23 @@ __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(
     __syncthreads();
     if (!is_last) return;
     __threadfence();
+    // every run's m and l at once, then each run's weight exp2(m_run - m)
+    // per head, in split order
+    for (int c = tid; c < n_splits * G; c += kSplitThreads) {
+      const int sp = c / G, gg = c % G;
+      const float* ps = parts + sp * Tile::kPartial + 8 * D;
+      run_w[sp * 8 + gg] = __ldcg(ps + gg);
+      run_l[sp * 8 + gg] = __ldcg(ps + 8 + gg);
+    }
+    __syncthreads();
     if (tid < G) {
       float mx = kNegInf;
-      for (int sp = 0; sp < n_splits; ++sp) {
-        mx = fmaxf(mx, __ldcg(parts + sp * Tile::kPartial + 8 * D + tid));
-      }
+      for (int sp = 0; sp < n_splits; ++sp) mx = fmaxf(mx, run_w[sp * 8 + tid]);
       float sum = 0.f;
       for (int sp = 0; sp < n_splits; ++sp) {
-        const float* ps = parts + sp * Tile::kPartial;
-        sum += __ldcg(ps + 8 * D + 8 + tid) * fast_exp2(__ldcg(ps + 8 * D + tid) - mx);
+        const float f = fast_exp2(run_w[sp * 8 + tid] - mx);
+        run_w[sp * 8 + tid] = f;
+        sum += run_l[sp * 8 + tid] * f;
       }
       row_m[tid] = mx;
       row_l[tid] = sum;
@@ -323,11 +452,17 @@ __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(
   if constexpr (kAppend) {
     // fold in the new row in float32 after the old rows, from the inputs:
     // s = q . k_new (log2 domain), one warp per query head
-    const __nv_bfloat16* nk = new_k + static_cast<size_t>(bh) * D;
+    const float nks = kInt8 ? __bfloat162float(new_ks[bh]) : 1.f;
     for (int gg = warp; gg < G; gg += kSplitWarps) {
       float dot = 0.f;
       for (int d = lane; d < D; d += 32) {
-        dot += __bfloat162float(q_s[gg * P + d]) * __bfloat162float(nk[d]);
+        float kd;
+        if constexpr (kInt8) {
+          kd = static_cast<float>(new_s[d]) * nks;  // dequantized in float32
+        } else {
+          kd = __bfloat162float(new_s[d]);
+        }
+        dot += __bfloat162float(q_s[gg * P + d]) * kd;
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
@@ -343,48 +478,86 @@ __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(
     }
     __syncthreads();
   }
-  const __nv_bfloat16* nv = kAppend ? new_v + static_cast<size_t>(bh) * D : nullptr;
-  for (int e = tid; e < G * D; e += kSplitThreads) {
-    const int gg = e / D, d = e % D;
-    float acc = 0.f;
-    if (n_splits == 1) {
-      for (int w = 0; w < kSplitWarps; ++w) acc += red_o[(w * 8 + gg) * D + d] * fac[w * 8 + gg];
-    } else {
-      for (int sp = 0; sp < n_splits; ++sp) {
-        const float* ps = parts + sp * Tile::kPartial;
-        acc += __ldcg(ps + e) * fast_exp2(__ldcg(ps + 8 * D + gg) - row_m[gg]);
+  // this thread's elements e = tid + kSplitThreads k of the G x D output;
+  // with several runs, a run's loads are all issued before its products
+  constexpr int kPer = (G * D + kSplitThreads - 1) / kSplitThreads;
+  float acc[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) acc[k] = 0.f;
+  if (n_splits == 1) {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int e = tid + kSplitThreads * k, gg = e / D, d = e % D;
+      if (e < G * D) {
+        for (int w = 0; w < kSplitWarps; ++w) {
+          acc[k] += red_o[(w * 8 + gg) * D + d] * fac[w * 8 + gg];
+        }
       }
     }
-    if constexpr (kAppend) acc = acc * new_a[gg] + new_p[gg] * __bfloat162float(nv[d]);
-    out_bh[e] = __float2bfloat16_rn(acc / row_l[gg]);  // >= 1: the max row's exp2(0)
+  } else {
+    for (int sp = 0; sp < n_splits; ++sp) {
+      const float* ps = parts + sp * Tile::kPartial;
+      float v[kPer];
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int e = tid + kSplitThreads * k;
+        v[k] = e < G * D ? __ldcg(ps + e) : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int e = tid + kSplitThreads * k;
+        if (e < G * D) acc[k] += v[k] * run_w[sp * 8 + e / D];
+      }
+    }
+  }
+  const float nvs = kInt8 ? __bfloat162float(new_vs[bh]) : 1.f;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e = tid + kSplitThreads * k, gg = e / D, d = e % D;
+    if (e >= G * D) continue;
+    float a = acc[k];
+    if constexpr (kAppend) {
+      float vd;
+      if constexpr (kInt8) {
+        vd = static_cast<float>(new_s[D + d]) * nvs;
+      } else {
+        vd = __bfloat162float(new_s[D + d]);
+      }
+      a = a * new_a[gg] + new_p[gg] * vd;
+    }
+    out_bh[e] = __float2bfloat16_rn(a / row_l[gg]);  // >= 1: the max row's exp2(0)
   }
   if (n_splits > 1 && tid == 0) counters[bh] = 0;  // ready for the next call
 }
 
-template <int D, int G, bool kAppend>
-cudaError_t launch_split(const void* q, const void* nk, const void* nv, const void* kc,
-                         const void* vc, const int* lens, void* out, float* partials,
-                         int* counters, int B, int KVH, int M, int layer, float scale,
+template <int D, int G, bool kAppend, bool kInt8 = false>
+cudaError_t launch_split(const void* q, const void* nk, const void* nv, const void* nks,
+                         const void* nvs, const void* kc, const void* vc, void* ksc, void* vsc,
+                         const int* lens, void* out, float* partials, int* counters, int B,
+                         int KVH, int M, int layer, int run_rows, float scale,
                          cudaStream_t stream) {
-  using Tile = SplitTile<D>;
-  auto kernel = decode_split_kernel<D, G, kAppend>;
+  using Tile = SplitTile<D, kInt8>;
+  if (run_rows < 16 || run_rows % 16 || (M + run_rows - 1) / run_rows > Tile::kMaxSplits) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = decode_split_kernel<D, G, kAppend, kInt8>;
   cudaError_t err = allow_smem(kernel, Tile::kSmem);
   if (err != cudaSuccess) return err;
-  dim3 grid((M + kSplitRows - 1) / kSplitRows, KVH, B);
+  dim3 grid((M + run_rows - 1) / run_rows, KVH, B);
   kernel<<<grid, kSplitThreads, Tile::kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(nk),
-      static_cast<const __nv_bfloat16*>(nv), static_cast<const __nv_bfloat16*>(kc),
-      static_cast<const __nv_bfloat16*>(vc), lens, static_cast<__nv_bfloat16*>(out),
-      partials, counters, B, KVH, M, layer, scale * kLog2e);
+      static_cast<const __nv_bfloat16*>(q), nk, nv, static_cast<const __nv_bfloat16*>(nks),
+      static_cast<const __nv_bfloat16*>(nvs), kc, vc, static_cast<__nv_bfloat16*>(ksc),
+      static_cast<__nv_bfloat16*>(vsc), lens, static_cast<__nv_bfloat16*>(out), partials,
+      counters, B, KVH, M, layer, run_rows, scale * kLog2e);
   return cudaGetLastError();
 }
 
 // registers, local (spilled) bytes, dynamic shared bytes, resident blocks per
-// SM and rows per run of one bf16 instance
-template <int D, int G, bool kAppend>
+// SM and rows per run over the bf16 cache (kSplitRows) of one bf16 instance
+template <int D, int G, bool kAppend, bool kInt8 = false>
 cudaError_t split_info(int* info) {
-  using Tile = SplitTile<D>;
-  auto kernel = decode_split_kernel<D, G, kAppend>;
+  using Tile = SplitTile<D, kInt8>;
+  auto kernel = decode_split_kernel<D, G, kAppend, kInt8>;
   const void* fn = reinterpret_cast<const void*>(kernel);
   cudaError_t err = allow_smem(kernel, Tile::kSmem);
   cudaFuncAttributes attr;

@@ -55,8 +55,6 @@ namespace karanta {
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr float kLog2e = 1.4426950408889634f;
-
 // one block: kWarps warps of 16 * kMT query rows each; kBK-key tiles in a
 // ring of kStages; kMinBlocks resident blocks an SM (sets the register cap)
 template <int D>

@@ -1,6 +1,7 @@
 // Tensor-core and asynchronous-copy helpers (sm_80+ instructions, used on
-// sm_90a): cp.async into shared memory, ldmatrix, and the bf16
-// mma.sync.m16n8k16 with float32 accumulators.
+// sm_90a): cp.async into shared memory, ldmatrix, the bf16
+// mma.sync.m16n8k16 with float32 accumulators, and the exact conversions of
+// int8 and packed int4 cache rows to bf16 operands.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16x16 row-major, 4 x bf16x2: a0 (g, 2t..2t+1), a1 (g+8, 2t..),
@@ -76,6 +77,55 @@ __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// eight int8 values (one 8-byte word pair) -> eight bf16, exactly: the bytes
+// biased to unsigned become the low mantissa bits of 2^23 + 128 + b, and the
+// float subtraction of 2^23 + 128 gives b
+__device__ __forceinline__ uint4 int8x8_to_bf16(uint2 raw) {
+  const uint32_t w[2] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u};
+  uint32_t r[4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const float lo = __uint_as_float(__byte_perm(w[h], 0x4B000000u, 0x7440 + 2 * p)) -
+                       8388736.f;
+      const float hi = __uint_as_float(__byte_perm(w[h], 0x4B000000u, 0x7441 + 2 * p)) -
+                       8388736.f;
+      r[2 * h + p] = pack_bf16(lo, hi);
+    }
+  }
+  return make_uint4(r[0], r[1], r[2], r[3]);
+}
+
+// eight packed int4 bytes (one 8-byte word pair) -> their eight low nibbles
+// and their eight high nibbles as bf16, exactly. Each nibble n is biased to
+// n + 8 in [0, 15]; a prmt spreads two bytes to the two halves of a word, a
+// mask puts a nibble into the low mantissa bits of the bf16 128 + (n + 8),
+// and one packed bf16 subtraction of 136 gives n.
+__device__ __forceinline__ void int4x8_to_bf16(uint2 raw, uint4& lo, uint4& hi) {
+  const uint32_t w[2] = {raw.x ^ 0x88888888u, raw.y ^ 0x88888888u};
+  const __nv_bfloat162 bias = __floats2bfloat162_rn(136.f, 136.f);
+  uint32_t l[4], h[4];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      // bytes 2p and 2p + 1 of word k to bytes 0 and 2
+      const uint32_t pair = __byte_perm(w[k], 0u, 0x4140 + 0x0202 * p);
+      uint32_t x = (pair & 0x000F000Fu) | 0x43004300u;
+      uint32_t y = ((pair >> 4) & 0x000F000Fu) | 0x43004300u;
+      __nv_bfloat162 xv = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&x), bias);
+      __nv_bfloat162 yv = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&y), bias);
+      l[2 * k + p] = *reinterpret_cast<uint32_t*>(&xv);
+      h[2 * k + p] = *reinterpret_cast<uint32_t*>(&yv);
+    }
+  }
+  lo = make_uint4(l[0], l[1], l[2], l[3]);
+  hi = make_uint4(h[0], h[1], h[2], h[3]);
 }
 
 }  // namespace karanta

@@ -67,7 +67,6 @@ namespace karanta {
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr float kLog2e = 1.4426950408889634f;
 // warps a block and heads it covers when their tiles fit (measured on the
 // card: PERF.md)
 constexpr int kWinWarps = 8;

@@ -96,12 +96,47 @@ def _decode_fns():
     lib = library("decode_append_quant")
     fn = lib.karanta_decode_append_quant
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     supported = lib.karanta_decode_supported
     supported.restype = ctypes.c_int
     supported.argtypes = [ctypes.c_int, ctypes.c_int]
     return fn, supported
+
+
+# The bf16 instance's run-length rule over the int8 cache (measured on an
+# H100 with ``python -m karanta_tpu_torch.bench.verify_runs --kernel 3``):
+# split_run_rows with runs of QUANT_MIN_RUN to QUANT_MAX_RUN rows and up to
+# QUANT_BLOCKS_PER_SM live blocks an SM (its blocks of 4 warps fit two an
+# SM; the verify kernels' blocks of 8 warps one).
+QUANT_MIN_RUN, QUANT_MAX_RUN, QUANT_BLOCKS_PER_SM = 256, 1024, 2
+
+
+def quant_run_rows(b: int, kvh: int, m: int, n_sm: int,
+                   max_runs: int) -> int:
+    """Rows per run of the int8 decode kernel's bf16 instance for B slots,
+    KVH kv heads and M cache rows on a card with n_sm SMs."""
+    return split_run_rows(b, kvh, m, n_sm, QUANT_MIN_RUN, QUANT_MAX_RUN,
+                          max_runs, blocks_per_sm=QUANT_BLOCKS_PER_SM)
+
+
+@functools.cache
+def paged_decode_append_quant_info(d: int, g: int, b: Optional[int] = None,
+                                   kvh: Optional[int] = None,
+                                   m: Optional[int] = None) -> dict:
+    """Registers and spilled bytes per thread, dynamic shared bytes per
+    block, resident blocks per SM and the most runs a slot may have of the
+    int8 decode kernel's bf16 (tensor-core) instance for head dim d with g
+    query heads per kv head, as the CUDA runtime reports them (needs the
+    card); given a shape (B slots, KVH kv heads, M cache rows), also its rows
+    per run on the current card."""
+    info = _info("decode_append_quant", "karanta_decode_append_quant_info", d,
+                 g, "max_runs")
+    if b is not None:
+        info["run_rows"] = quant_run_rows(
+            b, kvh, m, _sm_count(torch.cuda.current_device()),
+            info["max_runs"])
+    return info
 
 
 def paged_decode_append_quant(
@@ -166,11 +201,20 @@ def paged_decode_append_quant(
         new_ks=new_ks, new_vs=new_vs, k_cache=k_cache, v_cache=v_cache,
         ks_cache=ks_cache, vs_cache=vs_cache, cache_len=cache_len)
     out = torch.empty_like(q)
+    partials = counters = None
+    run_rows = 0
+    if q.dtype == torch.bfloat16:
+        run_rows = quant_run_rows(
+            b, kvh, m, _sm_count(q.device),
+            paged_decode_append_quant_info(d, h // kvh)["max_runs"])
+        partials, counters = _split_workspace(q, b * kvh, -(-m // run_rows),
+                                              SPLIT_PARTIAL_ROWS)
     code = fn(kernels.ptr(q), kernels.ptr(new_k), kernels.ptr(new_v),
               kernels.ptr(new_ks), kernels.ptr(new_vs), kernels.ptr(k_cache),
               kernels.ptr(v_cache), kernels.ptr(ks_cache),
               kernels.ptr(vs_cache), kernels.ptr(cache_len), kernels.ptr(out),
-              b, kvh, h // kvh, m, d, int(layer), scale,
+              kernels.ptr(partials), kernels.ptr(counters),
+              b, kvh, h // kvh, m, d, int(layer), run_rows, scale,
               kernels.DTYPE_CODES[q.dtype], kernels.stream_ptr(q.device))
     kernels.raise_on_error("paged_decode_append_quant", code)
     kernels.LAUNCHES["paged_decode_append_quant"] += 1
@@ -254,14 +298,9 @@ def _multi_fns():
 # it folds in at most this many fresh rows
 MULTI_PARTIAL_ROWS = 32
 MULTI_MAX_TOKENS = 8
-# The bf16 instance's run-length rule (measured on an H100 at B = 1..64,
-# M = 4096 with ``python -m karanta_tpu_torch.bench.verify_runs``): the
-# shortest run of cache rows, a power of two from MULTI_MIN_RUN to
-# MULTI_MAX_RUN, that gives at most one live block per two SMs when the
-# slots are half full (B * KVH * ceil(M / 2 / run) blocks); longer if a
-# slot would otherwise have more runs than the last block can merge.
-# Shorter runs put more SMs to work; longer runs leave fewer partials for
-# the last block of a slot to merge, which costs more than it saves.
+# The int8 verify kernel's run lengths for split_run_rows (measured on an
+# H100 at B = 1..64, M = 4096 with ``python -m
+# karanta_tpu_torch.bench.verify_runs``)
 MULTI_MIN_RUN, MULTI_MAX_RUN = 256, 1024
 
 
@@ -270,16 +309,30 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def multi_quant_run_rows(b: int, kvh: int, m: int, n_sm: int,
-                         max_runs: int) -> int:
-    """Rows per run of the multi-token kernel's bf16 instance for B slots,
-    KVH kv heads and M cache rows on a card with n_sm SMs (the rule above)."""
-    run = MULTI_MIN_RUN
-    while run < MULTI_MAX_RUN and 2 * b * kvh * -(-m // (2 * run)) > n_sm:
+def split_run_rows(b: int, kvh: int, m: int, n_sm: int, lo: int, hi: int,
+                   max_runs: int, blocks_per_sm: float = 0.5) -> int:
+    """The split kernels' run-length rule: the shortest run of cache rows (or
+    tokens), a power of two from lo to hi, that gives at most blocks_per_sm
+    live blocks an SM (one per two SMs by default) when the B slots of KVH
+    kv heads are half full (B * KVH * ceil(M / 2 / run) blocks); longer if a
+    slot would otherwise have more than max_runs runs (what the last block
+    can merge). Shorter runs put more SMs to work; longer runs leave fewer
+    partials for the last block of a slot to merge, which costs more than it
+    saves once the card is full."""
+    run = lo
+    while run < hi and b * kvh * -(-m // (2 * run)) > blocks_per_sm * n_sm:
         run *= 2
     while -(-m // run) > max_runs:
         run *= 2
     return run
+
+
+def multi_quant_run_rows(b: int, kvh: int, m: int, n_sm: int,
+                         max_runs: int) -> int:
+    """Rows per run of the multi-token kernel's bf16 instance for B slots,
+    KVH kv heads and M cache rows on a card with n_sm SMs."""
+    return split_run_rows(b, kvh, m, n_sm, MULTI_MIN_RUN, MULTI_MAX_RUN,
+                          max_runs)
 
 
 @functools.cache
@@ -781,12 +834,43 @@ def _multi_q4_fns():
     lib = library("decode_append_multi_q4")
     fn = lib.karanta_decode_append_multi_q4
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     supported = lib.karanta_decode_multi_q4_supported
     supported.restype = ctypes.c_int
     supported.argtypes = [ctypes.c_int, ctypes.c_int]
     return fn, supported
+
+
+# The int4 verify kernel's run lengths in tokens for split_run_rows (measured
+# on an H100 with ``python -m karanta_tpu_torch.bench.verify_runs --kernel
+# 7``): multiples of 64, so that no 64-token window is split across runs.
+MULTI_Q4_MIN_RUN, MULTI_Q4_MAX_RUN = 256, 2048
+
+
+def multi_q4_run_tokens(b: int, kvh: int, m: int, n_sm: int,
+                        max_runs: int) -> int:
+    """Tokens per run of the int4 multi-token kernel's bf16 instance for B
+    slots, KVH kv heads and M cache tokens on a card with n_sm SMs."""
+    return split_run_rows(b, kvh, m, n_sm, MULTI_Q4_MIN_RUN,
+                          MULTI_Q4_MAX_RUN, max_runs)
+
+
+@functools.cache
+def paged_decode_append_multi_q4_info(d: int, nq: int,
+                                      b: Optional[int] = None,
+                                      kvh: Optional[int] = None,
+                                      m: Optional[int] = None) -> dict:
+    """The resources of the int4 multi-token kernel's bf16 (tensor-core)
+    instance, as ``paged_decode_append_multi_quant_info`` reports them (m in
+    tokens; needs the card); given a shape, also its tokens per run."""
+    info = _info("decode_append_multi_q4",
+                 "karanta_decode_append_multi_q4_info", d, nq, "max_runs")
+    if b is not None:
+        info["run_tokens"] = multi_q4_run_tokens(
+            b, kvh, m, _sm_count(torch.cuda.current_device()),
+            info["max_runs"])
+    return info
 
 
 def paged_decode_append_multi_q4(
@@ -831,12 +915,26 @@ def paged_decode_append_multi_q4(
         raise ValueError(f"paged_decode_append_multi_q4: no kernel for head "
                          f"dim {d} with {g} query heads per kv head x {tq} "
                          f"tokens")
+    if q.dtype == torch.bfloat16 and tq > MULTI_MAX_TOKENS:
+        raise ValueError(f"paged_decode_append_multi_q4: the bf16 kernel "
+                         f"folds in at most {MULTI_MAX_TOKENS} fresh tokens, "
+                         f"not {tq}")
     out = torch.empty_like(q)
+    pm = k_cache.shape[3]
+    partials = counters = None
+    run_tokens = 0
+    if q.dtype == torch.bfloat16:
+        run_tokens = multi_q4_run_tokens(
+            b, kvh, 2 * pm, _sm_count(q.device),
+            paged_decode_append_multi_q4_info(d, g * tq)["max_runs"])
+        partials, counters = _split_workspace(
+            q, b * kvh, -(-2 * pm // run_tokens), MULTI_PARTIAL_ROWS)
     code = fn(kernels.ptr(q), kernels.ptr(new_k), kernels.ptr(new_v),
               kernels.ptr(new_ks), kernels.ptr(new_vs), kernels.ptr(k_cache),
               kernels.ptr(v_cache), kernels.ptr(ks_cache),
               kernels.ptr(vs_cache), kernels.ptr(cache_len), kernels.ptr(out),
-              b, tq, kvh, g, k_cache.shape[3], d, int(layer), scale,
+              kernels.ptr(partials), kernels.ptr(counters),
+              b, tq, kvh, g, pm, d, int(layer), run_tokens, scale,
               kernels.DTYPE_CODES[q.dtype], kernels.stream_ptr(q.device))
     kernels.raise_on_error("paged_decode_append_multi_q4", code)
     kernels.LAUNCHES["paged_decode_append_multi_q4"] += 1
@@ -890,9 +988,10 @@ def _attention_fns():
 
 # the split kernels' merge counters per (device, stream): zero between calls
 # (each call resets the ones it used), so they are allocated once and shared
-# by kernels #4, #5, #8 and #9 on one stream
+# by kernels #3, #4, #5, #7, #8 and #9 on one stream
 _SPLIT_COUNTERS: dict = {}
-# the read-only and bf16-append kernels' partial record holds 8 query rows
+# the read-only and single-token append kernels' partial record holds 8
+# query rows
 SPLIT_PARTIAL_ROWS = 8
 
 

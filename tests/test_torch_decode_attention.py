@@ -393,3 +393,80 @@ def test_append_plain_matches_pallas_bf16(layer, lens):
                                   np.asarray(k2).astype(np.float32))
     np.testing.assert_array_equal(tv.float().numpy(),
                                   np.asarray(v2).astype(np.float32))
+
+
+@pytest.mark.parametrize("layer,lens", [(1, [0, 5, 200, 255]),
+                                        (0, [64, 128, 63, 1])])
+def test_quant_plain_matches_pallas_bf16(layer, lens):
+    """Kernel #3's plain version against the JAX Pallas kernel
+    (``interpret=True``) at the 7B's heads (H = 28, KVH = 4, D = 128) with
+    bf16 activations, under the card's bf16 rule (the Pallas kernel rounds
+    p * vsc to bf16 before P.V, the plain version does not); all four
+    caches bit-equal."""
+    rng = np.random.default_rng(70 + layer)
+    L, B, M, H, KVH, D = 2, 4, 256, 28, 4, 128
+    jq, tq = _bf16(rng, (B, 1, H, D))
+
+    def rows(shape):
+        return j_qkv_rows(jnp.asarray(rng.normal(size=shape), jnp.float32))
+
+    (kq, ks), (vq, vs) = rows((L, B, KVH, M, D)), rows((L, B, KVH, M, D))
+    (nkq, nks), (nvq, nvs) = rows((B, KVH, D)), rows((B, KVH, D))
+    attn_j, k2, v2, ks2, vs2 = j_append_quant(
+        jq, nkq, nvq, nks, nvs, kq, vq, ks, vs, jnp.asarray(layer),
+        jnp.asarray(lens, jnp.int32), block=128, interpret=True)
+
+    def bf(x):
+        return _t(np.asarray(x, np.float32)).to(torch.bfloat16)
+
+    tk, tv, tks, tvs = _t(kq), _t(vq), bf(ks), bf(vs)
+    got = paged_decode_append_quant(
+        tq, _t(nkq), _t(nvq), bf(nks), bf(nvs), tk, tv, tks, tvs, layer,
+        torch.tensor(lens, dtype=torch.int32))
+    assert got.dtype == torch.bfloat16
+    _assert_bf16_rule(got.float().numpy(),
+                      np.asarray(attn_j).astype(np.float32))
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(k2))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(v2))
+    np.testing.assert_array_equal(tks.float().numpy(),
+                                  np.asarray(ks2, np.float32))
+    np.testing.assert_array_equal(tvs.float().numpy(),
+                                  np.asarray(vs2, np.float32))
+
+
+@pytest.mark.parametrize("m", [4096, 1920, 64])
+def test_split_run_rules(m):
+    """The run-length rules of the split kernels' bf16 instances (pure
+    Python; the card only times them): powers of two within each kernel's
+    range, the shortest that leaves at most one live block per two SMs at
+    half-full slots, longer only to respect the last block's merge limit,
+    never shorter as the batch grows."""
+    from karanta_tpu_torch.ops import decode_attention as DA
+
+    n_sm = 132
+    rules = ((lambda b: DA.multi_quant_run_rows(b, 4, m, n_sm, 64),
+              DA.MULTI_MIN_RUN, DA.MULTI_MAX_RUN, 0.5),
+             (lambda b: DA.multi_q4_run_tokens(b, 4, m, n_sm, 64),
+              DA.MULTI_Q4_MIN_RUN, DA.MULTI_Q4_MAX_RUN, 0.5),
+             (lambda b: DA.quant_run_rows(b, 4, m, n_sm, 64),
+              DA.QUANT_MIN_RUN, DA.QUANT_MAX_RUN, DA.QUANT_BLOCKS_PER_SM))
+    for rule, lo, hi, per_sm in rules:
+        runs = [rule(b) for b in (1, 2, 4, 8, 16, 32, 64, 80, 128)]
+        assert runs == sorted(runs)
+        for b, run in zip((1, 2, 4, 8, 16, 32, 64, 80, 128), runs):
+            assert lo <= run <= hi and run & (run - 1) == 0
+            blocks = b * 4 * -(-m // (2 * run))   # live at half-full slots
+            assert blocks <= per_sm * n_sm or run == hi
+            if run > lo:  # the next shorter run would overfill the card
+                assert b * 4 * -(-m // run) > per_sm * n_sm
+    # the served and engine points (measured on the card: PERF.md)
+    assert DA.multi_quant_run_rows(4, 4, 4096, n_sm, 64) == 512
+    assert DA.multi_quant_run_rows(32, 4, 4096, n_sm, 64) == 1024
+    assert DA.multi_q4_run_tokens(4, 4, 4096, n_sm, 64) == 512
+    assert DA.multi_q4_run_tokens(8, 4, 4096, n_sm, 64) == 1024
+    assert DA.quant_run_rows(4, 4, 1920, n_sm, 64) == 256
+    assert DA.quant_run_rows(32, 4, 1920, n_sm, 64) == 512
+    assert DA.quant_run_rows(80, 4, 1920, n_sm, 64) == 1024
+    # a slot never gets more runs than the last block can merge
+    assert DA.split_run_rows(1, 1, 4096, n_sm, 64, 64, max_runs=16) == 256
+    assert DA.split_run_rows(1, 1, 4096, n_sm, 64, 4096, 64) == 64

@@ -560,6 +560,135 @@ def test_split_kernels_leave_counters_zero(cuda):
     _assert_close(got9, want9, torch.bfloat16)
 
 
+def _quant_case(gen, dev, dtype, n_layers, b, kvh, g, m, d, lens):
+    """int8 caches, one new int8 row per slot, q and lengths for kernel
+    #3."""
+    from karanta_tpu_torch.models.qwen25_vl.decoder import quantize_kv_rows
+
+    def rows(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    kq, ks = quantize_kv_rows(rows((n_layers, b, kvh, m, d)))
+    vq, vs = quantize_kv_rows(rows((n_layers, b, kvh, m, d)))
+    nkq, nks = quantize_kv_rows(rows((b, kvh, d)))
+    nvq, nvs = quantize_kv_rows(rows((b, kvh, d)))
+    q = rows((b, 1, kvh * g, d)).to(dtype)
+    return (q, (nkq, nvq, nks.to(dtype), nvs.to(dtype)),
+            [kq, vq, ks.to(dtype), vs.to(dtype)],
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("g", [7, 8, 4, 2])
+def test_quant_kernel_split_boundaries(cuda, dtype, g):
+    """Kernel #3, D = 128 at layer 1 of 3, B = 7, M = 4096: cache_len on
+    each side of the bf16 instance's run of R rows at this shape (R - 1,
+    R, R + 1), 2R, 3R + 5, 0 (run 0 only appends) and M - 1; all four
+    caches bit-equal."""
+    m, b = 4096, 7
+    r = DA.paged_decode_append_quant_info(128, g, b, 2, m)["run_rows"]
+    lens = [r - 1, r, r + 1, 2 * r, 3 * r + 5, 0, m - 1]
+    gen = torch.Generator(device=cuda).manual_seed(67 + g)
+    q, new, caches, lens = _quant_case(gen, cuda, dtype, 3, b, 2, g, m, 128,
+                                       lens)
+    a = [x.clone() for x in caches]
+    got = DA.paged_decode_append_quant(q, *new, *a, 1, lens)
+    want = DA.paged_decode_append_quant_plain(q, *new, *caches, 1, lens)
+    torch.cuda.synchronize()
+    _assert_close(got, want, dtype)
+    for x, y in zip(a, caches):
+        assert torch.equal(x, y)
+
+
+def test_quant_kernel_is_deterministic(cuda):
+    """Two calls of #3's bf16 instance give the same bits and caches (the
+    second call rewrites the same row)."""
+    gen = torch.Generator(device=cuda).manual_seed(71)
+    lens = torch.randint(0, 1919, (16,), generator=gen, device=cuda).tolist()
+    q, new, caches, lens = _quant_case(gen, cuda, torch.bfloat16, 2, 16, 4, 7,
+                                       1920, 128, lens)
+    first = DA.paged_decode_append_quant(q, *new, *caches, 1, lens)
+    after_first = [x.clone() for x in caches]
+    second = DA.paged_decode_append_quant(q, *new, *caches, 1, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    for x, y in zip(after_first, caches):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("g,tq", [(7, 4), (8, 4), (7, 2), (2, 5)])
+def test_multi_q4_kernel_split_boundaries(cuda, dtype, g, tq):
+    """Kernel #7, D = 128 at layer 1 of 3, M = 4096 tokens: cache_len on
+    each side of the bf16 instance's run of R tokens at this shape (R - 1,
+    R, R + 1), 2R, 3R + 5, 0 (run 0 only merges) and M - T - 1, then spans
+    that cross the 32-row tile (R + 30) and the 64-token window (R + 62);
+    all four caches bit-equal."""
+    m, b = 4096, 9
+    r = DA.paged_decode_append_multi_q4_info(128, g * tq, b, 2, m)[
+        "run_tokens"]
+    lens = [r - 1, r, r + 1, 2 * r, 3 * r + 5, 0, m - tq - 1, r + 30, r + 62]
+    gen = torch.Generator(device=cuda).manual_seed(73 + g + tq)
+    a, new = _q4_inputs(gen, cuda, dtype, 3, b, 2, m, 128, (b, tq))
+    c = [x.clone() for x in a]
+    q = _randn(gen, (b, tq, 2 * g, 128), cuda, dtype)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    got = DA.paged_decode_append_multi_q4(q, *new, *a, 1, lens)
+    want = DA.paged_decode_append_multi_q4_plain(q, *new, *c, 1, lens)
+    torch.cuda.synchronize()
+    _assert_close(got, want, dtype)
+    for x, y in zip(a, c):
+        assert torch.equal(x, y)
+
+
+def test_multi_q4_kernel_is_deterministic(cuda):
+    """Two calls of #7's bf16 instance give the same bits and caches (the
+    second call merges the same nibbles again)."""
+    gen = torch.Generator(device=cuda).manual_seed(79)
+    lens = torch.randint(0, 4096 - 5, (8,), generator=gen,
+                         device=cuda).to(torch.int32)
+    a, new = _q4_inputs(gen, cuda, torch.bfloat16, 2, 8, 4, 4096, 128, (8, 4))
+    q = _randn(gen, (8, 4, 28, 128), cuda, torch.bfloat16)
+    first = DA.paged_decode_append_multi_q4(q, *new, *a, 1, lens)
+    after_first = [x.clone() for x in a]
+    second = DA.paged_decode_append_multi_q4(q, *new, *a, 1, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    for x, y in zip(after_first, a):
+        assert torch.equal(x, y)
+
+
+def test_int_split_kernels_leave_counters_zero(cuda):
+    """Kernels #3, #7 and #4 one after another on one stream share the merge
+    counters with #5, #8 and #9; each call leaves them at 0, and each output
+    still meets its plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(83)
+    m, tq = 4096, 4
+    lens_l = [m - tq - 1, 3000, 1500, 0]
+    q3, new3, c3, lens = _quant_case(gen, cuda, torch.bfloat16, 2, 4, 4, 7, m,
+                                     128, lens_l)
+    want3 = DA.paged_decode_append_quant_plain(
+        q3, *new3, *[x.clone() for x in c3], 1, lens)
+    a7, new7 = _q4_inputs(gen, cuda, torch.bfloat16, 2, 4, 4, m, 128, (4, tq))
+    q7 = _randn(gen, (4, tq, 28, 128), cuda, torch.bfloat16)
+    want7 = DA.paged_decode_append_multi_q4_plain(
+        q7, *new7, *[x.clone() for x in a7], 1, lens)
+    q4, new4, c4, _ = _multi_quant_case(gen, cuda, torch.bfloat16, 2, 4, 4,
+                                        7, tq, m, 128, lens_l)
+    want4 = DA.paged_decode_append_multi_quant_plain(
+        q4, *new4, *[x.clone() for x in c4], 1, lens)
+    got3 = DA.paged_decode_append_quant(q3, *new3, *c3, 1, lens)
+    got7 = DA.paged_decode_append_multi_q4(q7, *new7, *a7, 1, lens)
+    got4 = DA.paged_decode_append_multi_quant(q4, *new4, *c4, 1, lens)
+    torch.cuda.synchronize()
+    counters = DA._SPLIT_COUNTERS[
+        (q3.device, torch.cuda.current_stream(q3.device).cuda_stream)]
+    assert int(counters.abs().sum()) == 0
+    _assert_close(got3, want3, torch.bfloat16)
+    _assert_close(got7, want7, torch.bfloat16)
+    _assert_close(got4, want4, torch.bfloat16)
+
+
 # ---------------------------------------------------------------------------
 # kernels #10 and #11: the decode weight streams (ops/decode_stream.py)
 # ---------------------------------------------------------------------------
