@@ -22,15 +22,19 @@ Phases (any failed check raises and the script exits non-zero):
    and int4 verify kernels, the int8 decode kernel and the bf16 append
    kernel likewise (GB/s of live bytes, share of the bound, resources; the
    int8 verify kernel also at B = 32 with ragged lengths, the int4 verify
-   kernel at the served int4 point's B = 8 with ragged lengths, the int8
-   decode kernel at the decode A/B point, B = 80 with every slot filled to
-   1,650 of 1,920 rows, each checked against its plain version; beside the
-   append kernel, SDPA over the bucket with the new row scattered, for
-   context); the split decode kernels' device time without the host's
+   and decode kernels at the served int4 point's B = 8 with ragged lengths,
+   the int8 decode kernel at the decode A/B point, B = 80 with every slot
+   filled to 1,650 of 1,920 rows, each checked against its plain version;
+   beside the append kernel, SDPA over the bucket with the new row
+   scattered, for context); the split decode kernels' device time without
+   the host's
    launch overhead, from a CUDA graph of 20 calls; kernels #10 and
    #11, the decode weight streams, at full 7B width and depth: checked at
    B = 4 over ragged lengths, timed at the JAX package's decode A/B point
-   (B = 80, 1920-row bucket filled to 1650);
+   (B = 80, 1920-row bucket filled to 1650), their device time at both
+   batches by CUDA events over 20 chained calls, and traced phase by phase
+   at both batches on an instrumented copy (bench/stream_trace.py: ms per
+   step of the products, the attention, the row phases and the barriers);
    decode-stream A/B: the megakernel step, the split decode_step and
    dense_stream, each chained 20 times at a fixed cache_len, at B = 80 and
    B = 4 (ms/step, GB/s of the bytes bound, peak memory, one launch of #11
@@ -90,6 +94,9 @@ import torch
 from karanta_tpu_torch import kernels
 from karanta_tpu_torch.bench.pages import make_page_png, page_messages
 from karanta_tpu_torch.bench.randweights import init_params_bench
+from karanta_tpu_torch.bench.stream_trace import (AB_BUCKET, AB_FILL,
+                                                  STREAM_CHECK_LENS,
+                                                  stream_inputs)
 from karanta_tpu_torch.inference.engine import Engine, EngineConfig, GenRequest
 from karanta_tpu_torch.inference.server import (InferenceServer,
                                                 build_engine_from_args,
@@ -837,7 +844,8 @@ def kernel_q4(cfg, dev, gen) -> dict:
     """One decode step of one layer over the 7B int4 cache: B = 4, M = 2048,
     kernel #3's lengths (0, mid-window, 1919, a page prompt); four layers of
     cache stand in for 28 (the kernel reads one). Then the window
-    boundaries."""
+    boundaries, then the served int4 point's B = 8 over its 4,096-token
+    context with ragged lengths (device time, share of the bound, GB/s)."""
     t = cfg.text
     m, n_layers, layer, batch = 2048, 4, 3, 4
     lens = [0, 700, 1919, 1390]
@@ -870,15 +878,63 @@ def kernel_q4(cfg, dev, gen) -> dict:
 
     t_k = cuda_ms(lambda: DA.paged_decode_append_q4(q, *new, *a, layer,
                                                     lens_t), 50)
+    t_dev = graph_ms(lambda: DA.paged_decode_append_q4(q, *new, *a, layer,
+                                                       lens_t))
     t_p = cuda_ms(lambda: DA.paged_decode_append_q4_plain(
         q, *new, *b_, layer, lens_t), 5)
-    flops = 4.0 * d * h * sum(n + 1 for n in lens)
-    bd, by = bound_ms(_q4_bytes(lens, kvh, d, h, batch, 1), flops)
+
+    def work(lens_, b):
+        return (_q4_bytes(lens_, kvh, d, h, b, 1),
+                4.0 * d * h * sum(n + 1 for n in lens_))
+
+    bd, by = bound_ms(*work(lens, batch))
+    g = h // kvh
+    res = DA.paged_decode_append_q4_info(d, g, batch, kvh, m)
+    del a, b_, caches
+    torch.cuda.empty_cache()
+    # the second timed shape: the served int4 point's 8 slots over its
+    # 4,096-token context, ragged lengths up to M - 1; two layers of cache
+    # (the kernel reads one)
+    b8, m8 = 8, 4096
+    rng = np.random.default_rng(17)
+    lens8 = [0, m8 - 1] + sorted(int(x) for x in rng.integers(
+        1, m8 - 1, b8 - 2))
+    q8, new8, c8 = _q4_inputs(dev, gen, 2, b8, kvh, m8, d, h, None,
+                              torch.bfloat16)
+    l8 = torch.tensor(lens8, dtype=torch.int32, device=dev)
+    a8 = [c.clone() for c in c8]
+    got8 = DA.paged_decode_append_q4(q8, *new8, *a8, 1, l8)
+    torch.cuda.synchronize()
+    want8 = DA.paged_decode_append_q4_plain(q8, *new8, *c8, 1, l8)
+    err8 = check_bf16(f"paged_decode_append_q4 7B B={b8} M={m8} ragged "
+                      f"bf16", got8, want8)
+    _check_caches("paged_decode_append_q4 B=8", a8, c8)
+    t8 = cuda_ms(lambda: DA.paged_decode_append_q4(q8, *new8, *a8, 1, l8),
+                 50)
+    t8_dev = graph_ms(lambda: DA.paged_decode_append_q4(q8, *new8, *a8, 1,
+                                                        l8))
+    n8, f8 = work(lens8, b8)
+    bd8, _ = bound_ms(n8, f8)
+    res8 = DA.paged_decode_append_q4_info(d, g, b8, kvh, m8)
+    del a8, c8
+    torch.cuda.empty_cache()
+    rates = {"device_ms": t_dev, "bound_share": bd / t_dev,
+             "resources": res,
+             "b8": {"ms": t8, "device_ms": t8_dev, "bound_ms": bd8,
+                    "bound_share": bd8 / t8_dev,
+                    "live_gbps": n8 / t8_dev * 1e-6, "max_abs_err": err8,
+                    "run_tokens": res8["run_tokens"], "lens": lens8}}
+    log(f"  paged_decode_append_q4 B={batch}: kernel {t_k:.4f} ms "
+        f"({t_dev:.4f} ms of device time), {100 * bd / t_dev:.1f}% of the "
+        f"bound {bd:.5f} ms; B={b8} M={m8}: {t8:.4f} ms ({t8_dev:.4f} "
+        f"device), {100 * bd8 / t8_dev:.1f}% of its bound {bd8:.5f} ms, "
+        f"{n8 / t8_dev * 1e-6:.0f} GB/s; bf16 instance {res}, runs of "
+        f"{res8['run_tokens']} tokens at B={b8}")
     return dict(name="paged_decode_append_q4", route="cuda",
                 source="karanta_tpu_torch/kernels/csrc/decode_append_q4.cu",
                 replaces="karanta_tpu/ops/decode_attention.py:1622",
                 max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bd,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=None, **rates)
 
 
 def kernel_multi_q4(cfg, dev, gen) -> dict:
@@ -1072,10 +1128,11 @@ def kernel_read_only(cfg, dev, gen) -> list:
 # ---------------------------------------------------------------------------
 
 # the JAX package's decode A/B point (scratch/mega_meas.py): 80 slots, the
-# 1920-row bucket filled to 1650 rows, 20 chained steps per variant
-AB_BATCH, AB_BUCKET, AB_FILL, AB_ITERS = 80, 1920, 1650, 20
-STREAM_CHECK_LENS = [0, 33, 1390, AB_BUCKET - 1]  # B = 4, ragged
+# 1920-row bucket filled to 1650 rows (bench/stream_trace.py), 20 chained
+# steps per variant
+AB_BATCH, AB_ITERS = 80, 20
 STREAM_NORM_TOL = 2e-2  # normwise relative error after 28 layers
+STREAM_CALLS = 20  # chained calls per stream device time
 
 
 def normwise(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1104,28 +1161,6 @@ def stream_work(cfg, b: int, lens, mega: bool) -> tuple[float, float]:
     else:
         n_bytes += n * b * (h + qkv) * 2  # attention outputs in, qkv out
     return n_bytes, flops
-
-
-def stream_inputs(cfg, dev, gen, b: int, lens):
-    """x (B, H) bf16, cos/sin (B, D) at positions lens, an int8 cache of
-    AB_BUCKET rows (random bytes, scales in [0.002, 0.022)), lens, and the
-    per-layer attention outputs (L, B, H) bf16 that #10 takes."""
-    from karanta_tpu_torch.ops.rotary import mrope_cos_sin
-
-    t = cfg.text
-    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
-    cos, sin = mrope_cos_sin(lens_t[None].expand(3, b), t.head_dim,
-                             t.mrope_section, t.rope_theta)
-    x = (torch.randn((b, t.hidden_size), generator=gen, device=dev)
-         * 0.3).bfloat16()
-    shape = (t.num_layers, b, t.num_kv_heads, AB_BUCKET, t.head_dim)
-    caches = [torch.randint(-127, 128, shape, generator=gen, device=dev,
-                            dtype=torch.int8) for _ in range(2)]
-    caches += [(torch.rand(shape[:-1], generator=gen, device=dev) * 0.02
-                + 0.002).bfloat16() for _ in range(2)]
-    attn = (torch.randn((t.num_layers, b, t.hidden_size), generator=gen,
-                        device=dev) * 0.3).bfloat16()
-    return x, cos.contiguous(), sin.contiguous(), caches, lens_t, attn
 
 
 def check_streams(cfg, sp, x, cos, sin, caches, lens_t, attn,
@@ -1222,20 +1257,21 @@ def check_streams(cfg, sp, x, cos, sin, caches, lens_t, attn,
     log(f"  decode_megakernel {label}: untouched cache entries bit-equal to "
         f"the input; two calls bit-equal")
     err11 = max_err(mx[0], want)
-    x_full = mx[0]
+    x_full, caches_full = mx[0], runs[0]
     del runs, mx, want
-    stream_layer_witness(cfg, sp, x, cos, sin, caches, lens_t, x_full, label)
+    stream_layer_witness(cfg, sp, x, cos, sin, caches, lens_t, x_full,
+                         caches_full, label)
     return err10, err11
 
 
 def stream_layer_witness(cfg, sp, x, cos, sin, caches, lens_t, x_full,
-                         label: str) -> None:
+                         caches_full, label: str) -> None:
     """Tells depth drift from a kernel fault: #11 and its plain version run
     one layer at a time, each layer from the same input (the kernel's own
     output of the layer before), and every layer's new int8 K/V entries are
     held to one step of the plain version's. The chained one-layer launches
-    must give the full-depth launch's x_final bit for bit, so each layer
-    here is the arithmetic of the fused call."""
+    must give the full-depth launch's x_final and caches bit for bit, so
+    each layer here is the arithmetic of the fused call, writes included."""
     from karanta_tpu_torch.ops import decode_stream as DS
 
     t = cfg.text
@@ -1261,11 +1297,12 @@ def stream_layer_witness(cfg, sp, x, cos, sin, caches, lens_t, x_full,
         per_layer.append(n)
         h = out
     torch.cuda.synchronize()
-    same = torch.equal(h, x_full)
+    same = torch.equal(h, x_full) and all(
+        torch.equal(p, q) for p, q in zip(kern, caches_full))
     log(f"  decode_megakernel {label} layer by layer from matched inputs: "
         f"new K/V entries that differ per layer {per_layer} of "
         f"{2 * x.shape[0] * kvd} (max {worst} step); chained one-layer "
-        f"launches bit-equal to the full-depth launch: {same}")
+        f"launches bit-equal to the full-depth launch, x and caches: {same}")
     if worst > 1:
         raise AssertionError(f"decode_megakernel {label}: from matched "
                              f"inputs a new K/V entry is {worst} steps from "
@@ -1409,9 +1446,14 @@ def barrier_probe(cfg, dev, gen) -> dict:
 def phase_decode_streams(cfg, dev, gen) -> tuple[list, dict, dict]:
     """Kernels #10 and #11 at full 7B width and depth (random int8 weights
     from init_params_bench): checks at B = 4 with ragged lengths and at
-    the A/B point (B = 80), times there beside the plain versions and their
-    yardsticks, then the A/B at B = 80 and B = 4. Returns the two kernel
-    rows and the A/B numbers."""
+    the A/B point (B = 80), each followed by both streams' device time (CUDA
+    events over STREAM_CALLS chained calls of the port's kernel: a call runs
+    for milliseconds, far longer than the host takes to issue the next) and
+    a per-phase timer trace on an instrumented copy (bench/stream_trace.py:
+    the phases' ms per step and the traced call's span), times at B = 80
+    beside the plain versions and their yardsticks, then the A/B at B = 80
+    and B = 4. Returns the two kernel rows and the A/B numbers."""
+    from karanta_tpu_torch.bench import stream_trace as ST
     from karanta_tpu_torch.models.qwen25_vl import decoder as dec
     from karanta_tpu_torch.ops import decode_stream as DS
 
@@ -1426,24 +1468,42 @@ def phase_decode_streams(cfg, dev, gen) -> tuple[list, dict, dict]:
         f"{time.perf_counter() - t0:.1f}s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     t = cfg.text
-    b, lens = len(STREAM_CHECK_LENS), STREAM_CHECK_LENS
-    errs = [check_streams(cfg, sp, *stream_inputs(cfg, dev, gen, b, lens),
-                          f"7B B={b} lens={lens}")]
-    b, lens = AB_BATCH, [AB_FILL] * AB_BATCH
     qd, kvd = t.num_heads * t.head_dim, t.num_kv_heads * t.head_dim
+    traced = ST.build_traced()
+    phases = {}
+
+    def trace(label, b, x, cos, sin, caches, lens_t, attn):
+        """Both streams' device time on the port's kernel, then a per-phase
+        timer trace on the instrumented copy."""
+        calls = ST.stream_calls(sp, x, cos, sin, caches, lens_t, attn, qd, kvd)
+        for name, call in calls.items():
+            dev_ms = cuda_ms(lambda: call(None), STREAM_CALLS)
+            res = ST.trace_call(traced, call, t.num_layers)
+            res["device_ms"] = dev_ms
+            phases.setdefault(name, {})[f"B={b}"] = res
+            log(f"  {name} {label}: {dev_ms:.3f} ms device time by events")
+            log(f"  {ST.line(f'{name} {label}', res)}")
+
+    b, lens = len(STREAM_CHECK_LENS), STREAM_CHECK_LENS
+    inputs4 = stream_inputs(cfg, dev, gen, b, lens)
+    errs = [check_streams(cfg, sp, *inputs4, f"7B B={b} lens={lens}")]
+    trace(f"7B B={b} lens={lens}", b, *inputs4)
+    del inputs4
+    b, lens = AB_BATCH, [AB_FILL] * AB_BATCH
     x, cos, sin, caches, lens_t, attn = stream_inputs(cfg, dev, gen, b, lens)
     errs.append(check_streams(cfg, sp, x, cos, sin, caches, lens_t, attn,
                               f"7B B={b} fill {AB_FILL}"))
+    trace(f"7B B={b} fill {AB_FILL}", b, x, cos, sin, caches, lens_t, attn)
     err10, err11 = (max(e) for e in zip(*errs))
     positions = lens_t[None].expand(3, b)
     cache = dec.QuantKVCache(*caches)
+    # the kernels' ms is their device time at B = 80, measured in trace()
     times = {
         "dense_stream": (
-            cuda_ms(lambda: DS.dense_stream(x, attn, sp), 5),
+            phases["dense_stream"][f"B={b}"]["device_ms"],
             cuda_ms(lambda: DS.dense_stream_plain(x, attn, sp), 2, 1)),
         "decode_megakernel": (
-            cuda_ms(lambda: DS.decode_megakernel(
-                x, cos, sin, sp, *caches, lens_t, qd=qd, kvd=kvd), 5),
+            phases["decode_megakernel"][f"B={b}"]["device_ms"],
             cuda_ms(lambda: DS.decode_megakernel_plain(
                 x, cos, sin, sp, *caches, lens_t, qd, kvd,
                 t.head_dim ** -0.5), 1, 1)),
@@ -1480,14 +1540,32 @@ def phase_decode_streams(cfg, dev, gen) -> tuple[list, dict, dict]:
              t_split)):
         bd, by = bound_ms(*stream_work(cfg, b, lens,
                                        mega=name == "decode_megakernel"))
+        bd4, _ = bound_ms(*stream_work(cfg, len(STREAM_CHECK_LENS),
+                                       STREAM_CHECK_LENS,
+                                       mega=name == "decode_megakernel"))
+        per = phases[name]
+        dev_ms = per[f"B={b}"]["device_ms"]
+        dev4 = per[f"B={len(STREAM_CHECK_LENS)}"]["device_ms"]
         rows.append(dict(name=name, route="cuda",
                          source="karanta_tpu_torch/kernels/csrc/"
                                 "decode_stream.cu",
                          replaces=f"karanta_tpu/ops/decode_stream.py:{line}",
                          max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bd,
-                         bound_by=by, library_ms=t_l))
-        log(f"  {name} B={b}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
-            f"yardstick {t_l:.3f} ms, bound {bd:.3f} ms ({by})")
+                         bound_by=by, library_ms=t_l, device_ms=dev_ms,
+                         bound_share=bd / dev_ms,
+                         b4={"device_ms": dev4, "bound_ms": bd4,
+                             "bound_share": bd4 / dev4},
+                         phases={k: {"traced_ms": v["total_ms"],
+                                     "phase_ms": v["phase_ms"],
+                                     "barrier_release_ms":
+                                         v["barrier_release_ms"]}
+                                 for k, v in per.items()}))
+        log(f"  {name} B={b}: kernel {t_k:.3f} ms device time "
+            f"({100 * bd / dev_ms:.1f}% of the bound; the instrumented copy "
+            f"{per[f'B={b}']['total_ms']:.3f} ms traced), plain {t_p:.3f} "
+            f"ms, yardstick {t_l:.3f} ms, bound {bd:.3f} ms ({by}); "
+            f"B={len(STREAM_CHECK_LENS)}: {dev4:.3f} ms device time, bound "
+            f"{bd4:.3f} ms")
     ab = {f"B={bb}": decode_stream_ab(cfg, dev, gen, text, sp, bb)
           for bb in (AB_BATCH, 4)}
     barrier = barrier_probe(cfg, dev, gen)

@@ -1,23 +1,26 @@
 """Run-length sweep of the split decode kernels over the quantized caches on
 the card: the bf16 instances of the int8 verify kernel (#4,
 ``ops/decode_attention.py paged_decode_append_multi_quant``), the int4
-verify kernel (#7, ``paged_decode_append_multi_q4``) and the int8 decode
-kernel (#3, ``paged_decode_append_quant``).
+verify kernel (#7, ``paged_decode_append_multi_q4``), the int8 decode
+kernel (#3, ``paged_decode_append_quant``) and the int4 decode kernel (#6,
+``paged_decode_append_q4``).
 
     python -m karanta_tpu_torch.bench.verify_runs
     python -m karanta_tpu_torch.bench.verify_runs --kernel 7
     python -m karanta_tpu_torch.bench.verify_runs --kernel 3 --batches 4,80
+    python -m karanta_tpu_torch.bench.verify_runs --kernel 6
 
 At the Qwen2.5-VL-7B shapes (D = 128, G = 7, KVH = 4; #4 and #7: T = 4
-over a 4,096-token cache; #3: one row over the engine's 1,920-row cache) and
-each batch size, the kernel runs with each run length (rows for #4 and #3,
-tokens for #7) through its C entry, is checked against the plain version
-(the bf16 rule), and is timed on the device: 20 calls captured in a CUDA
-graph and replayed, so the wrapper's host time is left out. Batch 4 takes
-the smoke's lengths; #3 at batch 80 fills every slot to 1,650 rows (the
-decode A/B point); the others take ragged lengths from a seed. One line per
-batch with the time per run length and the length the wrapper's rule picks,
-then one JSON object. Needs a CUDA device.
+over a 4,096-token cache; #3: one row over the engine's 1,920-row cache;
+#6: one token over the served int4 point's 4,096-token cache) and each
+batch size, the kernel runs with each run length (rows for #4 and #3,
+tokens for #7 and #6) through its C entry, is checked against the plain
+version (the bf16 rule), and is timed on the device: 20 calls captured in a
+CUDA graph and replayed, so the wrapper's host time is left out. Batch 4
+takes the smoke's lengths; #3 at batch 80 fills every slot to 1,650 rows
+(the decode A/B point); the others take ragged lengths from a seed. One line
+per batch with the time per run length and the length the wrapper's rule
+picks, then one JSON object. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -40,9 +43,10 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # per kernel: cache tokens, fresh tokens per slot, default batches and runs
 SHAPES = {"4": (4096, 4, "1,4,8,32,64", "256,512,1024,2048"),
           "7": (4096, 4, "1,4,8,32,64", "256,512,1024,2048,4096"),
-          "3": (1920, 1, "4,16,32,80", "128,256,512,1024,2048")}
+          "3": (1920, 1, "4,16,32,80", "128,256,512,1024,2048"),
+          "6": (4096, 1, "1,4,8,32,64", "256,512,1024,2048,4096")}
 SMOKE_LENS = {"4": [0, 1700, 2100, 4091], "7": [0, 1700, 2100, 4091],
-              "3": [0, 700, 1919, 1390]}
+              "3": [0, 700, 1919, 1390], "6": [0, 700, 1919, 1390]}
 AB_FILL = 1650  # #3 at batch 80: the decode A/B point's fill
 
 
@@ -83,13 +87,13 @@ def case(kernel: str, b: int, lens: list, gen: torch.Generator):
     def rows(shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    lead = (b,) if kernel == "3" else (b, tq)
-    quant = quantize_kv_rows_q4 if kernel == "7" else quantize_kv_rows
+    lead = (b,) if tq == 1 else (b, tq)
+    quant = quantize_kv_rows_q4 if kernel in "67" else quantize_kv_rows
     nkq, nks = quant(rows(lead + (KVH, D)))
     nvq, nvs = quant(rows(lead + (KVH, D)))
     q = rows((b, tq, KVH * G, D)).bfloat16()
     new = (nkq, nvq, nks.bfloat16(), nvs.bfloat16())
-    if kernel == "7":
+    if kernel in "67":
         caches = list(q4_pack_prefill(rows((2, b, KVH, m, D)),
                                       rows((2, b, KVH, m, D))))
     else:
@@ -100,7 +104,8 @@ def case(kernel: str, b: int, lens: list, gen: torch.Generator):
     lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
     plain = {"4": DA.paged_decode_append_multi_quant_plain,
              "7": DA.paged_decode_append_multi_q4_plain,
-             "3": DA.paged_decode_append_quant_plain}[kernel]
+             "3": DA.paged_decode_append_quant_plain,
+             "6": DA.paged_decode_append_q4_plain}[kernel]
     want = plain(q, *new, *[c.clone() for c in caches], 1, lens_t).float()
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     if kernel == "4":
@@ -123,6 +128,15 @@ def case(kernel: str, b: int, lens: list, gen: torch.Generator):
         n_bytes = (sum(KVH * (_q4_live_rows(n) * D * 2 + n * 4) for n in lens)
                    + b * tq * KVH * (D * 2 + 4) * 2
                    + 2 * b * tq * KVH * G * D * 2)
+    elif kernel == "6":
+        fn = DA._q4_fns()[0]
+        max_runs = DA.paged_decode_append_q4_info(D, G)["max_runs"]
+        rule = DA.q4_run_tokens(b, KVH, m, n_sm, max_runs)
+
+        def tail(run):
+            return (b, KVH, G, m // 2, D, 1, run)
+        n_bytes = (sum(KVH * (_q4_live_rows(n) * D * 2 + n * 4) for n in lens)
+                   + b * KVH * (D * 2 + 4) * 2 + 2 * b * KVH * G * D * 2)
     else:
         fn = DA._decode_fns()[0]
         max_runs = DA.paged_decode_append_quant_info(D, G)["max_runs"]
@@ -143,7 +157,7 @@ def sweep(kernel: str, b: int, lens: list, runs: list,
     (q, new, caches, lens_t, want, fn, tail, rule, max_runs,
      bound) = case(kernel, b, lens, gen)
     limit = 2.0 ** -7 * want.abs() + 2.0 ** -9 * want.abs().max()
-    rows = DA.SPLIT_PARTIAL_ROWS if kernel == "3" else DA.MULTI_PARTIAL_ROWS
+    rows = DA.SPLIT_PARTIAL_ROWS if kernel in "36" else DA.MULTI_PARTIAL_ROWS
     out = torch.empty_like(q)
     times = {}
     for run in runs:
@@ -175,10 +189,11 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernel", choices=sorted(SHAPES), default="4",
                         help="4: int8 verify, 7: int4 verify, 3: int8 "
-                             "decode (default 4)")
+                             "decode, 6: int4 decode (default 4)")
     parser.add_argument("--batches", default=None)
     parser.add_argument("--runs", default=None,
-                        help="run lengths: rows (#4, #3) or tokens (#7)")
+                        help="run lengths: rows (#4, #3) or tokens (#7, "
+                             "#6)")
     parser.add_argument("--seed", type=int, default=5)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():

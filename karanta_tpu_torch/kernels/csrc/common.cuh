@@ -97,6 +97,19 @@ __device__ __forceinline__ int8_t q4_merge(int8_t old, int8_t v, int nib) {
   return static_cast<int8_t>(static_cast<unsigned char>(merged));
 }
 
+// token of key kk (0..15) of key tile p of the chunk that starts at stored
+// row c0 (a multiple of 16): one token a row for bf16 (kBits 16) and int8
+// rows, two for packed int4 rows (q4_row)
+template <int kBits>
+__device__ __forceinline__ int chunk_token(int c0, int p, int kk) {
+  if constexpr (kBits != 4) {
+    return c0 + kk;
+  } else {
+    const int pr = c0 + kk;
+    return ((pr >> 5) << 6) + 32 * p + (pr & 31);
+  }
+}
+
 // Opt a kernel into more than the default 48 KB of dynamic shared memory.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {

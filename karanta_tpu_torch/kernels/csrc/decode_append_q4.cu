@@ -12,12 +12,31 @@
 //
 // What bounds it on this card: per live token the kernel reads D bytes of
 // packed K and V (half the int8 cache's) and two scales, and uses them for
-// about 2 * G * D flops on the CUDA cores in float32, so the arithmetic, not
-// the bytes, sets its pace; the bound it is held to is the bytes one:
+// about 2 * G * D flops, so device-memory bytes bound it:
 // B * KVH * (live_packed_rows * D * 2 + live_tokens * 2 * sizeof(T)) per
 // layer at 3.35 TB/s.
 //
-// Design: decode_append_quant.cu's, over packed rows. One block per (kv head,
+// The bf16 instance is decode_split_kernel (decode_split.cuh, with
+// kAppend = true, kBits = 4), the one body it shares with kernels #3, #5, #8
+// and #9: each slot's tokens [0, cache_len) in runs over blocks (the run
+// length in tokens, a multiple of 64, so no window is split; the wrapper's
+// rule, q4_run_tokens, was measured on the card), a cp.async ring of packed
+// rows and their scales per warp (a quarter of the bf16 rows' bytes per
+// token), each landed chunk of 16 packed rows unpacked exactly into two
+// 16-key bf16 tiles (the low plane, tokens 64w + r, and the high plane,
+// 64w + 32 + r, each with its own scale plane) before ldmatrix, Q.K^T and
+// P.V on the tensor cores (mma.sync bf16, float32 accumulators) with ksc on
+// the scores and p * vsc rounded to bf16 before P.V as the TPU kernel rounds
+// it (decode_attention.py:1577), each key masked by its own token index, and
+// a last-block merge of the runs' partials in a fixed order. The block of
+// run 0 merges the new token's nibbles into their bytes (one thread and one
+// store per byte, the other nibble kept) and writes its scales, and the
+// block that finishes the slot folds the new token in last, in float32 from
+// its int4 values times its scales (:1590-1606), then normalises.
+//
+// The float32 instance (decode_append_q4_kernel) stays on the CUDA cores
+// (the tensor cores would multiply in TF32), decode_append_quant.cu's
+// float32 design over packed rows. One block per (kv head,
 // slot) owns that slab. It merges the new token's byte itself (one thread per
 // byte, one store each): the byte's other nibble, token cache_len - 32 or a
 // token not yet written, is kept as it was, so a reader sees the older token
@@ -30,6 +49,7 @@
 // chunks), and each thread then owns one output dim. The TPU kernel's ring,
 // slots per program and scale slab are TPU tiling and do not carry over.
 #include "common.cuh"
+#include "decode_split.cuh"
 
 namespace karanta {
 
@@ -260,23 +280,44 @@ cudaError_t launch_q4(const void* q, const int8_t* nk, const int8_t* nv, const v
   return cudaGetLastError();
 }
 
-#define KARANTA_Q4_CASE(DD, GG)                                                   \
-  if (D == DD && G == GG)                                                          \
-    return launch_q4<T, DD, GG>(q, nk, nv, nks, nvs, kc, vc, ksc, vsc, lens, out, \
-                                B, KVH, PM, layer, scale, st);
-
 // (D, G) pairs: Qwen2.5-VL-7B (28 heads over 4), -3B (16 over 2), the tiny
 // test config (4 heads over 2) and the shapes of the JAX package's tests
 #define KARANTA_Q4_PAIRS(X) \
   X(128, 7) X(128, 8) X(128, 4) X(128, 2) X(64, 4) X(64, 2) X(32, 2) X(16, 2)
 
-template <typename T>
-cudaError_t dispatch_q4(int D, int G, const void* q, const int8_t* nk, const int8_t* nv,
-                        const void* nks, const void* nvs, int8_t* kc, int8_t* vc,
-                        void* ksc, void* vsc, const int* lens, void* out, int B, int KVH,
-                        int PM, int layer, float scale, cudaStream_t st) {
-  KARANTA_Q4_PAIRS(KARANTA_Q4_CASE)
+template <int D, int G>
+cudaError_t launch_pair_q4(int dtype, const void* q, const int8_t* nk, const int8_t* nv,
+                           const void* nks, const void* nvs, int8_t* kc, int8_t* vc,
+                           void* ksc, void* vsc, const int* lens, void* out, float* partials,
+                           int* counters, int B, int KVH, int PM, int layer, int run_tokens,
+                           float scale, cudaStream_t st) {
+  if (dtype == kBFloat16) {
+    if (run_tokens % 2) return cudaErrorInvalidValue;
+    return launch_split<D, G, true, 4>(q, nk, nv, nks, nvs, kc, vc, ksc, vsc, lens, out,
+                                       partials, counters, B, KVH, PM, layer, run_tokens / 2,
+                                       scale, st);
+  }
+  if (dtype == kFloat32) {
+    return launch_q4<float, D, G>(q, nk, nv, nks, nvs, kc, vc, ksc, vsc, lens, out, B, KVH, PM,
+                                  layer, scale, st);
+  }
   return cudaErrorInvalidValue;
+}
+
+#define KARANTA_Q4_CASE(DD, GG)                                                            \
+  if (D == DD && G == GG)                                                                   \
+    return static_cast<int>(launch_pair_q4<DD, GG>(dtype, q, nk, nv, nks, nvs, kc, vc, ksc, \
+                                                   vsc, lens, out, partials, counters, B,    \
+                                                   KVH, PM, layer, run_tokens, scale,        \
+                                                   static_cast<cudaStream_t>(stream)));
+
+inline int q4_entry(int D, int G, const void* q, const int8_t* nk, const int8_t* nv,
+                    const void* nks, const void* nvs, int8_t* kc, int8_t* vc, void* ksc,
+                    void* vsc, const int* lens, void* out, float* partials, int* counters, int B,
+                    int KVH, int PM, int layer, int run_tokens, float scale, int dtype,
+                    void* stream) {
+  KARANTA_Q4_PAIRS(KARANTA_Q4_CASE)
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 #undef KARANTA_Q4_CASE
@@ -285,26 +326,21 @@ cudaError_t dispatch_q4(int D, int G, const void* q, const int8_t* nk, const int
 
 // C interface (loaded with ctypes). Caches are updated in place; PM is the
 // packed row count (M / 2 tokens). Returns the CUDA error code of the launch;
-// cudaErrorInvalidValue for a (D, G) pair without an instantiation.
+// cudaErrorInvalidValue for a (D, G) pair without an instantiation. The bf16
+// instance needs `partials`, float32 (B * KVH * ceil(M / run_tokens) *
+// (8 D + 16)), and `counters`, int32 (B * KVH), zero before the first call
+// (each call leaves them zero; the other split kernels' counters may be the
+// same array on one stream), and takes runs of `run_tokens` tokens (a
+// multiple of 64, at most info[4] of karanta_decode_append_q4_info runs a
+// slot; the wrapper's rule picks it); the float32 instance ignores the three.
 extern "C" int karanta_decode_append_q4(
     const void* q, const int8_t* new_k, const int8_t* new_v, const void* new_ks,
     const void* new_vs, int8_t* k_cache, int8_t* v_cache, void* ks_cache, void* vs_cache,
-    const int* cache_len, void* out, int B, int KVH, int G, int PM, int D, int layer,
-    float scale, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == karanta::kBFloat16) {
-    err = karanta::dispatch_q4<__nv_bfloat16>(D, G, q, new_k, new_v, new_ks, new_vs,
-                                              k_cache, v_cache, ks_cache, vs_cache,
-                                              cache_len, out, B, KVH, PM, layer, scale, st);
-  } else if (dtype == karanta::kFloat32) {
-    err = karanta::dispatch_q4<float>(D, G, q, new_k, new_v, new_ks, new_vs, k_cache,
-                                      v_cache, ks_cache, vs_cache, cache_len, out, B, KVH,
-                                      PM, layer, scale, st);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+    const int* cache_len, void* out, float* partials, int* counters, int B, int KVH, int G,
+    int PM, int D, int layer, int run_tokens, float scale, int dtype, void* stream) {
+  return karanta::q4_entry(D, G, q, new_k, new_v, new_ks, new_vs, k_cache, v_cache, ks_cache,
+                           vs_cache, cache_len, out, partials, counters, B, KVH, PM, layer,
+                           run_tokens, scale, dtype, stream);
 }
 
 #define KARANTA_Q4_SUPPORTED(DD, GG) \
@@ -314,4 +350,20 @@ extern "C" int karanta_decode_append_q4(
 extern "C" int karanta_decode_q4_supported(int D, int G) {
   KARANTA_Q4_PAIRS(KARANTA_Q4_SUPPORTED)
   return 0;
+}
+
+#define KARANTA_Q4_INFO(DD, GG)                                                   \
+  if (D == DD && G == GG) {                                                        \
+    const cudaError_t err = karanta::split_info<DD, GG, true, 4>(info);            \
+    info[4] = karanta::SplitTile<DD, 4>::kMaxSplits;                               \
+    return static_cast<int>(err);                                                  \
+  }
+
+// info[5] = registers per thread, local (spilled) bytes per thread, dynamic
+// shared bytes per block, resident blocks per SM and the most runs a slot
+// may have (ceil(M / run_tokens)) of the bf16 instance for (D, G). Returns
+// the CUDA error code.
+extern "C" int karanta_decode_append_q4_info(int D, int G, int* info) {
+  KARANTA_Q4_PAIRS(KARANTA_Q4_INFO)
+  return static_cast<int>(cudaErrorInvalidValue);
 }

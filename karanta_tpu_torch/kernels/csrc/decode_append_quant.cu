@@ -14,8 +14,8 @@
 // 3.35 TB/s.
 //
 // The bf16 instance is decode_split_kernel (decode_split.cuh, with
-// kAppend = true, kInt8 = true), the one body it shares with kernels #5, #8
-// and #9: each slot's rows [0, cache_len) split into runs over blocks (the
+// kAppend = true, kBits = 8), the one body it shares with kernels #5, #6,
+// #8 and #9: each slot's rows [0, cache_len) split into runs over blocks (the
 // run length an argument; the wrapper's rule, quant_run_rows, was measured on
 // the card), a cp.async ring of int8 rows and their scales per warp (half
 // the bytes of bf16 rows), each landed chunk converted exactly into a bf16
@@ -247,7 +247,7 @@ cudaError_t launch_pair(int dtype, const void* q, const int8_t* nk, const int8_t
                         int B, int KVH, int M, int layer, int run_rows, float scale,
                         cudaStream_t st) {
   if (dtype == kBFloat16) {
-    return launch_split<D, G, true, true>(q, nk, nv, nks, nvs, kc, vc, ksc, vsc, lens, out,
+    return launch_split<D, G, true, 8>(q, nk, nv, nks, nvs, kc, vc, ksc, vsc, lens, out,
                                           partials, counters, B, KVH, M, layer, run_rows, scale,
                                           st);
   }
@@ -308,8 +308,8 @@ extern "C" int karanta_decode_supported(int D, int G) {
 
 #define KARANTA_DECODE_INFO(DD, GG)                                               \
   if (D == DD && G == GG) {                                                        \
-    const cudaError_t err = karanta::split_info<DD, GG, true, true>(info);         \
-    info[4] = karanta::SplitTile<DD, true>::kMaxSplits;                            \
+    const cudaError_t err = karanta::split_info<DD, GG, true, 8>(info);            \
+    info[4] = karanta::SplitTile<DD, 8>::kMaxSplits;                               \
     return static_cast<int>(err);                                                  \
   }
 

@@ -12,9 +12,9 @@
 //
 // What bounds them on this card: the int8 weights are read once per call
 // (6.5 GB for the 7B decoder), plus the live K/V rows for the megakernel, so
-// at a small batch they are bound by device-memory bytes. The products run
-// in float32 on the CUDA cores: 2 * B * (weights) flops, so from a batch of
-// a few tens on the arithmetic bounds them.
+// they are bound by device-memory bytes; the products, 2 * B * (weights)
+// flops on the tensor cores, come near that bound only at the largest
+// batches.
 //
 // Design. The TPU kernel walks a sequential grid (layers, tiles) and carries
 // the hidden state in VMEM. Here the grid is as many blocks as are
@@ -23,38 +23,84 @@
 // grid-wide barrier (a sense-reversing counter in global memory). Per layer:
 //
 //   A  rows: residual of the previous layer's down product, rms(ln1)
-//   B  qkv products (split over K)            [dense: and the o products]
-//   C  per (slot, kv head): bias, rope, int8 K/V quantization, append at
-//      cache_len, attention over [0, cache_len), new row folded in last
-//   D  o products (split over K)
+//   B  qkv products                   [dense: and the o products]
+//      [mega: the last block of each 128-column unit adds the bias, ropes q
+//      and k, writes q and quantizes this step's K/V rows to int8]
+//   C  per (slot, kv head, run of cache rows): append at cache_len, the
+//      attention over [0, cache_len), new row folded in last
+//   D  o products
 //   E  rows: o residual in float32, rms(ln2) of that sum, x rounded
 //      [dense: the qkv output rows]
-//   F  gate/up products, h = bf16(silu(g) * u) for the whole FF
-//   G  down products (split over K)
+//   F  gate/up products; the last block of each unit writes
+//      h = bf16(silu(g) * u) for its 64 columns
+//   G  down products
 //
-// so seven barriers a layer (five for dense_stream). A product phase deals
-// out units of 64 output columns x a range of 128-row K tiles to the blocks;
-// each block stages the int8 weight tile (one thread per 32 bytes of a
-// column's row, prefetched into registers during the previous tile's
-// products) and the activations' K tile in shared memory as float32, and
-// each thread accumulates 2 columns x RPT rows. Split-K partial sums go to a
-// float32 workspace and are summed in a fixed order by the phase that
-// consumes them: no float atomics, so the same inputs give the same bits on
-// every call (for a given grid size). Scratch written during the kernel is
-// read with __ldcg (L2), never through the non-coherent L1.
+// so seven barriers a layer (five for dense_stream).
+//
+// Products (out[r, n] = sum_k A[r, k] * W[n, k], W int8 out-major). A unit
+// is 128 weight rows (gate/up: 64 gate rows and the same 64 up rows), a
+// k tile 128 rows of K; the (unit, k tile) pairs of a phase are dealt out
+// to the blocks in equal contiguous ranges, so no block takes more than one
+// tile above the mean (a range may end in one unit and go on in the next).
+// Each block streams its range's int8 weight tiles (16 KB) with the
+// activations' k tile (bf16, the batch rows) through a ring of 4-8 stages
+// of cp.async in shared memory (up to 128 KB of weights in flight an SM),
+// both 16-byte chunks XOR-swizzled so the fragment loads meet no bank
+// conflict. Warp w takes weight rows 16w..16w+15 as the 16-row A operand of
+// mma.sync.m16n8k16 (bf16, float32 accumulators), the batch rows as the
+// 8-column B operand (ceil(B / 8) n-tiles): a lane loads 16 weight bytes of
+// one row and converts them exactly (int8x8_to_bf16); k is permuted within
+// each 64-row group the same way in both operands (lane t's fragment
+// columns 2t, 2t + 1, 2t + 8, 2t + 9 of k-step s are the group's rows
+// 16t + 4s + 0..3), which leaves the sum unchanged. At the end of each unit
+// in its range the block writes the unit's float32 partial record (B x 128)
+// to a workspace slot (block + unit); the consumer sums a unit's records in
+// block order, so the same inputs give the same bits on every call (for a
+// given grid size). The gate/up and qkv units' finishing block is the last
+// to count in on the unit's counter. Scratch written during the kernel is
+// read with __ldcg or cp.async.cg (L2), never through the non-coherent L1.
+//
+// Attention (megakernel): decode_split.cuh's int8 body (kernel #3's bf16
+// instance), each half of a block one (slot, kv head, run) item at a time
+// with its own named barrier; the last item of a slot merges the runs'
+// partials in run order and folds in the new row.
+//
+// Measured on the card (PERF.md, per-phase timer traces of
+// bench/stream_trace.py): at the 7B's full depth the products were the
+// whole story before this design (float32 on the CUDA cores, 8 KB in
+// flight an SM, units dealt out unevenly: 104 ms at B = 80). With the
+// tensor cores and the ring, the loop's own instructions set the pace at
+// B = 80 (cp.async address arithmetic cost as much as the products until
+// each thread's offsets were fixed outside the loop), device-memory
+// efficiency at B = 4; the row phases and the units' finishing blocks issue
+// their loads in batches, since a row handled one column at a time waited
+// one load latency a column.
 #include <algorithm>
 
 #include "common.cuh"
+#include "decode_split.cuh"
+#include "mma.cuh"
 
 namespace karanta {
 
 constexpr int kSThreads = 256;
 constexpr int kSWarps = kSThreads / 32;
-constexpr int kSK = 128;             // K rows per weight tile
-constexpr int kSN = 64;              // output columns per unit
-constexpr int kXsPitch = kSK + 4;    // floats per staged activation row
-constexpr int kSChunk = 128;         // cache rows staged per attention chunk
-constexpr int kSLanesPerRow = 8;     // lanes sharing one int8 cache row
+constexpr int kSK = 128;              // K rows per weight tile
+constexpr int kSN = 128;              // weight rows per unit: 16 a warp
+constexpr int kXRow = 2 * kSK;        // bytes of a batch row's bf16 k tile
+constexpr int kWTile = kSN * kSK;     // bytes of a weight tile
+constexpr int kRingBytes = 196 * 1024;  // the products' ring
+constexpr int kMaxStages = 8;
+
+// the products' ring for NT n-tiles (8 batch rows each)
+template <int NT>
+struct ProductTile {
+  static constexpr int kStage = kWTile + NT * 8 * kXRow;
+  static constexpr int kStages =
+      kRingBytes / kStage < kMaxStages ? kRingBytes / kStage : kMaxStages;
+  static constexpr int kSmem = kStages * kStage;
+  static_assert(kStages >= 2, "the ring needs two stages");
+};
 
 struct StreamArgs {
   const __nv_bfloat16* x0;       // (B, H)
@@ -86,27 +132,72 @@ struct StreamArgs {
   __nv_bfloat16* xn;             // (B, H) normed rows, the products' input
   __nv_bfloat16* h;              // (B, FF) silu(g) * u
   __nv_bfloat16* attn;           // mega: (B, QD) attention output
-  float* part_qkv;               // (splits, B, QKV)
-  float* part_h;                 // (splits, B, H): o, then down
+  __nv_bfloat16* qr;             // mega: (B, QD) rope'd q
+  int8_t* nk;                    // mega: (B, KVH, D) this step's int8 K row
+  int8_t* nv;
+  __nv_bfloat16* nks;            // mega: (B, KVH) its scales
+  __nv_bfloat16* nvs;
+  float* part_qkv;               // (grid + units, B, kSN) partial records
+  float* part_h;                 // the same for o, then down
+  float* part_glu;               // the same for gate/up
+  float* part_attn;              // mega: (B * KVH, attn_runs, kPartial)
+  int* cnt;                      // qkv units', gate/up units', (slot, kv head)s' counters
   unsigned* bar;                 // [count, generation], count 0 at launch
   int B, H, QKV, FF, L, QD, KVH, M;
+  int n_cnt, attn_run, attn_runs;
   float scale, eps;
 };
 
-// How a product of N columns over K rows is split: units of kSN columns,
-// each K range a whole number of tiles, about one item per block.
-__host__ __device__ inline void split_plan(int N, int K, int grid, int* count,
-                                           int* per) {
-  const int units = (N + kSN - 1) / kSN, tiles = K / kSK;
-  int s = (grid + units - 1) / units;
-  s = s < 1 ? 1 : (s > tiles ? tiles : s);
-  *per = (tiles + s - 1) / s;
-  *count = (tiles + *per - 1) / *per;
-}
+// How a product's (unit, k tile) pairs are dealt out: the first `parts`
+// blocks (all of them, unless there are fewer pairs than blocks) take equal
+// contiguous ranges, block i the pairs [lo(i), lo(i + 1)) in unit-major
+// order; so every block between a unit's first and last holds some of it.
+struct Plan {
+  int units, tiles, total, parts;
+  __host__ __device__ Plan(int N, int K, int unit_cols, int grid)
+      : units((N + unit_cols - 1) / unit_cols), tiles(K / kSK), total(units * tiles),
+        parts(grid < total ? grid : total) {}
+  __host__ __device__ int lo(int i) const {
+    return static_cast<int>(static_cast<long long>(total) * (i < parts ? i : parts) / parts);
+  }
+  // the block whose range holds pair x
+  __device__ int block_of(int x) const {
+    return static_cast<int>((static_cast<long long>(x + 1) * parts - 1) / total);
+  }
+};
 
 __device__ __forceinline__ float bf(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float round_bf(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Columns n0 + kSThreads k (k < kRowBatch) of batch row r, each summed over
+// its unit's partial records (kSN columns a unit) in block order; columns
+// at or past N read as 0. The loads of a record step are issued together
+// (unconditionally, from a clamped address), so a row waits for one load
+// latency a record rather than one a record and column.
+constexpr int kRowBatch = 8;
+__device__ __forceinline__ void plan_sums(const float* part, const Plan& p, int B, int r,
+                                          int n0, int N, float (&s)[kRowBatch]) {
+  const float* at[kRowBatch];
+  int count[kRowBatch], most = 0;
+#pragma unroll
+  for (int k = 0; k < kRowBatch; ++k) {
+    const int n = min(n0 + kSThreads * k, N - 1), u = n / kSN;
+    const int first = p.block_of(u * p.tiles);
+    count[k] = n0 + kSThreads * k < N ? p.block_of((u + 1) * p.tiles - 1) - first + 1 : 0;
+    at[k] = part + (static_cast<size_t>(first + u) * B + r) * kSN + n % kSN;
+    most = max(most, count[k]);
+    s[k] = 0.f;
+  }
+  const size_t step = static_cast<size_t>(B) * kSN;  // one record to the next
+  for (int j = 0; j < most; ++j) {
+    float v[kRowBatch];
+#pragma unroll
+    for (int k = 0; k < kRowBatch; ++k) v[k] = __ldcg(at[k] + min(j, max(count[k] - 1, 0)) * step);
+#pragma unroll
+    for (int k = 0; k < kRowBatch; ++k) s[k] += j < count[k] ? v[k] : 0.f;
+  }
 }
 
 // Grid-wide barrier; every block of the cooperative launch calls it.
@@ -142,127 +233,346 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 }
 
 // ---------------------------------------------------------------------------
-// product phases: out[r, n] = sum_k A[r, k] * W[n, k] over the item's K range
+// product phases: out[r, n] = sum_k A[r, k] * W[n, k]
 // ---------------------------------------------------------------------------
 
-template <int RPT, bool kGlu>
-__device__ __noinline__ void products(float* smem, const __nv_bfloat16* A, int lda,
-                                      const int8_t* W, const int8_t* W2, int N, int K,
-                                      int B, float* part, const float* s1,
-                                      const float* s2, __nv_bfloat16* hout) {
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int units = (N + kSN - 1) / kSN;
-  int count = 1, per = K / kSK;
-  if constexpr (!kGlu) split_plan(N, K, gridDim.x, &count, &per);
-  const int tiles = K / kSK;
-  float* xs = smem;                            // (8 * RPT) x kXsPitch
-  float* ws = xs + 8 * RPT * kXsPitch;         // kSK x kSN
-  float* ws2 = ws + kSK * kSN;
-  const int scol = tid % kSN, skq = tid / kSN; // staging: 32 bytes of a row
+// what the last block of a unit does once every block's record is written
+constexpr int kEpiNone = 0;  // nothing: a row phase sums the records
+constexpr int kEpiGlu = 1;   // h = bf16(silu(g * gs) * (u * us)) of its 64 columns
+constexpr int kEpiQkv = 2;   // megakernel: bias, rope, q out, int8 K/V rows out
 
-  for (int item = blockIdx.x; item < units * count; item += gridDim.x) {
-    const int unit = item / count, split = item % count;
-    const int n0 = unit * kSN;
-    const int kt0 = split * per, kt1 = min(kt0 + per, tiles);
-    const bool col_ok = n0 + scol < N;
-    const size_t wrow = static_cast<size_t>(n0 + scol) * K + skq * 32;
-    uint4 pre[2], pre2[2];
-    auto fetch = [&](int kt) {
-      const uint4* p = reinterpret_cast<const uint4*>(W + wrow + kt * kSK);
-      pre[0] = col_ok ? __ldg(p) : make_uint4(0, 0, 0, 0);
-      pre[1] = col_ok ? __ldg(p + 1) : make_uint4(0, 0, 0, 0);
-      if constexpr (kGlu) {
-        const uint4* p2 = reinterpret_cast<const uint4*>(W2 + wrow + kt * kSK);
-        pre2[0] = col_ok ? __ldg(p2) : make_uint4(0, 0, 0, 0);
-        pre2[1] = col_ok ? __ldg(p2 + 1) : make_uint4(0, 0, 0, 0);
-      }
-    };
-    float acc[RPT][2], acc2[kGlu ? RPT : 1][2];
+__device__ __forceinline__ uint4 lds16(const unsigned char* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// The megakernel's qkv unit u (128 columns, whole heads of D): each warp
+// takes (batch row, head) pairs pr = warp + 8 m; lane l holds dims l + 32 j.
+// Every record's loads of a warp's pairs are issued together, the records
+// summed in block order.
+template <int D, int NT>
+__device__ __noinline__ void qkv_finish(const StreamArgs& a, int l, const float* part,
+                                        const Plan& p, int u) {
+  constexpr int kPer = D / 32, kHeads = kSN / D;
+  constexpr int kPairs = NT * kHeads;  // B * kHeads <= 8 NT * kHeads pairs, 8 warps
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int i0 = p.block_of(u * p.tiles), i1 = p.block_of((u + 1) * p.tiles - 1);
+  const int nq = a.QD / D;  // q heads; then KVH k heads, then KVH v heads
+  const float* qs = a.qs + static_cast<size_t>(l) * a.QKV;
+  const __nv_bfloat16* bias = a.bias + static_cast<size_t>(l) * a.QKV;
+  float v[kPairs][kPer];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      acc[i][0] = acc[i][1] = 0.f;
-      if constexpr (kGlu) acc2[i][0] = acc2[i][1] = 0.f;
+  for (int m = 0; m < kPairs; ++m) {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) v[m][j] = 0.f;
+  }
+  for (int i = i0; i <= i1; ++i) {
+    const float* rec = part + static_cast<size_t>(i + u) * a.B * kSN;
+    // every load of the step issued at once (rows past B read row 0; the
+    // pairs they feed are skipped below)
+    float w[kPairs][kPer];
+#pragma unroll
+    for (int m = 0; m < kPairs; ++m) {
+      const int pr = warp + kSWarps * m, r = min(pr / kHeads, a.B - 1), c0 = (pr % kHeads) * D;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) w[m][j] = __ldcg(rec + r * kSN + c0 + lane + 32 * j);
     }
-    fetch(kt0);
-    for (int kt = kt0; kt < kt1; ++kt) {
-      __syncthreads();  // the previous tile's products are done with smem
-      {
-        const int8_t* b = reinterpret_cast<const int8_t*>(pre);
 #pragma unroll
-        for (int j = 0; j < 32; ++j) ws[(skq * 32 + j) * kSN + scol] = static_cast<float>(b[j]);
-        if constexpr (kGlu) {
-          const int8_t* b2 = reinterpret_cast<const int8_t*>(pre2);
+    for (int m = 0; m < kPairs; ++m) {
 #pragma unroll
-          for (int j = 0; j < 32; ++j) ws2[(skq * 32 + j) * kSN + scol] = static_cast<float>(b2[j]);
+      for (int j = 0; j < kPer; ++j) v[m][j] += w[m][j];
+    }
+  }
+  // bias, rope of every pair (the loads issued together from clamped
+  // addresses; a v head's rope and the pairs past B or QKV are not used)
+  float x[kPairs][kPer], o[kPairs][kPer];
+#pragma unroll
+  for (int m = 0; m < kPairs; ++m) {
+    const int pr = warp + kSWarps * m, col0 = u * kSN + (pr % kHeads) * D;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int c = min(col0 + lane + 32 * j, a.QKV - 1);
+      x[m][j] = round_bf(v[m][j] * qs[c] + bf(bias[c]));
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kPairs; ++m) {
+    const int r = min((warp + kSWarps * m) / kHeads, a.B - 1);
+    const float* cs = a.cos + static_cast<size_t>(r) * D;
+    const float* sn = a.sin + static_cast<size_t>(r) * D;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      // rope in float32 (rotate-half), rounded to bf16
+      const int d = lane + 32 * j;
+      const float rot = j < kPer / 2 ? -x[m][j + kPer / 2] : x[m][j - kPer / 2];
+      o[m][j] = round_bf(x[m][j] * cs[d] + rot * sn[d]);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kPairs; ++m) {
+    const int pr = warp + kSWarps * m, r = pr / kHeads, col0 = u * kSN + (pr % kHeads) * D;
+    if (r >= a.B || col0 >= a.QKV) continue;
+    const int hd = col0 / D;
+    if (hd < nq) {
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        a.qr[static_cast<size_t>(r) * a.QD + col0 + lane + 32 * j] =
+            __float2bfloat16_rn(o[m][j]);
+      }
+      continue;
+    }
+    // this step's K (rope'd) or V row to int8 with a float32 scale, stored
+    // in bf16
+    const bool is_k = hd < nq + a.KVH;
+    const int kvh = hd - nq - (is_k ? 0 : a.KVH);
+    float amax = 0.f;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) amax = fmaxf(amax, fabsf(is_k ? o[m][j] : x[m][j]));
+#pragma unroll
+    for (int sh = 16; sh > 0; sh >>= 1) {
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, sh));
+    }
+    const float sc = fmaxf(amax * (1.f / 127.f), 1e-8f);
+    int8_t* dst = (is_k ? a.nk : a.nv) + (static_cast<size_t>(r) * a.KVH + kvh) * D;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const float y = is_k ? o[m][j] : x[m][j];
+      dst[lane + 32 * j] = static_cast<int8_t>(fminf(fmaxf(rintf(y / sc), -127.f), 127.f));
+    }
+    if (lane == 0) (is_k ? a.nks : a.nvs)[r * a.KVH + kvh] = __float2bfloat16_rn(sc);
+  }
+}
+
+// gate/up unit u: h of its 64 columns from the records (gate in record
+// columns 0..63, up in 64..127); thread t takes elements t + 256 k, all of
+// a record's loads issued together, the records summed in block order
+template <int NT>
+__device__ __noinline__ void glu_finish(const StreamArgs& a, int l, const float* part,
+                                        const Plan& p, int u) {
+  constexpr int kHalf = kSN / 2, kPer = 8 * NT * kHalf / kSThreads;
+  const int i0 = p.block_of(u * p.tiles), i1 = p.block_of((u + 1) * p.tiles - 1);
+  float gsum[kPer], usum[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) gsum[k] = usum[k] = 0.f;
+  for (int i = i0; i <= i1; ++i) {
+    const float* rec = part + static_cast<size_t>(i + u) * a.B * kSN;
+    // every load of the step issued at once (rows past B read row 0)
+    float g[kPer], uu[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int e = threadIdx.x + kSThreads * k, r = min(e / kHalf, a.B - 1), c = e % kHalf;
+      g[k] = __ldcg(rec + r * kSN + c);
+      uu[k] = __ldcg(rec + r * kSN + kHalf + c);
+    }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      gsum[k] += g[k];
+      usum[k] += uu[k];
+    }
+  }
+  const float* gs = a.gs + static_cast<size_t>(l) * a.FF;
+  const float* us = a.us + static_cast<size_t>(l) * a.FF;
+  float gv[kPer], uv[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int n = min(u * kHalf + (threadIdx.x + kSThreads * k) % kHalf, a.FF - 1);
+    gv[k] = gs[n];
+    uv[k] = us[n];
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e = threadIdx.x + kSThreads * k, r = e / kHalf, n = u * kHalf + e % kHalf;
+    if (r >= a.B || n >= a.FF) continue;
+    const float g = gsum[k] * gv[k], uu = usum[k] * uv[k];
+    a.h[static_cast<size_t>(r) * a.FF + n] = __float2bfloat16_rn(g / (1.f + expf(-g)) * uu);
+  }
+}
+
+// One product phase over the block's range of (unit, k tile) pairs. kEpi:
+// kEpiGlu takes W (gate) and W2 (up) with N = FF h columns, 64 a unit; the
+// others W alone, 128 columns a unit.
+template <int NT, int kEpi, int D>
+__device__ __noinline__ void products(unsigned char* smem, const StreamArgs& a, int l,
+                                      const __nv_bfloat16* A, int lda, const int8_t* W,
+                                      const int8_t* W2, int N, int K, float* part, int* cnt) {
+  using Ring = ProductTile<NT>;
+  constexpr int S = Ring::kStages;
+  constexpr bool kGlu = kEpi == kEpiGlu;
+  constexpr int kUnitCols = kGlu ? kSN / 2 : kSN;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int B = a.B;
+  const Plan p(N, K, kUnitCols, gridDim.x);
+  const int lo = p.lo(blockIdx.x), hi = p.lo(blockIdx.x + 1);
+  __shared__ int is_last;
+
+  // The loads of a pair (unit lu, k tile lkt, kept as the next pair to
+  // load) into a ring stage: the weight tile's 128 rows of 8 16-byte chunks
+  // (chunk ch of row r at ch ^ 4 (r & 1)) and the NT * 8 batch rows' k tile
+  // of 16 chunks (ch ^ (r & 1)); rows past N or B read as zeros. A thread
+  // copies the same chunk column of kWRows weight rows 32 apart and of
+  // kXRows batch rows 16 apart, so its offsets are fixed before the loop.
+  constexpr int kWRows = kSN * 8 / kSThreads;                          // 4
+  constexpr int kXRows = (NT * 8 * 16 + kSThreads - 1) / kSThreads;  // NT / 2, or 1
+  const int wr0 = tid >> 3, wch = tid & 7, xr0 = tid >> 4, xch = tid & 15;
+  const int w_dst = wr0 * kSK + ((wch ^ ((wr0 & 1) << 2)) << 4);
+  const int x_dst = kWTile + xr0 * kXRow + ((xch ^ (xr0 & 1)) << 4);
+  int lu = lo / p.tiles, lkt = lo % p.tiles;
+  auto load = [&](int stage) {
+    unsigned char* st = smem + stage * Ring::kStage;
+    const int lim = N - lu * kUnitCols;  // weight rows of this unit below N
+#pragma unroll
+    for (int k = 0; k < kWRows; ++k) {
+      const int r = wr0 + 32 * k;  // GLU: rows 0..63 gate (k < 2), 64..127 up
+      const int nr = kGlu ? r & (kSN / 2 - 1) : r;
+      const bool ok = nr < lim;
+      const int8_t* src = (kGlu && k >= kWRows / 2 ? W2 : W) +
+                          static_cast<size_t>(lu * kUnitCols + (ok ? nr : 0)) * K + lkt * kSK +
+                          wch * 16;
+      cp_async16(st + w_dst + k * 32 * kSK, src, ok ? 16 : 0);
+    }
+#pragma unroll
+    for (int k = 0; k < kXRows; ++k) {
+      const int r = xr0 + 16 * k;
+      if (r < NT * 8) {
+        const bool ok = r < B;
+        cp_async16(st + x_dst + k * 16 * kXRow,
+                   A + static_cast<size_t>(ok ? r : 0) * lda + lkt * kSK + xch * 8, ok ? 16 : 0);
+      }
+    }
+    if (++lkt == p.tiles) {
+      lkt = 0;
+      ++lu;
+    }
+  };
+
+  // independent accumulator chains: NT n-tiles, times kChains k-step
+  // chains (summed in order at the unit's end) when the n-tiles are few
+  constexpr int kChains = NT == 1 ? 4 : 1;
+  float acc[kChains][NT][4];
+#pragma unroll
+  for (int c = 0; c < kChains; ++c) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      acc[c][nt][0] = acc[c][nt][1] = acc[c][nt][2] = acc[c][nt][3] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < S - 1; ++j) {
+    if (lo + j < hi) load(j);
+    cp_async_commit();
+  }
+  const int rw = 16 * warp + g;  // this warp's weight rows rw and rw + 8
+  const int wsw = (g & 1) << 2, xsw = g & 1;  // their swizzles (rows of g's parity)
+  int cu = lo / p.tiles, ckt = lo % p.tiles;  // the unit and k tile of pair x
+  for (int x = lo; x < hi; ++x) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // pair x landed for every thread; pair x - 1's stage is free
+    if (x + S - 1 < hi) load((x + S - 1 - lo) % S);
+    cp_async_commit();
+    const unsigned char* st = smem + ((x - lo) % S) * Ring::kStage;
+#pragma unroll
+    for (int grp = 0; grp < 2; ++grp) {
+      // 16 weight bytes of rows rw and rw + 8: this 64-row group's k rows
+      // 16t .. 16t + 15, as four k-steps of four
+      const uint4 wa = lds16(st + rw * kSK + (((grp * 4 + t) ^ wsw) << 4));
+      const uint4 wb = lds16(st + (rw + 8) * kSK + (((grp * 4 + t) ^ wsw) << 4));
+      const uint4 a0 = int8x8_to_bf16(make_uint2(wa.x, wa.y));
+      const uint4 a1 = int8x8_to_bf16(make_uint2(wa.z, wa.w));
+      const uint4 b0 = int8x8_to_bf16(make_uint2(wb.x, wb.y));
+      const uint4 b1 = int8x8_to_bf16(make_uint2(wb.z, wb.w));
+      const uint32_t al[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const uint32_t ah[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const unsigned char* xr = st + kWTile + (nt * 8 + g) * kXRow;
+        const uint4 x0 = lds16(xr + (((grp * 8 + 2 * t) ^ xsw) << 4));
+        const uint4 x1 = lds16(xr + (((grp * 8 + 2 * t + 1) ^ xsw) << 4));
+        const uint32_t xw[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const uint32_t af[4] = {al[2 * s], ah[2 * s], al[2 * s + 1], ah[2 * s + 1]};
+          mma_bf16_16816(acc[s % kChains][nt], af, xw[2 * s], xw[2 * s + 1]);
         }
       }
-      for (int c = tid; c < 8 * RPT * (kSK / 8); c += kSThreads) {
-        const int r = c / (kSK / 8), kk = (c % (kSK / 8)) * 8;
-        float v[8];
-        if (r < B) {
-          const uint4 raw = __ldcg(reinterpret_cast<const uint4*>(
-              A + static_cast<size_t>(r) * lda + kt * kSK + kk));
-          const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+    }
+    // the end of unit u in this block's range: its record, slot block + u
+    const int u = cu;
+    const bool unit_end = x + 1 == hi || ckt + 1 == p.tiles;
+    if (++ckt == p.tiles) {
+      ckt = 0;
+      ++cu;
+    }
+    if (!unit_end) continue;
+    float* rec = part + static_cast<size_t>(blockIdx.x + u) * B * kSN;
 #pragma unroll
-          for (int j = 0; j < 8; ++j) v[j] = bf(e[j]);
-        } else {
+    for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-          for (int j = 0; j < 8; ++j) v[j] = 0.f;
-        }
-        float4* dst = reinterpret_cast<float4*>(xs + r * kXsPitch + kk);
-        dst[0] = make_float4(v[0], v[1], v[2], v[3]);
-        dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+      for (int c = 1; c < kChains; ++c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[0][nt][e] += acc[c][nt][e];
+      }
+      const int r = nt * 8 + 2 * t;
+      if (r < B) {
+        rec[r * kSN + rw] = acc[0][nt][0];
+        rec[r * kSN + rw + 8] = acc[0][nt][2];
+      }
+      if (r + 1 < B) {
+        rec[(r + 1) * kSN + rw] = acc[0][nt][1];
+        rec[(r + 1) * kSN + rw + 8] = acc[0][nt][3];
+      }
+#pragma unroll
+      for (int c = 0; c < kChains; ++c) {
+        acc[c][nt][0] = acc[c][nt][1] = acc[c][nt][2] = acc[c][nt][3] = 0.f;
+      }
+    }
+    if constexpr (kEpi != kEpiNone) {
+      // the unit's last block to finish finishes it, then resets its counter
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) {
+        const int n_blocks = p.block_of((u + 1) * p.tiles - 1) - p.block_of(u * p.tiles) + 1;
+        is_last = atomicAdd(cnt + u, 1) == n_blocks - 1;
       }
       __syncthreads();
-      if (kt + 1 < kt1) fetch(kt + 1);  // in flight during this tile's products
-#pragma unroll 2
-      for (int k = 0; k < kSK; k += 4) {
-        float w0[4], w1[4], u0[4], u1[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          w0[j] = ws[(k + j) * kSN + lane];
-          w1[j] = ws[(k + j) * kSN + lane + 32];
-          if constexpr (kGlu) {
-            u0[j] = ws2[(k + j) * kSN + lane];
-            u1[j] = ws2[(k + j) * kSN + lane + 32];
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          if (warp + 8 * i >= B) continue;
-          const float4 a = *reinterpret_cast<const float4*>(xs + (warp + 8 * i) * kXsPitch + k);
-          acc[i][0] = fmaf(a.w, w0[3], fmaf(a.z, w0[2], fmaf(a.y, w0[1], fmaf(a.x, w0[0], acc[i][0]))));
-          acc[i][1] = fmaf(a.w, w1[3], fmaf(a.z, w1[2], fmaf(a.y, w1[1], fmaf(a.x, w1[0], acc[i][1]))));
-          if constexpr (kGlu) {
-            acc2[i][0] = fmaf(a.w, u0[3], fmaf(a.z, u0[2], fmaf(a.y, u0[1], fmaf(a.x, u0[0], acc2[i][0]))));
-            acc2[i][1] = fmaf(a.w, u1[3], fmaf(a.z, u1[2], fmaf(a.y, u1[1], fmaf(a.x, u1[0], acc2[i][1]))));
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = warp + 8 * i;
-      if (r >= B) continue;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int n = n0 + lane + 32 * c;
-        if (n >= N) continue;
-        if constexpr (kGlu) {
-          const float g = acc[i][c] * s1[n], u = acc2[i][c] * s2[n];
-          hout[static_cast<size_t>(r) * N + n] =
-              __float2bfloat16_rn(g / (1.f + expf(-g)) * u);
+      if (is_last) {
+        __threadfence();
+        if constexpr (kEpi == kEpiGlu) {
+          glu_finish<NT>(a, l, part, p, u);
         } else {
-          part[(static_cast<size_t>(split) * B + r) * N + n] = acc[i][c];
+          qkv_finish<D, NT>(a, l, part, p, u);
         }
+        if (tid == 0) cnt[u] = 0;
       }
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the next phase reuses the ring
 }
 
 // ---------------------------------------------------------------------------
 // row phases (one block per batch row)
 // ---------------------------------------------------------------------------
+
+// xn = bf16(xr * inv * w) of one row, the w loads of a batch issued first
+__device__ __forceinline__ void norm_out(__nv_bfloat16* xn, const float* xr,
+                                         const __nv_bfloat16* w, float inv, int H) {
+  for (int i0 = threadIdx.x; i0 < H; i0 += kSThreads * kRowBatch) {
+    float wv[kRowBatch];
+#pragma unroll
+    for (int k = 0; k < kRowBatch; ++k) wv[k] = bf(w[min(i0 + kSThreads * k, H - 1)]);
+#pragma unroll
+    for (int k = 0; k < kRowBatch; ++k) {
+      const int i = i0 + kSThreads * k;
+      if (i >= H) break;
+      xn[i] = __float2bfloat16_rn(xr[i] * inv * wv[k]);
+    }
+  }
+}
+
+// The row phases issue every global load of a batch of kRowBatch columns
+// a thread before they use any (clamped addresses; columns past the row's
+// end are skipped after), so a row waits for a few load latencies, not one
+// a column.
 
 // x = bf16(x + down * ds) of layer l - 1 (x0 for l == 0); then xn =
 // bf16(rms(x) * ln1[l]), or, after the last layer, xout = x.
@@ -270,33 +580,36 @@ __device__ __noinline__ void row_in(const StreamArgs& a, int l, float* smem) {
   const int H = a.H;
   float* xr = smem;
   float* red = smem + H;
-  int count = 1, per = 1;
-  split_plan(H, a.FF, gridDim.x, &count, &per);
+  const Plan down(H, a.FF, kSN, gridDim.x);
   for (int r = blockIdx.x; r < a.B; r += gridDim.x) {
     const size_t row = static_cast<size_t>(r) * H;
     float ss = 0.f;
-    for (int i = threadIdx.x; i < H; i += kSThreads) {
-      float v;
-      if (l == 0) {
-        v = bf(a.x0[row + i]);
-      } else {
-        float s = 0.f;
-        for (int p = 0; p < count; ++p) s += __ldcg(a.part_h + p * a.B * H + row + i);
-        v = round_bf(bf(__ldcg(a.x + row + i)) + s * a.ds[(l - 1) * H + i]);
+    for (int i0 = threadIdx.x; i0 < H; i0 += kSThreads * kRowBatch) {
+      float s[kRowBatch], xv[kRowBatch], dv[kRowBatch];
+      if (l > 0) plan_sums(a.part_h, down, a.B, r, i0, H, s);
+#pragma unroll
+      for (int k = 0; k < kRowBatch; ++k) {
+        const int i = min(i0 + kSThreads * k, H - 1);
+        xv[k] = l == 0 ? bf(a.x0[row + i]) : bf(__ldcg(a.x + row + i));
+        dv[k] = l == 0 ? 0.f : a.ds[(l - 1) * H + i];
       }
-      if (l == a.L) {
-        a.xout[row + i] = __float2bfloat16_rn(v);
-      } else {
-        a.x[row + i] = __float2bfloat16_rn(v);
-        xr[i] = v;
-        ss += v * v;
+#pragma unroll
+      for (int k = 0; k < kRowBatch; ++k) {
+        const int i = i0 + kSThreads * k;
+        if (i >= H) break;
+        const float v = l == 0 ? xv[k] : round_bf(xv[k] + s[k] * dv[k]);
+        if (l == a.L) {
+          a.xout[row + i] = __float2bfloat16_rn(v);
+        } else {
+          a.x[row + i] = __float2bfloat16_rn(v);
+          xr[i] = v;
+          ss += v * v;
+        }
       }
     }
     if (l == a.L) continue;
     const float inv = 1.f / sqrtf(block_sum(ss, red) / H + a.eps);
-    for (int i = threadIdx.x; i < H; i += kSThreads) {
-      a.xn[row + i] = __float2bfloat16_rn(xr[i] * inv * bf(a.ln1[l * H + i]));
-    }
+    norm_out(a.xn + row, xr, a.ln1 + l * H, inv, H);
     __syncthreads();
   }
 }
@@ -307,31 +620,50 @@ __device__ __noinline__ void row_mid(const StreamArgs& a, int l, float* smem) {
   const int H = a.H;
   float* xr = smem;
   float* red = smem + H;
-  int count = 1, per = 1, qcount = 1;
-  split_plan(H, a.QD, gridDim.x, &count, &per);
-  split_plan(a.QKV, H, gridDim.x, &qcount, &per);
+  const Plan o(H, a.QD, kSN, gridDim.x), qkv(a.QKV, H, kSN, gridDim.x);
   for (int r = blockIdx.x; r < a.B; r += gridDim.x) {
     const size_t row = static_cast<size_t>(r) * H;
     float ss = 0.f;
-    for (int i = threadIdx.x; i < H; i += kSThreads) {
-      float s = 0.f;
-      for (int p = 0; p < count; ++p) s += __ldcg(a.part_h + p * a.B * H + row + i);
-      const float v = bf(__ldcg(a.x + row + i)) + s * a.os[l * H + i];
-      a.x[row + i] = __float2bfloat16_rn(v);
-      xr[i] = v;
-      ss += v * v;
+    for (int i0 = threadIdx.x; i0 < H; i0 += kSThreads * kRowBatch) {
+      float s[kRowBatch], xv[kRowBatch], ov[kRowBatch];
+      plan_sums(a.part_h, o, a.B, r, i0, H, s);
+#pragma unroll
+      for (int k = 0; k < kRowBatch; ++k) {
+        const int i = min(i0 + kSThreads * k, H - 1);
+        xv[k] = bf(__ldcg(a.x + row + i));
+        ov[k] = a.os[l * H + i];
+      }
+#pragma unroll
+      for (int k = 0; k < kRowBatch; ++k) {
+        const int i = i0 + kSThreads * k;
+        if (i >= H) break;
+        const float v = xv[k] + s[k] * ov[k];
+        a.x[row + i] = __float2bfloat16_rn(v);
+        xr[i] = v;
+        ss += v * v;
+      }
     }
     const float inv = 1.f / sqrtf(block_sum(ss, red) / H + a.eps);
-    for (int i = threadIdx.x; i < H; i += kSThreads) {
-      a.xn[row + i] = __float2bfloat16_rn(xr[i] * inv * bf(a.ln2[l * H + i]));
-    }
+    norm_out(a.xn + row, xr, a.ln2 + l * H, inv, H);
     if (a.qkvout != nullptr) {
-      const size_t qrow = static_cast<size_t>(r) * a.QKV;
-      for (int c = threadIdx.x; c < a.QKV; c += kSThreads) {
-        float s = 0.f;
-        for (int p = 0; p < qcount; ++p) s += __ldcg(a.part_qkv + p * a.B * a.QKV + qrow + c);
-        a.qkvout[(static_cast<size_t>(l) * a.B + r) * a.QKV + c] = __float2bfloat16_rn(
-            s * a.qs[l * a.QKV + c] + bf(a.bias[l * a.QKV + c]));
+      const float* qs = a.qs + static_cast<size_t>(l) * a.QKV;
+      const __nv_bfloat16* bias = a.bias + static_cast<size_t>(l) * a.QKV;
+      __nv_bfloat16* out = a.qkvout + (static_cast<size_t>(l) * a.B + r) * a.QKV;
+      for (int c0 = threadIdx.x; c0 < a.QKV; c0 += kSThreads * kRowBatch) {
+        float s[kRowBatch], qv[kRowBatch], bv[kRowBatch];
+        plan_sums(a.part_qkv, qkv, a.B, r, c0, a.QKV, s);
+#pragma unroll
+        for (int k = 0; k < kRowBatch; ++k) {
+          const int c = min(c0 + kSThreads * k, a.QKV - 1);
+          qv[k] = qs[c];
+          bv[k] = bf(bias[c]);
+        }
+#pragma unroll
+        for (int k = 0; k < kRowBatch; ++k) {
+          const int c = c0 + kSThreads * k;
+          if (c >= a.QKV) break;
+          out[c] = __float2bfloat16_rn(s[k] * qv[k] + bv[k]);
+        }
       }
     }
     __syncthreads();
@@ -339,207 +671,24 @@ __device__ __noinline__ void row_mid(const StreamArgs& a, int l, float* smem) {
 }
 
 // ---------------------------------------------------------------------------
-// attention phase (megakernel): one unit of work per (slot, kv head)
+// attention phase (megakernel): decode_split.cuh's int8 body, one (slot,
+// kv head, run) item at a time in each half of the block
 // ---------------------------------------------------------------------------
 
 template <int D, int G>
-struct AttnSmem {
-  float hv[(G + 2) * D];   // the unit's q heads, k, v from qkv (bf16 values)
-  float q[G][D];           // rope'd q, bf16 values
-  float kr[D];             // rope'd k, bf16 values
-  float nk[D], nv[D];      // this step's int8 K/V row
-  float p[G][kSChunk];
-  float m[G], l[G], alpha[G], px[G], nsc[2];
-  float ksc[kSChunk], vsc[kSChunk];
-  __align__(16) int8_t k[kSChunk * D];
-  __align__(16) int8_t v[kSChunk * D];
-};
-
-template <int D, int G>
-__device__ __noinline__ void attend(const StreamArgs& a, int l, float* smem) {
-  AttnSmem<D, G>& sm = *reinterpret_cast<AttnSmem<D, G>*>(smem);
-  constexpr int DL = D / kSLanesPerRow;
-  using Vec = typename Bytes<DL>::type;
-  constexpr int kRowsPerPass = kSWarps * (32 / kSLanesPerRow);
-  constexpr int kVecPerRow = D / 16;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int KVD = a.KVH * D;
-  int qcount = 1, per = 1;
-  split_plan(a.QKV, a.H, gridDim.x, &qcount, &per);
-  const float* qs = a.qs + static_cast<size_t>(l) * a.QKV;
-  const __nv_bfloat16* bias = a.bias + static_cast<size_t>(l) * a.QKV;
-
-  for (int u = blockIdx.x; u < a.B * a.KVH; u += gridDim.x) {
-    const int b = u / a.KVH, kvh = u % a.KVH;
-    // cache_len clamped into [0, M), as the plain version does
-    const int len = min(max(a.lens[b], 0), a.M - 1);
-    const size_t slab = ((static_cast<size_t>(l) * a.B + b) * a.KVH + kvh) * a.M;
-
-    // 1. bf16(acc * qs + bias) of the unit's columns
-    for (int i = tid; i < (G + 2) * D; i += kSThreads) {
-      const int g = i / D, d = i % D;
-      const int col = g < G ? (kvh * G + g) * D + d
-                            : a.QD + (g - G) * KVD + kvh * D + d;
-      float s = 0.f;
-      for (int p = 0; p < qcount; ++p) {
-        s += __ldcg(a.part_qkv + (static_cast<size_t>(p) * a.B + b) * a.QKV + col);
-      }
-      sm.hv[i] = round_bf(s * qs[col] + bf(bias[col]));
-    }
-    __syncthreads();
-    // 2. rope in float32 (rotate-half), q and k rounded to bf16
-    const float* cs = a.cos + static_cast<size_t>(b) * D;
-    const float* sn = a.sin + static_cast<size_t>(b) * D;
-    for (int i = tid; i < (G + 1) * D; i += kSThreads) {
-      const int g = i / D, d = i % D;
-      const float* v = sm.hv + g * D;
-      const float rot = d < D / 2 ? -v[d + D / 2] : v[d - D / 2];
-      const float o = round_bf(v[d] * cs[d] + rot * sn[d]);
-      if (g < G) sm.q[g][d] = o; else sm.kr[d] = o;
-    }
-    if (tid < G) {
-      sm.m[tid] = kNegInf;
-      sm.l[tid] = 0.f;
-    }
-    __syncthreads();
-    // 3. quantize this step's K (warp 0) and V (warp 1) rows, append them
-    if (warp < 2) {
-      const float* src = warp == 0 ? sm.kr : sm.hv + (G + 1) * D;
-      float amax = 0.f;
-      for (int d = lane; d < D; d += 32) amax = fmaxf(amax, fabsf(src[d]));
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-      const float s = fmaxf(amax * (1.f / 127.f), 1e-8f);
-      int8_t* dst = (warp == 0 ? a.kc : a.vc) + (slab + len) * D;
-      float* nq = warp == 0 ? sm.nk : sm.nv;
-      for (int d = lane; d < D; d += 32) {
-        const float qv = fminf(fmaxf(rintf(src[d] / s), -127.f), 127.f);
-        dst[d] = static_cast<int8_t>(qv);
-        nq[d] = qv;
-      }
-      if (lane == 0) {
-        const __nv_bfloat16 sb = __float2bfloat16_rn(s);
-        (warp == 0 ? a.ksc : a.vsc)[slab + len] = sb;
-        sm.nsc[warp] = bf(sb);
-      }
-    }
-    __syncthreads();
-
-    // 4. attention over rows [0, len), staged kSChunk rows at a time
-    const int8_t* k_rows = a.kc + slab * D;
-    const int8_t* v_rows = a.vc + slab * D;
-    const int sub = lane % kSLanesPerRow, rg = lane / kSLanesPerRow;
-    float qr[G][DL];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-#pragma unroll
-      for (int i = 0; i < DL; ++i) qr[g][i] = sm.q[g][sub * DL + i];
-    }
-    float acc[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) acc[g] = 0.f;
-    for (int c0 = 0; c0 < len; c0 += kSChunk) {
-      const int n = min(kSChunk, len - c0);
-      for (int t = tid; t < n * kVecPerRow; t += kSThreads) {
-        const size_t off = static_cast<size_t>(c0) * D + static_cast<size_t>(t) * 16;
-        reinterpret_cast<uint4*>(sm.k)[t] = *reinterpret_cast<const uint4*>(k_rows + off);
-        reinterpret_cast<uint4*>(sm.v)[t] = *reinterpret_cast<const uint4*>(v_rows + off);
-      }
-      for (int j = tid; j < n; j += kSThreads) {
-        sm.ksc[j] = bf(a.ksc[slab + c0 + j]);
-        sm.vsc[j] = bf(a.vsc[slab + c0 + j]);
-      }
-      __syncthreads();
-      for (int base = 0; base < n; base += kRowsPerPass) {
-        const int jj = base + warp * (32 / kSLanesPerRow) + rg;
-        float part[G];
-#pragma unroll
-        for (int g = 0; g < G; ++g) part[g] = 0.f;
-        if (jj < n) {
-          const Vec raw = *reinterpret_cast<const Vec*>(sm.k + jj * D + sub * DL);
-          const int8_t* kb = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-          for (int i = 0; i < DL; ++i) {
-            const float kv = static_cast<float>(kb[i]);
-#pragma unroll
-            for (int g = 0; g < G; ++g) part[g] += qr[g][i] * kv;
-          }
-        }
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          part[g] += __shfl_xor_sync(0xffffffffu, part[g], 1);
-          part[g] += __shfl_xor_sync(0xffffffffu, part[g], 2);
-          part[g] += __shfl_xor_sync(0xffffffffu, part[g], 4);
-        }
-        if (jj < n && sub == 0) {
-#pragma unroll
-          for (int g = 0; g < G; ++g) sm.p[g][jj] = part[g] * sm.ksc[jj] * a.scale;
-        }
-      }
-      __syncthreads();
-      for (int g = warp; g < G; g += kSWarps) {
-        float mx = kNegInf;
-        for (int jj = lane; jj < n; jj += 32) mx = fmaxf(mx, sm.p[g][jj]);
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-        const float m_old = sm.m[g];
-        const float m_new = fmaxf(m_old, mx);
-        float sum = 0.f;
-        for (int jj = lane; jj < n; jj += 32) {
-          const float p = expf(sm.p[g][jj] - m_new);
-          sum += p;
-          sm.p[g][jj] = round_bf(p * sm.vsc[jj]);  // bf16 p * v_scale, as the TPU kernel
-        }
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        if (lane == 0) {
-          const float alpha = expf(m_old - m_new);
-          sm.alpha[g] = alpha;
-          sm.l[g] = sm.l[g] * alpha + sum;
-          sm.m[g] = m_new;
-        }
-      }
-      __syncthreads();
-      if (tid < D) {
-#pragma unroll
-        for (int g = 0; g < G; ++g) acc[g] *= sm.alpha[g];
-        for (int jj = 0; jj < n; ++jj) {
-          const float vv = static_cast<float>(sm.v[jj * D + tid]);
-#pragma unroll
-          for (int g = 0; g < G; ++g) acc[g] += sm.p[g][jj] * vv;
-        }
-      }
-      __syncthreads();
-    }
-
-    // 5. fold in this step's row, dequantized in float32
-    for (int g = warp; g < G; g += kSWarps) {
-      float dot = 0.f;
-      for (int d = lane; d < D; d += 32) dot += sm.q[g][d] * (sm.nk[d] * sm.nsc[0]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
-      if (lane == 0) {
-        const float s_x = dot * a.scale;
-        const float m_new = fmaxf(sm.m[g], s_x);
-        const float p_x = expf(s_x - m_new);
-        const float alpha = expf(sm.m[g] - m_new);
-        sm.l[g] = alpha * sm.l[g] + p_x;
-        sm.alpha[g] = alpha;
-        sm.px[g] = p_x;
-      }
-    }
-    __syncthreads();
-    if (tid < D) {
-      const float nv = sm.nv[tid] * sm.nsc[1];
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float o = acc[g] * sm.alpha[g] + sm.px[g] * nv;
-        const float ll = sm.l[g] == 0.f ? 1.f : sm.l[g];
-        a.attn[static_cast<size_t>(b) * a.QD + (kvh * G + g) * D + tid] =
-            __float2bfloat16_rn(o / ll);
-      }
-    }
-    __syncthreads();  // the next unit overwrites the shared arrays
+__device__ __noinline__ void attend(const StreamArgs& a, int l, unsigned char* smem) {
+  using Tile = SplitTile<D, 8>;
+  const int half = threadIdx.x / kSplitThreads, tid = threadIdx.x % kSplitThreads;
+  unsigned char* mine = smem + half * Tile::kItemSmem;
+  const int pairs = a.B * a.KVH, items = pairs * a.attn_runs;
+  int* counters = a.cnt + a.n_cnt - pairs;
+  // run-major, so the halves that take every 2 * grid-th item see all runs
+  for (int item = 2 * blockIdx.x + half; item < items; item += 2 * gridDim.x) {
+    const int run = item / pairs, pair = item % pairs;
+    split_item<D, G, true, 8>(a.qr, a.nk, a.nv, a.nks, a.nvs, a.kc, a.vc, a.ksc, a.vsc, a.lens,
+                              a.attn, a.part_attn, counters, a.B, a.KVH, a.M, l, a.attn_run,
+                              a.scale * kLog2e, run, pair % a.KVH, pair / a.KVH, a.attn_runs,
+                              mine, tid, 1 + half);
   }
 }
 
@@ -547,38 +696,44 @@ __device__ __noinline__ void attend(const StreamArgs& a, int l, float* smem) {
 // the kernel: D == 0 is dense_stream, otherwise the megakernel
 // ---------------------------------------------------------------------------
 
-template <int RPT, int D, int G>
+template <int NT, int D, int G>
 __global__ void __launch_bounds__(kSThreads, 1) stream_kernel(StreamArgs a) {
-  extern __shared__ float4 smem_raw[];
-  float* smem = reinterpret_cast<float*>(smem_raw);
+  extern __shared__ float4 stream_smem[];
+  float* smem = reinterpret_cast<float*>(stream_smem);
+  unsigned char* ring = reinterpret_cast<unsigned char*>(stream_smem);
   const int H = a.H, QKV = a.QKV, FF = a.FF, QD = a.QD, B = a.B;
+  constexpr int kQkvEpi = D == 0 ? kEpiNone : kEpiQkv;
+  // the counters start at 0 (the first barrier orders this before any use);
+  // each unit's last block resets its own
+  for (int i = blockIdx.x * kSThreads + threadIdx.x; i < a.n_cnt; i += gridDim.x * kSThreads) {
+    a.cnt[i] = 0;
+  }
+  const Plan qkv(QKV, H, kSN, gridDim.x);
   for (int l = 0; l < a.L; ++l) {
     row_in(a, l, smem);
     grid_sync(a.bar);
-    products<RPT, false>(smem, a.xn, H, a.wqkv + static_cast<size_t>(l) * QKV * H, nullptr,
-                         QKV, H, B, a.part_qkv, nullptr, nullptr, nullptr);
+    products<NT, kQkvEpi, D>(ring, a, l, a.xn, H, a.wqkv + static_cast<size_t>(l) * QKV * H,
+                             nullptr, QKV, H, a.part_qkv, a.cnt);
     const int8_t* wo = a.wo + static_cast<size_t>(l) * H * QD;
     if constexpr (D == 0) {
-      products<RPT, false>(smem, a.attn_in + static_cast<size_t>(l) * B * QD, QD, wo,
-                           nullptr, H, QD, B, a.part_h, nullptr, nullptr, nullptr);
+      products<NT, kEpiNone, D>(ring, a, l, a.attn_in + static_cast<size_t>(l) * B * QD, QD,
+                                wo, nullptr, H, QD, a.part_h, nullptr);
       grid_sync(a.bar);
     } else {
       grid_sync(a.bar);
-      attend<D, G>(a, l, smem);
+      attend<D, G>(a, l, ring);
       grid_sync(a.bar);
-      products<RPT, false>(smem, a.attn, QD, wo, nullptr, H, QD, B, a.part_h, nullptr,
-                           nullptr, nullptr);
+      products<NT, kEpiNone, D>(ring, a, l, a.attn, QD, wo, nullptr, H, QD, a.part_h, nullptr);
       grid_sync(a.bar);
     }
     row_mid(a, l, smem);
     grid_sync(a.bar);
     const size_t wff = static_cast<size_t>(l) * FF * H;
-    products<RPT, true>(smem, a.xn, H, a.wg + wff, a.wu + wff, FF, H, B, nullptr,
-                        a.gs + static_cast<size_t>(l) * FF, a.us + static_cast<size_t>(l) * FF,
-                        a.h);
+    products<NT, kEpiGlu, D>(ring, a, l, a.xn, H, a.wg + wff, a.wu + wff, FF, H, a.part_glu,
+                             a.cnt + qkv.units);
     grid_sync(a.bar);
-    products<RPT, false>(smem, a.h, FF, a.wd + wff, nullptr, H, FF, B, a.part_h, nullptr,
-                         nullptr, nullptr);
+    products<NT, kEpiNone, D>(ring, a, l, a.h, FF, a.wd + wff, nullptr, H, FF, a.part_h,
+                              nullptr);
     grid_sync(a.bar);
   }
   row_in(a, a.L, smem);
@@ -588,19 +743,19 @@ __global__ void __launch_bounds__(kSThreads, 1) stream_kernel(StreamArgs a) {
 // host side: shared memory, grid, workspace layout, launch
 // ---------------------------------------------------------------------------
 
-template <int RPT, int D, int G>
+template <int NT, int D, int G>
 size_t smem_bytes(int H) {
-  size_t prod = (8 * RPT * kXsPitch + 2 * kSK * kSN) * sizeof(float);
-  size_t rows = (H + kSWarps) * sizeof(float);
-  size_t att = D == 0 ? 0 : sizeof(AttnSmem<D == 0 ? 16 : D, G == 0 ? 1 : G>);
+  const size_t prod = ProductTile<NT>::kSmem;
+  const size_t rows = (H + kSWarps) * sizeof(float);
+  const size_t att = D == 0 ? 0 : 2 * SplitTile<D == 0 ? 16 : D, 8>::kItemSmem;
   return std::max(prod, std::max(rows, att));
 }
 
 // co-resident blocks of the instance: occupancy x SMs (0 on failure)
-template <int RPT, int D, int G>
+template <int NT, int D, int G>
 cudaError_t grid_of(int H, int device, int* grid) {
-  const size_t smem = smem_bytes<RPT, D, G>(H);
-  auto kernel = stream_kernel<RPT, D, G>;
+  const size_t smem = smem_bytes<NT, D, G>(H);
+  auto kernel = stream_kernel<NT, D, G>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   int per_sm = 0, sms = 0;
@@ -612,11 +767,29 @@ cudaError_t grid_of(int H, int device, int* grid) {
   return *grid > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
+// cache rows per attention item: kernel #3's rule for its bf16 instance
+// (decode_attention.quant_run_rows, measured on the card): the shortest of
+// 256 to 1,024 rows that leaves at most two live items an SM (one a half
+// block) at half-full slots, longer if a slot would have more runs than the
+// last item can merge
+inline int attn_run_rows(int B, int KVH, int M, int grid, int max_runs) {
+  int run = 256;
+  while (run < 1024 && B * KVH * ((M + 2 * run - 1) / (2 * run)) > 2 * grid) {
+    run *= 2;
+  }
+  while ((M + run - 1) / run > max_runs) run *= 2;
+  return run;
+}
+
 struct Layout {
-  size_t x, xn, h, attn, pq, ph, total;
+  size_t x, xn, h, attn, qr, nk, nv, nks, nvs, pq, ph, pg, pa, cnt, total;
+  int n_cnt, attn_run, attn_runs;
 };
 
-inline Layout layout(bool mega, int B, int H, int QKV, int FF, int QD, int grid) {
+template <int D>
+Layout layout(int B, int H, int QKV, int FF, int QD, int KVH, int M, int grid) {
+  constexpr bool kMega = D != 0;
+  using Tile = SplitTile<kMega ? D : 16, 8>;
   Layout o;
   size_t off = 0;
   auto take = [&](size_t n) {
@@ -624,56 +797,85 @@ inline Layout layout(bool mega, int B, int H, int QKV, int FF, int QD, int grid)
     off += (n + 255) & ~static_cast<size_t>(255);
     return at;
   };
-  int cq, co, cd, per;
-  split_plan(QKV, H, grid, &cq, &per);
-  split_plan(H, QD, grid, &co, &per);
-  split_plan(H, FF, grid, &cd, &per);
+  const size_t rec = static_cast<size_t>(B) * kSN * 4;
+  const Plan pq(QKV, H, kSN, grid), ph(H, std::max(QD, FF), kSN, grid),
+      pg(FF, H, kSN / 2, grid);
+  o.attn_run = kMega ? attn_run_rows(B, KVH, M, grid, Tile::kMaxSplits) : 0;
+  o.attn_runs = kMega ? (M + o.attn_run - 1) / o.attn_run : 0;
   o.x = take(static_cast<size_t>(B) * H * 2);
   o.xn = take(static_cast<size_t>(B) * H * 2);
   o.h = take(static_cast<size_t>(B) * FF * 2);
-  o.attn = take(mega ? static_cast<size_t>(B) * QD * 2 : 0);
-  o.pq = take(static_cast<size_t>(cq) * B * QKV * 4);
-  o.ph = take(static_cast<size_t>(std::max(co, cd)) * B * H * 4);
+  o.attn = take(kMega ? static_cast<size_t>(B) * QD * 2 : 0);
+  o.qr = take(kMega ? static_cast<size_t>(B) * QD * 2 : 0);
+  o.nk = take(kMega ? static_cast<size_t>(B) * KVH * D : 0);
+  o.nv = take(kMega ? static_cast<size_t>(B) * KVH * D : 0);
+  o.nks = take(kMega ? static_cast<size_t>(B) * KVH * 2 : 0);
+  o.nvs = take(kMega ? static_cast<size_t>(B) * KVH * 2 : 0);
+  o.pq = take((grid + pq.units) * rec);
+  o.ph = take((grid + ph.units) * rec);
+  o.pg = take((grid + pg.units) * rec);
+  o.pa = take(kMega ? static_cast<size_t>(B) * KVH * o.attn_runs * Tile::kPartial * 4 : 0);
+  o.n_cnt = pq.units + pg.units + (kMega ? B * KVH : 0);
+  o.cnt = take(static_cast<size_t>(o.n_cnt) * 4);
   o.total = off;
   return o;
 }
 
-template <int RPT, int D, int G>
+template <int NT, int D, int G>
 cudaError_t launch(StreamArgs a, void* work, int device, cudaStream_t stream) {
   int grid = 0;
-  cudaError_t err = grid_of<RPT, D, G>(a.H, device, &grid);
+  cudaError_t err = grid_of<NT, D, G>(a.H, device, &grid);
   if (err != cudaSuccess) return err;
-  const Layout o = layout(D != 0, a.B, a.H, a.QKV, a.FF, a.QD, grid);
+  const Layout o = layout<D>(a.B, a.H, a.QKV, a.FF, a.QD, a.KVH, a.M, grid);
   char* w = static_cast<char*>(work);
   a.x = reinterpret_cast<__nv_bfloat16*>(w + o.x);
   a.xn = reinterpret_cast<__nv_bfloat16*>(w + o.xn);
   a.h = reinterpret_cast<__nv_bfloat16*>(w + o.h);
   a.attn = reinterpret_cast<__nv_bfloat16*>(w + o.attn);
+  a.qr = reinterpret_cast<__nv_bfloat16*>(w + o.qr);
+  a.nk = reinterpret_cast<int8_t*>(w + o.nk);
+  a.nv = reinterpret_cast<int8_t*>(w + o.nv);
+  a.nks = reinterpret_cast<__nv_bfloat16*>(w + o.nks);
+  a.nvs = reinterpret_cast<__nv_bfloat16*>(w + o.nvs);
   a.part_qkv = reinterpret_cast<float*>(w + o.pq);
   a.part_h = reinterpret_cast<float*>(w + o.ph);
+  a.part_glu = reinterpret_cast<float*>(w + o.pg);
+  a.part_attn = reinterpret_cast<float*>(w + o.pa);
+  a.cnt = reinterpret_cast<int*>(w + o.cnt);
+  a.n_cnt = o.n_cnt;
+  a.attn_run = o.attn_run;
+  a.attn_runs = o.attn_runs;
   void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(stream_kernel<RPT, D, G>),
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(stream_kernel<NT, D, G>),
                                     dim3(grid), dim3(kSThreads), args,
-                                    smem_bytes<RPT, D, G>(a.H), stream);
+                                    smem_bytes<NT, D, G>(a.H), stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// rows per thread of the product tiles: the smallest instance that holds B
-inline int rpt_for(int B) {
-  constexpr int kRpt[] = {1, 4, 10, 16};
-  for (int r : kRpt) {
-    if (8 * r >= B) return r;
+// n-tiles (8 batch rows each) of the product tiles: the smallest instance
+// that holds B
+inline int tiles_for(int B) {
+  constexpr int kNt[] = {1, 4, 10, 16};
+  for (int n : kNt) {
+    if (8 * n >= B) return n;
   }
   return 0;
 }
 
 // the two things done per instance, as functors for dispatch()
-struct GridOf {
-  int H, device;
-  int* grid;
-  template <int R, int DD, int GG>
-  cudaError_t operator()() const { return grid_of<R, DD, GG>(H, device, grid); }
+struct WorkspaceOf {
+  int B, H, QKV, FF, QD, KVH, M, device;
+  long long* bytes;
+  template <int NT, int DD, int GG>
+  cudaError_t operator()() const {
+    int grid = 0;
+    const cudaError_t err = grid_of<NT, DD, GG>(H, device, &grid);
+    if (err == cudaSuccess) {
+      *bytes = static_cast<long long>(layout<DD>(B, H, QKV, FF, QD, KVH, M, grid).total);
+    }
+    return err;
+  }
 };
 
 struct Launch {
@@ -681,26 +883,26 @@ struct Launch {
   void* work;
   int device;
   cudaStream_t stream;
-  template <int R, int DD, int GG>
-  cudaError_t operator()() const { return launch<R, DD, GG>(a, work, device, stream); }
+  template <int NT, int DD, int GG>
+  cudaError_t operator()() const { return launch<NT, DD, GG>(a, work, device, stream); }
 };
 
-// Calls f.template operator()<RPT, D, G>() for the instance of (B, D, G);
+// Calls f.template operator()<NT, D, G>() for the instance of (B, D, G);
 // D == 0 selects dense_stream. Returns cudaErrorInvalidValue without one.
 template <typename F>
 cudaError_t dispatch(int B, int D, int G, const F& f) {
-#define KARANTA_STREAM_RPT(DD, GG)                                              \
-  switch (rpt_for(B)) {                                                         \
+#define KARANTA_STREAM_NT(DD, GG)                                               \
+  switch (tiles_for(B)) {                                                       \
     case 1: return f.template operator()<1, DD, GG>();                          \
     case 4: return f.template operator()<4, DD, GG>();                          \
     case 10: return f.template operator()<10, DD, GG>();                        \
     case 16: return f.template operator()<16, DD, GG>();                        \
     default: return cudaErrorInvalidValue;                                      \
   }
-  if (D == 0) { KARANTA_STREAM_RPT(0, 0) }
-  if (D == 128 && G == 7) { KARANTA_STREAM_RPT(128, 7) }  // Qwen2.5-VL-7B
-  if (D == 64 && G == 2) { KARANTA_STREAM_RPT(64, 2) }    // the tiny test config
-#undef KARANTA_STREAM_RPT
+  if (D == 0) { KARANTA_STREAM_NT(0, 0) }
+  if (D == 128 && G == 7) { KARANTA_STREAM_NT(128, 7) }  // Qwen2.5-VL-7B
+  if (D == 64 && G == 2) { KARANTA_STREAM_NT(64, 2) }    // the tiny test config
+#undef KARANTA_STREAM_NT
   return cudaErrorInvalidValue;
 }
 
@@ -712,16 +914,18 @@ inline bool shapes_ok(int B, int H, int QKV, int FF, int QD) {
 }  // namespace karanta
 
 // C interface (loaded with ctypes). Bytes of workspace a call needs (the
-// grid is the device's co-resident block count), or a negative CUDA error.
+// grid is the device's co-resident block count; KVH and M are the
+// megakernel's cache shape), or a negative CUDA error.
 extern "C" long long karanta_decode_stream_workspace(int mega, int B, int H, int QKV,
-                                                     int FF, int QD, int D, int G,
-                                                     int device) {
+                                                     int FF, int QD, int KVH, int M, int D,
+                                                     int G, int device) {
   using namespace karanta;
   if (!shapes_ok(B, H, QKV, FF, QD)) return -static_cast<long long>(cudaErrorInvalidValue);
-  int grid = 0;
-  const cudaError_t err = dispatch(B, mega ? D : 0, mega ? G : 0, GridOf{H, device, &grid});
+  long long bytes = 0;
+  const cudaError_t err = dispatch(B, mega ? D : 0, mega ? G : 0,
+                                   WorkspaceOf{B, H, QKV, FF, QD, KVH, M, device, &bytes});
   if (err != cudaSuccess) return -static_cast<long long>(err);
-  return static_cast<long long>(layout(mega != 0, B, H, QKV, FF, QD, grid).total);
+  return bytes;
 }
 
 // all layers' dense products; returns the CUDA error code of the launch

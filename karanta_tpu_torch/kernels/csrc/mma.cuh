@@ -128,4 +128,30 @@ __device__ __forceinline__ void int4x8_to_bf16(uint2 raw, uint4& lo, uint4& hi) 
   hi = make_uint4(h[0], h[1], h[2], h[3]);
 }
 
+// Rows [r_lo, r_lo + kRows) of one landed chunk of a quantized cache (stored
+// K rows 0..15, then V rows 16..31, pitch D) into a bf16 stage (pitch P): int8 row rr
+// to stage row rr (K keys 0..15, V keys 16..31); packed int4 row rr to stage
+// rows lo(rr) (its low nibbles) and lo(rr) + 16 (its high nibbles), with
+// lo(rr) = rr for K and rr + 16 for V (K tiles 0..31, V tiles 32..63).
+template <int kBits, int D, int P, int kRows>
+__device__ __forceinline__ void stage_rows(const int8_t* __restrict__ src,
+                                           __nv_bfloat16* __restrict__ dst, int r_lo,
+                                           int lane) {
+  constexpr int kV = D / 8;  // 8-byte vectors per row
+#pragma unroll
+  for (int c = lane; c < kRows * kV; c += 32) {
+    const int r = r_lo + c / kV, col = (c % kV) * 8;
+    const uint2 raw = *reinterpret_cast<const uint2*>(src + r * D + col);
+    if constexpr (kBits == 8) {
+      *reinterpret_cast<uint4*>(dst + r * P + col) = int8x8_to_bf16(raw);
+    } else {
+      const int lo_row = r < 16 ? r : r + 16;
+      uint4 lo, hi;
+      int4x8_to_bf16(raw, lo, hi);
+      *reinterpret_cast<uint4*>(dst + lo_row * P + col) = lo;
+      *reinterpret_cast<uint4*>(dst + (lo_row + 16) * P + col) = hi;
+    }
+  }
+}
+
 }  // namespace karanta

@@ -136,32 +136,6 @@ struct VerifyTile {
                 "shared regions must stay 16-byte aligned");
 };
 
-// Rows [r_lo, r_lo + kRows) of one landed chunk (stored K rows 0..15, then V
-// rows 16..31, pitch D) into the stream's bf16 stage (pitch P): int8 row rr
-// to stage row rr (K keys 0..15, V keys 16..31); packed int4 row rr to stage
-// rows lo(rr) (its low nibbles) and lo(rr) + 16 (its high nibbles), with
-// lo(rr) = rr for K and rr + 16 for V (K tiles 0..31, V tiles 32..63).
-template <int kBits, int D, int P, int kRows>
-__device__ __forceinline__ void stage_rows(const int8_t* __restrict__ src,
-                                           __nv_bfloat16* __restrict__ dst, int r_lo,
-                                           int lane) {
-  constexpr int kV = D / 8;  // 8-byte vectors per row
-#pragma unroll
-  for (int c = lane; c < kRows * kV; c += 32) {
-    const int r = r_lo + c / kV, col = (c % kV) * 8;
-    const uint2 raw = *reinterpret_cast<const uint2*>(src + r * D + col);
-    if constexpr (kBits == 8) {
-      *reinterpret_cast<uint4*>(dst + r * P + col) = int8x8_to_bf16(raw);
-    } else {
-      const int lo_row = r < 16 ? r : r + 16;
-      uint4 lo, hi;
-      int4x8_to_bf16(raw, lo, hi);
-      *reinterpret_cast<uint4*>(dst + lo_row * P + col) = lo;
-      *reinterpret_cast<uint4*>(dst + (lo_row + 16) * P + col) = hi;
-    }
-  }
-}
-
 // the NT warps of one chunk stream meet here (named barrier 1 + stream)
 template <int NT>
 __device__ __forceinline__ void stream_sync(int stream) {
@@ -169,18 +143,6 @@ __device__ __forceinline__ void stream_sync(int stream) {
     __syncwarp();
   } else {
     asm volatile("bar.sync %0, %1;\n" ::"r"(1 + stream), "n"(32 * NT) : "memory");
-  }
-}
-
-// token of key kk (0..15) of key tile p of the chunk that starts at stored
-// row c0 (a multiple of 16)
-template <int kBits>
-__device__ __forceinline__ int chunk_token(int c0, int p, int kk) {
-  if constexpr (kBits == 8) {
-    return c0 + kk;
-  } else {
-    const int pr = c0 + kk;
-    return ((pr >> 5) << 6) + 32 * p + (pr & 31);
   }
 }
 

@@ -748,12 +748,43 @@ def _q4_fns():
     lib = library("decode_append_q4")
     fn = lib.karanta_decode_append_q4
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     supported = lib.karanta_decode_q4_supported
     supported.restype = ctypes.c_int
     supported.argtypes = [ctypes.c_int, ctypes.c_int]
     return fn, supported
+
+
+# The int4 decode kernel's run lengths in tokens for split_run_rows (measured
+# on an H100 with ``python -m karanta_tpu_torch.bench.verify_runs --kernel
+# 6``): multiples of 64, so that no 64-token window is split across runs, and
+# up to Q4_BLOCKS_PER_SM live blocks an SM at half-full slots (its blocks of
+# 4 warps fit two an SM, but one was faster from B = 8 on).
+Q4_MIN_RUN, Q4_MAX_RUN, Q4_BLOCKS_PER_SM = 256, 1024, 1
+
+
+def q4_run_tokens(b: int, kvh: int, m: int, n_sm: int, max_runs: int) -> int:
+    """Tokens per run of the int4 decode kernel's bf16 instance for B slots,
+    KVH kv heads and M cache tokens on a card with n_sm SMs."""
+    return split_run_rows(b, kvh, m, n_sm, Q4_MIN_RUN, Q4_MAX_RUN, max_runs,
+                          blocks_per_sm=Q4_BLOCKS_PER_SM)
+
+
+@functools.cache
+def paged_decode_append_q4_info(d: int, g: int, b: Optional[int] = None,
+                                kvh: Optional[int] = None,
+                                m: Optional[int] = None) -> dict:
+    """The resources of the int4 decode kernel's bf16 (tensor-core)
+    instance, as ``paged_decode_append_quant_info`` reports them (m in
+    tokens; needs the card); given a shape, also its tokens per run."""
+    info = _info("decode_append_q4", "karanta_decode_append_q4_info", d, g,
+                 "max_runs")
+    if b is not None:
+        info["run_tokens"] = q4_run_tokens(
+            b, kvh, m, _sm_count(torch.cuda.current_device()),
+            info["max_runs"])
+    return info
 
 
 def paged_decode_append_q4(
@@ -793,11 +824,21 @@ def paged_decode_append_q4(
         raise ValueError(f"paged_decode_append_q4: no kernel for head dim {d} "
                          f"with {h // kvh} query heads per kv head")
     out = torch.empty_like(q)
+    pm = k_cache.shape[3]
+    partials = counters = None
+    run_tokens = 0
+    if q.dtype == torch.bfloat16:
+        run_tokens = q4_run_tokens(
+            b, kvh, 2 * pm, _sm_count(q.device),
+            paged_decode_append_q4_info(d, h // kvh)["max_runs"])
+        partials, counters = _split_workspace(
+            q, b * kvh, -(-2 * pm // run_tokens), SPLIT_PARTIAL_ROWS)
     code = fn(kernels.ptr(q), kernels.ptr(new_k), kernels.ptr(new_v),
               kernels.ptr(new_ks), kernels.ptr(new_vs), kernels.ptr(k_cache),
               kernels.ptr(v_cache), kernels.ptr(ks_cache),
               kernels.ptr(vs_cache), kernels.ptr(cache_len), kernels.ptr(out),
-              b, kvh, h // kvh, k_cache.shape[3], d, int(layer), scale,
+              kernels.ptr(partials), kernels.ptr(counters),
+              b, kvh, h // kvh, pm, d, int(layer), run_tokens, scale,
               kernels.DTYPE_CODES[q.dtype], kernels.stream_ptr(q.device))
     kernels.raise_on_error("paged_decode_append_q4", code)
     kernels.LAUNCHES["paged_decode_append_q4"] += 1
@@ -988,7 +1029,7 @@ def _attention_fns():
 
 # the split kernels' merge counters per (device, stream): zero between calls
 # (each call resets the ones it used), so they are allocated once and shared
-# by kernels #3, #4, #5, #7, #8 and #9 on one stream
+# by kernels #3-#9 on one stream
 _SPLIT_COUNTERS: dict = {}
 # the read-only and single-token append kernels' partial record holds 8
 # query rows

@@ -218,9 +218,10 @@ def decode_megakernel_plain(x, cos, sin, sp: dict, k_cache, v_cache,
 # the wrappers
 # ---------------------------------------------------------------------------
 
-@functools.cache
-def _stream_fns():
-    lib = library("decode_stream")
+def stream_fns(lib: ctypes.CDLL) -> tuple:
+    """The typed C entries (dense stream, megakernel, workspace query) of a
+    library built from ``decode_stream.cu``: the port's own, or an
+    instrumented copy of the source (``bench/stream_trace.py``)."""
     dense = lib.karanta_dense_stream
     dense.restype = ctypes.c_int
     dense.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 5 + [
@@ -231,8 +232,13 @@ def _stream_fns():
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     workspace = lib.karanta_decode_stream_workspace
     workspace.restype = ctypes.c_longlong
-    workspace.argtypes = [ctypes.c_int] * 9
+    workspace.argtypes = [ctypes.c_int] * 11
     return dense, mega, workspace
+
+
+@functools.cache
+def _stream_fns() -> tuple:
+    return stream_fns(library("decode_stream"))
 
 
 def _check_params(name: str, sp: dict, n_layers: int, h: int, qkvd: int,
@@ -278,9 +284,9 @@ def _cuda_params(name: str, sp: dict, dtype: torch.dtype) -> list:
              "wu_t", "us", "wd", "ds")]
 
 
-def _workspace(device, b, h, qkvd, ff, qd, d, g, mega: bool):
-    _, _, workspace = _stream_fns()
-    n_bytes = workspace(int(mega), b, h, qkvd, ff, qd, d, g,
+def _workspace(workspace, device, b, h, qkvd, ff, qd, kvh, m, d, g,
+               mega: bool):
+    n_bytes = workspace(int(mega), b, h, qkvd, ff, qd, kvh, m, d, g,
                         device.index or 0)
     if n_bytes < 0:
         raise ValueError(f"{'decode_megakernel' if mega else 'dense_stream'}"
@@ -296,6 +302,13 @@ def dense_stream(x: torch.Tensor,          # (B, H)
                  eps: float = 1e-6):
     """All layers' int8 dense decode products in one launch. Returns
     (x_final (B, H), qkv (L, B, QKV)) in x's dtype."""
+    return dense_stream_on(None, x, attn_out, sp, eps)
+
+
+def dense_stream_on(fns, x, attn_out, sp: dict, eps: float = 1e-6):
+    """``dense_stream`` launching through ``fns``, the ``stream_fns`` of
+    another library built from the same source, or through the port's own
+    library where fns is None."""
     b, h = x.shape
     n_layers, _, qkvd = sp["wqkv"].shape
     ff = sp["wd"].shape[1]
@@ -318,9 +331,9 @@ def dense_stream(x: torch.Tensor,          # (B, H)
     weights = _cuda_params("dense_stream", sp, x.dtype)
     kernels.check_cuda_inputs("dense_stream", x.dtype, x=x,
                               attn_out=attn_out)
-    dense, _, _ = _stream_fns()
-    work, barrier = _workspace(x.device, b, h, qkvd, ff, h, 0, 0,
-                               mega=False)
+    dense, _, workspace = fns or _stream_fns()
+    work, barrier = _workspace(workspace, x.device, b, h, qkvd, ff, h, 0, 0,
+                               0, 0, mega=False)
     xout = torch.empty_like(x)
     qkv = torch.empty((n_layers, b, qkvd), dtype=x.dtype, device=x.device)
     code = dense(kernels.ptr(x), kernels.ptr(attn_out), *weights,
@@ -353,6 +366,16 @@ def decode_megakernel(x: torch.Tensor,          # (B, H)
     cache_len should lie in [0, M). A value outside is clamped into it, on
     the card and on the CPU alike (checking it would make the host wait for
     the device), so a slot at or past M rewrites its row M - 1."""
+    return decode_megakernel_on(None, x, cos, sin, sp, k_cache, v_cache,
+                                ks_cache, vs_cache, cache_len, qd, kvd, scale,
+                                eps)
+
+
+def decode_megakernel_on(fns, x, cos, sin, sp: dict, k_cache, v_cache,
+                         ks_cache, vs_cache, cache_len, qd=None, kvd=None,
+                         scale=None, eps: float = 1e-6):
+    """``decode_megakernel`` launching through ``fns``, as
+    ``dense_stream_on``."""
     b, h = x.shape
     n_layers, cb, kvh, m, d = k_cache.shape
     qkvd = sp["wqkv"].shape[2]
@@ -403,9 +426,10 @@ def decode_megakernel(x: torch.Tensor,          # (B, H)
         "decode_megakernel", x.dtype, x=x, cos=cos, sin=sin, k_cache=k_cache,
         v_cache=v_cache, ks_cache=ks_cache, vs_cache=vs_cache,
         cache_len=cache_len)
-    _, mega, _ = _stream_fns()
+    _, mega, workspace = fns or _stream_fns()
     g = qd // d // kvh
-    work, barrier = _workspace(x.device, b, h, qkvd, ff, qd, d, g, mega=True)
+    work, barrier = _workspace(workspace, x.device, b, h, qkvd, ff, qd, kvh,
+                               m, d, g, mega=True)
     xout = torch.empty_like(x)
     code = mega(kernels.ptr(x), kernels.ptr(cos), kernels.ptr(sin),
                 *weights, *(kernels.ptr(t) for t in out),

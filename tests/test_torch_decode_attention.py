@@ -449,7 +449,11 @@ def test_split_run_rules(m):
              (lambda b: DA.multi_q4_run_tokens(b, 4, m, n_sm, 64),
               DA.MULTI_Q4_MIN_RUN, DA.MULTI_Q4_MAX_RUN, 0.5),
              (lambda b: DA.quant_run_rows(b, 4, m, n_sm, 64),
-              DA.QUANT_MIN_RUN, DA.QUANT_MAX_RUN, DA.QUANT_BLOCKS_PER_SM))
+              DA.QUANT_MIN_RUN, DA.QUANT_MAX_RUN, DA.QUANT_BLOCKS_PER_SM),
+             (lambda b: DA.q4_run_tokens(b, 4, m, n_sm, 64),
+              DA.Q4_MIN_RUN, DA.Q4_MAX_RUN, DA.Q4_BLOCKS_PER_SM))
+    # the int4 rules count tokens in whole 64-token windows
+    assert DA.MULTI_Q4_MIN_RUN % 64 == 0 and DA.Q4_MIN_RUN % 64 == 0
     for rule, lo, hi, per_sm in rules:
         runs = [rule(b) for b in (1, 2, 4, 8, 16, 32, 64, 80, 128)]
         assert runs == sorted(runs)
@@ -467,6 +471,10 @@ def test_split_run_rules(m):
     assert DA.quant_run_rows(4, 4, 1920, n_sm, 64) == 256
     assert DA.quant_run_rows(32, 4, 1920, n_sm, 64) == 512
     assert DA.quant_run_rows(80, 4, 1920, n_sm, 64) == 1024
+    assert DA.q4_run_tokens(4, 4, 2048, n_sm, 64) == 256
+    assert DA.q4_run_tokens(8, 4, 4096, n_sm, 64) == 512
+    assert DA.q4_run_tokens(32, 4, 4096, n_sm, 64) == 1024
+    assert DA.q4_run_tokens(64, 4, 4096, n_sm, 64) == 1024
     # a slot never gets more runs than the last block can merge
     assert DA.split_run_rows(1, 1, 4096, n_sm, 64, 64, max_runs=16) == 256
     assert DA.split_run_rows(1, 1, 4096, n_sm, 64, 4096, 64) == 64

@@ -234,3 +234,47 @@ def test_multi_q4_plain_matches_pallas_bf16(layer, lens):
     for g, w in zip(caches_t, caches_j):
         np.testing.assert_array_equal(g.float().numpy(),
                                       np.asarray(w).astype(np.float32))
+
+
+@pytest.mark.parametrize("layer,lens", [
+    (1, [0, 31, 32, 33]),     # on and beside the 32-row tile
+    (0, [63, 64, 65, 255]),   # on and beside the 64-token window, M - 1
+    (1, [95, 96, 127, 190]),  # the second window's tile edge and tail
+])
+def test_q4_plain_matches_pallas_bf16(layer, lens):
+    """Kernel #6's plain version against the JAX Pallas kernel
+    (``interpret=True``) at the 7B's heads (H = 28, KVH = 4, D = 128) with
+    bf16 activations and scales, under the card's bf16 rule (the Pallas
+    kernel rounds p * vsc to bf16 before P.V, the plain version does not);
+    all four caches bit-equal."""
+    from karanta_tpu.ops.decode_attention import paged_decode_append_q4
+
+    rng = np.random.default_rng(70 + layer + lens[0])
+    L, B, M, H, KVH, D = 2, 4, 256, 28, 4, 128
+    x = rng.normal(size=(B, 1, H, D)).astype(np.float32)
+    jq, q = jnp.asarray(x, jnp.bfloat16), _t(x).to(torch.bfloat16)
+    caches = [c.astype(jnp.bfloat16) if i >= 2 else c for i, c in
+              enumerate(_packed(*_token_caches(rng, L, B, KVH, M, D)))]
+    new = [c.astype(jnp.bfloat16) if i >= 2 else c for i, c in
+           enumerate(_new_rows(rng, (B,), KVH, D))]
+    attn_j, *caches_j = paged_decode_append_q4(
+        jq, *new, *caches, jnp.asarray(layer), jnp.asarray(lens, jnp.int32),
+        block=128, interpret=True)
+
+    def tt(x):
+        return (_t(np.asarray(x, np.float32)).to(torch.bfloat16)
+                if x.dtype == jnp.bfloat16 else _t(x))
+
+    caches_t = [tt(c) for c in caches]
+    got = DA.paged_decode_append_q4(
+        q, *(tt(x) for x in new), *caches_t, layer,
+        torch.tensor(lens, dtype=torch.int32))
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(attn_j).astype(np.float32)
+    limit = 2.0 ** -7 * np.abs(want) + 2.0 ** -9 * np.abs(want).max()
+    err = np.abs(got.float().numpy() - want)
+    assert np.isfinite(err).all() and (err <= limit).all(), (
+        f"worst error/limit {float((err / limit).max()):.3g}")
+    for g, w in zip(caches_t, caches_j):
+        np.testing.assert_array_equal(g.float().numpy(),
+                                      np.asarray(w).astype(np.float32))

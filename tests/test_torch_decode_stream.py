@@ -329,3 +329,41 @@ def test_megakernel_refuses_what_jax_refuses(mega_case):
     x_in, inside = run([MM - 1, MM - 1, 0, 5])
     assert torch.equal(x_bad, x_in)
     assert all(torch.equal(p, q) for p, q in zip(bad, inside))
+
+
+def test_stream_trace_instruments_the_kernel():
+    """bench/stream_trace.py finds its three anchors in the tree's
+    decode_stream.cu (the stamps in grid_sync, at the kernel's start and
+    after its final row phase) and exports its two C entries."""
+    from karanta_tpu_torch.bench import stream_trace
+    from karanta_tpu_torch.kernels.build import CSRC
+
+    out = stream_trace.instrument((CSRC / "decode_stream.cu").read_text())
+    assert out.count("trace_stamp();") == 4  # 2 in grid_sync, start, end
+    assert "karanta_trace_reset" in out and "karanta_trace_read" in out
+
+
+def test_stream_trace_analysis():
+    """The per-phase sums from synthetic stamps: two blocks, one layer of
+    the megakernel's seven barriers, phase j taking j + 1 us on block 0 and
+    j + 2 us on block 1, each barrier releasing 1 us after the last
+    arrival."""
+    from karanta_tpu_torch.bench import stream_trace
+
+    stamps = [[0], [0]]
+    t = 0
+    for j in range(7):
+        arrive = [t + (j + 1) * 1000, t + (j + 2) * 1000]
+        leave = max(arrive) + 1000
+        for b in range(2):
+            stamps[b] += [arrive[b], leave]
+        t = leave
+    for b in range(2):
+        stamps[b].append(t + 500)
+    res = stream_trace.analyse(stamps, 1)
+    names = stream_trace.PHASES[7]
+    assert [round(res["phase_ms"][k] * 1e3, 6) for k in names] == [
+        j + 2.0 for j in range(7)]
+    assert round(res["barrier_release_ms"] * 1e3, 6) == 7.0
+    assert round(res["mean_block_busy_ms"]["attention"] * 1e3, 6) == 3.5
+    assert round(res["total_ms"] * 1e3, 6) == round(t * 1e-3 + 0.5, 6)

@@ -658,10 +658,52 @@ def test_multi_q4_kernel_is_deterministic(cuda):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("g", [7, 8, 4, 2])
+def test_q4_kernel_split_boundaries(cuda, dtype, g):
+    """Kernel #6, D = 128 at layer 1 of 3, M = 4096 tokens: cache_len on
+    each side of the bf16 instance's run of R tokens at this shape (R - 1,
+    R, R + 1), 2R, 3R + 5, 0 (run 0 only merges) and M - 1, then lengths
+    whose window is half live (R + 30, R + 33) or nearly whole (R + 62);
+    all four caches bit-equal."""
+    m, b = 4096, 10
+    r = DA.paged_decode_append_q4_info(128, g, b, 2, m)["run_tokens"]
+    lens = [r - 1, r, r + 1, 2 * r, 3 * r + 5, 0, m - 1, r + 30, r + 33,
+            r + 62]
+    gen = torch.Generator(device=cuda).manual_seed(89 + g)
+    a, new = _q4_inputs(gen, cuda, dtype, 3, b, 2, m, 128, (b,))
+    c = [x.clone() for x in a]
+    q = _randn(gen, (b, 1, 2 * g, 128), cuda, dtype)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    got = DA.paged_decode_append_q4(q, *new, *a, 1, lens)
+    want = DA.paged_decode_append_q4_plain(q, *new, *c, 1, lens)
+    torch.cuda.synchronize()
+    _assert_close(got, want, dtype)
+    for x, y in zip(a, c):
+        assert torch.equal(x, y)
+
+
+def test_q4_kernel_is_deterministic(cuda):
+    """Two calls of #6's bf16 instance give the same bits and caches (the
+    second call merges the same nibbles again)."""
+    gen = torch.Generator(device=cuda).manual_seed(97)
+    lens = torch.randint(0, 4095, (8,), generator=gen,
+                         device=cuda).to(torch.int32)
+    a, new = _q4_inputs(gen, cuda, torch.bfloat16, 2, 8, 4, 4096, 128, (8,))
+    q = _randn(gen, (8, 1, 28, 128), cuda, torch.bfloat16)
+    first = DA.paged_decode_append_q4(q, *new, *a, 1, lens)
+    after_first = [x.clone() for x in a]
+    second = DA.paged_decode_append_q4(q, *new, *a, 1, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    for x, y in zip(after_first, a):
+        assert torch.equal(x, y)
+
+
 def test_int_split_kernels_leave_counters_zero(cuda):
-    """Kernels #3, #7 and #4 one after another on one stream share the merge
-    counters with #5, #8 and #9; each call leaves them at 0, and each output
-    still meets its plain version."""
+    """Kernels #3, #7, #4 and #6 one after another on one stream share the
+    merge counters with #5, #8 and #9; each call leaves them at 0, and each
+    output still meets its plain version."""
     gen = torch.Generator(device=cuda).manual_seed(83)
     m, tq = 4096, 4
     lens_l = [m - tq - 1, 3000, 1500, 0]
@@ -677,9 +719,14 @@ def test_int_split_kernels_leave_counters_zero(cuda):
                                         7, tq, m, 128, lens_l)
     want4 = DA.paged_decode_append_multi_quant_plain(
         q4, *new4, *[x.clone() for x in c4], 1, lens)
+    a6, new6 = _q4_inputs(gen, cuda, torch.bfloat16, 2, 4, 4, m, 128, (4,))
+    q6 = _randn(gen, (4, 1, 28, 128), cuda, torch.bfloat16)
+    want6 = DA.paged_decode_append_q4_plain(
+        q6, *new6, *[x.clone() for x in a6], 1, lens)
     got3 = DA.paged_decode_append_quant(q3, *new3, *c3, 1, lens)
     got7 = DA.paged_decode_append_multi_q4(q7, *new7, *a7, 1, lens)
     got4 = DA.paged_decode_append_multi_quant(q4, *new4, *c4, 1, lens)
+    got6 = DA.paged_decode_append_q4(q6, *new6, *a6, 1, lens)
     torch.cuda.synchronize()
     counters = DA._SPLIT_COUNTERS[
         (q3.device, torch.cuda.current_stream(q3.device).cuda_stream)]
@@ -687,6 +734,7 @@ def test_int_split_kernels_leave_counters_zero(cuda):
     _assert_close(got3, want3, torch.bfloat16)
     _assert_close(got7, want7, torch.bfloat16)
     _assert_close(got4, want4, torch.bfloat16)
+    _assert_close(got6, want6, torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -722,12 +770,17 @@ def _normwise(got, want) -> float:
 
 
 @pytest.mark.parametrize("shape", [
-    # (layers, b, h, kvd, ff): a ragged qkv width (416 = 6.5 column units),
-    # the row tiles of 1, 4, 10 and 16 rows a thread
+    # (layers, b, h, kvd, ff): a ragged qkv width (416 = 3.25 units of
+    # 128 columns), the instances of 1, 4, 10 and 16 n-tiles (8 batch rows
+    # each), then each n-tile edge: B = 1, 8 (one whole tile) and 9 (one
+    # row into the second)
     (2, 3, 256, 80, 512),
     (2, 20, 512, 128, 768),
     (2, 80, 256, 64, 512),
     (2, 128, 256, 64, 512),
+    (2, 1, 256, 64, 512),
+    (2, 8, 512, 128, 768),
+    (2, 9, 256, 80, 512),
 ])
 def test_dense_stream_kernel_matches_plain(cuda, shape):
     from karanta_tpu_torch import kernels
@@ -764,6 +817,10 @@ def test_dense_stream_kernel_matches_plain(cuda, shape):
     (2, 20, 256, 1, 7, 128, 512, 128, None),
     (2, 80, 256, 1, 7, 128, 512, 128, None),
     (2, 128, 256, 1, 7, 128, 512, 128, None),
+    # the n-tile edges: B = 1, 8 and 9
+    (2, 1, 256, 1, 7, 128, 512, 256, [255]),
+    (2, 8, 256, 2, 2, 64, 512, 128, None),
+    (2, 9, 256, 1, 7, 128, 512, 256, None),
 ])
 def test_megakernel_matches_plain(cuda, shape):
     from karanta_tpu_torch import kernels
@@ -805,6 +862,36 @@ def test_megakernel_matches_plain(cuda, shape):
         if got.dim() == 5:
             keep = keep[..., None]
         assert torch.equal(torch.where(keep, got, 0), torch.where(keep, inp, 0))
+    # layer 0's new rows come from the same input in both: within one step
     for got, want in zip(runs[0][:2], runs[2][:2]):
-        new = rows[None, :, None, :, None].expand_as(got)
-        assert int((got[new].int() - want[new].int()).abs().max()) <= 1
+        new = rows[None, :, None, :, None].expand_as(got[:1])
+        assert int((got[:1][new].int() - want[:1][new].int()).abs().max()) <= 1
+    # every layer's new rows of the full-depth launch, dequantized: normwise
+    new = rows[None, :, None, :].expand(runs[0][2].shape)
+    for i in (0, 1):
+        got, want = ((r[i].float() * r[i + 2].float()[..., None])[new]
+                     for r in (runs[0], runs[2]))
+        assert _normwise(got, want) < 2e-2
+    # every layer's from matched inputs (the kernel's own output of the layer
+    # before, chip_smoke.stream_layer_witness): within one step, and the
+    # chained one-layer launches give the full-depth launch's x and every
+    # cache entry, so each layer's writes of the full-depth launch are held
+    # to those same steps
+    kern = [c.clone() for c in caches]
+    plain = [c.clone() for c in caches]
+    h_in = x
+    for layer in range(n_layers):
+        sp_l = {k: v[layer:layer + 1] for k, v in sp.items()}
+        got = [c[layer:layer + 1] for c in kern]
+        want = [c[layer:layer + 1] for c in plain]
+        out = DS.decode_megakernel(h_in, cos, sin, sp_l, *got, lens_t, qd=qd,
+                                   kvd=kvd)[0]
+        DS.decode_megakernel_plain(h_in, cos, sin, sp_l, *want, lens_t, qd,
+                                   kvd, d ** -0.5)
+        for g_, w_ in zip(got[:2], want[:2]):
+            new = rows[None, :, None, :, None].expand_as(g_)
+            assert int((g_[new].int() - w_[new].int()).abs().max()) <= 1
+        h_in = out
+    torch.cuda.synchronize()
+    assert torch.equal(h_in, got_x)
+    assert all(torch.equal(p, q) for p, q in zip(kern, runs[0]))
