@@ -64,7 +64,16 @@ Phases (any failed check raises and the script exits non-zero):
    the int8 and the int4 cache: the logits of the prefill, of three decode
    steps and of three verify passes agree, and so do the greedy tokens, with
    and without speculation; the stacked mode gives the append kernel's
-   tokens on the card.
+   tokens on the card;
+9. the OCR pipeline: `python -m karanta_tpu_torch.pipeline ... --serve-inproc
+   --preset qwen2.5-vl-7b` as a subprocess over 6 synthetic PDFs (7 pages,
+   three under a text layer, one of two pages): it spawns the port's server
+   at its CLI defaults, exits 0, every page gets its one attempt answered,
+   every work group is done, and the Dolma documents follow the runner's
+   rules; then the port's pipeline bench in process (7B, int8 weights, W8A8,
+   int8 KV, 1920 rows, 8 slots, 8 text-layer pages x 32 tokens), whose
+   window and flash launches match the pages prefilled, warm-up included,
+   and whose decode or verify kernel launched.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. The last two lines are the kernels summary and the result line.
@@ -78,6 +87,7 @@ import asyncio
 import base64
 import contextlib
 import gc
+import glob
 import http.client
 import json
 import math
@@ -2216,6 +2226,308 @@ def phase_tiny_stacked(dev) -> None:
                              "from the append kernel's")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the OCR pipeline
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+# the entry point's corpus: 6 PDFs of distinct 1288x994 pages, 7 pages, three
+# PDFs under an invisible text layer of PIPE_LINES lines (anchors of >= 200
+# characters, so those pages vote for speculation), one of two pages
+PIPE_PDFS = 6
+PIPE_PAGES = 7
+PIPE_LINES = 6
+PIPE_TOKENS = 32
+PIPE_TIMEOUT = 600
+# the in-process bench point: 7B, int8 weights, W8A8, int8 KV, 1920 rows,
+# 8 slots, 8 pages under a text layer, 32 tokens a page. The olmOCR prompt
+# with a page's anchor and 1,240 image tokens does not fit 1,920 rows, so
+# the bench sends the short anchored prompt of closed_loop.yaml (1,642
+# prompt tokens at 4 lines a page).
+BENCH_PAGES = 8
+BENCH_BATCH = 8
+BENCH_LINES = 4
+LOG_TIME = "%Y-%m-%d %H:%M:%S,%f"
+
+
+def pipeline_corpus(root: str) -> list:
+    """The entry point's corpus, written by the port's data/synthetic.py
+    (Flate RGB pages, no PIL)."""
+    from karanta_tpu_torch.bench.pipeline_bench import (make_page_array,
+                                                        page_text)
+    from karanta_tpu_torch.data.synthetic import (page_to_pdf_bytes,
+                                                  pages_to_pdf_bytes)
+    from karanta_tpu_torch.pdf.anchor import get_anchor_text
+
+    os.makedirs(root)
+    paths = []
+    for i in range(PIPE_PDFS):
+        if i == PIPE_PDFS - 1:
+            data = pages_to_pdf_bytes([make_page_array(500 + i),
+                                       make_page_array(600 + i)])
+        else:
+            layer = page_text(500 + i, n_lines=PIPE_LINES) if i < 3 else None
+            data = page_to_pdf_bytes(make_page_array(500 + i),
+                                     text_layer=layer)
+        path = os.path.join(root, f"doc{i}.pdf")
+        with open(path, "wb") as f:
+            f.write(data)
+        paths.append(path)
+        if i < 3 and len(get_anchor_text(path, 1, "pdfreport").strip()) < 200:
+            raise AssertionError(f"{path}: text layer under 200 characters")
+    return paths
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _log_time(line: str) -> float:
+    import datetime
+
+    return datetime.datetime.strptime(line[:23], LOG_TIME).timestamp()
+
+
+def _expected_span(text, index: int, n_pages: int) -> str:
+    """A page's share of its Dolma text (pipeline/dolma.py's rule)."""
+    if text is None:
+        return ""
+    return text + ("\n" if index < n_pages - 1 else "")
+
+
+def phase_pipeline_entry(root: str) -> dict:
+    """`python -m karanta_tpu_torch.pipeline ... --serve-inproc` as a user
+    runs it: the pipeline spawns the port's server at its CLI defaults
+    (bf16, 32 slots, speculation and prefix cache on) on the 7B preset.
+
+    Random weights never emit the end token, so each completion runs to the
+    32-token budget and the runner's validation counts the page as failed
+    after its one attempt (finish_reason "length"), then falls back to the
+    page's text layer. So the checks are: every page's one attempt was
+    answered by the server and failed only for that reason (or for text
+    that does not parse, when a completion is empty); finished plus failed
+    pages are 7; every work group is done; and each PDF's Dolma document is
+    there exactly when the runner's rules give it text, with the fallback
+    pages' text equal to their anchor fallback (--max_page_error_rate 1.01
+    keeps documents with fallback pages, as the bench does)."""
+    from karanta_tpu_torch.pdf.anchor import get_anchor_text
+    from karanta_tpu_torch.pdf.minipdf import PdfDocument
+    from karanta_tpu_torch.pipeline.work_queue import LocalBackend, _group_hash
+
+    pdfs = pipeline_corpus(os.path.join(root, "corpus"))
+    ws = os.path.join(root, "ws")
+    port = _free_port()
+    cmd = [sys.executable, "-m", "karanta_tpu_torch.pipeline", ws,
+           "--pdfs", *pdfs, "--serve-inproc",
+           "--server", f"http://127.0.0.1:{port}/v1",
+           "--preset", "qwen2.5-vl-7b",
+           "--max_output_tokens", str(PIPE_TOKENS), "--accept_raw_text",
+           "--max_page_retries", "1", "--admission_release_interval", "1",
+           "--max_page_error_rate", "1.01"]
+    log(f"[pipeline] {' '.join(cmd[2:])}")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=PIPE_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, err = proc.communicate()
+        raise AssertionError(f"the pipeline ran past {PIPE_TIMEOUT} s: "
+                             f"{err[-3000:]}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+    wall = time.perf_counter() - t0
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "pipeline_entry.log"),
+              "w") as f:
+        f.write(out + "\n---- stderr ----\n" + err)
+    if proc.returncode != 0:
+        raise AssertionError(f"the pipeline exited {proc.returncode}: "
+                             f"{err[-3000:]}")
+    summary, _ = json.JSONDecoder().raw_decode(out[out.rindex("\n{\n") + 1:]
+                                               if "\n{\n" in out else out)
+    totals = summary["total_metrics"]
+    finished = int(totals.get("finished_on_attempt_0", 0))
+    failed = int(totals.get("failed_pages", 0))
+    lines = err.splitlines()
+    bad = [ln for ln in lines if re.search(
+        r"server returned|transport error|unexpected error|Traceback|"
+        r"failed on group|could not", ln)]
+    if bad:
+        raise AssertionError(f"the pipeline met errors: {bad[:5]}")
+    fail_re = re.compile(r"(?:attempt 0 failed for|json decode error "
+                         r"attempt 0 for) (\S+)-(\d+): (.*)$")
+    failures = {}
+    for ln in lines:
+        m = fail_re.search(ln)
+        if m:
+            reason = m.group(3)
+            if "json decode error" not in ln and \
+                    reason != "finish_reason was not 'stop'":
+                raise AssertionError(f"a page failed for another reason: "
+                                     f"{ln}")
+            failures[(m.group(1), int(m.group(2)))] = reason
+    if finished + failed != PIPE_PAGES or len(failures) != failed:
+        raise AssertionError(f"pages: {finished} finished on attempt 0, "
+                             f"{failed} failed, {len(failures)} failures "
+                             f"logged; expected {PIPE_PAGES} in all")
+    backend = LocalBackend(ws)
+    groups = backend.read_index()
+    if not groups or not all(backend.is_done(_group_hash(g))
+                             for g in groups):
+        raise AssertionError(f"not every work group is done: {groups}")
+    docs = {}
+    for path in glob.glob(os.path.join(ws, "results", "output_*.jsonl")):
+        with open(path) as f:
+            for line in f:
+                doc = json.loads(line)
+                docs[doc["metadata"]["Source-File"]] = doc
+    want_docs = 0
+    for pdf in pdfs:
+        n = PdfDocument.open(pdf).num_pages()
+        doc = docs.get(pdf)
+        page_failed = [(pdf, p) in failures for p in range(1, n + 1)]
+        fallback = [get_anchor_text(pdf, p, "pdftotext") or None
+                    if page_failed[p - 1] else None for p in range(1, n + 1)]
+        spans = [_expected_span(t, i, n) for i, t in enumerate(fallback)]
+        has_text = not all(page_failed) or any(spans)
+        want_docs += has_text
+        if has_text != (doc is not None):
+            raise AssertionError(f"{pdf}: Dolma document "
+                                 f"{'missing' if has_text else 'unexpected'}")
+        if doc is None:
+            continue
+        if doc["metadata"]["total-fallback-pages"] != sum(page_failed):
+            raise AssertionError(f"{pdf}: fallback pages {doc['metadata']}")
+        for (start, end, page), was_failed, span in zip(
+                doc["attributes"]["pdf_page_numbers"], page_failed, spans):
+            if was_failed and doc["text"][start:end] != span:
+                raise AssertionError(f"{pdf} page {page}: fallback text "
+                                     f"differs from its anchor fallback")
+            if not was_failed and end == start:
+                raise AssertionError(f"{pdf} page {page}: finished page "
+                                     f"without text")
+    starts = [_log_time(ln) for ln in lines if "inference server on :" in ln]
+    ends = [_log_time(ln) for ln in lines if "final metrics:" in ln]
+    served_s = ends[-1] - starts[0]
+    log(f"[pipeline] entry point: {PIPE_PAGES} pages of {PIPE_PDFS} PDFs in "
+        f"{wall:.3f}s of command time (server spawn and 7B init included), "
+        f"{served_s:.3f}s from the server's start to the pipeline's end: "
+        f"{PIPE_PAGES / served_s:.4f} pages/s; {finished} finished on "
+        f"attempt 0, {failed} failed ({sorted(set(failures.values()))}); "
+        f"{len(groups)} work groups done; {len(docs)} Dolma documents "
+        f"(expected {want_docs})")
+    return dict(pages_per_s=PIPE_PAGES / served_s, command_s=wall,
+                served_s=served_s, finished_on_attempt_0=finished,
+                failed_pages=failed, documents=len(docs),
+                server_output_tokens=totals.get("server_output_tokens", 0))
+
+
+def phase_pipeline_bench(cfg, root: str) -> dict:
+    """The port's pipeline bench in this process at its bench point: the
+    pipeline, the port's server and the engine in one event loop, launches
+    counted from the engine's build through the warm-up page and the 8
+    timed pages."""
+    import argparse
+
+    from karanta_tpu_torch.bench import pipeline_bench
+    from karanta_tpu_torch.pipeline import render_pool
+
+    parser = argparse.ArgumentParser()
+    pipeline_bench.add_args(parser)
+    args = parser.parse_args([
+        "--preset", "qwen2.5-vl-7b", "--pages", str(BENCH_PAGES),
+        "--batch", str(BENCH_BATCH), "--max-seq-len", "1920",
+        "--decode-tokens", str(PIPE_TOKENS), "--text-layer",
+        "--page-lines", str(BENCH_LINES), "--quantize", "int8",
+        "--kv-quantize", "int8", "--act-quant", "int8",
+        "--prompt-key", "olmo_ocr_system_prompt",
+        "--prompt-path", os.path.join(REPO, "configs", "prompts",
+                                      "closed_loop.yaml"),
+        "--admission-release-interval", "1",
+        "--workspace", os.path.join(root, "bench")])
+    build = pipeline_bench.build_engine
+    held = {}
+
+    def counted_build(args_, cfg_, dtype, device):
+        engine = build(args_, cfg_, dtype, device)
+        held["counts"] = instrument(engine)
+        kernels.reset_launches()
+        return engine
+
+    pipeline_bench.build_engine = counted_build
+    t0 = time.perf_counter()
+    try:
+        result = pipeline_bench.run(args)  # prints the bench's JSON line
+    finally:
+        pipeline_bench.build_engine = build
+        render_pool.shutdown_pool()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    seconds = time.perf_counter() - t0
+    counts, detail = held["counts"], result["detail"]
+    if detail["requests_served"] != BENCH_PAGES + 1 or \
+            detail["finished_on_attempt_0"] + detail["fallback_pages"] \
+            != BENCH_PAGES:
+        raise AssertionError(f"pipeline bench: {detail}")
+    layers = cfg.text.num_layers
+    want = expected_prefill_launches(cfg, BENCH_PAGES + 1,
+                                     counts["prefix_builds"])
+    want.update({name: 0 for name in DECODE_KERNELS})
+    want.update(paged_decode_append_quant=layers * counts["decode_steps"],
+                paged_decode_append_multi_quant=layers
+                * counts["verify_passes"])
+    check_launches("pipeline bench", launches, want)
+    if not (launches["window_attention"] and launches["flash_attention"]
+            and (launches["paged_decode_append_quant"]
+                 or launches["paged_decode_append_multi_quant"])):
+        raise AssertionError(f"pipeline bench: a kernel of the path did not "
+                             f"launch: {launches}")
+    log(f"[pipeline] bench: {BENCH_PAGES} pages x {PIPE_TOKENS} tokens, "
+        f"B={BENCH_BATCH}: {result['value']:.4f} pages/s/card "
+        f"({detail['elapsed_s']} s timed); {detail['finished_on_attempt_0']} "
+        f"finished on attempt 0, {detail['fallback_pages']} fell back; "
+        f"{counts['decode_steps']} decode steps, {counts['verify_passes']} "
+        f"verify passes, {counts['prefix_hits']} prefix hits; phase "
+        f"{seconds:.1f}s")
+    return dict(pages_per_s=result["value"], launches=launches,
+                detail=detail, seconds=seconds,
+                **{k: counts[k] for k in ("decode_steps", "verify_passes",
+                                          "prefix_hits", "prefix_builds")})
+
+
+def phase_pipeline(cfg, kind: str) -> dict:
+    """Phase 9: the entry point as a subprocess, then the bench in process,
+    both in a temporary directory that is removed after."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="pipeline_")
+    try:
+        entry = phase_pipeline_entry(root)
+        bench = phase_pipeline_bench(cfg, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    log(f"[pipeline] entry point {entry['pages_per_s']:.4f} pages/s, bench "
+        f"{bench['pages_per_s']:.4f} pages/s/card; phase {seconds:.1f}s; "
+        f"{kind}; {smi}; random weights")
+    return dict(entry=entry, bench=bench, seconds=seconds)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -2245,6 +2557,7 @@ def main(argv=None) -> int:
     for kv in ("int8", "int4"):
         phase_tiny(dev, kv)
     phase_tiny_stacked(dev)
+    pipeline_stats = phase_pipeline(cfg, kind)
     # each kernel's launches on the path that runs it; kernel #8 is on no
     # path (the JAX package calls it from its tests only)
     paths = {
@@ -2275,11 +2588,14 @@ def main(argv=None) -> int:
         path, launches = paths.get(row["name"], (None, {}))
         row["launches"] = launches.get(row["name"], 0)
         row["path"] = path
+        row["pipeline_launches"] = pipeline_stats["bench"]["launches"].get(
+            row["name"], 0)
         log(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, library "
             f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)}"
             f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
-            f"{row['launches']} launches ({path})")
+            f"{row['launches']} launches ({path}), "
+            f"{row['pipeline_launches']} in the pipeline bench")
     log(json.dumps({"main_path": {k: v for k, v in main_stats.items()
                                   if k != "launches"},
                     "served_int8": int8_stats,
@@ -2290,7 +2606,13 @@ def main(argv=None) -> int:
                                      if k != "launches"}
                               for name, e in per.items()}
                         for key, per in ab_stats.items()},
-                    "stream_barrier_us": barrier_us}))
+                    "stream_barrier_us": barrier_us,
+                    "pipeline": {
+                        "entry": pipeline_stats["entry"],
+                        "bench": {k: v for k, v in
+                                  pipeline_stats["bench"].items()
+                                  if k not in ("launches", "detail")},
+                        "seconds": pipeline_stats["seconds"]}}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

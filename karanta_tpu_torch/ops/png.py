@@ -1,8 +1,8 @@
 """Minimal PNG codec on the standard library (``zlib`` + ``struct``) and numpy.
 
 Decodes 8-bit, non-interlaced grayscale, gray+alpha, RGB and RGBA PNGs to
-an RGB uint8 array, and encodes RGB uint8 arrays. The port's page path uses
-this instead of PIL, which the GPU host does not provide.
+a gray or RGB uint8 array, and encodes gray and RGB uint8 arrays. The port's
+page path and the pipeline's render workers use this instead of PIL.
 """
 
 from __future__ import annotations
@@ -62,8 +62,9 @@ def _unfilter(raw: np.ndarray, height: int, stride: int, bpp: int) -> np.ndarray
     return out
 
 
-def decode_png_rgb(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W, 3) uint8 RGB (alpha dropped, gray replicated)."""
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W) uint8 gray or (H, W, 3) uint8 RGB (alpha
+    dropped)."""
     if data[:8] != _SIGNATURE:
         raise ValueError("not a PNG file")
     pos = 8
@@ -96,8 +97,14 @@ def decode_png_rgb(data: bytes) -> np.ndarray:
         raise ValueError("PNG: image data size does not match the header")
     px = _unfilter(raw, height, stride, bpp).reshape(height, width, bpp)
     if bpp in (1, 2):
-        return np.repeat(px[..., :1], 3, axis=-1)
+        return np.ascontiguousarray(px[..., 0])
     return np.ascontiguousarray(px[..., :3])
+
+
+def decode_png_rgb(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W, 3) uint8 RGB (alpha dropped, gray replicated)."""
+    px = decode_png(data)
+    return np.repeat(px[..., None], 3, axis=-1) if px.ndim == 2 else px
 
 
 def _chunk(ctype: bytes, body: bytes) -> bytes:
@@ -105,15 +112,27 @@ def _chunk(ctype: bytes, body: bytes) -> bytes:
     return struct.pack(">I", len(body)) + ctype + body + struct.pack(">I", crc)
 
 
+def _encode(px: np.ndarray, color: int, level: int) -> bytes:
+    h, w = px.shape[:2]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           px.reshape(h, -1)], axis=1)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)
+    return (_SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
+            + _chunk(b"IEND", b""))
+
+
 def encode_png_rgb(rgb: np.ndarray, level: int = 6) -> bytes:
     """(H, W, 3) uint8 -> PNG bytes (filter type 0 on every row)."""
     rgb = np.ascontiguousarray(rgb, np.uint8)
     if rgb.ndim != 3 or rgb.shape[2] != 3:
         raise ValueError(f"expected (H, W, 3) uint8, got {rgb.shape}")
-    h, w, _ = rgb.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8),
-                           rgb.reshape(h, w * 3)], axis=1)
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
-    return (_SIGNATURE + _chunk(b"IHDR", ihdr)
-            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
-            + _chunk(b"IEND", b""))
+    return _encode(rgb, 2, level)
+
+
+def encode_png_gray(gray: np.ndarray, level: int = 6) -> bytes:
+    """(H, W) uint8 -> 8-bit grayscale PNG bytes (filter type 0)."""
+    gray = np.ascontiguousarray(gray, np.uint8)
+    if gray.ndim != 2:
+        raise ValueError(f"expected (H, W) uint8, got {gray.shape}")
+    return _encode(gray, 0, level)
