@@ -73,7 +73,23 @@ Phases (any failed check raises and the script exits non-zero):
    rules; then the port's pipeline bench in process (7B, int8 weights, W8A8,
    int8 KV, 1920 rows, 8 slots, 8 text-layer pages x 32 tokens), whose
    window and flash launches match the pages prefilled, warm-up included,
-   and whose decode or verify kernel launched.
+   and whose decode or verify kernel launched; then the bench again with
+   --teacher-force (14-line pages, 512 tokens a page, 2816 rows): every
+   page finishes on its first attempt and its Dolma text is its forced
+   transcript cut to the budget (the pipeline's success path), with
+   pages/s, tokens a page and tokens a verify pass;
+10. weight loading: a random 7B checkpoint (bf16, full depth) written by
+   the port's exporter, loaded with int8 on transfer: every tensor
+   bit-equal to quantize_decoder_params of the weights in memory, greedy
+   tokens of an engine on each equal over one page x 32 tokens, the load's
+   seconds and GB/s; then the server CLI with --model-path beside a BPE
+   tokenizer trained here answers a page (where tokenizers and
+   transformers are installed);
+11. guided decoding and logprobs at the int8 server point: one wave of a
+   page under the pipeline's guided regex (its completion must match),
+   one with logprobs (top 5: each chosen logprob is its top-1 and within
+   1e-3 of a float32 log_softmax of the logits captured at that step) and
+   a plain one; guided and unguided slots decode side by side.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. The last two lines are the kernels summary and the result line.
@@ -2438,7 +2454,8 @@ def phase_pipeline_bench(cfg, root: str) -> dict:
     import argparse
 
     from karanta_tpu_torch.bench import pipeline_bench
-    from karanta_tpu_torch.pipeline import render_pool
+    from karanta_tpu_torch.pipeline import render_pool, runner
+    from karanta_tpu_torch.utils.metrics import MetricsKeeper
 
     parser = argparse.ArgumentParser()
     pipeline_bench.add_args(parser)
@@ -2463,6 +2480,7 @@ def phase_pipeline_bench(cfg, root: str) -> dict:
         return engine
 
     pipeline_bench.build_engine = counted_build
+    runner.metrics = MetricsKeeper()  # the bench line counts this run only
     t0 = time.perf_counter()
     try:
         result = pipeline_bench.run(args)  # prints the bench's JSON line
@@ -2516,6 +2534,7 @@ def phase_pipeline(cfg, kind: str) -> dict:
     try:
         entry = phase_pipeline_entry(root)
         bench = phase_pipeline_bench(cfg, root)
+        forced = phase_pipeline_forced(cfg, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     seconds = time.perf_counter() - t0
@@ -2523,9 +2542,434 @@ def phase_pipeline(cfg, kind: str) -> dict:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     log(f"[pipeline] entry point {entry['pages_per_s']:.4f} pages/s, bench "
-        f"{bench['pages_per_s']:.4f} pages/s/card; phase {seconds:.1f}s; "
+        f"{bench['pages_per_s']:.4f} pages/s/card, teacher-forced bench "
+        f"{forced['pages_per_s']:.4f} pages/s/card at "
+        f"{forced['tokens_per_pass']} tokens a pass; phase {seconds:.1f}s; "
         f"{kind}; {smi}; random weights")
-    return dict(entry=entry, bench=bench, seconds=seconds)
+    return dict(entry=entry, bench=bench, forced=forced, seconds=seconds)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the pipeline's success path under teacher forcing
+# ---------------------------------------------------------------------------
+
+# the teacher-forced bench point: the bench point above (7B, int8 weights,
+# W8A8, int8 KV, 8 slots, 8 text-layer pages, closed_loop.yaml's prompt)
+# with each page's completion forced to its own text layer at 5% word
+# errors, 512 tokens a page. At 14 lines a page the transcripts run 565-596 bytes, past the
+# budget, so every completion is 511 forced tokens and EOS; the prompts
+# (about 2,140 tokens) + 512 + gamma + 2 fit 2,816 rows.
+FORCED_LINES = 14
+FORCED_TOKENS = 512
+FORCED_SEQ = 2816
+FORCE_ERROR_RATE = 0.05
+
+
+def phase_pipeline_forced(cfg, root: str) -> dict:
+    """The port's pipeline bench with --teacher-force: every page finishes
+    on its first attempt with its forced transcript, cut to the budget, as
+    its Dolma text; the kernels' launches match the passes counted."""
+    import argparse
+
+    from karanta_tpu_torch.bench import pipeline_bench
+    from karanta_tpu_torch.pipeline import render_pool, runner
+    from karanta_tpu_torch.utils.metrics import MetricsKeeper
+
+    parser = argparse.ArgumentParser()
+    pipeline_bench.add_args(parser)
+    workspace = os.path.join(root, "forced")
+    args = parser.parse_args([
+        "--preset", "qwen2.5-vl-7b", "--pages", str(BENCH_PAGES),
+        "--batch", str(BENCH_BATCH), "--max-seq-len", str(FORCED_SEQ),
+        "--decode-tokens", str(FORCED_TOKENS), "--text-layer",
+        "--page-lines", str(FORCED_LINES), "--quantize", "int8",
+        "--kv-quantize", "int8", "--act-quant", "int8",
+        "--prompt-key", "olmo_ocr_system_prompt",
+        "--prompt-path", os.path.join(REPO, "configs", "prompts",
+                                      "closed_loop.yaml"),
+        "--admission-release-interval", "1", "--teacher-force",
+        "--force-error-rate", str(FORCE_ERROR_RATE),
+        "--workspace", workspace])
+    build = pipeline_bench.build_engine
+    held = {}
+
+    def counted_build(args_, cfg_, dtype, device):
+        engine = build(args_, cfg_, dtype, device)
+        held["engine"] = engine
+        held["counts"] = instrument(engine)
+        kernels.reset_launches()
+        return engine
+
+    pipeline_bench.build_engine = counted_build
+    runner.metrics = MetricsKeeper()  # the bench line counts this run only
+    t0 = time.perf_counter()
+    try:
+        result = pipeline_bench.run(args)  # prints the bench's JSON line
+    finally:
+        pipeline_bench.build_engine = build
+        render_pool.shutdown_pool()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    seconds = time.perf_counter() - t0
+    counts, detail = held["counts"], result["detail"]
+    engine = held.pop("engine")
+    if (detail["requests_served"] != BENCH_PAGES + 1
+            or detail["finished_on_attempt_0"] != BENCH_PAGES
+            or detail["fallback_pages"] != 0 or not detail["teacher_force"]):
+        raise AssertionError(f"forced pipeline bench: not every page "
+                             f"finished on attempt 0: {detail}")
+    docs = {}
+    for path in glob.glob(os.path.join(workspace, "results",
+                                       "output_*.jsonl")):
+        with open(path) as f:
+            for line in f:
+                doc = json.loads(line)
+                docs[os.path.basename(doc["metadata"]["Source-File"])] = doc
+    if len(docs) != BENCH_PAGES:
+        raise AssertionError(f"forced pipeline bench: {len(docs)} Dolma "
+                             f"documents, expected {BENCH_PAGES}")
+    for name, doc in sorted(docs.items()):
+        seed = int(re.search(r"page_(\d+)", name).group(1))
+        forced = pipeline_bench.forced_page_text(seed, FORCE_ERROR_RATE,
+                                                 n_lines=FORCED_LINES)
+        # the byte tokenizer: a token a byte; the budget's last is EOS
+        want = forced.encode()[:FORCED_TOKENS - 1].decode().strip()
+        if doc["text"] != want or doc["metadata"]["total-fallback-pages"]:
+            raise AssertionError(f"{name}: Dolma text is not its forced "
+                                 f"transcript cut to the budget: "
+                                 f"{doc['text'][:80]!r} vs {want[:80]!r}")
+    layers = cfg.text.num_layers
+    want = expected_prefill_launches(cfg, BENCH_PAGES + 1,
+                                     counts["prefix_builds"])
+    want.update({name: 0 for name in DECODE_KERNELS})
+    want.update(paged_decode_append_quant=layers * counts["decode_steps"],
+                paged_decode_append_multi_quant=layers
+                * counts["verify_passes"])
+    check_launches("forced pipeline bench", launches, want)
+    if not launches["paged_decode_append_multi_quant"]:
+        raise AssertionError(f"forced pipeline bench: no verify pass ran: "
+                             f"{launches}")
+    tokens_a_page = detail["server_output_tokens"] / BENCH_PAGES
+    tokens_per_pass = detail.get("spec_tokens_per_pass")
+    log(f"[forced] bench, teacher-forced at {FORCE_ERROR_RATE} word errors: "
+        f"{BENCH_PAGES} pages x {FORCED_TOKENS}-token budget, B="
+        f"{BENCH_BATCH}: {result['value']:.4f} pages/s/card "
+        f"({detail['elapsed_s']} s timed); {detail['finished_on_attempt_0']}"
+        f" finished on attempt 0, {detail['fallback_pages']} fell back; "
+        f"{tokens_a_page:.1f} tokens a page; {counts['verify_passes']} "
+        f"verify passes, {tokens_per_pass} tokens a pass (engine: "
+        f"{engine.spec_tokens} tokens in {engine.spec_passes} passes); "
+        f"{counts['decode_steps']} decode steps, {counts['prefix_hits']} "
+        f"prefix hits; phase {seconds:.1f}s")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(pages_per_s=result["value"], launches=launches,
+                detail=detail, seconds=seconds, tokens_a_page=tokens_a_page,
+                tokens_per_pass=tokens_per_pass,
+                **{k: counts[k] for k in ("decode_steps", "verify_passes",
+                                          "prefix_hits", "prefix_builds")})
+
+
+# ---------------------------------------------------------------------------
+# phase 11: HF weight loading
+# ---------------------------------------------------------------------------
+
+LOAD_SEED = 11
+LOAD_TOKENS = 32
+
+
+def bpe_tokenizer_dir(out: str) -> str:
+    """A byte-level BPE tokenizer trained here on a few lines and written
+    as an HF tokenizer dir (tokenizer.json + tokenizer_config.json), with
+    the chat template's special tokens."""
+    from tokenizers import (Tokenizer, decoders, models, pre_tokenizers,
+                            trainers)
+
+    specials = ["<|endoftext|>", "<|im_start|>", "<|im_end|>",
+                "<|vision_start|>", "<|vision_end|>", "<|image_pad|>"]
+    tok = Tokenizer(models.BPE(unk_token=None))
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.decoder = decoders.ByteLevel()
+    tok.train_from_iterator(
+        [INSTRUCTION * 20, "the quick brown fox jumps over the lazy dog " * 50],
+        trainers.BpeTrainer(vocab_size=800, special_tokens=specials,
+                            initial_alphabet=pre_tokenizers.ByteLevel
+                            .alphabet(), show_progress=False))
+    tok.save(os.path.join(out, "tokenizer.json"))
+    with open(os.path.join(out, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast",
+                   "eos_token": "<|im_end|>", "pad_token": "<|endoftext|>",
+                   "additional_special_tokens": specials[3:],
+                   "model_max_length": 32768}, f)
+    return out
+
+
+def greedy_page_tokens(params, cfg, engine_quantize, png: str) -> list:
+    """One page x LOAD_TOKENS greedy tokens of a one-slot int8 engine."""
+    engine = Engine(params, cfg, NoStopTokenizer(), EngineConfig(
+        max_batch_size=1, max_seq_len=2048, decode_chunk=CHUNK,
+        prefill_buckets=(512, 1024, 1408), image_token_buckets=(2048,),
+        dtype=torch.bfloat16, quantize=engine_quantize, kv_quantize="int8",
+        act_quant="int8"), device="cuda")
+    [res] = engine.generate([GenRequest(messages=page_messages(png),
+                                        max_tokens=LOAD_TOKENS)])
+    del engine
+    return res.token_ids
+
+
+def phase_loading(cfg) -> dict:
+    """A random 7B checkpoint written by the port's exporter and read back
+    by its loader, int8 on transfer: every loaded tensor bit-equal to
+    quantize_decoder_params of the weights in memory, the greedy tokens of
+    an engine on each equal; then the server CLI's --model-path beside a
+    locally trained BPE tokenizer answers a page."""
+    import shutil
+    import tempfile
+
+    from karanta_tpu_torch.models.qwen25_vl.exporting import \
+        save_hf_checkpoint
+    from karanta_tpu_torch.models.qwen25_vl.loading import load_hf_checkpoint
+    from karanta_tpu_torch.ops.quantization import quantize_decoder_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="checkpoint_")
+    try:
+        params = init_params(cfg, LOAD_SEED, torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_hf_checkpoint(params, cfg, root)
+        write_s = time.perf_counter() - t0
+        n_bytes = sum(os.path.getsize(p) for p in
+                      glob.glob(os.path.join(root, "*.safetensors")))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = load_hf_checkpoint(root, cfg, torch.bfloat16,
+                                    quantize="int8", device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        want = {**params, "text": quantize_decoder_params(params["text"])}
+        got_leaves = dict(tree_leaves(loaded))
+        want_leaves = dict(tree_leaves(want))
+        if got_leaves.keys() != want_leaves.keys():
+            raise AssertionError(f"loaded tree differs: "
+                                 f"{sorted(got_leaves.keys() ^ want_leaves.keys())[:5]}")
+        for path, w in want_leaves.items():
+            g = got_leaves[path]
+            if g.dtype != w.dtype or g.shape != w.shape or \
+                    not torch.equal(g, w):
+                raise AssertionError(f"loaded {'/'.join(path)} is not "
+                                     f"bit-equal to the weights in memory")
+        del want, got_leaves, want_leaves
+        png = make_page_png(seed=LOAD_SEED)
+        tokens_loaded = greedy_page_tokens(loaded, cfg, None, png)
+        del loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+        tokens_memory = greedy_page_tokens(params, cfg, "int8", png)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        if tokens_loaded != tokens_memory or \
+                len(tokens_loaded) != LOAD_TOKENS:
+            raise AssertionError(f"greedy tokens differ: loaded "
+                                 f"{tokens_loaded} vs in memory "
+                                 f"{tokens_memory}")
+        log(f"[loading] {cfg.name} ({cfg.text.num_layers} decoder layers, "
+            f"{cfg.vision.depth} vision blocks), bf16: written in "
+            f"{write_s:.1f}s ({n_bytes / 1e9:.2f} GB, "
+            f"{n_bytes / 1e9 / write_s:.2f} GB/s), loaded with int8 on "
+            f"transfer in {load_s:.2f}s ({n_bytes / 1e9 / load_s:.2f} GB/s);"
+            f" every tensor bit-equal to the weights in memory; greedy "
+            f"tokens equal over 1 page x {LOAD_TOKENS}")
+        stats = dict(write_s=write_s, load_s=load_s, gbytes=n_bytes / 1e9,
+                     load_gb_per_s=n_bytes / 1e9 / load_s, served=None)
+        stats["served"] = serve_model_path(root)
+        return stats
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def serve_model_path(root: str):
+    """The server CLI with --model-path over the checkpoint, beside a BPE
+    tokenizer trained here, answers one page over HTTP. Needs `tokenizers`
+    and `transformers` (HFTokenizer); without them the step is reported as
+    not run."""
+    import importlib.util
+
+    missing = [m for m in ("tokenizers", "transformers")
+               if importlib.util.find_spec(m) is None]
+    if missing:
+        log(f"[loading] --model-path serving not run: no {missing} here")
+        return None
+    bpe_tokenizer_dir(root)
+    argv = ["--model-path", root, "--preset", "qwen2.5-vl-7b", "--quantize",
+            "int8", "--kv-quantize", "int8", "--act-quant", "int8",
+            "--max-batch-size", "4", "--decode-chunk", "8"]
+    t0 = time.perf_counter()
+    engine, name = build_engine_from_args(make_arg_parser().parse_args(argv))
+    build_s = time.perf_counter() - t0
+    png = make_page_png(seed=LOAD_SEED + 1)
+    with serving(engine) as (server, port):
+        status, raw = http_call(port, "POST", "/v1/chat/completions",
+                                page_body(png))
+    if status != 200:
+        raise AssertionError(f"--model-path server: HTTP {status}: "
+                             f"{raw[:300]!r}")
+    data = json.loads(raw)
+    n = data["usage"]["completion_tokens"]
+    reason = data["choices"][0]["finish_reason"]
+    if not 1 <= n <= SERVED_TOKENS or reason not in ("stop", "length"):
+        raise AssertionError(f"--model-path server: {data}")
+    log(f"[loading] --model-path server ({name}, HFTokenizer vocab "
+        f"{engine.tok.vocab_size}): built in {build_s:.1f}s, one page "
+        f"answered, {n} tokens ({reason})")
+    del server, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(build_s=build_s, completion_tokens=n, finish_reason=reason)
+
+
+def tree_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+# ---------------------------------------------------------------------------
+# phase 12: guided decoding and logprobs, served
+# ---------------------------------------------------------------------------
+
+GUIDED_TOKENS = 160   # past the regex's ~110-byte front matter
+LOGPROB_TOL = 1e-3
+
+
+def phase_guided_logprobs(cfg) -> dict:
+    """The int8 server (as phase 5) answers one wave of three pages: one
+    under the pipeline's guided regex, one with logprobs (top 5, greedy),
+    one plain. The guided completion matches its regex; each chosen
+    logprob is its top-1 and within 1e-3 of a float32 log_softmax of the
+    logits captured at that step; guided and unguided slots decode side by
+    side; the launches match the steps and passes counted."""
+    from karanta_tpu_torch.inference.guided import compile_regex, match_full
+    from karanta_tpu_torch.pipeline.runner import GUIDED_REGEX
+
+    engine = served_engine(
+        ["--preset", "qwen2.5-vl-7b", "--quantize", "int8", "--kv-quantize",
+         "int8", "--act-quant", "int8", "--max-batch-size", "4",
+         "--decode-chunk", "8"])
+    # the byte tokenizer with its end token: the regex reads the text's
+    # bytes, and the end token is allowed in accepting states only (with
+    # no end token in the vocabulary, a state that still needs a byte
+    # would count as free and could speculate byte-less tokens only)
+    engine.tok = ByteTokenizer()
+    counts = instrument(engine)
+    watch = {"lp_slot": None, "first": None, "steps": [], "mixed": 0}
+    prefill_insert, decode_async, sample_first = engine.prefill_insert, \
+        engine.decode_chunk_async, engine._sample_first
+
+    def watched_prefill(slot, prepared):
+        if prepared.logprobs:
+            watch["lp_slot"] = slot
+        return prefill_insert(slot, prepared)
+
+    def watched_first(prepared, logits):
+        if prepared.logprobs:
+            watch["first"] = logits.float()
+        return sample_first(prepared, logits)
+
+    def watched_decode(steps=None, logits_out=None):
+        active = [i for i, f in enumerate(engine.slot_free) if not f]
+        guided = [i for i in active if engine._slot_guided[i]]
+        watch["mixed"] += bool(guided) and len(guided) < len(active)
+        captured = []
+        collect = decode_async(steps, captured)
+        slot = watch["lp_slot"]
+        if slot is not None and slot in active:
+            watch["steps"] += [x[slot].float() for x in captured]
+        return collect
+
+    engine.prefill_insert = watched_prefill
+    engine._sample_first = watched_first
+    engine.decode_chunk_async = watched_decode
+    pngs = [make_page_png(seed=700 + i) for i in range(3)]
+    bodies = [page_body(pngs[0], guided_regex=GUIDED_REGEX,
+                        max_tokens=GUIDED_TOKENS),
+              page_body(pngs[1], logprobs=True, top_logprobs=5),
+              page_body(pngs[2], max_tokens=GUIDED_TOKENS)]
+    out = [None] * 3
+    with serving(engine) as (server, port):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+
+        def post(i):
+            out[i] = http_call(port, "POST", "/v1/chat/completions",
+                               bodies[i])
+
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    data = []
+    for status, raw in out:
+        if status != 200:
+            raise AssertionError(f"HTTP {status}: {raw[:300]!r}")
+        data.append(json.loads(raw))
+    guided_text = data[0]["choices"][0]["message"]["content"]
+    if not match_full(compile_regex(GUIDED_REGEX), guided_text.encode()):
+        raise AssertionError(f"guided completion does not match the "
+                             f"pipeline's regex: {guided_text[:200]!r}")
+    lp = data[1]["choices"][0]["logprobs"]["content"]
+    logits = [watch["first"]] + watch["steps"]
+    n_lp = data[1]["usage"]["completion_tokens"] - (
+        data[1]["choices"][0]["finish_reason"] == "stop")  # less the EOS
+    if not lp or len(lp) != n_lp or len(logits) < len(lp):
+        raise AssertionError(f"logprobs: {len(lp)} entries for {n_lp} "
+                             f"tokens, {len(logits)} steps captured")
+    worst = 0.0
+    for j, entry in enumerate(lp):
+        logp = torch.log_softmax(logits[j], dim=-1)
+        want = float(logp.max())
+        tops = [t["logprob"] for t in entry["top_logprobs"]]
+        if len(tops) != 5 or tops != sorted(tops, reverse=True) or \
+                entry["logprob"] != tops[0]:
+            raise AssertionError(f"logprobs entry {j}: {entry}")
+        worst = max(worst, abs(entry["logprob"] - want))
+    check("logprobs vs float32 log_softmax of the captured logits", worst,
+          LOGPROB_TOL)
+    if not watch["mixed"]:
+        raise AssertionError("no decode chunk ran guided and unguided slots "
+                             "side by side")
+    if not 1 <= data[2]["usage"]["completion_tokens"] <= GUIDED_TOKENS:
+        raise AssertionError(f"plain page: {data[2]['usage']}")
+    layers = cfg.text.num_layers
+    want = expected_prefill_launches(cfg, 3, counts["prefix_builds"])
+    want.update({name: 0 for name in DECODE_KERNELS})
+    want.update(paged_decode_append_quant=layers * counts["decode_steps"],
+                paged_decode_append_multi_quant=layers
+                * counts["verify_passes"])
+    check_launches("guided and logprobs", launches, want)
+    n_tok = [d["usage"]["completion_tokens"] for d in data]
+    log(f"[guided] 3 pages (guided, logprobs, plain: {n_tok} tokens of "
+        f"{GUIDED_TOKENS}, {SERVED_TOKENS}, {GUIDED_TOKENS}) in {wall:.3f}s; "
+        f"guided "
+        f"text matches the regex ({guided_text[:60]!r}...); logprobs worst "
+        f"err {worst:.3e}; {watch['mixed']} chunks with guided and "
+        f"unguided slots; {counts['decode_steps']} decode steps, "
+        f"{counts['verify_passes']} verify passes")
+    del server, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(wall_s=wall, logprob_err=worst, mixed_chunks=watch["mixed"],
+                launches=launches,
+                **{k: counts[k] for k in ("decode_steps", "verify_passes")})
 
 
 def main(argv=None) -> int:
@@ -2558,6 +3002,8 @@ def main(argv=None) -> int:
         phase_tiny(dev, kv)
     phase_tiny_stacked(dev)
     pipeline_stats = phase_pipeline(cfg, kind)
+    loading_stats = phase_loading(cfg)
+    guided_stats = phase_guided_logprobs(cfg)
     # each kernel's launches on the path that runs it; kernel #8 is on no
     # path (the JAX package calls it from its tests only)
     paths = {
@@ -2590,12 +3036,17 @@ def main(argv=None) -> int:
         row["path"] = path
         row["pipeline_launches"] = pipeline_stats["bench"]["launches"].get(
             row["name"], 0)
+        row["forced_launches"] = pipeline_stats["forced"]["launches"].get(
+            row["name"], 0)
+        row["guided_launches"] = guided_stats["launches"].get(row["name"], 0)
         log(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, library "
             f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)}"
             f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
             f"{row['launches']} launches ({path}), "
-            f"{row['pipeline_launches']} in the pipeline bench")
+            f"{row['pipeline_launches']} in the pipeline bench, "
+            f"{row['forced_launches']} in the teacher-forced bench, "
+            f"{row['guided_launches']} in the guided/logprobs wave")
     log(json.dumps({"main_path": {k: v for k, v in main_stats.items()
                                   if k != "launches"},
                     "served_int8": int8_stats,
@@ -2612,7 +3063,13 @@ def main(argv=None) -> int:
                         "bench": {k: v for k, v in
                                   pipeline_stats["bench"].items()
                                   if k not in ("launches", "detail")},
-                        "seconds": pipeline_stats["seconds"]}}))
+                        "forced": {k: v for k, v in
+                                   pipeline_stats["forced"].items()
+                                   if k not in ("launches", "detail")},
+                        "seconds": pipeline_stats["seconds"]},
+                    "loading": loading_stats,
+                    "guided_logprobs": {k: v for k, v in guided_stats.items()
+                                        if k != "launches"}}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -24,9 +24,13 @@ Honesty notes, so the number is interpretable:
   engine operating point, via the pipeline's --max_output_tokens knob.
 - Pages are distinct (unique content per page), so no image-decode or
   prefix caching of the page can fire.
-- ``--teacher-force`` raises NotImplementedError: the port's engine has no
-  teacher-forcing hook yet, and no guided decoding (the JAX bench's
-  ``--guided``; ``guided`` is false in the line).
+- ``--teacher-force`` forces each page's completion to its own text layer,
+  word-perturbed at ``--force-error-rate`` (``forced_page_text``), through
+  the engine's teacher-forcing hook: the full decode and verify compute
+  runs, the completion stops and parses on its first attempt, and n-gram
+  acceptance reflects the transcript's real statistics. ``--guided`` sends
+  the pipeline's guided regex with every request; the two do not compose
+  (forced tokens bypass the automaton).
 
 Usage:
   python -m karanta_tpu_torch.bench.pipeline_bench [--pages 120]
@@ -63,6 +67,29 @@ def page_text(seed: int, n_lines: int = 40, words_per_line: int = 9) -> str:
         ws = rng.choice(len(_WORDS), size=words_per_line)
         lines.append(" ".join(_WORDS[i] for i in ws))
     return "\n".join(lines)
+
+
+def forced_page_text(seed: int, error_rate: float,
+                     n_lines: int = 40) -> str:
+    """The completion a real checkpoint would emit for page `seed`: its own
+    text layer, word-perturbed at `error_rate` to model OCR-vs-anchor
+    divergence (the anchor in the prompt is the exact layer; a real model's
+    transcript differs by its error rate, which bounds n-gram acceptance).
+    Deterministic per page."""
+    text = page_text(seed, n_lines=n_lines)
+    if not error_rate:
+        return text
+    rng = np.random.default_rng(7000 + seed)
+    out_lines = []
+    for line in text.split("\n"):
+        words = line.split(" ")
+        for i in range(len(words)):
+            if rng.random() < error_rate:
+                words[i] = _WORDS[int(rng.integers(0, len(_WORDS)))]
+        out_lines.append(" ".join(words))
+    # perturbed per line: only words change, and the transcript keeps the
+    # anchor's line structure
+    return "\n".join(out_lines)
 
 
 def make_page_array(seed: int, height: int = 1288,
@@ -133,6 +160,7 @@ def build_engine(args, cfg, dtype, device):
         # the per-page anchor): cache its KV and prefill only the suffix
         prefix_cache=args.prefix_cache,
         prefix_min_tokens=args.prefix_min_tokens,
+        teacher_force=args.teacher_force,
     )
     if args.tokenizer_path:
         # BPE operating point: word-level token statistics instead of the
@@ -154,8 +182,9 @@ def build_engine(args, cfg, dtype, device):
 async def _warmup(server_url: str, args) -> None:
     """One page through the full HTTP path before timing starts (the
     allocator, the library handles and the kernels' first launches)."""
-    from karanta_tpu_torch.pipeline.runner import build_page_query
     from karanta_tpu_torch.pipeline.http import apost
+    from karanta_tpu_torch.pipeline.runner import (GUIDED_REGEX,
+                                                   build_page_query)
 
     import tempfile
 
@@ -172,6 +201,13 @@ async def _warmup(server_url: str, args) -> None:
         query = await build_page_query(
             path, 1, args.page_dim, max_tokens=args.decode_tokens,
             prompt_key=args.prompt_key, prompt_path=args.prompt_path)
+        if args.guided:
+            query["guided_regex"] = GUIDED_REGEX
+        if args.teacher_force:
+            # the warm-up page's own forced transcript, as the timed pages
+            # get theirs: random weights would run it to the whole budget
+            query["forced_output"] = forced_page_text(
+                10_000_000, args.force_error_rate, n_lines=args.page_lines)
         status, body = await apost(
             f"{server_url.rstrip('/')}/chat/completions", query,
             timeout=3600.0)
@@ -225,12 +261,26 @@ async def run_bench(args) -> dict:
         target_longest_image_dim=args.page_dim,
         prompt_key=args.prompt_key,
         prompt_path=args.prompt_path,
+        guided_decoding=args.guided,
         accept_raw_text=True,
         admission_control=args.admission_control,
         admission_poll_interval=0.5,
         admission_release_interval=args.admission_release_interval,
         max_output_tokens=args.decode_tokens,
     )
+    if args.teacher_force:
+        import re
+
+        def _forced(path: str, page: int) -> Optional[str]:
+            m = re.search(r"page_(\d+)", os.path.basename(path))
+            return (forced_page_text(int(m.group(1)), args.force_error_rate,
+                                     n_lines=args.page_lines)
+                    if m else None)
+
+        pargs.forced_output_fn = _forced
+        # forced completions parse on the first attempt (as a real
+        # checkpoint's do); the single-attempt budget stays for
+        # comparability
 
     start = time.time()
     await runner.amain(pargs)
@@ -250,13 +300,14 @@ async def run_bench(args) -> dict:
         "batch": args.batch,
         "max_seq_len": args.max_seq_len,
         "text_layer": args.text_layer,
-        "guided": False,
+        "guided": args.guided,
         "speculative_ngram": args.speculative_ngram,
         "tokenizer": ("bpe:" + os.path.basename(
             args.tokenizer_path.rstrip("/"))
             if args.tokenizer_path else "byte"),
-        "teacher_force": False,
-        "force_error_rate": None,
+        "teacher_force": args.teacher_force,
+        "force_error_rate": (args.force_error_rate if args.teacher_force
+                             else None),
         "backend": device.type,
         "chips": n_chips,
         "server_output_tokens": totals.get("server_output_tokens", 0),
@@ -345,6 +396,8 @@ def add_args(parser: argparse.ArgumentParser) -> None:
                         help="corpus pages carry an invisible text layer "
                              "(anchored workload; enables the pipeline's "
                              "speculation heuristic)")
+    parser.add_argument("--guided", action="store_true",
+                        help="send the pipeline's guided regex per request")
     parser.add_argument("--speculative-ngram", dest="speculative_ngram",
                         type=int, default=3,
                         help="n-gram drafter depth; default matches the "
@@ -354,8 +407,12 @@ def add_args(parser: argparse.ArgumentParser) -> None:
                              "0 disables")
     parser.add_argument("--teacher-force", dest="teacher_force",
                         action="store_true",
-                        help="the engine's teacher-forcing hook (not "
-                             "ported: raises)")
+                        help="force each page's completion to its (word-"
+                             "perturbed) text layer via the engine's "
+                             "teacher-forcing hook: full compute runs, "
+                             "output-text statistics become realistic, the "
+                             "operating point for measuring speculative "
+                             "decoding without checkpoints")
     parser.add_argument("--page-lines", dest="page_lines", type=int,
                         default=40,
                         help="lines of text per corpus page (the text "
@@ -364,6 +421,11 @@ def add_args(parser: argparse.ArgumentParser) -> None:
                              "text, so anchored operating points shrink "
                              "this to keep the anchor's TOKEN count "
                              "realistic")
+    parser.add_argument("--force-error-rate", dest="force_error_rate",
+                        type=float, default=0.05,
+                        help="word perturbation rate for the forced "
+                             "transcript vs the anchor (models the OCR "
+                             "error rate; bounds n-gram acceptance)")
     parser.add_argument("--tokenizer-path", dest="tokenizer_path",
                         default=None,
                         help="HF tokenizer dir (scripts/"
@@ -404,10 +466,12 @@ def run(args) -> dict:
     """Resolve defaults, run, print the one JSON metric line."""
     import tempfile
 
-    if args.teacher_force:
-        raise NotImplementedError(
-            "--teacher-force: the port's engine has no teacher-forcing hook "
-            "yet (ROADMAP.md, queue 1: engine features)")
+    if args.teacher_force and args.guided:
+        # forced tokens bypass the DFA: every request would fail in
+        # Engine.prepare and the bench would degrade to fallback pages
+        raise SystemExit(
+            "--teacher-force does not compose with --guided "
+            "(forced tokens bypass the automaton); drop one of the flags")
     if args.batch is None:
         args.batch = 64 if "7b" in args.preset.lower() else 128
 

@@ -20,10 +20,21 @@
 - Prompt lengths and image token counts are padded to the same buckets as
   the JAX engine, so both run the same shapes and produce the same tokens.
 - Temperature 0 is exact greedy.
+- Guided decoding (``GenRequest.guided_regex``): each regex compiles on the
+  host (``guided.py``) into a token automaton whose ``allowed`` and
+  ``next_state`` tables live on the device in one state arena shared by
+  every resident regex (row 0 is the FREE state of unguided slots); each
+  decode step masks the logits by ``allowed[dfa_state]`` and advances
+  ``dfa_state`` through ``next_state``.
+- Logprobs (``GenRequest.logprobs``, ``top_logprobs`` up to 5): the chosen
+  token's log-softmax and the top-k alternatives per emitted token.
+- Teacher forcing (``EngineConfig.teacher_force``, bench-only): a request's
+  ``forced_output`` overrides the token the model emitted at each position,
+  while every step still runs the full decode or verify compute.
 
 Features of the JAX engine that the port does not have yet raise
-``NotImplementedError`` when requested: teacher forcing, batched prefill,
-vision quantization, guided decoding and logprobs.
+``NotImplementedError`` when requested: batched prefill and vision
+quantization.
 """
 
 from __future__ import annotations
@@ -39,6 +50,9 @@ import torch
 
 from karanta_tpu_torch.device import DeviceLike, resolve_device
 from karanta_tpu_torch.inference import chat
+from karanta_tpu_torch.inference.guided import (build_token_automaton,
+                                                closed_free_states,
+                                                token_bytes_from_tokenizer)
 from karanta_tpu_torch.inference.sampling import (sample_tokens,
                                                   spec_verify_sampled)
 from karanta_tpu_torch.inference.tokenizer import Tokenizer
@@ -79,7 +93,12 @@ class EngineConfig:
     prefill_batch: int = 1               # only 1 is ported
     device_resize: bool = True           # resize pages on the device
     speculative_ngram: int = 0           # drafted tokens per verify pass
-    teacher_force: bool = False          # not ported
+    # bench-only hook: honour GenRequest.forced_output. Each step still runs
+    # the full decode or verify compute; the emitted token is replaced on
+    # the device by the request's forced stream at that position, so page
+    # throughput and speculative acceptance can be measured under real
+    # output-text statistics with random weights
+    teacher_force: bool = False
 
 
 @dataclasses.dataclass
@@ -89,11 +108,13 @@ class GenRequest:
     temperature: float = 0.0
     top_p: float = 1.0
     request_id: str = ""
-    guided_regex: Optional[str] = None   # not ported: raises
-    logprobs: bool = False               # not ported: raises
-    top_logprobs: int = 0
+    guided_regex: Optional[str] = None
+    logprobs: bool = False               # return per-token logprobs
+    top_logprobs: int = 0                # 0..5 alternatives per position
     speculative: Optional[bool] = None   # per-request speculation vote
     raw_images: Optional[list] = None
+    # teacher forcing (EngineConfig.teacher_force): the completion text this
+    # request must emit; ignored unless the engine enables the hook
     forced_output: Optional[str] = None
 
 
@@ -106,6 +127,7 @@ class GenResult:
     prompt_tokens: int
     completion_tokens: int
     latency_s: float = 0.0
+    # when requested: per emitted token, (logprob, [(alt_id, alt_lp) x k])
     logprobs: Optional[list] = None
 
 
@@ -121,10 +143,20 @@ class _Prepared:
     request_id: str
     prefix_len: int = 0                  # shared-prefix tokens (0 = no reuse)
     speculative: Optional[bool] = None   # per-request speculation vote
+    guide: Optional[int] = None          # DFA start state, bound at prefill
+    guide_regex: Optional[str] = None    # requested constraint (unbound)
+    logprobs: bool = False
+    top_logprobs: int = 0
+    forced_tokens: Optional[np.ndarray] = None  # teacher-forcing stream
 
 
 class ContextLengthError(ValueError):
     """Prompt does not fit the engine's context window."""
+
+
+class GuidedRegexBusy(RuntimeError):
+    """The state arena is full of other regexes with live slots. Callers hold
+    the request until one drains; the constraint is never dropped."""
 
 
 def _bucket(n: int, buckets: Sequence[int]) -> int:
@@ -142,8 +174,6 @@ def _reject_unported(ecfg: EngineConfig) -> None:
     if ecfg.kv_quantize not in (None, "int8", "int4"):
         raise ValueError(f"unknown kv_quantize {ecfg.kv_quantize!r}")
     unported = []
-    if ecfg.teacher_force:
-        unported.append("teacher_force")
     if ecfg.prefill_batch > 1:
         unported.append("prefill_batch > 1")
     if ecfg.vision_quant:
@@ -225,6 +255,39 @@ class Engine:
         # host mirror of each slot's cache_len: the lookahead's headroom
         self._slot_len = [0] * b
         self._gen = torch.Generator(device=dev).manual_seed(rng_seed)
+
+        # guided decoding: the token automatons of every resident regex in
+        # one state arena on the device. Row 0 is FREE (unguided slots: all
+        # tokens, self-loop); automaton a occupies rows [offset_a, offset_a
+        # + n_a) with its next-state values pre-offset, so a slot's
+        # dfa_state indexes the arena directly and slots with different
+        # regexes decode in one wave
+        vocab = cfg.text.vocab_size
+        self.dfa_state = torch.zeros((b,), dtype=torch.int64, device=dev)
+        self._allowed = torch.ones((1, vocab), dtype=torch.bool, device=dev)
+        self._next_state = torch.zeros((1, vocab), dtype=torch.int32,
+                                       device=dev)
+        # arena rows where masking is a no-op forever (speculation-safe)
+        self._free_state_mask = np.ones((1,), bool)
+        self._arena: "OrderedDict[str, dict]" = OrderedDict()
+        self._arena_used = 1               # row 0 is the shared FREE state
+        self._automaton_cache: "OrderedDict[str, Any]" = OrderedDict()
+        self._token_bytes: Optional[list] = None  # lazy: a walk of the vocab
+        self._automaton_lock = threading.Lock()
+        self._slot_regex: list = [None] * b
+        # host mirror of which slots are guided: gates the per-step mask
+        self._slot_guided = [False] * b
+        # logprobs: each slot's top-k when it asked for logprobs (None when
+        # not), the last collected chunk's (chosen, top values, top ids),
+        # and each request's first token's
+        self._slot_lp_k: list = [None] * b
+        self._last_logprobs = None
+        self._first_logprob: dict = {}
+        # teacher forcing (bench-only): per-slot forced streams indexed by
+        # history position (prompt at 0..len-1, first emitted token at len);
+        # -1 = unforced (the model's own token stands)
+        self.forced = (torch.full((b, m), -1, dtype=torch.int32, device=dev)
+                       if engine_cfg.teacher_force else None)
         if engine_cfg.speculative_ngram > 0:
             # each slot's token history (prompt + emitted) on the device,
             # the n-gram drafter's source
@@ -245,10 +308,15 @@ class Engine:
     # ------------------------------------------------------------------
 
     def _decode_image(self, raw: bytes) -> np.ndarray:
-        """Image bytes -> RGB uint8. PNG goes through the port's own decoder;
-        other formats need PIL on the host."""
+        """Image bytes -> RGB uint8. The port's own decoder takes the 8-bit
+        PNGs; any PNG it refuses (palette, 16-bit, 1/2/4-bit, interlaced)
+        and every other format go through PIL on the host, as in the JAX
+        engine."""
         if raw[:8] == b"\x89PNG\r\n\x1a\n":
-            return decode_png_rgb(raw)
+            try:
+                return decode_png_rgb(raw)
+            except ValueError:
+                pass  # a PNG variant the decoder does not take: PIL
         import io
 
         from PIL import Image
@@ -270,20 +338,14 @@ class Engine:
                    * (torch.finfo(self.ecfg.dtype).bits // 8 + 1) * 1.3)
         return free - (pending_pages + 1) * page >= int(total * 0.08)
 
-    def guided_available(self, regex: str) -> bool:
-        """Admission hook of the server. The port has no automaton arena to
-        fill, so a guided request is never held back: prepare() rejects it
-        (guided decoding is not ported yet)."""
-        return True
-
     def prepare(self, request: GenRequest) -> _Prepared:
         """Host-side request preparation: chat template, image decode and
         on-device resize/patchify, layout planning, token ids, positions,
-        and the shared-prefix length when prefix caching is on."""
-        if request.guided_regex:
-            raise NotImplementedError("guided decoding is not ported yet")
-        if request.logprobs or request.top_logprobs:
-            raise NotImplementedError("logprobs are not ported yet")
+        the shared-prefix length when prefix caching is on, and the forced
+        stream under teacher forcing. A guided request's automaton is bound
+        at prefill, not here: prepare() runs in threads, and an arena change
+        between a request's prepare and its insert would move its start
+        state."""
         parsed = chat.parse_openai_messages(request.messages,
                                             raw_images=request.raw_images)
         dtype = self.ecfg.dtype
@@ -330,12 +392,149 @@ class Engine:
                 f"prompt is {len(ids)} tokens but the maximum context length "
                 f"is {self.ecfg.max_seq_len} (>=1 output token required)")
         prefix_len = self._prefix_len(ids) if self.ecfg.prefix_cache else 0
-        return _Prepared(ids=ids, positions=positions, image_feeds=image_feeds,
-                         img_token_counts=img_token_counts,
-                         max_tokens=request.max_tokens,
-                         temperature=request.temperature, top_p=request.top_p,
-                         request_id=request.request_id, prefix_len=prefix_len,
-                         speculative=request.speculative)
+        prepared = _Prepared(
+            ids=ids, positions=positions, image_feeds=image_feeds,
+            img_token_counts=img_token_counts, max_tokens=request.max_tokens,
+            temperature=request.temperature, top_p=request.top_p,
+            request_id=request.request_id, prefix_len=prefix_len,
+            speculative=request.speculative,
+            guide_regex=request.guided_regex or None,
+            logprobs=bool(request.logprobs),
+            top_logprobs=min(int(request.top_logprobs or 0), 5))
+        if self.ecfg.teacher_force and request.forced_output:
+            if request.guided_regex:
+                # a forced token the automaton forbids would corrupt the DFA
+                # state: refuse the combination
+                raise ValueError("teacher forcing does not compose with "
+                                 "guided decoding (forced tokens bypass the "
+                                 "automaton)")
+            f = np.asarray(self.tok.encode(request.forced_output), np.int32)
+            # fit the completion budget and the slot, less the verify pass's
+            # headroom (its end-of-cache clamp would rewind the forcing
+            # index); EOS-terminated, so a forced completion finishes with
+            # reason "stop" as a real one does
+            budget = min(int(request.max_tokens),
+                         self.ecfg.max_seq_len - len(ids) - 2
+                         - self.ecfg.speculative_ngram)
+            f = f[:max(0, budget - 1)]
+            prepared.forced_tokens = np.concatenate(
+                [f, [self.tok.eos_token_id]]).astype(np.int32)
+        return prepared
+
+    # ------------------------------------------------------------------
+    # guided decoding: the state arena
+    # ------------------------------------------------------------------
+
+    _ARENA_BUCKETS = (64, 256, 1024, 4096)
+    ARENA_MAX_ROWS = 4096
+
+    def guided_available(self, regex: str) -> bool:
+        """Can a request with this regex be admitted now? True when it is
+        resident in the arena, fits beside the resident automatons, or
+        every resident automaton has drained (the arena then resets at
+        bind time). The server holds back a request refused here and offers
+        it again each admission round."""
+        with self._automaton_lock:
+            if regex in self._arena:
+                return True
+            try:
+                n = self._compile_automaton_locked(regex).allowed.shape[0] - 1
+            except ValueError:
+                return True  # the bind at prefill fails this request alone
+            if self._arena_used + n <= self.ARENA_MAX_ROWS:
+                return True
+            return not self._live_regexes_locked()
+
+    def _live_regexes_locked(self) -> set:
+        return {r for r, free in zip(self._slot_regex, self.slot_free)
+                if r is not None and not free}
+
+    def _compile_automaton_locked(self, regex: str):
+        """Regex -> token automaton on the host, LRU-cached (the walk over
+        the vocabulary is the expensive part; arena resets reuse it)."""
+        hit = self._automaton_cache.get(regex)
+        if hit is not None:
+            self._automaton_cache.move_to_end(regex)
+            return hit
+        if self._token_bytes is None:
+            self._token_bytes = token_bytes_from_tokenizer(
+                self.tok, self.cfg.text.vocab_size)
+        automaton = build_token_automaton(regex, self._token_bytes,
+                                          self.tok.eos_token_id)
+        self._automaton_cache[regex] = automaton
+        while len(self._automaton_cache) > 8:
+            self._automaton_cache.popitem(last=False)
+        return automaton
+
+    def _ensure_automaton(self, regex: str) -> int:
+        """Make `regex` resident in the arena; returns the arena's start
+        state for a new slot. Raises GuidedRegexBusy when the arena is full
+        of other regexes with live slots, ValueError when the regex alone
+        needs more states than the arena holds."""
+        with self._automaton_lock:
+            entry = self._arena.get(regex)
+            if entry is not None:
+                self._arena.move_to_end(regex)
+                return entry["start"]
+            automaton = self._compile_automaton_locked(regex)
+            n = automaton.allowed.shape[0] - 1  # its rows less its FREE row
+            if 1 + n > self.ARENA_MAX_ROWS:
+                raise ValueError(
+                    f"guided regex needs {n} token-automaton states; the "
+                    f"arena holds at most {self.ARENA_MAX_ROWS - 1}")
+            if self._arena_used + n > self.ARENA_MAX_ROWS:
+                if self._live_regexes_locked():
+                    raise GuidedRegexBusy(
+                        "guided state arena is full with live automatons; "
+                        "retry when one drains")
+                # nothing live: drop every resident automaton (the host
+                # compiles stay cached, so this is a table rebuild)
+                self._arena.clear()
+                self._arena_used = 1
+            offset = self._arena_used
+            start = offset + (automaton.start - 1)
+            self._arena[regex] = {"offset": offset, "n": n, "start": start}
+            self._arena_used += n
+            self._upload_arena_locked()
+            return start
+
+    def _upload_arena_locked(self) -> None:
+        """Rebuild and upload the flattened tables. Row 0 is FREE; automaton
+        a's local states 1..n_a sit at rows offset_a.. with next states
+        pre-offset. The row count is padded to a bucket, as in the JAX
+        engine (there a new bucket compiles a new decode executable)."""
+        vocab = self.cfg.text.vocab_size
+        bucket = next(b for b in self._ARENA_BUCKETS
+                      if b >= self._arena_used)
+        allowed = np.zeros((bucket, vocab), bool)
+        nxt = np.zeros((bucket, vocab), np.int32)  # default: fall to FREE
+        free_mask = np.zeros((bucket,), bool)
+        allowed[0] = True
+        free_mask[0] = True
+        eos = self.tok.eos_token_id
+        if 0 <= eos < vocab:
+            allowed[1:, eos] = True  # unoccupied (unreachable) rows
+        # speculation-safe states: once a guided slot's DFA enters the
+        # closed free set (the [\s\S]+ tail of the pipeline's regex),
+        # masking is a no-op forever and the slot may speculate. Byte-less
+        # tokens are exempt from the check (they self-loop and add no
+        # text), EOS never is (an early EOS cuts the match short)
+        zero_len = np.array([len(t) == 0 for t in self._token_bytes], bool)
+        if 0 <= eos < len(zero_len):
+            zero_len[eos] = False
+        for regex, entry in self._arena.items():
+            automaton = self._compile_automaton_locked(regex)
+            o, n = entry["offset"], entry["n"]
+            allowed[o:o + n] = automaton.allowed[1:]
+            # local states 1..n map to rows o..o+n-1 (no local row beyond
+            # FREE ever moves to local 0, so + o - 1 is exact)
+            nxt[o:o + n] = automaton.next_state[1:] + (o - 1)
+            local_free = closed_free_states(
+                automaton.allowed, automaton.next_state, zero_len)
+            free_mask[o:o + n] = local_free[1:]
+        self._allowed = torch.from_numpy(allowed).to(self.device)
+        self._next_state = torch.from_numpy(nxt).to(self.device)
+        self._free_state_mask = free_mask
 
     def _prefix_len(self, ids: np.ndarray) -> int:
         """Shared-prefix length of a prompt: its longest common prefix with
@@ -447,7 +646,11 @@ class Engine:
         """Vision encode + embedding merge + causal prefill of one request,
         over the suffix only when it shares a cached prefix. Returns
         (last-position logits (V,), the prompt's KV rows: the prefix's rows,
-        then the rest padded to its prefill bucket)."""
+        then the rest padded to its prefill bucket). A guided request's
+        automaton is bound here (GuidedRegexBusy while the arena is full of
+        other live regexes)."""
+        if prepared.guide_regex and prepared.guide is None:
+            prepared.guide = self._ensure_automaton(prepared.guide_regex)
         text = self.params["text"]
         p = prepared.prefix_len
         n = len(prepared.ids) - p
@@ -467,24 +670,45 @@ class Engine:
                                         act_quant=self._act_quant)
         return logits, pcache
 
-    def prefill_insert(self, slot: int, prepared: _Prepared) -> torch.Tensor:
+    def _sample_first(self, prepared: _Prepared, logits: torch.Tensor):
+        """The first token from the prefill's logits (V,): the guided mask of
+        the start state, greedy or sampled, and the first token's logprobs
+        when requested. Returns (first token, DFA state after it) as device
+        scalars."""
+        guide = prepared.guide
+        if guide is not None:
+            logits = torch.where(self._allowed[guide], logits.float(),
+                                 float("-inf"))
+        if prepared.temperature <= 0.0:
+            first = torch.argmax(logits.float(), dim=-1)
+        else:
+            first = sample_tokens(
+                logits[None], self._gen,
+                torch.tensor([prepared.temperature], device=self.device),
+                torch.tensor([prepared.top_p], device=self.device))[0]
+        dfa_after = (self._next_state[guide, first].long()
+                     if guide is not None else 0)
+        if prepared.logprobs:
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            top_vals, top_ids = top_logprobs(logp, prepared.top_logprobs)
+            self._first_logprob[prepared.request_id] = (
+                float(logp[first]),
+                list(zip(top_ids.tolist(), top_vals.double().tolist())))
+        return first, dfa_after
+
+    def prefill_insert(self, slot: int, prepared: _Prepared):
         """Prefill a request, pick its first token, and write its KV rows
         into `slot` of the cache (in place; quantized for the int8 cache,
         quantized and nibble-packed for the int4 cache).
-        Returns the first token as a device scalar."""
+        Returns the first token: a device scalar, or under teacher forcing
+        the forced stream's first token."""
         dev = self.device
         s = len(prepared.ids)
         logits, pcache = self.prefill(prepared)
         for feed in prepared.image_feeds:
             feed["pix_dev"] = None  # the page's pixels are no longer needed
         rows = pcache.k.shape[3]
-        if prepared.temperature <= 0.0:
-            first = torch.argmax(logits.float(), dim=-1)
-        else:
-            first = sample_tokens(
-                logits[None], self._gen,
-                torch.tensor([prepared.temperature], device=dev),
-                torch.tensor([prepared.top_p], device=dev))[0]
+        first, dfa_after = self._sample_first(prepared, logits)
 
         c = self.cache
         if isinstance(c, dec.Q4KVCache):
@@ -512,16 +736,43 @@ class Engine:
         self.last_token[slot] = first
         self.temps[slot] = float(prepared.temperature)
         self.top_ps[slot] = float(prepared.top_p)
+        self.dfa_state[slot] = dfa_after
         self.slot_free[slot] = False
         self._slot_temp[slot] = float(prepared.temperature)
         self._slot_top_p[slot] = float(prepared.top_p)
         self._slot_len[slot] = s
         self._slot_spec[slot] = prepared.speculative is not False
+        self._slot_guided[slot] = prepared.guide is not None
+        self._slot_regex[slot] = (prepared.guide_regex
+                                  if prepared.guide is not None else None)
+        self._slot_lp_k[slot] = (prepared.top_logprobs if prepared.logprobs
+                                 else None)
         if self.ecfg.speculative_ngram > 0:
             hist = np.zeros((self.ecfg.max_seq_len,), np.int64)
             hist[:s] = prepared.ids
             self.token_hist[slot] = torch.from_numpy(hist).to(dev)
             self.token_hist[slot, s] = first
+        if self.ecfg.teacher_force:
+            return self._apply_teacher(slot, prepared, first)
+        return first
+
+    def _apply_teacher(self, slot: int, prepared: _Prepared, first):
+        """Upload the slot's forced stream (a cleared row for an unforced
+        request, so a reused slot never inherits a stale one) and make the
+        forced stream's first token the pending one. Returns the first
+        emitted token."""
+        m = self.ecfg.max_seq_len
+        s = len(prepared.ids)
+        row = np.full((m,), -1, np.int32)
+        ft = prepared.forced_tokens
+        if ft is not None and len(ft):
+            n = min(len(ft), m - s)
+            row[s:s + n] = ft[:n]
+            first = int(ft[0])
+            self.last_token[slot] = first
+            if self.ecfg.speculative_ngram > 0:
+                self.token_hist[slot, s] = first
+        self.forced[slot] = torch.from_numpy(row).to(self.device)
         return first
 
     def decode_chunk(self, steps: Optional[int] = None,
@@ -536,17 +787,26 @@ class Engine:
         Kernel launches are asynchronous on the card, so the next chunk can
         be launched before this one's tokens are read. Returns the collector:
         a zero-argument callable that copies the (K, B) tokens to the host
-        (the only device-to-host sync of a chunk)."""
+        (the only device-to-host sync of a chunk), and with them the
+        chunk's logprobs when a slot asked for them (``_last_logprobs``)."""
         steps = steps or self.ecfg.decode_chunk
         m = self.ecfg.max_seq_len
         active = [i for i, free in enumerate(self.slot_free) if not free]
         use_sampling = any(self._slot_temp[i] > 0.0 for i in active)
         use_top_p = use_sampling and any(self._slot_top_p[i] < 1.0
                                          for i in active)
+        # the mask gather and where cost a (B, V) pass a step: only when a
+        # live slot is guided; likewise the log-softmax and top-k
+        use_guided = any(self._slot_guided[i] for i in active)
+        lp_ks = [self._slot_lp_k[i] for i in active
+                 if self._slot_lp_k[i] is not None]
+        use_logprobs = bool(lp_ks)
+        top_k = max(lp_ks, default=0)
+        forced = self.forced
         for i in active:
             self._slot_len[i] = min(self._slot_len[i] + steps, m - 1)
         text = self.params["text"]
-        out = []
+        out, lps = [], []
         for _ in range(steps):
             emb = dec.embed_tokens(text, self.last_token)[:, None]
             pos = self.next_pos[None, :].expand(3, -1)
@@ -557,15 +817,44 @@ class Engine:
                                             act_quant=self._act_quant)
             if logits_out is not None:
                 logits_out.append(logits)
+            if use_guided:
+                logits = torch.where(self._allowed[self.dfa_state],
+                                     logits.float(), float("-inf"))
             tokens = sample_tokens(logits, self._gen,
                                    self.temps if use_sampling else None,
                                    self.top_ps if use_top_p else None)
+            if forced is not None:
+                # the new token lands at history position cache_len + 1
+                fpos = torch.clamp(self.cache_len.long() + 1, max=m - 1)
+                frow = forced.gather(1, fpos[:, None])[:, 0].long()
+                tokens = torch.where(frow >= 0, frow, tokens)
+            if use_guided:
+                self.dfa_state = self._next_state[self.dfa_state,
+                                                  tokens].long()
+            if use_logprobs:
+                logp = torch.log_softmax(logits.float(), dim=-1)
+                chosen = logp.gather(1, tokens[:, None])[:, 0]
+                top_vals, top_ids = top_logprobs(logp, top_k)
+                lps.append((chosen, top_vals, top_ids))
             self.cache_len = torch.clamp(self.cache_len + 1, max=m - 1)
             self.next_pos = self.next_pos + 1
             self.last_token = tokens
             out.append(tokens)
         toks = torch.stack(out)
-        return lambda: toks.cpu().numpy()
+        if not use_logprobs:
+            def collect():
+                self._last_logprobs = None
+                return toks.cpu().numpy()
+            return collect
+        chosen, top_vals, top_ids = (torch.stack(x) for x in zip(*lps))
+
+        def collect_lp():
+            # (K, B), (K, B, k), (K, B, k)
+            self._last_logprobs = (chosen.cpu().numpy(),
+                                   top_vals.cpu().numpy(),
+                                   top_ids.cpu().numpy())
+            return toks.cpu().numpy()
+        return collect_lp
 
     def decode_headroom(self, steps: int) -> bool:
         """True if every active slot can absorb `steps` more cache rows: the
@@ -615,15 +904,23 @@ class Engine:
                                         act_quant=self._act_quant)
         if logits_out is not None:
             logits_out.append(logits)
+        # output positions of the T candidates (also the forcing index)
+        wpos = torch.clamp(ntok[:, None] + torch.arange(t, device=dev),
+                           max=m - 1)
         if use_sampling:
             y, n_new = spec_verify_sampled(logits, draft, self.temps,
                                            self._gen)
         else:
             y = torch.argmax(logits.float(), dim=-1)              # (B, T)
+            if self.forced is not None:
+                # teacher forcing: the forced stream stands in for the
+                # model's output; the drafts are held to it by the same
+                # exact-prefix rule, after the full verify compute
+                fr = self.forced.gather(1, wpos).long()
+                y = torch.where(fr >= 0, fr, y)
             ok = torch.cumprod((y[:, :gamma] == draft).long(), dim=1)
             n_new = 1 + ok.sum(dim=1)
         # record all T candidates; rejected ones are overwritten later
-        wpos = torch.clamp(ntok[:, None] + torch.arange(t, device=dev), max=m - 1)
         hist[bidx[:, None], wpos] = y
         self.last_token = y[bidx, n_new - 1]
         self.cache_len = cache_len + n_new.to(torch.int32)
@@ -640,7 +937,10 @@ class Engine:
         steps = steps or max(1, self.ecfg.decode_chunk // t)
         m = self.ecfg.max_seq_len
         active = [i for i, free in enumerate(self.slot_free) if not free]
-        use_sampling = any(self._slot_temp[i] > 0.0 for i in active)
+        # under teacher forcing the outputs are the forced streams, so
+        # verification is the exact-prefix rule whatever the temperature
+        use_sampling = (any(self._slot_temp[i] > 0.0 for i in active)
+                        and not self.ecfg.teacher_force)
         ys, ns = [], []
         for _ in range(steps):
             y, n_new = self._spec_step(gamma, use_sampling, logits_out)
@@ -684,8 +984,11 @@ class Engine:
 
     def _spec_ok(self) -> bool:
         """Speculate when it is enabled, every active slot samples plainly
-        (no nucleus filtering) and the slots that vote for speculation are
-        the majority of the wave. Verification is exact either way."""
+        (no nucleus filtering, no logprobs: both need the per-step path), the
+        slots that vote for speculation are the majority of the wave, and
+        every guided slot's DFA state lies in the closed free set (every
+        token allowed forever), so skipping the mask changes no output.
+        Verification is exact either way."""
         if self.ecfg.speculative_ngram <= 0:
             return False
         active = [i for i, free in enumerate(self.slot_free) if not free]
@@ -693,11 +996,22 @@ class Engine:
             return False
         if any(self._slot_top_p[i] < 1.0 for i in active):
             return False
-        return 2 * sum(self._slot_spec[i] for i in active) > len(active)
+        if any(self._slot_lp_k[i] is not None for i in active):
+            return False
+        if 2 * sum(self._slot_spec[i] for i in active) <= len(active):
+            return False
+        guided = [i for i in active if self._slot_guided[i]]
+        if not guided:
+            return True  # unguided slots sit in FREE
+        states = self.dfa_state.cpu().numpy()
+        return bool(self._free_state_mask[states[guided]].all())
 
     def free_slot(self, slot: int) -> None:
         self.slot_free[slot] = True
         self._slot_spec[slot] = True
+        self._slot_guided[slot] = False
+        self._slot_regex[slot] = None
+        self._slot_lp_k[slot] = None
 
     # ------------------------------------------------------------------
 
@@ -705,16 +1019,24 @@ class Engine:
         """Synchronous batch generation over the decode slots."""
         results: dict[int, GenResult] = {}
         pending = list(enumerate(requests))
-        active: dict[int, list] = {}  # slot -> [req_idx, prepared, tokens, t0]
+        # slot -> [req_idx, prepared, tokens, t0, logprobs or None]
+        active: dict[int, list] = {}
         # collector of a decode chunk launched before the previous chunk's
         # tokens were read; no admission while it runs (an insert would race
         # the chunk's writes to the cache)
         inflight = None
         while pending or active:
             wave = []
+            deferred = []
             free_count = sum(self.slot_free) if inflight is None else 0
             while pending and free_count > 0:
                 req_idx, request = pending.pop(0)
+                if (request.guided_regex
+                        and not self.guided_available(request.guided_regex)):
+                    # another regex fills the arena with live slots: hold
+                    # this request until they drain
+                    deferred.append((req_idx, request))
+                    continue
                 start = time.time()
                 prepared = self.prepare(request)
                 # keep prompt + completion within the cache
@@ -725,18 +1047,21 @@ class Engine:
                 first = self.prefill_insert(slot, prepared)
                 wave.append((req_idx, prepared, slot, start, first))
                 free_count -= 1
+            pending = deferred + pending
             for req_idx, prepared, slot, start, first in wave:
                 first_host = int(first)
                 collected = [first_host]
+                lp = ([self._first_logprob.pop(prepared.request_id, None)]
+                      if prepared.logprobs else None)
                 if (first_host == self.tok.eos_token_id
                         or prepared.max_tokens <= 1):
                     reason = ("stop" if first_host == self.tok.eos_token_id
                               else "length")
                     results[req_idx] = self._finish(prepared, collected,
-                                                    reason, start)
+                                                    reason, start, lp)
                     self.free_slot(slot)
                 else:
-                    active[slot] = [req_idx, prepared, collected, start]
+                    active[slot] = [req_idx, prepared, collected, start, lp]
             if not active:
                 if inflight is not None:
                     inflight()  # every slot finished: drain and discard
@@ -768,11 +1093,15 @@ class Engine:
                 toks = collect()
                 emitted = {slot: [int(t) for t in toks[:, slot]]
                            for slot in active}
+            lp_data = self._last_logprobs
             for slot in list(active):
-                req_idx, prepared, collected, start = active[slot]
+                req_idx, prepared, collected, start, lp = active[slot]
                 finished = None
-                for token in emitted[slot]:
+                for j, token in enumerate(emitted[slot]):
                     collected.append(token)
+                    if lp is not None and lp_data is not None:
+                        lp.append(chunk_logprob(lp_data, j, slot,
+                                                prepared.top_logprobs))
                     if token == self.tok.eos_token_id:
                         finished = "stop"
                         break
@@ -781,7 +1110,7 @@ class Engine:
                         break
                 if finished:
                     results[req_idx] = self._finish(prepared, collected,
-                                                    finished, start)
+                                                    finished, start, lp)
                     del active[slot]
                     self.free_slot(slot)
         if inflight is not None:
@@ -789,11 +1118,32 @@ class Engine:
         return [results[i] for i in range(len(requests))]
 
     def _finish(self, prepared: _Prepared, collected: list[int], reason: str,
-                start: float) -> GenResult:
+                start: float, logprobs: Optional[list] = None) -> GenResult:
         out_ids = [t for t in collected if t != self.tok.eos_token_id]
+        if logprobs is not None:
+            logprobs = [x for t, x in zip(collected, logprobs)
+                        if t != self.tok.eos_token_id][: len(out_ids)]
         return GenResult(request_id=prepared.request_id,
                          text=self.tok.decode(out_ids), token_ids=out_ids,
                          finish_reason=reason,
                          prompt_tokens=int(len(prepared.ids)),
                          completion_tokens=len(collected),
-                         latency_s=time.time() - start)
+                         latency_s=time.time() - start, logprobs=logprobs)
+
+
+def top_logprobs(logp: torch.Tensor, k: int):
+    """The max(1, k) largest log-probabilities on the last axis and their
+    ids, ties in id order (as jax.lax.top_k orders them: a guided mask
+    leaves many tokens tied at -inf)."""
+    vals, ids = torch.sort(logp, dim=-1, descending=True, stable=True)
+    k = max(1, k)
+    return vals[..., :k], ids[..., :k]
+
+
+def chunk_logprob(lp_data, step: int, slot: int, k: int) -> tuple:
+    """One emitted token's (logprob, [(alt_id, alt_logprob) x k]) from a
+    collected chunk's (chosen, top values, top ids)."""
+    chosen, top_vals, top_ids = lp_data
+    return (float(chosen[step, slot]),
+            list(zip(top_ids[step, slot, :k].tolist(),
+                     top_vals[step, slot, :k].tolist())))

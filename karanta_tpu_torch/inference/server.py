@@ -25,6 +25,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import base64
+import dataclasses
 import json
 import logging
 import os
@@ -39,7 +40,9 @@ import torch
 from karanta_tpu_torch.device import resolve_device
 from karanta_tpu_torch.inference.chat import RAW_IMAGE_SENTINEL
 from karanta_tpu_torch.inference.engine import (ContextLengthError, Engine,
-                                                EngineConfig, GenRequest)
+                                                EngineConfig, GenRequest,
+                                                GuidedRegexBusy,
+                                                chunk_logprob)
 
 logger = logging.getLogger("karanta_tpu_torch.server")
 
@@ -96,6 +99,7 @@ class _Active:
     start: float = field(default_factory=time.time)
     stream: Optional[asyncio.Queue] = None   # token-delta queue when streaming
     emitted_text: str = ""
+    lp: Optional[list] = None                # per-token logprobs, if asked
 
 
 class InferenceServer:
@@ -207,7 +211,10 @@ class InferenceServer:
 
     async def _admit(self) -> bool:
         self._top_up_staging()
-        # take up to one staged request per free slot
+        # take up to one staged request per free slot, holding back guided
+        # requests whose regex does not fit the arena beside the live ones
+        # (they stay staged until those drain; the constraint is never
+        # dropped)
         batch: list[tuple] = []
         held: list[tuple] = []
         free = sum(self.engine.slot_free)
@@ -247,6 +254,11 @@ class InferenceServer:
                     self.engine.prefill_insert, slot, prepared)
                 self._prof["prefill_dispatch_s"] += time.perf_counter() - t0
                 wave.append((slot, prepared, future, stream_q, first))
+            except GuidedRegexBusy:
+                # the arena filled between the availability check and the
+                # bind: hold the request (its prep is done) until the
+                # conflicting automaton drains
+                self._staged.append((request, future, stream_q, prep))
             except Exception as exc:
                 logger.exception("failed to admit request")
                 if not future.done():
@@ -255,6 +267,9 @@ class InferenceServer:
         admitted = False
         for slot, prepared, future, stream_q, first in wave:
             state = _Active(prepared=prepared, future=future, stream=stream_q)
+            if prepared.logprobs:
+                state.lp = [self.engine._first_logprob.pop(
+                    prepared.request_id, None)]
             first_host = int(first)  # one wave of syncs, not one per page
             state.collected.append(first_host)
             if (first_host == self.engine.tok.eos_token_id
@@ -268,11 +283,15 @@ class InferenceServer:
         return admitted
 
     def _distribute_lists(self, emitted: dict):
+        lp_data = self.engine._last_logprobs
         for slot in list(self.active):
             state = self.active[slot]
             reason = None
-            for token in emitted[slot]:
+            for j, token in enumerate(emitted[slot]):
                 state.collected.append(token)
+                if state.lp is not None and lp_data is not None:
+                    state.lp.append(chunk_logprob(
+                        lp_data, j, slot, state.prepared.top_logprobs))
                 if token == self.engine.tok.eos_token_id:
                     reason = "stop"
                     break
@@ -308,12 +327,36 @@ class InferenceServer:
         t0 = time.perf_counter()
         text = self.engine.tok.decode(out_ids)
         self._prof["detokenize_s"] += time.perf_counter() - t0
-        state.future.set_result({
+        result = {
             "text": text,
             "finish_reason": reason,
             "prompt_tokens": int(len(state.prepared.ids)),
             "completion_tokens": len(state.collected),
-        })
+        }
+        if state.lp is not None:
+            lps = [x for t, x in zip(state.collected, state.lp)
+                   if t != self.engine.tok.eos_token_id][: len(out_ids)]
+            result["logprobs"] = self._format_logprobs(out_ids, lps)
+        state.future.set_result(result)
+
+    def _format_logprobs(self, token_ids, lps) -> dict:
+        """The OpenAI chat logprobs block: one entry per completion token."""
+        content = []
+        for tid, entry in zip(token_ids, lps):
+            tok_str = self.engine.tok.decode([tid])
+            if entry is None:
+                content.append({"token": tok_str, "logprob": None,
+                                "top_logprobs": []})
+                continue
+            chosen, top = entry
+            content.append({
+                "token": tok_str,
+                "logprob": chosen,
+                "top_logprobs": [
+                    {"token": self.engine.tok.decode([int(i)]),
+                     "logprob": float(v)} for i, v in top],
+            })
+        return {"content": content}
 
     # ------------------------------------------------------------------
     # HTTP
@@ -470,6 +513,8 @@ class InferenceServer:
                 "index": 0,
                 "message": {"role": "assistant", "content": result["text"]},
                 "finish_reason": result["finish_reason"],
+                **({"logprobs": result["logprobs"]}
+                   if "logprobs" in result else {}),
             }],
             "usage": {
                 "prompt_tokens": result["prompt_tokens"],
@@ -548,19 +593,22 @@ class InferenceServer:
 
 
 def build_engine_from_args(args) -> tuple[Engine, str]:
-    """The engine the CLI serves: random weights by preset (tiny and small
-    with the byte tokenizer, full presets through ``model.init_params``),
-    bf16 on the card and float32 on the CPU."""
+    """The engine the CLI serves, bf16 on the card and float32 on the CPU:
+    an HF checkpoint (``--model-path``: its safetensors and its tokenizer,
+    the architecture from ``--preset`` or the path's name), or random
+    weights by preset (tiny and small with the byte tokenizer, full presets
+    through ``model.init_params``)."""
     from karanta_tpu_torch.inference.tokenizer import ByteTokenizer
     from karanta_tpu_torch.models.qwen25_vl.config import (get_config,
                                                            small_config,
                                                            tiny_config)
     from karanta_tpu_torch.models.qwen25_vl.model import init_params
 
-    if args.model_path or args.native_checkpoint:
+    if args.native_checkpoint:
         raise NotImplementedError(
-            "--model-path and --native-checkpoint are not ported yet "
-            "(ROADMAP.md, modules: weight loading)")
+            "--native-checkpoint is not ported yet: the native trainer's "
+            "checkpoints are read through orbax, which needs JAX; it comes "
+            "with the training slice (ROADMAP.md, modules: training)")
     if args.tensor_parallel_size > 1 or args.data_parallel_size > 1:
         raise NotImplementedError(
             "tensor and data parallel serving are not ported yet "
@@ -583,6 +631,21 @@ def build_engine_from_args(args) -> tuple[Engine, str]:
         speculative_ngram=args.speculative_ngram,
         teacher_force=args.teacher_force,
     )
+    if args.model_path:
+        from karanta_tpu_torch.inference.tokenizer import HFTokenizer
+        from karanta_tpu_torch.models.qwen25_vl.loading import \
+            load_hf_checkpoint
+
+        cfg = get_config(args.preset or args.model_path)
+        # quantize on transfer, matrix by matrix: the card never holds the
+        # whole bf16 decoder beside its int8 copy
+        params = load_hf_checkpoint(args.model_path, cfg, dtype,
+                                    quantize=ecfg.quantize, device=device)
+        if ecfg.quantize:
+            ecfg = dataclasses.replace(ecfg, quantize=None)
+        tok = HFTokenizer(args.model_path)
+        name = args.model_path
+        return Engine(params, cfg, tok, ecfg, device=device), name
     tok = ByteTokenizer()
     preset = args.preset or "tiny"
     if preset in ("tiny", "small"):
@@ -607,14 +670,15 @@ def make_arg_parser() -> argparse.ArgumentParser:
                         help="cuda (the default; raises without a card) or "
                              "cpu, which runs the kernels' plain versions")
     parser.add_argument("--model-path", default=None,
-                        help="local HF checkpoint dir (not ported yet)")
+                        help="local HF checkpoint dir: *.safetensors and "
+                             "the tokenizer's files")
     parser.add_argument("--native-checkpoint", dest="native_checkpoint",
                         default=None,
-                        help="native-trainer checkpoint (not ported yet)")
+                        help="native-trainer checkpoint (not ported yet: "
+                             "comes with the training slice)")
     parser.add_argument("--tokenizer-path", dest="tokenizer_path",
                         default=None,
-                        help="HF tokenizer dir for --native-checkpoint runs "
-                             "(not ported yet)")
+                        help="HF tokenizer dir for --native-checkpoint runs")
     parser.add_argument("--preset", default=None,
                         help="architecture preset (qwen2.5-vl-3b/7b/tiny)")
     parser.add_argument("--max-batch-size", type=int, default=32)
@@ -651,8 +715,9 @@ def make_arg_parser() -> argparse.ArgumentParser:
                              "fire")
     parser.add_argument("--teacher-force", dest="teacher_force",
                         action="store_true",
-                        help="bench-only forced-output hook (not ported yet; "
-                             "requires KARANTA_BENCH=1)")
+                        help="bench-only forced-output hook: each request's "
+                             "forced_output replaces the tokens it emits "
+                             "(requires KARANTA_BENCH=1)")
     return parser
 
 

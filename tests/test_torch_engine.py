@@ -109,26 +109,68 @@ def test_unported_features_raise():
     tok = _NoStop()
     cfg = tiny_config(vocab_size=tok.vocab_size)
     params = {"text": {"layers": {"attn": {"wq": None}}}}
-    for bad in (dict(teacher_force=True), dict(prefill_batch=4),
-                dict(vision_quant="int8")):
+    for bad in (dict(prefill_batch=4), dict(vision_quant="int8")):
         kw = {**dict(kv_quantize="int8"), **bad}
         with pytest.raises(NotImplementedError):
             Engine(params, cfg, tok, EngineConfig(**kw), device="cpu")
 
 
 def test_unported_request_options_raise():
+    """Every request option is ported; the ones an engine cannot honour
+    raise ValueError, as in the JAX engine: a regex outside the guided
+    syntax (when its automaton is bound at prefill) and guided decoding
+    together with a forced stream."""
     from karanta_tpu_torch.models.qwen25_vl.model import init_params
 
     tok = _NoStop()
     cfg = tiny_config(vocab_size=tok.vocab_size)
+    params = init_params(cfg, 0, torch.float32, device="cpu")
+    kw = dict(max_batch_size=1, max_seq_len=128, prefill_buckets=(128,),
+              dtype=torch.float32, kv_quantize="int8")
+    eng = Engine(params, cfg, tok, EngineConfig(**kw), device="cpu")
+    prepared = eng.prepare(GenRequest(messages=_messages(),
+                                      guided_regex="(?=x)"))
+    with pytest.raises(ValueError, match="groups"):
+        eng.prefill_insert(0, prepared)
+    forced = Engine(params, cfg, tok, EngineConfig(teacher_force=True, **kw),
+                    device="cpu")
+    with pytest.raises(ValueError, match="guided"):
+        forced.prepare(GenRequest(messages=_messages(), guided_regex="[0-9]+",
+                                  forced_output="123"))
+
+
+@pytest.mark.parametrize("variant", ["palette", "gray16", "bilevel"])
+def test_png_variants_decode_as_pil(variant):
+    """PNGs the port's decoder does not take (palette, 16-bit gray, 1-bit),
+    written by Pillow, decode through PIL as in the JAX engine, to PIL's
+    convert("RGB") exactly."""
+    import io
+
+    from PIL import Image
+
+    from karanta_tpu_torch.models.qwen25_vl.model import init_params
+
+    rng = np.random.default_rng(3)
+    rgb = rng.integers(0, 255, size=(40, 52, 3), dtype=np.uint8)
+    img = Image.fromarray(rgb)
+    img = {"palette": lambda: img.convert("P"),
+           "gray16": lambda: Image.fromarray(
+               rng.integers(0, 65535, size=(40, 52)).astype(np.uint16)),
+           "bilevel": lambda: img.convert("1")}[variant]()
+    buf = io.BytesIO()
+    img.save(buf, format="PNG")
+    raw = buf.getvalue()
+    want = np.asarray(Image.open(io.BytesIO(raw)).convert("RGB"), np.uint8)
+    tok = _NoStop()
+    cfg = tiny_config(vocab_size=tok.vocab_size)
     eng = Engine(init_params(cfg, 0, torch.float32, device="cpu"), cfg, tok,
-                 EngineConfig(max_batch_size=1, max_seq_len=128,
-                              prefill_buckets=(128,), dtype=torch.float32,
-                              kv_quantize="int8"), device="cpu")
-    for req in (GenRequest(messages=_messages(), guided_regex="[0-9]+"),
-                GenRequest(messages=_messages(), logprobs=True)):
-        with pytest.raises(NotImplementedError):
-            eng.prepare(req)
+                 EngineConfig(max_batch_size=1, max_seq_len=256,
+                              prefill_buckets=(128, 256),
+                              dtype=torch.float32), device="cpu")
+    np.testing.assert_array_equal(eng._decode_image(raw), want)
+    png = base64.b64encode(raw).decode()
+    prepared = eng.prepare(GenRequest(messages=_messages(png)))
+    assert prepared.img_token_counts[0] > 0
 
 
 def test_entry_points_need_cuda_or_explicit_cpu():
@@ -160,6 +202,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'karanta_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "for m in ('inference.guided', 'models.qwen25_vl.loading', "
+        "'models.qwen25_vl.exporting'):\n"
+        "    assert 'karanta_tpu_torch.' + m in sys.modules, m\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' "
         "or n.startswith('jax.') or n == 'karanta_tpu' "
         "or n.startswith('karanta_tpu.'))\n"

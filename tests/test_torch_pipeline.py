@@ -465,6 +465,7 @@ def test_pipeline_bench_line_has_the_jax_keys(tmp_path, capsys,
     assert detail["tunnel_canary_pre"] is None
     assert detail["requests_served"] == 4  # 3 pages and the warm-up
     assert line["unit"] == "pages/s/chip" and line["value"] > 0
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(SystemExit, match="guided"):
         pipeline_bench.run(_bench_args(pipeline_bench, tmp_path / "t",
-                                       device="cpu", teacher_force=True))
+                                       device="cpu", teacher_force=True,
+                                       guided=True))

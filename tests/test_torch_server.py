@@ -212,8 +212,10 @@ def test_error_status_codes(servers):
     too_long = _body("x" * 400)
     assert _call(port, "POST", "/v1/chat/completions", too_long)[0] == 400
     assert _call(port, "GET", "/nope")[0] == 404
-    guided = _body("digits", guided_regex="[0-9]+")
+    # a regex outside the guided syntax fails its own request only
+    guided = _body("digits", guided_regex="(?=x)")
     assert _call(port, "POST", "/v1/chat/completions", guided)[0] == 500
+    assert _call(port, "GET", "/health")[0] == 200
 
 
 def test_arg_parser_matches_the_jax_server():
@@ -239,10 +241,14 @@ def test_build_engine_from_args_on_cpu():
     args.kv_quantize = "int4"
     engine, _ = S.build_engine_from_args(args)
     assert engine.cache.ks.shape[2] == 2 * engine.cfg.text.num_kv_heads
-    for bad in (["--model-path", "/nowhere"], ["--native-checkpoint", "x"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            S.build_engine_from_args(S.make_arg_parser().parse_args(
-                ["--preset", "tiny", "--device", "cpu", *bad]))
+    with pytest.raises(FileNotFoundError, match="safetensors"):
+        S.build_engine_from_args(S.make_arg_parser().parse_args(
+            ["--preset", "tiny", "--device", "cpu", "--model-path",
+             "/nowhere"]))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        S.build_engine_from_args(S.make_arg_parser().parse_args(
+            ["--preset", "tiny", "--device", "cpu", "--native-checkpoint",
+             "x"]))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             S.build_engine_from_args(S.make_arg_parser().parse_args(
@@ -253,3 +259,83 @@ def test_extract_data_images_matches_jax():
     body = json.dumps(_body("page", image_seed=4)).encode()
     assert S.extract_data_images(body) == j_extract(body)
     assert S.extract_data_images(b'{"a": 1}') == j_extract(b'{"a": 1}')
+
+
+# ---------------------------------------------------------------------------
+# logprobs
+# ---------------------------------------------------------------------------
+
+LOGPROB_TOL = 1e-4
+
+
+def test_logprobs_equal_the_jax_server(servers):
+    """tests/test_server.py's logprobs request (top_logprobs 3, greedy) to
+    both servers: the same tokens and alternatives, logprobs within 1e-4,
+    each chosen token's logprob its top-1 (greedy), the alternatives in
+    descending order."""
+    body = {"model": "x", "messages": [{"role": "user", "content": "hello"}],
+            "max_tokens": 5, "temperature": 0, "logprobs": True,
+            "top_logprobs": 3}
+    [want] = _completions(servers["jax"], [body])
+    [got] = _completions(servers["port"], [body])
+    assert got["choices"][0]["message"] == want["choices"][0]["message"]
+    lp = got["choices"][0]["logprobs"]["content"]
+    wlp = want["choices"][0]["logprobs"]["content"]
+    assert len(lp) == len(wlp) == 5
+    for entry, w in zip(lp, wlp):
+        assert entry["token"] == w["token"]
+        assert abs(entry["logprob"] - w["logprob"]) <= LOGPROB_TOL
+        assert [t["token"] for t in entry["top_logprobs"]] == \
+            [t["token"] for t in w["top_logprobs"]]
+        tops = [t["logprob"] for t in entry["top_logprobs"]]
+        assert len(tops) == 3 and tops == sorted(tops, reverse=True)
+        np.testing.assert_allclose(
+            tops, [t["logprob"] for t in w["top_logprobs"]],
+            atol=LOGPROB_TOL, rtol=0)
+        assert entry["logprob"] <= 0.0
+        assert abs(entry["logprob"] - tops[0]) <= 1e-6
+
+
+@pytest.mark.parametrize("guided", [False, True])
+def test_engine_logprobs_match_jax(guided):
+    """Engine.generate with logprobs (top 5), next to a request without
+    them: the same tokens as the JAX engine, equal top ids, and every
+    logprob within 1e-4 (the guided case's log-softmax is over the masked
+    logits in both)."""
+    kw = dict(max_batch_size=2, max_seq_len=256, decode_chunk=4,
+              prefill_buckets=(64, 128, 256), speculative_ngram=3)
+    jtok = JByteTokenizer()
+    jcfg = j_tiny_config(vocab_size=jtok.vocab_size)
+    jparams = j_init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
+    tok = ByteTokenizer()
+    cfg = tiny_config(vocab_size=tok.vocab_size)
+    params = from_jax_params(jax.tree.map(np.asarray, jparams), cfg,
+                             device="cpu", dtype=torch.float32)
+    regex = r"[a-z]{3}: [0-9]{2,4}" if guided else None
+
+    def reqs(cls):
+        return [cls(messages=[{"role": "user", "content": "page text"}],
+                    max_tokens=10, logprobs=True, top_logprobs=5,
+                    guided_regex=regex, request_id="lp"),
+                cls(messages=[{"role": "user", "content": "abcabcabc"}],
+                    max_tokens=10, request_id="plain")]
+
+    from karanta_tpu.inference.engine import GenRequest as JGenRequest
+    from karanta_tpu_torch.inference.engine import GenRequest
+
+    want = JEngine(jparams, jcfg, jtok, JEngineConfig(
+        dtype=jnp.float32, **kw)).generate(reqs(JGenRequest))
+    got = Engine(params, cfg, tok, EngineConfig(dtype=torch.float32, **kw),
+                 device="cpu").generate(reqs(GenRequest))
+    for w, r in zip(want, got):
+        assert r.token_ids == w.token_ids
+    assert got[1].logprobs is None
+    assert len(got[0].logprobs) == len(want[0].logprobs) == \
+        len(got[0].token_ids)
+    for (c, top), (wc, wtop) in zip(got[0].logprobs, want[0].logprobs):
+        assert abs(c - wc) <= LOGPROB_TOL
+        assert [i for i, _ in top] == [int(i) for i, _ in wtop]
+        np.testing.assert_allclose([v for _, v in top],
+                                   [v for _, v in wtop], atol=LOGPROB_TOL,
+                                   rtol=0)
+        assert abs(c - top[0][1]) <= 1e-6  # greedy: the chosen is the top-1
