@@ -89,7 +89,28 @@ Phases (any failed check raises and the script exits non-zero):
    page under the pipeline's guided regex (its completion must match),
    one with logprobs (top 5: each chosen logprob is its top-1 and within
    1e-3 of a float32 log_softmax of the logits captured at that step) and
-   a plain one; guided and unguided slots decode side by side.
+   a plain one; guided and unguided slots decode side by side;
+12. training (karanta_tpu_torch.training): three runs of the trainer's
+   main() at configs/training/ocr/karanta_qwen25_3b.yaml (Qwen2.5-VL-3B at
+   full width and depth, bf16, remat, batch 1 x grad-accum 4, warmup 0)
+   from a random 3B checkpoint written by the port's exporter beside a BPE
+   tokenizer, on 5 synthetic 1288x994 pages under a 14-line text layer:
+   AdamW 3 steps (its checkpoint read back bit-equal), QLoRA rank 16 2 steps
+   (the NF4 base unchanged), Muon 2 steps; each with a finite loss and
+   grad_norm, changed parameters, ms/step, tokens/s, the share of 989
+   TFLOP/s, peak memory and #1/#2 launches a step; the server CLI with
+   --native-checkpoint over the AdamW run answers a page over HTTP (with
+   --profile, one more AdamW run traces its second step under the
+   trainer's --is_profile). Then kernels #1 and #2 under autograd with the
+   masks of the first row the AdamW run trained (the decoder's causal
+   flash attention, 16 query heads over 2 kv heads, d = 128, the row's pad
+   mask; the vision full layers; the window kernel's no-rope instance):
+   the forward at the bf16 limit, dq/dk/dv of the kernel's forward and the
+   plain backward normwise within 1e-2 of float32 autograd through the
+   dense plain versions, two calls bit-equal; the tiny config in float32,
+   card against CPU: the loss and every gradient leaf of one step, every
+   parameter after 3 AdamW steps, and #1/#2 launched in the forward and
+   again in the remat recompute.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. The last two lines are the kernels summary and the result line.
@@ -2972,6 +2993,626 @@ def phase_guided_logprobs(cfg) -> dict:
                 **{k: counts[k] for k in ("decode_steps", "verify_passes")})
 
 
+# ---------------------------------------------------------------------------
+# phase 12 of the docstring: training
+# ---------------------------------------------------------------------------
+
+TRAIN_PRESET = "qwen2.5-vl-3b"
+TRAIN_YAML = os.path.join(REPO, "configs", "training", "ocr",
+                          "karanta_qwen25_3b.yaml")
+TRAIN_SEED = 12
+TRAIN_DOCS = 5          # one goes to eval (eval_fraction 0.01 -> 1 sample)
+TRAIN_LINES = 14        # text-layer lines a page: anchored prompts
+GRAD_TOL = 1e-2         # normwise, bf16 gradients vs float32 autograd
+TINY_TRAIN_TOL = 1e-4   # tiny float32 step, card vs CPU (relative)
+TINY_TRAIN_STEPS = 3
+TINY_TRAIN_LR = 1e-3
+
+
+def normwise(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def autograd_check(name: str, fn, ref, inputs, dout, rows=None) -> dict:
+    """fn (the kernel forward through its autograd function, the plain
+    backward) against ref (the dense plain version) in float32 autograd from
+    the same inputs: the forward at the bf16 limit (over `rows` of the
+    sequence axis where given), dq/dk/dv normwise within GRAD_TOL, two calls
+    bit-equal; kernel-forward and backward times."""
+    xs = [x.detach().requires_grad_(True) for x in inputs]
+    out = fn(*xs)
+    got = torch.autograd.grad(out, xs, dout)
+    fs = [x.detach().float().requires_grad_(True) for x in inputs]
+    want_out = ref(*fs)
+    want = torch.autograd.grad(want_out, fs, dout.float())
+    check_bf16(f"{name} forward (autograd function)", out.detach()[0],
+               want_out.detach().to(out.dtype)[0], rows)
+    errs = [normwise(g, w) for g, w in zip(got, want)]
+    for label, err in zip(("dq", "dk", "dv"), errs):
+        if not err <= GRAD_TOL:
+            raise AssertionError(f"{name} {label}: normwise {err} > "
+                                 f"{GRAD_TOL}")
+    with torch.no_grad():
+        if not torch.equal(fn(*inputs), fn(*inputs)):
+            raise AssertionError(f"{name}: two calls differ")
+    fwd_ms = cuda_ms(lambda: fn(*inputs), 5)
+
+    def fwd_bwd():
+        ys = [x.detach().requires_grad_(True) for x in inputs]
+        torch.autograd.grad(fn(*ys), ys, dout)
+    bwd_ms = cuda_ms(fwd_bwd, 3, warmup=1) - fwd_ms
+    log(f"  {name}: dq/dk/dv normwise {errs[0]:.2e} / {errs[1]:.2e} / "
+        f"{errs[2]:.2e} (tol {GRAD_TOL:g}); two calls bit-equal; kernel "
+        f"forward {fwd_ms:.3f} ms, plain backward {bwd_ms:.3f} ms")
+    return dict(grad_normwise=errs, forward_ms=fwd_ms, backward_ms=bwd_ms)
+
+
+def train_kernel_grads(dev, gen, shapes: dict) -> dict:
+    """#1 and #2 under autograd at the Qwen2.5-VL-3B training shapes, bf16,
+    with the masks of the first row that the 3B trainer ran (``shapes``,
+    from its TrainProbe): the decoder's causal flash attention (16 query
+    heads over 2 kv heads, d = 128, the row's pad mask over its sequence
+    bucket), the vision full layers (non-causal, d = 80, the row's patch
+    mask) and the window layers through the window kernel's no-rope
+    instance."""
+    cfg = get_config(TRAIN_PRESET)
+    t, v = cfg.text, cfg.vision
+    mask = shapes["attn_mask"].to(dev).float()
+    s, live = mask.shape[1], int(mask.sum())
+    q = torch.randn((1, s, t.num_heads, t.head_dim), generator=gen,
+                    device=dev).bfloat16()
+    k = torch.randn((1, s, t.num_kv_heads, t.head_dim), generator=gen,
+                    device=dev).bfloat16()
+    vv = torch.randn_like(k.float()).bfloat16()
+    dout = torch.randn_like(q.float()).bfloat16()
+    log(f"[train kernels] {TRAIN_PRESET} shapes of the trainer's first row "
+        f"under autograd, bf16")
+    out = {"decoder": autograd_check(
+        f"flash (1,{s},{t.num_heads}/{t.num_kv_heads},{t.head_dim}) causal, "
+        f"{live} live", lambda q, k, v: A.attention(q, k, v, kv_mask=mask,
+                                                   causal=True),
+        lambda q, k, v: A.mha_reference(q, k, v, kv_mask=mask, causal=True),
+        (q, k, vv), dout)}
+    out["decoder"].update(seq=s, live=live)
+    vmask = shapes["vis_valid"].to(dev).float()
+    tokens = vmask.shape[1]
+    qv, kv_, vv_ = (torch.randn((1, tokens, v.num_heads, v.head_dim),
+                                generator=gen, device=dev).bfloat16()
+                    for _ in range(3))
+    dv = torch.randn_like(qv.float()).bfloat16()
+    out["vision_full"] = autograd_check(
+        f"flash (1,{tokens},{v.num_heads},{v.head_dim}) vision full, "
+        f"{int(vmask.sum())} live", lambda q, k, v: A.attention(
+            q, k, v, kv_mask=vmask),
+        lambda q, k, v: A.mha_reference(q, k, v, kv_mask=vmask),
+        (qv, kv_, vv_), dv)
+    w = v.window_patches ** 2
+    rows = vmask[0] > 0
+    out["window"] = autograd_check(
+        f"window no-rope (1,{tokens},{v.num_heads},{v.head_dim}) w={w}",
+        lambda q, k, v: A.window_attention(q, k, v, w, kv_mask=vmask),
+        lambda q, k, v: A._window_reference(q, k, v, w, vmask, None),
+        (qv, kv_, vv_), dv * rows[None, :, None, None], rows)
+    return out
+
+
+def stack_grad_ab(dev) -> dict:
+    """The backward's cost of taking each layer from the stacked decoder
+    tree of the 3B preset (bf16, the seven matrices and the biases and
+    norms): indexing every layer (each layer's backward writes a
+    zero-filled gradient of the whole stack) against one
+    ``torch.unbind`` (the backward stacks the layers' gradients once). The
+    per-layer work is a sum, so the times are the gradients' assembly."""
+    from karanta_tpu_torch.models.qwen25_vl.decoder import \
+        init_decoder_params
+    from karanta_tpu_torch.utils.tree import (flatten_tree, unbind_layers,
+                                              unflatten_tree)
+
+    cfg = get_config(TRAIN_PRESET).text
+    shapes = init_decoder_params(cfg, None, torch.bfloat16,
+                                 device="meta")["layers"]
+    leaves = {k: torch.zeros(v.shape, dtype=torch.bfloat16, device=dev)
+              .requires_grad_(True) for k, v in flatten_tree(shapes).items()}
+    tree = unflatten_tree(leaves)
+
+    def backward(split):
+        layers = (unbind_layers(tree, cfg.num_layers) if split == "unbind"
+                  else [tree_map(lambda x, _: x[i], tree)
+                        for i in range(cfg.num_layers)])
+        loss = sum(leaf.float().sum() for layer in layers
+                   for leaf in flatten_tree(layer).values())
+        torch.autograd.grad(loss, list(leaves.values()))
+
+    out = {split: cuda_ms(lambda: backward(split), 3, warmup=1)
+           for split in ("index", "unbind")}
+    gbytes = sum(x.numel() * 2 for x in leaves.values()) / 1e9
+    log(f"[train] stacked-layer gradients of the {TRAIN_PRESET} decoder "
+        f"({cfg.num_layers} layers, {gbytes:.2f} GB bf16): indexed "
+        f"{out['index']:.1f} ms, unbind {out['unbind']:.1f} ms a "
+        f"backward")
+    del leaves, tree
+    return dict(out, gbytes=gbytes)
+
+
+def tiny_train_corpus(root: str) -> str:
+    from karanta_tpu_torch.data.synthetic import make_corpus
+
+    make_corpus(root, 3, n_chars=6, seed=TRAIN_SEED)
+    return root
+
+
+def tiny_train_batch(root: str, device) -> tuple:
+    from karanta_tpu_torch.training.data import DataCollator, LocalDataset
+    from karanta_tpu_torch.training.train import to_device_batch
+
+    cfg = tiny_config(vocab_size=ByteTokenizer().vocab_size)
+    pipeline = [{"name": "PDF2ImageStep", "target_longest_image_dim": 128},
+                {"name": "FetchPageData"},
+                {"name": "StaticLengthDocumentAnchoring",
+                 "target_anchor_text_len": 1000},
+                {"name": "FinetuningPrompt"},
+                {"name": "PlainTextFormat"},
+                {"name": "InstructUserMessages", "prompt_first": True},
+                {"name": "Tokenizer"}]
+    samples = LocalDataset(root, pipeline_steps=pipeline,
+                           tokenizer=ByteTokenizer(), vision_cfg=cfg.vision,
+                           max_length=2048).build(num_workers=1)
+    batch = DataCollator(cfg.vision)(samples[:2])
+    return cfg, to_device_batch(batch, device)
+
+
+def phase_train_tiny(dev) -> dict:
+    """The tiny config, float32, one training step's loss and every
+    gradient leaf on the card against the CPU, the parameters after 3 AdamW
+    steps, and the launch counts of #1 and #2 without and with remat (the
+    recompute launches the kernels again)."""
+    import tempfile
+
+    from karanta_tpu_torch.training import train_step as ts
+    from karanta_tpu_torch.training.optimizer import (make_lr_schedule,
+                                                      make_optimizer)
+    from karanta_tpu_torch.utils.tree import flatten_tree
+
+    root = tiny_train_corpus(tempfile.mkdtemp(prefix="tiny_train_"))
+    cfg, batch_cpu = tiny_train_batch(root, "cpu")
+    batch_gpu = {k: v.to(dev) for k, v in batch_cpu.items()}
+    params_cpu = init_params(cfg, TRAIN_SEED, torch.float32, device="cpu")
+    n_full = len(cfg.vision.fullatt_block_indexes)
+    rows = batch_cpu["token_ids"].shape[0]
+    per_forward = {"window_attention": (cfg.vision.depth - n_full) * rows,
+                   "flash_attention": n_full * rows + cfg.text.num_layers}
+    grads, losses, launches = {}, {}, {}
+    for remat in (False, True):
+        for name, device, batch in (("cpu", "cpu", batch_cpu),
+                                    ("cuda", dev, batch_gpu)):
+            params = tree_map(lambda x, _: x.to(device), params_cpu)
+            kernels.reset_launches()
+            loss, tokens, g = ts.value_and_grad(
+                ts.make_loss_fn(cfg, remat=remat), params, batch)
+            torch.cuda.synchronize()
+            launches[(name, remat)] = {
+                k: kernels.LAUNCHES[k] for k in per_forward}
+            losses[(name, remat)], grads[(name, remat)] = float(loss), g
+        want = {k: v * (2 if remat else 1) for k, v in per_forward.items()}
+        if launches[("cuda", remat)] != want or \
+                sum(launches[("cpu", remat)].values()):
+            raise AssertionError(f"tiny train step, remat={remat}: launches "
+                                 f"{launches[('cuda', remat)]}, expected "
+                                 f"{want} on the card and none on the CPU")
+        log(f"[train tiny] remat={remat}: launches {want} (forward"
+            f"{' + recompute' if remat else ''})")
+    worst = 0.0
+    for remat in (False, True):
+        lc, lg = losses[("cpu", remat)], losses[("cuda", remat)]
+        err = abs(lc - lg) / abs(lc)
+        check(f"tiny train loss card vs CPU (remat={remat}, relative)", err,
+              TINY_TRAIN_TOL)
+        for path, gc_ in grads[("cpu", remat)].items():
+            gg = grads[("cuda", remat)][path].cpu()
+            scale = float(gc_.abs().max())
+            if scale == 0.0:
+                if float(gg.abs().max()) != 0.0:
+                    raise AssertionError(f"grad {path}: zero on the CPU, "
+                                         f"not on the card")
+                continue
+            worst = max(worst, float((gg - gc_).abs().max()) / scale)
+    check("tiny train grads card vs CPU (max abs err / max |grad|, "
+          "every leaf)", worst, TINY_TRAIN_TOL)
+    states = {}
+    for name, device, batch in (("cpu", "cpu", batch_cpu),
+                                ("cuda", dev, batch_gpu)):
+        opt = make_optimizer("adamw", make_lr_schedule(
+            "cosine", TINY_TRAIN_LR, 1, TINY_TRAIN_STEPS))
+        state = ts.create_train_state(
+            tree_map(lambda x, _: x.to(device, copy=True), params_cpu), opt)
+        step = ts.make_train_step(cfg, opt, remat=True)
+        for _ in range(TINY_TRAIN_STEPS):
+            state, metrics = step(state, batch)
+        states[name] = flatten_tree(state.params)
+    errs = {k: float((states["cuda"][k].cpu() - v).abs().max())
+            for k, v in states["cpu"].items()}
+    worst5 = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+    log(f"[train tiny] largest parameter differences after the steps: "
+        f"{[(k, f'{e:.2e}') for k, e in worst5]}; attn/bk "
+        f"{max(e for k, e in errs.items() if k.endswith('attn/bk')):.2e}")
+    perr = max(errs.values())
+    check(f"tiny params after {TINY_TRAIN_STEPS} AdamW steps card vs CPU "
+          f"(max abs, every leaf)", perr, TINY_TRAIN_TOL)
+    return dict(loss_rel_err=max(abs(losses[("cpu", r)] - losses[("cuda", r)])
+                                 / abs(losses[("cpu", r)]) for r in (0, 1)),
+                grad_rel_err=worst, param_err=perr,
+                launches_remat=launches[("cuda", True)])
+
+
+def train_corpus(root: str) -> str:
+    """TRAIN_DOCS synthetic pages at 1288x994 under a TRAIN_LINES-line text
+    layer (anchored prompts), ground truth their text."""
+    from karanta_tpu_torch.bench.pipeline_bench import (make_page_array,
+                                                        page_text)
+    from karanta_tpu_torch.data.synthetic import (ground_truth_json,
+                                                  page_to_pdf_bytes)
+
+    for sub in ("pdfs", "json"):
+        os.makedirs(os.path.join(root, sub))
+    for i in range(TRAIN_DOCS):
+        text = page_text(TRAIN_SEED + i, n_lines=TRAIN_LINES)
+        with open(os.path.join(root, "pdfs", f"doc{i}.pdf"), "wb") as f:
+            f.write(page_to_pdf_bytes(make_page_array(TRAIN_SEED + i),
+                                      text_layer=text))
+        with open(os.path.join(root, "json", f"doc{i}.json"), "w") as f:
+            f.write(ground_truth_json(text))
+    return root
+
+
+class TrainProbe:
+    """Wraps the trainer's step and checkpoint functions while main() runs:
+    per step its time (synchronized), token counts and #1/#2 launches;
+    copies of the small parameter leaves (and of a QLoRA run's NF4 base)
+    and of the first row's masks before the first step; the last state;
+    each checkpoint write's seconds and bytes."""
+
+    def __init__(self):
+        self.steps, self.saves = [], []
+        self.snap = self.base = self.base_snap = self.last = None
+        self.shapes = None
+
+    def __enter__(self):
+        from karanta_tpu_torch.training import checkpoint as ckpt
+        from karanta_tpu_torch.training import lora
+        from karanta_tpu_torch.training import train_step as ts
+
+        self._saved = (ts.make_train_step, lora.make_lora_train_step,
+                       ckpt.save_checkpoint)
+        make_step, make_lora, save = self._saved
+
+        def timed(step):
+            def run(state, *args):
+                batch = args[-1]
+                if self.snap is None:
+                    self.base = args[0] if len(args) == 3 else None
+                    self.snap = {p: x.clone() for p, x in
+                                 tree_leaves(state.params)
+                                 if x.numel() < 50_000_000}
+                    self.base_snap = None if self.base is None else {
+                        p: x.clone() for p, x in tree_leaves(self.base)
+                        if x.dtype == torch.uint8}
+                    self.shapes = {k: batch[k][:1].clone()
+                                   for k in ("attn_mask", "vis_valid")}
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                out = step(state, *args)
+                torch.cuda.synchronize()
+                self.steps.append(dict(
+                    s=time.perf_counter() - t0,
+                    tokens=int(batch["attn_mask"].sum()),
+                    vision_tokens=int(batch["vis_valid"].sum()),
+                    vis_pad=int(batch["vis_valid"].numel()),
+                    rows=int(batch["attn_mask"].shape[0]),
+                    seq=int(batch["attn_mask"].shape[1]),
+                    launches={k: kernels.LAUNCHES[k] for k in
+                              ("window_attention", "flash_attention")}))
+                self.last = out[0]
+                return out
+            return run
+
+        def saving(output_dir, step, state, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = save(output_dir, step, state, *a, **kw)
+            size = os.path.getsize(os.path.join(path, ckpt.STATE_FILE))
+            self.saves.append(dict(path=path, s=time.perf_counter() - t0,
+                                   gbytes=size / 1e9))
+            return path
+
+        ts.make_train_step = lambda *a, **kw: timed(make_step(*a, **kw))
+        lora.make_lora_train_step = lambda *a, **kw: timed(
+            make_lora(*a, **kw))
+        ckpt.save_checkpoint = saving
+        return self
+
+    def changed(self) -> int:
+        """How many of the snapshotted leaves the steps changed."""
+        now = dict(tree_leaves(self.last.params))
+        return sum(not torch.equal(now[p], x) for p, x in self.snap.items())
+
+    def base_unchanged(self) -> bool:
+        now = dict(tree_leaves(self.base))
+        return all(torch.equal(now[p], x) for p, x in self.base_snap.items())
+
+    def __exit__(self, *exc):
+        from karanta_tpu_torch.training import checkpoint as ckpt
+        from karanta_tpu_torch.training import lora
+        from karanta_tpu_torch.training import train_step as ts
+
+        ts.make_train_step, lora.make_lora_train_step, \
+            ckpt.save_checkpoint = self._saved
+        return False
+
+
+def param_count(tree) -> int:
+    return sum(leaf.numel() for _, leaf in tree_leaves(tree))
+
+
+def train_flops(cfg, step: dict) -> float:
+    """Useful FLOPs of one step: 6 N T for the decoder (N its parameters,
+    the tied head included; T the live tokens), 6 N_vis T_vis for the vision
+    tower (T_vis its live patches), and attention's score and value
+    products, forward and backward (x3): the decoder's causal 2 S^2 H D a
+    row and layer over the bucket, the full vision layers' 4 T^2 H D, the
+    window layers' 4 T W H D; the merger's 6 N_merger T_vis / 4. Remat's
+    recompute is not counted."""
+    t, v = cfg.text, cfg.vision
+    n_text = (t.vocab_size * t.hidden_size + t.num_layers * (
+        t.hidden_size * (t.num_heads + 2 * t.num_kv_heads) * t.head_dim
+        + t.num_heads * t.head_dim * t.hidden_size
+        + 3 * t.hidden_size * t.intermediate_size))
+    merged = v.merge_unit * v.hidden_size
+    n_vis = v.depth * (4 * v.hidden_size ** 2 + 3 * v.hidden_size
+                       * v.intermediate_size) + (v.patch_input_dim
+                                                 * v.hidden_size)
+    n_merger = merged * merged + merged * v.out_hidden_size
+    n_full = len(v.fullatt_block_indexes)
+    rows = step["rows"]
+    t_vis_pad = step["vis_pad"] // rows
+    attn = 3 * (rows * t.num_layers * 2 * step["seq"] ** 2 * t.num_heads
+                * t.head_dim
+                + rows * n_full * 4 * t_vis_pad ** 2 * v.num_heads
+                * v.head_dim
+                + rows * (v.depth - n_full) * 4 * t_vis_pad
+                * v.window_patches ** 2 * v.num_heads * v.head_dim)
+    return (6 * n_text * step["tokens"] + 6 * n_vis * step["vision_tokens"]
+            + 6 * n_merger * step["vision_tokens"] // v.merge_unit + attn)
+
+
+def train_run(label: str, argv: list) -> tuple:
+    """One main() run under a TrainProbe; peak memory over the run."""
+    from karanta_tpu_torch.training.train import main as train_main
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with TrainProbe() as probe:
+        metrics = train_main(argv)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not (math.isfinite(metrics["loss"])
+            and math.isfinite(metrics["grad_norm"])):
+        raise AssertionError(f"{label}: loss {metrics['loss']}, grad_norm "
+                             f"{metrics['grad_norm']}")
+    if not probe.changed():
+        raise AssertionError(f"{label}: no parameter changed")
+    return probe, metrics, dict(wall_s=wall, peak_gib=peak)
+
+
+def report_steps(label: str, cfg, probe, vision_trains: bool) -> dict:
+    """ms/step, tokens/s and the FLOP share of the steps after the first
+    (the first builds the optimizer state), printed with the card; checks
+    that every step launched #1 and #2 in the forward and again in the
+    remat recompute (the vision tower's only where it trains)."""
+    n_full = len(cfg.vision.fullatt_block_indexes)
+    rows = probe.steps[0]["rows"]
+    vis = 2 if vision_trains else 1
+    want = {"window_attention": vis * (cfg.vision.depth - n_full) * rows,
+            "flash_attention": (vis * n_full + 2 * cfg.text.num_layers)
+            * rows}
+    for x in probe.steps:
+        if x["launches"] != want:
+            raise AssertionError(f"{label}: launches a step {x['launches']},"
+                                 f" expected {want}")
+    steady = probe.steps[1:] or probe.steps
+    step_s = sum(x["s"] for x in steady) / len(steady)
+    tokens = sum(x["tokens"] for x in steady) / len(steady)
+    flops = sum(train_flops(cfg, x) for x in steady) / len(steady)
+    out = dict(ms_per_step=step_s * 1e3, tokens_per_s=tokens / step_s,
+               tflops=flops / step_s / 1e12,
+               flop_share=flops / step_s / PEAK_BF16_FLOPS,
+               first_step_ms=probe.steps[0]["s"] * 1e3,
+               steps=len(probe.steps), tokens_per_step=tokens,
+               seq=probe.steps[0]["seq"], rows=probe.steps[0]["rows"],
+               launches_per_step=probe.steps[-1]["launches"])
+    log(f"[train {label}] {out['ms_per_step']:.1f} ms/step (first "
+        f"{out['first_step_ms']:.1f}), {out['tokens_per_s']:.1f} tokens/s "
+        f"({tokens:.0f} live tokens of {out['rows']} x {out['seq']} a step), "
+        f"{out['tflops']:.1f} TFLOP/s = {100 * out['flop_share']:.2f}% of "
+        f"989 TFLOP/s; #1/#2 launches a step {out['launches_per_step']}")
+    return out
+
+
+def phase_train_full(device: str = "cuda", profile: bool = False
+                     ) -> tuple:
+    """Three main() runs of the 3B preset's yaml on synthetic pages, from a
+    random 3B checkpoint written by the port's exporter beside a BPE
+    tokenizer: (a) AdamW, all parameters, 3 steps, the final checkpoint
+    read back bit-equal; (b) QLoRA rank 16, 2 steps, the NF4 base
+    unchanged; (c) Muon, 2 steps. Then the server CLI serves (a)'s
+    checkpoint with --native-checkpoint and answers a page over HTTP.
+    With profile, a fourth run (AdamW, 2 steps) traces its second step
+    under the trainer's --is_profile and prints the table. Returns the
+    stats and the first row's masks of run (a)."""
+    import shutil
+    import tempfile
+
+    from karanta_tpu_torch.models.qwen25_vl.exporting import \
+        save_hf_checkpoint
+    from karanta_tpu_torch.training.checkpoint import restore_params
+
+    cfg = get_config(TRAIN_PRESET)
+    root = tempfile.mkdtemp(prefix="train_")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    try:
+        data = train_corpus(os.path.join(root, "data"))
+        model = os.path.join(root, "model")
+        params = init_params(cfg, TRAIN_SEED, torch.bfloat16, device=device)
+        n_params = param_count(params)
+        t0 = time.perf_counter()
+        save_hf_checkpoint(params, cfg, model)
+        bpe_tokenizer_dir(model)
+        log(f"[train] random {TRAIN_PRESET} ({n_params / 1e9:.3f}B "
+            f"parameters) written in {time.perf_counter() - t0:.1f}s; "
+            f"card: {smi}")
+        del params
+        base = [TRAIN_YAML, "--model_name_or_path", TRAIN_PRESET,
+                "--checkpoint_path", model, "--dataset_root", data,
+                "--warmup_steps", "0", "--logging_steps", "1",
+                "--checkpointing_steps", "0", "--eval_steps", "0",
+                "--device", device]
+        stats = {"card": smi, "params": n_params}
+
+        out_a = os.path.join(root, "run_a")
+        probe, metrics, run = train_run("adamw", base + [
+            "--output_dir", out_a, "--max_steps", "3"])
+        stats["adamw"] = {**report_steps("adamw", cfg, probe, True), **run,
+                          "loss": metrics["loss"],
+                          "grad_norm": metrics["grad_norm"]}
+        [save] = probe.saves
+        shapes = probe.shapes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, meta = restore_params(save["path"], device=device)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        have = dict(tree_leaves(probe.last.params))
+        got = dict(tree_leaves(restored))
+        if got.keys() != have.keys() or meta["step"] != 3 or not all(
+                got[p].dtype == x.dtype and torch.equal(got[p], x)
+                for p, x in have.items()):
+            raise AssertionError("restore_params of run (a)'s checkpoint is "
+                                 "not bit-equal to the parameters in memory")
+        params_gb = sum(x.numel() * x.element_size()
+                        for x in have.values()) / 1e9
+        stats["adamw"]["checkpoint"] = dict(
+            write_s=save["s"], gbytes=save["gbytes"],
+            write_gb_per_s=save["gbytes"] / save["s"], read_params_s=read_s,
+            params_gbytes=params_gb, read_gb_per_s=params_gb / read_s)
+        log(f"[train adamw] loss {metrics['loss']:.4f}, grad_norm "
+            f"{metrics['grad_norm']:.4f}; peak {run['peak_gib']:.2f} GiB; "
+            f"checkpoint {save['gbytes']:.2f} GB written in {save['s']:.1f}s "
+            f"({save['gbytes'] / save['s']:.2f} GB/s), params "
+            f"{params_gb:.2f} GB read back in {read_s:.1f}s "
+            f"({params_gb / read_s:.2f} GB/s), bit-equal")
+        del probe, restored, got, have
+        stats["served"] = serve_native_checkpoint(out_a, model, device)
+        shutil.rmtree(out_a, ignore_errors=True)
+
+        probe, metrics, run = train_run("qlora", base + [
+            "--output_dir", os.path.join(root, "run_b"), "--max_steps", "2",
+            "--use_qlora", "true", "--lora_rank", "16"])
+        if not probe.base_unchanged():
+            raise AssertionError("QLoRA run: the NF4 base changed")
+        stats["qlora"] = {**report_steps("qlora", cfg, probe, False), **run,
+                          "loss": metrics["loss"],
+                          "grad_norm": metrics["grad_norm"]}
+        log(f"[train qlora] loss {metrics['loss']:.4f}, grad_norm "
+            f"{metrics['grad_norm']:.4f}; peak {run['peak_gib']:.2f} GiB; "
+            f"NF4 base bit-equal before and after; factors changed")
+        del probe
+
+        probe, metrics, run = train_run("muon", base + [
+            "--output_dir", os.path.join(root, "run_c"), "--max_steps", "2",
+            "--optimizer", "muon"])
+        stats["muon"] = {**report_steps("muon", cfg, probe, True), **run,
+                         "loss": metrics["loss"],
+                         "grad_norm": metrics["grad_norm"]}
+        log(f"[train muon] loss {metrics['loss']:.4f}, grad_norm "
+            f"{metrics['grad_norm']:.4f}; peak {run['peak_gib']:.2f} GiB")
+        del probe
+        if profile:
+            profile_train_step(base, os.path.join(root, "run_profile"))
+        return stats, shapes
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def profile_train_step(base: list, out: str) -> None:
+    """Two AdamW steps of main() with --is_profile on the second; prints
+    the head of its torch.profiler table (device time by op and kernel)."""
+    from karanta_tpu_torch.training.train import main as train_main
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_main(base + ["--output_dir", out, "--max_steps", "2",
+                       "--is_profile", "true", "--profile_steps", "2"])
+    with open(os.path.join(out, "profiles", "profile_step_2.txt")) as f:
+        lines = f.read().splitlines()
+    log("[train profile] the second 3B AdamW step under --is_profile:")
+    for line in lines[:32]:
+        log(line[:200])
+
+
+def serve_native_checkpoint(run_dir: str, tokenizer_dir: str,
+                            device: str) -> dict:
+    """The server CLI with --native-checkpoint over the training run's dir
+    (its newest completed step) and --tokenizer-path answers a page."""
+    argv = ["--preset", TRAIN_PRESET, "--native-checkpoint", run_dir,
+            "--tokenizer-path", tokenizer_dir, "--device", device,
+            "--max-batch-size", "2",
+            "--max-model-len", "4096", "--decode-chunk", "8"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    engine, name = build_engine_from_args(make_arg_parser().parse_args(argv))
+    build_s = time.perf_counter() - t0
+    png = make_page_png(seed=TRAIN_SEED)
+    with serving(engine) as (server, port):
+        status, raw = http_call(port, "POST", "/v1/chat/completions",
+                                page_body(png))
+    if status != 200:
+        raise AssertionError(f"--native-checkpoint server: HTTP {status}: "
+                             f"{raw[:300]!r}")
+    data = json.loads(raw)
+    n = data["usage"]["completion_tokens"]
+    reason = data["choices"][0]["finish_reason"]
+    if not 1 <= n <= SERVED_TOKENS or reason not in ("stop", "length") \
+            or not name.startswith("native-step_3"):
+        raise AssertionError(f"--native-checkpoint server ({name}): {data}")
+    log(f"[train] --native-checkpoint server ({name}): built in "
+        f"{build_s:.1f}s, one page answered, {n} tokens ({reason})")
+    del server, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(build_s=build_s, completion_tokens=n, finish_reason=reason)
+
+
+def phase_training(profile: bool = False) -> dict:
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    t0 = time.perf_counter()
+    full, shapes = phase_train_full(profile=profile)
+    grads = train_kernel_grads(dev, gen, shapes)
+    stack = stack_grad_ab(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tiny = phase_train_tiny(dev)
+    return dict(kernel_grads=grads, stack_grads=stack, tiny=tiny,
+                full=full, seconds=time.perf_counter() - t0)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -3004,6 +3645,8 @@ def main(argv=None) -> int:
     pipeline_stats = phase_pipeline(cfg, kind)
     loading_stats = phase_loading(cfg)
     guided_stats = phase_guided_logprobs(cfg)
+    training_stats = phase_training(args.profile)
+    training_launches = training_stats["full"]["adamw"]["launches_per_step"]
     # each kernel's launches on the path that runs it; kernel #8 is on no
     # path (the JAX package calls it from its tests only)
     paths = {
@@ -3039,6 +3682,8 @@ def main(argv=None) -> int:
         row["forced_launches"] = pipeline_stats["forced"]["launches"].get(
             row["name"], 0)
         row["guided_launches"] = guided_stats["launches"].get(row["name"], 0)
+        row["training_launches_per_step"] = training_launches.get(
+            row["name"], 0)
         log(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, library "
             f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)}"
@@ -3046,7 +3691,8 @@ def main(argv=None) -> int:
             f"{row['launches']} launches ({path}), "
             f"{row['pipeline_launches']} in the pipeline bench, "
             f"{row['forced_launches']} in the teacher-forced bench, "
-            f"{row['guided_launches']} in the guided/logprobs wave")
+            f"{row['guided_launches']} in the guided/logprobs wave, "
+            f"{row['training_launches_per_step']} a 3B training step")
     log(json.dumps({"main_path": {k: v for k, v in main_stats.items()
                                   if k != "launches"},
                     "served_int8": int8_stats,
@@ -3069,7 +3715,8 @@ def main(argv=None) -> int:
                         "seconds": pipeline_stats["seconds"]},
                     "loading": loading_stats,
                     "guided_logprobs": {k: v for k, v in guided_stats.items()
-                                        if k != "launches"}}))
+                                        if k != "launches"},
+                    "training": training_stats}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -604,11 +604,6 @@ def build_engine_from_args(args) -> tuple[Engine, str]:
                                                            tiny_config)
     from karanta_tpu_torch.models.qwen25_vl.model import init_params
 
-    if args.native_checkpoint:
-        raise NotImplementedError(
-            "--native-checkpoint is not ported yet: the native trainer's "
-            "checkpoints are read through orbax, which needs JAX; it comes "
-            "with the training slice (ROADMAP.md, modules: training)")
     if args.tensor_parallel_size > 1 or args.data_parallel_size > 1:
         raise NotImplementedError(
             "tensor and data parallel serving are not ported yet "
@@ -631,6 +626,8 @@ def build_engine_from_args(args) -> tuple[Engine, str]:
         speculative_ngram=args.speculative_ngram,
         teacher_force=args.teacher_force,
     )
+    if args.native_checkpoint:
+        return _native_checkpoint_engine(args, ecfg, dtype, device)
     if args.model_path:
         from karanta_tpu_torch.inference.tokenizer import HFTokenizer
         from karanta_tpu_torch.models.qwen25_vl.loading import \
@@ -659,6 +656,49 @@ def build_engine_from_args(args) -> tuple[Engine, str]:
     return Engine(params, cfg, tok, ecfg, device=device), name
 
 
+def _native_checkpoint_engine(args, ecfg: EngineConfig, dtype, device
+                              ) -> tuple[Engine, str]:
+    """Serve a checkpoint written by the port's trainer (a ``step_N`` dir,
+    or a run dir whose newest completed step is taken), as the JAX server
+    serves its own: the parameters in the serving dtype, the byte tokenizer
+    for the hermetic presets and ``--tokenizer-path`` required otherwise."""
+    from karanta_tpu_torch.inference.tokenizer import (ByteTokenizer,
+                                                       HFTokenizer)
+    from karanta_tpu_torch.models.qwen25_vl.config import (get_config,
+                                                           small_config,
+                                                           tiny_config)
+    from karanta_tpu_torch.training.checkpoint import (get_last_checkpoint,
+                                                       restore_params)
+    from karanta_tpu_torch.utils.tree import tree_map
+
+    preset = args.preset or "tiny"
+    hermetic = preset in ("tiny", "small")
+    if args.tokenizer_path:
+        tok = HFTokenizer(args.tokenizer_path)
+    elif not hermetic:
+        # the byte tokenizer's 272-id vocab fits only the hermetic presets
+        raise SystemExit(
+            f"--native-checkpoint with preset {args.preset!r} needs "
+            "--tokenizer-path (an HF tokenizer dir); the hermetic byte "
+            "tokenizer only fits the 'tiny'/'small' presets")
+    else:
+        tok = ByteTokenizer()
+    if hermetic:
+        factory = tiny_config if preset == "tiny" else small_config
+        cfg = factory(vocab_size=tok.vocab_size)
+    else:
+        cfg = get_config(preset)
+    last = get_last_checkpoint(args.native_checkpoint) or \
+        args.native_checkpoint
+    raw, meta = restore_params(last, device=device)
+    params = tree_map(lambda a, _: a.to(dtype) if a.is_floating_point()
+                      else a, raw)
+    name = f"native-{os.path.basename(os.path.normpath(last))}"
+    logger.info("serving native checkpoint %s (step %s)", last,
+                meta.get("step"))
+    return Engine(params, cfg, tok, ecfg, device=device), name
+
+
 def make_arg_parser() -> argparse.ArgumentParser:
     """The server CLI, with the JAX server's flags and product defaults
     (prefix caching and n-gram speculation on), plus --device."""
@@ -674,8 +714,9 @@ def make_arg_parser() -> argparse.ArgumentParser:
                              "the tokenizer's files")
     parser.add_argument("--native-checkpoint", dest="native_checkpoint",
                         default=None,
-                        help="native-trainer checkpoint (not ported yet: "
-                             "comes with the training slice)")
+                        help="a checkpoint dir written by the port's trainer "
+                             "(training/checkpoint.py): a step_N dir or a run "
+                             "dir, whose newest completed step is served")
     parser.add_argument("--tokenizer-path", dest="tokenizer_path",
                         default=None,
                         help="HF tokenizer dir for --native-checkpoint runs")

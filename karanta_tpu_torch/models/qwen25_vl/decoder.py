@@ -5,7 +5,8 @@ package's layouts: per-layer weights stacked on a leading layer axis, weights
 ``(in, out)``, KV caches ``(layers, batch, kv_heads, max_len, head_dim)``.
 
 - ``prefill_forward`` runs the causal prompt forward through the flash
-  kernel and returns the prompt's KV rows; ``prefill_with_prefix`` runs only
+  kernel and returns the prompt's KV rows (differentiable, checkpointed per
+  layer with ``remat=True`` for training); ``prefill_with_prefix`` runs only
   a suffix over a cached prefix's rows (the flash kernel at ``q_offset`` =
   prefix length).
 - ``decode_step`` runs one token per slot over the int8 cache
@@ -29,6 +30,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from karanta_tpu_torch.models.qwen25_vl.config import TextConfig
 from karanta_tpu_torch.ops.attention import attention, decode_attention_multi
@@ -43,7 +45,7 @@ from karanta_tpu_torch.ops.quantization import INV_127
 from karanta_tpu_torch.ops.quantization import matmul as qmm
 from karanta_tpu_torch.ops.quantization import matmul_w8a8
 from karanta_tpu_torch.ops.rotary import apply_rope, mrope_cos_sin
-from karanta_tpu_torch.utils.tree import layer_slice
+from karanta_tpu_torch.utils.tree import unbind_layers
 
 Params = Any
 
@@ -257,20 +259,21 @@ def prefill_forward(params: Params, cfg: TextConfig,
                     positions: torch.Tensor,       # (3, B, S) int
                     kv_mask: Optional[torch.Tensor] = None,  # (B, S) f32
                     act_quant: bool = False,
+                    remat: bool = False,
                     ) -> tuple[torch.Tensor, KVCache]:
     """Full-sequence causal forward -> (hidden_states, KV rows of S).
 
     act_quant=True runs the layer matmuls W8A8 (dynamic per-token int8
-    activations x int8 weights); plain weight leaves pass through."""
+    activations x int8 weights); plain weight leaves pass through.
+    remat=True checkpoints each layer (training): the backward keeps one
+    residual per layer and recomputes the rest, the flash kernel included."""
     mm = matmul_w8a8 if act_quant else qmm
     b, s, _ = embeds.shape
     cos, sin = _rope_tables(cfg, positions, embeds.dtype)
     if kv_mask is not None:
         kv_mask = kv_mask.float().contiguous()
-    x = embeds
-    ks, vs = [], []
-    for i in range(cfg.num_layers):
-        layer = layer_slice(params["layers"], i)
+
+    def layer_fn(x, layer):
         xn = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
         q, k, v = _project_qkv(xn, layer["attn"], cfg, mm=mm)
         q, k = apply_rope(q, k, cos, sin)
@@ -279,8 +282,17 @@ def prefill_forward(params: Params, cfg: TextConfig,
         x = x + _mlp(rms_norm(x, layer["ln2"], cfg.rms_norm_eps),
                      layer["mlp"], mm=mm)
         # store (B, KVH, S, D): contiguous per-head slabs, as the cache is
-        ks.append(k.transpose(1, 2))
-        vs.append(v.transpose(1, 2))
+        return x, k.transpose(1, 2), v.transpose(1, 2)
+
+    x = embeds
+    ks, vs = [], []
+    for layer in unbind_layers(params["layers"], cfg.num_layers):
+        if remat:
+            x, k, v = checkpoint(layer_fn, x, layer, use_reentrant=False)
+        else:
+            x, k, v = layer_fn(x, layer)
+        ks.append(k)
+        vs.append(v)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return x, KVCache(torch.stack(ks), torch.stack(vs))
 
@@ -309,8 +321,8 @@ def prefill_with_prefix(params: Params, cfg: TextConfig,
                           dim=1).contiguous()
     x = embeds
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        layer = layer_slice(params["layers"], i)
+    for i, layer in enumerate(unbind_layers(params["layers"],
+                                            cfg.num_layers)):
         xn = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
         q, k, v = _project_qkv(xn, layer["attn"], cfg, mm=mm)
         q, k = apply_rope(q, k, cos, sin)
@@ -354,8 +366,8 @@ def decode_step(params: Params, cfg: TextConfig,
     cache_len = cache_len.to(torch.int32).contiguous()
     bidx = torch.arange(b, device=embeds.device)
     x = embeds
-    for i in range(cfg.num_layers):
-        layer = layer_slice(params["layers"], i)
+    for i, layer in enumerate(unbind_layers(params["layers"],
+                                            cfg.num_layers)):
         xn = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
         q, k, v = _project_qkv(xn, layer["attn"], cfg)
         q, k = apply_rope(q, k, cos, sin)
@@ -416,8 +428,8 @@ def decode_multi(params: Params, cfg: TextConfig,
     bidx = torch.arange(b, device=embeds.device)[:, None]
     wpos = cache_len.long()[:, None] + torch.arange(tq, device=embeds.device)
     x = embeds
-    for i in range(cfg.num_layers):
-        layer = layer_slice(params["layers"], i)
+    for i, layer in enumerate(unbind_layers(params["layers"],
+                                            cfg.num_layers)):
         xn = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
         q, k, v = _project_qkv(xn, layer["attn"], cfg, mm=mm)
         q, k = apply_rope(q, k, cos, sin)

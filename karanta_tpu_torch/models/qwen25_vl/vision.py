@@ -6,6 +6,10 @@ validity mask (the window kernel, rope fused in), full-attention layers
 (``fullatt_block_indexes``) run flash attention over the whole padded image
 with the same mask. The patch-embed Conv3D is one matmul (non-overlapping,
 stride == kernel). Parameters are stacked per layer, as in the JAX package.
+
+Training (``trainable=True``) applies rope outside the window kernel and
+calls the differentiable ``window_attention`` (the kernel's no-rope
+instance), as the JAX encoder does; ``remat=True`` checkpoints each block.
 """
 
 from __future__ import annotations
@@ -15,15 +19,16 @@ from typing import Any, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from karanta_tpu_torch.models.qwen25_vl.config import VisionConfig
 from karanta_tpu_torch.models.qwen25_vl.layout import VisionLayout
-from karanta_tpu_torch.ops.attention import (attention,
+from karanta_tpu_torch.ops.attention import (attention, window_attention,
                                              window_attention_kernel_call)
 from karanta_tpu_torch.ops.norms import rms_norm
 from karanta_tpu_torch.ops.quantization import matmul_auto as amm
 from karanta_tpu_torch.ops.rotary import apply_rope, vision_rope_cos_sin
-from karanta_tpu_torch.utils.tree import layer_slice
+from karanta_tpu_torch.utils.tree import unbind_layers
 
 Params = Any
 
@@ -102,7 +107,8 @@ def _activation(cfg: VisionConfig, x):
     return F.silu(x)
 
 
-def _attn_block(x, p, cos, sin, valid, cfg: VisionConfig, full: bool):
+def _attn_block(x, p, cos, sin, valid, cfg: VisionConfig, full: bool,
+                trainable: bool = False):
     """x: (pad_tokens, hidden) window-ordered -> attention output."""
     tokens = x.shape[0]
     nh, hd = cfg.num_heads, cfg.head_dim
@@ -115,6 +121,11 @@ def _attn_block(x, p, cos, sin, valid, cfg: VisionConfig, full: bool):
     if full:
         q, k = apply_rope(q, k, cs, sn)
         out = attention(q, k, v, kv_mask=mask, causal=False)
+    elif trainable:
+        # the differentiable wrapper over the kernel's no-rope instance
+        q, k = apply_rope(q, k, cs, sn)
+        out = window_attention(q, k, v, cfg.window_patches ** 2,
+                               kv_mask=mask)
     else:
         # rope fused into the window kernel (cos/sin in float32, holding the
         # activation-dtype values the JAX encoder hands its kernel)
@@ -139,25 +150,37 @@ def encode_image(params: Params, cfg: VisionConfig,
                  perm: torch.Tensor,          # (pad_tokens,) int
                  valid: torch.Tensor,         # (pad_tokens,) float32
                  pos_hw: torch.Tensor,        # (pad_tokens, 2) int
+                 trainable: bool = False,
+                 remat: bool = False,
                  ) -> torch.Tensor:
     """Encode one padded image. Returns (pad_merged, out_hidden) in
     window-merged order; callers select real tokens with layout.extract.
-    (The JAX function's static ``n_windows`` follows from the token count.)"""
+    (The JAX function's static ``n_windows`` follows from the token count.)
+
+    trainable=True takes the differentiable window attention (training);
+    remat=True checkpoints each block, so the backward recomputes one
+    block's internals at a time, kernels included."""
     x = amm(pixel_values, params["patch_embed"]["kernel"])
     x = x[perm.long()]  # patchify order -> window order
     valid = valid.float()
     cos, sin = vision_rope_cos_sin(pos_hw, cfg.head_dim, cfg.rope_theta)
     cos, sin = cos.to(x.dtype), sin.to(x.dtype)
 
-    blocks = params["blocks"]
     full_idx = cfg.fullatt_block_indexes
-    for i in range(cfg.depth):
-        full = full_idx is None or i in full_idx
-        lp = layer_slice(blocks, i)
+
+    def block(x, lp, full):
         x = x + _attn_block(_vnorm(cfg, x, lp["norm1"], lp.get("norm1_b")),
-                            lp["attn"], cos, sin, valid, cfg, full)
-        x = x + _mlp(cfg, _vnorm(cfg, x, lp["norm2"], lp.get("norm2_b")),
-                     lp["mlp"])
+                            lp["attn"], cos, sin, valid, cfg, full,
+                            trainable)
+        return x + _mlp(cfg, _vnorm(cfg, x, lp["norm2"], lp.get("norm2_b")),
+                        lp["mlp"])
+
+    for i, lp in enumerate(unbind_layers(params["blocks"], cfg.depth)):
+        full = full_idx is None or i in full_idx
+        if remat:
+            x = checkpoint(block, x, lp, full, use_reentrant=False)
+        else:
+            x = block(x, lp, full)
 
     # merger: norm per token, merge 2x2 units, 2-layer GELU MLP
     m = params["merger"]

@@ -13,6 +13,14 @@ Two kernels live here, each beside its plain PyTorch version:
 
 A wrapper takes its plain version only for CPU tensors; on CUDA tensors it
 launches the kernel or raises.
+
+``attention`` and ``window_attention`` are differentiable: each is a
+``torch.autograd.Function`` whose forward is the kernel (its plain version
+on the CPU) and whose backward is the JAX package's math in plain PyTorch
+(``_attention_bwd_math``: the flash-attention-2 recurrence over 512-row kv
+blocks and 512-row query chunks; the window backward recomputes the dense
+windows and differentiates them). Under ``torch.utils.checkpoint`` the
+recompute runs the forward, and so the kernel, again.
 """
 
 from __future__ import annotations
@@ -193,14 +201,155 @@ def flash_attention_info(d: int) -> dict:
                      "blocks_per_sm"), info))
 
 
+# ---------------------------------------------------------------------------
+# Differentiable attention: the flash kernel forward + the blockwise backward
+# of the JAX package (``karanta_tpu/ops/attention.py:469-633``), which
+# recomputes scores one kv block at a time from the saved q/k/v: one pass
+# rebuilds the row logsumexp, a second accumulates dq and emits per-block
+# dk/dv. Extra memory is O(Sq * block), never O(Sq * Sk).
+# ---------------------------------------------------------------------------
+
+_BWD_BLOCK = 512
+_BWD_Q_CHUNK = 512
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _pad_rows(x: torch.Tensor, rows: int, value: float = 0.0) -> torch.Tensor:
+    """Pad axis 1 up to `rows`."""
+    pad = rows - x.shape[1]
+    if not pad:
+        return x
+    widths = [0, 0] * (x.dim() - 2) + [0, pad]
+    return torch.nn.functional.pad(x, widths, value=value)
+
+
+def _score_block(qf, kb, maskb, causal, scale, q_offset, k_start):
+    """Masked float32 scores for one kv block: (B, KVH, G, Sq, BLK)."""
+    s = torch.einsum("bqkgd,bmkd->bkgqm", qf, kb) * scale
+    valid = maskb[:, None, None, None, :] > 0
+    if causal:
+        sq, blk = qf.shape[1], kb.shape[1]
+        qpos = q_offset + torch.arange(sq, device=qf.device)[:, None]
+        kpos = k_start + torch.arange(blk, device=qf.device)[None, :]
+        valid = valid & (qpos >= kpos)[None, None, None]
+    return torch.where(valid, s, NEG_INF)
+
+
+def _attention_bwd_math(q, k, v, kv_mask, out, dout, causal, scale,
+                        q_offset):
+    """dq, dk, dv of flash attention in float32, cast to the inputs' dtypes."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    group = h // kvh
+    scale = float(d ** -0.5 if scale is None else scale)
+    blk = min(_BWD_BLOCK, max(_round_up(sk, 128), 128))
+    sk_p = _round_up(sk, blk)
+    nblk = sk_p // blk
+
+    mask = (torch.ones((b, sk), dtype=torch.float32, device=q.device)
+            if kv_mask is None else kv_mask.float())
+    mask = _pad_rows(mask, sk_p)
+    kb_all = _pad_rows(k.float(), sk_p).reshape(b, nblk, blk, kvh, d)
+    vb_all = _pad_rows(v.float(), sk_p).reshape(b, nblk, blk, kvh, d)
+    mb_all = mask.reshape(b, nblk, blk)
+    qf = q.float().reshape(b, sq, kvh, group, d)
+    # causal: a kv block past the last query's position holds only masked
+    # scores, whose probabilities are exactly 0; skipping it changes no bit
+    live = [not causal or j * blk <= q_offset + sq - 1 for j in range(nblk)]
+
+    # pass 1: row logsumexp by online max/sum
+    m = torch.full((b, kvh, group, sq), NEG_INF, device=q.device)
+    l = torch.zeros((b, kvh, group, sq), device=q.device)
+    for j in range(nblk):
+        if not live[j]:
+            continue
+        s = _score_block(qf, kb_all[:, j], mb_all[:, j], causal, scale,
+                         q_offset, j * blk)
+        m_new = torch.maximum(m, s.amax(-1))
+        l = l * torch.exp(m - m_new) + torch.exp(s - m_new[..., None]).sum(-1)
+        m = m_new
+    lse = m + torch.log(torch.clamp(l, min=1e-30))        # (B, KVH, G, Sq)
+
+    # pass 2: dq accumulates across blocks; dk/dv per block
+    doutf = dout.float().reshape(b, sq, kvh, group, d)
+    outf = out.float().reshape(b, sq, kvh, group, d)
+    drow = torch.einsum("bqkgd,bqkgd->bkgq", doutf, outf)  # rowsum(dO * O)
+    dq = torch.zeros((b, sq, kvh, group, d), device=q.device)
+    dks, dvs = [], []
+    for j in range(nblk):
+        kb, vb = kb_all[:, j], vb_all[:, j]
+        if not live[j]:
+            dks.append(torch.zeros_like(kb))
+            dvs.append(torch.zeros_like(vb))
+            continue
+        s = _score_block(qf, kb, mb_all[:, j], causal, scale, q_offset,
+                         j * blk)
+        p = torch.exp(s - lse[..., None])                 # (B,KVH,G,Sq,BLK)
+        dvs.append(torch.einsum("bkgqm,bqkgd->bmkd", p, doutf))
+        dp = torch.einsum("bqkgd,bmkd->bkgqm", doutf, vb)
+        ds = p * (dp - drow[..., None])
+        dq = dq + torch.einsum("bkgqm,bmkd->bqkgd", ds, kb) * scale
+        dks.append(torch.einsum("bkgqm,bqkgd->bmkd", ds, qf) * scale)
+    dk = torch.cat(dks, 1)[:, :sk]
+    dv = torch.cat(dvs, 1)[:, :sk]
+    return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _attention_bwd_q_chunked(q, k, v, kv_mask, out, dout, causal, scale,
+                             q_offset):
+    """The backward over 512-row query chunks: each chunk's dq accumulator
+    stays small; dk/dv sum over the chunks in float32."""
+    sq = q.shape[1]
+    cq = _BWD_Q_CHUNK
+    sq_p = _round_up(sq, cq)
+    qp, op, dp = (_pad_rows(x, sq_p) for x in (q, out, dout))
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    dqs = []
+    for i in range(sq_p // cq):
+        rows = slice(i * cq, (i + 1) * cq)
+        dq_c, dk_c, dv_c = _attention_bwd_math(
+            qp[:, rows], k, v, kv_mask, op[:, rows], dp[:, rows], causal,
+            scale, q_offset + i * cq)
+        dqs.append(dq_c)
+        dk = dk + dk_c.float()
+        dv = dv + dv_c.float()
+    return torch.cat(dqs, 1)[:, :sq], dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """The flash kernel (plain version on the CPU) with the blockwise
+    backward above. kv_mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, causal, scale, q_offset):
+        out = flash_attention(q, k, v, kv_mask=kv_mask, causal=causal,
+                              scale=scale, q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, kv_mask, out)
+        ctx.args = (causal, scale, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, kv_mask, out = ctx.saved_tensors
+        bwd = (_attention_bwd_q_chunked if q.shape[1] > _BWD_Q_CHUNK
+               else _attention_bwd_math)
+        dq, dk, dv = bwd(q, k, v, kv_mask, out, dout, *ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               kv_mask: Optional[torch.Tensor] = None, causal: bool = False,
               scale: Optional[float] = None, q_offset: int = 0
               ) -> torch.Tensor:
     """Dispatcher used by the models: the flash kernel on the card, its plain
-    version on the CPU (forward only; training is not ported yet)."""
-    return flash_attention(q, k, v, kv_mask=kv_mask, causal=causal,
-                           scale=scale, q_offset=q_offset)
+    version on the CPU; differentiable in q, k and v on both (the JAX
+    package's blockwise backward, in plain PyTorch)."""
+    return _FlashAttentionFn.apply(q, k, v, kv_mask, causal, scale, q_offset)
 
 
 # ---------------------------------------------------------------------------
@@ -311,9 +460,35 @@ def window_attention_info(d: int, window: int) -> dict:
                      "blocks_per_sm", "heads_per_block"), info))
 
 
+class _WindowAttentionFn(torch.autograd.Function):
+    """The window kernel's no-rope instance (plain version on the CPU) with
+    the JAX package's backward: recompute the dense windows
+    (``_window_reference``) and differentiate them; each window's scores are
+    (window, window), so the memory is small."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, kv_mask, scale):
+        out = window_attention_kernel_call(q, k, v, window, kv_mask=kv_mask,
+                                           scale=scale)
+        ctx.save_for_backward(q, k, v, kv_mask)
+        ctx.args = (window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_mask = ctx.saved_tensors
+        window, scale = ctx.args
+        with torch.enable_grad():
+            qkv = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            out = _window_reference(*qkv, window, kv_mask, scale)
+            dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        return dq, dk, dv, None, None, None
+
+
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      window: int, kv_mask: Optional[torch.Tensor] = None,
                      scale: Optional[float] = None) -> torch.Tensor:
-    """Attention restricted to contiguous `window`-token segments (no rope)."""
-    return window_attention_kernel_call(q, k, v, window, kv_mask=kv_mask,
-                                        scale=scale)
+    """Attention restricted to contiguous `window`-token segments (no rope),
+    differentiable in q, k and v: the kernel forward, the dense-windows
+    backward."""
+    return _WindowAttentionFn.apply(q, k, v, window, kv_mask, scale)

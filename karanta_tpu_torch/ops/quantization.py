@@ -9,6 +9,11 @@ weights stored ``(..., in, out)`` as in the JAX package.
   call that XLA avoided by fusing the convert into the dot.
 - ``matmul_w8a8``: dynamic per-token int8 activations times int8 weights,
   an exact int32 product (``torch._int_mm``), scaled in float32.
+- Inline LoRA (training): a leaf ``{lora_base, a, b, scale}`` multiplies as
+  ``x @ base + scale * (x @ a) @ b`` without building the merged weight; the
+  base may be an NF4 leaf (QLoRA), dequantized per call.
+- NF4 (QLoRA's frozen base): 16 NormalFloat code points, absmax blocks of 64
+  along the reduction axis, two codes a byte, bit-equal to the JAX package.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import Any
 import torch
 
 QUANT_KEY = "int8_q"  # marker key distinguishing quantized leaves
+LORA_KEY = "lora_base"  # marker key of inline-LoRA wrapped leaves
 
 # XLA compiles the JAX package's `amax / 127.0` into a multiply by the
 # float32 reciprocal; the port multiplies too, so scales agree to the bit
@@ -45,8 +51,28 @@ def quantize_weight(w: torch.Tensor) -> dict:
     return {QUANT_KEY: out_major(q), "scale": scale}
 
 
+def is_lora_wrapped(w: Any) -> bool:
+    return isinstance(w, dict) and LORA_KEY in w
+
+
+def _lora_matmul(x: torch.Tensor, w: dict, base_mm) -> torch.Tensor:
+    """x @ (base + scale * a @ b) without materializing the merged matrix:
+    the delta is two thin products, the second accumulated in float32."""
+    base = w[LORA_KEY]
+    if is_nf4(base):
+        base = nf4_dequantize(base, x.dtype)
+    y = base_mm(x, base)
+    a = w["a"].to(x.dtype)
+    b = w["b"].to(x.dtype)
+    delta = (x @ a).float() @ b.float()
+    return (y.float() + delta * w["scale"].float()).to(x.dtype)
+
+
 def matmul(x: torch.Tensor, w: Any) -> torch.Tensor:
-    """x @ w for plain tensors and quantized dicts (weight-only int8)."""
+    """x @ w for plain tensors, quantized dicts (weight-only int8) and
+    inline-LoRA leaves."""
+    if is_lora_wrapped(w):
+        return _lora_matmul(x, w, matmul)
     if not is_quantized(w):
         return x @ w
     acc = (x @ w[QUANT_KEY].to(x.dtype)).float()
@@ -82,6 +108,8 @@ def int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def matmul_w8a8(x: torch.Tensor, w: Any) -> torch.Tensor:
     """x @ w with dynamic per-token int8 activations (prefill / LM head)."""
+    if is_lora_wrapped(w):
+        return _lora_matmul(x, w, matmul_w8a8)
     if not is_quantized(w):
         return x @ w
     xf = x.float()
@@ -124,3 +152,57 @@ def quantize_decoder_params(text_params: dict) -> dict:
         out["logits_head"] = quantize_weight(
             text_params["embed"].transpose(0, 1))
     return out
+
+
+# ---------------------------------------------------------------------------
+# NF4: QLoRA's 4-bit frozen base (``karanta_tpu/ops/quantization.py:180-238``).
+# Blockwise absmax over 64 consecutive reduction-axis elements per output
+# channel, the nearest of 16 NormalFloat code points found by a search over
+# the midpoints, two codes a byte along the reduction axis (the first of a
+# pair in the high nibble).
+# ---------------------------------------------------------------------------
+
+NF4_BLOCK = 64
+NF4_KEY = "nf4_q"
+# the 16 NormalFloat4 code points (QLoRA paper, appendix E), ascending
+NF4_CODE = (
+    -1.0, -0.6961928009986877, -0.5250730514526367, -0.39491748809814453,
+    -0.28444138169288635, -0.18477343022823334, -0.09105003625154495, 0.0,
+    0.07958029955625534, 0.16093020141124725, 0.24611230194568634,
+    0.33791524171829224, 0.44070982933044434, 0.5626170039176941,
+    0.7229568362236023, 1.0)
+
+
+def _nf4_code(device) -> torch.Tensor:
+    return torch.tensor(NF4_CODE, dtype=torch.float32, device=device)
+
+
+def nf4_quantize(w: torch.Tensor) -> dict:
+    """(..., in, out) float -> {nf4_q uint8 (..., in/2, out), absmax float32
+    (..., in/64, out)}."""
+    *lead, d_in, d_out = w.shape
+    if d_in % NF4_BLOCK:
+        raise ValueError(f"nf4: reduction dim {d_in} is not a multiple of "
+                         f"{NF4_BLOCK}")
+    wf = w.float().reshape(*lead, d_in // NF4_BLOCK, NF4_BLOCK, d_out)
+    absmax = torch.clamp(wf.abs().amax(dim=-2, keepdim=True), min=1e-8)
+    code = _nf4_code(w.device)
+    bounds = (code[1:] + code[:-1]) / 2.0
+    idx = torch.searchsorted(bounds, (wf / absmax).contiguous())
+    idx = idx.to(torch.uint8).reshape(*lead, d_in // 2, 2, d_out)
+    packed = (idx[..., 0, :] << 4) | idx[..., 1, :]
+    return {NF4_KEY: packed, "absmax": absmax.squeeze(-2)}
+
+
+def is_nf4(w: Any) -> bool:
+    return isinstance(w, dict) and NF4_KEY in w
+
+
+def nf4_dequantize(q: dict, dtype=torch.bfloat16) -> torch.Tensor:
+    """Inverse of nf4_quantize; shapes recovered from the packed arrays."""
+    packed, absmax = q[NF4_KEY], q["absmax"]
+    *lead, half, d_out = packed.shape
+    idx = torch.stack([packed >> 4, packed & 0xF], dim=-2).long()
+    idx = idx.reshape(*lead, half * 2 // NF4_BLOCK, NF4_BLOCK, d_out)
+    vals = _nf4_code(packed.device)[idx] * absmax[..., None, :]
+    return vals.reshape(*lead, half * 2, d_out).to(dtype)

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
+import torch
+
 
 def tree_map(fn: Callable, tree: Any, path: tuple = ()) -> Any:
     """Apply fn(leaf, path) to every non-dict leaf; path is the key tuple."""
@@ -17,6 +19,38 @@ def tree_map(fn: Callable, tree: Any, path: tuple = ()) -> Any:
     return fn(tree, path)
 
 
-def layer_slice(tree: Any, i: int) -> Any:
-    """Index every leaf of a stacked per-layer tree at layer i (a view)."""
-    return tree_map(lambda leaf, _: leaf[i], tree)
+def unbind_layers(tree: Any, n: int) -> list:
+    """Per-layer views of a stacked tree, split once with ``torch.unbind``.
+
+    The backward of ``unbind`` stacks the layers' gradients into one buffer,
+    where indexing each layer would make every layer's backward write a
+    zero-filled gradient of the whole stack (``chip_smoke.py`` times both)."""
+    if isinstance(tree, dict):
+        per = {k: unbind_layers(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    layers = torch.unbind(tree, 0)
+    if len(layers) != n:
+        raise ValueError(f"stacked leaf has {len(layers)} layers, not {n}")
+    return list(layers)
+
+
+def flatten_tree(tree: Any, prefix: str = "") -> dict:
+    """Nested dicts -> {"a/b/c": leaf}, in the tree's key order."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    flat = {}
+    for key, value in tree.items():
+        flat.update(flatten_tree(value, f"{prefix}/{key}" if prefix else key))
+    return flat
+
+
+def unflatten_tree(flat: dict) -> dict:
+    """{"a/b/c": leaf} -> nested dicts (inverse of flatten_tree)."""
+    tree: dict = {}
+    for path, leaf in flat.items():
+        node = tree
+        *parents, last = path.split("/")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+    return tree

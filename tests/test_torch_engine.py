@@ -203,7 +203,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "for m in ('inference.guided', 'models.qwen25_vl.loading', "
-        "'models.qwen25_vl.exporting'):\n"
+        "'models.qwen25_vl.exporting', 'config', 'ops.newton_schulz', "
+        "'training.data', 'training.train_step', 'training.optimizer', "
+        "'training.lora', 'training.checkpoint', 'training.train', "
+        "'utils.profiling'):\n"
         "    assert 'karanta_tpu_torch.' + m in sys.modules, m\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' "
         "or n.startswith('jax.') or n == 'karanta_tpu' "

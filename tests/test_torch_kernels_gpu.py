@@ -895,3 +895,73 @@ def test_megakernel_matches_plain(cuda, shape):
     torch.cuda.synchronize()
     assert torch.equal(h_in, got_x)
     assert all(torch.equal(p, q) for p, q in zip(kern, runs[0]))
+
+
+# The training path's shapes at Qwen2.5-VL-3B: the decoder's 16 query heads
+# over 2 kv heads (a group of 8), d = 128, causal, a (B, S) pad mask, at the
+# 3,072-token rows the trainer's collator gives a synthetic page; the
+# vision window layers through the window kernel's no-rope instance,
+# (1, T, 16, 80), window 64. Forward through the autograd functions against
+# the plain versions at the bf16 limit; dq, dk, dv (the kernel's forward,
+# the plain blockwise backward) against float32 autograd through the dense
+# plain versions from the same inputs, normwise within 1e-2 in bf16 (the
+# gradients round once to bf16; the kernel's output enters the backward's
+# rowsum) and 1e-5 in float32.
+TRAIN_FLASH_CASES = [(1, 3072, 3072, 16, 2, 128, True, "tail", 0),
+                     (1, 2560, 2560, 16, 2, 128, True, "tail", 0),
+                     (2, 700, 700, 16, 2, 128, True, "tail", 0)]
+
+
+def _grad_errors(fn, ref, inputs, dout):
+    """Normwise errors of fn's gradients against ref's in float32."""
+    xs = [x.detach().requires_grad_(True) for x in inputs]
+    got = torch.autograd.grad(fn(*xs), xs, dout)
+    fs = [x.detach().float().requires_grad_(True) for x in inputs]
+    want = torch.autograd.grad(ref(*fs), fs, dout.float())
+    return [float((g.float() - w).norm() / w.norm())
+            for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", TRAIN_FLASH_CASES)
+def test_flash_autograd_at_the_3b_decoder_shape(cuda, dtype, case):
+    from karanta_tpu_torch import kernels
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v, mask = _flash_inputs(gen, case, cuda, dtype)
+    kernels.reset_launches()
+    got = A.attention(q, k, v, kv_mask=mask, causal=True)
+    assert kernels.LAUNCHES["flash_attention"] == 1
+    _assert_close(got, A.flash_attention_plain(q, k, v, mask, causal=True),
+                  dtype)
+    dout = _randn(gen, q.shape, cuda, dtype)
+    errs = _grad_errors(
+        lambda q, k, v: A.attention(q, k, v, kv_mask=mask, causal=True),
+        lambda q, k, v: A.mha_reference(q, k, v, kv_mask=mask, causal=True),
+        (q, k, v), dout)
+    assert kernels.LAUNCHES["flash_attention"] == 2  # the backward is plain
+    assert max(errs) < (1e-2 if dtype == torch.bfloat16 else 1e-5), errs
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_window_autograd_at_the_3b_vision_shape(cuda, dtype):
+    from karanta_tpu_torch import kernels
+
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    b, s, h, d, w = 1, 2048, 16, 80, 64
+    q, k, v = (_randn(gen, (b, s, h, d), cuda, dtype) for _ in range(3))
+    mask = (torch.rand((b, s), generator=gen, device=cuda) > 0.2).float()
+    mask[:, ::w] = 1.0  # every window keeps a live key
+    kernels.reset_launches()
+    got = A.window_attention(q, k, v, w, kv_mask=mask)
+    assert kernels.LAUNCHES["window_attention"] == 1
+    _assert_close(got, A.window_attention_plain(q, k, v, w, mask), dtype)
+    dout = _randn(gen, q.shape, cuda, dtype)
+    errs = _grad_errors(
+        lambda q, k, v: A.window_attention(q, k, v, w, kv_mask=mask),
+        lambda q, k, v: A._window_reference(q, k, v, w, mask, None),
+        (q, k, v), dout)
+    assert max(errs) < (1e-2 if dtype == torch.bfloat16 else 1e-5), errs
+    first, second = (A.window_attention(q, k, v, w, kv_mask=mask)
+                     for _ in range(2))
+    assert torch.equal(first, second)

@@ -245,7 +245,7 @@ def test_build_engine_from_args_on_cpu():
         S.build_engine_from_args(S.make_arg_parser().parse_args(
             ["--preset", "tiny", "--device", "cpu", "--model-path",
              "/nowhere"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError, match="checkpoint"):
         S.build_engine_from_args(S.make_arg_parser().parse_args(
             ["--preset", "tiny", "--device", "cpu", "--native-checkpoint",
              "x"]))
