@@ -110,7 +110,25 @@ Phases (any failed check raises and the script exits non-zero):
    dense plain versions, two calls bit-equal; the tiny config in float32,
    card against CPU: the loss and every gradient leaf of one step, every
    parameter after 3 AdamW steps, and #1/#2 launched in the forward and
-   again in the remat recompute.
+   again in the remat recompute;
+13. the document classifiers (karanta_tpu_torch.models.classifier): kernel
+   #2's float32 instance at their shapes (the SegFormer's four stages at
+   mit-b0, 512 px, B = 16, queries over 256 sequence-reduced keys; the ViT
+   of segment_vit.yaml, (32, 197, 6, 64)) against its plain version, two
+   calls bit-equal, its times by events and by a CUDA graph, its bound at
+   67 TFLOP/s float32 and SDPA's float32 time; LayoutClassifier serving a
+   batch of synthetic pages per arch (SegFormer, ViT, ConvNeXt V2-tiny,
+   ResNet-50 at their presets; 8, 12, 0 and 0 flash launches a batch;
+   logits within 1e-4 x max|logit| of the CPU's on the same weights,
+   labels equal; images/s, peak memory); classifier_train.main() at
+   segment_segformer.yaml (3 steps) and segment_vit.yaml (2 steps) on an
+   image folder that the port's data/convert_pdf_2_image.py renders from
+   synthetic PDFs (finite loss, changed parameters, 8 or 12 flash launches
+   a step, the final checkpoint read back bit-equal, `auto` resuming it;
+   ms/step, images/s, the card's busy share of a profiled step, peak
+   memory), the plain attention backward beside the kernel's forward; the
+   tiny SegFormer and ViT in float32, card against CPU: the loss and
+   every gradient of one step, every parameter after 3 AdamW steps.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. The last two lines are the kernels summary and the result line.
@@ -3613,6 +3631,462 @@ def phase_training(profile: bool = False) -> dict:
                 full=full, seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the document classifiers
+# ---------------------------------------------------------------------------
+
+# H100 SXM data sheet: float32 on the CUDA cores (kernel #2's float32
+# instance forgoes TF32 and the tensor cores)
+PEAK_F32_FLOPS = 67e12
+CLS_SEED = 13
+CLS_ARCHS = ("segformer", "vit", "convnextv2", "resnet")
+# served batch of each arch and kernel #2's launches in one forward
+CLS_BATCH = {"segformer": 16, "vit": 32, "convnextv2": 16, "resnet": 16}
+CLS_FLASH = {"segformer": 8, "vit": 12, "convnextv2": 0, "resnet": 0}
+CLS_LOGIT_TOL = 1e-4  # card vs CPU, relative to max |logit|; TF32 off
+CLS_YAML = os.path.join(REPO, "configs", "training", "classification",
+                        "segment_{}.yaml")
+CLS_TRAIN_STEPS = {"segformer": 3, "vit": 2}
+CLS_PAGES = 10  # pages a label in the trainer's image folder
+
+
+def classifier_flash_shapes() -> dict:
+    """name -> (b, sq, sk, h, d) of kernel #2's calls in one forward at the
+    served batches: each SegFormer (mit-b0, 512 px) stage's queries over its
+    sequence-reduced keys, and the ViT of segment_vit.yaml."""
+    from karanta_tpu_torch.models.classifier.segformer import SegFormerConfig
+    from karanta_tpu_torch.models.classifier.vit import ViTConfig
+
+    seg, vit = SegFormerConfig(), ViTConfig()
+    shapes, side = {}, seg.image_size
+    for si in range(seg.num_stages):
+        side //= seg.strides[si]
+        heads = seg.num_heads[si]
+        shapes[f"segformer_stage{si + 1}"] = (
+            CLS_BATCH["segformer"], side * side,
+            (side // seg.sr_ratios[si]) ** 2, heads,
+            seg.hidden_sizes[si] // heads)
+    shapes["vit"] = (CLS_BATCH["vit"], vit.num_patches + 1,
+                     vit.num_patches + 1, vit.num_heads, vit.head_dim)
+    return shapes
+
+
+def kernel_flash_f32_classifiers(dev, gen) -> dict:
+    """Kernel #2's float32 instance at the classifiers' shapes against its
+    plain version (within F32_ATOL, two calls bit-equal), with the kernel's
+    ms by events and by a CUDA graph of 20 calls, the plain version's,
+    float32 SDPA's (a yardstick the port never calls), and the bound:
+    4 B H Sq Sk D flops at 67 TFLOP/s or the bytes at 3.35 TB/s."""
+    out = {}
+    for name, (b, sq, sk, h, d) in classifier_flash_shapes().items():
+        q = torch.randn((b, sq, h, d), generator=gen, device=dev)
+        k = torch.randn((b, sk, h, d), generator=gen, device=dev)
+        v = torch.randn((b, sk, h, d), generator=gen, device=dev)
+        got = A.flash_attention(q, k, v)
+        again = A.flash_attention(q, k, v)
+        want = A.flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        check(f"flash_attention f32 {name} {tuple(q.shape)} kv "
+              f"{tuple(k.shape)}", err, F32_ATOL)
+        if not torch.equal(got, again):
+            raise AssertionError(f"flash_attention f32 {name}: two calls "
+                                 f"differ")
+        del got, again, want
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        flops = 4.0 * b * h * sq * sk * d
+        n_bytes = 4.0 * (2 * b * sq * h * d + 2 * b * sk * h * d)
+        t_ops, t_bytes = flops / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES
+        row = dict(
+            shape=[b, sq, sk, h, d], max_abs_err=err,
+            ms=cuda_ms(lambda: A.flash_attention(q, k, v), 10),
+            device_ms=graph_ms(lambda: A.flash_attention(q, k, v)),
+            plain_ms=cuda_ms(lambda: A.flash_attention_plain(q, k, v), 3),
+            sdpa_ms=cuda_ms(lambda: torch.nn.functional
+                            .scaled_dot_product_attention(qt, kt, vt), 10),
+            bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops >= t_bytes else "bytes")
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
+        row["tflops"] = flops / row["device_ms"] * 1e-9
+        log(f"  flash f32 {name}: kernel {row['ms']:.4f} ms, device "
+            f"{row['device_ms']:.4f} ms ({row['tflops']:.2f} TFLOP/s, "
+            f"{100 * row['bound_share']:.1f}% of the {row['bound_ms']:.4f} "
+            f"ms bound by {row['bound_by']}), plain {row['plain_ms']:.4f} "
+            f"ms, SDPA f32 {row['sdpa_ms']:.4f} ms "
+            f"({row['device_ms'] / row['sdpa_ms']:.2f}x SDPA's time)")
+        out[name] = row
+        del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
+
+
+def classifier_pages(n: int) -> list:
+    """n synthetic 1288x994 page images (PIL), decoded from the PNGs the
+    engine phases serve."""
+    import io
+
+    from PIL import Image
+
+    return [Image.open(io.BytesIO(base64.b64decode(make_page_png(seed=i))))
+            .convert("RGB") for i in range(n)]
+
+
+def phase_classifier_serving(device: str = "cuda") -> dict:
+    """LayoutClassifier on the card for each arch at its preset geometry
+    from seeded random weights: predict_batch over the served batch of
+    synthetic pages, kernel #2's launches a batch, the logits against the
+    same weights and pixels on the CPU, images/s end to end (host resize
+    included) and of the forward alone, peak memory."""
+    from karanta_tpu_torch.inference.image_classifier import LayoutClassifier
+
+    pages = classifier_pages(max(CLS_BATCH.values()))
+    stats = {}
+    for arch in CLS_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        n = CLS_BATCH[arch]
+        clf = LayoutClassifier.random(seed=CLS_SEED, arch=arch,
+                                      device=device)
+        clf.predict_batch(pages[:n])  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        preds = clf.predict_batch(pages[:n])
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        want = {"flash_attention": CLS_FLASH[arch]} if CLS_FLASH[arch] else {}
+        if launches != want or len(preds) != n:
+            raise AssertionError(f"classifier {arch}: launches {launches}, "
+                                 f"expected {want}; {len(preds)} predictions")
+        t0 = time.perf_counter()
+        for _ in range(3):
+            clf.predict_batch(pages[:n])
+        torch.cuda.synchronize()
+        e2e_s = (time.perf_counter() - t0) / 3
+        batch = np.stack([clf.preprocess(p) for p in pages[:n]])
+        fwd_ms = cuda_ms(lambda: clf.logits(batch), 5)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        got = clf.logits(batch).cpu()
+        params_cpu = tree_map(lambda x, _: x.to("cpu"), clf.params)
+        cpu = LayoutClassifier(params_cpu, clf.cfg, arch=arch, device="cpu")
+        want_logits = cpu.logits(batch)
+        rel = float((got - want_logits).abs().max()
+                    / want_logits.abs().max())
+        check(f"classifier {arch} logits card vs CPU (max abs err / max "
+              f"|logit|)", rel, CLS_LOGIT_TOL)
+        if not torch.equal(got.argmax(-1), want_logits.argmax(-1)):
+            raise AssertionError(f"classifier {arch}: labels differ between "
+                                 f"the card and the CPU")
+        stats[arch] = dict(batch=n, launches=launches, logit_rel_err=rel,
+                           images_per_s=n / e2e_s, batch_s=e2e_s,
+                           forward_ms=fwd_ms,
+                           forward_images_per_s=n / fwd_ms * 1e3,
+                           peak_gib=peak)
+        log(f"[classify] {arch} (B={n}, {clf.cfg.image_size} px): "
+            f"{n / e2e_s:.1f} images/s end to end ({e2e_s * 1e3:.1f} ms a "
+            f"batch), forward {fwd_ms:.2f} ms ({n / fwd_ms * 1e3:.1f} "
+            f"images/s), peak {peak:.2f} GiB, launches {launches}")
+        del clf, cpu, params_cpu
+    return stats
+
+
+def classifier_folder(root: str) -> str:
+    """A two-label image folder for the classifier trainer, made by the
+    port's data/convert_pdf_2_image.py from PDFs that data/synthetic.py
+    writes: "no_segment" pages of one text column, "segment" pages cut by
+    a gutter and a rule into articles."""
+    from karanta_tpu_torch.bench.pipeline_bench import make_page_array
+    from karanta_tpu_torch.data.convert_pdf_2_image import \
+        convert_pdfs_to_images
+    from karanta_tpu_torch.data.synthetic import pages_to_pdf_bytes
+
+    folder = os.path.join(root, "images")
+    for label in ("no_segment", "segment"):
+        pages = []
+        for i in range(CLS_PAGES):
+            page = make_page_array(1000 * (label == "segment") + i)
+            if label == "segment":
+                page[:, 487:507] = 235          # column gutter
+                page[640:646, 60:-60] = 40      # article rule
+            pages.append(page)
+        pdf_dir = os.path.join(root, "pdfs", label)
+        os.makedirs(pdf_dir)
+        half = CLS_PAGES // 2
+        for j, chunk in enumerate((pages[:half], pages[half:])):
+            with open(os.path.join(pdf_dir, f"{label}_{j}.pdf"), "wb") as f:
+                f.write(pages_to_pdf_bytes(chunk))
+        n = convert_pdfs_to_images(pdf_dir, os.path.join(folder, label),
+                                   target_dim=1288, workers=2)
+        if n != CLS_PAGES:
+            raise AssertionError(f"convert_pdf_2_image wrote {n} pages of "
+                                 f"{label}, expected {CLS_PAGES}")
+    return folder
+
+
+class ClassifierProbe:
+    """Wraps classifier_train.make_train_step while main() runs: each
+    step's time (synchronized) and launches, the time since the previous
+    step began (host batch loading included), a copy of the parameters
+    before the first step, the last state; with `profile` the first step
+    runs under torch.profiler for the card's busy share."""
+
+    def __init__(self, profile: bool = False):
+        self.steps, self.p0, self.state = [], None, None
+        self.profile, self.busy = profile, None
+
+    def __enter__(self):
+        from karanta_tpu_torch.training import classifier_train as ct
+        from karanta_tpu_torch.utils.tree import flatten_tree
+
+        self._ct, self._make = ct, ct.make_train_step
+        make = self._make
+
+        def make_timed(forward, cfg, optimizer):
+            step = make(forward, cfg, optimizer)
+
+            def run(params, opt_state, images, label_ids):
+                if self.p0 is None:
+                    self.p0 = {k: v.detach().clone()
+                               for k, v in flatten_tree(params).items()}
+                start = int(opt_state["count"])  # the step updates it in place
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                gap = (t0 - self.steps[-1]["t0"]) if self.steps else None
+                kernels.reset_launches()
+                profiled = self.profile and not self.steps
+                if profiled:
+                    from torch.profiler import ProfilerActivity, profile
+                    prof = profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA])
+                    prof.__enter__()
+                out = step(params, opt_state, images, label_ids)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                if profiled:
+                    prof.__exit__(None, None, None)
+                    busy = sum(e.self_device_time_total
+                               for e in prof.key_averages()
+                               if e.device_type.name == "CUDA") / 1e3
+                    self.busy = dict(step_ms=ms, busy_ms=busy,
+                                     share=busy / ms)
+                self.steps.append(dict(
+                    t0=t0, ms=ms, gap_ms=None if gap is None else gap * 1e3,
+                    start=start, loss=float(out[2]),
+                    launches={k: v for k, v in kernels.LAUNCHES.items()
+                              if v}))
+                self.state = {"params": out[0], "opt_state": out[1]}
+                return out
+            return run
+
+        ct.make_train_step = make_timed
+        return self
+
+    def __exit__(self, *exc):
+        self._ct.make_train_step = self._make
+
+    def changed(self) -> int:
+        from karanta_tpu_torch.utils.tree import flatten_tree
+
+        now = flatten_tree(self.state["params"])
+        return sum(not torch.equal(now[k], v) for k, v in self.p0.items())
+
+
+def attention_bwd_ms(dev, gen, b, sq, sk, h, d) -> dict:
+    """Kernel #2's forward and the plain blockwise backward (512-row query
+    chunks past 512 queries) at one classifier shape, ms by events."""
+    q = torch.randn((b, sq, h, d), generator=gen, device=dev)
+    k = torch.randn((b, sk, h, d), generator=gen, device=dev)
+    v = torch.randn((b, sk, h, d), generator=gen, device=dev)
+    out = A.flash_attention(q, k, v)
+    dout = torch.randn_like(out)
+    bwd = (A._attention_bwd_q_chunked if sq > A._BWD_Q_CHUNK
+           else A._attention_bwd_math)
+    return dict(forward_ms=cuda_ms(lambda: A.flash_attention(q, k, v), 10),
+                backward_ms=cuda_ms(lambda: bwd(q, k, v, None, out, dout,
+                                                False, None, 0), 3))
+
+
+def classifier_train_run(arch: str, folder: str, out_dir: str,
+                         device: str = "cuda") -> dict:
+    """classifier_train.main() at the arch's yaml for CLS_TRAIN_STEPS
+    steps, then `auto` resumes from its final checkpoint for one more."""
+    from karanta_tpu_torch.training import checkpoint as ckpt
+    from karanta_tpu_torch.training import classifier_train as ct
+    from karanta_tpu_torch.utils.tree import flatten_tree
+
+    steps = CLS_TRAIN_STEPS[arch]
+    argv = [CLS_YAML.format(arch), "--dataset_dir", folder, "--output_dir",
+            out_dir, "--device", device]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with ClassifierProbe() as probe:
+        metrics = ct.main(argv + ["--max_steps", str(steps)])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not math.isfinite(metrics["loss"]) or not probe.changed():
+        raise AssertionError(f"classifier train {arch}: loss "
+                             f"{metrics['loss']}, {probe.changed()} leaves "
+                             f"changed")
+    want = {"flash_attention": CLS_FLASH[arch]}
+    bad = [s["launches"] for s in probe.steps if s["launches"] != want]
+    if len(probe.steps) != steps or bad:
+        raise AssertionError(f"classifier train {arch}: {len(probe.steps)} "
+                             f"steps, launches {bad}, expected {want} a step")
+    last = ckpt.get_last_checkpoint(out_dir)
+    restored, meta = ckpt.restore_checkpoint(last, probe.state)
+    saved, back = flatten_tree(probe.state), flatten_tree(restored)
+    if meta.get("step") != steps or any(
+            not torch.equal(back[k], v) for k, v in saved.items()):
+        raise AssertionError(f"classifier train {arch}: checkpoint {last} "
+                             f"does not read back bit-equal")
+    # the resumed step runs warm: it is the one profiled
+    with ClassifierProbe(profile=True) as resumed:
+        ct.main(argv + ["--max_steps", str(steps + 1),
+                        "--resume_from_checkpoint", "auto"])
+    if [s["start"] for s in resumed.steps] != [steps]:
+        raise AssertionError(f"classifier train {arch}: auto resume ran "
+                             f"steps from {[s['start'] for s in resumed.steps]}")
+    n = CLS_BATCH[arch]
+    later = probe.steps[1:]
+    step_ms = sum(s["ms"] for s in later) / len(later)
+    iter_ms = sum(s["gap_ms"] for s in later) / len(later)
+    stats = dict(steps=steps, loss=metrics["loss"],
+                 eval_accuracy=metrics.get("eval_accuracy"),
+                 changed_leaves=probe.changed(), step_ms=step_ms,
+                 iteration_ms=iter_ms, images_per_s=n / iter_ms * 1e3,
+                 first_step_ms=probe.steps[0]["ms"], busy=resumed.busy,
+                 busy_share_of_step=resumed.busy["busy_ms"] / step_ms,
+                 busy_share_of_iteration=resumed.busy["busy_ms"] / iter_ms,
+                 peak_gib=peak, launches_per_step=want)
+    log(f"[classify train] {arch} (batch {n}): loss {metrics['loss']:.4f}, "
+        f"step {step_ms:.1f} ms, iteration with the host's batch "
+        f"{iter_ms:.1f} ms ({stats['images_per_s']:.1f} images/s), card "
+        f"busy {resumed.busy['busy_ms']:.1f} ms of a profiled "
+        f"{resumed.busy['step_ms']:.1f} ms step "
+        f"({100 * resumed.busy['share']:.1f}%; "
+        f"{100 * stats['busy_share_of_step']:.1f}% of an unprofiled step, "
+        f"{100 * stats['busy_share_of_iteration']:.1f}% of an iteration), "
+        f"peak {peak:.2f} GiB, {want} a step; checkpoint bit-equal, auto "
+        f"resume from step {steps}")
+    return stats
+
+
+def classifier_tiny_check(dev) -> dict:
+    """The tiny SegFormer and ViT in float32, card against CPU from the same
+    weights and batch: the loss and every gradient leaf of one step, and
+    every parameter after 3 steps of the trainer's AdamW. The key biases'
+    exact gradient is zero, so their gradients are rounding noise, held to
+    the tree's scale, and Adam scales that noise to the learning rate: an
+    early Adam step moves a leaf by at most its learning rate, so their
+    parameters are held within twice the steps' summed rates (0 + 1 + 0.5
+    learning rates: 3 learning rates) and reported."""
+    from karanta_tpu_torch.models.classifier.convert import get_arch
+    from karanta_tpu_torch.training import classifier_train as ct
+    from karanta_tpu_torch.training import train_step as ts
+    from karanta_tpu_torch.training.optimizer import (make_adamw,
+                                                      make_lr_schedule)
+    from karanta_tpu_torch.utils.tree import flatten_tree
+
+    out = {}
+    for arch, per_fwd in (("segformer", 2), ("vit", 2)):
+        spec = get_arch(arch)
+        cfg = spec.tiny()
+        params_cpu = spec.init(cfg, CLS_SEED, device="cpu")
+        g = torch.Generator().manual_seed(CLS_SEED)
+        x = torch.randn((4, cfg.image_size, cfg.image_size, 3), generator=g)
+        y = torch.tensor([0, 1, 1, 0])
+        loss_fn = ct.classifier_loss(spec.forward, cfg)
+        res = {}
+        for device in ("cpu", dev):
+            params = tree_map(lambda t, _: t.to(device, copy=True),
+                              params_cpu)
+            kernels.reset_launches()
+            loss, _, grads = ts.value_and_grad(
+                loss_fn, params, x.to(device), y.to(device))
+            launches = kernels.LAUNCHES["flash_attention"]
+            opt = make_adamw(make_lr_schedule("cosine", TINY_TRAIN_LR, 1,
+                                              TINY_TRAIN_STEPS), 0.01,
+                             decay_all_leaves=True)
+            state = opt.init(params)
+            step = ct.make_train_step(spec.forward, cfg, opt)
+            for _ in range(TINY_TRAIN_STEPS):
+                params, state, _, _ = step(params, state, x.to(device),
+                                           y.to(device))
+            res[str(device)] = (float(loss), {k: v.cpu() for k, v in
+                                              grads.items()},
+                                {k: v.cpu() for k, v in
+                                 flatten_tree(params).items()}, launches)
+        (lc, gc_, pc, nc), (lg, gg, pg, ng) = res["cpu"], res[str(dev)]
+        if nc or ng != per_fwd:
+            raise AssertionError(f"tiny {arch}: {ng} flash launches on the "
+                                 f"card ({per_fwd} expected), {nc} on the CPU")
+        check(f"tiny {arch} train loss card vs CPU (relative)",
+              abs(lc - lg) / abs(lc), TINY_TRAIN_TOL)
+        top = max(float(v.abs().max()) for v in gc_.values())
+        gerr = max(float((gg[k] - v).abs().max())
+                   / max(float(v.abs().max()), 1e-2 * top)
+                   for k, v in gc_.items())
+        check(f"tiny {arch} grads card vs CPU (max abs err / max(max |grad| "
+              f"of the leaf, 1e-2 of the tree's), every leaf)", gerr,
+              TINY_TRAIN_TOL)
+        perrs = {k: float((pg[k] - v).abs().max()) for k, v in pc.items()}
+        bk = max(e for k, e in perrs.items() if k.endswith("bk"))
+        perr = max(e for k, e in perrs.items() if not k.endswith("bk"))
+        check(f"tiny {arch} params after {TINY_TRAIN_STEPS} AdamW steps card "
+              f"vs CPU (max abs, every leaf but the key biases)", perr,
+              TINY_TRAIN_TOL)
+        check(f"tiny {arch} key biases after the steps (max abs)", bk,
+              3 * TINY_TRAIN_LR)
+        out[arch] = dict(loss_rel_err=abs(lc - lg) / abs(lc), grad_err=gerr,
+                         param_err=perr, key_bias_err=bk, launches=ng)
+    return out
+
+
+def phase_classifiers(device: str = "cuda") -> dict:
+    """Phase 13: kernel #2's float32 instance at the classifiers' shapes,
+    the four archs served, the SegFormer and ViT trainers at their yamls,
+    the attention backward beside the kernel's forward, and the tiny
+    card-vs-CPU training check."""
+    import tempfile
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(CLS_SEED)
+    t0 = time.perf_counter()
+    log("[classify] kernel #2 float32 at the classifiers' shapes")
+    flash = kernel_flash_f32_classifiers(dev, gen)
+    serving = phase_classifier_serving(device)
+    # the process's first profiler run starts CUPTI, seconds that
+    # would land in the profiled training step: start it here
+    if dev.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            torch.ones(1, device=dev).sum()
+            torch.cuda.synchronize()
+    root = tempfile.mkdtemp(prefix="classifier_")
+    try:
+        folder = classifier_folder(root)
+        training = {arch: classifier_train_run(
+            arch, folder, os.path.join(root, f"run_{arch}"), device)
+            for arch in CLS_TRAIN_STEPS}
+    finally:
+        import shutil
+        shutil.rmtree(root, ignore_errors=True)
+    shapes = classifier_flash_shapes()
+    backward = {name: attention_bwd_ms(dev, gen, *shapes[name])
+                for name in ("segformer_stage1", "vit")}
+    for name, row in backward.items():
+        log(f"[classify train] attention at {name} {shapes[name]}: kernel "
+            f"forward {row['forward_ms']:.3f} ms, plain backward "
+            f"{row['backward_ms']:.3f} ms")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tiny = classifier_tiny_check(dev)
+    return dict(flash_f32=flash, serving=serving, training=training,
+                attention_backward=backward, tiny=tiny,
+                seconds=time.perf_counter() - t0)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -3647,6 +4121,7 @@ def main(argv=None) -> int:
     guided_stats = phase_guided_logprobs(cfg)
     training_stats = phase_training(args.profile)
     training_launches = training_stats["full"]["adamw"]["launches_per_step"]
+    classifier_stats = phase_classifiers()
     # each kernel's launches on the path that runs it; kernel #8 is on no
     # path (the JAX package calls it from its tests only)
     paths = {
@@ -3674,6 +4149,15 @@ def main(argv=None) -> int:
                               ["launches"]),
     }
     for row in rows:
+        if row["name"] == "flash_attention":
+            # the float32 instance on the classifiers' paths (phase 13)
+            row["classifier_f32"] = classifier_stats["flash_f32"]
+            row["classifier_launches"] = {
+                **{f"{arch} batch": e["launches"].get("flash_attention", 0)
+                   for arch, e in classifier_stats["serving"].items()},
+                **{f"{arch} training step": e["launches_per_step"]
+                   ["flash_attention"]
+                   for arch, e in classifier_stats["training"].items()}}
         path, launches = paths.get(row["name"], (None, {}))
         row["launches"] = launches.get(row["name"], 0)
         row["path"] = path
@@ -3716,7 +4200,8 @@ def main(argv=None) -> int:
                     "loading": loading_stats,
                     "guided_logprobs": {k: v for k, v in guided_stats.items()
                                         if k != "launches"},
-                    "training": training_stats}))
+                    "training": training_stats,
+                    "classifiers": classifier_stats}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -26,3 +26,11 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is unavailable")
     return device
+
+
+def no_tf32() -> None:
+    """float32 products and convolutions on the card keep float32: both
+    TF32 switches off (the JAX package's float32 semantics; cuDNN's is on by
+    default)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

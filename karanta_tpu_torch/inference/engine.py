@@ -48,7 +48,7 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
-from karanta_tpu_torch.device import DeviceLike, resolve_device
+from karanta_tpu_torch.device import DeviceLike, no_tf32, resolve_device
 from karanta_tpu_torch.inference import chat
 from karanta_tpu_torch.inference.guided import (build_token_automaton,
                                                 closed_free_states,
@@ -191,9 +191,7 @@ class Engine:
         self.device = resolve_device(device)
         _reject_unported(engine_cfg)
         if self.device.type == "cuda":
-            # float32 products (the page resize) must not round to TF32
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+            no_tf32()  # float32 products (the page resize) keep float32
         if engine_cfg.quantize == "int8":
             params = {**params,
                       "text": quantize_decoder_params(params["text"])}

@@ -515,7 +515,8 @@ cudaError_t flash_tc_info(int* info) {
 
 // C interface (loaded with ctypes). q/out contiguous (B, Sq, H, D), k/v
 // contiguous (B, Sk, KVH, D), of the type `dtype` names; mask float32 (B, Sk)
-// or null. Returns the CUDA error code of the launch.
+// or null. D is one of KARANTA_FLASH_HEAD_DIMS, or 8 in float32. Returns the
+// CUDA error code of the launch.
 extern "C" int karanta_flash_attention(const void* q, const void* k, const void* v,
                                        const float* mask, void* out, int B, int Sq,
                                        int Sk, int H, int KVH, int D, float scale,
@@ -525,6 +526,11 @@ extern "C" int karanta_flash_attention(const void* q, const void* k, const void*
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 8) {  // float32 only (a tensor-core tile needs 16 dims): tiny SegFormer heads
+    if (dtype != karanta::kFloat32) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(karanta::launch_flash_f32<8>(q, k, v, mask, out, B, Sq, Sk, H,
+                                                         KVH, scale, causal, q_offset, st));
+  }
   switch (D) {
 #define KARANTA_CASE(d)                                                                  \
   case d:                                                                                \

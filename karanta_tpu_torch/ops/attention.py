@@ -37,8 +37,10 @@ from karanta_tpu_torch.ops.rotary import apply_rope
 
 NEG_INF = -1e30
 
-# head dims with a kernel instantiation (csrc dispatch switches)
+# head dims with a kernel instantiation (csrc dispatch switches); the flash
+# kernel's float32 instance also takes 8 (the tiny SegFormer's heads)
 FLASH_HEAD_DIMS = (16, 32, 64, 80, 128)
+FLASH_F32_HEAD_DIMS = (8,) + FLASH_HEAD_DIMS
 WINDOW_HEAD_DIMS = (16, 64, 80)
 
 
@@ -172,8 +174,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError("flash_attention: q, k, v must share one dtype")
     if kv_mask is not None and kv_mask.dtype != torch.float32:
         raise TypeError("flash_attention: kv_mask must be float32")
-    if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_attention: no kernel for head dim {d}")
+    if d not in (FLASH_F32_HEAD_DIMS if q.dtype == torch.float32
+                 else FLASH_HEAD_DIMS):
+        raise ValueError(f"flash_attention: no kernel for head dim {d} in "
+                         f"{q.dtype}")
     kernels.check_cuda_inputs("flash_attention", q.dtype, q=q, k=k, v=v,
                               kv_mask=kv_mask)
     out = torch.empty_like(q)

@@ -159,4 +159,6 @@ def _restore(tree: Any, prefix: str, load) -> Any:
     """The target's structure with every tensor leaf loaded by its path."""
     if isinstance(tree, dict):
         return {k: _restore(v, f"{prefix}/{k}", load) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_restore(v, f"{prefix}/{i}", load) for i, v in enumerate(tree)]
     return load(tree, prefix)

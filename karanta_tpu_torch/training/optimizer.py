@@ -10,7 +10,8 @@ written out leaf by leaf with optax's arithmetic, not ``torch.optim``'s:
   gradients' dtype, as optax does);
 - ``scale_by_adam``: moments in the parameter dtype, bias correction by
   division, eps outside the square root;
-- ``add_decayed_weights`` on leaves of two or more dimensions;
+- ``add_decayed_weights`` on leaves of two or more dimensions (on every
+  leaf with ``decay_all_leaves``, as ``optax.adamw`` with no mask does);
 - ``scale_by_learning_rate``: the negated schedule at the count before this
   step (the first step sees the schedule at 0).
 
@@ -180,6 +181,7 @@ class Optimizer:
     max_grad_norm: Optional[float] = None
     skip_nonfinite: bool = False
     max_consecutive_errors: int = 10
+    decay_all_leaves: bool = False
 
     def _label(self, path: str, p: torch.Tensor) -> str:
         return "adam" if self.kind == "adamw" else self.label_fn(path, p)
@@ -212,7 +214,7 @@ class Optimizer:
                 eps)
             lr_scale = {"adam": 1.0, "embed": self.embed_lr_scale}.get(
                 label, self.head_lr_scale)
-        if p.dim() >= 2:
+        if p.dim() >= 2 or self.decay_all_leaves:
             u = u + _s(self.weight_decay, p) * p
         return u * _s(-1 * _lr(self.learning_rate, count, lr_scale), u)
 
@@ -278,10 +280,13 @@ def apply_updates(params: Any, updates: Any) -> Any:
 
 
 def make_adamw(learning_rate: LearningRate, weight_decay: float = 0.0,
-               b1: float = 0.9, b2: float = 0.999,
-               eps: float = 1e-8) -> Optimizer:
+               b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+               decay_all_leaves: bool = False) -> Optimizer:
+    """The JAX package's ``make_adamw`` (decay on matrices only), or with
+    ``decay_all_leaves`` ``optax.adamw`` itself, whose default mask decays
+    every leaf (the classifier trainer's optimizer)."""
     return Optimizer("adamw", learning_rate, weight_decay, b1=b1, b2=b2,
-                     eps=eps)
+                     eps=eps, decay_all_leaves=decay_all_leaves)
 
 
 def make_muon_with_aux_adam(learning_rate: LearningRate,

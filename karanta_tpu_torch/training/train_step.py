@@ -21,7 +21,7 @@ from karanta_tpu_torch.models.qwen25_vl.config import VLMConfig
 from karanta_tpu_torch.models.qwen25_vl.decoder import logits_from_hidden
 from karanta_tpu_torch.models.qwen25_vl.model import forward_train
 from karanta_tpu_torch.training.optimizer import Optimizer, global_norm
-from karanta_tpu_torch.utils.tree import flatten_tree, unflatten_tree
+from karanta_tpu_torch.utils.tree import flatten_tree, tree_map
 
 IGNORE_INDEX = -100
 _MESH_ERROR = ("sequence and pipeline parallel meshes are not ported "
@@ -126,16 +126,18 @@ def split_microbatches(batch: dict, grad_accum: int) -> list:
     return out
 
 
-def value_and_grad(loss_fn, params: Any, batch: dict):
-    """(loss, tokens, grads) of loss_fn at params, grads as a flat dict
-    ("/"-joined paths; zeros for leaves the loss does not reach)."""
-    flat = flatten_tree(params)
-    live = {k: v.detach().requires_grad_(True) for k, v in flat.items()}
-    loss, tokens = loss_fn(unflatten_tree(live), batch)
-    grads = torch.autograd.grad(loss, list(live.values()), allow_unused=True)
+def value_and_grad(loss_fn, params: Any, *args):
+    """(loss, aux, grads) of loss_fn(params, *args) -> (loss, aux) (the
+    trainers' aux: the token count, the classifier's logits), grads as a
+    flat dict ("/"-joined paths, list indices as keys; zeros for leaves the
+    loss does not reach)."""
+    live = tree_map(lambda v, _: v.detach().requires_grad_(True), params)
+    flat = flatten_tree(live)
+    loss, aux = loss_fn(live, *args)
+    grads = torch.autograd.grad(loss, list(flat.values()), allow_unused=True)
     out = {k: torch.zeros_like(v) if g is None else g
-           for (k, v), g in zip(live.items(), grads)}
-    return loss.detach(), tokens, out
+           for (k, v), g in zip(flat.items(), grads)}
+    return loss.detach(), aux, out
 
 
 def accumulate_grads(grad_once, params: Any, batch: dict, grad_accum: int):

@@ -2,7 +2,9 @@
 
 Parameters keep the JAX package's layout: nested dicts whose leaves are
 tensors, per-layer weights stacked on a leading layer axis, quantized leaves
-as ``{"int8_q": int8, "scale": float32}`` dicts.
+as ``{"int8_q": int8, "scale": float32}`` dicts. The classifiers' trees also
+hold lists (one entry per stage or block), as the JAX ones do; a list's
+entries are keyed by their index in paths.
 """
 
 from __future__ import annotations
@@ -13,9 +15,12 @@ import torch
 
 
 def tree_map(fn: Callable, tree: Any, path: tuple = ()) -> Any:
-    """Apply fn(leaf, path) to every non-dict leaf; path is the key tuple."""
+    """Apply fn(leaf, path) to every leaf that is not a dict or a list; path
+    is the key tuple (list indices as ints)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, path + (i,)) for i, v in enumerate(tree)]
     return fn(tree, path)
 
 
@@ -35,7 +40,9 @@ def unbind_layers(tree: Any, n: int) -> list:
 
 
 def flatten_tree(tree: Any, prefix: str = "") -> dict:
-    """Nested dicts -> {"a/b/c": leaf}, in the tree's key order."""
+    """Nested dicts and lists -> {"a/0/c": leaf}, in the tree's key order."""
+    if isinstance(tree, list):
+        tree = {str(i): v for i, v in enumerate(tree)}
     if not isinstance(tree, dict):
         return {prefix: tree}
     flat = {}
@@ -45,7 +52,8 @@ def flatten_tree(tree: Any, prefix: str = "") -> dict:
 
 
 def unflatten_tree(flat: dict) -> dict:
-    """{"a/b/c": leaf} -> nested dicts (inverse of flatten_tree)."""
+    """{"a/b/c": leaf} -> nested dicts (inverse of flatten_tree for trees
+    without lists)."""
     tree: dict = {}
     for path, leaf in flat.items():
         node = tree

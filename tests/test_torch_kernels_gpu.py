@@ -127,6 +127,39 @@ def test_flash_kernel_is_deterministic(cuda):
         assert torch.equal(first, second)
 
 
+# kernel #2's float32 instance at the document classifiers' shapes: the
+# SegFormer's four stages at mit-b0 and 512 px (each stage's queries over
+# its 256 sequence-reduced keys), the ViT's ragged 197-row sequence (class
+# token + 14 x 14 patches) at d = 64, and the tiny SegFormer's 8-dim heads
+# (an instance the float32 kernel alone has)
+CLASSIFIER_F32_CASES = [
+    # (b, sq, sk, h, d)
+    (2, 16384, 256, 1, 32), (2, 4096, 256, 2, 32), (2, 1024, 256, 5, 32),
+    (2, 256, 256, 8, 32), (4, 197, 197, 6, 64), (2, 256, 16, 1, 8),
+    (2, 64, 64, 2, 8)]
+
+
+@pytest.mark.parametrize("case", CLASSIFIER_F32_CASES)
+def test_flash_f32_at_classifier_shapes(cuda, case):
+    b, sq, sk, h, d = case
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    q = _randn(gen, (b, sq, h, d), cuda, torch.float32)
+    k = _randn(gen, (b, sk, h, d), cuda, torch.float32)
+    v = _randn(gen, (b, sk, h, d), cuda, torch.float32)
+    got = A.flash_attention(q, k, v)
+    again = A.flash_attention(q, k, v)
+    want = A.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    _assert_close(got, want, torch.float32)
+    assert torch.equal(got, again)
+
+
+def test_flash_has_no_bf16_head_dim_8(cuda):
+    q = torch.zeros((1, 16, 1, 8), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dim 8"):
+        A.flash_attention(q, q, q)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("rope", [False, True])
 def test_window_kernel_matches_plain(cuda, dtype, rope):
