@@ -128,8 +128,29 @@ Phases (any failed check raises and the script exits non-zero):
    ms/step, images/s, the card's busy share of a profiled step, peak
    memory), the plain attention backward beside the kernel's forward; the
    tiny SegFormer and ViT in float32, card against CPU: the loss and
-   every gradient of one step, every parameter after 3 AdamW steps.
+   every gradient of one step, every parameter after 3 AdamW steps;
+14. batched prefill (EngineConfig.prefill_batch) and the W8A8 vision tower
+   at qwen2.5-vl-7b (int8 weights, W8A8, int8 KV, 8 slots, 1,920 rows, 8
+   distinct pages x 24 tokens): per-page prefill (A: #1 224, #2 256
+   launches) against prefill_batch=4 (B: 56 and 64; per page, the
+   batched encode's vision tokens within 2^-8 normwise of the single
+   encode's, the decoder on equal tokens bit-equal at batch 4 and 1, the
+   noise floor of half an ulp on the vision tokens, the prefill logits
+   within 3e-2 normwise of A's, greedy first tokens equal where the top-2
+   margin exceeds twice the difference), B with the W8A8 tower (C:
+   its logits' distance from B's, the encode's ms a page in bf16 and W8A8,
+   peak memory) and B with speculation (D: #4 launched); prefill+insert ms
+   a page at K = 1, 2 and 4 (host clock and torch.profiler); pages/s of A
+   and B; prepare ms a page in the pool against the main thread's wait;
+   then `python -m karanta_tpu_torch.inference.single_page` at 7B and
+   `python -m karanta_tpu_torch.bench.convert karanta_engine:preset=tiny`
+   over two PDFs, as subprocesses on the card, the harness's outputs scored
+   by bench/scoring.py. Kernels #1 and #2 are also held against their plain
+   versions at the batched shapes in phase 3: #1 over four pages'
+   concatenation, #2 at (4, 5120, 16, 80) with four masks and at (4, 1408,
+   28/4, 128) causal with kv lengths 1390, 700, 1408 and 1.
 
+KARANTA_IMG_CACHE_MB is 0 throughout: every page pays its image decode.
 Each path's launch counts are set to 0 just before it runs and read just
 after. The last two lines are the kernels summary and the result line.
 Without a CUDA device the script exits non-zero and prints no result.
@@ -434,11 +455,60 @@ def kernel_window(cfg, dev, gen) -> dict:
         f"{100 * rates['bound_share']:.1f}% of the bound {b:.4f} ms; "
         f"{rates['sdpa_ratio']:.2f}x SDPA's {t_l:.4f} ms; bf16 instance "
         f"{rates['resources']}")
+    rates["concat4"] = window_concat(layout, dev, gen, BATCHED_PAGES)
     return dict(name="window_attention", route="cuda",
                 source="karanta_tpu_torch/kernels/csrc/window_attention.cu",
                 replaces="karanta_tpu/ops/attention.py:403",
-                max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b,
-                bound_by=by, library_ms=t_l, **rates)
+                max_abs_err=max(err, rates["concat4"]["max_abs_err"]),
+                ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=by,
+                library_ms=t_l, **rates)
+
+
+# batched prefill: pages a group (phase 14's prefill_batch)
+BATCHED_PAGES = 4
+
+
+def window_concat(layout, dev, gen, n: int) -> dict:
+    """#1 over n pages' concatenated window-ordered tokens, (1, n x 5120,
+    16, 80), each page with its valid mask and rope (batched prefill):
+    checked against the plain version on rows whose window has a live key,
+    timed beside SDPA over the windows."""
+    from karanta_tpu_torch.ops.rotary import apply_rope
+
+    h, d, w = 16, 80, 64
+    s = n * len(layout.valid)
+    mask = torch.from_numpy(np.concatenate([layout.valid] * n)).to(dev)
+    pos = torch.from_numpy(np.concatenate([layout.pos_hw] * n)).to(dev)
+    cos, sin = vision_rope_cos_sin(pos, d)
+    cos = cos.to(torch.bfloat16).float()[None].contiguous()
+    sin = sin.to(torch.bfloat16).float()[None].contiguous()
+    mask = mask.float()[None].contiguous()
+    q, k, v = (torch.randn((1, s, h, d), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    rows = (mask.reshape(1, s // w, w).amax(-1) > 0).repeat_interleave(w, 1)
+    got = A.window_attention_kernel_call(q, k, v, w, mask, cos=cos, sin=sin)
+    torch.cuda.synchronize()
+    want = A.window_attention_plain(q, k, v, w, mask, cos=cos, sin=sin)
+    err = check_bf16(f"window_attention batched ({n} pages) "
+                     f"{tuple(q.shape)} bf16", got, want, rows)
+    qr, kr = apply_rope(q, k, cos, sin)
+    qw, kw, vw = (x.reshape(s // w, w, h, d).transpose(1, 2).contiguous()
+                  for x in (qr, kr, v))
+    mw = mask.reshape(s // w, 1, 1, w) > 0
+    t_k = cuda_ms(lambda: A.window_attention_kernel_call(
+        q, k, v, w, mask, cos=cos, sin=sin), 20)
+    t_p = cuda_ms(lambda: A.window_attention_plain(q, k, v, w, mask,
+                                                   cos=cos, sin=sin), 3)
+    t_l = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qw, kw, vw, attn_mask=mw), 20)
+    b, by = bound_ms(4 * s * h * d * 2 + 2 * s * d * 4 + s * 4,
+                     4.0 * w * d * s * h)
+    log(f"  window batched ({n} pages): kernel {t_k:.4f} ms "
+        f"({t_k / n:.4f} a page), {100 * b / t_k:.1f}% of the bound "
+        f"{b:.4f} ms ({by}); plain {t_p:.4f} ms; {t_k / t_l:.2f}x SDPA's "
+        f"{t_l:.4f} ms")
+    return dict(shape=list(q.shape), max_abs_err=err, ms=t_k, plain_ms=t_p,
+                library_ms=t_l, bound_ms=b, bound_by=by)
 
 
 def _flash_case(dev, gen, b, sq, sk, h, kvh, d, dtype, live_len):
@@ -563,11 +633,85 @@ def kernel_flash(cfg, dev, gen) -> dict:
                     "library_ms": times[name][2],
                     "bound_ms": bound_ms(*times[name][3])[0], **rates[name]}
              for name in ("vision_full", "prefix")}
+    extra.update(flash_batched(cfg, layout, dev, gen))
+    errs += [e["max_abs_err"] for e in extra.values() if "max_abs_err" in e]
     return dict(name="flash_attention", route="cuda",
                 source="karanta_tpu_torch/kernels/csrc/flash_attention.cu",
                 replaces="karanta_tpu/ops/attention.py:235",
                 max_abs_err=max(errs), ms=t_k, plain_ms=t_p, bound_ms=b,
                 bound_by=by, library_ms=t_l, **rates["prefill"], **extra)
+
+
+# batched prefill: live keys of each page of a group. The vision full
+# layers: the bench page's valid mask, then pages with fewer and more live
+# tokens (scattered); the decoder prefill: ragged prompt lengths down to one
+BATCHED_VISION_LIVE = (None, 3600, 5120, 900)
+BATCHED_PREFILL_LIVE = (1390, 700, 1408, 1)
+
+
+def flash_batched(cfg, layout, dev, gen) -> dict:
+    """#2 at batched prefill's shapes: the vision full layers at (4, 5120,
+    16, 80), one validity mask a page, and the decoder prefill at (4, 1408,
+    28/4, 128) causal with kv lengths 1390, 700, 1408 and 1; bf16, against
+    the plain version, timed beside SDPA with the same masks."""
+    t, vc = cfg.text, cfg.vision
+    s_vis = len(layout.valid)
+    n = BATCHED_PAGES
+    out = {}
+    for name in ("vision_batched", "prefill_batched"):
+        vision = name == "vision_batched"
+        if vision:
+            sq = sk = s_vis
+            h = kvh = vc.num_heads
+            d, causal = vc.head_dim, False
+            mask = torch.zeros((n, sk), device=dev)
+            for i, live in enumerate(BATCHED_VISION_LIVE):
+                if live is None:
+                    mask[i] = torch.from_numpy(layout.valid).to(dev)
+                else:
+                    idx = torch.randperm(sk, generator=gen, device=dev)
+                    mask[i, idx[:live]] = 1.0
+        else:
+            sq = sk = 1408
+            h, kvh, d, causal = t.num_heads, t.num_kv_heads, t.head_dim, True
+            mask = torch.zeros((n, sk), device=dev)
+            for i, live in enumerate(BATCHED_PREFILL_LIVE):
+                mask[i, :live] = 1.0
+        q, k, v, _ = _flash_case(dev, gen, n, sq, sk, h, kvh, d,
+                                 torch.bfloat16, sk)
+        got = A.flash_attention(q, k, v, mask, causal=causal)
+        torch.cuda.synchronize()
+        want = A.flash_attention_plain(q, k, v, mask, causal=causal)
+        err = check_bf16(f"flash_attention {name} {tuple(q.shape)} kv "
+                         f"{tuple(k.shape)} bf16", got, want)
+        del got, want
+        lives = [int(x) for x in mask.sum(-1).tolist()]
+        sdpa_mask = (mask > 0)[:, None, None, :]
+        if causal:
+            sdpa_mask = sdpa_mask & torch.ones(
+                (sq, sk), dtype=torch.bool, device=dev).tril()[None, None]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        t_k = cuda_ms(lambda: A.flash_attention(q, k, v, mask,
+                                                causal=causal), 10)
+        t_p = cuda_ms(lambda: A.flash_attention_plain(q, k, v, mask,
+                                                      causal=causal), 3)
+        t_l = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=sdpa_mask, enable_gqa=h != kvh), 10)
+        works = [_flash_work(sq, sk, h, kvh, d, live, causal)
+                 for live in lives]
+        b, by = bound_ms(sum(x[0] for x in works), sum(x[1] for x in works))
+        flops = sum(x[1] for x in works)
+        log(f"  flash {name}: live keys {lives}; kernel {t_k:.4f} ms "
+            f"({t_k / n:.4f} a page, {flops / t_k * 1e-9:.1f} TFLOP/s), "
+            f"{100 * b / t_k:.1f}% of the bound {b:.4f} ms ({by}); plain "
+            f"{t_p:.4f} ms; {t_k / t_l:.2f}x SDPA's {t_l:.4f} ms")
+        out[name] = dict(shape=list(q.shape), live=lives, max_abs_err=err,
+                         ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b,
+                         bound_by=by, tflops=flops / t_k * 1e-9,
+                         bound_share=b / t_k)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return out
 
 
 def _decode_inputs(dev, gen, n_layers, b, kvh, m, d, h, lens, dtype):
@@ -2493,8 +2637,7 @@ def phase_pipeline_bench(cfg, root: str) -> dict:
     import argparse
 
     from karanta_tpu_torch.bench import pipeline_bench
-    from karanta_tpu_torch.pipeline import render_pool, runner
-    from karanta_tpu_torch.utils.metrics import MetricsKeeper
+    from karanta_tpu_torch.pipeline import render_pool
 
     parser = argparse.ArgumentParser()
     pipeline_bench.add_args(parser)
@@ -2519,7 +2662,6 @@ def phase_pipeline_bench(cfg, root: str) -> dict:
         return engine
 
     pipeline_bench.build_engine = counted_build
-    runner.metrics = MetricsKeeper()  # the bench line counts this run only
     t0 = time.perf_counter()
     try:
         result = pipeline_bench.run(args)  # prints the bench's JSON line
@@ -2611,8 +2753,7 @@ def phase_pipeline_forced(cfg, root: str) -> dict:
     import argparse
 
     from karanta_tpu_torch.bench import pipeline_bench
-    from karanta_tpu_torch.pipeline import render_pool, runner
-    from karanta_tpu_torch.utils.metrics import MetricsKeeper
+    from karanta_tpu_torch.pipeline import render_pool
 
     parser = argparse.ArgumentParser()
     pipeline_bench.add_args(parser)
@@ -2640,7 +2781,6 @@ def phase_pipeline_forced(cfg, root: str) -> dict:
         return engine
 
     pipeline_bench.build_engine = counted_build
-    runner.metrics = MetricsKeeper()  # the bench line counts this run only
     t0 = time.perf_counter()
     try:
         result = pipeline_bench.run(args)  # prints the bench's JSON line
@@ -4087,6 +4227,433 @@ def phase_classifiers(device: str = "cuda") -> dict:
                 seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: batched prefill, the W8A8 vision tower, the in-process entry
+# points
+# ---------------------------------------------------------------------------
+
+B14_PAGES = 8
+B14_SLOTS = 8
+# batched against per-page prefill. The decoder at batch K is bit-equal to
+# batch 1 on equal vision tokens (checked); the vision tower's bf16 GEMMs at
+# K x 5,120 rows round differently from 5,120, so the batched encode's
+# tokens differ from the single encode's, by less than two bf16 roundings
+# normwise (VISION_NORM_TOL = 2^-8, checked); the random-weight W8A8 decoder
+# turns that into a page's logits difference: half an ulp of noise on the
+# single encode's tokens moves the logits 1.8-1.9e-2 normwise (an H100 80GB
+# HBM3 at 700 W; measured again each run as the noise floor), so the logits
+# bound is 1.5x that floor's top, 3e-2, and not the decode streams' 2e-2
+VISION_NORM_TOL = 2.0 ** -8
+PREFILL_NORM_TOL = 3e-2
+SINGLE_PAGE_TOKENS = 16
+CONVERT_PDFS = 2
+
+
+def batched_engine(params, cfg, quantize, **over) -> Engine:
+    """Phase 14's engine: 7B, int8 weights, W8A8, int8 KV, 1,920 rows, 8
+    slots, chunk 8, the smoke's prefill buckets."""
+    ecfg = EngineConfig(
+        max_batch_size=B14_SLOTS, max_seq_len=1920, decode_chunk=CHUNK,
+        prefill_buckets=(512, 1024, 1408), image_token_buckets=(2048,),
+        dtype=torch.bfloat16, quantize=quantize, kv_quantize="int8",
+        act_quant="int8", **over)
+    return Engine(params, cfg, NoStopTokenizer(), ecfg, device="cuda")
+
+
+def page_requests(pages: list, max_tokens: int, tag: str = "page") -> list:
+    return [GenRequest(messages=page_messages(png), max_tokens=max_tokens,
+                       temperature=0.0, request_id=f"{tag}-{i}")
+            for i, png in enumerate(pages)]
+
+
+def batched_wave(label: str, engine, cfg, pages: list, warm: list) -> dict:
+    """generate over the pages after a warm-up wave (BATCHED_PAGES pages x 2
+    tokens, so a batched engine warms its batched path): launches, decode
+    steps and verify passes of the counted run, its wall time, peak memory
+    and the KARANTA_ENGINE_TIMING accumulators."""
+    engine.generate(page_requests(warm, 2, "warm"))
+    torch.cuda.synchronize()
+    counts = instrument(engine)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.generate(page_requests(pages, MAX_TOKENS))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    vocab = cfg.text.vocab_size
+    for r in results:
+        if len(r.token_ids) != MAX_TOKENS or not all(
+                0 <= t < vocab for t in r.token_ids):
+            raise AssertionError(f"[batched {label}] {r.request_id}: bad "
+                                 f"tokens {r.token_ids}")
+    timing = engine.timing
+    out = dict(pages_per_s=len(pages) / wall, wall_s=wall,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               decode_steps=counts["decode_steps"],
+               verify_passes=counts["verify_passes"], launches=launches,
+               prepare_wait_ms=timing["prep_wait"] / len(pages) * 1e3,
+               prepare_ms=timing["prepare"] / len(pages) * 1e3,
+               tokens=[r.token_ids for r in results])
+    log(f"[batched {label}] {len(pages)} pages x {MAX_TOKENS} tokens in "
+        f"{wall:.3f}s: {out['pages_per_s']:.4f} pages/s; "
+        f"{out['decode_steps']} decode steps, {out['verify_passes']} verify "
+        f"passes; prepare {out['prepare_ms']:.1f} ms/page in the pool, the "
+        f"main thread waited {out['prepare_wait_ms']:.1f} ms/page; peak "
+        f"{out['peak_gib']:.2f} GiB; launches {launches}")
+    return out
+
+
+def check_batched_launches(label: str, cfg, wave: dict, n_encodes: int
+                           ) -> None:
+    """#1 once a vision window layer and #2 once a full layer and a decoder
+    layer, per encode (a page, or a batched group); #3 once a layer a decode
+    step, #4 once a layer a verify pass."""
+    n_full = len(cfg.vision.fullatt_block_indexes)
+    layers = cfg.text.num_layers
+    want = {"window_attention": (cfg.vision.depth - n_full) * n_encodes,
+            "flash_attention": (n_full + layers) * n_encodes,
+            "paged_decode_append_quant": layers * wave["decode_steps"],
+            "paged_decode_append_multi_quant":
+                layers * wave["verify_passes"]}
+    check_launches(f"batched {label}", wave["launches"], want)
+
+
+@contextlib.contextmanager
+def vision_encoder(replace=None, record=None):
+    """Within the block the vision encoder records each call's (args,
+    kwargs, output) in `record` and, with `replace`, returns that tensor
+    instead of encoding."""
+    from karanta_tpu_torch.models.qwen25_vl import vision as vis
+
+    encode = vis.encode_image
+
+    def wrapped(*args, **kwargs):
+        out = encode(*args, **kwargs) if replace is None else replace
+        if record is not None:
+            record.append((args, kwargs, out))
+        return out
+
+    vis.encode_image = wrapped
+    try:
+        yield
+    finally:
+        vis.encode_image = encode
+
+
+def prefill_logits(engine, pages: list, group: int) -> tuple:
+    """(pages, V) float32 first-token logits, one prefill a page (group 1)
+    or one prefill_batch a group, and the vision encoder's calls."""
+    reqs = page_requests(pages, 1)
+    out, calls = [], []
+    with vision_encoder(record=calls):
+        for i in range(0, len(reqs), group):
+            prepared = [engine.prepare(r) for r in reqs[i:i + group]]
+            if group == 1:
+                logits = engine.prefill(prepared[0])[0][None]
+            else:
+                logits = engine.prefill_batch(prepared)[0]
+            out.append(logits.float())
+    return torch.cat(out), calls
+
+
+def check_batched_prefill(engine, pages: list, single: tuple,
+                          batched: tuple) -> dict:
+    """Where batched and per-page prefill part, page by page: the batched
+    encode's tokens against the single encode's (within VISION_NORM_TOL),
+    the per-page prefill run on the batched encode's tokens against
+    prefill_batch's logits (bit-equal: the decoder at batch K is batch 1's
+    arithmetic), and the noise floor, the per-page prefill's logits with
+    half an ulp of uniform noise on its own vision tokens. Then the logits
+    (within PREFILL_NORM_TOL, greedy tokens equal where the margin is
+    clear)."""
+    (logits_a, calls_a), (logits_b, calls_b) = single, batched
+    enc_a, enc_b = ([c[2] for c in calls] for calls in (calls_a, calls_b))
+    prepared = engine.prepare(page_requests(pages[:1], 1)[0])
+    feed = prepared.image_feeds[0]
+    ext = torch.from_numpy(
+        feed["extract"][:feed["layout"].num_merged]).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    vision, floor = [], []
+    for i, png in enumerate(pages):
+        group, j = divmod(i, BATCHED_PAGES)
+        pm = enc_b[group].shape[0] // BATCHED_PAGES
+        tokens_b = enc_b[group][j * pm:(j + 1) * pm]
+        want = enc_a[i][ext].float()
+        vision.append(float((tokens_b[ext].float() - want).norm()
+                            / want.norm()))
+        req = page_requests([png], 1)[0]
+        with vision_encoder(replace=tokens_b):
+            logits = engine.prefill(engine.prepare(req))[0].float()
+        if not torch.equal(logits, logits_b[i]):
+            raise AssertionError(
+                f"[batched] page {i}: per-page prefill on the batched "
+                f"encode's tokens is not bit-equal to prefill_batch's "
+                f"(max diff {float((logits - logits_b[i]).abs().max())})")
+        noise = (torch.rand(enc_a[i].shape, generator=gen, device="cuda")
+                 - 0.5) * 2.0 ** -7
+        noisy = (enc_a[i].float() * (1 + noise)).to(enc_a[i].dtype)
+        with vision_encoder(replace=noisy):
+            logits = engine.prefill(engine.prepare(req))[0].float()
+        floor.append(float((logits - logits_a[i]).norm()
+                           / logits_a[i].norm()))
+    log(f"[batched] vision tokens, batched vs single encode, normwise "
+        f"{[f'{x:.3e}' for x in vision]} (bound {VISION_NORM_TOL:.3e}); "
+        f"the decoder on equal tokens: prefill_batch bit-equal to per-page "
+        f"prefill on every page; noise floor (half an ulp on the vision "
+        f"tokens) {[f'{x:.3e}' for x in floor]}")
+    if not max(vision) <= VISION_NORM_TOL:
+        raise AssertionError(f"[batched] vision tokens differ "
+                             f"{max(vision):.3e} > {VISION_NORM_TOL:.3e}")
+    norms = compare_logits("batched B vs A", logits_a, logits_b,
+                           PREFILL_NORM_TOL)
+    return dict(logits_vs_A=norms, vision_vs_single=vision,
+                noise_floor=floor)
+
+
+def compare_logits(label: str, want: torch.Tensor, got: torch.Tensor,
+                   bound) -> list:
+    """Per page: the normwise difference (within `bound` when given) and,
+    where want's top-2 margin exceeds twice the largest difference, equal
+    greedy tokens."""
+    norms, faults = [], []
+    for i, (w, g) in enumerate(zip(want, got)):
+        diff = float((g - w).norm() / w.norm())
+        top2 = torch.topk(w, 2).values
+        margin = float(top2[0] - top2[1])
+        max_diff = float((g - w).abs().max())
+        if bound is not None and not diff <= bound:
+            faults.append(f"page {i}: logits differ {diff:.3e} normwise > "
+                          f"{bound}")
+        if bound is not None and margin > 2 * max_diff and \
+                int(w.argmax()) != int(g.argmax()):
+            faults.append(f"page {i}: greedy tokens differ at a top-2 "
+                          f"margin {margin:.3e}")
+        norms.append(diff)
+    log(f"[{label}] prefill logits normwise difference per page "
+        f"{[f'{x:.3e}' for x in norms]} (max {max(norms):.3e}"
+        f"{'' if bound is None else f', bound {bound:g}'})")
+    if faults:
+        raise AssertionError(f"[{label}] " + "; ".join(faults))
+    return norms
+
+
+def encode_ms(visual, cfg, call) -> float:
+    """ms a page of the vision encode of a recorded batched call (args,
+    kwargs, output), with the weights `visual`."""
+    from karanta_tpu_torch.models.qwen25_vl import vision as vis
+
+    args, kwargs, _ = call
+    return cuda_ms(lambda: vis.encode_image(visual, cfg.vision, *args[2:],
+                                            **kwargs), 3, warmup=1) / \
+        kwargs["n_images"]
+
+
+def device_busy_ms(fn) -> float:
+    """The device time of fn() by torch.profiler (sum of the kernels' self
+    time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / 1e3
+
+
+def prefill_insert_ms(engine, pages: list) -> dict:
+    """prefill+insert ms a page at K = 1, 2 and 4 (host clock around work
+    that ends in a synchronize, mean of 2 calls) and the device time of one
+    call by torch.profiler."""
+    out = {}
+    for k in (1, 2, BATCHED_PAGES):
+        walls, busy = [], None
+        for rep in range(3):
+            group = [engine.prepare(r)
+                     for r in page_requests(pages[rep * k % len(pages):][:k],
+                                            MAX_TOKENS)]
+            slots = list(range(k))
+
+            def call():
+                if k == 1:
+                    engine.prefill_insert(0, group[0])
+                else:
+                    engine.prefill_insert_batch(group, slots)
+
+            torch.cuda.synchronize()
+            if rep == 2:
+                busy = device_busy_ms(call)
+            else:
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            for slot in slots:
+                engine.free_slot(slot)
+        out[f"K={k}"] = {"ms_per_page": float(np.mean(walls)) / k,
+                         "device_ms_per_page": busy / k}
+        log(f"[batched] prefill+insert at K={k}: "
+            f"{out[f'K={k}']['ms_per_page']:.2f} ms a page (host clock), "
+            f"{out[f'K={k}']['device_ms_per_page']:.2f} ms a page on the "
+            f"device (torch.profiler)")
+    return out
+
+
+def phase_batched(cfg) -> dict:
+    """Phase 14 at qwen2.5-vl-7b (full width and depth, random int8
+    weights, W8A8, int8 KV, 8 slots, 1,920 rows, 8 distinct 1288x994 pages
+    x 24 tokens, KARANTA_IMG_CACHE_MB=0): A per-page prefill; B
+    prefill_batch=4 (#1 56 and #2 64 launches against A's 224 and 256;
+    check_batched_prefill against A page by page); C B with
+    the W8A8 vision tower (its logits' distance from B's, the encode's ms a
+    page, peak memory); D B with speculation (#4 launches); prefill+insert
+    ms a page at K = 1, 2, 4; prepare ms a page in the pool against its
+    wait. Then the in-process entry points: single_page at 7B, and the OCR
+    bench harness's karanta_engine method on the tiny preset (the
+    harness's 4,000-token page budget with 7B random weights, which never
+    stop, would run for minutes; the 7B engine path is phase 14's and
+    single_page's), its outputs scored by the port's bench/scoring.py."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    params, quantize = init_params_bench(cfg, torch.bfloat16, "int8",
+                                         device=dev)
+    pages = [make_page_png(seed=400 + i) for i in range(B14_PAGES)]
+    warm = [make_page_png(seed=450 + i) for i in range(BATCHED_PAGES)]
+    stats = {}
+    os.environ["KARANTA_ENGINE_TIMING"] = "1"
+    try:
+        a = batched_engine(params, cfg, quantize)
+        stats["A"] = batched_wave("A prefill_batch=1", a, cfg, pages, warm)
+        check_batched_launches("A", cfg, stats["A"], B14_PAGES)
+        single = prefill_logits(a, pages, 1)
+        del a
+        b = batched_engine(params, cfg, quantize,
+                           prefill_batch=BATCHED_PAGES)
+        stats["B"] = batched_wave(f"B prefill_batch={BATCHED_PAGES}", b, cfg,
+                                  pages, warm)
+        check_batched_launches("B", cfg, stats["B"],
+                               B14_PAGES // BATCHED_PAGES)
+        batched = prefill_logits(b, pages, BATCHED_PAGES)
+        stats["B"].update(check_batched_prefill(b, pages, single, batched))
+        stats["B"]["tokens_equal_A"] = stats["B"]["tokens"] == \
+            stats["A"]["tokens"]
+        stats["prefill_insert"] = prefill_insert_ms(b, pages)
+        bf16_visual = b.params["visual"]
+        del b
+        c = batched_engine(params, cfg, quantize,
+                           prefill_batch=BATCHED_PAGES, vision_quant="int8")
+        stats["C"] = batched_wave("C W8A8 vision tower", c, cfg, pages, warm)
+        check_batched_launches("C", cfg, stats["C"],
+                               B14_PAGES // BATCHED_PAGES)
+        stats["C"]["logits_vs_B"] = compare_logits(
+            "batched C vs B", batched[0],
+            prefill_logits(c, pages, BATCHED_PAGES)[0], None)
+        call = batched[1][0]
+        stats["encode_ms_per_page"] = {
+            "bf16": encode_ms(bf16_visual, cfg, call),
+            "w8a8": encode_ms(c.params["visual"], cfg, call)}
+        log(f"[batched] vision encode of {BATCHED_PAGES} pages: bf16 tower "
+            f"{stats['encode_ms_per_page']['bf16']:.2f} ms a page, W8A8 "
+            f"tower {stats['encode_ms_per_page']['w8a8']:.2f} ms a page")
+        del c, call, single, batched
+        d = batched_engine(params, cfg, quantize,
+                           prefill_batch=BATCHED_PAGES, speculative_ngram=3)
+        stats["D"] = batched_wave("D speculative", d, cfg, pages, warm)
+        check_batched_launches("D", cfg, stats["D"],
+                               B14_PAGES // BATCHED_PAGES)
+        if stats["D"]["verify_passes"] == 0:
+            raise AssertionError("[batched D] no verify pass ran")
+        del d
+    finally:
+        os.environ.pop("KARANTA_ENGINE_TIMING", None)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for wave in ("A", "B", "C", "D"):
+        stats[wave].pop("tokens")
+    stats["entry"] = phase_entry_points(cfg)
+    stats["seconds"] = time.perf_counter() - t0
+    log(f"[batched] phase 14 in {stats['seconds']:.1f}s")
+    return stats
+
+
+def phase_entry_points(cfg) -> dict:
+    """single_page at 7B and the bench harness's karanta_engine method on
+    the tiny preset, each as a subprocess on the card."""
+    import tempfile
+
+    from karanta_tpu_torch.bench.pipeline_bench import make_page_array
+    from karanta_tpu_torch.bench.scoring import score_method
+    from karanta_tpu_torch.data.synthetic import page_to_pdf_bytes
+
+    out = {}
+    with tempfile.TemporaryDirectory(dir=REPO) as root:
+        os.makedirs(os.path.join(root, "pdfs"))
+        paths = []
+        for i in range(CONVERT_PDFS):
+            path = os.path.join(root, "pdfs", f"doc{i}.pdf")
+            with open(path, "wb") as f:
+                f.write(page_to_pdf_bytes(make_page_array(700 + i)))
+            paths.append(path)
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "karanta_tpu_torch.inference.single_page",
+             "--pdf", paths[0], "--preset", cfg.name, "--max-tokens",
+             str(SINGLE_PAGE_TOKENS)], cwd=REPO, capture_output=True,
+            text=True, timeout=600)
+        if run.returncode != 0:
+            raise AssertionError(f"single_page exited {run.returncode}: "
+                                 f"{run.stderr[-2000:]}")
+        result = json.loads(run.stdout)
+        if not (1 <= result["completion_tokens"] <= SINGLE_PAGE_TOKENS
+                and result["finish_reason"] in ("stop", "length")):
+            raise AssertionError(f"single_page: {result}")
+        out["single_page"] = {
+            "seconds": time.perf_counter() - t0,
+            **{k: result[k] for k in ("model", "prompt_tokens",
+                                      "completion_tokens", "finish_reason",
+                                      "latency_s")}}
+        log(f"[entry] single_page --preset {cfg.name}: exit 0 in "
+            f"{out['single_page']['seconds']:.1f}s, {result}")
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "karanta_tpu_torch.bench.convert",
+             "karanta_engine:preset=tiny", "--dir", root], cwd=REPO,
+            capture_output=True, text=True, timeout=600)
+        if run.returncode != 0:
+            raise AssertionError(f"bench.convert exited {run.returncode}: "
+                                 f"{run.stderr[-2000:]}")
+        outputs = sorted(glob.glob(os.path.join(root, "karanta_engine",
+                                                "*.md")))
+        if not outputs:
+            raise AssertionError(f"bench.convert wrote no output: "
+                                 f"{run.stdout[-500:]} {run.stderr[-2000:]}")
+        tests = []
+        for path in outputs:
+            with open(path) as f:
+                text = f.read()
+            base = os.path.basename(path).split("_pg")[0]
+            tests += [{"pdf": f"{base}.pdf", "page": 1, "id": f"{base}-p",
+                       "type": "present", "text": text[:12]},
+                      {"pdf": f"{base}.pdf", "page": 1, "id": f"{base}-a",
+                       "type": "absent", "text": "\u0000never\u0000"}]
+        tests.append({"pdf": "missing.pdf", "page": 1, "id": "missing",
+                      "type": "present", "text": "x"})
+        score = score_method(root, "karanta_engine", tests)
+        if (score.passed, score.missing_outputs) != (len(tests) - 1, 1):
+            raise AssertionError(f"bench scoring: {score}")
+        out["convert"] = {"seconds": time.perf_counter() - t0,
+                          "outputs": len(outputs), "passed": score.passed,
+                          "total": score.total}
+        log(f"[entry] bench.convert karanta_engine:preset=tiny over "
+            f"{CONVERT_PDFS} PDFs: exit 0 in {out['convert']['seconds']:.1f}s,"
+            f" {len(outputs)} outputs; scored {score.passed}/{score.total} "
+            f"(one missing output on purpose)")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -4094,6 +4661,9 @@ def main(argv=None) -> int:
                              "two verify passes of each served engine with "
                              "torch.profiler and print the breakdowns")
     args = parser.parse_args(argv)
+    # every page pays its decode: phases that time host preparation must not
+    # hit the decoded-image cache (re-prepared pages would)
+    os.environ["KARANTA_IMG_CACHE_MB"] = "0"
 
     kind = phase_card()
     phase_build()
@@ -4122,6 +4692,7 @@ def main(argv=None) -> int:
     training_stats = phase_training(args.profile)
     training_launches = training_stats["full"]["adamw"]["launches_per_step"]
     classifier_stats = phase_classifiers()
+    batched_stats = phase_batched(cfg)
     # each kernel's launches on the path that runs it; kernel #8 is on no
     # path (the JAX package calls it from its tests only)
     paths = {
@@ -4168,6 +4739,9 @@ def main(argv=None) -> int:
         row["guided_launches"] = guided_stats["launches"].get(row["name"], 0)
         row["training_launches_per_step"] = training_launches.get(
             row["name"], 0)
+        row["batched_launches"] = {
+            wave: batched_stats[wave]["launches"].get(row["name"], 0)
+            for wave in ("A", "B", "C", "D")}
         log(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, library "
             f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)}"
@@ -4201,7 +4775,11 @@ def main(argv=None) -> int:
                     "guided_logprobs": {k: v for k, v in guided_stats.items()
                                         if k != "launches"},
                     "training": training_stats,
-                    "classifiers": classifier_stats}))
+                    "classifiers": classifier_stats,
+                    "batched": {k: ({kk: vv for kk, vv in v.items()
+                                     if kk != "launches"}
+                                    if k in ("A", "B", "C", "D") else v)
+                                for k, v in batched_stats.items()}}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

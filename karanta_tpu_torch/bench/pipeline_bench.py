@@ -282,6 +282,12 @@ async def run_bench(args) -> dict:
         # checkpoint's do); the single-attempt budget stays for
         # comparability
 
+    # the line counts this run's pages only: the pipeline's counters are
+    # process-wide, and a process (a test worker, the smoke) may run the
+    # bench more than once
+    from karanta_tpu_torch.utils.metrics import MetricsKeeper
+
+    runner.metrics = MetricsKeeper(window=300)
     start = time.time()
     await runner.amain(pargs)
     elapsed = time.time() - start

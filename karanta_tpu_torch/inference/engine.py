@@ -31,18 +31,29 @@
 - Teacher forcing (``EngineConfig.teacher_force``, bench-only): a request's
   ``forced_output`` overrides the token the model emitted at each position,
   while every step still runs the full decode or verify compute.
-
-Features of the JAX engine that the port does not have yet raise
-``NotImplementedError`` when requested: batched prefill and vision
-quantization.
+- Batched prefill (``prefill_batch`` = K > 1): ``generate`` groups same-shaped
+  single-image pages without a guided regex, logprobs or a shared prefix;
+  a full group runs one vision encode over the K images' concatenation and
+  one decoder prefill at batch K, then fills K slots.
+- W8A8 vision tower (``vision_quant="int8"``): the encoder's matrices are
+  int8 per channel and its products take dynamic int8 activations.
+- Host preparation: ``generate`` prepares pages on a thread pool, a bounded
+  window ahead of admission; decoded images are LRU-cached by the SHA-1 of
+  their bytes (``KARANTA_IMG_CACHE_MB``, default 256; 0 disables).
+  ``KARANTA_ENGINE_TIMING=1`` times generate's stages (``self.timing``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import io
+import logging
+import os
 import threading
 import time
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -67,7 +78,10 @@ from karanta_tpu_torch.ops.image_prep import (patchify, plan_image,
                                               resize_patchify, src_px_bucket)
 from karanta_tpu_torch.ops.png import decode_png_rgb
 from karanta_tpu_torch.ops.quantization import (is_quantized,
-                                                quantize_decoder_params)
+                                                quantize_decoder_params,
+                                                quantize_vision_params)
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,11 +100,11 @@ class EngineConfig:
     #                                      | "int4" (nibble-packed)
     act_quant: Optional[str] = None      # None | "int8": W8A8 prefill, head
     #                                      and speculative verify pass
-    vision_quant: Optional[str] = None   # not ported
+    vision_quant: Optional[str] = None   # None | "int8": W8A8 vision tower
     prefix_cache: bool = False           # reuse a shared prompt head's KV
     prefix_min_tokens: int = 256         # LCP gate of the prefix cache
     prefix_cache_entries: int = 4
-    prefill_batch: int = 1               # only 1 is ported
+    prefill_batch: int = 1               # pages per batched prefill
     device_resize: bool = True           # resize pages on the device
     speculative_ngram: int = 0           # drafted tokens per verify pass
     # bench-only hook: honour GenRequest.forced_output. Each step still runs
@@ -166,20 +180,15 @@ def _bucket(n: int, buckets: Sequence[int]) -> int:
     raise ValueError(f"size {n} exceeds largest bucket {buckets[-1]}")
 
 
-def _reject_unported(ecfg: EngineConfig) -> None:
+def _check_modes(ecfg: EngineConfig) -> None:
     if ecfg.quantize not in (None, "int8"):
         raise ValueError(f"unknown quantize mode {ecfg.quantize!r}")
+    if ecfg.vision_quant not in (None, "", "int8"):
+        raise ValueError(f"unknown vision_quant {ecfg.vision_quant!r}")
     if ecfg.act_quant not in (None, "int8"):
         raise ValueError(f"unknown act_quant {ecfg.act_quant!r}")
     if ecfg.kv_quantize not in (None, "int8", "int4"):
         raise ValueError(f"unknown kv_quantize {ecfg.kv_quantize!r}")
-    unported = []
-    if ecfg.prefill_batch > 1:
-        unported.append("prefill_batch > 1")
-    if ecfg.vision_quant:
-        unported.append("vision_quant")
-    if unported:
-        raise NotImplementedError("not ported yet: " + "; ".join(unported))
 
 
 class Engine:
@@ -189,12 +198,15 @@ class Engine:
                  engine_cfg: EngineConfig = EngineConfig(), rng_seed: int = 0,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
-        _reject_unported(engine_cfg)
+        _check_modes(engine_cfg)
         if self.device.type == "cuda":
             no_tf32()  # float32 products (the page resize) keep float32
         if engine_cfg.quantize == "int8":
             params = {**params,
                       "text": quantize_decoder_params(params["text"])}
+        if engine_cfg.vision_quant == "int8":
+            params = {**params,
+                      "visual": quantize_vision_params(params["visual"])}
         if engine_cfg.act_quant and not is_quantized(
                 params["text"]["layers"]["attn"]["wq"]):
             raise ValueError("act_quant requires int8 decoder weights (set "
@@ -302,25 +314,56 @@ class Engine:
         self._prompt_head: Optional[np.ndarray] = None
         self._prefix_miss = 0
         self._prefix_lock = threading.Lock()
+        # decoded-image cache: SHA-1 of the raw bytes -> RGB uint8 (retries
+        # and re-requests resend identical pages)
+        self._img_cache: "OrderedDict[bytes, np.ndarray]" = OrderedDict()
+        self._img_cache_bytes = 0
+        self._img_cache_cap = int(os.environ.get(
+            "KARANTA_IMG_CACHE_MB", "256")) * (1 << 20)
+        self._img_cache_lock = threading.Lock()
+        self.timing: Optional[dict] = None  # KARANTA_ENGINE_TIMING=1
 
     # ------------------------------------------------------------------
 
     def _decode_image(self, raw: bytes) -> np.ndarray:
-        """Image bytes -> RGB uint8. The port's own decoder takes the 8-bit
-        PNGs; any PNG it refuses (palette, 16-bit, 1/2/4-bit, interlaced)
-        and every other format go through PIL on the host, as in the JAX
-        engine."""
+        """Image bytes -> RGB uint8 (read-only), LRU-cached by the SHA-1 of
+        the bytes up to ``KARANTA_IMG_CACHE_MB`` (0 disables). The port's
+        own decoder takes the 8-bit PNGs; any PNG it refuses (palette,
+        16-bit, 1/2/4-bit, interlaced) and every other format go through
+        PIL on the host, as in the JAX engine."""
+        key = hashlib.sha1(raw).digest() if self._img_cache_cap else None
+        if key is not None:
+            with self._img_cache_lock:
+                hit = self._img_cache.get(key)
+                if hit is not None:
+                    self._img_cache.move_to_end(key)
+                    return hit
+        rgb = None
         if raw[:8] == b"\x89PNG\r\n\x1a\n":
             try:
-                return decode_png_rgb(raw)
+                rgb = decode_png_rgb(raw)
             except ValueError:
                 pass  # a PNG variant the decoder does not take: PIL
-        import io
+        if rgb is None:
+            from PIL import Image
 
-        from PIL import Image
-
-        pil = Image.open(io.BytesIO(raw))
-        return np.asarray(pil.convert("RGB"), np.uint8)
+            pil = Image.open(io.BytesIO(raw))
+            rgb = np.asarray(pil.convert("RGB"), np.uint8)
+        rgb.setflags(write=False)  # shared across cache hits
+        if key is not None:
+            with self._img_cache_lock:
+                # two prepare threads may miss the same key at once: the
+                # second insert replaces the first without counting twice
+                old = self._img_cache.pop(key, None)
+                if old is not None:
+                    self._img_cache_bytes -= old.nbytes
+                self._img_cache[key] = rgb
+                self._img_cache_bytes += rgb.nbytes
+                while (self._img_cache_bytes > self._img_cache_cap
+                       and len(self._img_cache) > 1):
+                    _, old = self._img_cache.popitem(last=False)
+                    self._img_cache_bytes -= old.nbytes
+        return rgb
 
     def staging_headroom(self, pending_pages: int) -> bool:
         """True when the card has room to stage one more prepared page: the
@@ -574,11 +617,12 @@ class Engine:
             prefix_len = 0
         return prefix_len
 
-    def _prompt_embeds(self, prepared: _Prepared, start: int,
-                       s_pad: int) -> torch.Tensor:
+    def _prompt_embeds(self, prepared: _Prepared, start: int, s_pad: int,
+                       image_tokens: Optional[list] = None) -> torch.Tensor:
         """Embeddings of prompt tokens [start, S), padded to s_pad rows, with
-        each image's encoded tokens merged at its positions (vision encoder
-        on the device)."""
+        each image's encoded tokens merged at its positions: the vision
+        encoder's on the device, or `image_tokens` (each image's (n_pad, H)
+        tokens in extract order) when they were encoded already."""
         dev, text = self.device, self.params["text"]
         n = len(prepared.ids) - start
         ids = torch.zeros((s_pad,), dtype=torch.int64)
@@ -587,14 +631,17 @@ class Engine:
         img_pos_all = np.flatnonzero(
             prepared.ids == self.tok.image_pad_id) - start
         offset = 0
-        for feed in prepared.image_feeds:
+        for i, feed in enumerate(prepared.image_feeds):
             layout = feed["layout"]
-            encoded = vis.encode_image(
-                self.params["visual"], self.cfg.vision, feed["pix_dev"],
-                torch.from_numpy(layout.perm).to(dev),
-                torch.from_numpy(layout.valid).to(dev),
-                torch.from_numpy(layout.pos_hw).to(dev))
-            tokens = encoded[torch.from_numpy(feed["extract"]).to(dev)]
+            if image_tokens is None:
+                encoded = vis.encode_image(
+                    self.params["visual"], self.cfg.vision, feed["pix_dev"],
+                    torch.from_numpy(layout.perm).to(dev),
+                    torch.from_numpy(layout.valid).to(dev),
+                    torch.from_numpy(layout.pos_hw).to(dev))
+                tokens = encoded[torch.from_numpy(feed["extract"]).to(dev)]
+            else:
+                tokens = image_tokens[i]
             pos = np.full((feed["n_pad"],), s_pad, np.int64)
             pos[: layout.num_merged] = img_pos_all[
                 offset:offset + layout.num_merged]
@@ -700,35 +747,113 @@ class Engine:
         quantized and nibble-packed for the int4 cache).
         Returns the first token: a device scalar, or under teacher forcing
         the forced stream's first token."""
-        dev = self.device
-        s = len(prepared.ids)
         logits, pcache = self.prefill(prepared)
-        for feed in prepared.image_feeds:
-            feed["pix_dev"] = None  # the page's pixels are no longer needed
-        rows = pcache.k.shape[3]
         first, dfa_after = self._sample_first(prepared, logits)
+        return self._insert([slot], [prepared], pcache, [first],
+                            [dfa_after])[0]
 
+    def _batch_key(self, prepared: _Prepared):
+        """Pages batch together when their prefill shapes match: one image,
+        no shared prefix, no guided regex and no logprobs (those take the
+        per-page path). None for a page that does not batch."""
+        if (len(prepared.image_feeds) != 1 or prepared.prefix_len
+                or prepared.guide_regex or prepared.logprobs):
+            return None
+        feed = prepared.image_feeds[0]
+        return (_bucket(len(prepared.ids), self.ecfg.prefill_buckets),
+                tuple(feed["pix_dev"].shape),
+                int(feed["n_pad"]), int(feed["layout"].n_windows))
+
+    def prefill_batch(self, group: list):
+        """Vision encode + embedding merge + causal prefill of K pages that
+        share a batch key: one encode over the K images' concatenation and
+        one decoder prefill at batch K. Returns (last-position logits
+        (K, V), the prompts' KV rows (L, K, KVH, S, D))."""
+        dev, text = self.device, self.params["text"]
+        k = len(group)
+        feeds = [g.image_feeds[0] for g in group]
+        p_tokens = feeds[0]["pix_dev"].shape[0]
+        pad_merged = p_tokens // self.cfg.vision.merge_unit
+        layouts = [f["layout"] for f in feeds]
+        encoded = vis.encode_image(
+            self.params["visual"], self.cfg.vision,
+            torch.cat([f["pix_dev"] for f in feeds]),
+            torch.from_numpy(np.concatenate(
+                [lay.perm + i * p_tokens for i, lay in enumerate(layouts)]
+            )).to(dev),
+            torch.from_numpy(np.concatenate(
+                [lay.valid for lay in layouts])).to(dev),
+            torch.from_numpy(np.concatenate(
+                [lay.pos_hw for lay in layouts])).to(dev),
+            n_images=k)
+        extract = np.concatenate([f["extract"] + i * pad_merged
+                                  for i, f in enumerate(feeds)])
+        tokens = encoded[torch.from_numpy(extract).to(dev)].reshape(
+            k, feeds[0]["n_pad"], -1)
+        padded = [self._padded_prompt(g.positions) for g in group]
+        s_pad = padded[0][2]
+        emb = torch.stack([self._prompt_embeds(g, 0, s_pad, [tokens[i]])
+                           for i, g in enumerate(group)])
+        hidden, pcache = dec.prefill_forward(
+            text, self.cfg.text, emb, torch.cat([p[0] for p in padded], 1),
+            kv_mask=torch.cat([p[1] for p in padded]),
+            act_quant=self._act_quant)
+        last = hidden[torch.arange(k, device=dev),
+                      torch.tensor([len(g.ids) - 1 for g in group],
+                                   device=dev)]
+        logits = dec.logits_from_hidden(text, self.cfg.text, last,
+                                        act_quant=self._act_quant)
+        return logits, pcache
+
+    def prefill_insert_batch(self, group: list, slots: list) -> list:
+        """Batched prefill of K pages that share a batch key, their first
+        tokens (greedy when every temperature is 0, else sampled over the K
+        rows) and their KV rows written into `slots`. Returns the K first
+        tokens as prefill_insert returns one."""
+        logits, pcache = self.prefill_batch(group)
+        if all(g.temperature <= 0.0 for g in group):
+            firsts = torch.argmax(logits.float(), dim=-1)
+        else:
+            firsts = sample_tokens(
+                logits, self._gen,
+                torch.tensor([g.temperature for g in group],
+                             device=self.device),
+                torch.tensor([g.top_p for g in group], device=self.device))
+        return self._insert(slots, group, pcache, list(firsts),
+                            [0] * len(group))
+
+    def _insert(self, slots: list, group: list, pcache, firsts: list,
+                dfa_afters: list) -> list:
+        """Write prefill KV rows (L, K, KVH, S, D), row i into slots[i], and
+        bind each slot to its request: lengths, position, pending token,
+        sampling and guided state, the speculation history and the forced
+        stream. Returns each slot's first emitted token."""
+        for g in group:
+            for feed in g.image_feeds:
+                feed["pix_dev"] = None  # the page's pixels are no longer needed
         c = self.cache
         if isinstance(c, dec.Q4KVCache):
             # ceil64(rows) / 2 packed rows; the pad's nibbles lie past the
             # prompt, where cache_len masks them
-            k4, v4, ks4, vs4 = dec.q4_pack_prefill(pcache.k[:, 0],
-                                                   pcache.v[:, 0])
-            ps = k4.shape[-2]
-            c.k[:, slot, :, :ps] = k4
-            c.v[:, slot, :, :ps] = v4
-            c.ks[:, slot, :, :ps] = ks4.to(c.ks.dtype)
-            c.vs[:, slot, :, :ps] = vs4.to(c.vs.dtype)
+            rows = dec.q4_pack_prefill(pcache.k, pcache.v)
+            dsts = (c.k, c.v, c.ks, c.vs)
         elif isinstance(c, dec.QuantKVCache):
-            kq, ksc = dec.quantize_kv_rows(pcache.k[:, 0])
-            vq, vsc = dec.quantize_kv_rows(pcache.v[:, 0])
-            c.k[:, slot, :, :rows] = kq
-            c.v[:, slot, :, :rows] = vq
-            c.ks[:, slot, :, :rows] = ksc.to(c.ks.dtype)
-            c.vs[:, slot, :, :rows] = vsc.to(c.vs.dtype)
+            kq, ksc = dec.quantize_kv_rows(pcache.k)
+            vq, vsc = dec.quantize_kv_rows(pcache.v)
+            rows, dsts = (kq, vq, ksc, vsc), (c.k, c.v, c.ks, c.vs)
         else:
-            c.k[:, slot, :, :rows] = pcache.k[:, 0].to(c.k.dtype)
-            c.v[:, slot, :, :rows] = pcache.v[:, 0].to(c.v.dtype)
+            rows, dsts = (pcache.k, pcache.v), (c.k, c.v)
+        out = []
+        for i, (slot, prepared) in enumerate(zip(slots, group)):
+            # one slot at a time: every tensor is (L, B, heads, rows, ...)
+            for dst, src in zip(dsts, rows):
+                dst[:, slot, :, :src.shape[3]] = src[:, i].to(dst.dtype)
+            out.append(self._bind_slot(slot, prepared, firsts[i],
+                                       dfa_afters[i]))
+        return out
+
+    def _bind_slot(self, slot: int, prepared: _Prepared, first, dfa_after):
+        s = len(prepared.ids)
         self.cache_len[slot] = s
         self.next_pos[slot] = int(prepared.positions.max()) + 1 if s else 0
         self.last_token[slot] = first
@@ -748,7 +873,7 @@ class Engine:
         if self.ecfg.speculative_ngram > 0:
             hist = np.zeros((self.ecfg.max_seq_len,), np.int64)
             hist[:s] = prepared.ids
-            self.token_hist[slot] = torch.from_numpy(hist).to(dev)
+            self.token_hist[slot] = torch.from_numpy(hist).to(self.device)
             self.token_hist[slot, s] = first
         if self.ecfg.teacher_force:
             return self._apply_teacher(slot, prepared, first)
@@ -1014,105 +1139,195 @@ class Engine:
     # ------------------------------------------------------------------
 
     def generate(self, requests: list[GenRequest]) -> list[GenResult]:
-        """Synchronous batch generation over the decode slots."""
+        """Synchronous batch generation over the decode slots. Pages are
+        prepared on a thread pool, a bounded window ahead of admission, so
+        host preparation overlaps the card's work."""
+        timing = os.environ.get("KARANTA_ENGINE_TIMING") == "1"
+        tacc = {"prep_wait": 0.0, "prefill": 0.0, "sync": 0.0,
+                "decode": 0.0, "collect": 0.0, "total": 0.0,
+                "prepare": 0.0, "prefills": 0, "chunks": 0}
+        t_gen0 = time.perf_counter()
         results: dict[int, GenResult] = {}
         pending = list(enumerate(requests))
+        # each prepared page holds its pixels on the device (about 12 MB at
+        # 7B), so only a window of pages is prepared ahead: the active wave
+        # and half the next
+        b = self.ecfg.max_batch_size
+        prep_window = max(16, b + b // 2)
+        prep_pool = ThreadPoolExecutor(
+            max_workers=max(2, min(8, os.cpu_count() or 1)))
+        prep_futures: dict = {}
+        tacc_lock = threading.Lock()
+
+        def timed_prepare(request):
+            t0 = time.perf_counter()
+            try:
+                return self.prepare(request)
+            finally:
+                with tacc_lock:
+                    tacc["prepare"] += time.perf_counter() - t0
+
+        def top_up_prep():
+            for idx, r in pending[:prep_window]:
+                if idx not in prep_futures:
+                    prep_futures[idx] = prep_pool.submit(timed_prepare, r)
+
         # slot -> [req_idx, prepared, tokens, t0, logprobs or None]
         active: dict[int, list] = {}
         # collector of a decode chunk launched before the previous chunk's
         # tokens were read; no admission while it runs (an insert would race
         # the chunk's writes to the cache)
         inflight = None
-        while pending or active:
-            wave = []
-            deferred = []
-            free_count = sum(self.slot_free) if inflight is None else 0
-            while pending and free_count > 0:
-                req_idx, request = pending.pop(0)
-                if (request.guided_regex
-                        and not self.guided_available(request.guided_regex)):
-                    # another regex fills the arena with live slots: hold
-                    # this request until they drain
-                    deferred.append((req_idx, request))
+        pb = max(1, self.ecfg.prefill_batch)
+        try:
+            while pending or active:
+                top_up_prep()
+                wave = []
+
+                def dispatch(entries):
+                    slots = [i for i, free in enumerate(self.slot_free)
+                             if free][:len(entries)]
+                    group = [prepared for _, prepared, _ in entries]
+                    t0 = time.perf_counter()
+                    if len(entries) == 1:
+                        firsts = [self.prefill_insert(slots[0], group[0])]
+                    else:
+                        firsts = self.prefill_insert_batch(group, slots)
+                    tacc["prefill"] += time.perf_counter() - t0
+                    tacc["prefills"] += len(entries)
+                    for (req_idx, prepared, start), slot, first in zip(
+                            entries, slots, firsts):
+                        wave.append((req_idx, prepared, slot, start, first))
+
+                # a full group, or a page that does not batch, goes to the
+                # card at once, so later pages' preparation overlaps it
+                deferred, partial = [], {}
+                free_count = sum(self.slot_free) if inflight is None else 0
+                while pending and free_count > 0:
+                    req_idx, request = pending.pop(0)
+                    if (request.guided_regex and not self.guided_available(
+                            request.guided_regex)):
+                        # another regex fills the arena with live slots:
+                        # hold this request until they drain
+                        deferred.append((req_idx, request))
+                        continue
+                    t0 = time.perf_counter()
+                    if req_idx not in prep_futures:
+                        prep_futures[req_idx] = prep_pool.submit(
+                            timed_prepare, request)
+                    prepared = prep_futures.pop(req_idx).result()
+                    tacc["prep_wait"] += time.perf_counter() - t0
+                    # keep prompt + completion within the cache
+                    prepared.max_tokens = min(
+                        prepared.max_tokens,
+                        max(1, self.ecfg.max_seq_len - len(prepared.ids) - 1))
+                    free_count -= 1
+                    entry = (req_idx, prepared, time.time())
+                    key = self._batch_key(prepared) if pb > 1 else None
+                    if key is None:
+                        dispatch([entry])
+                        continue
+                    group = partial.setdefault(key, [])
+                    group.append(entry)
+                    if len(group) == pb:
+                        dispatch(partial.pop(key))
+                # leftovers of fewer than prefill_batch pages run page by page
+                for group in partial.values():
+                    for entry in group:
+                        dispatch([entry])
+                pending = deferred + pending
+                t0 = time.perf_counter()
+                for req_idx, prepared, slot, start, first in wave:
+                    first_host = int(first)
+                    collected = [first_host]
+                    lp = ([self._first_logprob.pop(prepared.request_id, None)]
+                          if prepared.logprobs else None)
+                    if (first_host == self.tok.eos_token_id
+                            or prepared.max_tokens <= 1):
+                        reason = ("stop"
+                                  if first_host == self.tok.eos_token_id
+                                  else "length")
+                        results[req_idx] = self._finish(prepared, collected,
+                                                        reason, start, lp)
+                        self.free_slot(slot)
+                    else:
+                        active[slot] = [req_idx, prepared, collected, start,
+                                        lp]
+                tacc["sync"] += time.perf_counter() - t0
+                if not active:
+                    if inflight is not None:
+                        inflight()  # every slot finished: drain and discard
+                        inflight = None
                     continue
-                start = time.time()
-                prepared = self.prepare(request)
-                # keep prompt + completion within the cache
-                prepared.max_tokens = min(
-                    prepared.max_tokens,
-                    max(1, self.ecfg.max_seq_len - len(prepared.ids) - 1))
-                slot = self.slot_free.index(True)
-                first = self.prefill_insert(slot, prepared)
-                wave.append((req_idx, prepared, slot, start, first))
-                free_count -= 1
-            pending = deferred + pending
-            for req_idx, prepared, slot, start, first in wave:
-                first_host = int(first)
-                collected = [first_host]
-                lp = ([self._first_logprob.pop(prepared.request_id, None)]
-                      if prepared.logprobs else None)
-                if (first_host == self.tok.eos_token_id
-                        or prepared.max_tokens <= 1):
-                    reason = ("stop" if first_host == self.tok.eos_token_id
-                              else "length")
-                    results[req_idx] = self._finish(prepared, collected,
-                                                    reason, start, lp)
-                    self.free_slot(slot)
-                else:
-                    active[slot] = [req_idx, prepared, collected, start, lp]
-            if not active:
-                if inflight is not None:
-                    inflight()  # every slot finished: drain and discard
+                t0 = time.perf_counter()
+                if inflight is not None and self._spec_ok():
+                    # the slot mix changed under the inflight chunk: drain it
+                    # before switching to speculation
+                    toks = inflight()
                     inflight = None
-                continue
-            if inflight is not None and self._spec_ok():
-                # the slot mix changed under the inflight chunk: drain it
-                # before switching to speculation
-                toks = inflight()
-                inflight = None
-                emitted = {slot: [int(t) for t in toks[:, slot]]
-                           for slot in active}
-            elif self._spec_ok():
-                spec_toks, spec_counts = self.decode_chunk_spec()
-                emitted = self.spec_emissions(spec_toks, spec_counts, {
-                    slot: st[1].max_tokens - len(st[2])
-                    for slot, st in active.items()})
-            else:
-                steps = self.ecfg.decode_chunk
-                collect = (inflight if inflight is not None
-                           else self.decode_chunk_async())
-                inflight = None
-                # launch the next chunk before reading this one when every
-                # slot needs more than a chunk anyway and the cache has room
-                min_remaining = min(st[1].max_tokens - len(st[2])
-                                    for st in active.values())
-                if min_remaining > steps and self.decode_headroom(steps):
-                    inflight = self.decode_chunk_async()
-                toks = collect()
-                emitted = {slot: [int(t) for t in toks[:, slot]]
-                           for slot in active}
-            lp_data = self._last_logprobs
-            for slot in list(active):
-                req_idx, prepared, collected, start, lp = active[slot]
-                finished = None
-                for j, token in enumerate(emitted[slot]):
-                    collected.append(token)
-                    if lp is not None and lp_data is not None:
-                        lp.append(chunk_logprob(lp_data, j, slot,
-                                                prepared.top_logprobs))
-                    if token == self.tok.eos_token_id:
-                        finished = "stop"
-                        break
-                    if len(collected) >= prepared.max_tokens:
-                        finished = "length"
-                        break
-                if finished:
-                    results[req_idx] = self._finish(prepared, collected,
-                                                    finished, start, lp)
-                    del active[slot]
-                    self.free_slot(slot)
-        if inflight is not None:
-            inflight()
+                    emitted = {slot: [int(t) for t in toks[:, slot]]
+                               for slot in active}
+                elif self._spec_ok():
+                    spec_toks, spec_counts = self.decode_chunk_spec()
+                    emitted = self.spec_emissions(spec_toks, spec_counts, {
+                        slot: st[1].max_tokens - len(st[2])
+                        for slot, st in active.items()})
+                else:
+                    steps = self.ecfg.decode_chunk
+                    collect = (inflight if inflight is not None
+                               else self.decode_chunk_async())
+                    inflight = None
+                    # launch the next chunk before reading this one when
+                    # every slot needs more than a chunk anyway and the cache
+                    # has room
+                    min_remaining = min(st[1].max_tokens - len(st[2])
+                                        for st in active.values())
+                    if min_remaining > steps and self.decode_headroom(steps):
+                        inflight = self.decode_chunk_async()
+                    toks = collect()
+                    emitted = {slot: [int(t) for t in toks[:, slot]]
+                               for slot in active}
+                tacc["decode"] += time.perf_counter() - t0
+                tacc["chunks"] += 1
+                t0 = time.perf_counter()
+                lp_data = self._last_logprobs
+                for slot in list(active):
+                    req_idx, prepared, collected, start, lp = active[slot]
+                    finished = None
+                    for j, token in enumerate(emitted[slot]):
+                        collected.append(token)
+                        if lp is not None and lp_data is not None:
+                            lp.append(chunk_logprob(lp_data, j, slot,
+                                                    prepared.top_logprobs))
+                        if token == self.tok.eos_token_id:
+                            finished = "stop"
+                            break
+                        if len(collected) >= prepared.max_tokens:
+                            finished = "length"
+                            break
+                    if finished:
+                        results[req_idx] = self._finish(prepared, collected,
+                                                        finished, start, lp)
+                        del active[slot]
+                        self.free_slot(slot)
+                tacc["collect"] += time.perf_counter() - t0
+            if inflight is not None:
+                inflight()
+        finally:
+            prep_pool.shutdown(wait=True, cancel_futures=True)
+        if timing:
+            tacc["total"] = time.perf_counter() - t_gen0
+            self.timing = tacc
+            logger.warning(
+                "engine timing: total %.2fs | prep_wait %.2fs (prepare %.2fs "
+                "in the pool) | prefill %.2fs (%d, %.0f ms each) | sync "
+                "%.2fs | decode %.2fs (%d chunks, %.0f ms each) | collect "
+                "%.2fs", tacc["total"], tacc["prep_wait"], tacc["prepare"],
+                tacc["prefill"], tacc["prefills"],
+                tacc["prefill"] / max(tacc["prefills"], 1) * 1e3,
+                tacc["sync"], tacc["decode"], tacc["chunks"],
+                tacc["decode"] / max(tacc["chunks"], 1) * 1e3,
+                tacc["collect"])
         return [results[i] for i in range(len(requests))]
 
     def _finish(self, prepared: _Prepared, collected: list[int], reason: str,

@@ -597,43 +597,47 @@ def build_engine_from_args(args) -> tuple[Engine, str]:
     an HF checkpoint (``--model-path``: its safetensors and its tokenizer,
     the architecture from ``--preset`` or the path's name), or random
     weights by preset (tiny and small with the byte tokenizer, full presets
-    through ``model.init_params``)."""
+    through ``model.init_params``). Every optional flag is read with the JAX
+    server's default, so a caller's narrower namespace (``single_page``,
+    the bench runner) builds the same engine; a missing ``device`` means
+    the card."""
     from karanta_tpu_torch.inference.tokenizer import ByteTokenizer
     from karanta_tpu_torch.models.qwen25_vl.config import (get_config,
                                                            small_config,
                                                            tiny_config)
     from karanta_tpu_torch.models.qwen25_vl.model import init_params
 
-    if args.tensor_parallel_size > 1 or args.data_parallel_size > 1:
+    if (getattr(args, "tensor_parallel_size", 1) > 1
+            or getattr(args, "data_parallel_size", 1) > 1):
         raise NotImplementedError(
             "tensor and data parallel serving are not ported yet "
             "(ROADMAP.md, modules: multi-card serving)")
-    device = resolve_device(args.device)
+    device = resolve_device(getattr(args, "device", None))
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     ecfg = EngineConfig(
         max_batch_size=args.max_batch_size,
         max_seq_len=args.max_model_len,
         decode_chunk=args.decode_chunk,
         dtype=dtype,
-        quantize=args.quantize,
-        kv_quantize=args.kv_quantize,
-        act_quant=args.act_quant,
-        vision_quant=args.vision_quant,
+        quantize=getattr(args, "quantize", None),
+        kv_quantize=getattr(args, "kv_quantize", None),
+        act_quant=getattr(args, "act_quant", None),
+        vision_quant=getattr(args, "vision_quant", None),
         # product defaults (matching the server CLI): prefix caching and the
         # n-gram drafter ship on
-        prefix_cache=args.prefix_cache,
-        prefix_min_tokens=args.prefix_min_tokens,
-        speculative_ngram=args.speculative_ngram,
-        teacher_force=args.teacher_force,
+        prefix_cache=getattr(args, "prefix_cache", True),
+        prefix_min_tokens=getattr(args, "prefix_min_tokens", 256),
+        speculative_ngram=getattr(args, "speculative_ngram", 3),
+        teacher_force=getattr(args, "teacher_force", False),
     )
-    if args.native_checkpoint:
+    if getattr(args, "native_checkpoint", None):
         return _native_checkpoint_engine(args, ecfg, dtype, device)
-    if args.model_path:
+    if getattr(args, "model_path", None):
         from karanta_tpu_torch.inference.tokenizer import HFTokenizer
         from karanta_tpu_torch.models.qwen25_vl.loading import \
             load_hf_checkpoint
 
-        cfg = get_config(args.preset or args.model_path)
+        cfg = get_config(getattr(args, "preset", None) or args.model_path)
         # quantize on transfer, matrix by matrix: the card never holds the
         # whole bf16 decoder beside its int8 copy
         params = load_hf_checkpoint(args.model_path, cfg, dtype,
@@ -644,7 +648,7 @@ def build_engine_from_args(args) -> tuple[Engine, str]:
         name = args.model_path
         return Engine(params, cfg, tok, ecfg, device=device), name
     tok = ByteTokenizer()
-    preset = args.preset or "tiny"
+    preset = getattr(args, "preset", None) or "tiny"
     if preset in ("tiny", "small"):
         factory = tiny_config if preset == "tiny" else small_config
         cfg = factory(vocab_size=tok.vocab_size)
@@ -671,14 +675,15 @@ def _native_checkpoint_engine(args, ecfg: EngineConfig, dtype, device
                                                        restore_params)
     from karanta_tpu_torch.utils.tree import tree_map
 
-    preset = args.preset or "tiny"
+    preset = getattr(args, "preset", None) or "tiny"
     hermetic = preset in ("tiny", "small")
-    if args.tokenizer_path:
-        tok = HFTokenizer(args.tokenizer_path)
+    tokenizer_path = getattr(args, "tokenizer_path", None)
+    if tokenizer_path:
+        tok = HFTokenizer(tokenizer_path)
     elif not hermetic:
         # the byte tokenizer's 272-id vocab fits only the hermetic presets
         raise SystemExit(
-            f"--native-checkpoint with preset {args.preset!r} needs "
+            f"--native-checkpoint with preset {preset!r} needs "
             "--tokenizer-path (an HF tokenizer dir); the hermetic byte "
             "tokenizer only fits the 'tiny'/'small' presets")
     else:
@@ -740,7 +745,8 @@ def make_arg_parser() -> argparse.ArgumentParser:
                              "requires --quantize int8")
     parser.add_argument("--vision-quant", dest="vision_quant", default=None,
                         choices=["int8"],
-                        help="W8A8 vision tower (not ported yet)")
+                        help="W8A8 vision tower: int8 per-channel weights, "
+                             "dynamic int8 activations")
     parser.add_argument("--speculative-ngram", dest="speculative_ngram",
                         type=int, default=3,
                         help="draft N tokens per verify pass by n-gram "

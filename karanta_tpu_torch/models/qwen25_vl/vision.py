@@ -108,16 +108,23 @@ def _activation(cfg: VisionConfig, x):
 
 
 def _attn_block(x, p, cos, sin, valid, cfg: VisionConfig, full: bool,
-                trainable: bool = False):
-    """x: (pad_tokens, hidden) window-ordered -> attention output."""
+                trainable: bool = False, n_images: int = 1):
+    """x: (pad_tokens, hidden) window-ordered -> attention output.
+
+    With n_images > 1, x is the token-axis concatenation of that many
+    same-shaped images: window layers run over the whole concatenation
+    (no window straddles two images), full-attention layers take the image
+    axis as the attention batch, so no image attends to another."""
     tokens = x.shape[0]
     nh, hd = cfg.num_heads, cfg.head_dim
-    q = (amm(x, p["wq"]) + p["bq"]).reshape(1, tokens, nh, hd)
-    k = (amm(x, p["wk"]) + p["bk"]).reshape(1, tokens, nh, hd)
-    v = (amm(x, p["wv"]) + p["bv"]).reshape(1, tokens, nh, hd)
-    cs = cos.reshape(1, tokens, hd)
-    sn = sin.reshape(1, tokens, hd)
-    mask = valid.reshape(1, tokens)
+    b = n_images if full else 1
+    shape = (b, tokens // b, nh, hd)
+    q = (amm(x, p["wq"]) + p["bq"]).reshape(shape)
+    k = (amm(x, p["wk"]) + p["bk"]).reshape(shape)
+    v = (amm(x, p["wv"]) + p["bv"]).reshape(shape)
+    cs = cos.reshape(b, tokens // b, hd)
+    sn = sin.reshape(b, tokens // b, hd)
+    mask = valid.reshape(b, tokens // b)
     if full:
         q, k = apply_rope(q, k, cs, sn)
         out = attention(q, k, v, kv_mask=mask, causal=False)
@@ -152,10 +159,14 @@ def encode_image(params: Params, cfg: VisionConfig,
                  pos_hw: torch.Tensor,        # (pad_tokens, 2) int
                  trainable: bool = False,
                  remat: bool = False,
+                 n_images: int = 1,
                  ) -> torch.Tensor:
-    """Encode one padded image. Returns (pad_merged, out_hidden) in
-    window-merged order; callers select real tokens with layout.extract.
-    (The JAX function's static ``n_windows`` follows from the token count.)
+    """Encode one padded image, or with n_images > 1 the token-axis
+    concatenation of that many same-shaped images (batched prefill).
+    Returns (pad_merged, out_hidden) in window-merged order; callers select
+    real tokens with layout.extract, offset by each image's pad_merged when
+    batched. (The JAX function's static ``n_windows`` follows from the
+    token count.)
 
     trainable=True takes the differentiable window attention (training);
     remat=True checkpoints each block, so the backward recomputes one
@@ -171,7 +182,7 @@ def encode_image(params: Params, cfg: VisionConfig,
     def block(x, lp, full):
         x = x + _attn_block(_vnorm(cfg, x, lp["norm1"], lp.get("norm1_b")),
                             lp["attn"], cos, sin, valid, cfg, full,
-                            trainable)
+                            trainable, n_images)
         return x + _mlp(cfg, _vnorm(cfg, x, lp["norm2"], lp.get("norm2_b")),
                         lp["mlp"])
 

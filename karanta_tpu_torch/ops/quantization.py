@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 QUANT_KEY = "int8_q"  # marker key distinguishing quantized leaves
 LORA_KEY = "lora_base"  # marker key of inline-LoRA wrapped leaves
@@ -90,19 +91,24 @@ _INT_MM_MIN_ROWS = 32
 def int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact (M, K) int8 @ (K, N) int8 -> (M, N) int32.
 
-    On CUDA the rows are zero-padded up to what ``torch._int_mm`` takes (K
-    and N must be multiples of 8 there); on the CPU the product is exact
-    integer accumulation at any shape."""
-    m = a.shape[0]
+    On CUDA the operands are zero-padded up to what ``torch._int_mm`` takes:
+    more than 16 rows, K and N multiples of 8 (the 7B vision MLP's 3420
+    columns are not); zeros add nothing to an integer sum. On the CPU the
+    product is exact integer accumulation at any shape."""
+    m, k = a.shape
+    n = b.shape[1]
     if a.is_cuda:
-        if a.shape[1] % 8 or b.shape[1] % 8:
-            raise ValueError(f"int8 product on CUDA needs K, N divisible by "
-                             f"8, got {tuple(a.shape)} @ {tuple(b.shape)}")
+        pad_k, pad_n = -k % 8, -n % 8
+        if pad_k:
+            a = F.pad(a, (0, pad_k))
         if m < _INT_MM_MIN_ROWS:
-            a = torch.cat([a, a.new_zeros((_INT_MM_MIN_ROWS - m, a.shape[1]))])
-        if not b.t().is_contiguous():
+            a = F.pad(a, (0, 0, 0, _INT_MM_MIN_ROWS - m))
+        if pad_k or pad_n:
+            # (N, K)-contiguous storage, the order cuBLASLt takes (out_major)
+            b = F.pad(b.t(), (0, pad_k, 0, pad_n)).t()
+        elif not b.t().is_contiguous():
             b = b.contiguous()
-        return torch._int_mm(a.contiguous(), b)[:m]
+        return torch._int_mm(a.contiguous(), b)[:m, :n]
     return torch._int_mm(a.contiguous(), b.contiguous())
 
 
@@ -131,6 +137,25 @@ def matmul_auto(x: torch.Tensor, w: Any) -> torch.Tensor:
     if is_quantized(w):
         return matmul_w8a8(x, w)
     return x @ w
+
+
+def quantize_vision_params(visual: dict) -> dict:
+    """Quantize the vision encoder's matrices (the blocks' attention and
+    MLP, the patch embedding, the merger) to per-channel int8; biases and
+    norms stay as they are. ``matmul_auto`` then runs them W8A8."""
+    blocks = dict(visual["blocks"])
+    blocks["attn"] = {**blocks["attn"], **{
+        name: quantize_weight(blocks["attn"][name])
+        for name in ("wq", "wk", "wv", "wo")}}
+    blocks["mlp"] = {name: quantize_weight(w) if name in (
+        "gate", "up", "down", "fc1", "fc2") else w
+        for name, w in blocks["mlp"].items()}
+    merger = {**visual["merger"],
+              "w1": quantize_weight(visual["merger"]["w1"]),
+              "w2": quantize_weight(visual["merger"]["w2"])}
+    return {**visual, "blocks": blocks, "merger": merger,
+            "patch_embed": {"kernel": quantize_weight(
+                visual["patch_embed"]["kernel"])}}
 
 
 def quantize_decoder_params(text_params: dict) -> dict:

@@ -105,14 +105,28 @@ def test_greedy_tokens_match_jax_engine(kind):
     assert got[0].token_ids == want[0].token_ids
 
 
-def test_unported_features_raise():
+def test_batched_prefill_and_vision_quant_build():
+    """Batched prefill and the W8A8 vision tower build (the int8 tower's
+    matrices quantized, its biases kept); an unknown vision_quant raises
+    ValueError, as in the JAX engine."""
+    from karanta_tpu_torch.models.qwen25_vl.model import init_params
+    from karanta_tpu_torch.ops.quantization import is_quantized
+
     tok = _NoStop()
     cfg = tiny_config(vocab_size=tok.vocab_size)
-    params = {"text": {"layers": {"attn": {"wq": None}}}}
-    for bad in (dict(prefill_batch=4), dict(vision_quant="int8")):
-        kw = {**dict(kv_quantize="int8"), **bad}
-        with pytest.raises(NotImplementedError):
-            Engine(params, cfg, tok, EngineConfig(**kw), device="cpu")
+    params = init_params(cfg, 0, torch.float32, device="cpu")
+    kw = dict(max_batch_size=4, max_seq_len=128, prefill_buckets=(128,),
+              dtype=torch.float32, kv_quantize="int8")
+    eng = Engine(params, cfg, tok, EngineConfig(
+        prefill_batch=4, vision_quant="int8", **kw), device="cpu")
+    assert eng.ecfg.prefill_batch == 4
+    visual = eng.params["visual"]
+    assert is_quantized(visual["blocks"]["attn"]["wq"])
+    assert is_quantized(visual["merger"]["w2"])
+    assert not is_quantized(visual["blocks"]["attn"]["bq"])
+    with pytest.raises(ValueError, match="unknown vision_quant"):
+        Engine(params, cfg, tok, EngineConfig(vision_quant="int4", **kw),
+               device="cpu")
 
 
 def test_unported_request_options_raise():
@@ -203,7 +217,12 @@ def test_entry_points_need_cuda_or_explicit_cpu():
      "models.classifier.layers", "inference.image_classifier",
      "training.classifier_train", "data.convert_pdf_2_image",
      "data.split_pdf", "data.sampler", "data.corpus_stats"),
-], ids=["vlm_training", "classifiers_and_data_tools"])
+    ("utils.timing", "bench.scoring", "bench.runners",
+     "bench.runners.run_karanta", "bench.convert", "inference.single_page",
+     "inference.engine", "inference.server", "ops.quantization",
+     "models.qwen25_vl.vision"),
+], ids=["vlm_training", "classifiers_and_data_tools",
+        "batched_prefill_and_bench_harness"])
 def test_port_imports_neither_jax_nor_the_jax_package(expected):
     """Every module of karanta_tpu_torch, and chip_smoke.py's imports, load
     without JAX and without karanta_tpu; `expected` names modules the walk

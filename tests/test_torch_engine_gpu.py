@@ -138,3 +138,68 @@ def test_logprobs_card_vs_cpu(setup):
     for (c, top), (wc, wtop) in zip(cuda.logprobs, cpu.logprobs):
         assert abs(c - wc) <= LOGIT_TOL * max(abs(wc), 1.0)
         assert top[0][0] == wtop[0][0] and abs(c - top[0][1]) <= 1e-6
+
+
+def _page_request(seed: int) -> GenRequest:
+    import base64
+
+    import numpy as np
+
+    from karanta_tpu_torch.ops.png import encode_png_rgb
+
+    page = np.random.default_rng(seed).integers(0, 255, (112, 112, 3),
+                                                dtype=np.uint8)
+    png = base64.b64encode(encode_png_rgb(page)).decode()
+    return GenRequest(messages=[{"role": "user", "content": [
+        {"type": "text", "text": "read this"},
+        {"type": "image_url",
+         "image_url": {"url": f"data:image/png;base64,{png}"}}]}])
+
+
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_prefill_insert_batch_vs_single_inserts(setup, kv):
+    """prefill_insert_batch of K = 4 same-shaped pages on the card against 4
+    single prefill_inserts on the card: prefill logits within the bound,
+    the same first tokens, lengths and positions; the float cache's rows
+    within the bound of the slots' largest row, the int8 cache's values
+    within one quantization step. The batched call launches each vision
+    window layer, full layer and decoder layer's kernel once."""
+    from karanta_tpu_torch import kernels
+
+    tok, cfg, params = setup
+    ecfg = EngineConfig(prefill_batch=4, **dict(
+        KW, max_batch_size=4, max_seq_len=512, prefill_buckets=(256,),
+        image_token_buckets=(64,), kv_quantize=kv))
+    batched = Engine(params["cuda"], cfg, tok, ecfg, device="cuda")
+    single = Engine(params["cuda"], cfg, tok, ecfg, device="cuda")
+    group = [batched.prepare(_page_request(i)) for i in range(4)]
+    assert len({batched._batch_key(g) for g in group}) == 1
+    logits_b, _ = batched.prefill_batch(group)
+    group = [batched.prepare(_page_request(i)) for i in range(4)]
+    kernels.reset_launches()
+    firsts_b = batched.prefill_insert_batch(group, [0, 1, 2, 3])
+    torch.cuda.synchronize()
+    n_full = len(cfg.vision.fullatt_block_indexes)
+    assert kernels.LAUNCHES["window_attention"] == cfg.vision.depth - n_full
+    assert kernels.LAUNCHES["flash_attention"] == (n_full
+                                                   + cfg.text.num_layers)
+    firsts_s = []
+    for slot in range(4):
+        prepared = single.prepare(_page_request(slot))
+        logits_s, _ = single.prefill(single.prepare(_page_request(slot)))
+        want, got = logits_s.float().cpu(), logits_b[slot].float().cpu()
+        scale = max(float(want.abs().max()), 1.0)
+        assert float((want - got).abs().max()) <= LOGIT_TOL * scale
+        firsts_s.append(int(single.prefill_insert(slot, prepared)))
+    assert [int(f) for f in firsts_b] == firsts_s
+    for name in ("cache_len", "next_pos", "last_token"):
+        assert torch.equal(getattr(batched, name), getattr(single, name))
+    rows = int(batched.cache_len.max())
+    for name in ("k", "v"):
+        got = getattr(batched.cache, name)[..., :rows, :].float().cpu()
+        want = getattr(single.cache, name)[..., :rows, :].float().cpu()
+        if kv == "int8":
+            assert float((got - want).abs().max()) <= 1.0
+        else:
+            scale = max(float(want.abs().max()), 1.0)
+            assert float((got - want).abs().max()) <= LOGIT_TOL * scale

@@ -223,6 +223,76 @@ def test_window_kernel_shapes_match_plain(cuda, dtype, case):
     _assert_close(got[rows], want[rows], dtype)
 
 
+# batched prefill (K = 4 pages): the vision full layers take the image axis
+# as the attention batch, each page with its own valid keys; the decoder
+# prefill runs causal at batch K with ragged prompt lengths; the window
+# layers run over the K pages' token-axis concatenation
+BATCHED_VISION_LIVE = (4800, 3600, 5120, 900)   # valid vision tokens a page
+BATCHED_PREFILL_LIVE = (1390, 700, 1408, 1)     # prompt rows a page
+
+
+def _page_vision_layout():
+    from karanta_tpu_torch.models.qwen25_vl.config import get_config
+    from karanta_tpu_torch.models.qwen25_vl.layout import build_vision_layout
+    from karanta_tpu_torch.ops.image_prep import plan_image
+
+    return build_vision_layout(plan_image(1288, 994),
+                               get_config("qwen2.5-vl-7b").vision)
+
+
+def test_flash_kernel_at_batched_prefill_shapes(cuda):
+    """#2 at (4, 5120, 16, 80), four pages with different scattered valid
+    counts, and at (4, 1408, 28/4, 128) causal with kv lengths 1390, 700,
+    1408 and 1, bf16, against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    b, s, h, d = 4, 5120, 16, 80
+    q, k, v = (_randn(gen, (b, s, h, d), cuda, torch.bfloat16)
+               for _ in range(3))
+    mask = torch.zeros((b, s), device=cuda)
+    for i, live in enumerate(BATCHED_VISION_LIVE):
+        mask[i, torch.randperm(s, generator=torch.Generator().manual_seed(i))
+             [:live].to(cuda)] = 1.0
+    got = A.flash_attention(q, k, v, mask)
+    want = A.flash_attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    _assert_close(got, want, torch.bfloat16)
+    del q, k, v, got, want
+    b, s, h, kvh, d = 4, 1408, 28, 4, 128
+    q = _randn(gen, (b, s, h, d), cuda, torch.bfloat16)
+    k, v = (_randn(gen, (b, s, kvh, d), cuda, torch.bfloat16)
+            for _ in range(2))
+    mask = torch.zeros((b, s), device=cuda)
+    for i, live in enumerate(BATCHED_PREFILL_LIVE):
+        mask[i, :live] = 1.0
+    got = A.flash_attention(q, k, v, mask, causal=True)
+    want = A.flash_attention_plain(q, k, v, mask, causal=True)
+    torch.cuda.synchronize()
+    _assert_close(got, want, torch.bfloat16)
+
+
+def test_window_kernel_over_concatenated_pages(cuda):
+    """#1 at (1, 4 x 5120, 16, 80): four 1288x994 pages' window-ordered
+    tokens concatenated, each with the page's valid mask and rope; rows
+    whose window has a live key against the plain version."""
+    layout = _page_vision_layout()
+    n, h, d, w = 4, 16, 80, 64
+    s = n * len(layout.valid)
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    q, k, v = (_randn(gen, (1, s, h, d), cuda, torch.bfloat16)
+               for _ in range(3))
+    mask = torch.from_numpy(np.concatenate([layout.valid] * n)).to(cuda)
+    pos = torch.from_numpy(np.concatenate([layout.pos_hw] * n)).to(cuda)
+    cos, sin = vision_rope_cos_sin(pos, d)
+    cos = cos.to(torch.bfloat16).float()[None].contiguous()
+    sin = sin.to(torch.bfloat16).float()[None].contiguous()
+    mask = mask[None].float().contiguous()
+    got = A.window_attention_kernel_call(q, k, v, w, mask, cos=cos, sin=sin)
+    want = A.window_attention_plain(q, k, v, w, mask, cos=cos, sin=sin)
+    torch.cuda.synchronize()
+    rows = (mask.reshape(1, s // w, w).amax(-1) > 0).repeat_interleave(w, 1)
+    _assert_close(got[rows], want[rows], torch.bfloat16)
+
+
 def test_window_kernel_is_deterministic(cuda):
     """Two calls give the same bits (the 7B vision heads, rope, mask)."""
     gen = torch.Generator(device=cuda).manual_seed(9)
