@@ -150,6 +150,27 @@ Phases (any failed check raises and the script exits non-zero):
    concatenation, #2 at (4, 5120, 16, 80) with four masks and at (4, 1408,
    28/4, 128) causal with kv lengths 1390, 700, 1408 and 1.
 
+15. parallel serving (karanta_tpu_torch.parallel): ranks spawned from this
+   process share the card and talk over gloo (NCCL refuses two ranks on one
+   device). The tiny config at model=2 and at data=2 x model=2 against one
+   rank on the card (int8, int4 and bf16 caches, without and with
+   speculation: greedy tokens equal, the logits of the prefill, 3 decode
+   steps and 3 verify passes within phase 8's bound); qwen2.5-vl-7b at
+   full width and depth on model=2 against one rank on the same seeded
+   weights: the W8A8 decoder's hidden state after a page's prefill
+   bit-equal on equal vision tokens, the first-token logits bit-equal with
+   the W8A8 tower and within 3e-2 normwise with the bf16 tower, #1/#2
+   launched on both ranks, prefill+insert ms a page, decode ms a step and
+   the share of host time in collectives; the 7B int8 point with
+   speculation at data=2 x model=2 through generate, at full width cut to
+   7 of 28 decoder layers and 8 of 32 vision blocks (four pages, #1, #2
+   and #4 on every rank); the server CLI at --tensor-parallel-size 2
+   (this process rank 0) answering four pages over HTTP, one as an SSE
+   stream, each rank's #1-#4 launches gathered to rank 0. Phase 3 also
+   holds kernels #1-#7 and #9 at one rank's shapes of tp = 2 and 4 against
+   their plain versions (kernel, device, plain and library ms, share of
+   the bound).
+
 KARANTA_IMG_CACHE_MB is 0 throughout: every page pays its image decode.
 Each path's launch counts are set to 0 just before it runs and read just
 after. The last two lines are the kernels summary and the result line.
@@ -203,6 +224,7 @@ from karanta_tpu_torch.ops import decode_attention as DA
 from karanta_tpu_torch.ops.image_prep import plan_image
 from karanta_tpu_torch.ops.png import encode_png_rgb
 from karanta_tpu_torch.ops.rotary import vision_rope_cos_sin
+from karanta_tpu_torch.parallel.launch import in_turns, run_ranks
 from karanta_tpu_torch.utils.tree import tree_map
 
 # H100 SXM data-sheet peaks: dense bf16 tensor rate and HBM3 bandwidth
@@ -1339,6 +1361,216 @@ def kernel_read_only(cfg, dev, gen) -> list:
 # the JAX package's decode A/B point (scratch/mega_meas.py): 80 slots, the
 # 1920-row bucket filled to 1650 rows (bench/stream_trace.py), 20 chained
 # steps per variant
+# ---------------------------------------------------------------------------
+# phase 3, per-rank shapes: the serving kernels as one rank of tensor-parallel
+# serving launches them (phase 15)
+# ---------------------------------------------------------------------------
+
+PER_RANK_TP = (2, 4)
+PER_RANK_B, PER_RANK_T = 4, 4
+
+
+def _per_rank_row(label: str, kernel, plain, work, lib=None, caches=None,
+                  graph: bool = False) -> dict:
+    """Check kernel() against plain() (its caches, when it writes some,
+    bit-equal), then time both, the library call and the bound."""
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    err = check_bf16(label, got, want)
+    if caches is not None:
+        _check_caches(label, *caches)
+    t_k = cuda_ms(kernel, 20)
+    t_dev = graph_ms(kernel) if graph else t_k
+    t_p = cuda_ms(plain, 3)
+    t_l = cuda_ms(lib, 20) if lib is not None else None
+    b, by = bound_ms(*work)
+    log(f"    {label}: kernel {t_k:.4f} ms (device {t_dev:.4f}), plain "
+        f"{t_p:.4f}, library {t_l if t_l is None else round(t_l, 4)}, "
+        f"bound {b:.4f} ms ({by}), {100 * b / t_dev:.1f}% of it")
+    return {"max_abs_err": err, "ms": t_k, "device_ms": t_dev,
+            "plain_ms": t_p, "library_ms": t_l, "bound_ms": b,
+            "bound_by": by, "bound_share": b / t_dev}
+
+
+def kernel_per_rank(cfg, dev, gen) -> dict:
+    """Kernels #1-#7 and #9 at one rank's shapes of tensor-parallel serving
+    of the 7B config, tp = 2 and 4: vision heads 16/tp, decoder q heads
+    28/tp over kv heads 4/tp (the GQA group stays 7). #1 and #2 at the
+    page's shapes (window and full vision layers, the decoder prefill and
+    the prefix continuation); the decode kernels at B = 4 over one layer of
+    a two-layer cache, M = 1920 (int4: 2048), lengths 0, 700, a page prompt
+    and the bucket's end; the verify kernels at T = 4. Returns
+    {kernel: {"tp2": row, "tp4": row}}."""
+    t, vc = cfg.text, cfg.vision
+    _, layout = _page_layout(cfg)
+    s_vis, w = len(layout.valid), vc.window_patches ** 2
+    vmask = torch.from_numpy(layout.valid).to(dev)[None]
+    cos, sin = vision_rope_cos_sin(torch.from_numpy(layout.pos_hw).to(dev),
+                                   vc.head_dim)
+    cos = cos.to(torch.bfloat16).float()[None].contiguous()
+    sin = sin.to(torch.bfloat16).float()[None].contiguous()
+    b, tq, d = PER_RANK_B, PER_RANK_T, t.head_dim
+    out: dict = {}
+
+    def randn(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def add(name, tp, row):
+        out.setdefault(name, {})[f"tp{tp}"] = row
+
+    for tp in PER_RANK_TP:
+        h, kvh, vh = t.num_heads // tp, t.num_kv_heads // tp, \
+            vc.num_heads // tp
+        log(f"  per-rank shapes, tp={tp}: vision heads {vh}, decoder heads "
+            f"{h} over {kvh} kv heads")
+        # #1: window layers, rope fused
+        q, k, v = (randn((1, s_vis, vh, vc.head_dim)) for _ in range(3))
+        from karanta_tpu_torch.ops.rotary import apply_rope
+
+        qr, kr = apply_rope(q, k, cos, sin)
+        nw = s_vis // w
+
+        def windows(x):
+            return x.reshape(nw, w, vh, vc.head_dim).transpose(1, 2) \
+                .contiguous()
+
+        qw, kw, vw = windows(qr), windows(kr), windows(v)
+        mw = vmask.reshape(nw, 1, 1, w) > 0
+        add("window_attention", tp, _per_rank_row(
+            f"window_attention tp={tp} (1,{s_vis},{vh},{vc.head_dim})",
+            lambda: A.window_attention_kernel_call(q, k, v, w, vmask,
+                                                   cos=cos, sin=sin),
+            lambda: A.window_attention_plain(q, k, v, w, vmask, cos=cos,
+                                             sin=sin),
+            (4 * s_vis * vh * vc.head_dim * 2 + 2 * s_vis * vc.head_dim * 4
+             + s_vis * 4, 4.0 * w * vc.head_dim * s_vis * vh),
+            lib=lambda: torch.nn.functional.scaled_dot_product_attention(
+                qw, kw, vw, attn_mask=mw)))
+        del q, k, v, qr, kr, qw, kw, vw
+        # #2: the vision full layers, the decoder prefill, the prefix
+        flash = {}
+        for case, (sq, sk, hq, hk, dd, live, causal, q_off) in {
+                "vision_full": (s_vis, s_vis, vh, vh, vc.head_dim, None,
+                                False, 0),
+                "prefill": (1408, 1408, h, kvh, d, 1390, True, 0),
+                "prefix": (SUFFIX_BUCKET, PREFIX_LEN + SUFFIX_BUCKET, h, kvh,
+                           d, PREFIX_LEN + SUFFIX_LEN, True, PREFIX_LEN),
+        }.items():
+            q, k, v, mask = _flash_case(dev, gen, 1, sq, sk, hq, hk, dd,
+                                        torch.bfloat16, live or sk)
+            if case == "vision_full":
+                mask = vmask
+                sdpa_mask = (mask > 0)[:, None, None, :]
+            else:
+                sdpa_mask = _sdpa_mask(sq, sk, live, causal, dev, q_off)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            live_len = int(mask[0].sum().item())
+            flash[case] = _per_rank_row(
+                f"flash_attention {case} tp={tp} {tuple(q.shape)} kv "
+                f"{tuple(k.shape)}",
+                lambda q=q, k=k, v=v, m=mask, c=causal, o=q_off:
+                    A.flash_attention(q, k, v, m, causal=c, q_offset=o),
+                lambda q=q, k=k, v=v, m=mask, c=causal, o=q_off:
+                    A.flash_attention_plain(q, k, v, m, causal=c,
+                                            q_offset=o),
+                _flash_work(sq, sk, hq, hk, dd, live_len, causal, q_off),
+                lib=lambda qt=qt, kt=kt, vt=vt, m=sdpa_mask, g=hq != hk:
+                    torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=m, enable_gqa=g))
+            del q, k, v, qt, kt, vt
+        add("flash_attention", tp, {**flash["prefill"], "cases": flash})
+        # #3 and #4: the int8 cache
+        m = 1920
+        lens = [0, 700, 1390, m - tq - 1]
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        live = sum(lens)
+        q1, new1, caches, _ = _decode_inputs(dev, gen, 2, b, kvh, m, d, h,
+                                             lens, torch.bfloat16)
+        a, c = [x.clone() for x in caches], [x.clone() for x in caches]
+        add("paged_decode_append_quant", tp, _per_rank_row(
+            f"paged_decode_append_quant tp={tp} B={b} H={h} KVH={kvh}",
+            lambda: DA.paged_decode_append_quant(q1, *new1, *a, 1, lens_t),
+            lambda: DA.paged_decode_append_quant_plain(q1, *new1, *c, 1,
+                                                       lens_t),
+            (kvh * live * (d + 2) * 2 + b * kvh * (d + 2) * 4
+             + 2 * b * h * d * 2, 4.0 * d * h * (live + b)),
+            caches=(a, c), graph=True))
+        qm = randn((b, tq, h, d))
+        nk, nks = quantize_kv_rows(randn((b, tq, kvh, d), torch.float32))
+        nv, nvs = quantize_kv_rows(randn((b, tq, kvh, d), torch.float32))
+        newm = (nk, nv, nks, nvs)
+        a, c = [x.clone() for x in caches], [x.clone() for x in caches]
+        add("paged_decode_append_multi_quant", tp, _per_rank_row(
+            f"paged_decode_append_multi_quant tp={tp} B={b} T={tq} H={h} "
+            f"KVH={kvh}",
+            lambda: DA.paged_decode_append_multi_quant(qm, *newm, *a, 1,
+                                                       lens_t),
+            lambda: DA.paged_decode_append_multi_quant_plain(qm, *newm, *c,
+                                                             1, lens_t),
+            (kvh * live * (d + 2) * 2 + b * tq * kvh * (d + 2) * 4
+             + 2 * b * tq * h * d * 2,
+             4.0 * d * h * (live * tq + b * tq * (tq + 1) // 2)),
+            caches=(a, c), graph=True))
+        del caches, a, c
+        # #5 and #9: the cache in the activations' dtype
+        kc, vc_ = randn((2, b, kvh, m, d)), randn((2, b, kvh, m, d))
+        nk5, nv5 = randn((b, kvh, d)), randn((b, kvh, d))
+        a, c = [kc.clone(), vc_.clone()], [kc.clone(), vc_.clone()]
+        add("paged_decode_append", tp, _per_rank_row(
+            f"paged_decode_append tp={tp} B={b} H={h} KVH={kvh}",
+            lambda: DA.paged_decode_append(q1, nk5, nv5, *a, 1, lens_t),
+            lambda: DA.paged_decode_append_plain(q1, nk5, nv5, *c, 1,
+                                                 lens_t),
+            (kvh * live * d * 4 + b * kvh * d * 8 + 2 * b * h * d * 2,
+             4.0 * d * h * (live + b)),
+            caches=(a, c), graph=True))
+        kl = torch.arange(m, device=dev)[None, :] <= lens_t.long()[:, None]
+        qs, ks_, vs_ = q1.transpose(1, 2), kc[1], vc_[1]
+        add("paged_decode_attention_stacked", tp, _per_rank_row(
+            f"paged_decode_attention_stacked tp={tp} B={b} H={h} KVH={kvh}",
+            lambda: DA.paged_decode_attention_stacked(q1, kc, vc_, 1,
+                                                      lens_t),
+            lambda: DA.paged_decode_attention_stacked_plain(q1, kc, vc_, 1,
+                                                            lens_t),
+            (kvh * (live + b) * d * 4 + 2 * b * h * d * 2,
+             4.0 * d * h * (live + b)),
+            lib=lambda: torch.nn.functional.scaled_dot_product_attention(
+                qs, ks_, vs_, attn_mask=kl[:, None, None, :],
+                enable_gqa=True),
+            graph=True))
+        del kc, vc_, a, c
+        # #6 and #7: the int4 cache
+        m4 = 2048
+        lens4 = [0, 700, 1390, m4 - tq - 1]
+        l4 = torch.tensor(lens4, dtype=torch.int32, device=dev)
+        live4 = sum(lens4)
+        q6, new6, c6 = _q4_inputs(dev, gen, 2, b, kvh, m4, d, h, None,
+                                  torch.bfloat16)
+        a, c = [x.clone() for x in c6], [x.clone() for x in c6]
+        add("paged_decode_append_q4", tp, _per_rank_row(
+            f"paged_decode_append_q4 tp={tp} B={b} H={h} KVH={kvh}",
+            lambda: DA.paged_decode_append_q4(q6, *new6, *a, 1, l4),
+            lambda: DA.paged_decode_append_q4_plain(q6, *new6, *c, 1, l4),
+            (_q4_bytes(lens4, kvh, d, h, b, 1), 4.0 * d * h * (live4 + b)),
+            caches=(a, c), graph=True))
+        q7, new7, c7 = _q4_inputs(dev, gen, 2, b, kvh, m4, d, h, tq,
+                                  torch.bfloat16)
+        a, c = [x.clone() for x in c7], [x.clone() for x in c7]
+        add("paged_decode_append_multi_q4", tp, _per_rank_row(
+            f"paged_decode_append_multi_q4 tp={tp} B={b} T={tq} H={h} "
+            f"KVH={kvh}",
+            lambda: DA.paged_decode_append_multi_q4(q7, *new7, *a, 1, l4),
+            lambda: DA.paged_decode_append_multi_q4_plain(q7, *new7, *c, 1,
+                                                          l4),
+            (_q4_bytes(lens4, kvh, d, h, b, tq),
+             4.0 * d * h * (live4 * tq + b * tq * (tq + 1) // 2)),
+            caches=(a, c), graph=True))
+        del c6, c7, a, c
+        torch.cuda.empty_cache()
+    return out
+
+
 AB_BATCH, AB_ITERS = 80, 20
 STREAM_NORM_TOL = 2e-2  # normwise relative error after 28 layers
 STREAM_CALLS = 20  # chained calls per stream device time
@@ -2026,11 +2258,11 @@ def page_body(png_b64: str, stream: bool = False, **extra) -> dict:
             "messages": page_messages(png_b64, INSTRUCTION), **extra}
 
 
-def post_pages(port: int, bodies: list) -> list:
+def post_pages(port: int, bodies: list, tokens: int = SERVED_TOKENS) -> list:
     """POST the bodies concurrently. Checks each answer: status 200, and
-    SERVED_TOKENS tokens, from the usage count and from the text; a stream
-    ends with a finish_reason chunk and [DONE], and its deltas put together
-    spell SERVED_TOKENS tokens. Returns the completion texts."""
+    `tokens` tokens, from the usage count and from the text; a stream ends
+    with a finish_reason chunk and [DONE], and its deltas put together spell
+    `tokens` tokens. Returns the completion texts."""
     out = [None] * len(bodies)
 
     def post(i):
@@ -2058,25 +2290,27 @@ def post_pages(port: int, bodies: list) -> list:
                                      f"chunk and [DONE]: {events[-2:]}")
             text = "".join(c["choices"][0]["delta"].get("content", "")
                            for c in chunks)
-            n_usage = SERVED_TOKENS
+            n_usage = tokens
         else:
             data = json.loads(raw)
             text = data["choices"][0]["message"]["content"]
             n_usage = data["usage"]["completion_tokens"]
-        if n_usage != SERVED_TOKENS or n_tokens(text) != SERVED_TOKENS:
+        if n_usage != tokens or n_tokens(text) != tokens:
             raise AssertionError(f"a response has {n_usage} / "
                                  f"{n_tokens(text)} tokens, expected "
-                                 f"{SERVED_TOKENS}")
+                                 f"{tokens}")
         texts.append(text)
     return texts
 
 
 def served_engine(argv: list):
     """The engine the server CLI builds from argv (random weights), with a
-    tokenizer that counts tokens in the text (CountingTokenizer)."""
+    tokenizer that counts tokens in the text (CountingTokenizer). A
+    multi-rank server's engine is rank 0's leader: the tokenizer goes to
+    the engine inside it, which decides where completions stop."""
     t0 = time.perf_counter()
     engine, _ = build_engine_from_args(make_arg_parser().parse_args(argv))
-    engine.tok = CountingTokenizer()
+    getattr(engine, "engine", engine).tok = CountingTokenizer()
     torch.cuda.synchronize()
     log(f"[served] {' '.join(argv)}: engine in "
         f"{time.perf_counter() - t0:.1f}s, "
@@ -4654,6 +4888,525 @@ def phase_entry_points(cfg) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: parallel serving (karanta_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+PAR_SEED = 15
+PAR_SLOTS, PAR_PAGES, PAR_TOKENS = 4, 4, 24
+PAR_TIMEOUT = 600.0     # seconds a rank waits for its peers
+PAR_TIMED_PAGES = 2     # pages of the tp=2 timing
+# the 4-rank 7B point at cut depth (full width): decoder layers and vision
+# blocks (block 7 is a full-attention block)
+PAR_2X2_LAYERS, PAR_2X2_BLOCKS = 7, 8
+PAR_DECODE_CHUNKS = 2   # timed decode chunks of CHUNK steps
+# the tiny engines, float32, 4 slots (2 per data group): the int8 and int4
+# caches at the int8 serving point with the W8A8 tower (every prefill
+# product int8, so a rank's prefill is one rank's to the bit), and the
+# cache in the activations' dtype with float weights. (With the float tower
+# under a W8A8 decoder, a row-parallel float32 sum in the tower one rounding
+# away from one rank's flips a W8A8 activation rounding: 2.2e-3 on the tiny
+# logits in the CPU rehearsal, phase 8's whole bound.)
+PAR_TINY = dict(max_batch_size=PAR_SLOTS, max_seq_len=256, decode_chunk=4,
+                prefill_buckets=(128, 256), dtype=torch.float32)
+PAR_TINY_KINDS = {
+    "int8": dict(quantize="int8", kv_quantize="int8", act_quant="int8",
+                 vision_quant="int8"),
+    "int4": dict(quantize="int8", kv_quantize="int4", act_quant="int8",
+                 vision_quant="int8"),
+    "bf16": {},
+}
+PAR_TINY_STEPS = 3
+
+
+def par_config(preset: str):
+    if preset == "tiny":
+        return tiny_config(vocab_size=NoStopTokenizer().vocab_size)
+    return get_config(preset)
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def par_join(rank: int, world: int, url: str, data: int, model: int,
+             device: str):
+    """Join the ranks' group on `device` ("cuda": every rank on the card)
+    and return (mesh, backend)."""
+    from karanta_tpu_torch.parallel.mesh import (MeshConfig, create_mesh,
+                                                 initialize_distributed)
+
+    os.environ["KARANTA_IMG_CACHE_MB"] = "0"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = initialize_distributed(url, world, rank, device=device,
+                                     timeout_s=PAR_TIMEOUT)
+    mesh = create_mesh(MeshConfig(data=data, fsdp=1, model=model),
+                       device="cpu" if device == "cpu" else None)
+    return mesh, backend
+
+
+def par_engine_cfg(dtype=torch.bfloat16, **over) -> EngineConfig:
+    """The 7B points of phase 15: phase 14's engine (int8 weights, W8A8,
+    int8 KV, 1,920 rows, chunk 8, the smoke's buckets) at 4 slots."""
+    return EngineConfig(
+        max_batch_size=PAR_SLOTS, max_seq_len=1920, decode_chunk=CHUNK,
+        prefill_buckets=(512, 1024, 1408), image_token_buckets=(2048,),
+        dtype=dtype, kv_quantize="int8", act_quant="int8", **over)
+
+
+def par_pages(n: int) -> list:
+    return [make_page_png(seed=PAR_SEED * 100 + i) for i in range(n)]
+
+
+def prefill_hidden(engine, prepared) -> torch.Tensor:
+    """The decoder's hidden states after the prefill of a page (its real
+    rows), W8A8, on this rank's shard of the weights."""
+    from karanta_tpu_torch.models.qwen25_vl import decoder as dec
+
+    pos, kv_mask, s_pad = engine._padded_prompt(prepared.positions)
+    emb = engine._prompt_embeds(prepared, 0, s_pad)
+    hidden, _ = dec.prefill_forward(engine.params["text"], engine.cfg.text,
+                                    emb[None], pos, kv_mask=kv_mask,
+                                    act_quant=True, group=engine._tp_group)
+    return hidden[0, :len(prepared.ids)]
+
+
+def tiny_par_trace(engine) -> dict:
+    """The tiny engine on one rank or on every rank of a mesh alike: a
+    page prompt's prefill logits; four pages in the four slots, the logits
+    of this rank's slots over 3 decode steps and (speculative engines) 3
+    verify passes; greedy tokens of a page and of a repeating prompt."""
+    rng = np.random.default_rng(0)
+    pngs = [base64.b64encode(encode_png_rgb(rng.integers(
+        0, 255, size=(84, 112, 3), dtype=np.uint8))).decode()
+        for _ in range(PAR_SLOTS)]
+    reqs = [GenRequest(messages=page_messages(png), max_tokens=8,
+                       request_id=f"tiny-{i}") for i, png in enumerate(pngs)]
+
+    def prepared(req):
+        p = engine.prepare(req)
+        engine.agree(p)
+        return p
+
+    out = {"prefill": engine.prefill(prepared(reqs[0]))[0].float().cpu()}
+    for slot, req in enumerate(reqs):
+        engine.prefill_insert(slot, prepared(req))
+    steps: list = []
+    engine.decode_chunk(PAR_TINY_STEPS, logits_out=steps)
+    out["steps"] = torch.stack(steps).float().cpu()
+    if engine.ecfg.speculative_ngram:
+        passes: list = []
+        engine.decode_chunk_spec(PAR_TINY_STEPS, logits_out=passes)
+        out["passes"] = torch.stack(passes).float().cpu()
+    for slot in range(PAR_SLOTS):
+        engine.free_slot(slot)
+    out["tokens"] = [r.token_ids for r in engine.generate(
+        [reqs[1], GenRequest(messages=[{"role": "user",
+                                        "content": "abcabcabcabcabcabc"}],
+                             max_tokens=24, request_id="tiny-rep")])]
+    return out
+
+
+def tiny_par_all(dev, mesh=None) -> dict:
+    """tiny_par_trace over the int8, int4 and bf16 points, each without
+    and with speculation (gamma 3), on the card."""
+    tok, cfg, _, params = tiny_setup(dev)
+    out = {}
+    for kind, kw in PAR_TINY_KINDS.items():
+        for gamma in (0, 3):
+            engine = Engine(params, cfg, tok,
+                            EngineConfig(**PAR_TINY, **kw,
+                                         speculative_ngram=gamma),
+                            device=dev, mesh=mesh)
+            out[f"{kind}/{gamma}"] = tiny_par_trace(engine)
+            del engine
+    return out
+
+
+def par_rank_stats(engine) -> dict:
+    from karanta_tpu_torch.inference.server import rank_stats
+
+    return rank_stats(engine)
+
+
+def par_generate(engine, pages: list, tokens: int) -> dict:
+    """generate over the pages on every rank (after a one-page warm-up):
+    the completions, this rank's launches and collective host time, and the
+    wall time."""
+    from karanta_tpu_torch.parallel import sharding
+
+    engine.generate(page_requests(pages[:1], 2, "warm"))
+    _sync(engine.device)
+    kernels.reset_launches()
+    sharding.reset_stats()
+    t0 = time.perf_counter()
+    results = engine.generate(page_requests(pages, tokens, "par"))
+    _sync(engine.device)
+    wall = time.perf_counter() - t0
+    return {"tokens": [r.token_ids for r in results], "wall_s": wall,
+            "launches": {k: v for k, v in kernels.LAUNCHES.items() if v},
+            "collective_s": sharding.STATS["seconds"],
+            "collective_calls": sharding.STATS["calls"]}
+
+
+def par_timing(engine, pages: list) -> dict:
+    """Prefill+insert ms a page (the pages into the slots one by one) and
+    decode ms a step (PAR_DECODE_CHUNKS chunks of CHUNK steps), with the
+    share of this rank's host time inside collectives over both."""
+    from karanta_tpu_torch.parallel import sharding
+
+    reqs = page_requests(pages, PAR_TOKENS, "timed")
+    prepared = []
+    for r in reqs:
+        prepared.append(engine.prepare(r))
+        engine.agree(prepared[-1])
+    _sync(engine.device)
+    sharding.reset_stats()
+    t0 = time.perf_counter()
+    for slot, p in enumerate(prepared):
+        engine.prefill_insert(slot, p)
+    _sync(engine.device)
+    t1 = time.perf_counter()
+    coll_prefill = sharding.STATS["seconds"]
+    for _ in range(PAR_DECODE_CHUNKS):
+        engine.decode_chunk(CHUNK)
+    _sync(engine.device)
+    t2 = time.perf_counter()
+    for slot in range(len(prepared)):
+        engine.free_slot(slot)
+    return {"prefill_insert_ms_per_page": (t1 - t0) / len(pages) * 1e3,
+            "decode_ms_per_step": (t2 - t1) / (PAR_DECODE_CHUNKS * CHUNK)
+            * 1e3,
+            "collective_share_prefill": coll_prefill / (t1 - t0),
+            "collective_share_decode": (sharding.STATS["seconds"]
+                                        - coll_prefill) / (t2 - t1),
+            "collective_calls": sharding.STATS["calls"]}
+
+
+def par_rank_tp2(rank: int, world: int, url: str, spec: dict,
+                 enc: torch.Tensor) -> dict:
+    """One rank of the model=2 mesh: the tiny points, then the 7B checks:
+    the W8A8 decoder's hidden state after a page's prefill on the given
+    vision tokens (the one-rank encoder's), the first-token logits with the
+    bf16 tower and with the W8A8 tower, #1/#2 launches of one prefill, and
+    the timing of four pages."""
+    from karanta_tpu_torch.models.qwen25_vl import vision as vis
+    from karanta_tpu_torch.models.qwen25_vl.model import (init_params_sharded,
+                                                          serving_leaf_fn)
+
+    mesh, backend = par_join(rank, world, url, 1, world, spec["device"])
+    dev, dtype = mesh.device, spec["dtype"]
+    out = {"coords": mesh.coords, "backend": backend, "device": str(dev),
+           "tiny": tiny_par_all(dev, mesh)}
+    cfg = par_config(spec["preset"])
+    params = in_turns(mesh, lambda: init_params_sharded(
+        cfg, mesh, PAR_SEED, dtype, quantize="int8"))
+    engine = Engine(params, cfg, NoStopTokenizer(), par_engine_cfg(dtype),
+                    mesh=mesh)
+    page = page_requests(par_pages(1), 1)[0]
+    prepared = engine.prepare(page)
+    with vision_encoder(replace=enc.to(dev)):
+        out["hidden"] = prefill_hidden(engine, prepared).view(
+            torch.int16).cpu()
+    prepared = engine.prepare(page)
+    kernels.reset_launches()
+    calls: list = []
+    with vision_encoder(record=calls):
+        out["logits_bf16_tower"] = engine.prefill(prepared)[0].float().cpu()
+    out["enc_bf16_tower"] = calls[0][2].float().cpu()
+    out["prefill_launches"] = {k: v for k, v in kernels.LAUNCHES.items()
+                               if v}
+    out["timing"] = par_timing(engine, par_pages(PAR_TIMED_PAGES))
+    out["stats"] = par_rank_stats(engine)
+    place = serving_leaf_fn(cfg, mesh, dtype, None, "int8")
+    del engine
+    params["visual"] = None
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    params["visual"] = in_turns(mesh, lambda: vis.init_vision_params(
+        cfg.vision, torch.Generator(device=dev).manual_seed(2 * PAR_SEED),
+        dtype, dev, leaf_fn=lambda path, x: place(("visual",) + path, x)))
+    engine = Engine(params, cfg, NoStopTokenizer(), par_engine_cfg(dtype),
+                    mesh=mesh)
+    out["logits_int8_tower"] = engine.prefill(
+        engine.prepare(page))[0].float().cpu()
+    return out
+
+
+def par_cut_config(cfg):
+    """The config at PAR_2X2_LAYERS decoder layers and PAR_2X2_BLOCKS
+    vision blocks, widths unchanged."""
+    import dataclasses
+
+    return dataclasses.replace(
+        cfg, text=dataclasses.replace(cfg.text, num_layers=PAR_2X2_LAYERS),
+        vision=dataclasses.replace(cfg.vision, depth=PAR_2X2_BLOCKS))
+
+
+def par_rank_dp2tp2(rank: int, world: int, url: str, spec: dict) -> dict:
+    """One rank of the data=2 x model=2 mesh: the tiny points, then the 7B
+    int8 point at cut depth (par_cut_config) with speculation at its CLI
+    default serving four pages."""
+    from karanta_tpu_torch.models.qwen25_vl.model import init_params_sharded
+
+    mesh, backend = par_join(rank, world, url, 2, 2, spec["device"])
+    dev, dtype = mesh.device, spec["dtype"]
+    out = {"coords": mesh.coords, "backend": backend,
+           "tiny": tiny_par_all(dev, mesh)}
+    cfg = par_cut_config(par_config(spec["preset"]))
+    params = in_turns(mesh, lambda: init_params_sharded(
+        cfg, mesh, PAR_SEED, dtype, quantize="int8"))
+    engine = Engine(params, cfg, NoStopTokenizer(),
+                    par_engine_cfg(dtype, speculative_ngram=3), mesh=mesh)
+    out["wave"] = par_generate(engine, par_pages(PAR_PAGES), PAR_TOKENS)
+    out["stats"] = par_rank_stats(engine)
+    return out
+
+
+def check_tiny_par(label: str, ref: dict, ranks: list, slots: int) -> float:
+    """Each rank's tiny traces against the one-rank engine's: greedy tokens
+    equal, the prefill's logits and this rank's slots' logits of every
+    decode step and verify pass within TINY_LOGIT_TOL x max |logit|."""
+    worst = 0.0
+    for r in ranks:
+        bl = r["tiny"][next(iter(r["tiny"]))]["steps"].shape[1]
+        lo = r["coords"]["data"] * bl
+        for key, want in ref.items():
+            got = r["tiny"][key]
+            if got["tokens"] != want["tokens"]:
+                raise AssertionError(f"[parallel {label}] rank "
+                                     f"{r['coords']} {key}: greedy tokens "
+                                     f"{got['tokens']} != one rank's "
+                                     f"{want['tokens']}")
+            pairs = [("prefill", want["prefill"], got["prefill"])]
+            pairs += [(f"decode step {i + 1}", want["steps"][i, lo:lo + bl],
+                       got["steps"][i]) for i in range(PAR_TINY_STEPS)]
+            if "passes" in want:
+                pairs += [(f"verify pass {i + 1}",
+                           want["passes"][i, lo:lo + bl], got["passes"][i])
+                          for i in range(PAR_TINY_STEPS)]
+            for stage, w, g in pairs:
+                scale = max(float(w.abs().max()), 1.0)
+                err = float((w - g).abs().max())
+                if not err <= TINY_LOGIT_TOL * scale:
+                    raise AssertionError(
+                        f"[parallel {label}] {key} {stage} logits: max abs "
+                        f"err {err} > {TINY_LOGIT_TOL} x {scale}")
+                worst = max(worst, err / scale)
+    log(f"[parallel {label}] tiny int8/int4/bf16 caches, gamma 0 and 3: "
+        f"greedy tokens equal one rank's on every rank; prefill, "
+        f"{PAR_TINY_STEPS} decode-step and {PAR_TINY_STEPS} verify-pass "
+        f"logits within {worst:.3e} x max|logit| (limit {TINY_LOGIT_TOL})")
+    return worst
+
+
+def _mb(x) -> str:
+    return "n/a" if x is None else f"{x:.0f}"
+
+
+def check_rank_launches(label: str, stats: list, names: tuple) -> dict:
+    """Each rank launched each of `names`; returns rank -> launches."""
+    per = {}
+    for st in stats:
+        missing = [n for n in names if not st["launches"].get(n)]
+        if missing:
+            raise AssertionError(f"[parallel {label}] rank {st['rank']} "
+                                 f"launched no {missing}: {st['launches']}")
+        per[st["rank"]] = st["launches"]
+    return per
+
+
+def phase_parallel(cfg, device: str = "cuda",
+                   dtype=torch.bfloat16) -> dict:
+    """Phase 15: the port's engine and server on a (data, model) mesh of
+    ranks that share this card over gloo (NCCL refuses two ranks on one
+    device). The tiny config at model=2 and 2x2 against one rank; the 7B
+    checks at model=2 against one rank on the same seeded weights; the 7B
+    int8 point at 2x2 through generate; the 7B server at tp=2 from its CLI
+    serving four pages over HTTP."""
+    from karanta_tpu_torch.models.qwen25_vl.model import init_params
+    from karanta_tpu_torch.ops.quantization import (quantize_decoder_params,
+                                                    quantize_vision_params)
+
+    dev = torch.device(device)
+    spec = {"preset": "tiny" if cfg.name.endswith("tiny") else cfg.name,
+            "device": device, "dtype": dtype}
+    t_phase = time.perf_counter()
+    log("[parallel] ranks share cuda:0 and talk over gloo (host-staged "
+        "collectives); with a card per rank the same code takes NCCL")
+    stats: dict = {}
+    # one-rank references: the tiny points, then the 7B prefill
+    ref_tiny = tiny_par_all(dev)
+    params = init_params(cfg, PAR_SEED, dtype, device=dev)
+    params["text"] = quantize_decoder_params(params["text"])
+    engine = Engine(params, cfg, NoStopTokenizer(), par_engine_cfg(dtype),
+                    device=dev)
+    page = page_requests(par_pages(1), 1)[0]
+    calls: list = []
+    with vision_encoder(record=calls):
+        ref_logits_bf16 = engine.prefill(engine.prepare(page))[0].float()
+    enc = calls[0][2]
+    prepared = engine.prepare(page)
+    with vision_encoder(replace=enc):
+        ref_hidden = prefill_hidden(engine, prepared)
+    del engine
+    params["visual"] = quantize_vision_params(params["visual"])
+    engine = Engine(params, cfg, NoStopTokenizer(), par_engine_cfg(dtype),
+                    device=dev)
+    ref_logits_int8 = engine.prefill(engine.prepare(page))[0].float()
+    del engine, params
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[parallel] one-rank references in "
+        f"{time.perf_counter() - t_phase:.1f}s")
+
+    # model=2: two spawned ranks
+    t0 = time.perf_counter()
+    ranks = run_ranks(par_rank_tp2, 2, (spec, enc.cpu()),
+                      timeout_s=PAR_TIMEOUT)
+    log(f"[parallel tp=2] two ranks in {time.perf_counter() - t0:.1f}s, "
+        f"backend {ranks[0]['backend']}, devices "
+        f"{[r['device'] for r in ranks]}")
+    stats["tiny_tp2_worst"] = check_tiny_par("tp=2", ref_tiny, ranks,
+                                             PAR_SLOTS)
+    want_hidden = ref_hidden.view(torch.int16).cpu()
+    for r in ranks:
+        if not torch.equal(r["hidden"], want_hidden):
+            n = int((r["hidden"] != want_hidden).sum())
+            raise AssertionError(f"[parallel tp=2] rank {r['coords']}: the "
+                                 f"W8A8 decoder's hidden state differs from "
+                                 f"one rank's in {n} entries")
+        if not torch.equal(r["logits_int8_tower"], ref_logits_int8.cpu()):
+            raise AssertionError(f"[parallel tp=2] rank {r['coords']}: W8A8 "
+                                 f"tower first-token logits differ from one "
+                                 f"rank's (max abs "
+                                 f"{max_err(r['logits_int8_tower'], ref_logits_int8.cpu())})")
+        nw = normwise(r["logits_bf16_tower"], ref_logits_bf16.cpu())
+        stats.setdefault("bf16_tower_tokens_normwise", []).append(
+            normwise(r["enc_bf16_tower"], enc.float().cpu()))
+        log(f"[parallel tp=2] rank {r['coords']['model']}: bf16 tower's "
+            f"vision tokens {stats['bf16_tower_tokens_normwise'][-1]:.3e} "
+            f"normwise from one rank's, first-token logits {nw:.3e}")
+        if not nw <= PREFILL_NORM_TOL:
+            raise AssertionError(f"[parallel tp=2] bf16 tower logits "
+                                 f"{nw} normwise from one rank's > "
+                                 f"{PREFILL_NORM_TOL}")
+        stats.setdefault("bf16_tower_normwise", []).append(nw)
+    log(f"[parallel tp=2] 7B: W8A8 decoder hidden state after prefill "
+        f"bit-equal to one rank's on equal vision tokens; W8A8 tower "
+        f"first-token logits bit-equal; bf16 tower logits "
+        f"{stats['bf16_tower_normwise']} normwise (limit "
+        f"{PREFILL_NORM_TOL})")
+    stats["tp2_prefill_launches"] = check_rank_launches(
+        "tp=2 prefill", [{"rank": i, "launches": r["prefill_launches"]}
+                         for i, r in enumerate(ranks)],
+        ("window_attention", "flash_attention"))
+    stats["tp2_timing"] = [r["timing"] for r in ranks]
+    stats["tp2_ranks"] = [r["stats"] for r in ranks]
+    for r in ranks:
+        tm = r["timing"]
+        log(f"[parallel tp=2] rank {r['coords']['model']} (two ranks sharing "
+            f"one card over gloo; not a tensor-parallel speed-up): "
+            f"prefill+insert {tm['prefill_insert_ms_per_page']:.1f} ms a "
+            f"page, decode {tm['decode_ms_per_step']:.2f} ms a step (B=4), "
+            f"collectives {100 * tm['collective_share_prefill']:.1f}% of "
+            f"prefill host time, {100 * tm['collective_share_decode']:.1f}% "
+            f"of decode; kv heads {r['stats']['kv_heads']}, peak RSS "
+            f"{_mb(r['stats']['peak_rss_mb'])} MB, card peak "
+            f"{_mb(r['stats']['card_peak_mb'])} MB (the load, rank by "
+            f"rank), held {_mb(r['stats']['card_held_mb'])} MB")
+    del ranks
+    gc.collect()
+
+    # data=2 x model=2: four spawned ranks
+    t0 = time.perf_counter()
+    ranks = run_ranks(par_rank_dp2tp2, 4, (spec,), timeout_s=PAR_TIMEOUT)
+    log(f"[parallel 2x2] four ranks in {time.perf_counter() - t0:.1f}s")
+    stats["tiny_2x2_worst"] = check_tiny_par("2x2", ref_tiny, ranks,
+                                             PAR_SLOTS)
+    waves = [r["wave"] for r in ranks]
+    vocab = cfg.text.vocab_size
+    for w in waves:
+        if w["tokens"] != waves[0]["tokens"] or not all(
+                len(t) == PAR_TOKENS and all(0 <= x < vocab for x in t)
+                for t in w["tokens"]):
+            raise AssertionError("[parallel 2x2] ranks returned different "
+                                 "or malformed completions")
+    stats["dp2tp2_launches"] = check_rank_launches(
+        "2x2 7B", [{"rank": i, "launches": w["launches"]}
+                   for i, w in enumerate(waves)],
+        ("window_attention", "flash_attention",
+         "paged_decode_append_multi_quant"))
+    stats["dp2tp2"] = [{k: v for k, v in w.items() if k != "tokens"}
+                       for w in waves]
+    stats["dp2tp2_ranks"] = [r["stats"] for r in ranks]
+    log(f"[parallel 2x2] 7B width at cut depth ({PAR_2X2_LAYERS} of "
+        f"{cfg.text.num_layers} decoder layers, {PAR_2X2_BLOCKS} of "
+        f"{cfg.vision.depth} vision blocks), int8 point, gamma 3: "
+        f"{PAR_PAGES} pages x {PAR_TOKENS} tokens on every rank in "
+        f"{[round(w['wall_s'], 3) for w in waves]} s; launches per rank "
+        f"{stats['dp2tp2_launches']}; card MB per rank, peak "
+        f"{[_mb(r['stats']['card_peak_mb']) for r in ranks]}, held "
+        f"{[_mb(r['stats']['card_held_mb']) for r in ranks]}; peak RSS MB "
+        f"{[_mb(r['stats']['peak_rss_mb']) for r in ranks]}")
+    del ranks
+    gc.collect()
+
+    # the server CLI at tp=2, this process rank 0
+    engine = served_engine(
+        ["--preset", spec["preset"], "--quantize", "int8", "--kv-quantize",
+         "int8", "--act-quant", "int8", "--max-batch-size", str(PAR_SLOTS),
+         "--decode-chunk", str(CHUNK), "--tensor-parallel-size", "2",
+         *(["--device", "cpu"] if device == "cpu" else [])])
+    pages = par_pages(PAR_PAGES)
+    # a speculative wave (#4, one page as an SSE stream), then a wave that
+    # opts out of speculation (#3)
+    waves = [[page_body(pages[0], max_tokens=PAR_TOKENS),
+              page_body(pages[1], stream=True, max_tokens=PAR_TOKENS)],
+             [page_body(png, max_tokens=PAR_TOKENS, speculative=False)
+              for png in pages[2:]]]
+    with serving(engine) as (server, port):
+        if http_call(port, "GET", "/health")[0] != 200:
+            raise AssertionError("/health did not answer 200")
+        engine.rank_stats(reset=True)
+        t0 = time.perf_counter()
+        for bodies in waves:
+            post_pages(port, bodies, PAR_TOKENS)
+        wall = time.perf_counter() - t0
+        served = engine.rank_stats()
+        metrics = json.loads(http_call(port, "GET", "/metrics")[1])
+    if any(p.is_alive() for p in engine._workers):
+        raise AssertionError("[parallel served] a worker rank outlived the "
+                             "server")
+    stats["served_launches"] = check_rank_launches(
+        "served tp=2", served, ("window_attention", "flash_attention",
+                                "paged_decode_append_quant",
+                                "paged_decode_append_multi_quant"))
+    stats["served"] = dict(pages_per_s=PAR_PAGES / wall, wall_s=wall,
+                           spec_tokens_per_pass=metrics.get(
+                               "spec_tokens_per_pass"),
+                           ranks=served)
+    log(f"[parallel served tp=2] {PAR_PAGES} pages x {PAR_TOKENS} tokens "
+        f"over HTTP (one SSE) in {wall:.3f}s, all 200; launches per rank "
+        f"{stats['served_launches']}; per rank kv heads "
+        f"{[st['kv_heads'] for st in served]}, collective host s "
+        f"{[round(st['collective_s'], 3) for st in served]}, peak RSS MB "
+        f"{[_mb(st['peak_rss_mb']) for st in served]}, card MB peak while "
+        f"serving {[_mb(st['card_peak_mb']) for st in served]}, held "
+        f"{[_mb(st['card_held_mb']) for st in served]}")
+    del server, engine
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    stats["seconds"] = time.perf_counter() - t_phase
+    log(f"[parallel] phase 15 in {stats['seconds']:.1f}s")
+    return stats
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -4665,8 +5418,17 @@ def main(argv=None) -> int:
     # hit the decoded-image cache (re-prepared pages would)
     os.environ["KARANTA_IMG_CACHE_MB"] = "0"
 
+    t_last = [time.perf_counter()]
+
+    def mark(label: str) -> None:
+        """Log the seconds since the previous mark (the phases' budget)."""
+        now = time.perf_counter()
+        log(f"[time] {label}: {now - t_last[0]:.1f}s")
+        t_last[0] = now
+
     kind = phase_card()
     phase_build()
+    mark("phases 1-2, build")
     dev = torch.device("cuda")
     cfg = get_config("qwen2.5-vl-7b")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -4677,22 +5439,40 @@ def main(argv=None) -> int:
             kernel_q4(cfg, dev, gen), kernel_multi_q4(cfg, dev, gen),
             *kernel_read_only(cfg, dev, gen)]
     torch.cuda.empty_cache()
+    per_rank = kernel_per_rank(cfg, dev, gen)
+    torch.cuda.empty_cache()
+    mark("phase 3, kernels")
     stream_rows, ab_stats, barrier_us = phase_decode_streams(cfg, dev, gen)
     rows += stream_rows
+    mark("phase 3, decode streams")
     main_stats = phase_main_path(cfg, dev, args.profile)
     int8_stats = phase_served_int8(cfg, args.profile)
     int4_stats = phase_served_int4(cfg, args.profile)
     default_stats = phase_served_defaults(cfg, args.profile)
+    mark("phases 4-7, engine and served")
     for kv in ("int8", "int4"):
         phase_tiny(dev, kv)
     phase_tiny_stacked(dev)
+    mark("phase 8, tiny")
     pipeline_stats = phase_pipeline(cfg, kind)
+    mark("phase 9, pipeline")
     loading_stats = phase_loading(cfg)
+    mark("phase 10, loading")
     guided_stats = phase_guided_logprobs(cfg)
+    mark("phase 11, guided and logprobs")
     training_stats = phase_training(args.profile)
     training_launches = training_stats["full"]["adamw"]["launches_per_step"]
+    mark("phase 12, training")
     classifier_stats = phase_classifiers()
+    mark("phase 13, classifiers")
     batched_stats = phase_batched(cfg)
+    mark("phase 14, batched prefill")
+    parallel_stats = phase_parallel(cfg)
+    mark("phase 15, parallel serving")
+    par_launches = {"tp=2 prefill, per rank": parallel_stats[
+        "tp2_prefill_launches"],
+        "2x2 generate, per rank": parallel_stats["dp2tp2_launches"],
+        "served tp=2, per rank": parallel_stats["served_launches"]}
     # each kernel's launches on the path that runs it; kernel #8 is on no
     # path (the JAX package calls it from its tests only)
     paths = {
@@ -4742,6 +5522,13 @@ def main(argv=None) -> int:
         row["batched_launches"] = {
             wave: batched_stats[wave]["launches"].get(row["name"], 0)
             for wave in ("A", "B", "C", "D")}
+        # one rank's shapes of tensor-parallel serving (phase 3) and the
+        # launches of each rank of phase 15's paths
+        row["per_rank"] = per_rank.get(row["name"])
+        row["parallel_launches"] = {
+            path: {rank: counts.get(row["name"], 0)
+                   for rank, counts in per.items()}
+            for path, per in par_launches.items()}
         log(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, library "
             f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)}"
@@ -4779,7 +5566,9 @@ def main(argv=None) -> int:
                     "batched": {k: ({kk: vv for kk, vv in v.items()
                                      if kk != "launches"}
                                     if k in ("A", "B", "C", "D") else v)
-                                for k, v in batched_stats.items()}}))
+                                for k, v in batched_stats.items()},
+                    "parallel": {k: v for k, v in parallel_stats.items()
+                                 if not k.endswith("launches")}}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -34,3 +34,14 @@ def no_tf32() -> None:
     default)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def float32_reductions() -> None:
+    """bf16 and fp16 products on the card reduce in float32: cuBLAS's
+    reduced-precision split-K reductions (on by default) off, so a product
+    is its float32 accumulation rounded once, as XLA's dot is. With them
+    on, the 7B vision tower's MLP down product (K = 3,420) rounds about a
+    third of its outputs otherwise on an H100, which a tensor-parallel
+    sum of float32 partials does not reproduce."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False

@@ -41,6 +41,18 @@
   window ahead of admission; decoded images are LRU-cached by the SHA-1 of
   their bytes (``KARANTA_IMG_CACHE_MB``, default 256; 0 disables).
   ``KARANTA_ENGINE_TIMING=1`` times generate's stages (``self.timing``).
+- Multi-rank serving (``mesh``, ``parallel/mesh.py``): one process per rank,
+  tensor parallelism over the "model" axis (each rank holds its heads and
+  MLP columns, ``model.serving_param_axes``; the model calls the
+  collectives) and the decode slots sharded over "data": data group g owns
+  slots [g B/dp, (g+1) B/dp) and holds only their KV rows; a slot's prefill
+  runs on its owner group. The ranks run the engine in lockstep: the same
+  public calls in the same order (``generate`` on every rank, or the
+  server's replay, ``server.py``). Every per-slot tensor but the KV cache is
+  whole on every rank: after each sampling, each data group's tokens (taken
+  from its model rank 0, which its other model ranks must match) are
+  gathered over the world, so every rank holds every slot's tokens, lengths,
+  drafter history and guided state, and takes the same host decisions.
 """
 
 from __future__ import annotations
@@ -59,7 +71,8 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
-from karanta_tpu_torch.device import DeviceLike, no_tf32, resolve_device
+from karanta_tpu_torch.device import (DeviceLike, float32_reductions, no_tf32,
+                                      resolve_device)
 from karanta_tpu_torch.inference import chat
 from karanta_tpu_torch.inference.guided import (build_token_automaton,
                                                 closed_free_states,
@@ -72,7 +85,8 @@ from karanta_tpu_torch.models.qwen25_vl import vision as vis
 from karanta_tpu_torch.models.qwen25_vl.config import VLMConfig
 from karanta_tpu_torch.models.qwen25_vl.layout import (build_vision_layout,
                                                        mrope_positions)
-from karanta_tpu_torch.models.qwen25_vl.model import merge_image_embeddings
+from karanta_tpu_torch.models.qwen25_vl.model import (merge_image_embeddings,
+                                                      serving_param_axes)
 from karanta_tpu_torch.ops.image_prep import (patchify, plan_image,
                                               preprocess_host,
                                               resize_patchify, src_px_bucket)
@@ -80,6 +94,9 @@ from karanta_tpu_torch.ops.png import decode_png_rgb
 from karanta_tpu_torch.ops.quantization import (is_quantized,
                                                 quantize_decoder_params,
                                                 quantize_vision_params)
+from karanta_tpu_torch.parallel.sharding import (all_gather_last,
+                                                 broadcast_objects,
+                                                 shard_params)
 
 logger = logging.getLogger(__name__)
 
@@ -162,6 +179,9 @@ class _Prepared:
     logprobs: bool = False
     top_logprobs: int = 0
     forced_tokens: Optional[np.ndarray] = None  # teacher-forcing stream
+    # the request itself: the server's rank 0 sends it to the other ranks of
+    # a mesh, which prepare it again (server.py, _Leader)
+    request: Optional[GenRequest] = None
 
 
 class ContextLengthError(ValueError):
@@ -191,22 +211,70 @@ def _check_modes(ecfg: EngineConfig) -> None:
         raise ValueError(f"unknown kv_quantize {ecfg.kv_quantize!r}")
 
 
+def _check_mesh(mesh, cfg: VLMConfig, ecfg: EngineConfig) -> None:
+    """The engine shards over "data" and "model" only, evenly: the JAX
+    engine's server never builds fsdp > 1 either, and an uneven split is
+    refused as ``jax.device_put`` refuses it."""
+    for axis in ("fsdp", "pipe", "seq"):
+        if mesh.size(axis) > 1:
+            raise NotImplementedError(
+                f"the serving engine shards over 'data' and 'model' only, not "
+                f"{axis}={mesh.size(axis)} (training's parallelism; ROADMAP.md, "
+                f"queue 1: the training half of parallel/)")
+    tp, dp = mesh.size("model"), mesh.size("data")
+    if ecfg.max_batch_size % dp:
+        raise ValueError(f"max_batch_size {ecfg.max_batch_size} does not "
+                         f"split evenly over mesh axis 'data' of size {dp}")
+    for name, n in (("num_kv_heads", cfg.text.num_kv_heads),
+                    ("num_heads", cfg.text.num_heads),
+                    ("vision num_heads", cfg.vision.num_heads)):
+        if n % tp:
+            raise ValueError(f"{name} = {n} does not split evenly over mesh "
+                             f"axis 'model' of size {tp}")
+
+
+def _params_are_whole(params: Any, cfg: VLMConfig) -> bool:
+    """True unless the decoder's MLP holds a tensor-parallel shard."""
+    w = params["text"]["layers"]["mlp"]["gate"]
+    w = w["int8_q"] if is_quantized(w) else w
+    return w.shape[-1] == cfg.text.intermediate_size
+
+
 class Engine:
-    """Single-card serving engine over the port's kernels."""
+    """Serving engine over the port's kernels: one card, or one rank of a
+    mesh (``mesh``; see the module docstring)."""
 
     def __init__(self, params: Any, cfg: VLMConfig, tokenizer: Tokenizer,
                  engine_cfg: EngineConfig = EngineConfig(), rng_seed: int = 0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
+        self.mesh = mesh
+        if mesh is not None:
+            _check_mesh(mesh, cfg, engine_cfg)
+            device = mesh.device
         self.device = resolve_device(device)
         _check_modes(engine_cfg)
         if self.device.type == "cuda":
             no_tf32()  # float32 products (the page resize) keep float32
-        if engine_cfg.quantize == "int8":
+            float32_reductions()  # bf16 products: one rounding, as XLA's
+        # parameters that already hold this rank's shard (the sharded
+        # loaders quantize each leaf whole, then slice it) are taken as they
+        # are; whole ones are quantized whole, then sharded
+        whole = mesh is None or _params_are_whole(params, cfg)
+        if engine_cfg.quantize == "int8" and whole:
             params = {**params,
                       "text": quantize_decoder_params(params["text"])}
-        if engine_cfg.vision_quant == "int8":
+        if engine_cfg.vision_quant == "int8" and whole:
             params = {**params,
                       "visual": quantize_vision_params(params["visual"])}
+        if mesh is not None and whole:
+            tower = ("int8" if is_quantized(
+                params["visual"]["blocks"]["attn"]["wo"]) else None)
+            params = shard_params(params, serving_param_axes(cfg, tower),
+                                  mesh, device=self.device)
+        tp = mesh.size("model") if mesh is not None else 1
+        dp = mesh.size("data") if mesh is not None else 1
+        self._tp_group = mesh.group("model") if mesh is not None else None
+        self._dp_index = mesh.index("data") if mesh is not None else 0
         if engine_cfg.act_quant and not is_quantized(
                 params["text"]["layers"]["attn"]["wq"]):
             raise ValueError("act_quant requires int8 decoder weights (set "
@@ -228,8 +296,14 @@ class Engine:
 
         b, m = engine_cfg.max_batch_size, engine_cfg.max_seq_len
         dev = self.device
+        # this rank's slots [lo, lo + bl) and kv heads: the KV cache's share
+        self._bl = b // dp
+        self._lo = self._dp_index * self._bl
+        tcfg = dataclasses.replace(cfg.text,
+                                   num_heads=cfg.text.num_heads // tp,
+                                   num_kv_heads=cfg.text.num_kv_heads // tp)
         if engine_cfg.kv_quantize == "int8":
-            self.cache = dec.QuantKVCache.zeros(cfg.text, b, m,
+            self.cache = dec.QuantKVCache.zeros(tcfg, self._bl, m,
                                                 engine_cfg.dtype, dev)
         elif engine_cfg.kv_quantize == "int4":
             # the JAX engine's limits (its engine.py:283-297), so that both
@@ -247,11 +321,11 @@ class Engine:
                     f"kv_quantize='int4' needs max_seq_len % 256 == 0 "
                     f"(nibble packing: 128 packed rows per scale tile), "
                     f"got {m}; round up to {-(-m // 256) * 256}")
-            self.cache = dec.Q4KVCache.zeros(cfg.text, b, m,
+            self.cache = dec.Q4KVCache.zeros(tcfg, self._bl, m,
                                              engine_cfg.dtype, dev)
         else:
-            self.cache = dec.KVCache.zeros(cfg.text, b, m, engine_cfg.dtype,
-                                           dev)
+            self.cache = dec.KVCache.zeros(tcfg, self._bl, m,
+                                           engine_cfg.dtype, dev)
         self.cache_len = torch.zeros((b,), dtype=torch.int32, device=dev)
         self.next_pos = torch.zeros((b,), dtype=torch.int32, device=dev)
         self.last_token = torch.zeros((b,), dtype=torch.int64, device=dev)
@@ -264,7 +338,9 @@ class Engine:
         self._slot_spec = [True] * b
         # host mirror of each slot's cache_len: the lookahead's headroom
         self._slot_len = [0] * b
-        self._gen = torch.Generator(device=dev).manual_seed(rng_seed)
+        # one stream per data group: the ranks of a model group draw alike
+        self._gen = torch.Generator(device=dev).manual_seed(
+            rng_seed + self._dp_index)
 
         # guided decoding: the token automatons of every resident regex in
         # one state arena on the device. Row 0 is FREE (unguided slots: all
@@ -324,6 +400,44 @@ class Engine:
         self.timing: Optional[dict] = None  # KARANTA_ENGINE_TIMING=1
 
     # ------------------------------------------------------------------
+    # multi-rank helpers (identities on one rank)
+    # ------------------------------------------------------------------
+
+    def _local(self, x: torch.Tensor) -> torch.Tensor:
+        """This data group's rows of a per-slot tensor (B, ...), on storage
+        of their own (the kernels take 16-byte aligned pointers)."""
+        if self.mesh is None:
+            return x
+        return x[self._lo:self._lo + self._bl].clone()
+
+    def _gather_slots(self, x: torch.Tensor, check: bool = True
+                      ) -> torch.Tensor:
+        """Every data group's rows (B/dp, ...) -> (B, ...) on every rank:
+        gathered over the world, each group's rows taken from its model
+        rank 0. With `check`, a model group whose ranks disagree raises (a
+        rank that went its own way would deadlock the next collective)."""
+        mesh = self.mesh
+        if mesh is None or mesh.world == 1:
+            return x
+        tp, dp = mesh.size("model"), mesh.size("data")
+        g = all_gather_last(x.reshape(1, -1), mesh.world_group)
+        g = g.reshape((dp, tp) + tuple(x.shape))
+        if check and tp > 1 and not bool((g == g[:, :1]).all()):
+            raise RuntimeError("the ranks of a model group disagree on the "
+                               "tokens they sampled")
+        return g[:, 0].reshape((dp * self._bl,) + tuple(x.shape[1:]))
+
+    def _owner(self, slot: int) -> int:
+        """The data group that owns a slot's KV rows."""
+        return slot // self._bl
+
+    def agree(self, prepared: "_Prepared") -> None:
+        """Take world rank 0's prefix decision: ``prepare`` runs in threads,
+        and the running prompt head it updates depends on their order. A
+        no-op on one rank."""
+        if self.mesh is not None and self.mesh.world > 1:
+            prepared.prefix_len = broadcast_objects(
+                [prepared.prefix_len], 0, self.mesh.cpu_group)[0]
 
     def _decode_image(self, raw: bytes) -> np.ndarray:
         """Image bytes -> RGB uint8 (read-only), LRU-cached by the SHA-1 of
@@ -441,7 +555,8 @@ class Engine:
             speculative=request.speculative,
             guide_regex=request.guided_regex or None,
             logprobs=bool(request.logprobs),
-            top_logprobs=min(int(request.top_logprobs or 0), 5))
+            top_logprobs=min(int(request.top_logprobs or 0), 5),
+            request=request if self.mesh is not None else None)
         if self.ecfg.teacher_force and request.forced_output:
             if request.guided_regex:
                 # a forced token the automaton forbids would corrupt the DFA
@@ -638,7 +753,8 @@ class Engine:
                     self.params["visual"], self.cfg.vision, feed["pix_dev"],
                     torch.from_numpy(layout.perm).to(dev),
                     torch.from_numpy(layout.valid).to(dev),
-                    torch.from_numpy(layout.pos_hw).to(dev))
+                    torch.from_numpy(layout.pos_hw).to(dev),
+                    group=self._tp_group)
                 tokens = encoded[torch.from_numpy(feed["extract"]).to(dev)]
             else:
                 tokens = image_tokens[i]
@@ -679,7 +795,8 @@ class Engine:
         emb = dec.embed_tokens(text, ids.to(self.device))
         _, cache = dec.prefill_forward(text, self.cfg.text, emb[None], pos,
                                        kv_mask=kv_mask,
-                                       act_quant=self._act_quant)
+                                       act_quant=self._act_quant,
+                                       group=self._tp_group)
         trimmed = dec.KVCache(cache.k[:, :, :, :p].contiguous(),
                               cache.v[:, :, :, :p].contiguous())
         self._prefix_kv[key] = trimmed
@@ -706,13 +823,14 @@ class Engine:
             hidden, pcache = dec.prefill_with_prefix(
                 text, self.cfg.text, emb[None], pos, prefix,
                 torch.ones((1, p), device=self.device), kv_mask=kv_mask,
-                act_quant=self._act_quant)
+                act_quant=self._act_quant, group=self._tp_group)
         else:
             hidden, pcache = dec.prefill_forward(
                 text, self.cfg.text, emb[None], pos, kv_mask=kv_mask,
-                act_quant=self._act_quant)
+                act_quant=self._act_quant, group=self._tp_group)
         logits = dec.logits_from_hidden(text, self.cfg.text, hidden[0, n - 1],
-                                        act_quant=self._act_quant)
+                                        act_quant=self._act_quant,
+                                        group=self._tp_group)
         return logits, pcache
 
     def _sample_first(self, prepared: _Prepared, logits: torch.Tensor):
@@ -746,7 +864,12 @@ class Engine:
         into `slot` of the cache (in place; quantized for the int8 cache,
         quantized and nibble-packed for the int4 cache).
         Returns the first token: a device scalar, or under teacher forcing
-        the forced stream's first token."""
+        the forced stream's first token (a host int on a mesh)."""
+        if self.mesh is not None:
+            def one(sub):
+                logits, pcache = self.prefill(sub[0])
+                return pcache, [self._sample_first(sub[0], logits)[0]]
+            return self._insert_sharded([slot], [prepared], one)[0]
         logits, pcache = self.prefill(prepared)
         first, dfa_after = self._sample_first(prepared, logits)
         return self._insert([slot], [prepared], pcache, [first],
@@ -785,7 +908,7 @@ class Engine:
                 [lay.valid for lay in layouts])).to(dev),
             torch.from_numpy(np.concatenate(
                 [lay.pos_hw for lay in layouts])).to(dev),
-            n_images=k)
+            n_images=k, group=self._tp_group)
         extract = np.concatenate([f["extract"] + i * pad_merged
                                   for i, f in enumerate(feeds)])
         tokens = encoded[torch.from_numpy(extract).to(dev)].reshape(
@@ -797,30 +920,36 @@ class Engine:
         hidden, pcache = dec.prefill_forward(
             text, self.cfg.text, emb, torch.cat([p[0] for p in padded], 1),
             kv_mask=torch.cat([p[1] for p in padded]),
-            act_quant=self._act_quant)
+            act_quant=self._act_quant, group=self._tp_group)
         last = hidden[torch.arange(k, device=dev),
                       torch.tensor([len(g.ids) - 1 for g in group],
                                    device=dev)]
         logits = dec.logits_from_hidden(text, self.cfg.text, last,
-                                        act_quant=self._act_quant)
+                                        act_quant=self._act_quant,
+                                        group=self._tp_group)
         return logits, pcache
 
     def prefill_insert_batch(self, group: list, slots: list) -> list:
         """Batched prefill of K pages that share a batch key, their first
         tokens (greedy when every temperature is 0, else sampled over the K
         rows) and their KV rows written into `slots`. Returns the K first
-        tokens as prefill_insert returns one."""
-        logits, pcache = self.prefill_batch(group)
-        if all(g.temperature <= 0.0 for g in group):
-            firsts = torch.argmax(logits.float(), dim=-1)
-        else:
-            firsts = sample_tokens(
-                logits, self._gen,
-                torch.tensor([g.temperature for g in group],
-                             device=self.device),
-                torch.tensor([g.top_p for g in group], device=self.device))
-        return self._insert(slots, group, pcache, list(firsts),
-                            [0] * len(group))
+        tokens as prefill_insert returns one. On a mesh each data group
+        prefills the pages of the slots it owns."""
+        def many(sub):
+            logits, pcache = self.prefill_batch(sub)
+            if all(g.temperature <= 0.0 for g in sub):
+                firsts = torch.argmax(logits.float(), dim=-1)
+            else:
+                firsts = sample_tokens(
+                    logits, self._gen,
+                    torch.tensor([g.temperature for g in sub],
+                                 device=self.device),
+                    torch.tensor([g.top_p for g in sub], device=self.device))
+            return pcache, list(firsts)
+        if self.mesh is not None:
+            return self._insert_sharded(slots, group, many)
+        pcache, firsts = many(group)
+        return self._insert(slots, group, pcache, firsts, [0] * len(group))
 
     def _insert(self, slots: list, group: list, pcache, firsts: list,
                 dfa_afters: list) -> list:
@@ -828,9 +957,55 @@ class Engine:
         bind each slot to its request: lengths, position, pending token,
         sampling and guided state, the speculation history and the forced
         stream. Returns each slot's first emitted token."""
-        for g in group:
-            for feed in g.image_feeds:
+        self._write_rows(slots, pcache)
+        out = []
+        for i, (slot, prepared) in enumerate(zip(slots, group)):
+            for feed in prepared.image_feeds:
                 feed["pix_dev"] = None  # the page's pixels are no longer needed
+            out.append(self._bind_slot(slot, prepared, firsts[i],
+                                       dfa_afters[i]))
+        return out
+
+    def _insert_sharded(self, slots: list, group: list, compute) -> list:
+        """_insert on a mesh: the data group that owns a slot computes its
+        page (`compute(pages)` -> (KV rows, first tokens), run by every
+        owning group over its own pages) and writes its rows; each owner's
+        model rank 0 then broadcasts its first tokens (and first logprobs),
+        and every rank binds every slot alike."""
+        for prepared in group:  # every rank binds the automaton alike
+            if prepared.guide_regex and prepared.guide is None:
+                prepared.guide = self._ensure_automaton(prepared.guide_regex)
+        owners = [self._owner(s) for s in slots]
+        mine = [i for i, o in enumerate(owners) if o == self._dp_index]
+        shared = [[None, None] for _ in slots]
+        if mine:
+            pcache, firsts = compute([group[i] for i in mine])
+            self._write_rows([slots[i] for i in mine], pcache)
+            for j, i in enumerate(mine):
+                shared[i] = [int(firsts[j]), self._first_logprob.pop(
+                    group[i].request_id, None)]
+        for owner in sorted(set(owners)):
+            idx = [i for i, o in enumerate(owners) if o == owner]
+            got = broadcast_objects([shared[i] for i in idx],
+                                    self.mesh.rank_of(data=owner),
+                                    self.mesh.cpu_group)
+            for i, entry in zip(idx, got):
+                shared[i] = entry
+        out = []
+        for (first, lp), slot, prepared in zip(shared, slots, group):
+            for feed in prepared.image_feeds:
+                feed["pix_dev"] = None
+            if lp is not None:
+                self._first_logprob[prepared.request_id] = lp
+            dfa_after = (int(self._next_state[prepared.guide, first])
+                         if prepared.guide is not None else 0)
+            out.append(self._bind_slot(slot, prepared, first, dfa_after))
+        return out
+
+    def _write_rows(self, slots: list, pcache) -> None:
+        """Prefill KV rows (L, K, KVH, S, D), row i into slots[i] of this
+        rank's cache (quantized for the int8 cache, quantized and
+        nibble-packed for the int4 cache)."""
         c = self.cache
         if isinstance(c, dec.Q4KVCache):
             # ceil64(rows) / 2 packed rows; the pad's nibbles lie past the
@@ -843,14 +1018,11 @@ class Engine:
             rows, dsts = (kq, vq, ksc, vsc), (c.k, c.v, c.ks, c.vs)
         else:
             rows, dsts = (pcache.k, pcache.v), (c.k, c.v)
-        out = []
-        for i, (slot, prepared) in enumerate(zip(slots, group)):
+        for i, slot in enumerate(slots):
             # one slot at a time: every tensor is (L, B, heads, rows, ...)
             for dst, src in zip(dsts, rows):
-                dst[:, slot, :, :src.shape[3]] = src[:, i].to(dst.dtype)
-            out.append(self._bind_slot(slot, prepared, firsts[i],
-                                       dfa_afters[i]))
-        return out
+                dst[:, slot - self._lo, :, :src.shape[3]] = \
+                    src[:, i].to(dst.dtype)
 
     def _bind_slot(self, slot: int, prepared: _Prepared, first, dfa_after):
         s = len(prepared.ids)
@@ -929,23 +1101,28 @@ class Engine:
         for i in active:
             self._slot_len[i] = min(self._slot_len[i] + steps, m - 1)
         text = self.params["text"]
+        loc = self._local
         out, lps = [], []
         for _ in range(steps):
-            emb = dec.embed_tokens(text, self.last_token)[:, None]
-            pos = self.next_pos[None, :].expand(3, -1)
+            # this data group's slots run the model; tokens are then shared
+            emb = dec.embed_tokens(text, loc(self.last_token))[:, None]
+            pos = loc(self.next_pos)[None, :].expand(3, -1)
             hidden, self.cache = dec.decode_step(
                 text, self.cfg.text, emb, pos, self.cache,
-                torch.clamp(self.cache_len, max=m - 1))
+                loc(torch.clamp(self.cache_len, max=m - 1)),
+                group=self._tp_group)
             logits = dec.logits_from_hidden(text, self.cfg.text, hidden[:, 0],
-                                            act_quant=self._act_quant)
+                                            act_quant=self._act_quant,
+                                            group=self._tp_group)
             if logits_out is not None:
                 logits_out.append(logits)
             if use_guided:
-                logits = torch.where(self._allowed[self.dfa_state],
+                logits = torch.where(self._allowed[loc(self.dfa_state)],
                                      logits.float(), float("-inf"))
             tokens = sample_tokens(logits, self._gen,
-                                   self.temps if use_sampling else None,
-                                   self.top_ps if use_top_p else None)
+                                   loc(self.temps) if use_sampling else None,
+                                   loc(self.top_ps) if use_top_p else None)
+            tokens = self._gather_slots(tokens)
             if forced is not None:
                 # the new token lands at history position cache_len + 1
                 fpos = torch.clamp(self.cache_len.long() + 1, max=m - 1)
@@ -956,9 +1133,10 @@ class Engine:
                                                   tokens].long()
             if use_logprobs:
                 logp = torch.log_softmax(logits.float(), dim=-1)
-                chosen = logp.gather(1, tokens[:, None])[:, 0]
+                chosen = logp.gather(1, loc(tokens)[:, None])[:, 0]
                 top_vals, top_ids = top_logprobs(logp, top_k)
-                lps.append((chosen, top_vals, top_ids))
+                lps.append(tuple(self._gather_slots(x, check=False)
+                                 for x in (chosen, top_vals, top_ids)))
             self.cache_len = torch.clamp(self.cache_len + 1, max=m - 1)
             self.next_pos = self.next_pos + 1
             self.last_token = tokens
@@ -1015,26 +1193,30 @@ class Engine:
         draft = hist[bidx[:, None],
                      start[:, None] + torch.arange(gamma, device=dev)]
 
+        loc = self._local
         feed = torch.cat([self.last_token[:, None], draft], dim=1)  # (B, T)
-        emb = dec.embed_tokens(text, feed)
-        p1 = self.next_pos[:, None] + torch.arange(t, device=dev)[None]
-        positions = p1[None].expand(3, b, t)
+        emb = dec.embed_tokens(text, loc(feed))
+        p1 = loc(self.next_pos)[:, None] + torch.arange(t, device=dev)[None]
+        positions = p1[None].expand(3, -1, t)
         hidden, self.cache = dec.decode_multi(text, self.cfg.text, emb,
                                               positions, self.cache,
-                                              cache_len,
-                                              act_quant=self._act_quant)
+                                              loc(cache_len),
+                                              act_quant=self._act_quant,
+                                              group=self._tp_group)
         logits = dec.logits_from_hidden(text, self.cfg.text, hidden,
-                                        act_quant=self._act_quant)
+                                        act_quant=self._act_quant,
+                                        group=self._tp_group)
         if logits_out is not None:
             logits_out.append(logits)
         # output positions of the T candidates (also the forcing index)
         wpos = torch.clamp(ntok[:, None] + torch.arange(t, device=dev),
                            max=m - 1)
         if use_sampling:
-            y, n_new = spec_verify_sampled(logits, draft, self.temps,
+            y, n_new = spec_verify_sampled(logits, loc(draft), loc(self.temps),
                                            self._gen)
+            y, n_new = self._gather_slots(y), self._gather_slots(n_new)
         else:
-            y = torch.argmax(logits.float(), dim=-1)              # (B, T)
+            y = self._gather_slots(torch.argmax(logits.float(), dim=-1))
             if self.forced is not None:
                 # teacher forcing: the forced stream stands in for the
                 # model's output; the drafts are held to it by the same
@@ -1141,7 +1323,8 @@ class Engine:
     def generate(self, requests: list[GenRequest]) -> list[GenResult]:
         """Synchronous batch generation over the decode slots. Pages are
         prepared on a thread pool, a bounded window ahead of admission, so
-        host preparation overlaps the card's work."""
+        host preparation overlaps the card's work. On a mesh every rank
+        calls it with the same requests and returns the same results."""
         timing = os.environ.get("KARANTA_ENGINE_TIMING") == "1"
         tacc = {"prep_wait": 0.0, "prefill": 0.0, "sync": 0.0,
                 "decode": 0.0, "collect": 0.0, "total": 0.0,
@@ -1216,6 +1399,7 @@ class Engine:
                         prep_futures[req_idx] = prep_pool.submit(
                             timed_prepare, request)
                     prepared = prep_futures.pop(req_idx).result()
+                    self.agree(prepared)
                     tacc["prep_wait"] += time.perf_counter() - t0
                     # keep prompt + completion within the cache
                     prepared.max_tokens = min(

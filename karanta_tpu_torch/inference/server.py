@@ -18,17 +18,28 @@ stream. HTTP handling stays async.
 
     python -m karanta_tpu_torch.inference.server --preset qwen2.5-vl-7b
     python -m karanta_tpu_torch.inference.server --preset tiny --device cpu
+
+Multi-rank serving (``--tensor-parallel-size``/``--data-parallel-size``):
+the serving process is rank 0 of a (data, model) mesh and spawns the other
+ranks, each a process that builds its shard of the weights and replays rank
+0's engine calls (``worker_loop``). Rank 0 runs HTTP and the engine loop;
+before each engine call that reaches the card it broadcasts the call over a
+gloo group (``_Leader``), so every rank runs the engine in lockstep.
+Ranks use ``cuda:(rank % cards)``; on one card they share it and talk over
+gloo, with a card per rank over NCCL (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import atexit
 import base64
 import dataclasses
 import json
 import logging
 import os
+import threading
 import time
 import uuid
 from collections import defaultdict
@@ -380,6 +391,8 @@ class InferenceServer:
         if self._server:
             self._server.close()
             await self._server.wait_closed()
+        if isinstance(self.engine, _Leader):
+            await asyncio.to_thread(self.engine.shutdown)
 
     async def serve_forever(self):
         assert self._server is not None
@@ -601,20 +614,15 @@ def build_engine_from_args(args) -> tuple[Engine, str]:
     server's default, so a caller's narrower namespace (``single_page``,
     the bench runner) builds the same engine; a missing ``device`` means
     the card."""
-    from karanta_tpu_torch.inference.tokenizer import ByteTokenizer
-    from karanta_tpu_torch.models.qwen25_vl.config import (get_config,
-                                                           small_config,
-                                                           tiny_config)
-    from karanta_tpu_torch.models.qwen25_vl.model import init_params
+    tp = getattr(args, "tensor_parallel_size", 1) or 1
+    dp = getattr(args, "data_parallel_size", 1) or 1
+    if tp * dp > 1:
+        return _sharded_engine(args, tp, dp)
+    return _rank_engine(args)
 
-    if (getattr(args, "tensor_parallel_size", 1) > 1
-            or getattr(args, "data_parallel_size", 1) > 1):
-        raise NotImplementedError(
-            "tensor and data parallel serving are not ported yet "
-            "(ROADMAP.md, modules: multi-card serving)")
-    device = resolve_device(getattr(args, "device", None))
-    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    ecfg = EngineConfig(
+
+def _engine_config(args, dtype) -> EngineConfig:
+    return EngineConfig(
         max_batch_size=args.max_batch_size,
         max_seq_len=args.max_model_len,
         decode_chunk=args.decode_chunk,
@@ -630,14 +638,45 @@ def build_engine_from_args(args) -> tuple[Engine, str]:
         speculative_ngram=getattr(args, "speculative_ngram", 3),
         teacher_force=getattr(args, "teacher_force", False),
     )
+
+
+def _rank_engine(args, mesh=None) -> tuple[Engine, str]:
+    """One rank's engine: the whole model on one card (`mesh` None), or this
+    rank's shard of it, built leaf by leaf (``model.serving_leaf_fn``: each
+    leaf read or drawn, quantized whole, sliced, the whole dropped)."""
+    from karanta_tpu_torch.inference.tokenizer import ByteTokenizer
+    from karanta_tpu_torch.models.qwen25_vl.config import (get_config,
+                                                           small_config,
+                                                           tiny_config)
+    from karanta_tpu_torch.models.qwen25_vl.model import (add_tied_logits_head,
+                                                          init_params,
+                                                          init_params_sharded,
+                                                          serving_leaf_fn)
+
+    device = (mesh.device if mesh is not None
+              else resolve_device(getattr(args, "device", None)))
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    ecfg = _engine_config(args, dtype)
+    # a mesh's leaves are quantized as they are sliced: the engine then
+    # takes them as they are
+    sharded_ecfg = dataclasses.replace(ecfg, quantize=None, vision_quant=None)
     if getattr(args, "native_checkpoint", None):
-        return _native_checkpoint_engine(args, ecfg, dtype, device)
+        return _native_checkpoint_engine(args, ecfg, dtype, device, mesh)
     if getattr(args, "model_path", None):
         from karanta_tpu_torch.inference.tokenizer import HFTokenizer
         from karanta_tpu_torch.models.qwen25_vl.loading import \
             load_hf_checkpoint
 
         cfg = get_config(getattr(args, "preset", None) or args.model_path)
+        name = args.model_path
+        if mesh is not None:
+            params = load_hf_checkpoint(
+                args.model_path, cfg, dtype, device=device,
+                leaf_fn=serving_leaf_fn(cfg, mesh, dtype, ecfg.quantize,
+                                        ecfg.vision_quant))
+            add_tied_logits_head(params, cfg, mesh, ecfg.quantize)
+            return Engine(params, cfg, HFTokenizer(args.model_path),
+                          sharded_ecfg, mesh=mesh), name
         # quantize on transfer, matrix by matrix: the card never holds the
         # whole bf16 decoder beside its int8 copy
         params = load_hf_checkpoint(args.model_path, cfg, dtype,
@@ -645,7 +684,6 @@ def build_engine_from_args(args) -> tuple[Engine, str]:
         if ecfg.quantize:
             ecfg = dataclasses.replace(ecfg, quantize=None)
         tok = HFTokenizer(args.model_path)
-        name = args.model_path
         return Engine(params, cfg, tok, ecfg, device=device), name
     tok = ByteTokenizer()
     preset = getattr(args, "preset", None) or "tiny"
@@ -654,18 +692,23 @@ def build_engine_from_args(args) -> tuple[Engine, str]:
         cfg = factory(vocab_size=tok.vocab_size)
     else:
         cfg = get_config(preset)
-    params = init_params(cfg, 0, dtype, device=device)
     name = f"random-{cfg.name}"
     logger.warning("serving RANDOM weights (%s): test mode only", name)
+    if mesh is not None:
+        params = init_params_sharded(cfg, mesh, 0, dtype, ecfg.quantize,
+                                     ecfg.vision_quant)
+        return Engine(params, cfg, tok, sharded_ecfg, mesh=mesh), name
+    params = init_params(cfg, 0, dtype, device=device)
     return Engine(params, cfg, tok, ecfg, device=device), name
 
 
-def _native_checkpoint_engine(args, ecfg: EngineConfig, dtype, device
-                              ) -> tuple[Engine, str]:
+def _native_checkpoint_engine(args, ecfg: EngineConfig, dtype, device,
+                              mesh=None) -> tuple[Engine, str]:
     """Serve a checkpoint written by the port's trainer (a ``step_N`` dir,
     or a run dir whose newest completed step is taken), as the JAX server
     serves its own: the parameters in the serving dtype, the byte tokenizer
-    for the hermetic presets and ``--tokenizer-path`` required otherwise."""
+    for the hermetic presets and ``--tokenizer-path`` required otherwise.
+    On a mesh each tensor is sharded as it is read."""
     from karanta_tpu_torch.inference.tokenizer import (ByteTokenizer,
                                                        HFTokenizer)
     from karanta_tpu_torch.models.qwen25_vl.config import (get_config,
@@ -695,13 +738,267 @@ def _native_checkpoint_engine(args, ecfg: EngineConfig, dtype, device
         cfg = get_config(preset)
     last = get_last_checkpoint(args.native_checkpoint) or \
         args.native_checkpoint
+    name = f"native-{os.path.basename(os.path.normpath(last))}"
+    if mesh is not None:
+        from karanta_tpu_torch.models.qwen25_vl.model import (
+            add_tied_logits_head, serving_leaf_fn)
+
+        params, meta = restore_params(last, device=device, leaf_fn=(
+            serving_leaf_fn(cfg, mesh, dtype, ecfg.quantize,
+                            ecfg.vision_quant)))
+        add_tied_logits_head(params, cfg, mesh, ecfg.quantize)
+        logger.info("serving native checkpoint %s (step %s)", last,
+                    meta.get("step"))
+        return Engine(params, cfg, tok, dataclasses.replace(
+            ecfg, quantize=None, vision_quant=None), mesh=mesh), name
     raw, meta = restore_params(last, device=device)
     params = tree_map(lambda a, _: a.to(dtype) if a.is_floating_point()
                       else a, raw)
-    name = f"native-{os.path.basename(os.path.normpath(last))}"
     logger.info("serving native checkpoint %s (step %s)", last,
                 meta.get("step"))
     return Engine(params, cfg, tok, ecfg, device=device), name
+
+
+# ----------------------------------------------------------------------
+# multi-rank serving
+# ----------------------------------------------------------------------
+
+
+def _peak_rss_mb() -> Optional[float]:
+    """This process's peak resident memory: VmHWM, which starts anew at
+    exec, or None where /proc does not report it (getrusage's maxrss would
+    keep the parent's peak across a spawn)."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmHWM:"):
+                    return int(line.split()[1]) / 1024.0
+    except OSError:
+        pass
+    return None
+
+
+def rank_stats(engine: Engine, reset: bool = False) -> dict:
+    """This rank's kernel launches, collective calls and host seconds, peak
+    host RSS, card memory (peak since the last reset, and held) and cache
+    shape (kv heads, slots); `reset` zeroes the counters and the card's
+    peak after reading them."""
+    from karanta_tpu_torch import kernels
+    from karanta_tpu_torch.parallel import sharding
+
+    dev = engine.device
+    cuda = dev.type == "cuda"
+    stats = {
+        "rank": engine.mesh.rank if engine.mesh is not None else 0,
+        "launches": {k: v for k, v in kernels.LAUNCHES.items() if v},
+        "collective_calls": sharding.STATS["calls"],
+        "collective_s": sharding.STATS["seconds"],
+        "peak_rss_mb": _peak_rss_mb(),
+        "card_peak_mb": (torch.cuda.max_memory_allocated(dev) / 2 ** 20
+                         if cuda else None),
+        "card_held_mb": (torch.cuda.memory_allocated(dev) / 2 ** 20
+                         if cuda else None),
+        "kv_heads": int(engine.cache.k.shape[2]),
+        "cache_slots": int(engine.cache.k.shape[1]),
+    }
+    if reset:
+        kernels.reset_launches()
+        sharding.reset_stats()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+    return stats
+
+
+class _Leader:
+    """Rank 0's engine on a mesh. Each engine call that reaches the card is
+    first broadcast over the world's gloo group, so that the other ranks
+    (``worker_loop``) replay it on their engines in the same order; every
+    other attribute is the engine's. A lock keeps one call at a time."""
+
+    def __init__(self, engine: Engine, workers: list, timeout_s: float):
+        self.engine = engine
+        self._workers = workers
+        self._timeout_s = timeout_s
+        self._lock = threading.Lock()
+        self._stopped = False
+        atexit.register(self.shutdown)
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+    def _send(self, *op) -> None:
+        from karanta_tpu_torch.parallel.sharding import broadcast_objects
+
+        broadcast_objects([op], 0, self.engine.mesh.cpu_group)
+
+    def prefill_insert(self, slot: int, prepared):
+        with self._lock:
+            request, prepared.request = prepared.request, None
+            self._send("prefill", slot, request, prepared.prefix_len,
+                       prepared.max_tokens)
+            return self.engine.prefill_insert(slot, prepared)
+
+    def decode_chunk_async(self, steps=None, logits_out=None):
+        with self._lock:
+            self._send("decode", steps)
+            return self.engine.decode_chunk_async(steps, logits_out)
+
+    def decode_chunk_spec(self, steps=None, logits_out=None):
+        with self._lock:
+            self._send("spec", steps)
+            return self.engine.decode_chunk_spec(steps, logits_out)
+
+    def free_slot(self, slot: int) -> None:
+        with self._lock:
+            self._send("free", slot)
+            self.engine.free_slot(slot)
+
+    def generate(self, requests: list):
+        with self._lock:
+            self._send("generate", requests)
+            return self.engine.generate(requests)
+
+    def rank_stats(self, reset: bool = False) -> list:
+        """Every rank's ``rank_stats``, in rank order."""
+        from karanta_tpu_torch.parallel.sharding import gather_objects
+
+        with self._lock:
+            self._send("stats", reset)
+            return gather_objects(rank_stats(self.engine, reset), 0,
+                                  self.engine.mesh.cpu_group)
+
+    def shutdown(self) -> None:
+        """Stop the other ranks and leave the group (idempotent)."""
+        import torch.distributed as dist
+
+        with self._lock:
+            if self._stopped:
+                return
+            self._stopped = True
+            try:
+                if all(p.is_alive() for p in self._workers):
+                    self._send("stop")
+            finally:
+                for p in self._workers:
+                    p.join(timeout=min(60.0, self._timeout_s))
+                    if p.is_alive():
+                        p.kill()
+                        p.join(timeout=10)
+                if dist.is_initialized():
+                    dist.destroy_process_group()
+
+
+def worker_loop(engine: Engine) -> None:
+    """A worker rank: replay rank 0's engine calls (``_Leader``) until it
+    stops. A call that rank 0's server refuses alike (a guided regex that
+    does not fit the arena) is refused here too and the loop goes on; any
+    other fault ends the rank, which fails rank 0's next collective."""
+    from karanta_tpu_torch.parallel.sharding import (broadcast_objects,
+                                                     gather_objects)
+
+    group = engine.mesh.cpu_group
+    while True:
+        op, *a = broadcast_objects([None], 0, group)[0]
+        if op == "stop":
+            return
+        if op == "prefill":
+            slot, request, prefix_len, max_tokens = a
+            prepared = engine.prepare(request)
+            prepared.prefix_len = prefix_len
+            prepared.max_tokens = max_tokens
+            try:
+                engine.prefill_insert(slot, prepared)
+            except (GuidedRegexBusy, ValueError) as exc:
+                logger.info("rank %d: prefill refused as on rank 0: %r",
+                            engine.mesh.rank, exc)
+        elif op == "decode":
+            engine.decode_chunk_async(a[0])()
+        elif op == "spec":
+            engine.decode_chunk_spec(a[0])
+        elif op == "free":
+            engine.free_slot(a[0])
+        elif op == "generate":
+            engine.generate(a[0])
+        elif op == "stats":
+            gather_objects(rank_stats(engine, a[0]), 0, group)
+        else:
+            raise RuntimeError(f"unknown engine call {op!r} from rank 0")
+
+
+def _rank_timeout(args) -> float:
+    """Seconds a rank waits for its peers: the namespace's ``rank_timeout``
+    where a caller sets one (the tests), else the mesh's default."""
+    from karanta_tpu_torch.parallel.mesh import DEFAULT_TIMEOUT_S
+
+    return float(getattr(args, "rank_timeout", None) or DEFAULT_TIMEOUT_S)
+
+
+def _rank_mesh(args, tp: int, dp: int):
+    from karanta_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+
+    device = getattr(args, "device", None)
+    return create_mesh(MeshConfig(data=dp, fsdp=1, model=tp),
+                       device="cpu" if device == "cpu" else None)
+
+
+def _exit_with_parent() -> None:
+    """End this worker rank when rank 0's process is gone (a rank 0 that was
+    killed cannot send its stop): a daemon thread polls the parent pid."""
+    parent = os.getppid()
+
+    def watch():
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os._exit(1)
+
+    threading.Thread(target=watch, daemon=True).start()
+
+
+def _worker_main(rank: int, world: int, init_url: str, args, tp: int,
+                 dp: int) -> None:
+    from karanta_tpu_torch.parallel.mesh import initialize_distributed
+
+    _exit_with_parent()
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    from karanta_tpu_torch.parallel.launch import in_turns
+
+    device = "cpu" if getattr(args, "device", None) == "cpu" else None
+    initialize_distributed(init_url, world, rank, device=device,
+                           timeout_s=_rank_timeout(args))
+    mesh = _rank_mesh(args, tp, dp)
+    engine, _ = in_turns(mesh, lambda: _rank_engine(args, mesh))
+    worker_loop(engine)
+
+
+def _sharded_engine(args, tp: int, dp: int) -> tuple["_Leader", str]:
+    """Rank 0 of a (data=dp, model=tp) mesh: spawn ranks 1.. (each builds
+    its shard and runs worker_loop), join the group while watching them,
+    build this rank's shard. Returns the leader that the server drives."""
+    from karanta_tpu_torch.parallel.launch import (free_port, in_turns,
+                                                   join_group, spawn_workers)
+
+    world = tp * dp
+    device = "cpu" if getattr(args, "device", None) == "cpu" else None
+    if device is None:
+        resolve_device(None)  # raises without a card
+    timeout_s = _rank_timeout(args)
+    url = f"tcp://127.0.0.1:{free_port()}"
+    workers = spawn_workers(_worker_main, world, url, (args, tp, dp))
+    try:
+        backend = join_group(url, world, workers, device=device,
+                             timeout_s=timeout_s)
+        mesh = _rank_mesh(args, tp, dp)
+        # one rank at a time on a shared card: each holds one whole leaf
+        # while it cuts its shard
+        engine, name = in_turns(mesh, lambda: _rank_engine(args, mesh))
+    except BaseException:
+        for p in workers:
+            p.kill()
+        raise
+    logger.info("serving on %d ranks (data=%d x model=%d) over %s, rank 0 "
+                "on %s", world, dp, tp, backend, mesh.device)
+    return _Leader(engine, workers, timeout_s), name
 
 
 def make_arg_parser() -> argparse.ArgumentParser:
@@ -730,8 +1027,12 @@ def make_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--max-batch-size", type=int, default=32)
     parser.add_argument("--max-model-len", type=int, default=4096)
     parser.add_argument("--decode-chunk", type=int, default=64)
-    parser.add_argument("--tensor-parallel-size", type=int, default=1)
-    parser.add_argument("--data-parallel-size", type=int, default=1)
+    parser.add_argument("--tensor-parallel-size", type=int, default=1,
+                        help="ranks that split each layer (heads, MLP "
+                             "columns, vocabulary): Megatron-style tensor "
+                             "parallelism, one process a rank")
+    parser.add_argument("--data-parallel-size", type=int, default=1,
+                        help="groups of ranks that split the decode slots")
     parser.add_argument("--quantize", default=None, choices=["int8"])
     parser.add_argument("--kv-quantize", dest="kv_quantize", default=None,
                         choices=["int8", "int4"],
@@ -784,7 +1085,11 @@ def main(argv: Optional[list[str]] = None):
         await server.start(args.host, args.port)
         await server.serve_forever()
 
-    asyncio.run(run())
+    try:
+        asyncio.run(run())
+    finally:
+        if isinstance(engine, _Leader):
+            engine.shutdown()
 
 
 if __name__ == "__main__":

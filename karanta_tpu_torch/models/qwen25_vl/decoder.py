@@ -19,6 +19,14 @@ package's layouts: per-layer weights stacked on a leading layer axis, weights
   int8 and int4 caches through their multi-token append kernels, the bf16
   cache through a scatter and ``decode_attention_multi`` (the JAX package's
   XLA path).
+
+Tensor parallelism (``group`` = the "model" process group, None on one
+rank): the parameters hold this rank's shard (``decoder_param_axes``): q
+heads and kv heads in contiguous blocks, the MLP's columns; ``wo`` and
+``down`` are row-parallel (``ops/quantization.py``: their products sum over
+the group) and the logits head is vocab-parallel (its logits are gathered
+over the group). Head counts follow from the shards' widths, and the KV
+caches hold this rank's kv heads.
 """
 
 from __future__ import annotations
@@ -45,14 +53,19 @@ from karanta_tpu_torch.ops.quantization import INV_127
 from karanta_tpu_torch.ops.quantization import matmul as qmm
 from karanta_tpu_torch.ops.quantization import matmul_w8a8
 from karanta_tpu_torch.ops.rotary import apply_rope, mrope_cos_sin
+from karanta_tpu_torch.parallel.sharding import all_gather_last
 from karanta_tpu_torch.utils.tree import unbind_layers
 
 Params = Any
 
 
 def init_decoder_params(cfg: TextConfig, generator: torch.Generator,
-                        dtype=torch.bfloat16, device=None) -> Params:
-    """Random init with the JAX package's shapes."""
+                        dtype=torch.bfloat16, device=None,
+                        leaf_fn=None) -> Params:
+    """Random init with the JAX package's shapes. `leaf_fn(path, tensor)`,
+    when given, takes each leaf as it is drawn and returns what the tree
+    keeps (the sharded loader quantizes and slices it there), so the whole
+    tree never exists at once; the draws are the same either way."""
     h, n_layers = cfg.hidden_size, cfg.num_layers
     qd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
     inter = cfg.intermediate_size
@@ -68,25 +81,64 @@ def init_decoder_params(cfg: TextConfig, generator: torch.Generator,
     def const(shape, value):
         return torch.full(shape, value, dtype=dtype, device=device)
 
+    def leaf(path, x):
+        return leaf_fn(path, x) if leaf_fn is not None else x
+
+    a, m = ("layers", "attn"), ("layers", "mlp")
     params = {
-        "embed": (randn((cfg.vocab_size, h)) * 0.02).to(dtype),
+        "embed": leaf(("embed",), (randn((cfg.vocab_size, h)) * 0.02).to(dtype)),
         "layers": {
-            "ln1": const((n_layers, h), 1.0),
-            "ln2": const((n_layers, h), 1.0),
+            "ln1": leaf(("layers", "ln1"), const((n_layers, h), 1.0)),
+            "ln2": leaf(("layers", "ln2"), const((n_layers, h), 1.0)),
             "attn": {
-                "wq": stack((h, qd)), "bq": const((n_layers, qd), 0.0),
-                "wk": stack((h, kvd)), "bk": const((n_layers, kvd), 0.0),
-                "wv": stack((h, kvd)), "bv": const((n_layers, kvd), 0.0),
-                "wo": stack((qd, h)),
+                "wq": leaf(a + ("wq",), stack((h, qd))),
+                "bq": leaf(a + ("bq",), const((n_layers, qd), 0.0)),
+                "wk": leaf(a + ("wk",), stack((h, kvd))),
+                "bk": leaf(a + ("bk",), const((n_layers, kvd), 0.0)),
+                "wv": leaf(a + ("wv",), stack((h, kvd))),
+                "bv": leaf(a + ("bv",), const((n_layers, kvd), 0.0)),
+                "wo": leaf(a + ("wo",), stack((qd, h))),
             },
-            "mlp": {"gate": stack((h, inter)), "up": stack((h, inter)),
-                    "down": stack((inter, h))},
+            "mlp": {"gate": leaf(m + ("gate",), stack((h, inter))),
+                    "up": leaf(m + ("up",), stack((h, inter))),
+                    "down": leaf(m + ("down",), stack((inter, h)))},
         },
-        "final_norm": const((h,), 1.0),
+        "final_norm": leaf(("final_norm",), const((h,), 1.0)),
     }
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = (randn((h, cfg.vocab_size)) / np.sqrt(h)).to(dtype)
+        params["lm_head"] = leaf(("lm_head",), (
+            randn((h, cfg.vocab_size)) / np.sqrt(h)).to(dtype))
     return params
+
+
+def decoder_param_axes(cfg: TextConfig) -> Params:
+    """Logical sharding axes of every leaf of init_decoder_params (the JAX
+    package's ``decoder_param_axes``)."""
+    axes = {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "ln1": ("layers", "embed"),
+            "ln2": ("layers", "embed"),
+            "attn": {
+                "wq": ("layers", "embed", "heads"),
+                "bq": ("layers", "heads"),
+                "wk": ("layers", "embed", "kv_heads"),
+                "bk": ("layers", "kv_heads"),
+                "wv": ("layers", "embed", "kv_heads"),
+                "bv": ("layers", "kv_heads"),
+                "wo": ("layers", "heads", "embed"),
+            },
+            "mlp": {
+                "gate": ("layers", "embed", "mlp"),
+                "up": ("layers", "embed", "mlp"),
+                "down": ("layers", "mlp", "embed"),
+            },
+        },
+        "final_norm": ("embed",),
+    }
+    if not cfg.tie_word_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
 
 
 @dataclasses.dataclass
@@ -241,17 +293,18 @@ def _rope_tables(cfg: TextConfig, positions: torch.Tensor, dtype):
 
 
 def _project_qkv(x, p, cfg: TextConfig, mm=qmm):
+    """q (B, S, H, D), k and v (B, S, KVH, D): the head counts of the shards
+    the parameters hold (all heads on one rank)."""
     b, s, _ = x.shape
-    q = (mm(x, p["wq"]) + p["bq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = (mm(x, p["wk"]) + p["bk"]).reshape(b, s, cfg.num_kv_heads,
-                                           cfg.head_dim)
-    v = (mm(x, p["wv"]) + p["bv"]).reshape(b, s, cfg.num_kv_heads,
-                                           cfg.head_dim)
+    shape = (b, s, -1, cfg.head_dim)
+    q = (mm(x, p["wq"]) + p["bq"]).reshape(shape)
+    k = (mm(x, p["wk"]) + p["bk"]).reshape(shape)
+    v = (mm(x, p["wv"]) + p["bv"]).reshape(shape)
     return q, k, v
 
 
-def _mlp(x, p, mm=qmm):
-    return mm(F.silu(mm(x, p["gate"])) * mm(x, p["up"]), p["down"])
+def _mlp(x, p, mm=qmm, group=None):
+    return mm(F.silu(mm(x, p["gate"])) * mm(x, p["up"]), p["down"], group)
 
 
 def prefill_forward(params: Params, cfg: TextConfig,
@@ -260,6 +313,7 @@ def prefill_forward(params: Params, cfg: TextConfig,
                     kv_mask: Optional[torch.Tensor] = None,  # (B, S) f32
                     act_quant: bool = False,
                     remat: bool = False,
+                    group=None,
                     ) -> tuple[torch.Tensor, KVCache]:
     """Full-sequence causal forward -> (hidden_states, KV rows of S).
 
@@ -278,9 +332,9 @@ def prefill_forward(params: Params, cfg: TextConfig,
         q, k, v = _project_qkv(xn, layer["attn"], cfg, mm=mm)
         q, k = apply_rope(q, k, cos, sin)
         attn = attention(q, k, v, kv_mask=kv_mask, causal=True)
-        x = x + mm(attn.reshape(b, s, -1), layer["attn"]["wo"])
+        x = x + mm(attn.reshape(b, s, -1), layer["attn"]["wo"], group)
         x = x + _mlp(rms_norm(x, layer["ln2"], cfg.rms_norm_eps),
-                     layer["mlp"], mm=mm)
+                     layer["mlp"], mm=mm, group=group)
         # store (B, KVH, S, D): contiguous per-head slabs, as the cache is
         return x, k.transpose(1, 2), v.transpose(1, 2)
 
@@ -304,6 +358,7 @@ def prefill_with_prefix(params: Params, cfg: TextConfig,
                         prefix_mask: torch.Tensor,    # (B, P) 1 = valid
                         kv_mask: Optional[torch.Tensor] = None,  # (B, S)
                         act_quant: bool = False,
+                        group=None,
                         ) -> tuple[torch.Tensor, KVCache]:
     """Continuation prefill over a cached prompt prefix.
 
@@ -330,9 +385,9 @@ def prefill_with_prefix(params: Params, cfg: TextConfig,
         v_full = torch.cat([prefix.v[i].to(v.dtype).transpose(1, 2), v], 1)
         attn = attention(q, k_full, v_full, kv_mask=full_mask, causal=True,
                          q_offset=p)
-        x = x + mm(attn.reshape(b, s, -1), layer["attn"]["wo"])
+        x = x + mm(attn.reshape(b, s, -1), layer["attn"]["wo"], group)
         x = x + _mlp(rms_norm(x, layer["ln2"], cfg.rms_norm_eps),
-                     layer["mlp"], mm=mm)
+                     layer["mlp"], mm=mm, group=group)
         ks.append(k_full.transpose(1, 2))
         vs.append(v_full.transpose(1, 2))
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
@@ -344,6 +399,7 @@ def decode_step(params: Params, cfg: TextConfig,
                 positions: torch.Tensor,    # (3, B) int
                 cache,                      # a KV cache of any kind, in place
                 cache_len: torch.Tensor,    # (B,) int32 rows already cached
+                group=None,
                 ):
     """One decode step: each layer appends this token's K/V rows at
     cache_len (in place, inside the kernel) and attends over cache_len + 1
@@ -398,8 +454,9 @@ def decode_step(params: Params, cfg: TextConfig,
                 q.contiguous(), k[:, 0].to(cache.k.dtype).contiguous(),
                 v[:, 0].to(cache.v.dtype).contiguous(), cache.k, cache.v, i,
                 cache_len)
-        x = x + qmm(attn.reshape(b, 1, -1), layer["attn"]["wo"])
-        x = x + _mlp(rms_norm(x, layer["ln2"], cfg.rms_norm_eps), layer["mlp"])
+        x = x + qmm(attn.reshape(b, 1, -1), layer["attn"]["wo"], group)
+        x = x + _mlp(rms_norm(x, layer["ln2"], cfg.rms_norm_eps), layer["mlp"],
+                     group=group)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return x, cache
 
@@ -410,6 +467,7 @@ def decode_multi(params: Params, cfg: TextConfig,
                  cache,                      # a KV cache of any kind, in place
                  cache_len: torch.Tensor,    # (B,) int32 rows already cached
                  act_quant: bool = False,
+                 group=None,
                  ):
     """T-token decode for speculative verification: writes T K/V rows per
     slot at cache_len + [0, T) and attends causally within them plus the
@@ -453,22 +511,24 @@ def decode_multi(params: Params, cfg: TextConfig,
             cache.v[i, bidx, :, wpos] = v.to(cache.v.dtype)
             attn = decode_attention_multi(q, cache.k[i], cache.v[i],
                                           cache_len)
-        x = x + mm(attn.reshape(b, tq, -1), layer["attn"]["wo"])
+        x = x + mm(attn.reshape(b, tq, -1), layer["attn"]["wo"], group)
         x = x + _mlp(rms_norm(x, layer["ln2"], cfg.rms_norm_eps),
-                     layer["mlp"], mm=mm)
+                     layer["mlp"], mm=mm, group=group)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return x, cache
 
 
 def logits_from_hidden(params: Params, cfg: TextConfig, hidden: torch.Tensor,
-                       act_quant: bool = False) -> torch.Tensor:
-    """Hidden -> vocab logits (W8A8 with act_quant, as in every JAX path)."""
+                       act_quant: bool = False, group=None) -> torch.Tensor:
+    """Hidden -> vocab logits (W8A8 with act_quant, as in every JAX path).
+    A vocab-parallel head's logits are gathered over `group`; the tied
+    embedding stays whole on every rank, so its logits need no gather."""
     mm = matmul_w8a8 if act_quant else qmm
     if "logits_head" in params:  # int8 table for tied embeddings
-        return mm(hidden, params["logits_head"])
+        return all_gather_last(mm(hidden, params["logits_head"]), group)
     if cfg.tie_word_embeddings:
         return hidden @ params["embed"].t()
-    return mm(hidden, params["lm_head"])
+    return all_gather_last(mm(hidden, params["lm_head"]), group)
 
 
 def embed_tokens(params: Params, token_ids: torch.Tensor) -> torch.Tensor:

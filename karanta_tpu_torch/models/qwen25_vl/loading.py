@@ -42,7 +42,8 @@ def _normalize_key(key: str) -> str:
 def convert_state_dict(state: Mapping[str, Any], cfg: VLMConfig,
                        dtype: torch.dtype = torch.bfloat16,
                        quantize: Optional[str] = None,
-                       device: DeviceLike = None) -> Dict[str, Any]:
+                       device: DeviceLike = None,
+                       leaf_fn: Optional[Callable] = None) -> Dict[str, Any]:
     """An HF state dict (torch tensors or numpy arrays; the mapping may read
     each tensor on lookup) -> the port's parameters on `device`.
 
@@ -50,6 +51,9 @@ def convert_state_dict(state: Mapping[str, Any], cfg: VLMConfig,
     there. quantize="int8" quantizes the decoder's matrix stacks (and the
     logits head) on arrival: the device holds one bf16 stack beside its
     int8 copy at a time. Callers then build the Engine with quantize=None.
+    `leaf_fn(path, tensor)`, when given, takes each leaf as it is built and
+    returns what the tree keeps (path starts with "visual" or "text"; the
+    sharded server's ``model.serving_leaf_fn`` quantizes and slices there).
     """
     if quantize not in (None, "int8"):
         raise ValueError(f"unknown quantize mode {quantize!r}")
@@ -76,6 +80,9 @@ def convert_state_dict(state: Mapping[str, Any], cfg: VLMConfig,
     t = cfg.text
     h = v.hidden_size
 
+    def leaf(path: str, x):
+        return leaf_fn(tuple(path.split("/")), x) if leaf_fn else x
+
     def vstack(fn: Callable[[int], torch.Tensor]) -> torch.Tensor:
         return cast(torch.stack([fn(i) for i in range(v.depth)]))
 
@@ -97,110 +104,116 @@ def convert_state_dict(state: Mapping[str, Any], cfg: VLMConfig,
         return b[part * h:(part + 1) * h]
 
     if v.mlp_type == "gated":
-        vision_mlp = {
-            "gate": vstack(lambda i: lin(vb.format(i) + "mlp.gate_proj.weight")),
-            "gate_b": vstack(lambda i: get(vb.format(i) + "mlp.gate_proj.bias")),
-            "up": vstack(lambda i: lin(vb.format(i) + "mlp.up_proj.weight")),
-            "up_b": vstack(lambda i: get(vb.format(i) + "mlp.up_proj.bias")),
-            "down": vstack(lambda i: lin(vb.format(i) + "mlp.down_proj.weight")),
-            "down_b": vstack(lambda i: get(vb.format(i) + "mlp.down_proj.bias")),
-        }
+        names = {"gate": "gate_proj", "up": "up_proj", "down": "down_proj"}
     else:  # Qwen2-VL plain MLP
-        vision_mlp = {
-            "fc1": vstack(lambda i: lin(vb.format(i) + "mlp.fc1.weight")),
-            "fc1_b": vstack(lambda i: get(vb.format(i) + "mlp.fc1.bias")),
-            "fc2": vstack(lambda i: lin(vb.format(i) + "mlp.fc2.weight")),
-            "fc2_b": vstack(lambda i: get(vb.format(i) + "mlp.fc2.bias")),
-        }
+        names = {"fc1": "fc1", "fc2": "fc2"}
+    vision_mlp = {}
+    for ours, theirs in names.items():
+        key = vb + "mlp." + theirs
+        vision_mlp[ours] = leaf(f"visual/blocks/mlp/{ours}", vstack(
+            lambda i: lin(key.format(i) + ".weight")))
+        vision_mlp[ours + "_b"] = leaf(f"visual/blocks/mlp/{ours}_b", vstack(
+            lambda i: get(key.format(i) + ".bias")))
 
+    va, vm = "visual/blocks/attn/", "visual/merger/"
     visual = {
         "patch_embed": {
             # Conv3d weight (out, C, T, P, P) -> (C*T*P*P, out); feature order
             # (C, T, P, P) matches ops/image_prep.patchify
-            "kernel": cast(get("model.visual.patch_embed.proj.weight")
-                           .reshape(h, -1).T),
+            "kernel": leaf("visual/patch_embed/kernel", cast(
+                get("model.visual.patch_embed.proj.weight").reshape(h, -1).T)),
         },
         "blocks": {
-            "norm1": vstack(lambda i: get(vb.format(i) + "norm1.weight")),
-            "norm2": vstack(lambda i: get(vb.format(i) + "norm2.weight")),
+            "norm1": leaf("visual/blocks/norm1", vstack(
+                lambda i: get(vb.format(i) + "norm1.weight"))),
+            "norm2": leaf("visual/blocks/norm2", vstack(
+                lambda i: get(vb.format(i) + "norm2.weight"))),
             "attn": {
-                "wq": vstack(lambda i: qkv_w(i, 0)),
-                "bq": vstack(lambda i: qkv_b(i, 0)),
-                "wk": vstack(lambda i: qkv_w(i, 1)),
-                "bk": vstack(lambda i: qkv_b(i, 1)),
-                "wv": vstack(lambda i: qkv_w(i, 2)),
-                "bv": vstack(lambda i: qkv_b(i, 2)),
-                "wo": vstack(lambda i: lin(vb.format(i) + "attn.proj.weight")),
-                "bo": vstack(lambda i: get(vb.format(i) + "attn.proj.bias")),
+                "wq": leaf(va + "wq", vstack(lambda i: qkv_w(i, 0))),
+                "bq": leaf(va + "bq", vstack(lambda i: qkv_b(i, 0))),
+                "wk": leaf(va + "wk", vstack(lambda i: qkv_w(i, 1))),
+                "bk": leaf(va + "bk", vstack(lambda i: qkv_b(i, 1))),
+                "wv": leaf(va + "wv", vstack(lambda i: qkv_w(i, 2))),
+                "bv": leaf(va + "bv", vstack(lambda i: qkv_b(i, 2))),
+                "wo": leaf(va + "wo", vstack(
+                    lambda i: lin(vb.format(i) + "attn.proj.weight"))),
+                "bo": leaf(va + "bo", vstack(
+                    lambda i: get(vb.format(i) + "attn.proj.bias"))),
             },
             "mlp": vision_mlp,
         },
         "merger": {
-            "ln_q": cast(get("model.visual.merger.ln_q.weight")),
-            "w1": cast(lin("model.visual.merger.mlp.0.weight")),
-            "b1": cast(get("model.visual.merger.mlp.0.bias")),
-            "w2": cast(lin("model.visual.merger.mlp.2.weight")),
-            "b2": cast(get("model.visual.merger.mlp.2.bias")),
+            "ln_q": leaf(vm + "ln_q", cast(
+                get("model.visual.merger.ln_q.weight"))),
+            "w1": leaf(vm + "w1", cast(lin("model.visual.merger.mlp.0.weight"))),
+            "b1": leaf(vm + "b1", cast(get("model.visual.merger.mlp.0.bias"))),
+            "w2": leaf(vm + "w2", cast(lin("model.visual.merger.mlp.2.weight"))),
+            "b2": leaf(vm + "b2", cast(get("model.visual.merger.mlp.2.bias"))),
         },
     }
     if v.norm_type == "layernorm":
-        visual["blocks"]["norm1_b"] = vstack(
-            lambda i: get(vb.format(i) + "norm1.bias"))
-        visual["blocks"]["norm2_b"] = vstack(
-            lambda i: get(vb.format(i) + "norm2.bias"))
-        visual["merger"]["ln_q_b"] = cast(
-            get("model.visual.merger.ln_q.bias"))
+        visual["blocks"]["norm1_b"] = leaf("visual/blocks/norm1_b", vstack(
+            lambda i: get(vb.format(i) + "norm1.bias")))
+        visual["blocks"]["norm2_b"] = leaf("visual/blocks/norm2_b", vstack(
+            lambda i: get(vb.format(i) + "norm2.bias")))
+        visual["merger"]["ln_q_b"] = leaf(vm + "ln_q_b", cast(
+            get("model.visual.merger.ln_q.bias")))
 
     tb = "model.language_model.layers.{}."
+
+    def proj(name: str, part: str, kind: str):
+        """The decoder's per-layer `part` ("self_attn.q_proj", "mlp.up_proj")
+        stacked: its weight, quantized on arrival, or its bias."""
+        key = tb + part + "." + kind
+        if kind == "weight":
+            x = tstack_q(lambda i: lin(key.format(i)))
+        else:
+            x = tstack(lambda i: get(key.format(i)))
+        return leaf("text/layers/" + name, x)
+
     text = {
-        "embed": cast(get("model.language_model.embed_tokens.weight")),
+        "embed": leaf("text/embed", cast(
+            get("model.language_model.embed_tokens.weight"))),
         "layers": {
-            "ln1": tstack(lambda i: get(tb.format(i)
-                                        + "input_layernorm.weight")),
-            "ln2": tstack(lambda i: get(tb.format(i)
-                                        + "post_attention_layernorm.weight")),
+            "ln1": leaf("text/layers/ln1", tstack(
+                lambda i: get(tb.format(i) + "input_layernorm.weight"))),
+            "ln2": leaf("text/layers/ln2", tstack(
+                lambda i: get(tb.format(i)
+                              + "post_attention_layernorm.weight"))),
             "attn": {
-                "wq": tstack_q(lambda i: lin(tb.format(i)
-                                             + "self_attn.q_proj.weight")),
-                "bq": tstack(lambda i: get(tb.format(i)
-                                           + "self_attn.q_proj.bias")),
-                "wk": tstack_q(lambda i: lin(tb.format(i)
-                                             + "self_attn.k_proj.weight")),
-                "bk": tstack(lambda i: get(tb.format(i)
-                                           + "self_attn.k_proj.bias")),
-                "wv": tstack_q(lambda i: lin(tb.format(i)
-                                             + "self_attn.v_proj.weight")),
-                "bv": tstack(lambda i: get(tb.format(i)
-                                           + "self_attn.v_proj.bias")),
-                "wo": tstack_q(lambda i: lin(tb.format(i)
-                                             + "self_attn.o_proj.weight")),
+                "wq": proj("attn/wq", "self_attn.q_proj", "weight"),
+                "bq": proj("attn/bq", "self_attn.q_proj", "bias"),
+                "wk": proj("attn/wk", "self_attn.k_proj", "weight"),
+                "bk": proj("attn/bk", "self_attn.k_proj", "bias"),
+                "wv": proj("attn/wv", "self_attn.v_proj", "weight"),
+                "bv": proj("attn/bv", "self_attn.v_proj", "bias"),
+                "wo": proj("attn/wo", "self_attn.o_proj", "weight"),
             },
             "mlp": {
-                "gate": tstack_q(lambda i: lin(tb.format(i)
-                                               + "mlp.gate_proj.weight")),
-                "up": tstack_q(lambda i: lin(tb.format(i)
-                                             + "mlp.up_proj.weight")),
-                "down": tstack_q(lambda i: lin(tb.format(i)
-                                               + "mlp.down_proj.weight")),
+                "gate": proj("mlp/gate", "mlp.gate_proj", "weight"),
+                "up": proj("mlp/up", "mlp.up_proj", "weight"),
+                "down": proj("mlp/down", "mlp.down_proj", "weight"),
             },
         },
-        "final_norm": cast(get("model.language_model.norm.weight")),
+        "final_norm": leaf("text/final_norm", cast(
+            get("model.language_model.norm.weight"))),
     }
     if not t.tie_word_embeddings:
-        text["lm_head"] = q(lin("lm_head.weight"))
+        text["lm_head"] = leaf("text/lm_head", q(lin("lm_head.weight")))
     elif quantize == "int8":
         # tied embeddings: the per-step logits product reads an int8 table
         # (hidden, vocab), the embedding transposed, as
         # quantize_decoder_params builds it
-        text["logits_head"] = q(get(
-            "model.language_model.embed_tokens.weight").T)
+        text["logits_head"] = leaf("text/logits_head", q(get(
+            "model.language_model.embed_tokens.weight").T))
     return {"visual": visual, "text": text}
 
 
 def load_hf_checkpoint(path: str, cfg: VLMConfig,
                        dtype: torch.dtype = torch.bfloat16,
                        quantize: Optional[str] = None,
-                       device: DeviceLike = None):
+                       device: DeviceLike = None,
+                       leaf_fn: Optional[Callable] = None):
     """Load every *.safetensors under `path` and convert (see
     convert_state_dict). Each tensor is read from its file when the
     conversion reaches it, as a torch tensor in its own dtype (bf16 never
@@ -210,7 +223,7 @@ def load_hf_checkpoint(path: str, cfg: VLMConfig,
     if not files:
         raise FileNotFoundError(f"No safetensors files under {path}")
     return convert_state_dict(_Shards(files), cfg, dtype, quantize=quantize,
-                              device=device)
+                              device=device, leaf_fn=leaf_fn)
 
 
 class _Shards(Mapping):

@@ -10,6 +10,18 @@ stride == kernel). Parameters are stacked per layer, as in the JAX package.
 Training (``trainable=True``) applies rope outside the window kernel and
 calls the differentiable ``window_attention`` (the kernel's no-rope
 instance), as the JAX encoder does; ``remat=True`` checkpoints each block.
+
+Tensor parallelism (``group`` = the "model" process group): the blocks hold
+this rank's heads and MLP columns (``vision_param_axes``). Their output
+products (``wo``, the MLP's ``down``/``fc2``) are row-parallel when the
+tower is int8 (W8A8: an exact sum, ``ops/quantization.py``). With bf16
+weights every rank keeps them whole and multiplies the activations
+gathered whole, so each product is one rank's to the bit: a row-parallel
+bf16 sum, rounded once after another summation order, changes about 0.15%
+of the roundings of each product, and the 32 random-weight blocks amplify
+that to 1.5e-2 normwise in the tower's tokens (measured on an H100). The
+patch embedding and the merger stay whole on every rank
+(``model.serving_param_axes``).
 """
 
 from __future__ import annotations
@@ -26,17 +38,22 @@ from karanta_tpu_torch.models.qwen25_vl.layout import VisionLayout
 from karanta_tpu_torch.ops.attention import (attention, window_attention,
                                              window_attention_kernel_call)
 from karanta_tpu_torch.ops.norms import rms_norm
+from karanta_tpu_torch.ops.quantization import is_quantized
 from karanta_tpu_torch.ops.quantization import matmul_auto as amm
 from karanta_tpu_torch.ops.rotary import apply_rope, vision_rope_cos_sin
+from karanta_tpu_torch.parallel.sharding import all_gather_last
 from karanta_tpu_torch.utils.tree import unbind_layers
 
 Params = Any
 
 
 def init_vision_params(cfg: VisionConfig, generator: Optional[torch.Generator],
-                       dtype=torch.bfloat16, device=None) -> Params:
+                       dtype=torch.bfloat16, device=None,
+                       leaf_fn=None) -> Params:
     """Random init with the JAX package's shapes (stacked on a depth axis).
-    With device="meta" (and no generator) it only describes the shapes."""
+    With device="meta" (and no generator) it only describes the shapes.
+    `leaf_fn(path, tensor)` takes each leaf as it is drawn (see
+    ``decoder.init_decoder_params``)."""
     h, d, inter = cfg.hidden_size, cfg.depth, cfg.intermediate_size
     merged = h * cfg.merge_unit
     device = generator.device if device is None else device
@@ -52,38 +69,103 @@ def init_vision_params(cfg: VisionConfig, generator: Optional[torch.Generator],
     def ones(shape):
         return torch.ones(shape, dtype=dtype, device=device)
 
+    def leaf(path, x):
+        return leaf_fn(path, x) if leaf_fn is not None else x
+
+    b, m, g = ("blocks",), ("blocks", "mlp"), ("merger",)
     if cfg.mlp_type == "gated":
-        mlp = {"gate": dense((d, h, inter), h), "gate_b": zeros((d, inter)),
-               "up": dense((d, h, inter), h), "up_b": zeros((d, inter)),
-               "down": dense((d, inter, h), inter), "down_b": zeros((d, h))}
+        mlp = {"gate": leaf(m + ("gate",), dense((d, h, inter), h)),
+               "gate_b": leaf(m + ("gate_b",), zeros((d, inter))),
+               "up": leaf(m + ("up",), dense((d, h, inter), h)),
+               "up_b": leaf(m + ("up_b",), zeros((d, inter))),
+               "down": leaf(m + ("down",), dense((d, inter, h), inter)),
+               "down_b": leaf(m + ("down_b",), zeros((d, h)))}
     else:
-        mlp = {"fc1": dense((d, h, inter), h), "fc1_b": zeros((d, inter)),
-               "fc2": dense((d, inter, h), inter), "fc2_b": zeros((d, h))}
+        mlp = {"fc1": leaf(m + ("fc1",), dense((d, h, inter), h)),
+               "fc1_b": leaf(m + ("fc1_b",), zeros((d, inter))),
+               "fc2": leaf(m + ("fc2",), dense((d, inter, h), inter)),
+               "fc2_b": leaf(m + ("fc2_b",), zeros((d, h)))}
+    # the draws keep the JAX-shaped tree's order: MLP, patch embedding,
+    # attention, merger
+    patch = leaf(("patch_embed", "kernel"),
+                 dense((cfg.patch_input_dim, h), cfg.patch_input_dim))
+    attn = {}
+    for name in ("q", "k", "v", "o"):
+        attn["w" + name] = leaf(b + ("attn", "w" + name), dense((d, h, h), h))
+        attn["b" + name] = leaf(b + ("attn", "b" + name), zeros((d, h)))
     params = {
-        "patch_embed": {"kernel": dense((cfg.patch_input_dim, h),
-                                        cfg.patch_input_dim)},
+        "patch_embed": {"kernel": patch},
         "blocks": {
-            "norm1": ones((d, h)),
-            "norm2": ones((d, h)),
-            "attn": {"wq": dense((d, h, h), h), "bq": zeros((d, h)),
-                     "wk": dense((d, h, h), h), "bk": zeros((d, h)),
-                     "wv": dense((d, h, h), h), "bv": zeros((d, h)),
-                     "wo": dense((d, h, h), h), "bo": zeros((d, h))},
+            "norm1": leaf(b + ("norm1",), ones((d, h))),
+            "norm2": leaf(b + ("norm2",), ones((d, h))),
+            "attn": attn,
             "mlp": mlp,
         },
         "merger": {
-            "ln_q": ones((h,)),
-            "w1": dense((merged, merged), merged),
-            "b1": zeros((merged,)),
-            "w2": dense((merged, cfg.out_hidden_size), merged),
-            "b2": zeros((cfg.out_hidden_size,)),
+            "ln_q": leaf(g + ("ln_q",), ones((h,))),
+            "w1": leaf(g + ("w1",), dense((merged, merged), merged)),
+            "b1": leaf(g + ("b1",), zeros((merged,))),
+            "w2": leaf(g + ("w2",), dense((merged, cfg.out_hidden_size),
+                                          merged)),
+            "b2": leaf(g + ("b2",), zeros((cfg.out_hidden_size,))),
         },
     }
     if cfg.norm_type == "layernorm":
-        params["blocks"]["norm1_b"] = zeros((d, h))
-        params["blocks"]["norm2_b"] = zeros((d, h))
-        params["merger"]["ln_q_b"] = zeros((h,))
+        params["blocks"]["norm1_b"] = leaf(b + ("norm1_b",), zeros((d, h)))
+        params["blocks"]["norm2_b"] = leaf(b + ("norm2_b",), zeros((d, h)))
+        params["merger"]["ln_q_b"] = leaf(g + ("ln_q_b",), zeros((h,)))
     return params
+
+
+def vision_param_axes(cfg: VisionConfig) -> Params:
+    """Logical sharding axes matching init_vision_params structure (the JAX
+    package's ``vision_param_axes``)."""
+    if cfg.mlp_type == "gated":
+        mlp = {
+            "gate": ("layers", "vit_embed", "vit_mlp"),
+            "gate_b": ("layers", "vit_mlp"),
+            "up": ("layers", "vit_embed", "vit_mlp"),
+            "up_b": ("layers", "vit_mlp"),
+            "down": ("layers", "vit_mlp", "vit_embed"),
+            "down_b": ("layers", "vit_embed"),
+        }
+    else:
+        mlp = {
+            "fc1": ("layers", "vit_embed", "vit_mlp"),
+            "fc1_b": ("layers", "vit_mlp"),
+            "fc2": ("layers", "vit_mlp", "vit_embed"),
+            "fc2_b": ("layers", "vit_embed"),
+        }
+    axes = {
+        "patch_embed": {"kernel": ("patch", "vit_embed")},
+        "blocks": {
+            "norm1": ("layers", "vit_embed"),
+            "norm2": ("layers", "vit_embed"),
+            "attn": {
+                "wq": ("layers", "vit_embed", "vit_heads"),
+                "bq": ("layers", "vit_heads"),
+                "wk": ("layers", "vit_embed", "vit_heads"),
+                "bk": ("layers", "vit_heads"),
+                "wv": ("layers", "vit_embed", "vit_heads"),
+                "bv": ("layers", "vit_heads"),
+                "wo": ("layers", "vit_heads", "vit_embed"),
+                "bo": ("layers", "vit_embed"),
+            },
+            "mlp": mlp,
+        },
+        "merger": {
+            "ln_q": ("vit_embed",),
+            "w1": ("vit_embed", "vit_mlp"),
+            "b1": ("vit_mlp",),
+            "w2": ("vit_embed", "vit_mlp"),
+            "b2": ("vit_mlp",),
+        },
+    }
+    if cfg.norm_type == "layernorm":
+        axes["blocks"]["norm1_b"] = ("layers", "vit_embed")
+        axes["blocks"]["norm2_b"] = ("layers", "vit_embed")
+        axes["merger"]["ln_q_b"] = ("vit_embed",)
+    return axes
 
 
 def _vnorm(cfg: VisionConfig, x, scale, bias=None):
@@ -108,7 +190,7 @@ def _activation(cfg: VisionConfig, x):
 
 
 def _attn_block(x, p, cos, sin, valid, cfg: VisionConfig, full: bool,
-                trainable: bool = False, n_images: int = 1):
+                trainable: bool = False, n_images: int = 1, group=None):
     """x: (pad_tokens, hidden) window-ordered -> attention output.
 
     With n_images > 1, x is the token-axis concatenation of that many
@@ -116,9 +198,9 @@ def _attn_block(x, p, cos, sin, valid, cfg: VisionConfig, full: bool,
     (no window straddles two images), full-attention layers take the image
     axis as the attention batch, so no image attends to another."""
     tokens = x.shape[0]
-    nh, hd = cfg.num_heads, cfg.head_dim
+    hd = cfg.head_dim
     b = n_images if full else 1
-    shape = (b, tokens // b, nh, hd)
+    shape = (b, tokens // b, -1, hd)  # this rank's heads
     q = (amm(x, p["wq"]) + p["bq"]).reshape(shape)
     k = (amm(x, p["wk"]) + p["bk"]).reshape(shape)
     v = (amm(x, p["wv"]) + p["bv"]).reshape(shape)
@@ -139,17 +221,26 @@ def _attn_block(x, p, cos, sin, valid, cfg: VisionConfig, full: bool,
         out = window_attention_kernel_call(
             q, k, v, cfg.window_patches ** 2, kv_mask=mask,
             cos=cs.float().contiguous(), sin=sn.float().contiguous())
-    out = out.reshape(tokens, nh * hd)
-    return amm(out, p["wo"]) + p["bo"]
+    out = out.reshape(tokens, -1)
+    return _out_product(out, p["wo"], group) + p["bo"]
 
 
-def _mlp(cfg: VisionConfig, x, p):
+def _out_product(x, w, group):
+    """A block's output product over this rank's columns of x: row-parallel
+    for an int8 leaf, the whole bf16 leaf over x gathered whole otherwise
+    (see the module docstring)."""
+    if group is None or is_quantized(w):
+        return amm(x, w, group)
+    return amm(all_gather_last(x, group), w)
+
+
+def _mlp(cfg: VisionConfig, x, p, group=None):
     if cfg.mlp_type == "plain":
-        return amm(_activation(cfg, amm(x, p["fc1"]) + p["fc1_b"]),
-                   p["fc2"]) + p["fc2_b"]
+        return _out_product(_activation(cfg, amm(x, p["fc1"]) + p["fc1_b"]),
+                            p["fc2"], group) + p["fc2_b"]
     gate = _activation(cfg, amm(x, p["gate"]) + p["gate_b"])
     up = amm(x, p["up"]) + p["up_b"]
-    return amm(gate * up, p["down"]) + p["down_b"]
+    return _out_product(gate * up, p["down"], group) + p["down_b"]
 
 
 def encode_image(params: Params, cfg: VisionConfig,
@@ -160,6 +251,7 @@ def encode_image(params: Params, cfg: VisionConfig,
                  trainable: bool = False,
                  remat: bool = False,
                  n_images: int = 1,
+                 group=None,
                  ) -> torch.Tensor:
     """Encode one padded image, or with n_images > 1 the token-axis
     concatenation of that many same-shaped images (batched prefill).
@@ -170,7 +262,8 @@ def encode_image(params: Params, cfg: VisionConfig,
 
     trainable=True takes the differentiable window attention (training);
     remat=True checkpoints each block, so the backward recomputes one
-    block's internals at a time, kernels included."""
+    block's internals at a time, kernels included. `group`: the blocks'
+    tensor-parallel group (see the module docstring)."""
     x = amm(pixel_values, params["patch_embed"]["kernel"])
     x = x[perm.long()]  # patchify order -> window order
     valid = valid.float()
@@ -182,9 +275,9 @@ def encode_image(params: Params, cfg: VisionConfig,
     def block(x, lp, full):
         x = x + _attn_block(_vnorm(cfg, x, lp["norm1"], lp.get("norm1_b")),
                             lp["attn"], cos, sin, valid, cfg, full,
-                            trainable, n_images)
+                            trainable, n_images, group)
         return x + _mlp(cfg, _vnorm(cfg, x, lp["norm2"], lp.get("norm2_b")),
-                        lp["mlp"])
+                        lp["mlp"], group)
 
     for i, lp in enumerate(unbind_layers(params["blocks"], cfg.depth)):
         full = full_idx is None or i in full_idx

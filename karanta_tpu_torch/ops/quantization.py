@@ -9,6 +9,16 @@ weights stored ``(..., in, out)`` as in the JAX package.
   call that XLA avoided by fusing the convert into the dot.
 - ``matmul_w8a8``: dynamic per-token int8 activations times int8 weights,
   an exact int32 product (``torch._int_mm``), scaled in float32.
+- Row-parallel products (``group`` = the tensor-parallel process group; x
+  and the weight hold this rank's slice of the input dim): each keeps the
+  unsharded product's global semantics. W8A8 takes the per-token amax over
+  the whole row (an all-reduce max) and sums the int32 accumulators (an
+  exact all-reduce), so it is bit-equal to one rank's product; the
+  weight-only and plain products sum float32 partials (bf16 operands
+  multiplied into a float32 output, never rounded to bf16 on the way), then
+  scale and cast once: one rounding, as one rank's product has, over a sum
+  taken in another order. Biases are the caller's, added once after the
+  product.
 - Inline LoRA (training): a leaf ``{lora_base, a, b, scale}`` multiplies as
   ``x @ base + scale * (x @ a) @ b`` without building the merged weight; the
   base may be an NF4 leaf (QLoRA), dequantized per call.
@@ -22,6 +32,8 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+
+from karanta_tpu_torch.parallel.sharding import all_reduce_max, all_reduce_sum
 
 QUANT_KEY = "int8_q"  # marker key distinguishing quantized leaves
 LORA_KEY = "lora_base"  # marker key of inline-LoRA wrapped leaves
@@ -69,14 +81,37 @@ def _lora_matmul(x: torch.Tensor, w: dict, base_mm) -> torch.Tensor:
     return (y.float() + delta * w["scale"].float()).to(x.dtype)
 
 
-def matmul(x: torch.Tensor, w: Any) -> torch.Tensor:
+def _f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w with a float32 result: a bf16/fp16 product accumulated in
+    float32 and left unrounded (cuBLAS's ``mm`` with ``out_dtype`` on the
+    card; float32 operands on the CPU, which has no such kernel)."""
+    if x.dtype == torch.float32:
+        return x @ w
+    if not x.is_cuda:
+        return x.float() @ w.float()
+    lead = x.shape[:-1]
+    y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+    return y.reshape(*lead, w.shape[-1])
+
+
+def _row_parallel(x: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
+    """Plain x @ w over a row-parallel shard: float32 partials summed over
+    the group, cast once."""
+    return all_reduce_sum(_f32_product(x, w), group).to(x.dtype)
+
+
+def matmul(x: torch.Tensor, w: Any, group=None) -> torch.Tensor:
     """x @ w for plain tensors, quantized dicts (weight-only int8) and
-    inline-LoRA leaves."""
+    inline-LoRA leaves; row-parallel over `group` when given."""
     if is_lora_wrapped(w):
         return _lora_matmul(x, w, matmul)
     if not is_quantized(w):
-        return x @ w
-    acc = (x @ w[QUANT_KEY].to(x.dtype)).float()
+        return x @ w if group is None else _row_parallel(x, w, group)
+    wd = w[QUANT_KEY].to(x.dtype)
+    if group is None:
+        acc = (x @ wd).float()
+    else:
+        acc = all_reduce_sum(_f32_product(x, wd), group)
     scale = w["scale"]
     if acc.dim() < scale.dim():  # 1-D x: drop the broadcast row axis
         scale = scale.squeeze(-2)
@@ -112,19 +147,22 @@ def int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a.contiguous(), b.contiguous())
 
 
-def matmul_w8a8(x: torch.Tensor, w: Any) -> torch.Tensor:
-    """x @ w with dynamic per-token int8 activations (prefill / LM head)."""
+def matmul_w8a8(x: torch.Tensor, w: Any, group=None) -> torch.Tensor:
+    """x @ w with dynamic per-token int8 activations (prefill / LM head);
+    row-parallel over `group` when given (bit-equal to one rank's)."""
     if is_lora_wrapped(w):
         return _lora_matmul(x, w, matmul_w8a8)
     if not is_quantized(w):
-        return x @ w
+        return x @ w if group is None else _row_parallel(x, w, group)
     xf = x.float()
-    amax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+    amax = all_reduce_max(torch.amax(torch.abs(xf), dim=-1, keepdim=True),
+                          group)
     xs = torch.clamp(amax * INV_127, min=1e-8)
     xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
     wq = w[QUANT_KEY]
     lead = xq.shape[:-1]
-    acc = int8_mm(xq.reshape(-1, xq.shape[-1]), wq).reshape(*lead, wq.shape[-1])
+    acc = int8_mm(xq.reshape(-1, xq.shape[-1]), wq)
+    acc = all_reduce_sum(acc, group).reshape(*lead, wq.shape[-1])
     scale = w["scale"]
     if acc.dim() < scale.dim():  # 1-D x: drop the broadcast row axis
         scale = scale.squeeze(-2)
@@ -132,48 +170,47 @@ def matmul_w8a8(x: torch.Tensor, w: Any) -> torch.Tensor:
     return (acc.float() * xs * scale).to(x.dtype)
 
 
-def matmul_auto(x: torch.Tensor, w: Any) -> torch.Tensor:
-    """x @ w, taking the W8A8 path iff the weight leaf is quantized."""
+def matmul_auto(x: torch.Tensor, w: Any, group=None) -> torch.Tensor:
+    """x @ w, taking the W8A8 path iff the weight leaf is quantized;
+    row-parallel over `group` when given."""
     if is_quantized(w):
-        return matmul_w8a8(x, w)
-    return x @ w
+        return matmul_w8a8(x, w, group)
+    return x @ w if group is None else _row_parallel(x, w, group)
+
+
+# the leaves (paths in the decoder's and the tower's trees) that the int8
+# modes quantize; biases, norms and the input embedding stay as they are
+DECODER_INT8 = frozenset(
+    {("layers", "attn", w) for w in ("wq", "wk", "wv", "wo")}
+    | {("layers", "mlp", w) for w in ("gate", "up", "down")} | {("lm_head",)})
+VISION_INT8 = frozenset(
+    {("blocks", "attn", w) for w in ("wq", "wk", "wv", "wo")}
+    | {("blocks", "mlp", w) for w in ("gate", "up", "down", "fc1", "fc2")}
+    | {("merger", "w1"), ("merger", "w2"), ("patch_embed", "kernel")})
+
+
+def _quantize_leaves(tree: dict, leaves: frozenset, path: tuple = ()):
+    if isinstance(tree, dict):
+        return {k: _quantize_leaves(v, leaves, path + (k,))
+                for k, v in tree.items()}
+    return quantize_weight(tree) if path in leaves else tree
 
 
 def quantize_vision_params(visual: dict) -> dict:
     """Quantize the vision encoder's matrices (the blocks' attention and
-    MLP, the patch embedding, the merger) to per-channel int8; biases and
-    norms stay as they are. ``matmul_auto`` then runs them W8A8."""
-    blocks = dict(visual["blocks"])
-    blocks["attn"] = {**blocks["attn"], **{
-        name: quantize_weight(blocks["attn"][name])
-        for name in ("wq", "wk", "wv", "wo")}}
-    blocks["mlp"] = {name: quantize_weight(w) if name in (
-        "gate", "up", "down", "fc1", "fc2") else w
-        for name, w in blocks["mlp"].items()}
-    merger = {**visual["merger"],
-              "w1": quantize_weight(visual["merger"]["w1"]),
-              "w2": quantize_weight(visual["merger"]["w2"])}
-    return {**visual, "blocks": blocks, "merger": merger,
-            "patch_embed": {"kernel": quantize_weight(
-                visual["patch_embed"]["kernel"])}}
+    MLP, the patch embedding, the merger: ``VISION_INT8``) to per-channel
+    int8. ``matmul_auto`` then runs them W8A8."""
+    return _quantize_leaves(visual, VISION_INT8)
 
 
 def quantize_decoder_params(text_params: dict) -> dict:
-    """Quantize the decoder's attention, MLP and logits-head matrices.
+    """Quantize the decoder's attention, MLP and logits-head matrices
+    (``DECODER_INT8``).
 
     The input embedding stays in the working dtype (it is gathered); tied
     embeddings get a separate int8 ``logits_head`` table (embed transposed)."""
-    layers = text_params["layers"]
-    new_attn = dict(layers["attn"])
-    for name in ("wq", "wk", "wv", "wo"):
-        new_attn[name] = quantize_weight(layers["attn"][name])
-    new_mlp = {name: quantize_weight(layers["mlp"][name])
-               for name in ("gate", "up", "down")}
-    out = dict(text_params)
-    out["layers"] = {**layers, "attn": new_attn, "mlp": new_mlp}
-    if "lm_head" in text_params:
-        out["lm_head"] = quantize_weight(text_params["lm_head"])
-    else:
+    out = _quantize_leaves(text_params, DECODER_INT8)
+    if "lm_head" not in text_params:
         out["logits_head"] = quantize_weight(
             text_params["embed"].transpose(0, 1))
     return out

@@ -108,11 +108,13 @@ def _metadata(path: str) -> dict:
         return json.load(f)
 
 
-def restore_params(path: str, device: DeviceLike = None
+def restore_params(path: str, device: DeviceLike = None, leaf_fn=None
                    ) -> tuple[Any, dict]:
     """Only the model parameters of a TrainState checkpoint, on `device`
     (the card unless the caller passes another); the optimizer state is
-    not read. Returns (params, metadata)."""
+    not read. `leaf_fn(path, tensor)`, when given, takes each tensor as it
+    is read (path: the key tuple, "text"/"visual" first) and returns what
+    the tree keeps. Returns (params, metadata)."""
     from safetensors import safe_open
 
     device = resolve_device(device)
@@ -121,7 +123,10 @@ def restore_params(path: str, device: DeviceLike = None
                    device="cpu") as f:
         for key in f.keys():
             if key.startswith("params/"):
-                flat[key[len("params/"):]] = f.get_tensor(key).to(device)
+                name = key[len("params/"):]
+                t = f.get_tensor(key).to(device)
+                flat[name] = (leaf_fn(tuple(name.split("/")), t)
+                              if leaf_fn is not None else t)
     if not flat:
         raise ValueError(f"{path} holds no params/ tensors")
     return unflatten_tree(flat), _metadata(path)

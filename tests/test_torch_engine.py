@@ -221,8 +221,9 @@ def test_entry_points_need_cuda_or_explicit_cpu():
      "bench.runners.run_karanta", "bench.convert", "inference.single_page",
      "inference.engine", "inference.server", "ops.quantization",
      "models.qwen25_vl.vision"),
+    ("parallel", "parallel.mesh", "parallel.sharding", "parallel.launch"),
 ], ids=["vlm_training", "classifiers_and_data_tools",
-        "batched_prefill_and_bench_harness"])
+        "batched_prefill_and_bench_harness", "parallel_serving"])
 def test_port_imports_neither_jax_nor_the_jax_package(expected):
     """Every module of karanta_tpu_torch, and chip_smoke.py's imports, load
     without JAX and without karanta_tpu; `expected` names modules the walk

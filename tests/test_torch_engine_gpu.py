@@ -203,3 +203,34 @@ def test_prefill_insert_batch_vs_single_inserts(setup, kv):
         else:
             scale = max(float(want.abs().max()), 1.0)
             assert float((got - want).abs().max()) <= LOGIT_TOL * scale
+
+
+@pytest.mark.parametrize("kv", ["int8", "int4", None])
+def test_tensor_parallel_engine_on_card(setup, kv, tmp_path):
+    """The engine at model=2 on the card (two spawned ranks sharing it over
+    gloo) against one rank on the card: greedy tokens equal, the decode
+    steps' logits within LOGIT_TOL (the int8 points with the W8A8 tower, so
+    every prefill product is int8 and exact under the split)."""
+    from karanta_tpu_torch.parallel.launch import run_ranks
+    from tests.torch_ranks import (RANK_TIMEOUT_S, card_engine_rank,
+                                   card_engine_trace)
+
+    tok, cfg, params = setup
+    kw = dict(KW, kv_quantize=kv, speculative_ngram=3)
+    if kv is None:
+        kw.update(quantize=None)
+    else:
+        kw.update(act_quant="int8", vision_quant="int8")
+    requests = ["abcabcabcabcabc", "The quick brown fox."]
+    want = card_engine_trace(Engine(params["cuda"], cfg, tok,
+                                    EngineConfig(**kw), device="cuda"),
+                             requests)
+    ranks = run_ranks(card_engine_rank, 2,
+                      ({"engine": kw, "requests": requests},),
+                      init_url=f"file://{tmp_path}/store",
+                      timeout_s=4 * RANK_TIMEOUT_S)
+    for got in ranks:
+        assert got["tokens"] == want["tokens"]
+        scale = max(float(want["logits"].abs().max()), 1.0)
+        assert float((got["logits"] - want["logits"]).abs().max()) <= \
+            LOGIT_TOL * scale

@@ -1068,3 +1068,92 @@ def test_window_autograd_at_the_3b_vision_shape(cuda, dtype):
     first, second = (A.window_attention(q, k, v, w, kv_mask=mask)
                      for _ in range(2))
     assert torch.equal(first, second)
+
+
+# one rank's shapes of tensor-parallel serving of the 7B config: vision heads
+# 16 / tp, decoder q heads 28 / tp over kv heads 4 / tp (the GQA group stays
+# 7); bf16, as served
+PER_RANK_KERNELS = ["window", "flash_vision", "flash_prefill", "quant",
+                    "multi_quant", "append", "q4", "multi_q4", "stacked"]
+
+
+@pytest.mark.parametrize("kernel", PER_RANK_KERNELS)
+@pytest.mark.parametrize("tp", [2, 4])
+def test_kernels_at_per_rank_shapes(cuda, tp, kernel):
+    from karanta_tpu_torch.models.qwen25_vl.decoder import quantize_kv_rows
+
+    dtype = torch.bfloat16
+    gen = torch.Generator(device=cuda).manual_seed(37 + tp)
+    h, kvh, vh, d = 28 // tp, 4 // tp, 16 // tp, 128
+    b, tq, m = 4, 4, 512
+    lens = torch.tensor([0, 61, 300, m - tq - 1], dtype=torch.int32,
+                        device=cuda)
+    writes = []
+    if kernel == "window":
+        q, k, v, mask, cos, sin = _window_inputs(
+            gen, (1, 512, vh, 80, 64, True), cuda, dtype)
+        got = A.window_attention_kernel_call(q, k, v, 64, mask, cos=cos,
+                                             sin=sin)
+        want = A.window_attention_plain(q, k, v, 64, mask, cos=cos, sin=sin)
+        rows = (mask.reshape(1, 8, 64).amax(-1) > 0).repeat_interleave(64, 1)
+        got, want = got[rows], want[rows]
+    elif kernel.startswith("flash"):
+        case = ((1, 640, 640, vh, vh, 80, False, "scattered", 0)
+                if kernel == "flash_vision"
+                else (1, 300, 300, h, kvh, d, True, "tail", 0))
+        q, k, v, mask = _flash_inputs(gen, case, cuda, dtype)
+        got = A.flash_attention(q, k, v, mask, causal=case[6])
+        want = A.flash_attention_plain(q, k, v, mask, causal=case[6])
+    elif kernel in ("quant", "multi_quant"):
+        lead = (b,) if kernel == "quant" else (b, tq)
+
+        def rows(shape):
+            return torch.randn(shape, generator=gen, device=cuda)
+
+        kq, ks = quantize_kv_rows(rows((2, b, kvh, m, d)))
+        vq, vs = quantize_kv_rows(rows((2, b, kvh, m, d)))
+        nkq, nks = quantize_kv_rows(rows(lead + (kvh, d)))
+        nvq, nvs = quantize_kv_rows(rows(lead + (kvh, d)))
+        q = rows((b, 1 if kernel == "quant" else tq, h, d)).to(dtype)
+        new = (nkq, nvq, nks.to(dtype), nvs.to(dtype))
+        a = [kq, vq, ks.to(dtype), vs.to(dtype)]
+        c = [x.clone() for x in a]
+        fn, plain = ((DA.paged_decode_append_quant,
+                      DA.paged_decode_append_quant_plain)
+                     if kernel == "quant" else
+                     (DA.paged_decode_append_multi_quant,
+                      DA.paged_decode_append_multi_quant_plain))
+        got = fn(q, *new, *a, 1, lens)
+        want = plain(q, *new, *c, 1, lens)
+        writes = list(zip(a, c))
+    elif kernel == "append":
+        kc = _randn(gen, (2, b, kvh, m, d), cuda, dtype)
+        vc = _randn(gen, (2, b, kvh, m, d), cuda, dtype)
+        nk, nv = (_randn(gen, (b, kvh, d), cuda, dtype) for _ in range(2))
+        q = _randn(gen, (b, 1, h, d), cuda, dtype)
+        a, c = [kc, vc], [kc.clone(), vc.clone()]
+        got = DA.paged_decode_append(q, nk, nv, *a, 1, lens)
+        want = DA.paged_decode_append_plain(q, nk, nv, *c, 1, lens)
+        writes = list(zip(a, c))
+    elif kernel in ("q4", "multi_q4"):
+        lead = (b,) if kernel == "q4" else (b, tq)
+        a, new = _q4_inputs(gen, cuda, dtype, 2, b, kvh, m, d, lead)
+        c = [x.clone() for x in a]
+        q = _randn(gen, (b, 1 if kernel == "q4" else tq, h, d), cuda, dtype)
+        fn, plain = ((DA.paged_decode_append_q4,
+                      DA.paged_decode_append_q4_plain)
+                     if kernel == "q4" else
+                     (DA.paged_decode_append_multi_q4,
+                      DA.paged_decode_append_multi_q4_plain))
+        got = fn(q, *new, *a, 1, lens)
+        want = plain(q, *new, *c, 1, lens)
+        writes = list(zip(a, c))
+    else:
+        q, k, v, _ = _read_only_case(gen, cuda, dtype, 2, b, kvh, h // kvh,
+                                     m, d, [0, 61, 300, m - 1])
+        got = DA.paged_decode_attention_stacked(q, k, v, 1, lens)
+        want = DA.paged_decode_attention_stacked_plain(q, k, v, 1, lens)
+    torch.cuda.synchronize()
+    _assert_close(got, want, dtype)
+    for x, y in writes:
+        assert torch.equal(x, y)
