@@ -170,6 +170,23 @@ Phases (any failed check raises and the script exits non-zero):
    holds kernels #1-#7 and #9 at one rank's shapes of tp = 2 and 4 against
    their plain versions (kernel, device, plain and library ms, share of
    the bound).
+16. parallel training (``phase_parallel_training``): the trainer's entry
+   point as two processes at data = 2 (tiny, float32, 3 steps: equal losses
+   on the ranks and against one process on the same global batch, one
+   COMPLETED checkpoint, a resume at fsdp = 2 to step 4); one spawn of two
+   ranks that builds each mesh in turn: the tiny float32 step at data = 2
+   (grad-accum 2, rows of unequal token counts), fsdp = 2 (AdamW, Muon),
+   model = 2, seq = 2 and pipe = 2 (4 layers, 2 microbatches) against one
+   rank on the card (loss within 1e-5, every gradient and parameter within
+   2e-4), and qwen2.5-vl-3b at full width cut to 6 of 36 decoder layers
+   and 8 of 32 vision blocks (bf16, remat, two 3,072-token rows of phase
+   12's synthetic pages) at data, fsdp, seq and model = 2 against its
+   one-rank step (loss within 1e-2, grad norm within 2e-2, the ranks'
+   losses equal; ms a step, collectives' host seconds, share and calls,
+   peak card memory and #1/#2 launches per rank). Before it, #2 at a
+   sequence-parallel rank's shape (1,536 queries at q_offset 0 and 1,536
+   over 3,072 gathered keys, 16/2 and 8/1 heads) against its plain version
+   and under autograd (``kernel_flash_sp``).
 
 KARANTA_IMG_CACHE_MB is 0 throughout: every page pays its image decode.
 Each path's launch counts are set to 0 just before it runs and read just
@@ -5407,6 +5424,514 @@ def phase_parallel(cfg, device: str = "cuda",
     return stats
 
 
+# ---------------------------------------------------------------------------
+# phase 16: parallel training
+# ---------------------------------------------------------------------------
+
+PT_SEED = 16
+PT_TIMEOUT = 600.0      # seconds a rank waits for its peers
+PT_LR = 1e-3
+PT_TINY_DOCS = 4        # the tiny global batch: four rows
+PT_LOSS_TOL = 1e-5      # tiny float32: loss vs one rank, relative
+PT_TINY_TOL = 2e-4      # tiny float32: gradients and parameters, rtol/atol
+PT_CLI_TOL = 1e-5       # the 2-process CLI loss vs one process, relative
+PT_3B_LOSS_TOL = 1e-2   # the cut 3B step, bf16: loss vs one rank, relative
+PT_3B_NORM_TOL = 2e-2   # and the global gradient norm
+PT_3B_LAYERS, PT_3B_BLOCKS = 6, 8   # of 36 decoder layers, 32 blocks
+PT_3B_ROWS = 2
+# (label, mesh, config, cases): each tiny case against one rank on the card
+PT_TINY_CASES = (
+    ("data=2", {"data": 2}, "tiny", (dict(optimizer="adamw", grad_accum=2),)),
+    ("fsdp=2", {"fsdp": 2}, "tiny", (dict(optimizer="adamw", grad_accum=1),
+                                     dict(optimizer="muon", grad_accum=1))),
+    ("model=2", {"model": 2}, "tiny", (dict(optimizer="adamw",
+                                            grad_accum=1),)),
+    ("seq=2", {"seq": 2}, "tiny", (dict(optimizer="adamw", grad_accum=1,
+                                        sp=True),)),
+    ("pipe=2", {"pipe": 2}, "tiny4", (dict(optimizer="adamw", grad_accum=1,
+                                           pp_micro=2),)),
+)
+PT_3B_MESHES = (("data=2", {"data": 2}, {}), ("fsdp=2", {"fsdp": 2}, {}),
+                ("seq=2", {"seq": 2}, {"sp": True}),
+                ("model=2", {"model": 2}, {}))
+# #2 at sequence parallelism's per-rank shape: a 3,072-token row of the 3B
+# decoder split over seq = 2, keys gathered whole, the corpus' first row's
+# live keys; and with its heads split over model = 2
+SP_Q, SP_K, SP_LIVE = 1536, 3072, 2950
+
+
+def pt_config(name: str):
+    """The tiny config, its 4-layer variant, or the 3B preset cut to
+    PT_3B_LAYERS decoder layers and PT_3B_BLOCKS vision blocks."""
+    import dataclasses
+
+    if name == "3b":
+        cfg = get_config(TRAIN_PRESET)
+        return dataclasses.replace(
+            cfg, text=dataclasses.replace(cfg.text, num_layers=PT_3B_LAYERS),
+            vision=dataclasses.replace(cfg.vision, depth=PT_3B_BLOCKS))
+    cfg = tiny_config(vocab_size=ByteTokenizer().vocab_size)
+    if name == "tiny4":
+        cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+            cfg.text, num_layers=4))
+    return cfg
+
+
+def pt_tiny_corpus(root: str) -> str:
+    """PT_TINY_DOCS digit pages whose transcripts differ in length (the
+    rows' token counts differ)."""
+    from karanta_tpu_torch.data.synthetic import make_corpus
+
+    rng = np.random.default_rng(PT_SEED)
+    texts = ["".join(rng.choice(list("0123456789"), size=n))
+             for n in (3, 7, 5, 9)[:PT_TINY_DOCS]]
+    make_corpus(root, PT_TINY_DOCS, seed=PT_SEED, texts=texts)
+    return root
+
+
+PT_TINY_PIPELINE = [
+    {"name": "PDF2ImageStep", "target_longest_image_dim": 128},
+    {"name": "FetchPageData"},
+    {"name": "StaticLengthDocumentAnchoring", "target_anchor_text_len": 1000},
+    {"name": "FinetuningPrompt"}, {"name": "PlainTextFormat"},
+    {"name": "InstructUserMessages", "prompt_first": True},
+    {"name": "Tokenizer"}]
+
+
+def pt_batch(cfg, root: str, pipeline: list, tokenizer, rows: int,
+             max_length: int) -> dict:
+    """The first `rows` samples of a corpus collated as the trainer does
+    (run-wide buckets), as host tensors."""
+    from karanta_tpu_torch.training.data import DataCollator, LocalDataset
+    from karanta_tpu_torch.training.train import to_device_batch
+
+    samples = LocalDataset(root, pipeline_steps=pipeline,
+                           tokenizer=tokenizer, vision_cfg=cfg.vision,
+                           max_length=max_length).build(num_workers=1)
+    grid, seq = DataCollator.fit_buckets(samples)
+    batch = DataCollator(cfg.vision, fixed_seq=seq, fixed_grid=grid)(
+        samples[:rows])
+    return to_device_batch(batch, "cpu")
+
+
+def pt_step(mesh, cfg, make_params, batch: dict, case: dict,
+            remat: bool = False) -> dict:
+    """One make_train_step step on `mesh` from whole parameters
+    (make_params(), sharded here), the global batch on the host: loss,
+    tokens, global grad norm, the step's ms, host seconds and calls in
+    collectives, peak card MB (the parameters, the optimizer state and the
+    step's own; what the process held before is not counted) and #1/#2
+    launches; with case["whole"] also
+    the whole gradients of the first microbatch and the whole parameters
+    after the step (float32, host)."""
+    from karanta_tpu_torch.parallel import sharding
+    from karanta_tpu_torch.training.optimizer import make_optimizer
+    from karanta_tpu_torch.training.train_step import (create_train_state,
+                                                       make_train_step,
+                                                       value_and_grad)
+    from karanta_tpu_torch.utils.tree import flatten_tree
+
+    base = torch.cuda.memory_allocated()
+    opt = make_optimizer(case["optimizer"], case.get("lr", PT_LR))
+    pp = case.get("pp_micro", 0)
+    step = make_train_step(
+        cfg, opt, remat=remat, grad_accum=case["grad_accum"],
+        sp_mesh=mesh if case.get("sp") else None,
+        pp_mesh=mesh if pp else None, pp_micro=max(pp, 1), mesh=mesh)
+    place = step.plan.placement
+    params = place.shard(make_params())
+    out: dict = {}
+    if case.get("whole"):
+        accum = case["grad_accum"]
+        first = {k: (v[:, :v.shape[1] // accum] if k == "positions"
+                     else v[:v.shape[0] // accum]) for k, v in batch.items()}
+        _, _, grads = value_and_grad(step.loss_fn, params, first)
+        step.plan.reduce_grads(grads)
+        out["grads"] = {k: place.whole(k, g).float().cpu()
+                        for k, g in grads.items()}
+        del grads
+    state = create_train_state(params, opt)
+    del params
+    _sync(mesh.device)
+    torch.cuda.reset_peak_memory_stats()
+    sharding.reset_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    _sync(mesh.device)
+    sec = time.perf_counter() - t0
+    out.update(loss=float(metrics["loss"]), tokens=int(metrics["tokens"]),
+               grad_norm=float(metrics["grad_norm"]), ms=sec * 1e3,
+               collective_s=sharding.STATS["seconds"],
+               collective_share=sharding.STATS["seconds"] / sec,
+               collective_calls=sharding.STATS["calls"],
+               peak_mb=(torch.cuda.max_memory_allocated() - base) / 2**20,
+               launches={k: kernels.LAUNCHES[k] for k in
+                         ("window_attention", "flash_attention")})
+    if case.get("whole"):
+        out["params"] = {k: place.whole(k, x).float().cpu()
+                         for k, x in flatten_tree(state.params).items()}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pt_tiny_params(name: str) -> dict:
+    """The tiny config's seeded float32 parameters, on the host."""
+    return init_params(pt_config(name), PT_SEED, torch.float32, device="cpu")
+
+
+def pt_3b_params(dev):
+    return init_params(pt_config("3b"), PT_SEED, torch.bfloat16, device=dev)
+
+
+def pt_rank(rank: int, world: int, url: str, spec: dict) -> dict:
+    """One rank of phase 16: every tiny case on its mesh, then one step of
+    the cut 3B at each of PT_3B_MESHES, each mesh built in turn over the
+    same group (ranks on one card over gloo)."""
+    from karanta_tpu_torch.device import float32_reductions, no_tf32
+    from karanta_tpu_torch.parallel.mesh import (MeshConfig, create_mesh,
+                                                 initialize_distributed)
+
+    no_tf32()
+    float32_reductions()
+    device = spec["device"]
+    backend = initialize_distributed(url, world, rank, device=device,
+                                     timeout_s=PT_TIMEOUT)
+    out = {"backend": backend, "tiny": {}, "3b": {}}
+
+    def mesh_of(dims):
+        return create_mesh(MeshConfig(**{"data": 1, **dims}),
+                           device="cpu" if device == "cpu" else None)
+
+    for label, dims, name, cases in PT_TINY_CASES:
+        mesh = mesh_of(dims)
+        cfg = pt_config(name)
+        out["tiny"][label] = [pt_step(
+            mesh, cfg, lambda: tree_map(
+                lambda x, _: x.to(mesh.device, copy=True),
+                spec["tiny_params"][name]),
+            spec["tiny_batch"], dict(c, whole=True)) for c in cases]
+    cfg = pt_config("3b")
+    for label, dims, extra in PT_3B_MESHES:
+        mesh = mesh_of(dims)
+        out["3b"][label] = pt_step(
+            mesh, cfg, lambda: pt_3b_params(mesh.device), spec["3b_batch"],
+            dict(optimizer="adamw", grad_accum=1, lr=1e-5, **extra),
+            remat=True)
+        out["3b"][label]["coords"] = mesh.coords
+    return out
+
+
+def pt_check_tiny(label: str, case: dict, ref: dict, got: list) -> float:
+    """Each rank's tiny step against one rank's: loss within PT_LOSS_TOL
+    relative, every gradient leaf and every parameter after the step
+    within PT_TINY_TOL (rtol and atol). The key biases' exact gradient is
+    zero (a shift of every key leaves the softmax unchanged): their Adam
+    updates are rounding noise times the learning rate, held within 3
+    learning rates. Returns the worst parameter difference."""
+    worst = 0.0
+    for r, g in enumerate(got):
+        err = abs(g["loss"] - ref["loss"]) / abs(ref["loss"])
+        if not err <= PT_LOSS_TOL:
+            raise AssertionError(f"[train parallel {label}] rank {r}: loss "
+                                 f"{g['loss']} vs one rank {ref['loss']}")
+        for kind in ("grads", "params"):
+            for path, w in ref[kind].items():
+                d = (g[kind][path] - w).abs()
+                if kind == "params" and path.endswith("attn/bk"):
+                    ok = float(d.max()) <= 3 * PT_LR
+                else:
+                    ok = bool((d <= PT_TINY_TOL + PT_TINY_TOL
+                               * w.abs()).all())
+                if not ok:
+                    raise AssertionError(
+                        f"[train parallel {label}] rank {r} {kind} {path}: "
+                        f"max abs err {float(d.max())}")
+                if kind == "params":
+                    worst = max(worst, float(d.max()))
+    log(f"[train parallel {label} {case['optimizer']}] ranks' loss "
+        f"{[g['loss'] for g in got]} vs one rank {ref['loss']}; every "
+        f"gradient and parameter within {PT_TINY_TOL:g} (worst parameter "
+        f"{worst:.2e}); launches a step per rank "
+        f"{[g['launches'] for g in got]}")
+    return worst
+
+
+def pt_expected_launches(cfg, rows: int) -> dict:
+    """#1/#2 launches of one remat step over `rows` rows on a rank: each
+    vision block once a row (the tower encodes row by row) and each decoder
+    layer once over the rows, in the forward and again in the
+    recompute."""
+    n_full = sum(i < cfg.vision.depth
+                 for i in cfg.vision.fullatt_block_indexes)
+    return {"window_attention": 2 * (cfg.vision.depth - n_full) * rows,
+            "flash_attention": 2 * (n_full * rows + cfg.text.num_layers)}
+
+
+PT_3B_LOCAL_ROWS = {"data=2": 1, "fsdp=2": 1, "seq=2": 2, "model=2": 2}
+
+
+def pt_cli(root: str, device: str = "cuda") -> dict:
+    """The trainer's entry point as two processes at data = 2 (ranks on
+    the card over gloo), and one process at data = 1 on the same global
+    batch, side by side; then the two-process checkpoint resumed at
+    fsdp = 2 for a fourth step. Tiny config, float32, 3 steps."""
+    import ast
+    import tempfile
+
+    from karanta_tpu_torch.parallel.launch import free_port
+
+    work = tempfile.mkdtemp(prefix="pt_cli_")
+    yaml_path = os.path.join(work, "tiny.yaml")
+    with open(yaml_path, "w") as f:
+        json.dump({"pipeline": PT_TINY_PIPELINE, "max_length": 2048}, f)
+    base = [yaml_path, "--dataset_root", root, "--model_name_or_path",
+            "tiny", "--dtype", "float32", "--gradient_accumulation_steps",
+            "1", "--logging_steps", "1", "--checkpointing_steps", "0",
+            "--eval_steps", "0", "--learning_rate", str(PT_LR),
+            "--warmup_steps", "0", "--seed", str(PT_SEED),
+            *(["--device", "cpu"] if device == "cpu" else [])]
+
+    def launch(out_dir, world, extra):
+        url = f"tcp://127.0.0.1:{free_port()}"
+        procs = []
+        for pid in range(world):
+            argv = base + ["--output_dir", out_dir] + extra
+            if world > 1:
+                argv += ["--num_processes", str(world), "--process_id",
+                         str(pid), "--coordinator_address", url]
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "karanta_tpu_torch.training.train",
+                 *argv], cwd=REPO, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        return procs
+
+    def finish(procs, label):
+        metrics = []
+        for p in procs:
+            try:
+                text, _ = p.communicate(timeout=PT_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                raise AssertionError(f"[train cli {label}] timed out")
+            if p.returncode:
+                raise AssertionError(f"[train cli {label}] exit "
+                                     f"{p.returncode}:\n{text[-3000:]}")
+            logged = [ast.literal_eval(line[line.index("{'step'"):])
+                      for line in text.splitlines() if "{'step'" in line]
+            metrics.append(logged[-1])
+        return metrics
+
+    t0 = time.perf_counter()
+    run2, run1 = os.path.join(work, "two"), os.path.join(work, "one")
+    two = launch(run2, 2, ["--max_steps", "3", "--mesh_data", "2",
+                           "--per_device_train_batch_size", "1"])
+    one = launch(run1, 1, ["--max_steps", "3", "--mesh_data", "1",
+                           "--per_device_train_batch_size", "2"])
+    m2, m1 = finish(two, "data=2"), finish(one, "one process")
+    if not (m2[0]["step"] == m2[1]["step"] == 3 and
+            m2[0]["loss"] == m2[1]["loss"]):
+        raise AssertionError(f"[train cli] the ranks logged {m2}")
+    err = abs(m2[0]["loss"] - m1[0]["loss"]) / abs(m1[0]["loss"])
+    if not err <= PT_CLI_TOL:
+        raise AssertionError(f"[train cli] 2-process loss {m2[0]['loss']} "
+                             f"vs one process {m1[0]['loss']}")
+    done = glob.glob(os.path.join(run2, "step_*", "COMPLETED"))
+    if [os.path.basename(os.path.dirname(p)) for p in done] != ["step_3"]:
+        raise AssertionError(f"[train cli] checkpoints {done}")
+    m3 = finish(launch(run2, 2, [
+        "--max_steps", "4", "--mesh_data", "1", "--mesh_fsdp", "2",
+        "--per_device_train_batch_size", "2", "--resume_from_checkpoint",
+        "auto"]), "resume at fsdp=2")
+    if not (m3[0]["step"] == m3[1]["step"] == 4
+            and m3[0]["loss"] == m3[1]["loss"]):
+        raise AssertionError(f"[train cli] the resumed ranks logged {m3}")
+    wall = time.perf_counter() - t0
+    log(f"[train cli] 2 processes at data=2 on the card: step-3 loss "
+        f"{m2[0]['loss']:.6f} on both ranks, one process {m1[0]['loss']:.6f}"
+        f" ({err:.1e} relative, limit {PT_CLI_TOL:g}); one COMPLETED "
+        f"checkpoint (step_3); resumed at fsdp=2 to step 4 (loss "
+        f"{m3[0]['loss']:.6f} on both ranks); {wall:.1f}s")
+    import shutil
+
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(loss_2proc=m2[0]["loss"], loss_1proc=m1[0]["loss"],
+                rel_err=err, resumed_loss=m3[0]["loss"], wall_s=wall)
+
+
+def kernel_flash_sp(cfg, dev, gen) -> dict:
+    """#2 at a sequence-parallel rank's shapes of the 3B decoder: 1,536
+    queries at q_offset 0 and 1,536 over 3,072 gathered keys with SP_LIVE
+    live, causal, 16 heads over 2 kv heads and (model = 2 as well) 8 over
+    1: the forward against the plain version at the bf16 limit, two calls
+    bit-equal, dq/dk/dv of the autograd function within GRAD_TOL of float32
+    autograd, and kernel, device, plain and SDPA ms beside the bound."""
+    t = pt_config("3b").text
+    out = {}
+    for heads, kvh in ((t.num_heads, t.num_kv_heads),
+                       (t.num_heads // 2, t.num_kv_heads // 2)):
+        for q_off in (0, SP_Q):
+            label = (f"sp (1,{SP_Q},{heads}/{kvh},{t.head_dim}) "
+                     f"q_offset={q_off}")
+            q, k, v, mask = _flash_case(dev, gen, 1, SP_Q, SP_K, heads, kvh,
+                                        t.head_dim, torch.bfloat16, SP_LIVE)
+            with torch.no_grad():
+                if not torch.equal(
+                        A.flash_attention(q, k, v, mask, causal=True,
+                                          q_offset=q_off),
+                        A.flash_attention(q, k, v, mask, causal=True,
+                                          q_offset=q_off)):
+                    raise AssertionError(f"{label}: two calls differ")
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            sdpa_mask = _sdpa_mask(SP_Q, SP_K, SP_LIVE, True, dev, q_off)
+            row = _per_rank_row(
+                label, lambda: A.flash_attention(q, k, v, mask, causal=True,
+                                                 q_offset=q_off),
+                lambda: A.flash_attention_plain(q, k, v, mask, causal=True,
+                                                q_offset=q_off),
+                _flash_work(SP_Q, SP_K, heads, kvh, t.head_dim, SP_LIVE,
+                            True, q_off),
+                lib=lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=sdpa_mask, enable_gqa=True))
+            dout = torch.randn_like(q.float()).bfloat16()
+            row["autograd"] = autograd_check(
+                label, lambda q, k, v: A.attention(q, k, v, kv_mask=mask,
+                                                   causal=True,
+                                                   q_offset=q_off),
+                lambda q, k, v: A.mha_reference(q, k, v, kv_mask=mask,
+                                                causal=True, q_offset=q_off),
+                (q, k, v), dout)
+            out[f"h{heads}_kv{kvh}_q{q_off}"] = row
+    return out
+
+
+def phase_parallel_training(device: str = "cuda") -> dict:
+    """Phase 16: (a) the trainer's CLI as two processes at data = 2, one
+    process on the same global batch and a resume at fsdp = 2 (pt_cli);
+    (b) the tiny float32 step at data = 2 (grad-accum 2 over rows of
+    unequal token counts), fsdp = 2 (AdamW, Muon), model = 2, seq = 2 and
+    pipe = 2 (4 layers, 2 microbatches) against one rank on the card;
+    (c) the 3B preset at full width cut to PT_3B_LAYERS decoder layers and
+    PT_3B_BLOCKS vision blocks, bf16 with remat, phase 12's synthetic
+    pages, one step at data = 2, fsdp = 2, seq = 2 and model = 2 against
+    its one-rank step. (b) and (c) share one spawn of two ranks on the
+    card over gloo."""
+    import tempfile
+
+    import yaml
+
+    from karanta_tpu_torch.device import float32_reductions, no_tf32
+    from karanta_tpu_torch.inference.tokenizer import HFTokenizer
+    from karanta_tpu_torch.parallel.mesh import create_mesh
+
+    dev = torch.device(device)
+    # the trainer's precision switches, here as in the ranks (pt_rank)
+    no_tf32()
+    float32_reductions()
+    t_phase = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    stats: dict = {"card": smi}
+    root = tempfile.mkdtemp(prefix="pt_")
+    tiny_root = pt_tiny_corpus(os.path.join(root, "tiny"))
+    stats["cli"] = pt_cli(tiny_root, device)
+
+    # the batches and one rank's references, on the card
+    tiny_batch = pt_batch(pt_config("tiny"), tiny_root, PT_TINY_PIPELINE,
+                          ByteTokenizer(), PT_TINY_DOCS, 2048)
+    counts = (tiny_batch["labels"] != -100).sum(1).tolist()
+    if len(set(counts[:2])) < 2 and len(set(counts[2:])) < 2:
+        raise AssertionError(f"tiny rows of equal token counts {counts}")
+    data3b = train_corpus(os.path.join(root, "3b"))
+    os.makedirs(os.path.join(root, "tok"))
+    tok_dir = bpe_tokenizer_dir(os.path.join(root, "tok"))
+    with open(TRAIN_YAML) as f:
+        train_yaml = yaml.safe_load(f)
+    cfg3b = pt_config("3b")
+    batch3b = pt_batch(cfg3b, data3b, train_yaml["pipeline"],
+                       HFTokenizer(tok_dir), PT_3B_ROWS,
+                       train_yaml["max_length"])
+    one = create_mesh(device=device)
+    tiny_params = {name: pt_tiny_params(name) for name in ("tiny", "tiny4")}
+    ref_tiny = {label: [pt_step(one, pt_config(name), lambda n=name: tree_map(
+        lambda x, _: x.to(dev, copy=True), tiny_params[n]), tiny_batch,
+        dict(c, whole=True)) for c in cases]
+        for label, _, name, cases in PT_TINY_CASES}
+    ref_3b = pt_step(one, cfg3b, lambda: pt_3b_params(dev), batch3b,
+                     dict(optimizer="adamw", grad_accum=1, lr=1e-5),
+                     remat=True)
+    stats["3b_one_rank"] = ref_3b
+    log(f"[train parallel 3B] {TRAIN_PRESET} at full width, "
+        f"{PT_3B_LAYERS} of 36 decoder layers and {PT_3B_BLOCKS} of 32 "
+        f"vision blocks, {PT_3B_ROWS} rows x "
+        f"{tuple(batch3b['token_ids'].shape)[1]} tokens, bf16, remat; one "
+        f"rank: loss {ref_3b['loss']:.5f}, grad norm "
+        f"{ref_3b['grad_norm']:.5f}, {ref_3b['ms']:.1f} ms, peak "
+        f"{ref_3b['peak_mb']:.0f} MB; card: {smi}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(pt_rank, 2, ({
+        "tiny_params": {k: tree_map(lambda x, _: x.cpu(), v)
+                        for k, v in tiny_params.items()},
+        "tiny_batch": tiny_batch, "3b_batch": batch3b, "device": device},),
+        timeout_s=PT_TIMEOUT)
+    log(f"[train parallel] two ranks in {time.perf_counter() - t0:.1f}s, "
+        f"backend {ranks[0]['backend']}")
+    stats["tiny_worst_param_err"] = 0.0
+    for label, _, _, cases in PT_TINY_CASES:
+        for i, c in enumerate(cases):
+            stats["tiny_worst_param_err"] = max(
+                stats["tiny_worst_param_err"], pt_check_tiny(
+                    label, c, ref_tiny[label][i],
+                    [r["tiny"][label][i] for r in ranks]))
+    stats["3b"] = {}
+    for label, _, _ in PT_3B_MESHES:
+        got = [r["3b"][label] for r in ranks]
+        if got[0]["loss"] != got[1]["loss"]:
+            raise AssertionError(f"[train parallel 3B {label}] the ranks' "
+                                 f"losses differ: {got[0]['loss']} vs "
+                                 f"{got[1]['loss']}")
+        lerr = abs(got[0]["loss"] - ref_3b["loss"]) / abs(ref_3b["loss"])
+        nerr = abs(got[0]["grad_norm"] - ref_3b["grad_norm"]) / \
+            ref_3b["grad_norm"]
+        if not (lerr <= PT_3B_LOSS_TOL and nerr <= PT_3B_NORM_TOL):
+            raise AssertionError(
+                f"[train parallel 3B {label}] loss {got[0]['loss']} "
+                f"({lerr:.2e} relative, limit {PT_3B_LOSS_TOL}), grad norm "
+                f"{got[0]['grad_norm']} ({nerr:.2e}, limit {PT_3B_NORM_TOL})"
+                f" against one rank's")
+        want = pt_expected_launches(cfg3b, PT_3B_LOCAL_ROWS[label])
+        for r, g in enumerate(got):
+            if g["launches"] != want:
+                raise AssertionError(f"[train parallel 3B {label}] rank {r} "
+                                     f"launched {g['launches']}, expected "
+                                     f"{want}")
+        stats["3b"][label] = dict(loss_rel_err=lerr, grad_norm_rel_err=nerr,
+                                  ranks=got)
+        log(f"[train parallel 3B {label}] loss {got[0]['loss']:.5f} on both "
+            f"ranks ({lerr:.2e} from one rank), grad norm "
+            f"{got[0]['grad_norm']:.5f} ({nerr:.2e}); per rank: "
+            + "; ".join(
+                f"{g['ms']:.1f} ms a step, collectives {g['collective_s']:.2f}"
+                f" s = {100 * g['collective_share']:.1f}% in "
+                f"{g['collective_calls']} calls, peak {g['peak_mb']:.0f} MB"
+                for g in got) + f"; launches a step per rank {want}")
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    stats["launches"] = {label: [r["3b"][label]["launches"] for r in ranks]
+                         for label, _, _ in PT_3B_MESHES}
+    stats["seconds"] = time.perf_counter() - t_phase
+    log(f"[train parallel] phase 16 in {stats['seconds']:.1f}s")
+    return stats
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -5469,6 +5994,10 @@ def main(argv=None) -> int:
     mark("phase 14, batched prefill")
     parallel_stats = phase_parallel(cfg)
     mark("phase 15, parallel serving")
+    flash_sp = kernel_flash_sp(cfg, dev, gen)
+    torch.cuda.empty_cache()
+    ptrain_stats = phase_parallel_training()
+    mark("phase 16, parallel training")
     par_launches = {"tp=2 prefill, per rank": parallel_stats[
         "tp2_prefill_launches"],
         "2x2 generate, per rank": parallel_stats["dp2tp2_launches"],
@@ -5529,6 +6058,12 @@ def main(argv=None) -> int:
             path: {rank: counts.get(row["name"], 0)
                    for rank, counts in per.items()}
             for path, per in par_launches.items()}
+        # phase 16: a 3B step's launches on each rank of each mesh
+        row["parallel_training_launches_per_step"] = {
+            label: [counts.get(row["name"], 0) for counts in per]
+            for label, per in ptrain_stats["launches"].items()}
+        if row["name"] == "flash_attention":
+            row["sequence_parallel"] = flash_sp
         log(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, library "
             f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)}"
@@ -5568,7 +6103,10 @@ def main(argv=None) -> int:
                                     if k in ("A", "B", "C", "D") else v)
                                 for k, v in batched_stats.items()},
                     "parallel": {k: v for k, v in parallel_stats.items()
-                                 if not k.endswith("launches")}}))
+                                 if not k.endswith("launches")},
+                    "parallel_training": {
+                        k: v for k, v in ptrain_stats.items()
+                        if k != "launches"}}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

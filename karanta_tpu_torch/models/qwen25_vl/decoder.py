@@ -53,7 +53,8 @@ from karanta_tpu_torch.ops.quantization import INV_127
 from karanta_tpu_torch.ops.quantization import matmul as qmm
 from karanta_tpu_torch.ops.quantization import matmul_w8a8
 from karanta_tpu_torch.ops.rotary import apply_rope, mrope_cos_sin
-from karanta_tpu_torch.parallel.sharding import all_gather_last
+from karanta_tpu_torch.parallel.sharding import (copy_to_group,
+                                                 gather_from_group)
 from karanta_tpu_torch.utils.tree import unbind_layers
 
 Params = Any
@@ -307,6 +308,21 @@ def _mlp(x, p, mm=qmm, group=None):
     return mm(F.silu(mm(x, p["gate"])) * mm(x, p["up"]), p["down"], group)
 
 
+def _layer(x, layer, cos, sin, kv_mask, cfg: TextConfig, mm=qmm,
+           group=None, attn_fn=attention):
+    """One decoder layer over full sequences: (x, k, v), k and v
+    (B, S, KVH, D). Tensor-parallel inputs of the column-parallel products
+    go through ``copy_to_group`` (the identity unless a gradient is taken)."""
+    b, s, _ = x.shape
+    xn = copy_to_group(rms_norm(x, layer["ln1"], cfg.rms_norm_eps), group)
+    q, k, v = _project_qkv(xn, layer["attn"], cfg, mm=mm)
+    q, k = apply_rope(q, k, cos, sin)
+    attn = attn_fn(q, k, v, kv_mask=kv_mask, causal=True)
+    x = x + mm(attn.reshape(b, s, -1), layer["attn"]["wo"], group)
+    xn = copy_to_group(rms_norm(x, layer["ln2"], cfg.rms_norm_eps), group)
+    return x + _mlp(xn, layer["mlp"], mm=mm, group=group), k, v
+
+
 def prefill_forward(params: Params, cfg: TextConfig,
                     embeds: torch.Tensor,          # (B, S, hidden)
                     positions: torch.Tensor,       # (3, B, S) int
@@ -314,27 +330,30 @@ def prefill_forward(params: Params, cfg: TextConfig,
                     act_quant: bool = False,
                     remat: bool = False,
                     group=None,
+                    attn_impl=None,
+                    gather_layer=None,
                     ) -> tuple[torch.Tensor, KVCache]:
     """Full-sequence causal forward -> (hidden_states, KV rows of S).
 
     act_quant=True runs the layer matmuls W8A8 (dynamic per-token int8
     activations x int8 weights); plain weight leaves pass through.
     remat=True checkpoints each layer (training): the backward keeps one
-    residual per layer and recomputes the rest, the flash kernel included."""
+    residual per layer and recomputes the rest, the flash kernel included.
+    attn_impl replaces the attention call (``parallel/context.py``'s
+    sequence-parallel attention); gather_layer(layer) maps each layer's
+    leaves before use, inside the checkpoint (FSDP's gather, redone in the
+    recompute)."""
     mm = matmul_w8a8 if act_quant else qmm
-    b, s, _ = embeds.shape
     cos, sin = _rope_tables(cfg, positions, embeds.dtype)
     if kv_mask is not None:
         kv_mask = kv_mask.float().contiguous()
+    attn_fn = attn_impl or attention
 
     def layer_fn(x, layer):
-        xn = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
-        q, k, v = _project_qkv(xn, layer["attn"], cfg, mm=mm)
-        q, k = apply_rope(q, k, cos, sin)
-        attn = attention(q, k, v, kv_mask=kv_mask, causal=True)
-        x = x + mm(attn.reshape(b, s, -1), layer["attn"]["wo"], group)
-        x = x + _mlp(rms_norm(x, layer["ln2"], cfg.rms_norm_eps),
-                     layer["mlp"], mm=mm, group=group)
+        if gather_layer is not None:
+            layer = gather_layer(layer)
+        x, k, v = _layer(x, layer, cos, sin, kv_mask, cfg, mm, group,
+                         attn_fn)
         # store (B, KVH, S, D): contiguous per-head slabs, as the cache is
         return x, k.transpose(1, 2), v.transpose(1, 2)
 
@@ -349,6 +368,37 @@ def prefill_forward(params: Params, cfg: TextConfig,
         vs.append(v)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return x, KVCache(torch.stack(ks), torch.stack(vs))
+
+
+def pipeline_prefill_forward(params: Params, cfg: TextConfig,
+                             embeds: torch.Tensor,       # (B, S, hidden)
+                             positions: torch.Tensor,    # (3, B, S) int
+                             mesh,                       # Mesh, "pipe" axis
+                             n_micro: int,
+                             kv_mask: Optional[torch.Tensor] = None,
+                             remat: bool = False,
+                             ) -> torch.Tensor:
+    """prefill_forward's layer stack under pipeline parallelism: each stage
+    of the mesh's "pipe" axis runs its L/n contiguous layers and
+    microbatches stream through the GPipe schedule of
+    ``parallel/pipeline.py``. Returns the hidden states only (training)."""
+    from karanta_tpu_torch.parallel.pipeline import pipeline_apply
+
+    cos, sin = _rope_tables(cfg, positions, embeds.dtype)
+    if kv_mask is not None:
+        kv_mask = kv_mask.float().contiguous()
+
+    def layer_fn(x, layer, extras):
+        cos_mb, sin_mb, mask_mb = extras
+        return _layer(x, layer, cos_mb, sin_mb, mask_mb, cfg)[0]
+
+    body = layer_fn
+    if remat:
+        def body(x, layer, extras):
+            return checkpoint(layer_fn, x, layer, extras, use_reentrant=False)
+    x = pipeline_apply(mesh, body, params["layers"], embeds,
+                       (cos, sin, kv_mask), n_micro)
+    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
 
 def prefill_with_prefix(params: Params, cfg: TextConfig,
@@ -524,11 +574,11 @@ def logits_from_hidden(params: Params, cfg: TextConfig, hidden: torch.Tensor,
     A vocab-parallel head's logits are gathered over `group`; the tied
     embedding stays whole on every rank, so its logits need no gather."""
     mm = matmul_w8a8 if act_quant else qmm
-    if "logits_head" in params:  # int8 table for tied embeddings
-        return all_gather_last(mm(hidden, params["logits_head"]), group)
-    if cfg.tie_word_embeddings:
+    if cfg.tie_word_embeddings and "logits_head" not in params:
         return hidden @ params["embed"].t()
-    return all_gather_last(mm(hidden, params["lm_head"]), group)
+    # int8 table for tied embeddings, or the head
+    head = params.get("logits_head", params.get("lm_head"))
+    return gather_from_group(mm(copy_to_group(hidden, group), head), group)
 
 
 def embed_tokens(params: Params, token_ids: torch.Tensor) -> torch.Tensor:

@@ -134,8 +134,9 @@ def merge_image_embeddings(token_embeds: torch.Tensor,   # (S, hidden)
                            positions: torch.Tensor,      # (N_pad,) int
                            ) -> torch.Tensor:
     """Scatter vision tokens into the text embedding at image-token
-    positions; entries with positions >= S are dropped (padding)."""
-    keep = positions < token_embeds.shape[0]
+    positions; entries with positions outside [0, S) are dropped (padding,
+    or another sequence-parallel rank's chunk)."""
+    keep = (positions >= 0) & (positions < token_embeds.shape[0])
     out = token_embeds.clone()
     out[positions[keep].long()] = image_tokens[keep].to(out.dtype)
     return out
@@ -153,6 +154,12 @@ def forward_train(params: Params, cfg: VLMConfig,
                   attn_mask: Optional[torch.Tensor] = None,     # (B, S)
                   remat: bool = False,
                   return_hidden: bool = False,
+                  attn_impl=None,
+                  pp_mesh=None,
+                  pp_micro: int = 1,
+                  group=None,
+                  gather_layer=None,
+                  seq_offset: int = 0,
                   ) -> torch.Tensor:
     """Teacher-forced forward over full sequences: logits (B, S, V), or the
     post-final-norm hidden states (B, S, H) with return_hidden=True (the
@@ -162,7 +169,16 @@ def forward_train(params: Params, cfg: VLMConfig,
     its real tokens taken by ``vis_extract`` and scattered into the row's
     embeddings at ``image_positions``; then the causal decoder runs over the
     batch. remat=True checkpoints each vision block and each decoder layer.
-    The window count follows from the shapes."""
+    The window count follows from the shapes.
+
+    Parallel training: `group` is the tensor-parallel ("model") group of
+    the decoder and the tower; `gather_layer` gathers each decoder layer's
+    FSDP slices before use; `attn_impl` is the sequence-parallel attention
+    (``parallel/context.py``), with the text arrays this rank's chunk
+    starting at global position `seq_offset` (``image_positions`` stay
+    global: only the image tokens inside the chunk are merged); `pp_mesh`
+    runs the decoder layers under the GPipe schedule with `pp_micro`
+    microbatches (``decoder.pipeline_prefill_forward``)."""
     embeds = dec.embed_tokens(params["text"], token_ids)
     if pixel_values is not None:
         rows = []
@@ -170,14 +186,21 @@ def forward_train(params: Params, cfg: VLMConfig,
             enc = vis.encode_image(params["visual"], cfg.vision,
                                    pixel_values[i].to(embeds.dtype),
                                    vis_perm[i], vis_valid[i], vis_pos_hw[i],
-                                   trainable=True, remat=remat)
+                                   trainable=True, remat=remat, group=group)
             tokens = enc[vis_extract[i].long()]
-            rows.append(merge_image_embeddings(embeds[i], tokens,
-                                               image_positions[i]))
+            rows.append(merge_image_embeddings(
+                embeds[i], tokens, image_positions[i] - seq_offset))
         embeds = torch.stack(rows)
-    hidden, _ = dec.prefill_forward(params["text"], cfg.text, embeds,
-                                    positions, kv_mask=attn_mask,
-                                    remat=remat)
+    if pp_mesh is not None:
+        hidden = dec.pipeline_prefill_forward(
+            params["text"], cfg.text, embeds, positions, pp_mesh,
+            n_micro=pp_micro, kv_mask=attn_mask, remat=remat)
+    else:
+        hidden, _ = dec.prefill_forward(
+            params["text"], cfg.text, embeds, positions, kv_mask=attn_mask,
+            remat=remat, group=group, attn_impl=attn_impl,
+            gather_layer=gather_layer)
     if return_hidden:
         return hidden
-    return dec.logits_from_hidden(params["text"], cfg.text, hidden)
+    return dec.logits_from_hidden(params["text"], cfg.text, hidden,
+                                  group=group)

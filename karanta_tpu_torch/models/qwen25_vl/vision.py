@@ -41,7 +41,8 @@ from karanta_tpu_torch.ops.norms import rms_norm
 from karanta_tpu_torch.ops.quantization import is_quantized
 from karanta_tpu_torch.ops.quantization import matmul_auto as amm
 from karanta_tpu_torch.ops.rotary import apply_rope, vision_rope_cos_sin
-from karanta_tpu_torch.parallel.sharding import all_gather_last
+from karanta_tpu_torch.parallel.sharding import (copy_to_group,
+                                                 gather_from_group)
 from karanta_tpu_torch.utils.tree import unbind_layers
 
 Params = Any
@@ -200,6 +201,7 @@ def _attn_block(x, p, cos, sin, valid, cfg: VisionConfig, full: bool,
     tokens = x.shape[0]
     hd = cfg.head_dim
     b = n_images if full else 1
+    x = copy_to_group(x, group)  # column-parallel q/k/v (see decoder._layer)
     shape = (b, tokens // b, -1, hd)  # this rank's heads
     q = (amm(x, p["wq"]) + p["bq"]).reshape(shape)
     k = (amm(x, p["wk"]) + p["bk"]).reshape(shape)
@@ -231,10 +233,11 @@ def _out_product(x, w, group):
     (see the module docstring)."""
     if group is None or is_quantized(w):
         return amm(x, w, group)
-    return amm(all_gather_last(x, group), w)
+    return amm(gather_from_group(x, group), w)
 
 
 def _mlp(cfg: VisionConfig, x, p, group=None):
+    x = copy_to_group(x, group)
     if cfg.mlp_type == "plain":
         return _out_product(_activation(cfg, amm(x, p["fc1"]) + p["fc1_b"]),
                             p["fc2"], group) + p["fc2_b"]

@@ -33,7 +33,9 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from karanta_tpu_torch.parallel.sharding import all_reduce_max, all_reduce_sum
+from karanta_tpu_torch.parallel.sharding import (all_reduce_max,
+                                                 all_reduce_sum,
+                                                 reduce_from_group)
 
 QUANT_KEY = "int8_q"  # marker key distinguishing quantized leaves
 LORA_KEY = "lora_base"  # marker key of inline-LoRA wrapped leaves
@@ -89,6 +91,10 @@ def _f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return x @ w
     if not x.is_cuda:
         return x.float() @ w.float()
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        # training: the product in x's dtype (cuBLAS accumulates in float32
+        # and rounds once); ``mm`` with ``out_dtype`` has no backward
+        return (x @ w).float()
     lead = x.shape[:-1]
     y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
     return y.reshape(*lead, w.shape[-1])
@@ -96,8 +102,9 @@ def _f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _row_parallel(x: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
     """Plain x @ w over a row-parallel shard: float32 partials summed over
-    the group, cast once."""
-    return all_reduce_sum(_f32_product(x, w), group).to(x.dtype)
+    the group, cast once (differentiable: the gradient passes through the
+    sum, Megatron's row-parallel rule)."""
+    return reduce_from_group(_f32_product(x, w), group).to(x.dtype)
 
 
 def matmul(x: torch.Tensor, w: Any, group=None) -> torch.Tensor:

@@ -69,18 +69,27 @@ def _as_tree(state: Any) -> dict:
 
 def save_checkpoint(output_dir: str, step: int, state: Any,
                     metadata: Optional[dict] = None,
-                    keep_last: int = 2) -> str:
+                    keep_last: int = 2, leaf_fn=None,
+                    write: bool = True) -> str:
     """Save a state (a TrainState or a tree of tensors) to
-    <output_dir>/step_<N>/, then the metadata, then the COMPLETED marker."""
+    <output_dir>/step_<N>/, then the metadata, then the COMPLETED marker.
+
+    Sharded states: `leaf_fn(key, tensor)` gives each leaf whole (the
+    ranks gather it together, so every rank calls this), and only the rank
+    with `write` writes; the checkpoint is the unsharded state, which
+    restores at any mesh."""
     from safetensors.torch import save_file
 
     path = os.path.join(output_dir, f"step_{step}")
+    tensors = {key: (leaf if leaf_fn is None else leaf_fn(key, leaf))
+               .detach().to("cpu").contiguous()
+               for key, leaf in flatten_tree(_as_tree(state)).items()}
+    if not write:
+        return path
     os.makedirs(output_dir, exist_ok=True)
     if os.path.exists(path):
         shutil.rmtree(path)
     os.makedirs(path)
-    tensors = {key: leaf.detach().to("cpu").contiguous()
-               for key, leaf in flatten_tree(_as_tree(state)).items()}
     save_file(tensors, os.path.join(path, STATE_FILE))
     del tensors
     with open(os.path.join(path, "metadata.json"), "w") as f:
@@ -132,10 +141,13 @@ def restore_params(path: str, device: DeviceLike = None, leaf_fn=None
     return unflatten_tree(flat), _metadata(path)
 
 
-def restore_checkpoint(path: str, target: Any) -> tuple[Any, dict]:
+def restore_checkpoint(path: str, target: Any, leaf_fn=None
+                       ) -> tuple[Any, dict]:
     """Restore a state saved by save_checkpoint into the structure of
     `target` (an example state: same keys, shapes and dtypes); each tensor
-    lands on the device of the target's leaf. Returns (state, metadata)."""
+    lands on the device of the target's leaf. `leaf_fn(key, tensor)`, when
+    given, cuts each saved (whole) tensor to this rank's slice first.
+    Returns (state, metadata)."""
     from safetensors import safe_open
 
     with safe_open(_state_file(path), framework="pt",
@@ -146,6 +158,9 @@ def restore_checkpoint(path: str, target: Any) -> tuple[Any, dict]:
             if key not in saved:
                 raise KeyError(f"checkpoint {path} lacks {key}")
             t = f.get_tensor(key)
+            if leaf_fn is not None:
+                part = leaf_fn(key, t)
+                t = part.clone() if part.numel() < t.numel() else part
             if t.shape != leaf.shape or t.dtype != leaf.dtype:
                 raise ValueError(f"{key}: checkpoint {tuple(t.shape)} "
                                  f"{t.dtype}, target {tuple(leaf.shape)} "

@@ -13,6 +13,7 @@ base to NF4 first (``quantize_base_nf4``).
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
@@ -115,12 +116,31 @@ def with_factors(lora: Any, factors: Any) -> Any:
 
 
 def make_lora_train_step(cfg, optimizer: Optimizer, remat: bool = False,
-                         grad_accum: int = 1, ce_chunk: int = 512):
+                         grad_accum: int = 1, ce_chunk: int = 512,
+                         sp_mesh=None, mesh=None):
     """(state, base_params, lora_template, batch) -> (state, metrics); the
     state holds the factors and their optimizer state (updated in place, as
     in ``make_train_step``), the base is frozen. The forward applies the
-    factors inline (``wrap_lora``), never materialising merged weights."""
-    loss_fn = make_loss_fn(cfg, remat=remat, ce_chunk=ce_chunk)
+    factors inline (``wrap_lora``), never materialising merged weights.
+
+    sp_mesh / mesh: as ``make_train_step``'s, over "data" and "seq" (the
+    base and the factors whole on every rank); a mesh that splits "fsdp" or
+    "model" raises NotImplementedError (ROADMAP.md, queue 1: LoRA under
+    fsdp and model)."""
+    from karanta_tpu_torch.parallel.sharding import Placement
+
+    for m in (mesh, sp_mesh):
+        if m is not None and (m.size("fsdp") > 1 or m.size("model") > 1):
+            raise NotImplementedError(
+                "LoRA/QLoRA over the fsdp or model mesh axes is not ported "
+                "(ROADMAP.md, queue 1: LoRA under fsdp and model)")
+    loss_fn = make_loss_fn(cfg, remat=remat, ce_chunk=ce_chunk,
+                           sp_mesh=sp_mesh, mesh=mesh)
+    plan = loss_fn.plan
+    reduce = None
+    if plan is not None:
+        whole = Placement({}, plan.mesh)
+        reduce = functools.partial(plan.reduce_grads, placement=whole)
 
     def train_step(state: TrainState, base_params, lora_template,
                    batch: dict):
@@ -130,7 +150,7 @@ def make_lora_train_step(cfg, optimizer: Optimizer, remat: bool = False,
 
         grads, loss, tokens = accumulate_grads(
             lambda mb: value_and_grad(lora_loss, state.params, mb),
-            state.params, batch, grad_accum)
+            state.params, batch, grad_accum, reduce=reduce)
         grad_norm = global_norm(grads)
         factors, opt_state = optimizer.step(grads, state.opt_state,
                                             state.params)
@@ -138,4 +158,3 @@ def make_lora_train_step(cfg, optimizer: Optimizer, remat: bool = False,
                 {"loss": loss, "tokens": tokens, "grad_norm": grad_norm})
 
     return train_step
-

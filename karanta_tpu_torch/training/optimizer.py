@@ -27,11 +27,20 @@ three flat dicts keyed by "/"-joined parameter paths. ``update`` returns
 optax-style updates and a new state; ``step`` applies them leaf by leaf in
 place (parameters and state), so the card never holds a second copy of the
 parameters or of the moments.
+
+Sharded parameters (``placement``: a ``parallel.sharding.Placement``, the
+leaves and their gradients this rank's slices): Adam's transforms are
+element-wise and run on the slices; the gradient norm of the clip is the
+global one (each leaf's sum of squares summed over the ranks that split it),
+a non-finite gradient on any rank skips the step on every rank, and Muon
+orthogonalizes each "muon" leaf's update whole (gathered over the axes that
+split it) and keeps this rank's slice of the result.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Optional, Union
 
@@ -131,9 +140,18 @@ def _lr(learning_rate: LearningRate, count: int, scale: float = 1.0):
     return learning_rate * scale
 
 
-def global_norm(tree: Any) -> torch.Tensor:
+def _spread(placement) -> bool:
+    """Whether a placement splits leaves over more than one rank."""
+    return placement is not None and any(
+        placement.mesh.size(a) > 1 for a in ("fsdp", "model"))
+
+
+def global_norm(tree: Any, placement=None) -> torch.Tensor:
     """optax.global_norm: sqrt of the summed squares, each leaf's sum in the
-    leaf's dtype."""
+    leaf's dtype. With a placement that splits leaves, the norm of the whole
+    tree of which `tree` holds this rank's slices (summed in float32)."""
+    if _spread(placement):
+        return torch.sqrt(placement.sum_squares(flatten_tree(tree)))
     total = 0
     for g in flatten_tree(tree).values():
         total = total + (g * g).sum()
@@ -151,12 +169,18 @@ def _adam(g, mu, nu, count_inc: int, b1: float, b2: float, eps: float):
     return u, mu, nu
 
 
-def _muon(g, m, beta: float, ns_steps: int = 5):
+def _muon(g, m, beta: float, ns_steps: int = 5, whole=None, own=None):
+    """Muon's update of one leaf; `whole`/`own` gather a slice's update
+    whole and cut this rank's slice back out (sharded leaves)."""
     m = _s(beta, m) * m + _s(1 - beta, g) * g
     u = _s(1 - beta, g) * g + _s(beta, m) * m
     if g.dim() >= 2:
+        if whole is not None:
+            u = whole(u)
         u = orthogonalize(u, steps=ns_steps)
-        u = u * _s(math.sqrt(max(1.0, g.shape[-2] / g.shape[-1])), u)
+        u = u * _s(math.sqrt(max(1.0, u.shape[-2] / u.shape[-1])), u)
+        if own is not None:
+            u = own(u).contiguous()
     return u, m
 
 
@@ -198,13 +222,18 @@ class Optimizer:
                 state["nu"][path] = torch.zeros_like(p)
         return state
 
-    def _leaf(self, path, g, p, state, count: int):
+    def _leaf(self, path, g, p, state, count: int, placement=None):
         """One leaf through the chain (after clipping): (update, and the
         leaf's new state written into `state`)."""
         label = self._label(path, p)
         if label == "muon":
+            whole = own = None
+            if placement is not None and placement.dims(path):
+                whole = functools.partial(placement.whole, path)
+                own = functools.partial(placement.own, path)
             u, state["momentum"][path] = _muon(g, state["momentum"][path],
-                                               self.muon_beta)
+                                               self.muon_beta, whole=whole,
+                                               own=own)
             lr_scale = 1.0
         else:
             b1, b2, eps = ((self.b1, self.b2, self.eps) if label == "adam"
@@ -218,11 +247,15 @@ class Optimizer:
             u = u + _s(self.weight_decay, p) * p
         return u * _s(-1 * _lr(self.learning_rate, count, lr_scale), u)
 
-    def _updates(self, grads: dict, state: dict, params: dict):
+    def _updates(self, grads: dict, state: dict, params: dict,
+                 placement=None):
         """Yield (path, update) leaf by leaf, replacing each state leaf in
         `state` as its update is made; pops each gradient from `grads`
         once used."""
         finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+        if _spread(placement):
+            device = next(iter(grads.values())).device
+            finite = not placement.any_true(not finite, device)
         nf = int(state["notfinite_count"])
         use = finite or (self.skip_nonfinite
                          and nf >= self.max_consecutive_errors)
@@ -235,7 +268,7 @@ class Optimizer:
             return
         clip = None
         if self.max_grad_norm:
-            norm = global_norm(grads)
+            norm = global_norm(grads, placement)
             if not bool(norm < self.max_grad_norm):
                 clip = norm
         count = int(state["count"])
@@ -243,10 +276,11 @@ class Optimizer:
             g = grads.pop(path)
             if clip is not None:
                 g = (g / clip.to(g.dtype)) * _s(self.max_grad_norm, g)
-            yield path, self._leaf(path, g, params[path], state, count)
+            yield path, self._leaf(path, g, params[path], state, count,
+                                   placement)
         state["count"] = torch.tensor(count + 1, dtype=torch.int32)
 
-    def update(self, grads: Any, state: dict, params: Any
+    def update(self, grads: Any, state: dict, params: Any, placement=None
                ) -> tuple[Any, dict]:
         """optax's ``update``: (updates tree, new state); `state` is left as
         it was. The trainer uses ``step``; this functional form (with
@@ -255,10 +289,10 @@ class Optimizer:
         new = {**state, "mu": dict(state["mu"]), "nu": dict(state["nu"]),
                "momentum": dict(state["momentum"])}
         updates = dict(self._updates(flatten_tree(grads), new,
-                                     flatten_tree(params)))
+                                     flatten_tree(params), placement))
         return unflatten_tree(updates), new
 
-    def step(self, grads: dict, state: dict, params: Any
+    def step(self, grads: dict, state: dict, params: Any, placement=None
              ) -> tuple[Any, dict]:
         """update + apply_updates, leaf by leaf and in place: each parameter
         gets ``p += u`` (optax's ``p + u`` in the parameter's dtype, one
@@ -266,7 +300,7 @@ class Optimizer:
         `grads` is a flat dict ("/"-joined paths), emptied as it goes.
         Returns (params, state), the objects passed in."""
         flat_p = flatten_tree(params)
-        for path, u in self._updates(grads, state, flat_p):
+        for path, u in self._updates(grads, state, flat_p, placement):
             flat_p[path].add_(u)
         return params, state
 

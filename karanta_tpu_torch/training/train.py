@@ -5,8 +5,17 @@ YAML config plus CLI overrides (the JAX trainer's flags), datasets through
 the pipeline-step registry, bf16 or float32 compute, gradient accumulation,
 AdamW or Muon, cosine/linear/constant schedules with warmup, full-parameter
 or LoRA/QLoRA training, periodic eval and checkpoints with keep-last-N and
-resume, loss and tokens/s logging. One process on one card: mesh flags that
-ask for more than one device and multi-process runs raise.
+resume, loss and tokens/s logging.
+
+Parallel training: one process a rank. ``--num_processes N --process_id p
+--coordinator_address host:port`` (or a ``file://`` URL) joins the ranks
+(NCCL when each rank has a card, gloo otherwise), and ``--mesh_data``,
+``--mesh_fsdp``, ``--mesh_model`` and ``--mesh_seq`` lay them out
+(``train_step.py`` says what each axis does). The global batch is
+``per_device_train_batch_size`` x the "data" size x
+``gradient_accumulation_steps`` rows; every process collates it and each
+feeds only its own rows to its device. Checkpoints hold the unsharded state
+(rank 0 writes them), so a run resumes at any mesh.
 
 Usage: python -m karanta_tpu_torch.training.train <cfg.yaml> [--key value ...]
 (``--device cpu`` runs on the CPU, with the kernels' plain versions).
@@ -92,42 +101,60 @@ DEFAULT_PIPELINE = [
 ]
 
 
-def _check_single_device(model_args: ModelArguments) -> None:
-    """The port trains on one card in one process (ROADMAP.md, queue 1,
-    item 8: parallelism)."""
-    meshes = {"mesh_data": model_args.mesh_data,
-              "mesh_fsdp": model_args.mesh_fsdp,
-              "mesh_model": model_args.mesh_model,
-              "mesh_seq": model_args.mesh_seq}
-    wide = {k: v for k, v in meshes.items() if v > 1}
-    if wide:
-        raise NotImplementedError(
-            f"{wide}: meshes over more than one device are not ported "
-            f"(ROADMAP.md, queue 1, item 8: parallelism)")
-    if model_args.num_processes and model_args.num_processes > 1:
-        raise NotImplementedError(
-            "multi-process training is not ported (ROADMAP.md, queue 1, "
-            "item 8: parallelism)")
+def _state_param_path(key: str) -> Optional[str]:
+    """The parameter path of a checkpoint key ("params/<p>",
+    "opt_state/{mu,nu,momentum}/<p>"), None for the replicated scalars."""
+    parts = key.split("/")
+    if parts[0] == "params":
+        return "/".join(parts[1:])
+    if parts[0] == "opt_state" and parts[1] in ("mu", "nu", "momentum"):
+        return "/".join(parts[2:])
+    return None
 
 
 def main(argv: Optional[list[str]] = None) -> dict:
+    import torch.distributed as dist
+
     from karanta_tpu_torch.config import ConfigParser
-    from karanta_tpu_torch.device import resolve_device
+    from karanta_tpu_torch.device import (float32_reductions, no_tf32,
+                                          resolve_device)
     from karanta_tpu_torch.models.qwen25_vl.config import get_config
     from karanta_tpu_torch.models.qwen25_vl.model import init_params
+    from karanta_tpu_torch.parallel.mesh import (DATA_AXIS, MeshConfig,
+                                                 create_mesh,
+                                                 initialize_distributed)
+    from karanta_tpu_torch.parallel.sharding import Placement, barrier
     from karanta_tpu_torch.training import checkpoint as ckpt
     from karanta_tpu_torch.training.data import DataCollator, LocalDataset
     from karanta_tpu_torch.training.optimizer import (make_lr_schedule,
                                                       make_optimizer)
     from karanta_tpu_torch.training.train_step import (create_train_state,
                                                        eval_step,
-                                                       make_train_step)
+                                                       make_train_step,
+                                                       train_param_axes)
 
     logging.basicConfig(level=logging.INFO)
     exp, model_args, data_args = ConfigParser(
         [ExperimentArguments, ModelArguments, DatasetArguments]).parse(argv)
-    _check_single_device(model_args)
     device = resolve_device(model_args.device)
+    if device.type == "cuda":
+        # float32 products keep float32 and bf16 products reduce in float32
+        # (the JAX package's semantics; the engine sets the same switches)
+        no_tf32()
+        float32_reductions()
+
+    # --- ranks & mesh ---
+    joined = False
+    if model_args.num_processes and model_args.num_processes > 1:
+        initialize_distributed(model_args.coordinator_address,
+                               model_args.num_processes,
+                               model_args.process_id, device=device)
+        joined = True
+    mesh = create_mesh(MeshConfig(model_args.mesh_data, model_args.mesh_fsdp,
+                                  model_args.mesh_model,
+                                  seq=model_args.mesh_seq), device=device)
+    device = mesh.device
+    sp_mesh = mesh if model_args.mesh_seq > 1 else None
 
     # --- model ---
     if model_args.model_name_or_path in ("tiny", "small"):
@@ -178,7 +205,7 @@ def main(argv: Optional[list[str]] = None) -> dict:
         fixed_grid=fixed_grid if fixed_grid != (0, 0) else None)
 
     # --- optimizer & state ---
-    batch_size = (exp.per_device_train_batch_size
+    batch_size = (exp.per_device_train_batch_size * mesh.size(DATA_AXIS)
                   * exp.gradient_accumulation_steps)
     steps_per_epoch = max(1, len(train_samples) // max(batch_size, 1))
     total_steps = (exp.max_steps if exp.max_steps > 0
@@ -198,6 +225,10 @@ def main(argv: Optional[list[str]] = None) -> dict:
                                                      trainable_lora,
                                                      with_factors)
 
+        lora_step = make_lora_train_step(
+            cfg, optimizer, remat=remat,
+            grad_accum=exp.gradient_accumulation_steps, sp_mesh=sp_mesh,
+            mesh=mesh)
         lora_template = init_lora_params(
             params, exp.lora_rank,
             torch.Generator(device=device).manual_seed(exp.seed + 1),
@@ -205,18 +236,19 @@ def main(argv: Optional[list[str]] = None) -> dict:
         if exp.use_qlora:
             params = quantize_base_nf4(params)
         state = create_train_state(trainable_lora(lora_template), optimizer)
-        lora_step = make_lora_train_step(
-            cfg, optimizer, remat=remat,
-            grad_accum=exp.gradient_accumulation_steps)
 
         def train_fn(state, batch):
             return lora_step(state, params, lora_template, batch)
+        placement = None
     else:
-        state = create_train_state(params, optimizer)
         train_fn = make_train_step(
             cfg, optimizer, remat=remat,
-            grad_accum=exp.gradient_accumulation_steps)
-    eval_fn = eval_step(cfg)
+            grad_accum=exp.gradient_accumulation_steps, sp_mesh=sp_mesh,
+            mesh=mesh)
+        placement = Placement(train_param_axes(cfg), mesh)
+        params = placement.shard(params)
+        state = create_train_state(params, optimizer)
+    eval_fn = eval_step(cfg, sp_mesh=sp_mesh, mesh=mesh)
 
     def eval_params(current_state):
         if lora_template is not None:
@@ -224,18 +256,38 @@ def main(argv: Optional[list[str]] = None) -> dict:
                                                    current_state.params))
         return current_state.params
 
+    def whole_leaf(key, t):
+        path = _state_param_path(key)
+        return t if placement is None or path is None else \
+            placement.whole(path, t)
+
+    def own_leaf(key, t):
+        path = _state_param_path(key)
+        return t if placement is None or path is None else \
+            placement.own(path, t)
+
+    def save(step_: int) -> None:
+        # every rank gathers its slices; rank 0 writes after a barrier and
+        # the others wait until the checkpoint is complete
+        barrier(mesh.cpu_group)
+        ckpt.save_checkpoint(exp.output_dir, step_, state,
+                             keep_last=exp.keep_last_n_checkpoints,
+                             leaf_fn=whole_leaf, write=mesh.rank == 0)
+        barrier(mesh.cpu_group)
+
     start_step = 0
     resume = exp.resume_from_checkpoint
     if resume == "auto":
         resume = ckpt.get_last_checkpoint(exp.output_dir)
     if resume:
-        state, meta = ckpt.restore_checkpoint(resume, state)
+        state, meta = ckpt.restore_checkpoint(resume, state,
+                                              leaf_fn=own_leaf)
         start_step = int(meta.get("step", 0))
         logger.info("resumed from %s at step %d", resume, start_step)
 
     # --- loop ---
     tracker = None
-    if exp.report_to == "wandb":
+    if exp.report_to == "wandb" and mesh.rank == 0:
         try:
             import wandb
 
@@ -251,14 +303,17 @@ def main(argv: Optional[list[str]] = None) -> dict:
     while step < total_steps:
         idx = [sampler.index(step * batch_size + k)
                for k in range(max(batch_size, 1))]
+        # the global batch, on the host: the step feeds this rank's rows
         batch = to_device_batch(collator([train_samples[i] for i in idx]),
-                                device)
+                                "cpu")
         if exp.is_profile and (step + 1) % exp.profile_steps == 0:
             from karanta_tpu_torch.utils.profiling import profile_step
 
-            state, metrics = profile_step(
-                train_fn, (state, batch), step + 1,
-                os.path.join(exp.output_dir, "profiles"))
+            profiles = os.path.join(exp.output_dir, "profiles")
+            if mesh.world > 1:
+                profiles = os.path.join(profiles, f"rank{mesh.rank}")
+            state, metrics = profile_step(train_fn, (state, batch), step + 1,
+                                          profiles)
         else:
             state, metrics = train_fn(state, batch)
         step += 1
@@ -279,24 +334,24 @@ def main(argv: Optional[list[str]] = None) -> dict:
 
         if exp.eval_steps and step % exp.eval_steps == 0 and eval_samples:
             eval_loss = _run_eval(eval_fn, eval_params(state), collator,
-                                  eval_samples, device)
+                                  eval_samples)
             logger.info("eval at %d: loss=%.4f", step, eval_loss)
             if tracker:
                 tracker.log({"eval_loss": eval_loss}, step=step)
 
         if exp.checkpointing_steps and step % exp.checkpointing_steps == 0:
-            ckpt.save_checkpoint(exp.output_dir, step, state,
-                                 keep_last=exp.keep_last_n_checkpoints)
+            save(step)
 
-    ckpt.save_checkpoint(exp.output_dir, step, state,
-                         keep_last=exp.keep_last_n_checkpoints)
+    save(step)
     if eval_samples:
         final_eval = _run_eval(eval_fn, eval_params(state), collator,
-                               eval_samples, device)
+                               eval_samples)
         last_metrics["final_eval_loss"] = final_eval
         logger.info("final eval loss: %.4f", final_eval)
     if tracker:
         tracker.finish()
+    if joined:
+        dist.destroy_process_group()
     return last_metrics
 
 
@@ -319,12 +374,14 @@ class EpochSampler:
         return int(self._order[offset])
 
 
-def _run_eval(eval_fn, params, collator, eval_samples, device,
+def _run_eval(eval_fn, params, collator, eval_samples,
               batch_size: int = 2) -> float:
+    """Mean eval loss; every rank evaluates every row (a replicated batch:
+    eval chunks are small and need not divide the "data" axis)."""
     losses = []
     for start in range(0, len(eval_samples), batch_size):
         chunk = eval_samples[start:start + batch_size]
-        metrics = eval_fn(params, to_device_batch(collator(chunk), device))
+        metrics = eval_fn(params, to_device_batch(collator(chunk), "cpu"))
         losses.append(float(metrics["loss"]))
     return float(np.mean(losses)) if losses else float("nan")
 

@@ -222,8 +222,11 @@ def test_entry_points_need_cuda_or_explicit_cpu():
      "inference.engine", "inference.server", "ops.quantization",
      "models.qwen25_vl.vision"),
     ("parallel", "parallel.mesh", "parallel.sharding", "parallel.launch"),
+    ("parallel.context", "parallel.pipeline", "training.train_step",
+     "training.train", "models.qwen25_vl.decoder"),
 ], ids=["vlm_training", "classifiers_and_data_tools",
-        "batched_prefill_and_bench_harness", "parallel_serving"])
+        "batched_prefill_and_bench_harness", "parallel_serving",
+        "parallel_training"])
 def test_port_imports_neither_jax_nor_the_jax_package(expected):
     """Every module of karanta_tpu_torch, and chip_smoke.py's imports, load
     without JAX and without karanta_tpu; `expected` names modules the walk

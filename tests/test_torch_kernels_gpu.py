@@ -1046,6 +1046,36 @@ def test_flash_autograd_at_the_3b_decoder_shape(cuda, dtype, case):
     assert max(errs) < (1e-2 if dtype == torch.bfloat16 else 1e-5), errs
 
 
+@pytest.mark.parametrize("q_offset", [0, 1536])
+@pytest.mark.parametrize("heads", [(16, 2), (8, 1)])
+def test_flash_at_the_sequence_parallel_rank_shape(cuda, heads, q_offset):
+    """#2 as a sequence-parallel rank of the 3B decoder runs it (seq = 2;
+    8/1 heads with model = 2 as well): 1,536 queries at q_offset 0 or 1,536
+    over the 3,072 keys gathered from both ranks, 2,950 of them live. The
+    forward at the bf16 limit, two calls bit-equal, and the autograd
+    function's dq/dk/dv within 1e-2 of float32 autograd."""
+    h, kvh = heads
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    q = _randn(gen, (1, 1536, h, 128), cuda, torch.bfloat16)
+    k = _randn(gen, (1, 3072, kvh, 128), cuda, torch.bfloat16)
+    v = _randn(gen, (1, 3072, kvh, 128), cuda, torch.bfloat16)
+    mask = torch.zeros((1, 3072), device=cuda)
+    mask[:, :2950] = 1.0
+    first, second = (A.flash_attention(q, k, v, mask, causal=True,
+                                       q_offset=q_offset) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _assert_close(first, A.flash_attention_plain(
+        q, k, v, mask, causal=True, q_offset=q_offset), torch.bfloat16)
+    errs = _grad_errors(
+        lambda q, k, v: A.attention(q, k, v, kv_mask=mask, causal=True,
+                                    q_offset=q_offset),
+        lambda q, k, v: A.mha_reference(q, k, v, kv_mask=mask, causal=True,
+                                        q_offset=q_offset),
+        (q, k, v), _randn(gen, q.shape, cuda, torch.bfloat16))
+    assert max(errs) < 1e-2, errs
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_window_autograd_at_the_3b_vision_shape(cuda, dtype):
     from karanta_tpu_torch import kernels

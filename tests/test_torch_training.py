@@ -384,8 +384,42 @@ def test_train_cli_trains_saves_and_resumes(corpus, tmp_path):
     argv2[argv2.index("--max_steps") + 1] = "4"
     metrics2 = main(argv2 + ["--resume_from_checkpoint", "auto"])
     assert metrics2["step"] == 4
-    with pytest.raises(NotImplementedError, match="parallelism"):
+    # one process asking for a mesh wider than its world: MeshConfig.resolve
+    # refuses it, as the JAX package's does
+    with pytest.raises(ValueError, match="does not cover"):
         main(argv + ["--mesh_fsdp", "2"])
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+def test_trainer_sets_the_precision_switches_on_the_card(monkeypatch,
+                                                         device):
+    """main() turns TF32 and cuBLAS's reduced-precision reductions off
+    before it builds anything when its device is a card (as the engine
+    does), and leaves them alone on the CPU. The device check is
+    monkeypatched, and the run stops at the mesh."""
+    import karanta_tpu_torch.device as tdevice
+    import karanta_tpu_torch.parallel.mesh as tmesh
+    from karanta_tpu_torch.training.train import main
+
+    calls = []
+
+    class Stop(Exception):
+        pass
+
+    def stop(*args, **kwargs):
+        calls.append("mesh")
+        raise Stop
+
+    monkeypatch.setattr(tdevice, "resolve_device",
+                        lambda d=None: torch.device(device))
+    monkeypatch.setattr(tdevice, "no_tf32", lambda: calls.append("tf32"))
+    monkeypatch.setattr(tdevice, "float32_reductions",
+                        lambda: calls.append("reductions"))
+    monkeypatch.setattr(tmesh, "create_mesh", stop)
+    with pytest.raises(Stop):
+        main(["--model_name_or_path", "tiny"])
+    assert calls == (["tf32", "reductions", "mesh"] if device == "cuda"
+                     else ["mesh"])
 
 
 def test_epoch_sampler_matches_jax():
