@@ -187,6 +187,30 @@ Phases (any failed check raises and the script exits non-zero):
    sequence-parallel rank's shape (1,536 queries at q_offset 0 and 1,536
    over 3,072 gathered keys, 16/2 and 8/1 heads) against its plain version
    and under autograd (``kernel_flash_sp``).
+17. the last modules (``phase_last_modules``): (a) the trainer's entry
+   point with use_lora as two processes at fsdp = 2 beside one process on
+   the same global batch (tiny, float32, 3 steps: the ranks' losses equal
+   and within 1e-5 of one process's); one spawn of two ranks that runs
+   LoRA and QLoRA at fsdp = 2 and at model = 2 (the base as each rank's
+   slices, the factors whole): the tiny float32 steps against one rank on
+   the card (loss within 1e-5, factors within 2e-4 after AdamW) and
+   qwen2.5-vl-3b cut as in phase 16 with rank-16 adapters (loss within
+   1e-2, grad norm within 2e-2, the ranks' losses equal; ms a step,
+   collectives' share and calls, peak card memory and #1/#2 launches per
+   rank); (b) the server CLI's engine at the int8 point (phase 5's flags)
+   in process, and the port's bulk CLI over it and a port on which nothing
+   listens, with vLLM-format requests that data/create_batch_data_prompts
+   builds from phase 9's PDFs (7 pages, 32 tokens a page): every task
+   completed on the live server, a second run makes no request, #1/#2
+   launches match the pages prefilled, a decode or verify kernel ran;
+   pages/s through the router and the median task latency; (c)
+   data/test_prompts and bench/create_tests through get_client("openai",
+   base_url=...) against the same server, one page each; (d) `python -m
+   karanta_tpu_torch.bench.closed_loop` with tests/test_closed_loop.py's
+   arguments on the card: 8 pages read back, mean CER <= 0.15, at least 6
+   exact matches; training seconds and steps/s. (d)'s process starts before
+   phase 16 and runs beside phases 16 and 17: its 500 tiny steps are
+   host-bound.
 
 KARANTA_IMG_CACHE_MB is 0 throughout: every page pays its image decode.
 Each path's launch counts are set to 0 just before it runs and read just
@@ -5514,6 +5538,30 @@ def pt_batch(cfg, root: str, pipeline: list, tokenizer, rows: int,
     return to_device_batch(batch, "cpu")
 
 
+def pt_data(root: str) -> dict:
+    """Phases 16 and 17's training data under `root`: the tiny corpus
+    (its directory and its PT_TINY_DOCS-row batch) and PT_3B_ROWS rows of
+    phase 12's synthetic pages for the cut 3B, tokenized by a BPE tokenizer
+    trained here (host tensors)."""
+    import yaml
+
+    from karanta_tpu_torch.inference.tokenizer import HFTokenizer
+
+    tiny_root = pt_tiny_corpus(os.path.join(root, "tiny"))
+    tiny_batch = pt_batch(pt_config("tiny"), tiny_root, PT_TINY_PIPELINE,
+                          ByteTokenizer(), PT_TINY_DOCS, 2048)
+    data3b = train_corpus(os.path.join(root, "3b"))
+    os.makedirs(os.path.join(root, "tok"))
+    tok_dir = bpe_tokenizer_dir(os.path.join(root, "tok"))
+    with open(TRAIN_YAML) as f:
+        train_yaml = yaml.safe_load(f)
+    batch3b = pt_batch(pt_config("3b"), data3b, train_yaml["pipeline"],
+                       HFTokenizer(tok_dir), PT_3B_ROWS,
+                       train_yaml["max_length"])
+    return {"root": root, "tiny_root": tiny_root, "tiny_batch": tiny_batch,
+            "3b_batch": batch3b}
+
+
 def pt_step(mesh, cfg, make_params, batch: dict, case: dict,
             remat: bool = False) -> dict:
     """One make_train_step step on `mesh` from whole parameters
@@ -5673,65 +5721,82 @@ def pt_expected_launches(cfg, rows: int) -> dict:
 PT_3B_LOCAL_ROWS = {"data=2": 1, "fsdp=2": 1, "seq=2": 2, "model=2": 2}
 
 
-def pt_cli(root: str, device: str = "cuda") -> dict:
-    """The trainer's entry point as two processes at data = 2 (ranks on
-    the card over gloo), and one process at data = 1 on the same global
-    batch, side by side; then the two-process checkpoint resumed at
-    fsdp = 2 for a fourth step. Tiny config, float32, 3 steps."""
-    import ast
-    import tempfile
-
+def train_cli_launch(base: list, out_dir: str, world: int,
+                     extra: list) -> list:
+    """Start the trainer's entry point as `world` processes (one joins no
+    group), argv `base` + the output dir + `extra`; returns the processes."""
     from karanta_tpu_torch.parallel.launch import free_port
 
-    work = tempfile.mkdtemp(prefix="pt_cli_")
+    url = f"tcp://127.0.0.1:{free_port()}"
+    procs = []
+    for pid in range(world):
+        argv = base + ["--output_dir", out_dir] + extra
+        if world > 1:
+            argv += ["--num_processes", str(world), "--process_id",
+                     str(pid), "--coordinator_address", url]
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "karanta_tpu_torch.training.train",
+             *argv], cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def train_cli_finish(procs: list, label: str) -> list:
+    """Wait for the trainer processes; each one's last logged metrics.
+    Raises on a nonzero exit or a hang."""
+    import ast
+
+    metrics = []
+    for p in procs:
+        try:
+            text, _ = p.communicate(timeout=PT_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise AssertionError(f"[train cli {label}] timed out")
+        if p.returncode:
+            raise AssertionError(f"[train cli {label}] exit "
+                                 f"{p.returncode}:\n{text[-3000:]}")
+        logged = [ast.literal_eval(line[line.index("{'step'"):])
+                  for line in text.splitlines() if "{'step'" in line]
+        metrics.append(logged[-1])
+    return metrics
+
+
+def train_cli_base(root: str, work: str, device: str) -> list:
+    """The CLI runs' common argv: the tiny config, float32, the tiny
+    pipeline over `root`, no checkpoints between steps, no eval."""
     yaml_path = os.path.join(work, "tiny.yaml")
     with open(yaml_path, "w") as f:
         json.dump({"pipeline": PT_TINY_PIPELINE, "max_length": 2048}, f)
-    base = [yaml_path, "--dataset_root", root, "--model_name_or_path",
+    return [yaml_path, "--dataset_root", root, "--model_name_or_path",
             "tiny", "--dtype", "float32", "--gradient_accumulation_steps",
             "1", "--logging_steps", "1", "--checkpointing_steps", "0",
             "--eval_steps", "0", "--learning_rate", str(PT_LR),
             "--warmup_steps", "0", "--seed", str(PT_SEED),
             *(["--device", "cpu"] if device == "cpu" else [])]
 
-    def launch(out_dir, world, extra):
-        url = f"tcp://127.0.0.1:{free_port()}"
-        procs = []
-        for pid in range(world):
-            argv = base + ["--output_dir", out_dir] + extra
-            if world > 1:
-                argv += ["--num_processes", str(world), "--process_id",
-                         str(pid), "--coordinator_address", url]
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", "karanta_tpu_torch.training.train",
-                 *argv], cwd=REPO, stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True))
-        return procs
 
-    def finish(procs, label):
-        metrics = []
-        for p in procs:
-            try:
-                text, _ = p.communicate(timeout=PT_TIMEOUT)
-            except subprocess.TimeoutExpired:
-                for q in procs:
-                    q.kill()
-                raise AssertionError(f"[train cli {label}] timed out")
-            if p.returncode:
-                raise AssertionError(f"[train cli {label}] exit "
-                                     f"{p.returncode}:\n{text[-3000:]}")
-            logged = [ast.literal_eval(line[line.index("{'step'"):])
-                      for line in text.splitlines() if "{'step'" in line]
-            metrics.append(logged[-1])
-        return metrics
+def pt_cli(root: str, device: str = "cuda") -> dict:
+    """The trainer's entry point as two processes at data = 2 (ranks on
+    the card over gloo), and one process at data = 1 on the same global
+    batch, side by side; then the two-process checkpoint resumed at
+    fsdp = 2 for a fourth step. Tiny config, float32, 3 steps."""
+    import shutil
+    import tempfile
 
+    work = tempfile.mkdtemp(prefix="pt_cli_")
+    base = train_cli_base(root, work, device)
     t0 = time.perf_counter()
     run2, run1 = os.path.join(work, "two"), os.path.join(work, "one")
-    two = launch(run2, 2, ["--max_steps", "3", "--mesh_data", "2",
-                           "--per_device_train_batch_size", "1"])
-    one = launch(run1, 1, ["--max_steps", "3", "--mesh_data", "1",
-                           "--per_device_train_batch_size", "2"])
-    m2, m1 = finish(two, "data=2"), finish(one, "one process")
+    two = train_cli_launch(base, run2, 2, [
+        "--max_steps", "3", "--mesh_data", "2",
+        "--per_device_train_batch_size", "1"])
+    one = train_cli_launch(base, run1, 1, [
+        "--max_steps", "3", "--mesh_data", "1",
+        "--per_device_train_batch_size", "2"])
+    m2 = train_cli_finish(two, "data=2")
+    m1 = train_cli_finish(one, "one process")
     if not (m2[0]["step"] == m2[1]["step"] == 3 and
             m2[0]["loss"] == m2[1]["loss"]):
         raise AssertionError(f"[train cli] the ranks logged {m2}")
@@ -5742,7 +5807,7 @@ def pt_cli(root: str, device: str = "cuda") -> dict:
     done = glob.glob(os.path.join(run2, "step_*", "COMPLETED"))
     if [os.path.basename(os.path.dirname(p)) for p in done] != ["step_3"]:
         raise AssertionError(f"[train cli] checkpoints {done}")
-    m3 = finish(launch(run2, 2, [
+    m3 = train_cli_finish(train_cli_launch(base, run2, 2, [
         "--max_steps", "4", "--mesh_data", "1", "--mesh_fsdp", "2",
         "--per_device_train_batch_size", "2", "--resume_from_checkpoint",
         "auto"]), "resume at fsdp=2")
@@ -5755,8 +5820,6 @@ def pt_cli(root: str, device: str = "cuda") -> dict:
         f" ({err:.1e} relative, limit {PT_CLI_TOL:g}); one COMPLETED "
         f"checkpoint (step_3); resumed at fsdp=2 to step 4 (loss "
         f"{m3[0]['loss']:.6f} on both ranks); {wall:.1f}s")
-    import shutil
-
     shutil.rmtree(work, ignore_errors=True)
     return dict(loss_2proc=m2[0]["loss"], loss_1proc=m1[0]["loss"],
                 rel_err=err, resumed_loss=m3[0]["loss"], wall_s=wall)
@@ -5821,10 +5884,7 @@ def phase_parallel_training(device: str = "cuda") -> dict:
     card over gloo."""
     import tempfile
 
-    import yaml
-
     from karanta_tpu_torch.device import float32_reductions, no_tf32
-    from karanta_tpu_torch.inference.tokenizer import HFTokenizer
     from karanta_tpu_torch.parallel.mesh import create_mesh
 
     dev = torch.device(device)
@@ -5837,24 +5897,16 @@ def phase_parallel_training(device: str = "cuda") -> dict:
                          text=True, timeout=60).stdout.strip()
     stats: dict = {"card": smi}
     root = tempfile.mkdtemp(prefix="pt_")
-    tiny_root = pt_tiny_corpus(os.path.join(root, "tiny"))
+    data = pt_data(root)
+    tiny_root, tiny_batch, batch3b = (data[k] for k in (
+        "tiny_root", "tiny_batch", "3b_batch"))
     stats["cli"] = pt_cli(tiny_root, device)
 
-    # the batches and one rank's references, on the card
-    tiny_batch = pt_batch(pt_config("tiny"), tiny_root, PT_TINY_PIPELINE,
-                          ByteTokenizer(), PT_TINY_DOCS, 2048)
+    # one rank's references, on the card
     counts = (tiny_batch["labels"] != -100).sum(1).tolist()
     if len(set(counts[:2])) < 2 and len(set(counts[2:])) < 2:
         raise AssertionError(f"tiny rows of equal token counts {counts}")
-    data3b = train_corpus(os.path.join(root, "3b"))
-    os.makedirs(os.path.join(root, "tok"))
-    tok_dir = bpe_tokenizer_dir(os.path.join(root, "tok"))
-    with open(TRAIN_YAML) as f:
-        train_yaml = yaml.safe_load(f)
     cfg3b = pt_config("3b")
-    batch3b = pt_batch(cfg3b, data3b, train_yaml["pipeline"],
-                       HFTokenizer(tok_dir), PT_3B_ROWS,
-                       train_yaml["max_length"])
     one = create_mesh(device=device)
     tiny_params = {name: pt_tiny_params(name) for name in ("tiny", "tiny4")}
     ref_tiny = {label: [pt_step(one, pt_config(name), lambda n=name: tree_map(
@@ -5922,13 +5974,543 @@ def phase_parallel_training(device: str = "cuda") -> dict:
                 f" s = {100 * g['collective_share']:.1f}% in "
                 f"{g['collective_calls']} calls, peak {g['peak_mb']:.0f} MB"
                 for g in got) + f"; launches a step per rank {want}")
-    import shutil
-
-    shutil.rmtree(root, ignore_errors=True)
+    stats["data"] = data  # phase 17 trains on the same rows
     stats["launches"] = {label: [r["3b"][label]["launches"] for r in ranks]
                          for label, _, _ in PT_3B_MESHES}
     stats["seconds"] = time.perf_counter() - t_phase
     log(f"[train parallel] phase 16 in {stats['seconds']:.1f}s")
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# phase 17: LoRA and QLoRA over fsdp and model, the bulk fan-out and the
+# teacher tools against the 7B server, the closed loop
+# ---------------------------------------------------------------------------
+
+PL_RANK, PL_TINY_RANK = 16, 4   # adapter ranks: the trainer's default; tiny
+PL_MESHES = (("fsdp=2", {"fsdp": 2}), ("model=2", {"model": 2}))
+PL_KINDS = ("lora", "qlora")
+# b starts at this (not the trainer's 0) so that every factor has a gradient
+PL_B_INIT = {"tiny": 1e-2, "3b": 1e-3}
+BULK_TOKENS = SERVED_TOKENS     # tokens a page: random weights never stop
+CL_ARGV = ["--train-pages", "8", "--chars", "1", "--eval-pages", "8",
+           "--eval-from-train", "--steps", "500", "--lr", "0.001"]
+CL_MAX_CER, CL_MIN_EXACT, CL_PAGES = 0.15, 6, 8
+CL_TIMEOUT = 600
+
+
+def pl_step(mesh, cfg, make_params, batch: dict, qlora: bool, rank: int,
+            b_init: float, remat: bool = False, whole: bool = False) -> dict:
+    """One make_lora_train_step step (AdamW) on `mesh`: the base from
+    make_params() (whole, NF4 for QLoRA, then this rank's slices:
+    lora_base_placement), rank-`rank` factors whole, the global batch on
+    the host. Returns loss, tokens, grad norm, ms, collectives' host
+    seconds, share and calls, peak card MB (from the parameters on) and
+    #1/#2 launches; with `whole`, the factors after the step (float32,
+    host)."""
+    from karanta_tpu_torch.parallel import sharding
+    from karanta_tpu_torch.training import lora as tl
+    from karanta_tpu_torch.training.optimizer import make_optimizer
+    from karanta_tpu_torch.training.train_step import create_train_state
+    from karanta_tpu_torch.utils.tree import flatten_tree
+
+    mem0 = torch.cuda.memory_allocated()
+    params = make_params()
+    template = tl.init_lora_params(
+        params, rank, torch.Generator(device=mesh.device).manual_seed(
+            PT_SEED), alpha=16.0)
+    for group in ("attn", "mlp"):
+        for f in template[group].values():
+            f["b"] += b_init
+    if qlora:
+        params = tl.quantize_base_nf4(params)
+    base = tl.lora_base_placement(cfg, mesh, qlora).shard(params)
+    del params
+    opt = make_optimizer("adamw", PT_LR)
+    step = tl.make_lora_train_step(cfg, opt, remat=remat, mesh=mesh)
+    state = create_train_state(tl.trainable_lora(template), opt)
+    gc.collect()
+    _sync(mesh.device)
+    torch.cuda.reset_peak_memory_stats()
+    sharding.reset_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state, metrics = step(state, base, template, batch)
+    _sync(mesh.device)
+    sec = time.perf_counter() - t0
+    out = dict(loss=float(metrics["loss"]), tokens=int(metrics["tokens"]),
+               grad_norm=float(metrics["grad_norm"]), ms=sec * 1e3,
+               collective_s=sharding.STATS["seconds"],
+               collective_share=sharding.STATS["seconds"] / sec,
+               collective_calls=sharding.STATS["calls"],
+               peak_mb=(torch.cuda.max_memory_allocated() - mem0) / 2**20,
+               launches={k: kernels.LAUNCHES[k] for k in
+                         ("window_attention", "flash_attention")})
+    if whole:
+        out["factors"] = {k: v.float().cpu()
+                          for k, v in flatten_tree(state.params).items()}
+    del state, base, template
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pl_cases(mesh, spec: dict) -> dict:
+    """Every LoRA case of phase 17 on `mesh`: the tiny float32 LoRA and
+    QLoRA steps (factors kept) and the cut 3B's (bf16, remat)."""
+    out = {}
+    for kind in PL_KINDS:
+        out[("tiny", kind)] = pl_step(
+            mesh, pt_config("tiny"), lambda: tree_map(
+                lambda x, _: x.to(mesh.device, copy=True),
+                spec["tiny_params"]), spec["tiny_batch"], kind == "qlora",
+            PL_TINY_RANK, PL_B_INIT["tiny"], whole=True)
+    for kind in PL_KINDS:
+        out[("3b", kind)] = pl_step(
+            mesh, pt_config("3b"), lambda: pt_3b_params(mesh.device),
+            spec["3b_batch"], kind == "qlora", PL_RANK, PL_B_INIT["3b"],
+            remat=True)
+    return out
+
+
+def pl_rank(rank: int, world: int, url: str, spec: dict) -> dict:
+    """One rank of phase 17(a): pl_cases at each of PL_MESHES, the meshes
+    built in turn over one group (ranks on one card over gloo)."""
+    from karanta_tpu_torch.device import float32_reductions, no_tf32
+    from karanta_tpu_torch.parallel.mesh import (MeshConfig, create_mesh,
+                                                 initialize_distributed)
+
+    no_tf32()
+    float32_reductions()
+    device = spec["device"]
+    backend = initialize_distributed(url, world, rank, device=device,
+                                     timeout_s=PT_TIMEOUT)
+    out = {"backend": backend}
+    for label, dims in PL_MESHES:
+        mesh = create_mesh(MeshConfig(**{"data": 1, **dims}),
+                           device="cpu" if device == "cpu" else None)
+        out[label] = pl_cases(mesh, spec)
+    return out
+
+
+def pl_expected_launches(cfg, rows: int) -> dict:
+    """#1/#2 launches of one LoRA remat step over `rows` rows on a rank:
+    the frozen vision tower once a row (nothing to recompute), each decoder
+    layer once over the rows in the forward and again in the recompute."""
+    n_full = sum(i < cfg.vision.depth
+                 for i in cfg.vision.fullatt_block_indexes)
+    return {"window_attention": (cfg.vision.depth - n_full) * rows,
+            "flash_attention": n_full * rows + 2 * cfg.text.num_layers}
+
+
+def pl_check(label: str, kind: str, ref: dict, got: list, cfg,
+             rows: int) -> dict:
+    """A mesh's tiny and 3B steps against one rank's (the tiny ones' loss
+    within PT_LOSS_TOL and factors within PT_TINY_TOL; the 3B ones' loss
+    within PT_3B_LOSS_TOL, grad norm within PT_3B_NORM_TOL, the ranks'
+    losses equal, the expected #1/#2 launches); returns the 3B numbers."""
+    tiny_ref, tiny = ref[("tiny", kind)], [g[("tiny", kind)] for g in got]
+    worst = 0.0
+    for r, g in enumerate(tiny):
+        err = abs(g["loss"] - tiny_ref["loss"]) / abs(tiny_ref["loss"])
+        if not err <= PT_LOSS_TOL:
+            raise AssertionError(f"[lora {label} tiny {kind}] rank {r}: "
+                                 f"loss {g['loss']} vs {tiny_ref['loss']}")
+        for path, w in tiny_ref["factors"].items():
+            d = (g["factors"][path] - w).abs()
+            if not bool((d <= PT_TINY_TOL + PT_TINY_TOL * w.abs()).all()):
+                raise AssertionError(f"[lora {label} tiny {kind}] rank {r} "
+                                     f"{path}: max abs err {float(d.max())}")
+            worst = max(worst, float(d.max()))
+    log(f"[lora {label} tiny {kind}] ranks' loss "
+        f"{[g['loss'] for g in tiny]} vs one rank {tiny_ref['loss']}; every "
+        f"factor within {PT_TINY_TOL:g} after AdamW (worst {worst:.2e})")
+    one, big = ref[("3b", kind)], [g[("3b", kind)] for g in got]
+    if big[0]["loss"] != big[1]["loss"]:
+        raise AssertionError(f"[lora {label} 3B {kind}] the ranks' losses "
+                             f"differ: {big[0]['loss']} vs {big[1]['loss']}")
+    lerr = abs(big[0]["loss"] - one["loss"]) / abs(one["loss"])
+    nerr = abs(big[0]["grad_norm"] - one["grad_norm"]) / one["grad_norm"]
+    if not (lerr <= PT_3B_LOSS_TOL and nerr <= PT_3B_NORM_TOL):
+        raise AssertionError(
+            f"[lora {label} 3B {kind}] loss {big[0]['loss']} ({lerr:.2e} "
+            f"relative, limit {PT_3B_LOSS_TOL}), grad norm "
+            f"{big[0]['grad_norm']} ({nerr:.2e}, limit {PT_3B_NORM_TOL}) "
+            f"against one rank's")
+    want = pl_expected_launches(cfg, rows)
+    for r, g in enumerate(big):
+        if g["launches"] != want:
+            raise AssertionError(f"[lora {label} 3B {kind}] rank {r} "
+                                 f"launched {g['launches']}, expected {want}")
+    log(f"[lora {label} 3B {kind}] rank {PL_RANK}, loss {big[0]['loss']:.5f}"
+        f" on both ranks ({lerr:.2e} from one rank), grad norm "
+        f"{big[0]['grad_norm']:.5f} ({nerr:.2e}); per rank: " + "; ".join(
+            f"{g['ms']:.1f} ms a step, collectives {g['collective_s']:.2f} s"
+            f" = {100 * g['collective_share']:.1f}% in "
+            f"{g['collective_calls']} calls, peak {g['peak_mb']:.0f} MB"
+            for g in big) + f"; launches a step per rank {want}")
+    return dict(tiny_worst_factor_err=worst, loss_rel_err=lerr,
+                grad_norm_rel_err=nerr, ranks=big)
+
+
+def pl_cli(root: str, device: str) -> dict:
+    """The trainer's entry point with use_lora: two processes at fsdp = 2
+    beside one process on the same two-row global batch (tiny, float32, 3
+    steps): the ranks' losses equal, and within PT_CLI_TOL of one
+    process's."""
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="pl_cli_")
+    base = train_cli_base(root, work, device) + [
+        "--use_lora", "true", "--lora_rank", str(PL_TINY_RANK),
+        "--max_steps", "3", "--mesh_data", "1",
+        "--per_device_train_batch_size", "2"]
+    t0 = time.perf_counter()
+    two = train_cli_launch(base, os.path.join(work, "two"), 2,
+                           ["--mesh_fsdp", "2"])
+    one = train_cli_launch(base, os.path.join(work, "one"), 1, [])
+    m2 = train_cli_finish(two, "lora fsdp=2")
+    m1 = train_cli_finish(one, "lora one process")
+    if not (m2[0]["step"] == m2[1]["step"] == 3
+            and m2[0]["loss"] == m2[1]["loss"]):
+        raise AssertionError(f"[lora cli] the ranks logged {m2}")
+    err = abs(m2[0]["loss"] - m1[0]["loss"]) / abs(m1[0]["loss"])
+    if not err <= PT_CLI_TOL:
+        raise AssertionError(f"[lora cli] 2-process loss {m2[0]['loss']} "
+                             f"vs one process {m1[0]['loss']}")
+    wall = time.perf_counter() - t0
+    log(f"[lora cli] use_lora, 2 processes at fsdp=2: step-3 loss "
+        f"{m2[0]['loss']:.6f} on both ranks, one process "
+        f"{m1[0]['loss']:.6f} ({err:.1e} relative, limit {PT_CLI_TOL:g}); "
+        f"{wall:.1f}s")
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(loss_2proc=m2[0]["loss"], loss_1proc=m1[0]["loss"],
+                rel_err=err, wall_s=wall)
+
+
+def phase_lora_parallel(data: dict, device: str = "cuda") -> dict:
+    """Phase 17(a): the LoRA CLI (pl_cli); one rank's LoRA and QLoRA steps
+    on the card (tiny float32 and the cut 3B); one spawn of two ranks that
+    runs them at fsdp = 2 and at model = 2 (pl_rank); the checks of
+    pl_check."""
+    from karanta_tpu_torch.device import float32_reductions, no_tf32
+    from karanta_tpu_torch.parallel.mesh import create_mesh
+
+    no_tf32()
+    float32_reductions()
+    stats = {"cli": pl_cli(data["tiny_root"], device)}
+    spec = {"tiny_params": pt_tiny_params("tiny"),
+            "tiny_batch": data["tiny_batch"], "3b_batch": data["3b_batch"],
+            "device": device}
+    ref = pl_cases(create_mesh(device=device), spec)
+    for kind in PL_KINDS:
+        r = ref[("3b", kind)]
+        log(f"[lora one rank 3B {kind}] rank {PL_RANK}: loss "
+            f"{r['loss']:.5f}, grad norm {r['grad_norm']:.5f}, "
+            f"{r['ms']:.1f} ms, peak {r['peak_mb']:.0f} MB, launches "
+            f"{r['launches']}")
+    stats["one_rank"] = {kind: ref[("3b", kind)] for kind in PL_KINDS}
+    t0 = time.perf_counter()
+    ranks = run_ranks(pl_rank, 2, (spec,), timeout_s=PT_TIMEOUT)
+    log(f"[lora] two ranks in {time.perf_counter() - t0:.1f}s, backend "
+        f"{ranks[0]['backend']}")
+    cfg3b = pt_config("3b")
+    stats["meshes"] = {}
+    for label, _ in PL_MESHES:
+        for kind in PL_KINDS:
+            stats["meshes"][f"{label} {kind}"] = pl_check(
+                label, kind, ref, [r[label] for r in ranks], cfg3b,
+                PT_3B_LOCAL_ROWS[label])
+    return stats
+
+
+def bulk_requests(root: str, pdf_dir: str) -> int:
+    """vLLM-format request files from the PDFs by the port's
+    data/create_batch_data_prompts.py (two pages a PDF at most, the
+    pipeline's 1,288-pixel render), each page's budget cut to BULK_TOKENS;
+    returns the number of requests."""
+    from karanta_tpu_torch.constants import PIPELINE_IMAGE_DIM
+    from karanta_tpu_torch.data.create_batch_data_prompts import \
+        build_requests
+
+    n = build_requests(pdf_dir, root, "smoke", flavor="vllm",
+                       pages_per_pdf=2, requests_per_file=4,
+                       target_dim=PIPELINE_IMAGE_DIM)
+    for path in glob.glob(os.path.join(root, "*.jsonl")):
+        with open(path) as f:
+            lines = [json.loads(line) for line in f if line.strip()]
+        for line in lines:
+            line["body"]["max_tokens"] = BULK_TOKENS
+        with open(path, "w") as f:
+            f.write("".join(json.dumps(line) + "\n" for line in lines))
+    return n
+
+
+def bulk_results(out_dir: str) -> list:
+    found = []
+    for path in glob.glob(os.path.join(out_dir, "*", "results", "*.json")):
+        with open(path) as f:
+            found.append(json.load(f))
+    return found
+
+
+def teacher_tools(engine, port: int, pdf: str, root: str) -> dict:
+    """Phase 17(c): data/test_prompts.py and bench/create_tests.py through
+    get_client("openai", ..., base_url=) against the server on one page
+    each. test_prompts asks for BULK_TOKENS tokens; create_tests (whose
+    requests ask for 2,000) gets a transcription that fills the context but
+    BULK_TOKENS rows, so that the server's clamp to the context ends it
+    there. Each runs to its end and writes its output (test_prompts its
+    report on stdout, create_tests its tests file)."""
+    from karanta_tpu_torch.bench import create_tests
+    from karanta_tpu_torch.constants import CREATE_TEST_PROMPT_PATH
+    from karanta_tpu_torch.data.test_prompts import run_prompt_test
+    from karanta_tpu_torch.prompts.templates import load_prompt_template
+
+    url = f"http://127.0.0.1:{port}/v1"
+    t0 = time.perf_counter()
+    out = run_prompt_test(pdf, 1, "openai", "smoke", base_url=url,
+                          max_tokens=BULK_TOKENS)
+    if out["completion_tokens"] != BULK_TOKENS or \
+            n_tokens(out["response"]) != BULK_TOKENS:
+        raise AssertionError(f"[teacher test_prompts] {out}")
+    prompt_s = time.perf_counter() - t0
+
+    def prompt_len(text: str) -> int:
+        prompt = load_prompt_template(
+            create_tests.PROMPT_KEYS["present"],
+            CREATE_TEST_PROMPT_PATH).render({
+                "num_tests": 3, "pdf_name": "page.pdf", "page": 1,
+                "transcription": text, "base_text": ""})
+        return len(engine.prepare(GenRequest(
+            messages=[{"role": "user", "content": prompt}],
+            max_tokens=1)).ids)
+
+    # one token a character (the byte tokenizer, ASCII)
+    room = engine.ecfg.max_seq_len - 1 - BULK_TOKENS
+    text = "0123456789 " * ((room - prompt_len("")) // 11 + 1)
+    text = text[:room - prompt_len("")]
+    if prompt_len(text) != room:
+        raise AssertionError(f"[teacher create_tests] prompt of "
+                             f"{prompt_len(text)} tokens, wanted {room}")
+    gt = os.path.join(root, "gt")
+    os.makedirs(gt)
+    with open(os.path.join(gt, "page_pg1.md"), "w") as f:
+        f.write(text)
+    tests_path = os.path.join(root, "tests.jsonl")
+    served = json.loads(http_call(port, "GET", "/metrics")[1])[
+        "requests_served"]
+    t0 = time.perf_counter()
+    create_tests.main(["--transcriptions", gt, "--output", tests_path,
+                       "--provider", "openai", "--model", "smoke",
+                       "--base-url", url, "--kinds", "present",
+                       "--per-page", "3"])
+    tests_s = time.perf_counter() - t0
+    served = json.loads(http_call(port, "GET", "/metrics")[1])[
+        "requests_served"] - served
+    if not os.path.exists(tests_path) or served != 1:
+        raise AssertionError(f"[teacher create_tests] {served} requests, "
+                             f"output {os.path.exists(tests_path)}")
+    with open(tests_path) as f:
+        n_tests = sum(1 for _ in f)
+    log(f"[teacher] test_prompts: {out['prompt_tokens']} prompt and "
+        f"{out['completion_tokens']} completion tokens in {prompt_s:.2f}s; "
+        f"create_tests: one request of {room} prompt tokens answered in "
+        f"{tests_s:.2f}s, {n_tests} tests parsed from a random-weight "
+        f"answer (its text is not JSON)")
+    return dict(test_prompts_s=prompt_s, prompt_tokens=out["prompt_tokens"],
+                create_tests_s=tests_s, create_tests_tests=n_tests)
+
+
+def phase_bulk(cfg) -> dict:
+    """Phase 17(b) and (c): the server CLI's engine at the int8 point
+    (phase 5's flags) served in process; the port's bulk CLI over it and a
+    port on which nothing listens, with request files that
+    create_batch_data_prompts builds from phase 9's PDFs; then the teacher
+    tools against the same server."""
+    import shutil
+    import tempfile
+
+    from karanta_tpu_torch.bulk.main import amain, parse_args
+
+    root = tempfile.mkdtemp(prefix="bulk_")
+    pdfs = pipeline_corpus(os.path.join(root, "pdfs"))
+    reqs = os.path.join(root, "reqs")
+    n_req = bulk_requests(reqs, os.path.dirname(pdfs[0]))
+    if not 1 <= n_req <= 8:
+        raise AssertionError(f"[bulk] {n_req} requests")
+    engine = served_engine(
+        ["--preset", "qwen2.5-vl-7b", "--quantize", "int8", "--kv-quantize",
+         "int8", "--act-quant", "int8", "--max-batch-size", "4",
+         "--decode-chunk", "8"])
+    counts = instrument(engine)
+    dead = f"http://127.0.0.1:{_free_port()}"
+    with serving(engine) as (server, port):
+        live = f"http://127.0.0.1:{port}"
+        args = parse_args(["--input", reqs, "--output",
+                           os.path.join(root, "out"), "--servers", dead,
+                           live])
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        jobs = asyncio.run(amain(args))
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        served = json.loads(http_call(port, "GET", "/metrics")[1])[
+            "requests_served"]
+        jobs2 = asyncio.run(amain(args))  # resume: every result exists
+        served2 = json.loads(http_call(port, "GET", "/metrics")[1])[
+            "requests_served"]
+        teacher = teacher_tools(engine, port, pdfs[0], root)
+    for label, js in (("first run", jobs), ("resume", jobs2)):
+        done = sum(j["status_counts"].get("completed", 0) for j in js)
+        other = [j["status_counts"] for j in js
+                 if set(j["status_counts"]) - {"completed"}]
+        if done != n_req or other:
+            raise AssertionError(f"[bulk {label}] {done} of {n_req} tasks "
+                                 f"completed: {[j['status_counts'] for j in js]}")
+    if served != n_req or served2 != served:
+        raise AssertionError(f"[bulk] the server answered {served} requests "
+                             f"on the first run and {served2 - served} on "
+                             f"the resume (want {n_req} and 0)")
+    results = bulk_results(os.path.join(root, "out"))
+    if len(results) != n_req or {r["server"] for r in results} != {live}:
+        raise AssertionError(f"[bulk] {len(results)} results from "
+                             f"{sorted({r['server'] for r in results})}")
+    for r in results:
+        text = r["response"]["choices"][0]["message"]["content"]
+        if n_tokens(text) != BULK_TOKENS:
+            raise AssertionError(f"[bulk] {r['custom_id']}: "
+                                 f"{n_tokens(text)} tokens")
+    want = expected_prefill_launches(cfg, n_req, counts["prefix_builds"])
+    check_launches("bulk", launches, {k: want[k] for k in want})
+    if not (launches["paged_decode_append_quant"]
+            or launches["paged_decode_append_multi_quant"]):
+        raise AssertionError(f"[bulk] no decode or verify kernel: "
+                             f"{launches}")
+    latency = sorted(r["latency_s"] for r in results)
+    median = latency[len(latency) // 2] if len(latency) % 2 else \
+        (latency[len(latency) // 2 - 1] + latency[len(latency) // 2]) / 2
+    log(f"[bulk] {n_req} pages x {BULK_TOKENS} tokens through the router "
+        f"(live server + a dead port) in {wall:.3f}s: "
+        f"{n_req / wall:.4f} pages/s, median task latency {median:.3f}s; "
+        f"every task completed on {live}; the resume made no request; "
+        f"{counts['verify_passes']} verify passes, {counts['decode_steps']} "
+        f"decode steps, {counts['prefix_hits']} prefix hits")
+    del server, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(pages=n_req, pages_per_s=n_req / wall, wall_s=wall,
+                median_latency_s=median, launches=launches,
+                verify_passes=counts["verify_passes"],
+                decode_steps=counts["decode_steps"],
+                prefix_hits=counts["prefix_hits"], teacher=teacher)
+
+
+def closed_loop_start(device: str = "cuda") -> tuple:
+    """Phase 17(d), started: `python -m karanta_tpu_torch.bench.closed_loop`
+    with tests/test_closed_loop.py's arguments (8 pages, 1 character, 500
+    steps, lr 1e-3) as a subprocess on the card. Returns (process, root,
+    start time) for closed_loop_finish."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="closed_loop_")
+    argv = [sys.executable, "-m", "karanta_tpu_torch.bench.closed_loop",
+            "--root", root, *CL_ARGV,
+            *(["--device", "cpu"] if device == "cpu" else [])]
+    # its output to a file: a pipe that nobody reads while (a)-(c) run
+    # would fill and stop it
+    log_file = open(os.path.join(root, "closed_loop.log"), "w")
+    # a session of its own: closed_loop_kill stops it with its server
+    proc = subprocess.Popen(argv, cwd=REPO, stdout=log_file,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    log_file.close()
+    return proc, root, time.perf_counter()
+
+
+def closed_loop_kill(started: tuple) -> None:
+    """Stop a started closed loop and every process it started."""
+    import signal
+
+    proc = started[0]
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def closed_loop_finish(started: tuple) -> dict:
+    """Phase 17(d)'s checks: exit 0, 8 pages read back, mean CER <=
+    CL_MAX_CER and at least CL_MIN_EXACT exact matches; its training
+    seconds, steps/s and final loss from the trainer's line."""
+    import shutil
+
+    proc, root, t0 = started
+    try:
+        proc.wait(timeout=max(1.0, CL_TIMEOUT - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        closed_loop_kill(started)
+        raise AssertionError(f"[closed loop] not done in {CL_TIMEOUT}s")
+    wall = time.perf_counter() - t0
+    with open(os.path.join(root, "closed_loop.log")) as f:
+        out = f.read()
+    if proc.returncode:
+        raise AssertionError(f"[closed loop] exit {proc.returncode}:\n"
+                             f"{out[-4000:]}")
+    with open(os.path.join(root, "scores.json")) as f:
+        scores = json.load(f)
+    trained = re.search(r"trained (\d+) steps in ([\d.]+)s \(([\d.]+) "
+                        r"steps/s\): loss=([\d.]+)", out)
+    if trained is None:
+        raise AssertionError(f"[closed loop] no training line:\n"
+                             f"{out[-2000:]}")
+    if not (scores["pages"] == CL_PAGES and
+            scores["mean_cer"] <= CL_MAX_CER and
+            scores["exact_match"] >= CL_MIN_EXACT):
+        raise AssertionError(f"[closed loop] {scores} (want {CL_PAGES} "
+                             f"pages, mean CER <= {CL_MAX_CER}, >= "
+                             f"{CL_MIN_EXACT} exact)")
+    stats = dict(scores, train_s=float(trained.group(2)),
+                 steps_per_s=float(trained.group(3)),
+                 final_loss=float(trained.group(4)), wall_s=wall)
+    log(f"[closed loop] {' '.join(CL_ARGV)}: trained "
+        f"{trained.group(1)} steps in {stats['train_s']}s "
+        f"({stats['steps_per_s']} steps/s, loss {stats['final_loss']}); "
+        f"{scores['pages']} pages, mean CER {scores['mean_cer']:.4f}, "
+        f"{scores['exact_match']} exact; {wall:.1f}s from its start")
+    shutil.rmtree(root, ignore_errors=True)
+    return stats
+
+
+def phase_last_modules(cfg, data: dict, started: tuple,
+                       device: str = "cuda") -> dict:
+    """Phase 17: (a) phase_lora_parallel, (b) and (c) phase_bulk, then (d)
+    the closed loop's end. The closed loop's 500 tiny steps are host-bound
+    (about 3.6 steps/s on the card alone), so its process (`started`,
+    closed_loop_start) starts before phase 16 and runs beside phases 16
+    and 17 on the same card; their times hold that neighbour."""
+    import shutil
+
+    t0 = time.perf_counter()
+    try:
+        stats = {"lora": phase_lora_parallel(data, device)}
+        shutil.rmtree(data["root"], ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        stats["bulk"] = phase_bulk(cfg)
+    except BaseException:
+        closed_loop_kill(started)
+        raise
+    t2 = time.perf_counter()
+    stats["closed_loop"] = closed_loop_finish(started)
+    t3 = time.perf_counter()
+    stats["seconds"] = dict(lora=t1 - t0, bulk=t2 - t1,
+                            closed_loop_wait=t3 - t2, total=t3 - t0)
+    log(f"[last modules] phase 17 in {t3 - t0:.1f}s (LoRA {t1 - t0:.1f}, "
+        f"bulk and teacher {t2 - t1:.1f}, then the closed loop's end "
+        f"{t3 - t2:.1f}; the closed loop ran beside phases 16 and 17)")
     return stats
 
 
@@ -5996,8 +6578,17 @@ def main(argv=None) -> int:
     mark("phase 15, parallel serving")
     flash_sp = kernel_flash_sp(cfg, dev, gen)
     torch.cuda.empty_cache()
-    ptrain_stats = phase_parallel_training()
+    # phase 17's closed loop, started here: it runs beside phases 16-17
+    closed_loop = closed_loop_start()
+    try:
+        ptrain_stats = phase_parallel_training()
+    except BaseException:
+        closed_loop_kill(closed_loop)
+        raise
     mark("phase 16, parallel training")
+    last_stats = phase_last_modules(cfg, ptrain_stats.pop("data"),
+                                    closed_loop)
+    mark("phase 17, LoRA over meshes, bulk, teacher tools, closed loop")
     par_launches = {"tp=2 prefill, per rank": parallel_stats[
         "tp2_prefill_launches"],
         "2x2 generate, per rank": parallel_stats["dp2tp2_launches"],
@@ -6062,6 +6653,13 @@ def main(argv=None) -> int:
         row["parallel_training_launches_per_step"] = {
             label: [counts.get(row["name"], 0) for counts in per]
             for label, per in ptrain_stats["launches"].items()}
+        # phase 17: a cut-3B LoRA or QLoRA step's launches on each rank of
+        # each mesh, and the bulk fan-out's over the 7B server
+        row["lora_training_launches_per_step"] = {
+            key: [g["launches"].get(row["name"], 0) for g in e["ranks"]]
+            for key, e in last_stats["lora"]["meshes"].items()}
+        row["bulk_launches"] = last_stats["bulk"]["launches"].get(
+            row["name"], 0)
         if row["name"] == "flash_attention":
             row["sequence_parallel"] = flash_sp
         log(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain "
@@ -6106,7 +6704,13 @@ def main(argv=None) -> int:
                                  if not k.endswith("launches")},
                     "parallel_training": {
                         k: v for k, v in ptrain_stats.items()
-                        if k != "launches"}}))
+                        if k != "launches"},
+                    "last_modules": {
+                        "lora": last_stats["lora"],
+                        "bulk": {k: v for k, v in last_stats["bulk"].items()
+                                 if k != "launches"},
+                        "closed_loop": last_stats["closed_loop"],
+                        "seconds": last_stats["seconds"]}}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

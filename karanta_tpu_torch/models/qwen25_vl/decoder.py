@@ -14,7 +14,8 @@ package's layouts: per-layer weights stacked on a leading layer axis, weights
   cache in the activations' dtype (``KVCache``); the fused append+attention
   kernel of each updates the cache tensors IN PLACE, layer by layer.
   ``KARANTA_PAGED_DECODE=stacked`` runs the last one as a scatter and the
-  read-only stacked kernel instead.
+  read-only stacked kernel instead, ``KARANTA_PAGED_DECODE=0`` as a scatter
+  and dense attention over the bucket (the JAX package's XLA path).
 - ``decode_multi`` runs T tokens per slot, the speculative verify pass: the
   int8 and int4 caches through their multi-token append kernels, the bf16
   cache through a scatter and ``decode_attention_multi`` (the JAX package's
@@ -41,7 +42,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from karanta_tpu_torch.models.qwen25_vl.config import TextConfig
-from karanta_tpu_torch.ops.attention import attention, decode_attention_multi
+from karanta_tpu_torch.ops.attention import (attention, decode_attention,
+                                             decode_attention_multi)
 from karanta_tpu_torch.ops.decode_attention import (  # noqa: F401 (re-exports)
     bits_to_int8, pack_q4_rows, pack_q4_scales, paged_decode_append,
     paged_decode_append_multi_q4, paged_decode_append_multi_quant,
@@ -262,24 +264,24 @@ class Q4KVCache:
 
 
 def _paged_decode_mode() -> str:
-    """The decode kernel for the cache in the activations' dtype, from
+    """The decode path for the cache in the activations' dtype, from
     KARANTA_PAGED_DECODE at call time: unset, "1" or "append" -> the fused
-    append kernel; "stacked" -> a scatter of the new row and the read-only
-    stacked kernel (the JAX package's A/B mode). "0", the JAX package's
-    dense XLA path, exists there only to spare the TPU its per-call dispatch
-    cost and would run no kernel here: it raises, as other unported features
-    do. The int8 and int4 caches keep their append kernels in every mode
-    (the JAX package's dense choice for them is a TPU dispatch choice too),
-    so this is read for the activations'-dtype cache only."""
+    append kernel (at every bucket: the JAX package's auto mode takes its
+    dense XLA path below 8192 rows only to spare the TPU a per-call
+    dispatch); "stacked" -> a scatter of the new row and the read-only
+    stacked kernel (the JAX package's A/B mode); "0" -> the JAX package's
+    dense path: a scatter of the new row and dense attention over the
+    bucket (``ops/attention.py decode_attention``, plain PyTorch). The int8
+    and int4 caches keep their append kernels in every mode (the JAX
+    package's dense choice for them is a TPU dispatch choice too), so this
+    is read for the activations'-dtype cache only."""
     mode = os.environ.get("KARANTA_PAGED_DECODE", "")
     if mode in ("", "1", "append"):
         return "append"
     if mode == "stacked":
         return "stacked"
     if mode == "0":
-        raise NotImplementedError(
-            "KARANTA_PAGED_DECODE=0 (the JAX package's dense XLA decode path) "
-            "is not ported (ROADMAP.md, modules: KARANTA_PAGED_DECODE=0)")
+        return "dense"
     raise ValueError(f"KARANTA_PAGED_DECODE={mode!r}: expected unset, 1, "
                      f"append, stacked or 0")
 
@@ -459,7 +461,8 @@ def decode_step(params: Params, cfg: TextConfig,
     cache through ``paged_decode_append_q4``, and the cache in the
     activations' dtype through ``paged_decode_append`` at every length, or
     with ``KARANTA_PAGED_DECODE=stacked`` through a scatter and
-    ``paged_decode_attention_stacked`` (see ``_paged_decode_mode``). (The JAX
+    ``paged_decode_attention_stacked``, with ``KARANTA_PAGED_DECODE=0``
+    through a scatter and dense attention (see ``_paged_decode_mode``). (The JAX
     decoder takes its Pallas kernels only from 8192 rows on or for the
     quantized caches, because each Pallas call costs about 125 us of TPU
     dispatch; the kernels compute the dense path's values and read only live
@@ -471,6 +474,7 @@ def decode_step(params: Params, cfg: TextConfig,
     cos, sin = _rope_tables(cfg, positions[:, :, None], embeds.dtype)
     cache_len = cache_len.to(torch.int32).contiguous()
     bidx = torch.arange(b, device=embeds.device)
+    kv_valid = None  # the dense mode's (B, M) mask, built once
     x = embeds
     for i, layer in enumerate(unbind_layers(params["layers"],
                                             cfg.num_layers)):
@@ -491,14 +495,22 @@ def decode_step(params: Params, cfg: TextConfig,
                 q.contiguous(), kq, vq, ksc.to(cache.ks.dtype),
                 vsc.to(cache.vs.dtype), cache.k, cache.v, cache.ks, cache.vs,
                 i, cache_len)
-        elif mode == "stacked":
-            # the JAX package's stacked mode: scatter the row at cache_len,
-            # then read the layer in place over cache_len + 1 rows
+        elif mode in ("stacked", "dense"):
+            # scatter the row at cache_len; the stacked mode then reads the
+            # layer in place over cache_len + 1 rows, the dense mode (the
+            # JAX package's XLA path) attends over the bucket under a mask
             lens = cache_len.long()
             cache.k[i, bidx, :, lens] = k[:, 0].to(cache.k.dtype)
             cache.v[i, bidx, :, lens] = v[:, 0].to(cache.v.dtype)
-            attn = paged_decode_attention_stacked(q.contiguous(), cache.k,
-                                                  cache.v, i, cache_len)
+            if mode == "stacked":
+                attn = paged_decode_attention_stacked(q.contiguous(), cache.k,
+                                                      cache.v, i, cache_len)
+            else:
+                if kv_valid is None:
+                    kv_valid = (torch.arange(cache.k.shape[3],
+                                             device=lens.device)[None, :]
+                                <= lens[:, None]).float()
+                attn = decode_attention(q, cache.k[i], cache.v[i], kv_valid)
         else:
             attn = paged_decode_append(
                 q.contiguous(), k[:, 0].to(cache.k.dtype).contiguous(),

@@ -21,7 +21,8 @@ weights stored ``(..., in, out)`` as in the JAX package.
   product.
 - Inline LoRA (training): a leaf ``{lora_base, a, b, scale}`` multiplies as
   ``x @ base + scale * (x @ a) @ b`` without building the merged weight; the
-  base may be an NF4 leaf (QLoRA), dequantized per call.
+  base may be an NF4 leaf (QLoRA), dequantized per call. Row-parallel, the
+  delta's float32 partial joins the base's before the one sum.
 - NF4 (QLoRA's frozen base): 16 NormalFloat code points, absmax blocks of 64
   along the reduction axis, two codes a byte, bit-equal to the JAX package.
 """
@@ -34,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from karanta_tpu_torch.parallel.sharding import (all_reduce_max,
-                                                 all_reduce_sum,
+                                                 all_reduce_sum, own_slice,
                                                  reduce_from_group)
 
 QUANT_KEY = "int8_q"  # marker key distinguishing quantized leaves
@@ -70,17 +71,30 @@ def is_lora_wrapped(w: Any) -> bool:
     return isinstance(w, dict) and LORA_KEY in w
 
 
-def _lora_matmul(x: torch.Tensor, w: dict, base_mm) -> torch.Tensor:
+def _lora_matmul(x: torch.Tensor, w: dict, base_mm,
+                 group=None) -> torch.Tensor:
     """x @ (base + scale * a @ b) without materializing the merged matrix:
-    the delta is two thin products, the second accumulated in float32."""
+    the delta is two thin products, the second accumulated in float32.
+
+    Row-parallel over `group` (x and the base hold this rank's slice of the
+    input dim, a its rows): the float32 partial of (x @ a) @ b, scaled, is
+    added to the base product's float32 partial before the one sum over the
+    group, then cast once, so the delta is counted once. An NF4 base kept
+    whole over the group (its rank slices would cut 64-row blocks) is
+    sliced to this rank's rows after dequantizing."""
     base = w[LORA_KEY]
     if is_nf4(base):
         base = nf4_dequantize(base, x.dtype)
-    y = base_mm(x, base)
     a = w["a"].to(x.dtype)
     b = w["b"].to(x.dtype)
     delta = (x @ a).float() @ b.float()
-    return (y.float() + delta * w["scale"].float()).to(x.dtype)
+    if group is None:
+        y = base_mm(x, base)
+        return (y.float() + delta * w["scale"].float()).to(x.dtype)
+    if base.shape[-2] != x.shape[-1]:
+        base = own_slice(base, base.dim() - 2, group)
+    partial = _f32_product(x, base) + delta * w["scale"].float()
+    return reduce_from_group(partial, group).to(x.dtype)
 
 
 def _f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -111,7 +125,7 @@ def matmul(x: torch.Tensor, w: Any, group=None) -> torch.Tensor:
     """x @ w for plain tensors, quantized dicts (weight-only int8) and
     inline-LoRA leaves; row-parallel over `group` when given."""
     if is_lora_wrapped(w):
-        return _lora_matmul(x, w, matmul)
+        return _lora_matmul(x, w, matmul, group)
     if not is_quantized(w):
         return x @ w if group is None else _row_parallel(x, w, group)
     wd = w[QUANT_KEY].to(x.dtype)
@@ -158,7 +172,7 @@ def matmul_w8a8(x: torch.Tensor, w: Any, group=None) -> torch.Tensor:
     """x @ w with dynamic per-token int8 activations (prefill / LM head);
     row-parallel over `group` when given (bit-equal to one rank's)."""
     if is_lora_wrapped(w):
-        return _lora_matmul(x, w, matmul_w8a8)
+        return _lora_matmul(x, w, matmul_w8a8, group)
     if not is_quantized(w):
         return x @ w if group is None else _row_parallel(x, w, group)
     xf = x.float()

@@ -15,7 +15,9 @@ Parallel training: one process a rank. ``--num_processes N --process_id p
 ``per_device_train_batch_size`` x the "data" size x
 ``gradient_accumulation_steps`` rows; every process collates it and each
 feeds only its own rows to its device. Checkpoints hold the unsharded state
-(rank 0 writes them), so a run resumes at any mesh.
+(rank 0 writes them), so a run resumes at any mesh. LoRA and QLoRA run at
+any mesh too: the frozen base as this rank's slices, the factors (the
+state) whole on every rank (``training/lora.py``).
 
 Usage: python -m karanta_tpu_torch.training.train <cfg.yaml> [--key value ...]
 (``--device cpu`` runs on the CPU, with the kernels' plain versions).
@@ -219,6 +221,7 @@ def main(argv: Optional[list[str]] = None) -> dict:
     lora_template = None
     if exp.use_lora or exp.use_qlora:
         from karanta_tpu_torch.training.lora import (init_lora_params,
+                                                     lora_base_placement,
                                                      make_lora_train_step,
                                                      merge_lora,
                                                      quantize_base_nf4,
@@ -235,6 +238,10 @@ def main(argv: Optional[list[str]] = None) -> dict:
             alpha=exp.lora_alpha)
         if exp.use_qlora:
             params = quantize_base_nf4(params)
+        # the frozen base as this rank's slices; the factors (the state,
+        # and so the checkpoints) whole on every rank
+        params = lora_base_placement(cfg, mesh, exp.use_qlora).shard(params)
+        merged_placement = Placement(train_param_axes(cfg), mesh)
         state = create_train_state(trainable_lora(lora_template), optimizer)
 
         def train_fn(state, batch):
@@ -253,7 +260,8 @@ def main(argv: Optional[list[str]] = None) -> dict:
     def eval_params(current_state):
         if lora_template is not None:
             return merge_lora(params, with_factors(lora_template,
-                                                   current_state.params))
+                                                   current_state.params),
+                              merged_placement)
         return current_state.params
 
     def whole_leaf(key, t):

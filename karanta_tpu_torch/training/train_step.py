@@ -47,6 +47,7 @@ from karanta_tpu_torch.models.qwen25_vl.config import VLMConfig
 from karanta_tpu_torch.models.qwen25_vl.decoder import logits_from_hidden
 from karanta_tpu_torch.models.qwen25_vl.model import (forward_train,
                                                       serving_param_axes)
+from karanta_tpu_torch.ops.quantization import LORA_KEY
 from karanta_tpu_torch.parallel.mesh import (DATA_AXIS, FSDP_AXIS,
                                              MODEL_AXIS, PIPE_AXIS, SEQ_AXIS,
                                              Mesh)
@@ -169,6 +170,9 @@ class ParallelPlan:
         return x
 
     def _gather(self, path: str, x: torch.Tensor, shift: int = 0):
+        # an inline-LoRA leaf's base is placed as the target it wraps; its
+        # factors are whole
+        path = "/".join(p for p in path.split("/") if p != LORA_KEY)
         dim = self.placement.dims(path).get(FSDP_AXIS)
         return x if dim is None else all_gather_dim(x, dim - shift,
                                                     self.fsdp)
@@ -213,7 +217,8 @@ def _on(batch: dict, rows: slice, device) -> dict:
 
 def make_loss_fn(cfg: VLMConfig, remat: bool = False, ce_chunk: int = 512,
                  sp_mesh=None, pp_mesh=None, pp_micro: int = 1,
-                 mesh: Optional[Mesh] = None, replicated: bool = False):
+                 mesh: Optional[Mesh] = None, replicated: bool = False,
+                 placement: Optional[Placement] = None):
     """(params, batch) -> (loss, tokens). remat checkpoints each decoder
     layer and each vision block (a checkpoint around the whole forward would
     not lower the peak).
@@ -225,13 +230,14 @@ def make_loss_fn(cfg: VLMConfig, remat: bool = False, ce_chunk: int = 512,
     batch is the global one and `params` this rank's slices; the loss and
     the token count are the global ones (``replicated``: every rank takes
     every row, the evaluation's batch). The function's ``plan`` attribute
-    is its ``ParallelPlan`` (None without a mesh)."""
+    is its ``ParallelPlan`` (None without a mesh), over `placement` (the
+    parameters' placement; ``train_param_axes`` by default)."""
     if pp_mesh is not None and sp_mesh is not None:
         raise ValueError("sp_mesh and pp_mesh are mutually exclusive")
     if pp_mesh is not None and pp_mesh.size(PIPE_AXIS) <= 1:
         pp_mesh = None
     mesh = mesh or sp_mesh or pp_mesh
-    plan = ParallelPlan(cfg, mesh) if mesh is not None else None
+    plan = ParallelPlan(cfg, mesh, placement) if mesh is not None else None
     attn_impl = None
     if sp_mesh is not None and sp_mesh.size(SEQ_AXIS) > 1:
         from karanta_tpu_torch.parallel.context import \

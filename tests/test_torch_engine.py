@@ -224,9 +224,15 @@ def test_entry_points_need_cuda_or_explicit_cpu():
     ("parallel", "parallel.mesh", "parallel.sharding", "parallel.launch"),
     ("parallel.context", "parallel.pipeline", "training.train_step",
      "training.train", "models.qwen25_vl.decoder"),
+    ("prompts.schemas", "llm_clients.base", "llm_clients.utils",
+     "llm_clients.openai_client", "data.create_batch_data_prompts",
+     "data.test_prompts", "bench.create_tests", "bulk.database",
+     "bulk.dispatcher", "bulk.main", "data.hub",
+     "data.internet_archive_downloader", "utils.model_download",
+     "bench.closed_loop"),
 ], ids=["vlm_training", "classifiers_and_data_tools",
         "batched_prefill_and_bench_harness", "parallel_serving",
-        "parallel_training"])
+        "parallel_training", "clients_bulk_and_closed_loop"])
 def test_port_imports_neither_jax_nor_the_jax_package(expected):
     """Every module of karanta_tpu_torch, and chip_smoke.py's imports, load
     without JAX and without karanta_tpu; `expected` names modules the walk
@@ -325,6 +331,44 @@ def test_speculative_tokens_match_jax_and_plain(tiny_weights, kv):
     assert (spec.spec_passes, spec.spec_tokens) == (jeng.spec_passes,
                                                     jeng.spec_tokens)
     assert spec.spec_tokens > spec.spec_passes  # the repeating prompt hits
+
+
+def test_dense_decode_mode_matches_append_and_jax(tiny_weights,
+                                                 monkeypatch):
+    """KARANTA_PAGED_DECODE=0 over the cache in the activations' dtype (a
+    scatter and dense attention over the bucket; the append kernel never
+    called): the same greedy tokens as the default append mode and as the
+    JAX engine in the same mode."""
+    from karanta_tpu_torch.models.qwen25_vl import decoder
+
+    w = tiny_weights
+    kw = dict(SPEC_KW, kv_quantize=None)
+    msgs = _spec_msgs()
+    monkeypatch.setenv("KARANTA_PAGED_DECODE", "0")
+    jeng = JEngine(w["jparams"], w["jcfg"], w["jtok"],
+                   JEngineConfig(dtype=jnp.float32, **kw))
+    want = jeng.generate([JGenRequest(messages=m, max_tokens=20,
+                                      request_id=str(i))
+                          for i, m in enumerate(msgs)])
+    calls = {"n": 0}
+    append = decoder.paged_decode_append
+
+    def counted(*a, **k):
+        calls["n"] += 1
+        return append(*a, **k)
+
+    monkeypatch.setattr(decoder, "paged_decode_append", counted)
+    got = {}
+    for mode in ("0", "append"):
+        monkeypatch.setenv("KARANTA_PAGED_DECODE", mode)
+        calls["n"] = 0
+        got[mode] = _port_engine(w, **kw).generate(
+            [GenRequest(messages=m, max_tokens=20, request_id=str(i))
+             for i, m in enumerate(msgs)])
+        assert (calls["n"] > 0) == (mode == "append")
+    for a, b, c in zip(want, got["0"], got["append"]):
+        assert len(b.token_ids) == 20
+        assert b.token_ids == a.token_ids == c.token_ids
 
 
 @pytest.mark.parametrize("votes,spec_calls", [

@@ -374,11 +374,11 @@ def test_decode_multi_over_int4_cache_matches_jax(jparams, act_quant):
 
 def test_stacked_decode_mode_equals_default(jparams, monkeypatch):
     """KARANTA_PAGED_DECODE=stacked (scatter + kernel #9's plain version)
-    gives the default mode's hidden states and caches within 1e-6 (kernel
-    #5's plain version sums in another order, and a layer's rows follow
-    the layers below it); the JAX package's dense mode "0" is not ported and
-    raises; other values raise ValueError; the quantized caches ignore the
-    variable."""
+    and the JAX package's dense mode "0" (scatter + dense attention over the
+    bucket) give the default mode's hidden states and caches within 1e-6
+    (kernel #5's plain version sums in another order, and a layer's rows
+    follow the layers below it); other values raise ValueError; the
+    quantized caches ignore the variable."""
     batch, m = 2, 64
     text = from_jax_params(_np(jparams), CFG, "cpu", torch.float32)["text"]
     rng = np.random.default_rng(8)
@@ -387,7 +387,7 @@ def test_stacked_decode_mode_equals_default(jparams, monkeypatch):
     p = _t(np.asarray([[20, 41]] * 3, np.int32))
     lens = _t(np.asarray([20, 41], np.int32))
     out = {}
-    for mode in (None, "1", "stacked"):
+    for mode in (None, "1", "stacked", "0"):
         if mode is None:
             monkeypatch.delenv("KARANTA_PAGED_DECODE", raising=False)
         else:
@@ -395,17 +395,18 @@ def test_stacked_decode_mode_equals_default(jparams, monkeypatch):
         _, tc = _random_caches(np.random.default_rng(4), False, batch, m)
         h, tc = dec.decode_step(text, CFG.text, x, p, tc, lens)
         out[mode] = (h, tc)
-    for mode in ("1", "stacked"):
+    for mode in ("1", "stacked", "0"):
         np.testing.assert_allclose(out[mode][0].numpy(), out[None][0].numpy(),
                                    atol=1e-6)
         for part in ("k", "v"):
             np.testing.assert_allclose(getattr(out[mode][1], part).numpy(),
                                        getattr(out[None][1], part).numpy(),
                                        atol=1e-6)
-    for mode, err in (("0", NotImplementedError), ("dense", ValueError)):
+    for mode in ("0", "dense"):
         monkeypatch.setenv("KARANTA_PAGED_DECODE", mode)
-        _, tc = _random_caches(np.random.default_rng(4), False, batch, m)
-        with pytest.raises(err, match="ROADMAP" if mode == "0" else "dense"):
-            dec.decode_step(text, CFG.text, x, p, tc, lens)
+        if mode == "dense":
+            _, tc = _random_caches(np.random.default_rng(4), False, batch, m)
+            with pytest.raises(ValueError, match="dense"):
+                dec.decode_step(text, CFG.text, x, p, tc, lens)
         _, qc = _random_caches(np.random.default_rng(4), True, batch, m)
         dec.decode_step(text, CFG.text, x, p, qc, lens)

@@ -8,7 +8,8 @@ at a time: data = 2 with gradient accumulation 2 over rows of unequal
 token counts (each global microbatch's loss is its token sum over its own
 token count, so a rank must hold a share of every microbatch), fsdp = 2
 under AdamW and Muon, model = 2, and seq = 2 with an image whose tokens
-straddle the chunk boundary; LoRA at data = 2 and seq = 2. The global batch
+straddle the chunk boundary; LoRA at data = 2 and seq = 2 (at fsdp = 2 and
+model = 2: tests/test_torch_lora_parallel.py). The global batch
 is four rows of the tiny corpus, and every rank is given all of it.
 
 Bounds: loss rtol 1e-5, grad norm rtol 1e-4, parameters after an AdamW
@@ -338,18 +339,6 @@ def test_lora_step_matches_one_rank(lora_runs, label):
         for path, w in one["params"].items():
             np.testing.assert_allclose(got["params"][path], w, rtol=2e-4,
                                        atol=2e-4, err_msg=path)
-
-
-def test_lora_refuses_fsdp_and_model():
-    from karanta_tpu_torch.models.qwen25_vl.config import tiny_config
-    from karanta_tpu_torch.training.lora import make_lora_train_step
-    from karanta_tpu_torch.training.optimizer import make_optimizer
-    from tests.test_torch_context_parallel import _fake_mesh
-
-    for dims in ({"fsdp": 2}, {"model": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_lora_train_step(tiny_config(), make_optimizer("adamw", LR),
-                                 mesh=_fake_mesh(**dims))
 
 
 # ---------------------------------------------------------------------------

@@ -305,7 +305,21 @@ def _train_cfg(name: str):
     if name == "tiny4":
         cfg = dataclasses.replace(cfg, text=dataclasses.replace(
             cfg.text, num_layers=4))
+    elif name == "wide":
+        cfg = wide_config(cfg)
     return cfg
+
+
+def wide_config(cfg):
+    """The tiny config widened so that no NF4 target's slice at fsdp = 2 or
+    model = 2 cuts a 64-row block: hidden 128, 8 heads, MLP 256 (the
+    JAX and the port's configs alike)."""
+    import dataclasses
+
+    vision = dataclasses.replace(cfg.vision, out_hidden_size=128)
+    text = dataclasses.replace(cfg.text, hidden_size=128, num_heads=8,
+                               intermediate_size=256)
+    return dataclasses.replace(cfg, vision=vision, text=text)
 
 
 def _float_tree(tree):
@@ -346,8 +360,10 @@ def train_job(mesh, spec: dict) -> dict:
     """One training step of the tiny model on this rank's share of the
     global batch, for each case of spec["cases"]. A case: optimizer
     ("adamw" | "muon"), grad_accum, lr, sp (context parallel), pp_micro
-    (pipeline parallel; 0 = off), lora (rank; 0 = full training), grads
-    (also differentiate the first microbatch). Returns per case the loss,
+    (pipeline parallel; 0 = off), lora (rank; 0 = full training), qlora
+    (an NF4 base under the factors), merge (also the merged targets after
+    the step, whole), grads (also differentiate the first microbatch). spec["factors"], when given, are the LoRA factors (numpy,
+    the trainable tree's layout). Returns per case the loss,
     tokens and grad norm of the step, the trained leaves after the step
     (whole) and, with grads, the loss and the gradients of the first
     microbatch (whole, summed over the ranks)."""
@@ -356,8 +372,8 @@ def train_job(mesh, spec: dict) -> dict:
     from karanta_tpu_torch.training import lora as tl
     from karanta_tpu_torch.training.optimizer import make_optimizer
     from karanta_tpu_torch.training.train_step import (create_train_state,
-                                                       make_loss_fn,
                                                        make_train_step,
+                                                       train_param_axes,
                                                        value_and_grad)
     from karanta_tpu_torch.utils.tree import flatten_tree
 
@@ -379,27 +395,40 @@ def train_job(mesh, spec: dict) -> dict:
             template = tl.init_lora_params(
                 params, case["lora"],
                 torch.Generator(device=dev).manual_seed(5), alpha=16.0)
-            # non-zero b, so that every factor has a gradient
             for group in ("attn", "mlp"):
-                for f in template[group].values():
-                    f["b"] += 0.01
+                for name, f in template[group].items():
+                    if "factors" in spec:  # given (the JAX test's)
+                        for k in ("a", "b"):
+                            f[k] = torch.from_numpy(np.array(
+                                spec["factors"][group][name][k])).to(dev)
+                    else:  # non-zero b, so that every factor has a gradient
+                        f["b"] += 0.01
             trainable = tl.trainable_lora(template)
-            loss_fn = make_loss_fn(cfg, sp_mesh=meshes["sp_mesh"], mesh=mesh)
+            qlora = bool(case.get("qlora"))
+            base = tl.quantize_base_nf4(params) if qlora else params
+            base = tl.lora_base_placement(cfg, mesh, qlora).shard(base)
             step = tl.make_lora_train_step(
                 cfg, optimizer, grad_accum=accum, sp_mesh=meshes["sp_mesh"],
-                mesh=mesh)
-
-            def lora_loss(factors, mb):
-                return loss_fn(tl.wrap_lora(params, tl.with_factors(
-                    template, factors)), mb)
-
+                mesh=mesh, remat=case.get("remat", False))
             loss0, grads = None, {}
             if case.get("grads"):
-                loss0, _, grads = value_and_grad(lora_loss, trainable, first)
-                loss_fn.plan.reduce_grads(grads, Placement({}, mesh))
+                loss0, _, grads = step.grad_once(trainable, base, template,
+                                                 first)
+                step.reduce(grads)
             state = create_train_state(trainable, optimizer)
-            state, metrics = step(state, params, template, batch)
+            state, metrics = step(state, base, template, batch)
             whole = None
+            if case.get("merge"):
+                # the merged targets as eval_params builds them (this
+                # rank's slices of train_param_axes), gathered whole
+                logical = Placement(train_param_axes(cfg), mesh)
+                merged = flatten_tree(tl.merge_lora(
+                    base, tl.with_factors(template, state.params),
+                    logical)["text"]["layers"])
+                merged = {f"text/layers/{k}": logical.whole(
+                    f"text/layers/{k}", v).float().cpu().numpy()
+                    for k, v in merged.items()
+                    if k.split("/")[-1] in tl.ATTN_TARGETS + tl.MLP_TARGETS}
         else:
             step = make_train_step(cfg, optimizer, grad_accum=accum,
                                    remat=case.get("remat", False), **meshes)
@@ -424,5 +453,6 @@ def train_job(mesh, spec: dict) -> dict:
             "grads": {k: full(k, g) for k, g in grads.items()},
             "params": {k: full(k, v)
                        for k, v in flatten_tree(state.params).items()},
+            **({"merged": merged} if case.get("merge") else {}),
         })
     return {"coords": mesh.coords, "cases": results}
