@@ -1,13 +1,19 @@
 // Tensor-core and asynchronous-copy helpers (sm_80+ instructions, used on
 // sm_90a): cp.async into shared memory, ldmatrix, the bf16
-// mma.sync.m16n8k16 with float32 accumulators, and the exact conversions of
-// int8 and packed int4 cache rows to bf16 operands.
+// mma.sync.m16n8k16 and the TF32 mma.sync.m16n8k8 with float32
+// accumulators, the hi/lo split of a float into two TF32 values, and the
+// exact conversions of int8 and packed int4 cache rows to bf16 operands.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16x16 row-major, 4 x bf16x2: a0 (g, 2t..2t+1), a1 (g+8, 2t..),
 //     a2 (g, 2t+8..), a3 (g+8, 2t+8..);
 //   B 16x8, 2 x bf16x2: b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g);
 //   C 16x8 float: c0, c1 (g, 2t..2t+1), c2, c3 (g+8, 2t..2t+1).
+// Fragment layouts of mma.m16n8k8 in TF32:
+//   A 16x8 row-major, 4 x tf32: a0 (g, t), a1 (g+8, t), a2 (g, t+4),
+//     a3 (g+8, t+4);
+//   B 8x8, 2 x tf32: b0 (k t, n g), b1 (k t+4, n g);
+//   C as above.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -64,6 +70,43 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a * b on the tensor cores, TF32 operands (float bit patterns whose
+// low 13 mantissa bits are zero), float32 accumulators
+__device__ __forceinline__ void mma_tf32_1688(float (&c)[4], const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to TF32 (10 mantissa bits, nearest, ties away from zero)
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo + O(2^-22 |x|) in two TF32 values: hi = tf32(x), lo =
+// tf32(x - hi), where x - hi is exact in float32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// c += a * b to float32 accuracy in three TF32 products (3xTF32): the two
+// cross terms first, then hi * hi; lo * lo (2^-22 of the product) is
+// dropped
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4],
+                                           const uint32_t (&b_hi)[2],
+                                           const uint32_t (&b_lo)[2]) {
+  mma_tf32_1688(c, a_hi, b_lo[0], b_lo[1]);
+  mma_tf32_1688(c, a_lo, b_hi[0], b_hi[1]);
+  mma_tf32_1688(c, a_hi, b_hi[0], b_hi[1]);
 }
 
 // two floats rounded to bf16 (nearest even), lo in the low half

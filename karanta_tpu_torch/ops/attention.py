@@ -191,16 +191,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def flash_attention_info(d: int) -> dict:
+def flash_attention_info(d: int, dtype: torch.dtype = torch.bfloat16
+                         ) -> dict:
     """Registers and spilled bytes per thread, dynamic shared bytes per block
-    and resident blocks per SM of the flash kernel's bf16 (tensor-core)
-    instance for head dim d, as the CUDA runtime reports them (needs the
-    card)."""
+    and resident blocks per SM of the flash kernel's instance for head dim d
+    in `dtype` (bf16 or float32), as the CUDA runtime reports them (needs
+    the card)."""
+    if d not in (FLASH_F32_HEAD_DIMS if dtype == torch.float32
+                 else FLASH_HEAD_DIMS):
+        raise ValueError(f"flash_attention_info: no kernel for head dim {d} "
+                         f"in {dtype}")
     fn = library("flash_attention").karanta_flash_attention_info
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     info = (ctypes.c_int * 4)()
-    kernels.raise_on_error("flash_attention_info", fn(d, info))
+    kernels.raise_on_error("flash_attention_info",
+                           fn(d, kernels.DTYPE_CODES[dtype], info))
     return dict(zip(("registers", "spill_bytes", "smem_bytes",
                      "blocks_per_sm"), info))
 

@@ -181,3 +181,67 @@ def test_wrappers_reject_bad_shapes():
     with pytest.raises(ValueError):
         A.flash_attention(q, torch.zeros(1, 100, 3, 16), torch.zeros(1, 100, 3,
                                                                      16))
+
+
+# The rounding argument of the flash kernel's float32 instance, which runs
+# Q.K^T and P.V on the tensor cores in 3xTF32 (kernels/csrc/flash_attention.cu):
+# a plain-PyTorch model of its arithmetic, held to float64 attention. Each
+# operand x is split into hi = tf32(x) and lo = tf32(x - hi) (round to
+# nearest, ties away, by bit masking), and a product is hi.hi + hi.lo +
+# lo.hi, each term accumulated in float32; P is split unrounded. At the
+# document classifiers' shapes (batch cut) and the tiny config's D = 16
+# the model stays within the GPU tests' 2e-5, and one TF32 pass does not:
+# that is why the kernel takes three. Inputs as drawn, with every element
+# scaled by 2^U(-8, 1) (nine binades), and with q and k so and v over
+# sixteen binades, 2^U(-8, 8), where the bound is 2e-5 x max|want|. The
+# card's check of the kernel itself is tests/test_torch_kernels_gpu.py.
+TF32_MODEL_SHAPES = [
+    # (b, sq, sk, h, d): SegFormer stages 1-4 (mit-b0, 512 px), the ViT,
+    # the tiny VLM's heads
+    (1, 16384, 256, 1, 32), (1, 4096, 256, 2, 32), (1, 1024, 256, 5, 32),
+    (2, 256, 256, 8, 32), (2, 197, 197, 6, 64), (2, 128, 128, 2, 16)]
+
+
+def _tf32(x):
+    """float32 -> TF32 (10 mantissa bits), nearest, ties away from zero."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(eq, a, b):
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (torch.einsum(eq, a_hi, b_lo) + torch.einsum(eq, a_lo, b_hi)
+            + torch.einsum(eq, a_hi, b_hi))
+
+
+def _mm_1xtf32(eq, a, b):
+    return torch.einsum(eq, _tf32(a), _tf32(b))
+
+
+def _attention_model(q, k, v, mm):
+    """Online-softmax attention's arithmetic with products `mm`: scores,
+    unnormalised P = exp(s - max), P.V, then / l."""
+    s = mm("bqhd,bkhd->bhqk", q, k) * q.shape[-1] ** -0.5
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = mm("bhqk,bkhd->bqhd", p, v)
+    return o / p.sum(-1).permute(0, 2, 1)[..., None]
+
+
+@pytest.mark.parametrize("inputs", ["normal", "binades", "wide_v"])
+@pytest.mark.parametrize("b,sq,sk,h,d", TF32_MODEL_SHAPES)
+def test_flash_f32_3xtf32_rounding_model(b, sq, sk, h, d, inputs):
+    rng = np.random.default_rng(b + sq + sk + h + d)
+    q, k, v = _qkv(rng, b, sq, sk, h, h, d)
+    if inputs != "normal":
+        top = {"q": 1, "k": 1, "v": 8 if inputs == "wide_v" else 1}
+        q, k, v = (x * (2.0 ** rng.uniform(-8, top[n], x.shape))
+                   .astype(np.float32) for n, x in zip("qkv", (q, k, v)))
+    s = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), k) * d ** -0.5
+    p = np.exp(s - s.max(-1, keepdims=True))
+    want = np.einsum("bhqk,bkhd->bqhd", p / p.sum(-1, keepdims=True), v)
+    q, k, v = _t(q), _t(k), _t(v)
+    three = _attention_model(q, k, v, _mm_3xtf32).double().numpy()
+    one = _attention_model(q, k, v, _mm_1xtf32).double().numpy()
+    atol = ATOL * np.abs(want).max() if inputs == "wide_v" else ATOL
+    assert np.abs(three - want).max() < atol
+    assert np.abs(one - want).max() > atol

@@ -154,6 +154,73 @@ def test_flash_f32_at_classifier_shapes(cuda, case):
     assert torch.equal(got, again)
 
 
+# the float32 instance's 3xTF32 products under stress, beside the cases
+# above: every head dim it has (8 included), GQA, causal at a q_offset over
+# a scattered mask, and a batch row with no live key (without causal
+# masking: under it the kernel skips the key tiles above the diagonal, which
+# such a row would otherwise average). Inputs as drawn; with q x 8 (a
+# sharply peaked softmax); with every element of q, k and v scaled by
+# 2^U(-8, 1), nine binades, where one TF32 pass misses 2e-5 by 7x or more
+# (the rounding model in tests/test_torch_attention.py); and with q and k
+# so and v over sixteen binades, 2^U(-8, 8), held to 2e-5 x max|want|.
+# Sixteen binades in q and k too would put scores in the thousands, where
+# the softmax turns each score's float32 rounding into output error: any
+# two float32-accurate evaluations then differ by more than 2e-5 (the
+# rounding model puts 3xTF32 1.9e-5 x max|out| from plain float32 at the
+# ViT's shape), and outputs in the hundreds have an ulp above an absolute
+# 2e-5. A power-of-two scale leaves each hi/lo split as it was, so v's
+# sixteen binades take the lo parts through every exponent they meet.
+F32_SPLIT_INPUTS = ("normal", "peaked", "binades", "wide_v")
+
+
+def _f32_split_cases(d):
+    # (b, sq, sk, h, kvh, d, causal, mask, q_offset)
+    return [(2, 150, 300, 4, 2, d, True, "scattered", 143),
+            (2, 130, 100, 4, 1, d, False, "all", 0)]
+
+
+def _binades(gen, x, hi):
+    return x * 2.0 ** ((hi + 8.0) * torch.rand(
+        x.shape, generator=gen, device=x.device) - 8.0)
+
+
+@pytest.mark.parametrize("inputs", F32_SPLIT_INPUTS)
+@pytest.mark.parametrize("d", A.FLASH_F32_HEAD_DIMS)
+def test_flash_f32_split_stress(cuda, d, inputs):
+    gen = torch.Generator(device=cuda).manual_seed(17 + d)
+    for case in _f32_split_cases(d):
+        q, k, v, mask = _flash_inputs(gen, case, cuda, torch.float32)
+        if inputs == "peaked":
+            q = q * 8.0
+        elif inputs in ("binades", "wide_v"):
+            q, k = _binades(gen, q, 1.0), _binades(gen, k, 1.0)
+            v = _binades(gen, v, 8.0 if inputs == "wide_v" else 1.0)
+        causal, q_offset = case[6], case[8]
+        first, second = (A.flash_attention(q, k, v, mask, causal=causal,
+                                           q_offset=q_offset)
+                         for _ in range(2))
+        want = A.flash_attention_plain(q, k, v, mask, causal=causal,
+                                       q_offset=q_offset)
+        torch.cuda.synchronize()
+        if inputs == "wide_v":
+            np.testing.assert_allclose(
+                first.cpu(), want.cpu(),
+                atol=2e-5 * float(want.abs().max()))
+        else:
+            _assert_close(first, want, torch.float32)
+        assert torch.equal(first, second)
+
+
+def test_flash_f32_resources(cuda):
+    """The float32 instance fits at every head dim and spills nothing at
+    D <= 64 (the classifiers' 8, 32 and 64 among them)."""
+    for d in A.FLASH_F32_HEAD_DIMS:
+        info = A.flash_attention_info(d, torch.float32)
+        assert info["blocks_per_sm"] >= 1, (d, info)
+        if d <= 64:
+            assert info["spill_bytes"] == 0, (d, info)
+
+
 def test_flash_has_no_bf16_head_dim_8(cuda):
     q = torch.zeros((1, 16, 1, 8), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="head dim 8"):
