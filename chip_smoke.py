@@ -246,6 +246,11 @@ import torch
 from karanta_tpu_torch import kernels
 from karanta_tpu_torch.bench.pages import make_page_png, page_messages
 from karanta_tpu_torch.bench.randweights import init_params_bench
+from karanta_tpu_torch.bench.flash_ab import (BATCHED_PREFILL_LIVE,
+                                              BATCHED_VISION_LIVE, PREFIX_LEN,
+                                              SP_K, SP_LIVE, SP_Q,
+                                              SUFFIX_BUCKET, SUFFIX_LEN,
+                                              flash_work)
 from karanta_tpu_torch.bench.stream_trace import (AB_BUCKET, AB_FILL,
                                                   STREAM_CHECK_LENS,
                                                   stream_inputs)
@@ -587,17 +592,6 @@ def _flash_case(dev, gen, b, sq, sk, h, kvh, d, dtype, live_len):
     return q, k, v, mask
 
 
-def _flash_work(sq, sk, h, kvh, d, live_len, causal, q_offset=0, esize=2):
-    """Bytes (each input read once, output written once) and flops of the
-    (query, live key) pairs this input needs."""
-    if causal:
-        pairs = sum(min(q_offset + i + 1, live_len) for i in range(sq))
-    else:
-        pairs = sq * live_len
-    n_bytes = (2 * sq * h * d + 2 * sk * kvh * d) * esize + sk * 4
-    return n_bytes, 4.0 * d * h * pairs
-
-
 def _sdpa_mask(sq, sk, live_len, causal, dev, q_offset=0):
     m = torch.zeros((sq, sk), dtype=torch.bool, device=dev)
     m[:, :live_len] = True
@@ -605,12 +599,6 @@ def _sdpa_mask(sq, sk, live_len, causal, dev, q_offset=0):
         m &= torch.ones((sq, sk), dtype=torch.bool,
                         device=dev).tril(diagonal=q_offset)
     return m[None, None]
-
-
-# the served paths' prefix continuation: a ~1,700-token page prompt whose
-# first 384 tokens come from the prefix cache; the suffix's 1,316 tokens pad
-# to the 2048 bucket
-PREFIX_LEN, SUFFIX_LEN, SUFFIX_BUCKET = 384, 1316, 2048
 
 
 def kernel_flash(cfg, dev, gen) -> dict:
@@ -656,16 +644,20 @@ def kernel_flash(cfg, dev, gen) -> dict:
             return torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=m, enable_gqa=g)
 
+        def kernel(q=q, k=k, v=v, m=mask, c=causal, o=q_off):
+            return A.flash_attention(q, k, v, m, causal=c, q_offset=o)
+
         times[name] = (
-            cuda_ms(lambda q=q, k=k, v=v, m=mask, c=causal, o=q_off:
-                    A.flash_attention(q, k, v, m, causal=c, q_offset=o), 10),
+            cuda_ms(kernel, 10),
             cuda_ms(lambda q=q, k=k, v=v, m=mask, c=causal, o=q_off:
                     A.flash_attention_plain(q, k, v, m, causal=c,
                                             q_offset=o), 3),
             cuda_ms(lib, 10),
-            _flash_work(sq, sk, h, kvh, d, live_len, causal, q_off))
-        log(f"  flash {name}: kernel {times[name][0]:.3f} ms, plain "
-            f"{times[name][1]:.3f} ms, sdpa {times[name][2]:.3f} ms")
+            flash_work(sq, sk, h, kvh, d, [live_len], causal, q_off),
+            graph_ms(kernel), graph_ms(lib))
+        log(f"  flash {name}: kernel {times[name][0]:.3f} ms (device "
+            f"{times[name][4]:.4f}), plain {times[name][1]:.3f} ms, sdpa "
+            f"{times[name][2]:.3f} ms (device {times[name][5]:.4f})")
     # small ragged cases in float32: GQA, mask, q_offset, Sq != Sk
     for (b, sq, sk, h, kvh, d, causal, q_off) in (
             (2, 333, 333, 6, 2, 128, True, 0),
@@ -680,26 +672,36 @@ def kernel_flash(cfg, dev, gen) -> dict:
         check(f"flash_attention ragged f32 {tuple(q.shape)} kv "
               f"{tuple(k.shape)} q_offset={q_off}", max_err(got, want),
               F32_ATOL)
-    # the bf16 instances' resources, as the CUDA runtime reports them
-    for d in sorted({t.head_dim, vc.head_dim}):
-        log(f"  flash bf16 D={d}: {A.flash_attention_info(d)}")
+    # the bf16 instance's resources, as the CUDA runtime reports them (the
+    # registers a producer and a consumer thread hold after setmaxnreg
+    # beside them)
+    resources = {d: A.flash_attention_info(d)
+                 for d in sorted({t.head_dim, vc.head_dim})}
+    for d, info in resources.items():
+        log(f"  flash bf16 D={d}: {info}")
     # the row reports the prefill shape (28 of the 32 launches per page);
-    # the vision-full and prefix numbers ride along
+    # the vision-full and prefix numbers ride along. Shares and ratios
+    # from device times (CUDA graphs), which leave the wrappers' host time
+    # out
     rates = {}
-    for name, (t_k, _, t_l, work) in times.items():
+    for name, (t_k, _, t_l, work, t_dev, t_ldev) in times.items():
         bound, _ = bound_ms(*work)
-        rates[name] = {"tflops": work[1] / t_k * 1e-9,
-                       "bound_share": bound / t_k}
-        log(f"  flash {name}: bound {bound:.4f} ms; kernel "
-            f"{rates[name]['tflops']:.1f} TFLOP/s on the live pairs, "
-            f"{100 * rates[name]['bound_share']:.1f}% of the bound; "
-            f"{t_k / t_l:.2f}x SDPA's time")
-    t_k, t_p, t_l, (n_bytes, flops) = times["prefill"]
+        rates[name] = {"device_ms": t_dev, "library_device_ms": t_ldev,
+                       "tflops": work[1] / t_dev * 1e-9,
+                       "bound_share": bound / t_dev,
+                       "library_ratio": t_dev / t_ldev}
+        log(f"  flash {name}: bound {bound:.4f} ms; kernel device "
+            f"{t_dev:.4f} ms, {rates[name]['tflops']:.1f} TFLOP/s on the "
+            f"live pairs, {100 * rates[name]['bound_share']:.1f}% of the "
+            f"bound; {t_dev / t_ldev:.2f}x SDPA's device time "
+            f"({t_k / t_l:.2f}x by events)")
+    t_k, t_p, t_l, (n_bytes, flops), _, _ = times["prefill"]
     b, by = bound_ms(n_bytes, flops)
     extra = {name: {"ms": times[name][0], "plain_ms": times[name][1],
                     "library_ms": times[name][2],
                     "bound_ms": bound_ms(*times[name][3])[0], **rates[name]}
              for name in ("vision_full", "prefix")}
+    extra["bf16_resources"] = resources
     extra.update(flash_batched(cfg, layout, dev, gen))
     errs += [e["max_abs_err"] for e in extra.values() if "max_abs_err" in e]
     return dict(name="flash_attention", route="cuda",
@@ -707,13 +709,6 @@ def kernel_flash(cfg, dev, gen) -> dict:
                 replaces="karanta_tpu/ops/attention.py:235",
                 max_abs_err=max(errs), ms=t_k, plain_ms=t_p, bound_ms=b,
                 bound_by=by, library_ms=t_l, **rates["prefill"], **extra)
-
-
-# batched prefill: live keys of each page of a group. The vision full
-# layers: the bench page's valid mask, then pages with fewer and more live
-# tokens (scattered); the decoder prefill: ragged prompt lengths down to one
-BATCHED_VISION_LIVE = (None, 3600, 5120, 900)
-BATCHED_PREFILL_LIVE = (1390, 700, 1408, 1)
 
 
 def flash_batched(cfg, layout, dev, gen) -> dict:
@@ -758,24 +753,31 @@ def flash_batched(cfg, layout, dev, gen) -> dict:
             sdpa_mask = sdpa_mask & torch.ones(
                 (sq, sk), dtype=torch.bool, device=dev).tril()[None, None]
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        t_k = cuda_ms(lambda: A.flash_attention(q, k, v, mask,
-                                                causal=causal), 10)
+        def kernel():
+            return A.flash_attention(q, k, v, mask, causal=causal)
+
+        def lib():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=sdpa_mask, enable_gqa=h != kvh)
+
+        t_k = cuda_ms(kernel, 10)
         t_p = cuda_ms(lambda: A.flash_attention_plain(q, k, v, mask,
                                                       causal=causal), 3)
-        t_l = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=sdpa_mask, enable_gqa=h != kvh), 10)
-        works = [_flash_work(sq, sk, h, kvh, d, live, causal)
-                 for live in lives]
-        b, by = bound_ms(sum(x[0] for x in works), sum(x[1] for x in works))
-        flops = sum(x[1] for x in works)
-        log(f"  flash {name}: live keys {lives}; kernel {t_k:.4f} ms "
-            f"({t_k / n:.4f} a page, {flops / t_k * 1e-9:.1f} TFLOP/s), "
-            f"{100 * b / t_k:.1f}% of the bound {b:.4f} ms ({by}); plain "
-            f"{t_p:.4f} ms; {t_k / t_l:.2f}x SDPA's {t_l:.4f} ms")
+        t_l = cuda_ms(lib, 10)
+        t_dev, t_ldev = graph_ms(kernel, calls=5), graph_ms(lib, calls=5)
+        n_bytes, flops = flash_work(sq, sk, h, kvh, d, lives, causal)
+        b, by = bound_ms(n_bytes, flops)
+        log(f"  flash {name}: live keys {lives}; kernel {t_k:.4f} ms, "
+            f"device {t_dev:.4f} ({t_dev / n:.4f} a page, "
+            f"{flops / t_dev * 1e-9:.1f} TFLOP/s), {100 * b / t_dev:.1f}% of "
+            f"the bound {b:.4f} ms ({by}); plain {t_p:.4f} ms; "
+            f"{t_dev / t_ldev:.2f}x SDPA's device {t_ldev:.4f} ms (events "
+            f"{t_l:.4f})")
         out[name] = dict(shape=list(q.shape), live=lives, max_abs_err=err,
-                         ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b,
-                         bound_by=by, tflops=flops / t_k * 1e-9,
-                         bound_share=b / t_k)
+                         ms=t_k, device_ms=t_dev, plain_ms=t_p, library_ms=t_l,
+                         library_device_ms=t_ldev, bound_ms=b, bound_by=by,
+                         tflops=flops / t_dev * 1e-9, bound_share=b / t_dev,
+                         library_ratio=t_dev / t_ldev)
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     return out
@@ -1429,13 +1431,17 @@ def _per_rank_row(label: str, kernel, plain, work, lib=None, caches=None,
     t_dev = graph_ms(kernel) if graph else t_k
     t_p = cuda_ms(plain, 3)
     t_l = cuda_ms(lib, 20) if lib is not None else None
+    t_ldev = (graph_ms(lib) if graph else t_l) if lib is not None else None
     b, by = bound_ms(*work)
+    ratio = "" if lib is None else f", {t_dev / t_ldev:.2f}x the library's"
     log(f"    {label}: kernel {t_k:.4f} ms (device {t_dev:.4f}), plain "
-        f"{t_p:.4f}, library {t_l if t_l is None else round(t_l, 4)}, "
-        f"bound {b:.4f} ms ({by}), {100 * b / t_dev:.1f}% of it")
+        f"{t_p:.4f}, library {t_l if t_l is None else round(t_l, 4)}"
+        f"{'' if lib is None or not graph else f' (device {t_ldev:.4f})'}, "
+        f"bound {b:.4f} ms ({by}), {100 * b / t_dev:.1f}% of it{ratio}")
     return {"max_abs_err": err, "ms": t_k, "device_ms": t_dev,
-            "plain_ms": t_p, "library_ms": t_l, "bound_ms": b,
-            "bound_by": by, "bound_share": b / t_dev}
+            "plain_ms": t_p, "library_ms": t_l, "library_device_ms": t_ldev,
+            "bound_ms": b, "bound_by": by, "bound_share": b / t_dev,
+            "library_ratio": None if lib is None else t_dev / t_ldev}
 
 
 def kernel_per_rank(cfg, dev, gen) -> dict:
@@ -1494,6 +1500,8 @@ def kernel_per_rank(cfg, dev, gen) -> dict:
                 qw, kw, vw, attn_mask=mw)))
         del q, k, v, qr, kr, qw, kw, vw
         # #2: the vision full layers, the decoder prefill, the prefix
+        for dd in sorted({vc.head_dim, d}):
+            log(f"    flash bf16 D={dd}: {A.flash_attention_info(dd)}")
         flash = {}
         for case, (sq, sk, hq, hk, dd, live, causal, q_off) in {
                 "vision_full": (s_vis, s_vis, vh, vh, vc.head_dim, None,
@@ -1519,10 +1527,11 @@ def kernel_per_rank(cfg, dev, gen) -> dict:
                 lambda q=q, k=k, v=v, m=mask, c=causal, o=q_off:
                     A.flash_attention_plain(q, k, v, m, causal=c,
                                             q_offset=o),
-                _flash_work(sq, sk, hq, hk, dd, live_len, causal, q_off),
+                flash_work(sq, sk, hq, hk, dd, [live_len], causal, q_off),
                 lib=lambda qt=qt, kt=kt, vt=vt, m=sdpa_mask, g=hq != hk:
                     torch.nn.functional.scaled_dot_product_attention(
-                        qt, kt, vt, attn_mask=m, enable_gqa=g))
+                        qt, kt, vt, attn_mask=m, enable_gqa=g),
+                graph=True)
             del q, k, v, qt, kt, vt
         add("flash_attention", tp, {**flash["prefill"], "cases": flash})
         # #3 and #4: the int8 cache
@@ -5502,10 +5511,6 @@ PT_TINY_CASES = (
 PT_3B_MESHES = (("data=2", {"data": 2}, {}), ("fsdp=2", {"fsdp": 2}, {}),
                 ("seq=2", {"seq": 2}, {"sp": True}),
                 ("model=2", {"model": 2}, {}))
-# #2 at sequence parallelism's per-rank shape: a 3,072-token row of the 3B
-# decoder split over seq = 2, keys gathered whole, the corpus' first row's
-# live keys; and with its heads split over model = 2
-SP_Q, SP_K, SP_LIVE = 1536, 3072, 2950
 
 
 def pt_config(name: str):
@@ -5855,9 +5860,11 @@ def kernel_flash_sp(cfg, dev, gen) -> dict:
     live, causal, 16 heads over 2 kv heads and (model = 2 as well) 8 over
     1: the forward against the plain version at the bf16 limit, two calls
     bit-equal, dq/dk/dv of the autograd function within GRAD_TOL of float32
-    autograd, and kernel, device, plain and SDPA ms beside the bound."""
+    autograd, and kernel, device (CUDA graph), plain and SDPA ms beside the
+    bound."""
     t = pt_config("3b").text
-    out = {}
+    out = {"bf16_resources": A.flash_attention_info(t.head_dim)}
+    log(f"  flash bf16 D={t.head_dim}: {out['bf16_resources']}")
     for heads, kvh in ((t.num_heads, t.num_kv_heads),
                        (t.num_heads // 2, t.num_kv_heads // 2)):
         for q_off in (0, SP_Q):
@@ -5879,10 +5886,11 @@ def kernel_flash_sp(cfg, dev, gen) -> dict:
                                                  q_offset=q_off),
                 lambda: A.flash_attention_plain(q, k, v, mask, causal=True,
                                                 q_offset=q_off),
-                _flash_work(SP_Q, SP_K, heads, kvh, t.head_dim, SP_LIVE,
-                            True, q_off),
+                flash_work(SP_Q, SP_K, heads, kvh, t.head_dim, [SP_LIVE],
+                           True, q_off),
                 lib=lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=sdpa_mask, enable_gqa=True))
+                    qt, kt, vt, attn_mask=sdpa_mask, enable_gqa=True),
+                graph=True)
             dout = torch.randn_like(q.float()).bfloat16()
             row["autograd"] = autograd_check(
                 label, lambda q, k, v: A.attention(q, k, v, kv_mask=mask,

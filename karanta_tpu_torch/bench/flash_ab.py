@@ -1,0 +1,252 @@
+"""Kernel #2's bf16 instance (``ops/attention.py flash_attention``) at every
+bf16 shape ``chip_smoke.py`` times, from this tree's source and, with
+``--baseline DIR`` (repeatable), from other ``csrc`` directories (an
+earlier commit's kernels, or a copy of this tree's with one constant
+edited), in turns: each baseline, this tree twice, the baselines in
+reverse order.
+
+    python -m karanta_tpu_torch.bench.flash_ab
+    python -m karanta_tpu_torch.bench.flash_ab --baseline /path/to/old/csrc
+    python -m karanta_tpu_torch.bench.flash_ab --baseline A/csrc --baseline B/csrc
+    python -m karanta_tpu_torch.bench.flash_ab --only vision,prefill
+
+Shapes (Qwen2.5-VL-7B unless named): the decoder prefill (1, 1408, 28/4,
+128) causal, 1,390 live keys; the vision full layers (1, 5120, 16, 80)
+with the bench page's scattered validity mask; the prefix continuation
+(queries over the 2,048-row suffix bucket, keys 384 + 2,048, q_offset 384,
+1,700 live); batched prefill's (4, 5120, 16, 80) and (4, 1408, 28/4, 128);
+one rank's heads at tp = 2 and 4; a sequence-parallel rank of the 3B
+decoder, (1, 1536, 16/2 and 8/1, 128) over 3,072 gathered keys, 2,950
+live, at q_offset 0 and 1,536. Each shape is checked against the plain
+version at the bf16 limit (2^-7 |want| + 2^-9 max|want|) and timed on the
+device: 20 calls captured in a CUDA graph and replayed, so the wrapper's
+host time is left out; SDPA with the same masks beside it, and the bound
+(flops of the live pairs at 989 TFLOP/s, or bytes at 3.35 TB/s). One line
+per shape and source, then one JSON object. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import subprocess
+from pathlib import Path
+
+import torch
+
+from karanta_tpu_torch.bench.verify_runs import graph_ms
+from karanta_tpu_torch.kernels import build
+from karanta_tpu_torch.models.qwen25_vl.config import get_config
+from karanta_tpu_torch.models.qwen25_vl.layout import build_vision_layout
+from karanta_tpu_torch.ops import attention as A
+from karanta_tpu_torch.ops.image_prep import plan_image
+
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense
+PEAK_BYTES = 3.35e12
+# the served paths' prefix continuation: a ~1,700-token page prompt whose
+# first 384 tokens come from the prefix cache; the suffix's 1,316 tokens pad
+# to the 2048 bucket
+PREFIX_LEN, SUFFIX_LEN, SUFFIX_BUCKET = 384, 1316, 2048
+# sequence parallelism's per-rank shape: a 3,072-token row of the 3B
+# decoder split over seq = 2, keys gathered whole, the corpus' first row's
+# live keys
+SP_Q, SP_K, SP_LIVE = 1536, 3072, 2950
+# batched prefill: live keys of each page of a group. The vision full
+# layers: the bench page's valid mask (None), then pages with fewer and more
+# live tokens (scattered); the decoder prefill: ragged prompt lengths down
+# to one
+BATCHED_VISION_LIVE = (None, 3600, 5120, 900)
+BATCHED_PREFILL_LIVE = (1390, 700, 1408, 1)
+
+
+def baseline_fns(csrcs: list) -> dict:
+    """karanta_flash_attention of each csrc/flash_attention.cu, built in
+    parallel with the port's nvcc flags into the build directory; keyed by
+    the directory's name (its parent's if that is ``csrc``)."""
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs, libs = [], {}
+    for csrc in csrcs:
+        digest = hashlib.sha1(" ".join(build.NVCC_FLAGS).encode())
+        for src in (csrc / "flash_attention.cu", *sorted(csrc.glob("*.cuh"))):
+            digest.update(src.read_bytes())
+        out = build.BUILD_DIR / f"libflash-baseline-{digest.hexdigest()[:12]}.so"
+        name = csrc.name if csrc.name != "csrc" else csrc.parent.name
+        while name in libs:
+            name += "'"
+        libs[name] = out
+        if not out.exists():
+            procs.append(subprocess.Popen(
+                [build.nvcc(), *build.NVCC_FLAGS, "-o", str(out),
+                 str(csrc / "flash_attention.cu")]))
+    for proc in procs:
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc failed: {proc.args}")
+    fns = {}
+    for name, out in libs.items():
+        fn = ctypes.CDLL(str(out)).karanta_flash_attention
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                       + [ctypes.c_float] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
+        fns[name] = fn
+    return fns
+
+
+def flash_work(sq, sk, h, kvh, d, lives, causal, q_offset=0):
+    """Bytes (each input read once, output written once) and flops of the
+    (query, live key) pairs, summed over the batch's kv lengths (the live
+    keys counted, not their places)."""
+    pairs = 0
+    for live in lives:
+        if causal:
+            pairs += sum(min(q_offset + i + 1, live) for i in range(sq))
+        else:
+            pairs += sq * live
+    b = len(lives)
+    n_bytes = b * ((2 * sq * h * d + 2 * sk * kvh * d) * 2 + sk * 4)
+    return n_bytes, 4.0 * d * h * pairs
+
+
+def shapes(dev, gen) -> dict:
+    """name -> (q, k, v, mask, causal, q_offset, sdpa mask, work)."""
+    cfg = get_config("qwen2.5-vl-7b")
+    t, vc = cfg.text, cfg.vision
+    page = torch.from_numpy(build_vision_layout(plan_image(1288, 994),
+                                                vc).valid).to(dev)
+    s_vis = page.numel()
+
+    def case(b, sq, sk, h, kvh, d, lives, causal, q_off=0, vision=False):
+        q = torch.randn((b, sq, h, d), generator=gen, device=dev).bfloat16()
+        k = torch.randn((b, sk, kvh, d), generator=gen, device=dev).bfloat16()
+        v = torch.randn((b, sk, kvh, d), generator=gen, device=dev).bfloat16()
+        mask = torch.zeros((b, sk), device=dev)
+        for i, live in enumerate(lives):
+            if vision and live is None:
+                mask[i] = page
+            elif vision:
+                idx = torch.randperm(sk, generator=gen, device=dev)
+                mask[i, idx[:live]] = 1.0
+            else:
+                mask[i, :live] = 1.0
+        sdpa = (mask > 0)[:, None, None, :]
+        if causal:
+            sdpa = sdpa & torch.ones((sq, sk), dtype=torch.bool, device=dev
+                                     ).tril(diagonal=q_off)[None, None]
+        counts = [int(x) for x in mask.sum(-1).tolist()]
+        return (q, k, v, mask, causal, q_off, sdpa,
+                flash_work(sq, sk, h, kvh, d, counts, causal, q_off))
+
+    th, tk, td = t.num_heads, t.num_kv_heads, t.head_dim
+    out = {
+        "prefill": lambda: case(1, 1408, 1408, th, tk, td, [1390], True),
+        "vision": lambda: case(1, s_vis, s_vis, vc.num_heads, vc.num_heads,
+                               vc.head_dim, [None], False, vision=True),
+        "prefix": lambda: case(1, SUFFIX_BUCKET, PREFIX_LEN + SUFFIX_BUCKET,
+                               th, tk, td, [PREFIX_LEN + SUFFIX_LEN], True,
+                               PREFIX_LEN),
+        "vision_batched": lambda: case(
+            4, s_vis, s_vis, vc.num_heads, vc.num_heads, vc.head_dim,
+            list(BATCHED_VISION_LIVE), False, vision=True),
+        "prefill_batched": lambda: case(4, 1408, 1408, th, tk, td,
+                                        list(BATCHED_PREFILL_LIVE), True),
+    }
+    for tp in (2, 4):
+        vh, h, kvh = vc.num_heads // tp, th // tp, tk // tp
+        out[f"vision_tp{tp}"] = (lambda vh=vh: case(
+            1, s_vis, s_vis, vh, vh, vc.head_dim, [None], False,
+            vision=True))
+        out[f"prefill_tp{tp}"] = (lambda h=h, kvh=kvh: case(
+            1, 1408, 1408, h, kvh, td, [1390], True))
+        out[f"prefix_tp{tp}"] = (lambda h=h, kvh=kvh: case(
+            1, SUFFIX_BUCKET, PREFIX_LEN + SUFFIX_BUCKET, h, kvh, td,
+            [PREFIX_LEN + SUFFIX_LEN], True, PREFIX_LEN))
+    t3 = get_config("qwen2.5-vl-3b").text
+    for h, kvh in ((t3.num_heads, t3.num_kv_heads),
+                   (t3.num_heads // 2, t3.num_kv_heads // 2)):
+        for q_off in (0, SP_Q):
+            out[f"sp_h{h}_q{q_off}"] = (lambda h=h, kvh=kvh, q_off=q_off: case(
+                1, SP_Q, SP_K, h, kvh, t3.head_dim, [SP_LIVE], True, q_off))
+    return out
+
+
+def check_bf16(got, want) -> float:
+    """Worst |got - want| over the bf16 limit; raises above 1."""
+    got, want = got.float(), want.float()
+    limit = 2.0 ** -7 * want.abs() + 2.0 ** -9 * float(want.abs().max())
+    worst = float(((got - want).abs() / limit).max())
+    if not torch.isfinite(got).all() or not worst <= 1.0:
+        raise AssertionError(f"error {worst:.3g}x the bf16 limit")
+    return worst
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--baseline", type=Path, action="append", default=[],
+                        help="a csrc directory whose flash_attention.cu is "
+                             "timed in turns with this tree's (repeatable)")
+    parser.add_argument("--only", default="",
+                        help="comma-separated shape names (default: all)")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("flash_ab: needs a CUDA device")
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"[card] {smi}; torch {torch.__version__}", flush=True)
+    this = A._flash_fn()
+    others = baseline_fns(args.baseline)
+    fns = {"this": this, **others}
+    # in turns: each baseline, this tree twice, the baselines in reverse
+    order = [*others, "this", "this", *reversed(others)]
+    for d in sorted(set(A.FLASH_HEAD_DIMS)):
+        print(f"  this tree bf16 D={d}: {A.flash_attention_info(d)}",
+              flush=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    wanted = [x for x in args.only.split(",") if x]
+    results = {}
+    for name, make in shapes(dev, gen).items():
+        if wanted and name not in wanted:
+            continue
+        q, k, v, mask, causal, q_off, sdpa_mask, (n_bytes, flops) = make()
+        want = A.flash_attention_plain(q, k, v, mask, causal=causal,
+                                       q_offset=q_off)
+        bound = max(n_bytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS) * 1e3
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        gqa = q.shape[2] != k.shape[2]
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=sdpa_mask, enable_gqa=gqa)
+
+        row = {"shape": list(q.shape), "kv": list(k.shape), "causal": causal,
+               "q_offset": q_off, "bound_ms": bound, "ms": {}, "worst": {}}
+        for tree in order:
+            A._flash_fn = (lambda fn=fns[tree]: fn)
+            call = (lambda: A.flash_attention(q, k, v, mask, causal=causal,
+                                              q_offset=q_off))
+            got = call()
+            torch.cuda.synchronize()
+            row["worst"].setdefault(tree, []).append(check_bf16(got, want))
+            row["ms"].setdefault(tree, []).append(graph_ms(call))
+        A._flash_fn = (lambda fn=this: fn)
+        row["sdpa_ms"] = graph_ms(sdpa)
+        for tree, times in row["ms"].items():
+            best = min(times)
+            print(f"  {name} {tuple(q.shape)} kv {tuple(k.shape)} {tree}: "
+                  f"{', '.join(f'{x:.4f}' for x in times)} ms; bound "
+                  f"{bound:.4f} ms, {100 * bound / best:.1f}% of it; SDPA "
+                  f"{row['sdpa_ms']:.4f} ms, {best / row['sdpa_ms']:.2f}x; "
+                  f"worst err/limit {max(row['worst'][tree]):.3f}",
+                  flush=True)
+        results[name] = row
+        del q, k, v, mask, want, qt, kt, vt, sdpa_mask
+        torch.cuda.empty_cache()
+    print(json.dumps({"card": smi, "flash_bf16": results}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -12,33 +12,64 @@
 // 28 heads, D = 128, causal), the vision full layers (S = 5120, 16 heads,
 // D = 80) and the prefix continuation, attention does hundreds of flops per
 // byte, far above the card's balance point, so the bound is the tensor
-// cores' 989 TFLOP/s in bf16.
+// cores' 989 TFLOP/s in bf16. The exponentials come next: the card does 16
+// ex2 a clock an SM, and a score costs one ex2 beside 4 D flops of
+// products, so at the clock that gives 989 TFLOP/s they take about 63/D of
+// the tensor-core time (79% at D = 80, 49% at D = 128). A kernel that ran
+// softmax and products one after the other could not pass about 55% of
+// the bound at D = 80.
 //
-// The bf16 instance (flash_tc_kernel) is FlashAttention-2's structure on the
-// tensor cores. One block of 4 warps owns 128 query rows of one (batch,
-// head); each warp owns 32 rows as two 16-row m-tiles, so every K and V
-// fragment it loads feeds two products (16-row warps, 8 to a block, ran
-// slower: twice the ldmatrix traffic per flop). Q.K^T and P.V are
-// mma.sync.m16n8k16 in bf16 with float32 accumulators, operands from
-// ldmatrix (V through .trans, since it is key-major in shared memory but the
-// B operand of P.V); one template covers D = 16..128, which are whole
-// 16-wide k-steps and 8-wide n-tiles. 64-key K and V tiles and the tile's
-// mask slice stream through a ring of cp.async stages (2 at D = 128, 3
-// below), so the next tiles load while one computes; shared rows are padded
-// by 16 bytes, which makes every ldmatrix conflict-free. Registers: up to
-// 255 a thread, 2 blocks an SM. The scores stay in the accumulator
-// fragments: scale * log2(e) is folded into them, the row max and sum reduce
-// over the 4 lanes that share a row, and each score costs one ex2. P is
-// rounded to bf16 in registers and fed back as the A operand of P.V (as the
-// JAX kernel's p.astype(v.dtype)), while l sums the unrounded P. Causal
-// masking is applied only on tiles that cross a warp's diagonal and the Sk
-// tail only on the last tile; under causal masking query tiles are issued
-// longest first, heads fastest, so the last wave holds the shortest blocks.
-// wgmma (warpgroup products from shared memory) is the step past this
-// design, with what makes it pay: TMA loads from a producer warp, swizzled
-// operand tiles, and warpgroups that take turns so one's softmax overlaps
-// another's products. A wgmma kernel on this one's cp.async ring and
-// unswizzled tiles was right but no faster, and is not kept.
+// The bf16 instance (flash_wgmma_kernel) is warp-specialised for Hopper.
+// A block of three warpgroups owns 128 query rows of one (batch, head).
+// Warpgroup 0 is the producer: after setmaxnreg.dec to 24 registers, one
+// of its threads loads Q once and then K, V and the mask slice tile by tile
+// with TMA (cp.async.bulk.tensor) into a ring of 128-key stages (2 at D =
+// 128, 3 below), each with a full and an empty mbarrier; the tensor maps are
+// encoded on the host for every call, with the BSHD strides, so a box is
+// one head's rows. Warpgroups 1 and 2 are consumers of 64 rows each, at 240
+// registers after setmaxnreg.inc: S = Q.K^T is wgmma m64n128k16 with both
+// operands in shared memory; the softmax runs on the accumulator
+// fragments (scale * log2(e) folded in; a masked key's score is
+// fma(s, scale, -1e30); row max and sum over the quad of lanes that share
+// a row; one ex2 a score); P is rounded to bf16 in registers (the JAX
+// kernel's p.astype(v.dtype); l sums the unrounded P) and is the register
+// A operand of O += P.V, V the shared B operand, N-major through the
+// descriptor's transpose bit. The two consumers take turns to issue their
+// products under named barriers 1 and 2, so one's softmax runs while the
+// other's products do; each issues tile i's Q.K^T together with tile
+// i - 1's P.V and waits for the scores alone (wgmma.wait_group 1) before
+// its softmax. One block an SM; one fixed order of sums and no atomics,
+// and no tile or split depends on B, H or the grid, so a call gives the
+// same bits as any other and a batch the bits of its pages called alone.
+// Causal key tiles wholly above the block's diagonal are skipped and the
+// diagonal masked only on the tiles that cross a warpgroup's first row;
+// query tiles are issued longest first, heads fastest. TMA zero-fills rows
+// past Sq and Sk; the kernel masks keys past Sk itself and guards its
+// stores past Sq. The mask's box starts at the 16-byte aligned element
+// below the tile's first key (TMA's rule), four elements longer.
+//
+// Operand tiles are column planes, [plane][row][width], each plane as wide
+// as its swizzle, so that no head dim is padded: Q and K in planes of 64
+// columns (128-byte swizzle) and, at D = 80, one of 16 (32-byte swizzle);
+// V in planes of 64 columns, or of 16 at D = 80, so P.V is one product a
+// key step; D = 16 and 32 are one plane. Measured on an NVIDIA H100 80GB
+// HBM3 at its 700 W limit (bench/flash_ab.py, variants built from copies of
+// this file, each timed in turns with this one; PERF.md):
+// 16-column planes at every D ran as fast at D = 80 (vision (1, 5120, 16,
+// 80): 0.3221-0.3247 ms against 0.3183-0.3248) and 10-12% slower at D =
+// 128 (prefill (1, 1408, 28/4, 128): 0.0470-0.0474 against 0.0423-0.0426);
+// 64-column planes zero-filled to 128 at D = 80 (60% more Q.K^T) ran
+// 0.3426-0.3500 ms against the 16-column planes' 0.3623-0.3831 before the
+// mask became an fma, which took the vision shape from 0.36-0.38 to 0.32.
+// The turns under the named barriers are worth 5-10% (without them 0.3899-
+// 0.4049 ms at the vision shape against 0.3623-0.3831). ptxas schedules the
+// softmax's exponentials after the wait for the warpgroup's own P.V, not
+// under it; a copy whose stage release depends on the row sums keeps them
+// under it and ran 4% slower (0.3193-0.3203 against 0.3065-0.3072). At the
+// vision shape a consumer warpgroup spends 2,904 cycles a key tile, 56% of
+// them in the softmax, 22% issuing products, 11% waiting for tiles, turns
+// and products (bench/flash_trace.py): the softmax's issue and the ex2
+// unit, shared by the two consumers' warps on each scheduler, bound it.
 //
 // The float32 instance (flash_f32_kernel) runs on the tensor cores too, in
 // 3xTF32, as PyTorch's float32 SDPA does (CUTLASS's OpMultiplyAddFastF32).
@@ -73,304 +104,463 @@
 // P.V sums over keys, column t is taken as key 2t and t + 4 as key 2t + 1,
 // V's B fragment read from those two rows. D = 8 is one k-step of Q.K^T and
 // one n-tile of P.V.
+#include <string.h>
+
 #include "common.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace karanta {
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: TMA, wgmma, warp specialisation
 // ---------------------------------------------------------------------------
 
-// one block: kWarps warps of 16 * kMT query rows each; kBK-key tiles in a
-// ring of kStages; kMinBlocks resident blocks an SM (sets the register cap)
+// the wgmma descriptor's layout type and the tensor map's swizzle of a
+// plane `w` bf16 columns wide (2 w bytes a row, swizzled across them)
+__host__ __device__ constexpr uint32_t plane_layout(int w) {
+  return w == 64 ? 1 : w == 32 ? 2 : 3;  // 128-, 64-, 32-byte swizzle
+}
+
+// One block: kBM = 128 query rows of one (batch, head). Warpgroup 0 is the
+// producer (one thread issues every TMA load), warpgroups 1 and 2 the
+// consumers, 64 rows each. K and V come in kBN-key tiles through a ring of
+// kStages, the tile's mask slice beside K. An operand tile is stored as
+// column planes, [plane][row][width], each plane as wide as its swizzle:
+// Q and K as kFull planes of kWide = min(D, 64) columns and, at D = 80, one
+// more of kRest = 16 columns, so no head dim is padded; V as planes of
+// kVWide columns (16 at D = 80), so P.V is one product a key step.
 template <int D>
-struct TcTile {
-  static constexpr int kWarps = 4;
-  static constexpr int kMT = 2;
-  static constexpr int kBK = 64;
-  static constexpr int kMinBlocks = 2;
-  static constexpr int kBQ = kWarps * 16 * kMT;
-  static constexpr int kThreads = kWarps * 32;
-  static constexpr int kPitch = D + 8;  // shared row pitch (elements)
-  static constexpr int kTileElems = kBK * kPitch;
+struct WgTile {
+  static constexpr int kWide = D >= 64 ? 64 : D;
+  static constexpr int kFull = D / kWide;
+  static constexpr int kRest = D % kWide;
+  static constexpr int kVWide = kRest > 0 ? kRest : kWide;
+  static constexpr int kBM = 128, kBN = 128;
   static constexpr int kStages = D >= 128 ? 2 : 3;
-  static constexpr size_t kSmem =
-      (static_cast<size_t>(kBQ) * kPitch + 2 * kStages * kTileElems) *
-          sizeof(__nv_bfloat16) +
-      kStages * kBK * sizeof(float);
+  static constexpr int kThreads = 384;
+  static constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+  static constexpr uint32_t kQBytes = kBM * D * 2;
+  static constexpr uint32_t kTileBytes = kBN * D * 2;  // one K or V tile
+  // the mask slice's box starts at the 16-byte aligned element below the
+  // tile's first key (b Sk need not be a multiple of 4), so it is 4 longer
+  static constexpr int kMaskBox = kBN + 4;
+  static constexpr uint32_t kMaskBytes = kMaskBox * 4;
+  static constexpr uint32_t kMaskSlot = (kMaskBytes + 127) / 128 * 128;
+  static constexpr uint32_t kOffK = kQBytes;
+  static constexpr uint32_t kOffV = kOffK + kStages * kTileBytes;
+  static constexpr uint32_t kOffMask = kOffV + kStages * kTileBytes;
+  static constexpr uint32_t kOffBar = kOffMask + kStages * kMaskSlot;
+  static constexpr int kBars = 1 + 4 * kStages;
+  // + 1024: the base is rounded up to the swizzle atoms' 1024-byte alignment
+  static constexpr size_t kSmem = kOffBar + kBars * 8 + 1024;
+
+  // the byte offset of column `col`'s plane in a tile of `rows` rows, its
+  // width, and the column's byte offset inside the plane's rows
+  __device__ static constexpr uint32_t plane_base(int col, int rows) {
+    return (col / kWide) * rows * kWide * 2;
+  }
+  __device__ static constexpr int plane_width(int col) {
+    return col < kFull * kWide ? kWide : kRest;
+  }
+  __device__ static constexpr uint32_t in_row(int col) { return (col % kWide) * 2; }
 };
 
+// shared descriptor of a K-major operand (Q, K): rows 2 w bytes apart, 8-row
+// groups 16 w bytes apart
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr, int w) {
+  return gmma_desc(addr, 16, 16 * w, plane_layout(w));
+}
+
+// S = Q K^T of one warpgroup's 64 rows (from row q_row of Q's planes) over
+// the depth's 16-wide k-steps, Q and K K-major; a k-step is 32 bytes along
+// its plane's rows
 template <int D>
-__global__ void __launch_bounds__(TcTile<D>::kThreads, TcTile<D>::kMinBlocks)
-    flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const float* __restrict__ mask,
-                    __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H, int KVH,
-                    float scale_log2, int causal, int q_offset) {
-  using Tile = TcTile<D>;
-  constexpr int P = Tile::kPitch, kMT = Tile::kMT, kBK = Tile::kBK, kBQ = Tile::kBQ;
-  constexpr int kStages = Tile::kStages, kThreads = Tile::kThreads;
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  constexpr int kN = kBK / 8;     // score n-tiles per key tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][P]
-  __nv_bfloat16* k_s = q_s + kBQ * P;                       // [stages][BK][P]
-  __nv_bfloat16* v_s = k_s + kStages * Tile::kTileElems;    // [stages][BK][P]
-  float* live_s = reinterpret_cast<float*>(v_s + kStages * Tile::kTileElems);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int h = blockIdx.x, b = blockIdx.z;
-  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int q0 = qt * kBQ;
-  const int kvh = h / (H / KVH);
-  const size_t q_pitch = static_cast<size_t>(H) * D;
-  const size_t kv_pitch = static_cast<size_t>(KVH) * D;
-  const __nv_bfloat16* q_base = q + (static_cast<size_t>(b) * Sq * H + h) * D;
-  const __nv_bfloat16* k_base = k + (static_cast<size_t>(b) * Sk * KVH + kvh) * D;
-  const __nv_bfloat16* v_base = v + (static_cast<size_t>(b) * Sk * KVH + kvh) * D;
-  const float* mask_row = mask == nullptr ? nullptr : mask + static_cast<size_t>(b) * Sk;
-
-  const int k_end = causal ? min(Sk, q_offset + q0 + kBQ) : Sk;
-  const int n_tiles = (k_end + kBK - 1) / kBK;
-
-  // rows past Sq and keys past Sk are zero-filled (src-size 0 from row 0)
-  for (int c = tid; c < kBQ * kChunks; c += kThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const bool ok = q0 + r < Sq;
-    cp_async16(q_s + r * P + col, q_base + (ok ? q0 + r : 0) * q_pitch + col, ok ? 16 : 0);
+__device__ __forceinline__ void issue_qk(float (&s)[WgTile<D>::kBN / 2], uint32_t q_addr,
+                                         int q_row, uint32_t k_addr) {
+  using T = WgTile<D>;
+  reg_fence(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int col = 16 * kk, w = T::plane_width(col);
+    const uint64_t da =
+        kmajor_desc(q_addr + T::plane_base(col, T::kBM) + q_row * 2 * w + T::in_row(col), w);
+    const uint64_t db = kmajor_desc(k_addr + T::plane_base(col, T::kBN) + T::in_row(col), w);
+    wgmma_ss<T::kBN>(s, da, db, kk > 0);
   }
-  auto load_tile = [&](int tile) {
-    const int k0 = tile * kBK, stage = tile % kStages;
-    __nv_bfloat16* ks = k_s + stage * Tile::kTileElems;
-    __nv_bfloat16* vs = v_s + stage * Tile::kTileElems;
-    for (int c = tid; c < kBK * kChunks; c += kThreads) {
-      const int r = c / kChunks, col = (c % kChunks) * 8;
-      const bool ok = k0 + r < Sk;
-      const size_t off = (ok ? k0 + r : 0) * kv_pitch + col;
-      cp_async16(ks + r * P + col, k_base + off, ok ? 16 : 0);
-      cp_async16(vs + r * P + col, v_base + off, ok ? 16 : 0);
-    }
-    if (mask_row != nullptr) {
-      for (int c = tid; c < kBK; c += kThreads) {
-        const bool ok = k0 + c < Sk;
-        cp_async4(live_s + stage * kBK + c, mask_row + (ok ? k0 + c : 0), ok ? 4 : 0);
-      }
-    }
-  };
-  // prologue: Q with tile 0, then tiles up to kStages - 2, one group each
+  wgmma_commit();
+  reg_fence(s);
+}
+
+// O += P V over the tile's 16-key steps: P from registers, V N-major (a
+// step starts 16 rows into the planes, whose N atoms lie a plane apart,
+// the leading byte offset)
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&p)[WgTile<D>::kBN / 16][4],
+                                         uint32_t v_addr) {
+  using T = WgTile<D>;
+  constexpr uint32_t kRow = 2 * T::kVWide;
+  reg_fence(o);
+  wgmma_fence();
 #pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < n_tiles) load_tile(st);
-    cp_async_commit();
+  for (int kk = 0; kk < T::kBN / 16; ++kk) {
+    wgmma_rs_tb<D>(o, p[kk],
+                   gmma_desc(v_addr + kk * 16 * kRow, T::kBN * kRow, 8 * kRow,
+                             plane_layout(T::kVWide)),
+                   1);
   }
+  wgmma_commit();
+  reg_fence(o);
+}
 
-  // this lane's ldmatrix row addresses: Q as A (rows + lane % 16, column
-  // half lane / 16), K as B of Q.K^T (keys + lane % 8 + 8 (lane / 16),
-  // column half (lane / 8) % 2), V as B of P.V through .trans (keys +
-  // lane % 8 + 8 ((lane / 8) % 2), column half lane / 16)
-  const int w0 = warp * 16 * kMT;  // the warp's first row in the block
-  const __nv_bfloat16* q_frag = q_s + (w0 + (lane & 15)) * P + (lane >> 4) * 8;
-  const int k_lane = ((lane & 7) + ((lane >> 4) << 3)) * P + ((lane >> 3) & 1) * 8;
-  const int v_lane = ((lane & 7) + (((lane >> 3) & 1) << 3)) * P + (lane >> 4) * 8;
-
-  // lane rows: w0 + 16 mt + g + 8 i for m-tile mt and half i
-  const int qpos0 = q_offset + q0 + w0 + g;
-  const int warp_first = q_offset + q0 + w0;  // the warp's lowest position
-
-  float o[kMT][D / 8][4];
+// One tile's scores into the log2 domain and masked: a masked key's score
+// is fma(s, scale, -1e30) = -1e30 (the scores are far below an ulp of
+// 1e30), keys above the diagonal -1e30, keys past Sk -inf. Then the online
+// softmax over the quad of lanes that share a row: the new max, alpha =
+// exp2(old - new), one ex2 a score in place, l rescaled and summed. The
+// lane holds rows (positions) pos0 and pos0 + 8, columns k0 + 8j + 2t + e.
+template <int D>
+__device__ __forceinline__ void softmax_tile(float (&s)[WgTile<D>::kBN / 2], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             const float* live, int k0, int Sk, int t,
+                                             int pos0, bool diag, float scale_log2) {
+  constexpr int kBN = WgTile<D>::kBN;
+  if (live != nullptr) {
 #pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) o[mt][n][0] = o[mt][n][1] = o[mt][n][2] = o[mt][n][3] = 0.f;
-  }
-  float m[kMT][2], l[kMT][2];
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
-    m[mt][0] = m[mt][1] = kNegInf;
-    l[mt][0] = l[mt][1] = 0.f;
-  }
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // tile landed for every thread; tile - 1's stage is free
-    if (tile + kStages - 1 < n_tiles) load_tile(tile + kStages - 1);
-    cp_async_commit();
-
-    const int stage = tile % kStages, k0 = tile * kBK;
-    const __nv_bfloat16* ks = k_s + stage * Tile::kTileElems;
-    const __nv_bfloat16* vs = v_s + stage * Tile::kTileElems;
-    const float* live = live_s + stage * kBK;
-
-    // S = Q K^T: 16 kMT rows x kBK keys per warp, in accumulator fragments
-    float s[kMT][kN][4];
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-      for (int j = 0; j < kN; ++j) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[kMT][4];
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) ldmatrix_x4(a[mt], q_frag + mt * 16 * P + kk * 16);
-#pragma unroll
-      for (int jp = 0; jp < kN / 2; ++jp) {
-        uint32_t bb[4];
-        ldmatrix_x4(bb, ks + jp * 16 * P + k_lane + kk * 16);
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          mma_bf16_16816(s[mt][2 * jp], a[mt], bb[0], bb[1]);
-          mma_bf16_16816(s[mt][2 * jp + 1], a[mt], bb[2], bb[3]);
-        }
-      }
-    }
-
-    // scale into the log2 domain, then mask: element e of fragment j of
-    // m-tile mt is row w0 + 16 mt + g + 8 (e / 2), key k0 + 8j + 2t + e % 2;
-    // masked keys score -1e30, keys past Sk -inf
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-      for (int j = 0; j < kN; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[mt][j][e] *= scale_log2;
-      }
-    }
-    if (mask_row != nullptr) {
-#pragma unroll
-      for (int j = 0; j < kN; ++j) {
-        const float2 lv = *reinterpret_cast<const float2*>(live + 8 * j + 2 * t);
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            if (!(((e & 1) ? lv.y : lv.x) > 0.f)) s[mt][j][e] = kNegInf;
-          }
-        }
-      }
-    }
-    if (causal && k0 + kBK - 1 > warp_first) {  // the tile crosses the diagonal
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-        for (int j = 0; j < kN; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            if (k0 + 8 * j + 2 * t + (e & 1) > qpos0 + 16 * mt + 8 * (e >> 1)) {
-              s[mt][j][e] = kNegInf;
-            }
-          }
-        }
-      }
-    }
-    if (k0 + kBK > Sk) {  // the last tile: keys past Sk are not keys at all
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-        for (int j = 0; j < kN; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            if (k0 + 8 * j + 2 * t + (e & 1) >= Sk) s[mt][j][e] = -CUDART_INF_F;
-          }
-        }
-      }
-    }
-
-    // online softmax over the quad of lanes that share a row, one rescale
-    // of O per tile
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
-      float mx[2] = {m[mt][0], m[mt][1]}, alpha[2];
-#pragma unroll
-      for (int j = 0; j < kN; ++j) {
-        mx[0] = fmaxf(mx[0], fmaxf(s[mt][j][0], s[mt][j][1]));
-        mx[1] = fmaxf(mx[1], fmaxf(s[mt][j][2], s[mt][j][3]));
-      }
+    for (int j = 0; j < kBN / 8; ++j) {
+      const float b0 = live[8 * j + 2 * t] > 0.f ? 0.f : kNegInf;
+      const float b1 = live[8 * j + 2 * t + 1] > 0.f ? 0.f : kNegInf;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        alpha[i] = fast_exp2(m[mt][i] - mx[i]);
-        m[mt][i] = mx[i];
-        l[mt][i] *= alpha[i];
-      }
-#pragma unroll
-      for (int j = 0; j < kN; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[mt][j][e] = fast_exp2(s[mt][j][e] - mx[e >> 1]);
-          l[mt][e >> 1] += s[mt][j][e];  // this lane's share of the row sum
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        o[mt][n][0] *= alpha[0];
-        o[mt][n][1] *= alpha[0];
-        o[mt][n][2] *= alpha[1];
-        o[mt][n][3] *= alpha[1];
+        s[4 * j + 2 * i] = fmaf(s[4 * j + 2 * i], scale_log2, b0);
+        s[4 * j + 2 * i + 1] = fmaf(s[4 * j + 2 * i + 1], scale_log2, b1);
       }
     }
-
-    // O += P V: P's accumulator fragments are the A fragments of 16-key steps
+  } else {
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t a[kMT][4];
+    for (int x = 0; x < kBN / 2; ++x) s[x] *= scale_log2;
+  }
+  if (diag) {
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        a[mt][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
-        a[mt][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
-        a[mt][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
-        a[mt][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
-      }
+    for (int j = 0; j < kBN / 8; ++j) {
 #pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        uint32_t bb[4];
-        ldmatrix_x4_trans(bb, vs + kk * 16 * P + v_lane + np * 16);
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          mma_bf16_16816(o[mt][2 * np], a[mt], bb[0], bb[1]);
-          mma_bf16_16816(o[mt][2 * np + 1], a[mt], bb[2], bb[3]);
-        }
+      for (int x = 0; x < 4; ++x) {
+        if (k0 + 8 * j + 2 * t + (x & 1) > pos0 + 8 * (x >> 1)) s[4 * j + x] = kNegInf;
       }
     }
   }
-  cp_async_wait<0>();
+  if (k0 + kBN > Sk) {  // the last tile: keys past Sk are not keys at all
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        if (k0 + 8 * j + 2 * t + (x & 1) >= Sk) s[4 * j + x] = -CUDART_INF_F;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = m[i];
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    alpha[i] = fast_exp2(m[i] - mx);
+    m[i] = mx;
+    l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int x = 0; x < kBN / 2; ++x) {
+    s[x] = fast_exp2(s[x] - m[(x >> 1) & 1]);
+    l[(x >> 1) & 1] += s[x];  // this lane's share of the row sum
+  }
+}
+
+// P rounded to bf16 as the A operand of P.V (the JAX kernel's
+// p.astype(v.dtype)); l summed the unrounded P. Columns 16kk..16kk+15 are
+// the A operand of k-step kk.
+template <int D>
+__device__ __forceinline__ void scores_to_p(const float (&s)[WgTile<D>::kBN / 2],
+                                            uint32_t (&p)[WgTile<D>::kBN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < WgTile<D>::kBN / 16; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void rescale(float (&o)[D / 2], const float (&alpha)[2]) {
+#pragma unroll
+  for (int x = 0; x < D / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
+}
+
+// lane 0 of each consumer warp frees a stage once the whole warp is done
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+// one tile (`rows` rows from `row`) of a tensor into its planes: the full
+// planes through `wide`, the last 16 columns at D = 80 through `rest`
+template <int D>
+__device__ __forceinline__ void load_planes(unsigned char* dst, const CUtensorMap* wide,
+                                            const CUtensorMap* rest, uint64_t* bar, int rows,
+                                            int row, int head, int b) {
+  using T = WgTile<D>;
+#pragma unroll
+  for (int p = 0; p < T::kFull; ++p) {
+    tma_load_4d(dst + p * rows * T::kWide * 2, wide, bar, p * T::kWide, row, head, b);
+  }
+  if constexpr (T::kRest > 0) {
+    tma_load_4d(dst + T::kFull * rows * T::kWide * 2, rest, bar, T::kFull * T::kWide, row,
+                head, b);
+  }
+}
+
+// Maps: q and k through boxes of kWide columns, q2 and k2 their last 16
+// columns at D = 80 (unused otherwise), v through boxes of kVWide columns,
+// the mask as one row of B Sk values.
+template <int D>
+__global__ void __launch_bounds__(WgTile<D>::kThreads, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_q2,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_k2,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_mask, int has_mask,
+                       __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H, int KVH,
+                       float scale_log2, int causal, int q_offset) {
+  using T = WgTile<D>;
+  constexpr int kBM = T::kBM, kBN = T::kBN, kStages = T::kStages;
+  extern __shared__ __align__(128) unsigned char wg_smem[];
+  unsigned char* smem = wg_smem + ((1024 - (smem_u32(wg_smem) & 1023)) & 1023);
+  unsigned char* q_s = smem;
+  unsigned char* k_s = smem + T::kOffK;
+  unsigned char* v_s = smem + T::kOffV;
+  float* mask_s = reinterpret_cast<float*>(smem + T::kOffMask);
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + T::kOffBar);
+  uint64_t* full_k = full_q + 1;
+  uint64_t* full_v = full_k + kStages;
+  uint64_t* empty_k = full_v + kStages;
+  uint64_t* empty_v = empty_k + kStages;
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * kBM;
+  const int kvh = h / (H / KVH);
+  const int k_end = causal ? min(Sk, q_offset + q0 + kBM) : Sk;
+  const int n_tiles = (k_end + kBN - 1) / kBN;
+
+  if (tid == 0) {
+    mbar_init(full_q, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], 8);  // lane 0 of each consumer warp
+      mbar_init(&empty_v[s], 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: Q once, then K (with its mask slice) and V tile by tile
+    regs_dec<T::kProducerRegs>();
+    if (tid == 0) {
+      mbar_expect_tx(full_q, T::kQBytes);
+      load_planes<D>(q_s, &tm_q, &tm_q2, full_q, kBM, q0, h, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages;
+        const uint32_t parity = ((i / kStages) & 1) ^ 1;  // first pass: free
+        mbar_wait(&empty_k[s], parity);
+        mbar_expect_tx(&full_k[s], T::kTileBytes + (has_mask ? T::kMaskBytes : 0));
+        load_planes<D>(k_s + s * T::kTileBytes, &tm_k, &tm_k2, &full_k[s], kBN, i * kBN, kvh, b);
+        if (has_mask) {
+          tma_load_1d(mask_s + s * (T::kMaskSlot / 4), &tm_mask, &full_k[s],
+                      (b * Sk + i * kBN) & ~3);
+        }
+        mbar_wait(&empty_v[s], parity);
+        mbar_expect_tx(&full_v[s], T::kTileBytes);
+#pragma unroll
+        for (int p = 0; p < D / T::kVWide; ++p) {
+          tma_load_4d(v_s + s * T::kTileBytes + p * kBN * T::kVWide * 2, &tm_v, &full_v[s],
+                      p * T::kVWide, i * kBN, kvh, b);
+        }
+      }
+    }
+  } else {
+    regs_inc<T::kConsumerRegs>();
+    const int cw = wg - 1;  // consumer warpgroup: rows 64 cw .. 64 cw + 63
+    const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int row0 = 64 * cw + 16 * warp + g;  // the lane's rows: row0, row0 + 8
+    const int pos0 = q_offset + q0 + row0;
+    const int wg_first = q_offset + q0 + 64 * cw;  // the warpgroup's lowest position
+    const uint32_t q_addr = smem_u32(q_s), k_addr = smem_u32(k_s), v_addr = smem_u32(v_s);
+    // the lane's mask values start (b Sk) % 4 into each slot
+    const float* live = has_mask ? mask_s + ((b * Sk) & 3) : nullptr;
+
+    float s[kBN / 2], o[D / 2];
+    uint32_t p[kBN / 16][4];
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2] = {1.f, 1.f};
+#pragma unroll
+    for (int x = 0; x < kBN / 2; ++x) s[x] = 0.f;
+#pragma unroll
+    for (int x = 0; x < D / 2; ++x) o[x] = 0.f;
+
+    // The two warpgroups take turns to issue their products (named
+    // barriers 1 and 2), so one's softmax runs under the other's products;
+    // the second waits for the first's first turn.
+    if (cw == 1) named_arrive(1, 256);
+    mbar_wait(full_q, 0);
+
+    mbar_wait(&full_k[0], 0);
+    named_sync(1 + cw, 256);
+    issue_qk<D>(s, q_addr, 64 * cw, k_addr);
+    named_arrive(2 - cw, 256);
+    wgmma_wait<0>();
+    reg_fence(s);
+    softmax_tile<D>(s, m, l, alpha, live, 0, Sk, t, pos0, causal && kBN - 1 > wg_first,
+                    scale_log2);
+    release(&empty_k[0], lane);
+    scores_to_p<D>(s, p);
+    for (int i = 1; i < n_tiles; ++i) {
+      const int st = i % kStages, pst = (i - 1) % kStages;
+      mbar_wait(&full_k[st], (i / kStages) & 1);
+      named_sync(1 + cw, 256);
+      issue_qk<D>(s, q_addr, 64 * cw, k_addr + st * T::kTileBytes);  // under the softmax below
+      rescale<D>(o, alpha);
+      mbar_wait(&full_v[pst], ((i - 1) / kStages) & 1);
+      issue_pv<D>(o, p, v_addr + pst * T::kTileBytes);
+      named_arrive(2 - cw, 256);
+      wgmma_wait<1>();  // tile i's scores landed; P.V of tile i - 1 may still run
+      reg_fence(s);
+      softmax_tile<D>(s, m, l, alpha, has_mask ? live + st * (T::kMaskSlot / 4) : nullptr,
+                      i * kBN, Sk, t, pos0, causal && (i + 1) * kBN - 1 > wg_first,
+                      scale_log2);
+      release(&empty_k[st], lane);
+      wgmma_wait<0>();
+      reg_fence(o);
+      release(&empty_v[pst], lane);
+      scores_to_p<D>(s, p);
+    }
+    const int lst = (n_tiles - 1) % kStages;
+    rescale<D>(o, alpha);
+    mbar_wait(&full_v[lst], ((n_tiles - 1) / kStages) & 1);
+    named_sync(1 + cw, 256);
+    issue_pv<D>(o, p, v_addr + lst * T::kTileBytes);
+    if (cw == 0) named_arrive(2, 256);  // the second's last turn; the first has none left
+    wgmma_wait<0>();
+    reg_fence(o);
 
 #pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
     for (int i = 0; i < 2; ++i) {
-      float sum = l[mt][i];
+      float sum = l[i];
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       const float inv = sum == 0.f ? 1.f : 1.f / sum;
-      const int row = q0 + w0 + 16 * mt + g + 8 * i;
+      const int row = q0 + row0 + 8 * i;
       if (row >= Sq) continue;
       __nv_bfloat16* orow = out + ((static_cast<size_t>(b) * Sq + row) * H + h) * D + 2 * t;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
-            __floats2bfloat162_rn(o[mt][n][2 * i] * inv, o[mt][n][2 * i + 1] * inv);
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+            __floats2bfloat162_rn(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
       }
     }
   }
 }
 
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// (the library links no libcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// the tensor map of a contiguous bf16 (B, S, NH, D) tensor whose box is
+// `rows` rows of one (batch, head) by w columns, swizzled across them
+inline CUresult encode_bshd(CUtensorMap* map, const void* base, int B, int S, int NH, int D,
+                            int w, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(NH), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(NH) * D * 2,
+                                 static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(S) * NH * D * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(w), static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const uint32_t layout = plane_layout(w);
+  const CUtensorMapSwizzle swizzle = layout == 1   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : layout == 2 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// the float32 mask (B, Sk) as one row of B Sk values, boxes of `n` (a box
+// must start at a 16-byte aligned element)
+inline CUresult encode_mask(CUtensorMap* map, const float* mask, int B, int Sk, int n) {
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(B) * Sk};
+  const cuuint64_t strides[1] = {0};
+  const cuuint32_t box[1] = {static_cast<cuuint32_t>(n)};
+  const cuuint32_t step[1] = {1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(mask), dims,
+                        strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// 0, the launch's CUDA error code, or the driver's code of a failed encode
 template <int D>
-cudaError_t launch_flash_tc(const void* q, const void* k, const void* v, const float* mask,
-                            void* out, int B, int Sq, int Sk, int H, int KVH, float scale,
-                            int causal, int q_offset, cudaStream_t stream) {
-  using Tile = TcTile<D>;
-  auto kernel = flash_tc_kernel<D>;
-  cudaError_t err = allow_smem(kernel, Tile::kSmem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(H, (Sq + Tile::kBQ - 1) / Tile::kBQ, B);
-  kernel<<<grid, Tile::kThreads, Tile::kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), mask, static_cast<__nv_bfloat16*>(out), Sq, Sk,
-      H, KVH, scale * kLog2e, causal, q_offset);
-  return cudaGetLastError();
+int launch_flash_wgmma(const void* q, const void* k, const void* v, const float* mask, void* out,
+                       int B, int Sq, int Sk, int H, int KVH, float scale, int causal,
+                       int q_offset, cudaStream_t stream) {
+  using T = WgTile<D>;
+  if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  CUtensorMap tq, tk, tv, tq2, tk2, tm;
+  memset(&tq2, 0, sizeof(tq2));
+  memset(&tk2, 0, sizeof(tk2));
+  memset(&tm, 0, sizeof(tm));
+  CUresult r = encode_bshd(&tq, q, B, Sq, H, D, T::kWide, T::kBM);
+  if (r == CUDA_SUCCESS) r = encode_bshd(&tk, k, B, Sk, KVH, D, T::kWide, T::kBN);
+  if (r == CUDA_SUCCESS) r = encode_bshd(&tv, v, B, Sk, KVH, D, T::kVWide, T::kBN);
+  if (T::kRest > 0) {
+    if (r == CUDA_SUCCESS) r = encode_bshd(&tq2, q, B, Sq, H, D, T::kRest, T::kBM);
+    if (r == CUDA_SUCCESS) r = encode_bshd(&tk2, k, B, Sk, KVH, D, T::kRest, T::kBN);
+  }
+  if (r == CUDA_SUCCESS && mask != nullptr) r = encode_mask(&tm, mask, B, Sk, T::kMaskBox);
+  if (r != CUDA_SUCCESS) return static_cast<int>(r);
+  auto kernel = flash_wgmma_kernel<D>;
+  cudaError_t err = allow_smem(kernel, T::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(H, (Sq + T::kBM - 1) / T::kBM, B);
+  kernel<<<grid, T::kThreads, T::kSmem, stream>>>(tq, tq2, tk, tk2, tv, tm, mask != nullptr,
+                                                  static_cast<__nv_bfloat16*>(out), Sq, Sk, H,
+                                                  KVH, scale * kLog2e, causal, q_offset);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -751,18 +941,18 @@ cudaError_t launch_flash_f32(const void* q, const void* k, const void* v, const 
 // ---------------------------------------------------------------------------
 
 template <int D>
-cudaError_t launch_flash(int dtype, const void* q, const void* k, const void* v,
-                         const float* mask, void* out, int B, int Sq, int Sk, int H,
-                         int KVH, float scale, int causal, int q_offset, cudaStream_t st) {
+int launch_flash(int dtype, const void* q, const void* k, const void* v, const float* mask,
+                 void* out, int B, int Sq, int Sk, int H, int KVH, float scale, int causal,
+                 int q_offset, cudaStream_t st) {
   if (dtype == kBFloat16) {
-    return launch_flash_tc<D>(q, k, v, mask, out, B, Sq, Sk, H, KVH, scale, causal,
-                              q_offset, st);
+    return launch_flash_wgmma<D>(q, k, v, mask, out, B, Sq, Sk, H, KVH, scale, causal,
+                                 q_offset, st);
   }
   if (dtype == kFloat32) {
-    return launch_flash_f32<D>(q, k, v, mask, out, B, Sq, Sk, H, KVH, scale, causal,
-                               q_offset, st);
+    return static_cast<int>(launch_flash_f32<D>(q, k, v, mask, out, B, Sq, Sk, H, KVH, scale,
+                                                causal, q_offset, st));
   }
-  return cudaErrorInvalidValue;
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // registers, local (spilled) bytes, dynamic shared bytes and resident
@@ -788,7 +978,7 @@ cudaError_t flash_f32_info(int* info) {
 template <int D>
 cudaError_t flash_info(int dtype, int* info) {
   if (dtype == kBFloat16) {
-    return kernel_info(flash_tc_kernel<D>, TcTile<D>::kThreads, TcTile<D>::kSmem, info);
+    return kernel_info(flash_wgmma_kernel<D>, WgTile<D>::kThreads, WgTile<D>::kSmem, info);
   }
   if (dtype == kFloat32) return flash_f32_info<D>(info);
   return cudaErrorInvalidValue;
@@ -800,8 +990,9 @@ cudaError_t flash_info(int dtype, int* info) {
 
 // C interface (loaded with ctypes). q/out contiguous (B, Sq, H, D), k/v
 // contiguous (B, Sk, KVH, D), of the type `dtype` names; mask float32 (B, Sk)
-// or null. D is one of KARANTA_FLASH_HEAD_DIMS, or 8 in float32. Returns the
-// CUDA error code of the launch.
+// or null, all 16-byte aligned. D is one of KARANTA_FLASH_HEAD_DIMS, or 8 in
+// float32. Returns 0, the CUDA error code of the launch, or (bf16) the
+// driver's CUresult of a tensor map it could not encode.
 extern "C" int karanta_flash_attention(const void* q, const void* k, const void* v,
                                        const float* mask, void* out, int B, int Sq,
                                        int Sk, int H, int KVH, int D, float scale,
@@ -819,9 +1010,8 @@ extern "C" int karanta_flash_attention(const void* q, const void* k, const void*
   switch (D) {
 #define KARANTA_CASE(d)                                                                  \
   case d:                                                                                \
-    return static_cast<int>(karanta::launch_flash<d>(dtype, q, k, v, mask, out, B, Sq, \
-                                                     Sk, H, KVH, scale, causal,          \
-                                                     q_offset, st));
+    return karanta::launch_flash<d>(dtype, q, k, v, mask, out, B, Sq, Sk, H, KVH, scale, \
+                                    causal, q_offset, st);
     KARANTA_FLASH_HEAD_DIMS(KARANTA_CASE)
 #undef KARANTA_CASE
     default:
@@ -846,4 +1036,12 @@ extern "C" int karanta_flash_attention_info(int D, int dtype, int* info) {
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// regs[2] = the registers a thread of the bf16 instance's producer and of
+// its consumer warpgroups holds after setmaxnreg (the same at every D)
+extern "C" int karanta_flash_attention_roles(int* regs) {
+  regs[0] = karanta::WgTile<16>::kProducerRegs;
+  regs[1] = karanta::WgTile<16>::kConsumerRegs;
+  return 0;
 }

@@ -196,7 +196,8 @@ def flash_attention_info(d: int, dtype: torch.dtype = torch.bfloat16
     """Registers and spilled bytes per thread, dynamic shared bytes per block
     and resident blocks per SM of the flash kernel's instance for head dim d
     in `dtype` (bf16 or float32), as the CUDA runtime reports them (needs
-    the card)."""
+    the card); for bf16 also the registers a producer and a consumer
+    thread hold after the kernel reallocates them."""
     if d not in (FLASH_F32_HEAD_DIMS if dtype == torch.float32
                  else FLASH_HEAD_DIMS):
         raise ValueError(f"flash_attention_info: no kernel for head dim {d} "
@@ -207,8 +208,17 @@ def flash_attention_info(d: int, dtype: torch.dtype = torch.bfloat16
     info = (ctypes.c_int * 4)()
     kernels.raise_on_error("flash_attention_info",
                            fn(d, kernels.DTYPE_CODES[dtype], info))
-    return dict(zip(("registers", "spill_bytes", "smem_bytes",
-                     "blocks_per_sm"), info))
+    out = dict(zip(("registers", "spill_bytes", "smem_bytes",
+                    "blocks_per_sm"), info))
+    if dtype == torch.bfloat16:
+        # the warp-specialised instance moves registers between its roles
+        roles = library("flash_attention").karanta_flash_attention_roles
+        roles.restype = ctypes.c_int
+        roles.argtypes = [ctypes.c_void_p]
+        regs = (ctypes.c_int * 2)()
+        kernels.raise_on_error("flash_attention_info", roles(regs))
+        out.update(producer_registers=regs[0], consumer_registers=regs[1])
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -97,6 +97,52 @@ def test_flash_plain_matches_pallas_bf16(b, sq, sk, h, kvh, d, causal, masked,
     _assert_bf16_rule(got.float().numpy(), want)
 
 
+# the edges of the card's bf16 flash kernel (128-row query blocks, 128-key
+# TMA boxes; tests/test_torch_kernels_gpu.py BF16_EDGE_CASES): lengths of
+# 1, 63, 65 and 129, GQA 7/1 and 14/2, causal at a q_offset with Sk > Sq,
+# and a mask with whole 128-key tiles dead and a batch row without a live
+# key. The plain version that the kernel is held to on the card agrees with
+# the Pallas kernel there, on every batch row with a live key: a row
+# without one the Pallas kernel averages over its keys padded to its 128-key
+# block, the port (plain and kernel) over the Sk keys.
+FLASH_EDGE_CASES = [
+    # (b, sq, sk, h, kvh, d, causal, mask, q_offset)
+    (1, 1, 1, 2, 1, 64, False, None, 0),
+    (2, 63, 65, 7, 1, 128, False, "tail", 0),
+    (2, 65, 63, 14, 2, 128, True, None, 0),
+    (1, 1, 129, 7, 1, 128, True, None, 128),
+    (1, 129, 1, 4, 4, 16, False, None, 0),
+    (2, 63, 129, 4, 2, 32, True, "tail", 66),
+    (2, 129, 600, 4, 2, 80, False, "tiles", 0),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_EDGE_CASES)
+def test_flash_plain_matches_pallas_at_the_kernel_edges(case):
+    b, sq, sk, h, kvh, d, causal, kind, q_offset = case
+    rng = np.random.default_rng(sq + 3 * sk + d)
+    q, k, v = _qkv(rng, b, sq, sk, h, kvh, d)
+    mask = None
+    if kind == "tail":
+        mask = np.ones((b, sk), np.float32)
+        mask[-1, sk - sk // 5:] = 0.0
+    elif kind == "tiles":
+        mask = (rng.uniform(size=(b, sk)) > 0.25).astype(np.float32)
+        mask[:, 128:256] = 0.0
+        mask[:, 384:512] = 0.0
+        mask[-1] = 0.0
+    want = np.asarray(j_flash(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+        None if mask is None else jnp.asarray(mask), causal=causal,
+        q_offset=q_offset, block_q=128, block_k=128,
+        interpret=True)).astype(np.float32)
+    got = A.flash_attention(*(_t(x).to(torch.bfloat16) for x in (q, k, v)),
+                            None if mask is None else _t(mask),
+                            causal=causal, q_offset=q_offset)
+    rows = slice(None) if mask is None else mask.any(-1)
+    _assert_bf16_rule(got.float().numpy()[rows], want[rows])
+
+
 def test_flash_plain_matches_jax_reference_dense():
     rng = np.random.default_rng(3)
     q, k, v = _qkv(rng, 1, 40, 40, 4, 2, 16)

@@ -1,0 +1,47 @@
+"""The flash kernel's measuring tools on the CPU: the instrumented copy
+that bench/flash_trace.py builds, and the work bench/flash_ab.py divides
+by. The tools themselves run on the card."""
+
+import numpy as np
+import pytest
+
+from karanta_tpu_torch.bench import flash_ab, flash_trace
+from karanta_tpu_torch.kernels.build import CSRC
+
+
+def test_flash_trace_instruments_the_kernel():
+    """Every phase's reading lands once in the tree's flash_attention.cu:
+    nine in the key-tile loop, one before it and one after the stores; the
+    two C entries are exported."""
+    out = flash_trace.instrument((CSRC / "flash_attention.cu").read_text())
+    for k in range(len(flash_trace.PHASES)):
+        assert out.count(f"FT_STAMP({k});") == 1, k
+    assert "karanta_ftrace_reset" in out and "karanta_ftrace_read" in out
+
+
+def test_flash_trace_refuses_a_source_without_its_anchors():
+    src = (CSRC / "flash_attention.cu").read_text()
+    with pytest.raises(ValueError, match="flash_trace"):
+        flash_trace.instrument(src.replace("wgmma_wait<1>();", "wgmma_wait<0>();"))
+
+
+@pytest.mark.parametrize("causal,q_offset", [(False, 0), (True, 0),
+                                             (True, 37)])
+def test_flash_work_counts_the_live_pairs(causal, q_offset):
+    """Bytes and flops of flash_ab.flash_work against a count of the
+    (query, key) pairs a mask of leading live keys and the diagonal leave."""
+    sq, sk, h, kvh, d = 50, 90, 6, 2, 16
+    lives = [90, 33, 1]
+    n_bytes, flops = flash_ab.flash_work(sq, sk, h, kvh, d, lives, causal,
+                                         q_offset)
+    pairs = 0
+    for live in lives:
+        rows = q_offset + np.arange(sq)[:, None]
+        cols = np.arange(sk)[None, :]
+        ok = np.broadcast_to(cols < live, (sq, sk))
+        if causal:
+            ok = ok & (cols <= rows)
+        pairs += int(ok.sum())
+    assert flops == 4.0 * d * h * pairs
+    assert n_bytes == len(lives) * ((2 * sq * h * d + 2 * sk * kvh * d) * 2
+                                    + sk * 4)

@@ -27,8 +27,9 @@ DTYPES = [torch.float32, torch.bfloat16]
 FLASH_CASES = [
     # (b, sq, sk, h, kvh, d, causal, mask, q_offset); mask None, "tail" (the
     # last batch row's final fifth), "scattered" (the vision page's pattern:
-    # isolated holes, a whole dead run and a dead tail) or "all" (the last
-    # batch row has no live key, so its rows average V uniformly)
+    # isolated holes, a whole dead run and a dead tail), "tiles" (see
+    # _flash_mask) or "all" (the last batch row has no live key, so its rows
+    # average V uniformly)
     (1, 128, 128, 2, 2, 64, False, None, 0),
     (1, 128, 128, 2, 2, 64, True, None, 0),
     (2, 200, 200, 4, 2, 32, True, "tail", 0),
@@ -88,6 +89,12 @@ def _flash_mask(gen, kind, b, sk, dev):
         mask = (torch.rand((b, sk), generator=gen, device=dev) > 0.25).float()
         mask[:, sk // 3:sk // 3 + 64] = 0.0
         mask[:, sk - sk // 7:] = 0.0
+    elif kind == "tiles":  # scattered, two whole 128-key tiles dead, and
+        # the last batch row without a live key
+        mask = (torch.rand((b, sk), generator=gen, device=dev) > 0.25).float()
+        mask[:, 128:256] = 0.0
+        mask[:, 384:512] = 0.0
+        mask[-1] = 0.0
     else:  # "all"
         mask[-1] = 0.0
     return mask
@@ -225,6 +232,121 @@ def test_flash_has_no_bf16_head_dim_8(cuda):
     q = torch.zeros((1, 16, 1, 8), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="head dim 8"):
         A.flash_attention(q, q, q)
+
+
+# kernel #2's bf16 instance at its edges. It takes 128-row query blocks
+# and 128-key TMA boxes, so lengths of 1, 63, 65 and 129 end inside a box
+# (TMA zero-fills past the tensor, and the kernel masks keys past Sk
+# itself); every head dim (operand planes 16 columns wide); GQA 7/1 and
+# 14/2; causal at a q_offset with Sk > Sq; a mask with whole key tiles
+# dead and a batch row without a live key (not causal: see the float32
+# stress cases above).
+BF16_EDGE_CASES = [
+    # (b, sq, sk, h, kvh, d, causal, mask, q_offset)
+    (1, 1, 1, 2, 1, 64, False, None, 0),
+    (2, 1, 1, 2, 2, 64, True, "tail", 0),
+    (2, 63, 65, 7, 1, 128, False, "tail", 0),
+    (2, 65, 63, 14, 2, 128, True, None, 0),
+    (1, 129, 129, 14, 2, 80, True, "tail", 0),
+    (1, 1, 129, 7, 1, 128, True, None, 128),
+    (1, 129, 1, 4, 4, 16, False, None, 0),
+    (2, 63, 129, 4, 2, 32, True, "tail", 66),
+    (1, 65, 1000, 7, 1, 64, True, "scattered", 935),
+    (2, 129, 600, 4, 2, 80, False, "tiles", 0),
+    (2, 300, 700, 14, 2, 128, False, "tiles", 0),
+] + [
+    # each head dim with Sq and Sk off the tiles, GQA 7/1, causal at a
+    # q_offset over a scattered mask
+    (2, 129, 321, 7, 1, d, True, "scattered", 192) for d in A.FLASH_HEAD_DIMS
+]
+
+
+@pytest.mark.parametrize("case", BF16_EDGE_CASES)
+def test_flash_bf16_edges(cuda, case):
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    q, k, v, mask = _flash_inputs(gen, case, cuda, torch.bfloat16)
+    causal, q_offset = case[6], case[8]
+    got = A.flash_attention(q, k, v, mask, causal=causal, q_offset=q_offset)
+    again = A.flash_attention(q, k, v, mask, causal=causal, q_offset=q_offset)
+    want = A.flash_attention_plain(q, k, v, mask, causal=causal,
+                                   q_offset=q_offset)
+    torch.cuda.synchronize()
+    _assert_close(got, want, torch.bfloat16)
+    assert torch.equal(got, again)
+
+
+def test_flash_bf16_at_unaligned_storage_offsets(cuda):
+    """The tensor maps take any 16-byte aligned base: q, k, v and the mask
+    16 bytes past a 128-byte boundary, as views into larger buffers, give
+    the bits of the same values at the allocator's alignment."""
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    b, sq, sk, h, kvh, d = 2, 200, 300, 4, 2, 80
+
+    def at_offset(shape, dtype, pad):
+        n = int(np.prod(shape))
+        buf = _randn(gen, (n + pad,), cuda, dtype)
+        x = buf[pad:].view(shape)
+        assert x.data_ptr() % 128 == 16
+        return x
+
+    q = at_offset((b, sq, h, d), torch.bfloat16, 8)
+    k = at_offset((b, sk, kvh, d), torch.bfloat16, 8)
+    v = at_offset((b, sk, kvh, d), torch.bfloat16, 8)
+    mask = at_offset((b, sk), torch.float32, 4)
+    mask.copy_((mask > -0.7).float())
+    for causal, q_offset in ((False, 0), (True, 100)):
+        got = A.flash_attention(q, k, v, mask, causal=causal,
+                                q_offset=q_offset)
+        want = A.flash_attention_plain(q, k, v, mask, causal=causal,
+                                       q_offset=q_offset)
+        aligned = A.flash_attention(q.clone(), k.clone(), v.clone(),
+                                    mask.clone(), causal=causal,
+                                    q_offset=q_offset)
+        torch.cuda.synchronize()
+        _assert_close(got, want, torch.bfloat16)
+        assert torch.equal(got, aligned)
+
+
+def test_flash_bf16_pages_in_one_call_equal_single_pages(cuda):
+    """Four pages in one call give the bits of four calls of one page: no
+    tile, split or order depends on the batch. The vision full layers'
+    shape cut to 640 rows, each page its own scattered mask, and the
+    decoder's causal prefill with ragged kv lengths."""
+    gen = torch.Generator(device=cuda).manual_seed(37)
+    for n, s, h, kvh, d, causal in ((4, 640, 4, 4, 80, False),
+                                    (4, 300, 7, 1, 128, True)):
+        q = _randn(gen, (n, s, h, d), cuda, torch.bfloat16)
+        k = _randn(gen, (n, s, kvh, d), cuda, torch.bfloat16)
+        v = _randn(gen, (n, s, kvh, d), cuda, torch.bfloat16)
+        if causal:
+            mask = torch.zeros((n, s), device=cuda)
+            for i, live in enumerate((s - 10, 170, s, 1)):
+                mask[i, :live] = 1.0
+        else:
+            mask = (torch.rand((n, s), generator=gen, device=cuda)
+                    > torch.tensor([0.1, 0.3, 0.0, 0.8], device=cuda)[:, None]
+                    ).float()
+        whole = A.flash_attention(q, k, v, mask, causal=causal)
+        torch.cuda.synchronize()
+        _assert_close(whole, A.flash_attention_plain(q, k, v, mask,
+                                                     causal=causal),
+                      torch.bfloat16)
+        for i in range(n):
+            one = A.flash_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                    mask[i:i + 1], causal=causal)
+            assert torch.equal(whole[i:i + 1], one), i
+
+
+def test_flash_bf16_resources(cuda):
+    """The bf16 instance: one block an SM (three warpgroups, 384 threads),
+    no spills at any head dim, the producer's registers handed to the two
+    consumer warpgroups."""
+    for d in A.FLASH_HEAD_DIMS:
+        info = A.flash_attention_info(d)
+        assert info["blocks_per_sm"] == 1, (d, info)
+        assert info["spill_bytes"] == 0, (d, info)
+        assert info["producer_registers"] < info["registers"] \
+            < info["consumer_registers"], (d, info)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
