@@ -872,7 +872,9 @@ def kernel_decode(cfg, dev, gen, batch: int) -> dict:
     res8 = DA.paged_decode_append_quant_info(d, g, AB_BATCH, kvh, AB_BUCKET)
     del a8, c8
     torch.cuda.empty_cache()
+    n4, _ = work(lens, batch)
     rates = {"device_ms": t_dev, "bound_share": bd / t_dev,
+             "live_gbps": n4 / t_dev * 1e-6, "run_rows": res["run_rows"],
              "resources": res,
              "b80": {"ms": t8, "device_ms": t8_dev, "bound_ms": bd8,
                      "bound_share": bd8 / t8_dev,
@@ -880,10 +882,10 @@ def kernel_decode(cfg, dev, gen, batch: int) -> dict:
                      "run_rows": res8["run_rows"]}}
     log(f"  paged_decode_append_quant B={batch}: kernel {t_k:.4f} ms "
         f"({t_dev:.4f} ms of device time), {100 * bd / t_dev:.1f}% of the "
-        f"bound {bd:.4f} ms; B={AB_BATCH}: {t8:.4f} ms ({t8_dev:.4f} "
-        f"device), {100 * bd8 / t8_dev:.1f}% of its bound {bd8:.4f} ms, "
-        f"{n8 / t8_dev * 1e-6:.0f} GB/s; bf16 instance {res}, runs of "
-        f"{res8['run_rows']} rows at B={AB_BATCH}")
+        f"bound {bd:.4f} ms, {n4 / t_dev * 1e-6:.0f} GB/s; B={AB_BATCH}: "
+        f"{t8:.4f} ms ({t8_dev:.4f} device), {100 * bd8 / t8_dev:.1f}% of "
+        f"its bound {bd8:.4f} ms, {n8 / t8_dev * 1e-6:.0f} GB/s; bf16 "
+        f"instance {res}, runs of {res8['run_rows']} rows at B={AB_BATCH}")
     return dict(name="paged_decode_append_quant", route="cuda",
                 source="karanta_tpu_torch/kernels/csrc/decode_append_quant.cu",
                 replaces="karanta_tpu/ops/decode_attention.py:887",
@@ -1542,14 +1544,21 @@ def kernel_per_rank(cfg, dev, gen) -> dict:
         q1, new1, caches, _ = _decode_inputs(dev, gen, 2, b, kvh, m, d, h,
                                              lens, torch.bfloat16)
         a, c = [x.clone() for x in caches], [x.clone() for x in caches]
+        n3 = (kvh * live * (d + 2) * 2 + b * kvh * (d + 2) * 4
+              + 2 * b * h * d * 2)
         add("paged_decode_append_quant", tp, _per_rank_row(
             f"paged_decode_append_quant tp={tp} B={b} H={h} KVH={kvh}",
             lambda: DA.paged_decode_append_quant(q1, *new1, *a, 1, lens_t),
             lambda: DA.paged_decode_append_quant_plain(q1, *new1, *c, 1,
                                                        lens_t),
-            (kvh * live * (d + 2) * 2 + b * kvh * (d + 2) * 4
-             + 2 * b * h * d * 2, 4.0 * d * h * (live + b)),
-            caches=(a, c), graph=True))
+            (n3, 4.0 * d * h * (live + b)), caches=(a, c), graph=True))
+        row3 = out["paged_decode_append_quant"][f"tp{tp}"]
+        row3["live_gbps"] = n3 / row3["device_ms"] * 1e-6
+        row3["resources"] = DA.paged_decode_append_quant_info(d, h // kvh, b,
+                                                              kvh, m)
+        log(f"    paged_decode_append_quant tp={tp}: "
+            f"{row3['live_gbps']:.0f} GB/s; bf16 instance "
+            f"{row3['resources']}")
         qm = randn((b, tq, h, d))
         nk, nks = quantize_kv_rows(randn((b, tq, kvh, d), torch.float32))
         nv, nvs = quantize_kv_rows(randn((b, tq, kvh, d), torch.float32))

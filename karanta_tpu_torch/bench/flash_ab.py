@@ -23,6 +23,23 @@ device: 20 calls captured in a CUDA graph and replayed, so the wrapper's
 host time is left out; SDPA with the same masks beside it, and the bound
 (flops of the live pairs at 989 TFLOP/s, or bytes at 3.35 TB/s). One line
 per shape and source, then one JSON object. Needs a CUDA device.
+
+With ``--kernel 3`` the same turns time kernel #3's bf16 instance
+(``ops/decode_attention.py paged_decode_append_quant``, the int8-cache
+decode step) from each source's ``decode_append_quant.cu`` at the 7B decode
+shapes (one layer of a two-layer cache, M = 1,920, D = 128, G = 7): B = 4
+with the smoke's lengths 0/700/1919/1390, B = 16 and 32 with lengths from a
+seed, B = 80 with every slot filled to 1,650 rows, and one rank's kv heads
+at tp = 2 and 4 (KVH 2 and 1, B = 4, lengths 0/700/1390/1915). Each source
+runs with its library's own run rule: ``quant_run_rows`` with the library's
+blocks per SM and most runs where its ``karanta_decode_append_quant_info``
+reports rows a chunk (this kernel's design), else the rule of the split
+body's int8 instance that it replaced (``SPLIT_RULE``); each
+output is held to the plain version at the bf16 limit and its four caches
+bit-equal; the bound is the bytes (the live rows and their scales, the new
+rows read and written, q and the output) at 3.35 TB/s.
+
+    python -m karanta_tpu_torch.bench.flash_ab --kernel 3 --baseline old/csrc
 """
 
 from __future__ import annotations
@@ -61,17 +78,23 @@ BATCHED_VISION_LIVE = (None, 3600, 5120, 900)
 BATCHED_PREFILL_LIVE = (1390, 700, 1408, 1)
 
 
-def baseline_fns(csrcs: list) -> dict:
-    """karanta_flash_attention of each csrc/flash_attention.cu, built in
-    parallel with the port's nvcc flags into the build directory; keyed by
-    the directory's name (its parent's if that is ``csrc``)."""
+FLASH_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                  + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+DECODE_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def baseline_libs(csrcs: list, source: str = "flash_attention") -> dict:
+    """Each csrc/<source>.cu, built in parallel with the port's nvcc flags
+    into the build directory and loaded; keyed by the directory's name (its
+    parent's if that is ``csrc``)."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs, libs = [], {}
     for csrc in csrcs:
         digest = hashlib.sha1(" ".join(build.NVCC_FLAGS).encode())
-        for src in (csrc / "flash_attention.cu", *sorted(csrc.glob("*.cuh"))):
+        for src in (csrc / f"{source}.cu", *sorted(csrc.glob("*.cuh"))):
             digest.update(src.read_bytes())
-        out = build.BUILD_DIR / f"libflash-baseline-{digest.hexdigest()[:12]}.so"
+        out = build.BUILD_DIR / f"lib{source}-baseline-{digest.hexdigest()[:12]}.so"
         name = csrc.name if csrc.name != "csrc" else csrc.parent.name
         while name in libs:
             name += "'"
@@ -79,17 +102,20 @@ def baseline_fns(csrcs: list) -> dict:
         if not out.exists():
             procs.append(subprocess.Popen(
                 [build.nvcc(), *build.NVCC_FLAGS, "-o", str(out),
-                 str(csrc / "flash_attention.cu")]))
+                 str(csrc / f"{source}.cu")]))
     for proc in procs:
         if proc.wait() != 0:
             raise RuntimeError(f"nvcc failed: {proc.args}")
+    return {name: ctypes.CDLL(str(out)) for name, out in libs.items()}
+
+
+def baseline_fns(csrcs: list) -> dict:
+    """karanta_flash_attention of each csrc/flash_attention.cu."""
     fns = {}
-    for name, out in libs.items():
-        fn = ctypes.CDLL(str(out)).karanta_flash_attention
+    for name, lib in baseline_libs(csrcs).items():
+        fn = lib.karanta_flash_attention
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                       + [ctypes.c_float] + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p])
+        fn.argtypes = FLASH_ARGTYPES
         fns[name] = fn
     return fns
 
@@ -171,6 +197,165 @@ def shapes(dev, gen) -> dict:
     return out
 
 
+# kernel #3: the 7B decode step over one layer of the int8 cache
+DECODE_M, DECODE_D, DECODE_G, DECODE_KVH = 1920, 128, 7, 4
+DECODE_SMOKE_LENS = [0, 700, 1919, 1390]
+DECODE_RANK_LENS = [0, 700, 1390, 1915]
+DECODE_AB_FILL = 1650
+# the run rule of #3's earlier bf16 instance (decode_split.cuh's int8 body):
+# runs of 256 to 1,024 rows, two blocks an SM
+SPLIT_RULE = (256, 1024, 2)
+
+
+def decode_work(b: int, kvh: int, h: int, d: int, lens: list) -> int:
+    """Bytes kernel #3 must move in one call: each live cache row's K and V
+    bytes and their two bf16 scales read once, the new rows and scales read
+    and written, q read and the output written."""
+    live = sum(lens)
+    return (kvh * live * (d + 2) * 2 + b * kvh * (d + 2) * 2 * 2
+            + 2 * b * h * d * 2)
+
+
+def decode_shapes() -> dict:
+    """name -> (B, KVH, lengths); the ragged lengths from a seed."""
+    gen = torch.Generator().manual_seed(5)
+
+    def ragged(b):
+        return sorted(torch.randint(0, DECODE_M - 1, (b,),
+                                    generator=gen).tolist())
+
+    return {"b4": (4, DECODE_KVH, DECODE_SMOKE_LENS),
+            "b16": (16, DECODE_KVH, ragged(16)),
+            "b32": (32, DECODE_KVH, ragged(32)),
+            "b80": (80, DECODE_KVH, [DECODE_AB_FILL] * 80),
+            "tp2": (4, DECODE_KVH // 2, DECODE_RANK_LENS),
+            "tp4": (4, DECODE_KVH // 4, DECODE_RANK_LENS)}
+
+
+def decode_case(b: int, kvh: int, lens: list, gen: torch.Generator):
+    """Kernel #3's inputs over a two-layer 7B cache (int8 rows, bf16 scales)
+    and the plain version's output and caches at layer 1."""
+    from karanta_tpu_torch.models.qwen25_vl.decoder import quantize_kv_rows
+    from karanta_tpu_torch.ops import decode_attention as DA
+
+    dev, d = torch.device("cuda"), DECODE_D
+
+    def rows(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    kq, ks = quantize_kv_rows(rows((2, b, kvh, DECODE_M, d)))
+    vq, vs = quantize_kv_rows(rows((2, b, kvh, DECODE_M, d)))
+    nkq, nks = quantize_kv_rows(rows((b, kvh, d)))
+    nvq, nvs = quantize_kv_rows(rows((b, kvh, d)))
+    q = rows((b, 1, kvh * DECODE_G, d)).bfloat16()
+    new = (nkq, nvq, nks.bfloat16(), nvs.bfloat16())
+    caches = [kq, vq, ks.bfloat16(), vs.bfloat16()]
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    want_caches = [c.clone() for c in caches]
+    want = DA.paged_decode_append_quant_plain(q, *new, *want_caches, 1,
+                                              lens_t)
+    return q, new, caches, lens_t, want, want_caches
+
+
+def decode_launcher(fn, q, new, caches, lens_t, run: int):
+    """One call of a #3 C entry `fn` with `run` rows over copies of the
+    caches: (call, output, the copies)."""
+    from karanta_tpu_torch import kernels
+    from karanta_tpu_torch.ops import decode_attention as DA
+
+    b, _, h, d = q.shape
+    kvh = caches[0].shape[2]
+    partials, counters = DA._split_workspace(
+        q, b * kvh, -(-DECODE_M // run), DA.SPLIT_PARTIAL_ROWS)
+    out = torch.empty_like(q)
+    work = [c.clone() for c in caches]
+    # the call holds the tensors: the pointers alone would not keep them
+    tensors = (q, *new, *work, lens_t, out, partials, counters)
+    args = [kernels.ptr(x) for x in tensors]
+
+    def call(tensors=tensors):
+        kernels.raise_on_error("#3", fn(
+            *args, b, kvh, h // kvh, DECODE_M, d, 1, run, d ** -0.5,
+            kernels.DTYPE_CODES[torch.bfloat16],
+            kernels.stream_ptr(q.device)))
+
+    return call, out, work
+
+
+def decode_ab(others: dict, wanted: list, smi: str) -> dict:
+    """Kernel #3 from this tree and from each baseline library, in turns."""
+    from karanta_tpu_torch import kernels
+    from karanta_tpu_torch.ops import decode_attention as DA
+
+    dev = torch.device("cuda")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    d, g = DECODE_D, DECODE_G
+    info_this = DA.paged_decode_append_quant_info(d, g)
+    print(f"  this tree bf16 #3: {info_this}", flush=True)
+    # per source: its entry, its most runs a slot, and its blocks per SM
+    # when it is this kernel's design (else None: the split body's rule)
+    trees = {"this": (DA._decode_fns()[0], info_this["max_runs"],
+                      info_this["blocks_per_sm"])}
+    for name, lib in others.items():
+        fn = lib.karanta_decode_append_quant
+        fn.restype = ctypes.c_int
+        fn.argtypes = DECODE_ARGTYPES
+        info_fn = lib.karanta_decode_append_quant_info
+        info_fn.restype = ctypes.c_int
+        info_fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        buf = (ctypes.c_int * 16)()
+        kernels.raise_on_error("decode_append_quant_info", info_fn(d, g, buf))
+        print(f"  {name} bf16 #3: registers {buf[0]}, spills {buf[1]}, "
+              f"shared {buf[2]}, blocks/SM {buf[3]}, max runs {buf[4]}, "
+              f"rows a chunk {buf[5]}", flush=True)
+        trees[name] = (fn, buf[4], buf[3] if buf[5] else None)
+    order = [*others, "this", "this", *reversed(others)]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    results = {}
+    for name, (b, kvh, lens) in decode_shapes().items():
+        if wanted and name not in wanted:
+            continue
+        q, new, caches, lens_t, want, want_caches = decode_case(b, kvh, lens,
+                                                                gen)
+        n_bytes = decode_work(b, kvh, kvh * g, d, lens)
+        bound = n_bytes / PEAK_BYTES * 1e3
+        row = {"batch": b, "kv_heads": kvh, "live_rows": sum(lens),
+               "bound_ms": bound, "ms": {}, "worst": {}, "run_rows": {}}
+        for tree in order:
+            fn, max_runs, per_sm = trees[tree]
+            if per_sm is not None:
+                run = DA.quant_run_rows(b, kvh, DECODE_M, per_sm * n_sm,
+                                        max_runs)
+            else:
+                lo, hi, split_per_sm = SPLIT_RULE
+                run = DA.split_run_rows(b, kvh, DECODE_M, n_sm, lo, hi,
+                                        max_runs, blocks_per_sm=split_per_sm)
+            row["run_rows"][tree] = run
+            call, out, work = decode_launcher(fn, q, new, caches, lens_t, run)
+            call()
+            torch.cuda.synchronize()
+            for x, y, part in zip(work, want_caches, ("k", "v", "ks", "vs")):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"#3 {name} {tree}: cache {part} "
+                                         f"differs from the plain version")
+            row["worst"].setdefault(tree, []).append(check_bf16(out, want))
+            row["ms"].setdefault(tree, []).append(graph_ms(call))
+            del work
+        for tree, times in row["ms"].items():
+            best = min(times)
+            print(f"  #3 {name} B={b} KVH={kvh} ({sum(lens)} live rows) "
+                  f"{tree}: {', '.join(f'{x:.4f}' for x in times)} ms "
+                  f"(runs of {row['run_rows'][tree]}); bound {bound:.4f} ms, "
+                  f"{100 * bound / best:.1f}% of it, "
+                  f"{n_bytes / best * 1e-6:.0f} GB/s; worst err/limit "
+                  f"{max(row['worst'][tree]):.3f}", flush=True)
+        results[name] = row
+        del q, new, caches, want_caches
+        torch.cuda.empty_cache()
+    return {"card": smi, "decode_quant_bf16": results,
+            "resources": info_this}
+
+
 def check_bf16(got, want) -> float:
     """Worst |got - want| over the bf16 limit; raises above 1."""
     got, want = got.float(), want.float()
@@ -184,10 +369,13 @@ def check_bf16(got, want) -> float:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--baseline", type=Path, action="append", default=[],
-                        help="a csrc directory whose flash_attention.cu is "
-                             "timed in turns with this tree's (repeatable)")
+                        help="a csrc directory whose kernel is timed in "
+                             "turns with this tree's (repeatable)")
     parser.add_argument("--only", default="",
                         help="comma-separated shape names (default: all)")
+    parser.add_argument("--kernel", choices=("2", "3"), default="2",
+                        help="2: the flash kernel (default), 3: the int8 "
+                             "decode kernel")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("flash_ab: needs a CUDA device")
@@ -196,6 +384,12 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"[card] {smi}; torch {torch.__version__}", flush=True)
+    wanted = [x for x in args.only.split(",") if x]
+    if args.kernel == "3":
+        result = decode_ab(
+            baseline_libs(args.baseline, "decode_append_quant"), wanted, smi)
+        print(json.dumps(result), flush=True)
+        return 0
     this = A._flash_fn()
     others = baseline_fns(args.baseline)
     fns = {"this": this, **others}
@@ -205,7 +399,6 @@ def main(argv=None) -> int:
         print(f"  this tree bf16 D={d}: {A.flash_attention_info(d)}",
               flush=True)
     gen = torch.Generator(device=dev).manual_seed(0)
-    wanted = [x for x in args.only.split(",") if x]
     results = {}
     for name, make in shapes(dev, gen).items():
         if wanted and name not in wanted:

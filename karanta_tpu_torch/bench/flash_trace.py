@@ -1,22 +1,36 @@
 """Per-phase cycle trace of kernel #2's bf16 instance (``ops/attention.py
-flash_attention``, ``kernels/csrc/flash_attention.cu``) on the card.
+flash_attention``, ``kernels/csrc/flash_attention.cu``) or, with
+``--kernel 3``, of kernel #3's (``ops/decode_attention.py
+paged_decode_append_quant``, ``kernels/csrc/decode_append_quant.cu``) on the
+card.
 
     python -m karanta_tpu_torch.bench.flash_trace
     python -m karanta_tpu_torch.bench.flash_trace --csrc DIR --only vision
+    python -m karanta_tpu_torch.bench.flash_trace --kernel 3 --only b4,b80
 
-An instrumented copy of ``flash_attention.cu`` (from ``kernels/csrc`` or
-DIR, a copy of it) is built into ``kernels/build/ftrace-<hash>/``: every
-consumer thread reads ``clock64`` at the end of each phase of its key-tile
-loop and adds the cycles since its last reading to that phase; thread 0 of
-each consumer warpgroup stores its sums. The phases of one loop iteration:
-waiting for the K tile, waiting for the warpgroup's turn (the named
-barrier), issuing Q.K^T and rescaling O, waiting for the V tile, issuing
-P.V, waiting for the scores, the softmax (with the mask, and freeing the K
-stage), waiting for P.V, and rounding P; beside them the first tile before
-the loop, and the last P.V and the stores after it. At ``flash_ab``'s
-shapes it prints each phase's share of all consumer cycles, summed over
-the blocks, and the cycles per key tile. The readings cost a little, so
-times come from ``flash_ab``. Needs a CUDA device.
+An instrumented copy of the source (from ``kernels/csrc`` or DIR, a copy of
+it) is built into ``kernels/build/ftrace-<hash>/``: the traced threads read
+``clock64`` at the end of each phase and add the cycles since their last
+reading to that phase, then store their sums. #2: every consumer thread,
+thread 0 of each consumer warpgroup storing; the phases of one key-tile
+iteration are waiting for the K tile, waiting for the warpgroup's turn
+(the named barrier), issuing Q.K^T and rescaling O, waiting for the V tile,
+issuing P.V, waiting for the scores, the softmax (with the mask, and
+freeing the K stage), waiting for P.V, and rounding P; beside them the
+first tile before the loop, and the last P.V and the stores after it. At
+``flash_ab``'s shapes it prints each phase's share of all consumer cycles,
+summed over the blocks, and the cycles per key tile. #3: thread 0 (a
+consumer) and the producer's lane 0 of every block; the phases are the
+block's set-up (cache_len, the item prefix), the producer's waits for an
+item slot and a stage and its issue of the bulk copies, and the consumer's
+wait for Q, the item's start (Q fragments, the new row's scores, the
+append), its wait for a chunk, Q.K^T with the scales and the running max,
+the softmax and P.V, and the item's end (the warps' merge, a partial or
+the last block's merge, the output). At
+``flash_ab``'s #3 shapes it prints each phase's share of the consumer's and
+of the producer's cycles summed over the blocks, the consumer cycles per
+chunk and the longest block's cycles. The readings cost a little, so times
+come from ``flash_ab``. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -36,13 +50,19 @@ from karanta_tpu_torch.ops import attention as A
 
 PHASES = ("wait K", "wait turn", "issue QK + rescale O", "wait V", "issue PV",
           "wait S", "softmax", "wait PV", "round P", "first tile", "last PV + store")
-MAX_SLOTS = 2 * 16384  # consumer warpgroups traced (two a block)
-_DEFS = """namespace karanta {
+MAX_SLOTS = 2 * 16384  # traced threads (two a block)
+
+
+def _defs(n: int) -> str:
+    return """namespace karanta {
 __device__ unsigned long long karanta_ftrace[%(slots)d * %(n)d];
 }
 #define FT_STAMP(k) { const unsigned long long ft_now = clock64(); ft[k] += ft_now - ft_last; ft_last = ft_now; }
-""" % {"slots": MAX_SLOTS, "n": len(PHASES)}
-_EXPORTS = """
+""" % {"slots": MAX_SLOTS, "n": n}
+
+
+def _exports(n: int) -> str:
+    return """
 extern "C" int karanta_ftrace_reset() {
   static unsigned long long zeros[%(slots)d * %(n)d];
   return (int)cudaMemcpyToSymbol(karanta::karanta_ftrace, zeros, sizeof(zeros));
@@ -51,7 +71,28 @@ extern "C" int karanta_ftrace_read(unsigned long long* buf) {
   return (int)cudaMemcpyFromSymbol(buf, karanta::karanta_ftrace,
                                    sizeof(unsigned long long) * %(slots)d * %(n)d);
 }
-""" % {"slots": MAX_SLOTS, "n": len(PHASES)}
+""" % {"slots": MAX_SLOTS, "n": n}
+
+
+def _store(n: int, slot: str, cond: str, indent: str) -> str:
+    return (f"{indent}{{\n{indent}  const int ft_slot = {slot};\n"
+            f"{indent}  if (({cond}) && ft_slot < {MAX_SLOTS}) {{\n"
+            f"{indent}    for (int k = 0; k < {n}; ++k) "
+            f"karanta_ftrace[ft_slot * {n} + k] = ft[k];\n"
+            f"{indent}  }}\n{indent}}}\n")
+
+
+def _replace_once(out: str, anchor: str, new: str, name: str) -> str:
+    if out.count(anchor) != 1:
+        raise ValueError(f"flash_trace: {anchor.strip()!r} not found once "
+                         f"in {name}")
+    return out.replace(anchor, new)
+
+
+def _stamp_after(out: str, anchor: str, stamp: str, name: str,
+                 before: bool = False) -> str:
+    return _replace_once(out, anchor,
+                         stamp + anchor if before else anchor + stamp, name)
 
 # (anchor in the consumer's loop, phase index stamped right after it)
 _AFTER = [
@@ -70,7 +111,8 @@ _AFTER = [
 
 def instrument(src: str) -> str:
     """flash_attention.cu with the consumer loop's clock readings."""
-    out = src.replace('#include "mma.cuh"\n', '#include "mma.cuh"\n' + _DEFS, 1)
+    out = src.replace('#include "mma.cuh"\n',
+                      '#include "mma.cuh"\n' + _defs(len(PHASES)), 1)
     start = ("    float s[kBN / 2], o[D / 2];\n")
     if start not in out:
         raise ValueError("flash_trace: the consumer's registers not found")
@@ -92,19 +134,62 @@ def instrument(src: str) -> str:
     store = "        __floats2bfloat162_rn(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);\n      }\n    }\n"
     if store not in out:
         raise ValueError("flash_trace: the stores not found")
-    out = out.replace(store, store + (
-        "    FT_STAMP(10);\n"
-        "    const int ft_slot = ((blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) * 2 + cw;\n"
-        "    if ((tid & 127) == 0 && ft_slot < %d) {\n"
-        "      for (int k = 0; k < %d; ++k) karanta_ftrace[ft_slot * %d + k] = ft[k];\n"
-        "    }\n") % (MAX_SLOTS, len(PHASES), len(PHASES)), 1)
-    return out + _EXPORTS
+    out = out.replace(store, store + "    FT_STAMP(10);\n" + _store(
+        len(PHASES), "((blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + "
+        "blockIdx.x) * 2 + cw", "(tid & 127) == 0", "    "), 1)
+    return out + _exports(len(PHASES))
 
 
-def build_traced(csrc: Path | None = None) -> ctypes.CDLL:
-    """Build (once per source) and load the instrumented library."""
+DECODE_PHASES = ("set-up", "producer: wait for an item slot",
+                 "producer: wait for a stage", "producer: issue copies",
+                 "wait for Q", "item start", "wait for a chunk",
+                 "Q.K^T + scales + max", "softmax + P.V", "item end")
+# (anchor, phase stamped after it)
+_DECODE_AFTER = [
+    ("  if (static_cast<int>(blockIdx.x) >= n_items) return;\n", 0),
+    ("      mbar_wait(&seg_empty[p], ((seg >> 1) & 1) ^ 1);\n", 1),
+    ("        mbar_wait(&empty[s], ((i / kQStages) & 1) ^ 1);\n", 2),
+    ("        } else {\n          mbar_arrive(&full[s]);\n        }\n", 3),
+    ("    mbar_wait(&seg_full[p], (seg >> 1) & 1);\n", 4),
+    ("    for (int nt = 0; nt < kNT; ++nt) o[nt][0] = o[nt][1] = 0.f;\n\n", 5),
+    ("      mbar_wait(&full[s], (i / kQStages) & 1);\n", 6),
+    ("      const float alpha = fast_exp2(m - mx);\n", 7),
+    ("      if (lane == 0) mbar_arrive(&empty[s]);\n", 8),
+    ("    named_sync(1, kCT);  // the merge area is free again\n", 9),
+]
+
+
+def instrument_decode(src: str) -> str:
+    """decode_append_quant.cu with clock readings in the bf16 instance's
+    producer (lane 0 stores, slot 2 block + 1) and consumers (thread 0
+    stores, slot 2 block)."""
+    n, name = len(DECODE_PHASES), "decode_append_quant.cu"
+    out = src.replace('#include "hopper.cuh"\n',
+                      '#include "hopper.cuh"\n' + _defs(n), 1)
+    out = _stamp_after(
+        out, "  // every slot's live rows (the clamp",
+        f"  unsigned long long ft[{n}] = {{}}, ft_last = clock64();\n", name,
+        before=True)
+    for anchor, k in _DECODE_AFTER:
+        out = _stamp_after(out, anchor, f"      FT_STAMP({k});\n", name)
+    out = _stamp_after(
+        out, "    return;\n  }\n\n  // the consumers\n",
+        _store(n, "blockIdx.x * 2 + 1", "lane == 0", "    "), name,
+        before=True)
+    out = _replace_once(
+        out, "      FT_STAMP(9);\n    ++seg;\n  }\n}\n",
+        "      FT_STAMP(9);\n    ++seg;\n  }\n"
+        + _store(n, "blockIdx.x * 2", "tid == 0", "  ") + "}\n", name)
+    return out + _exports(n)
+
+
+def build_traced(csrc: Path | None = None,
+                 source: str = "flash_attention") -> ctypes.CDLL:
+    """Build (once per source) and load the instrumented library of
+    csrc/<source>.cu."""
     csrc = Path(csrc or build.CSRC)
-    src = instrument((csrc / "flash_attention.cu").read_text())
+    fn = instrument_decode if source == "decode_append_quant" else instrument
+    src = fn((csrc / f"{source}.cu").read_text())
     digest = hashlib.sha1(src.encode() + " ".join(build.NVCC_FLAGS).encode())
     for header in sorted(csrc.glob("*.cuh")):
         digest.update(header.read_bytes())
@@ -126,14 +211,80 @@ def build_traced(csrc: Path | None = None) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
+def decode_trace(lib: ctypes.CDLL, wanted: list) -> int:
+    """#3's phases at flash_ab's #3 shapes, with this tree's run rule."""
+    from karanta_tpu_torch.bench.flash_ab import (DECODE_ARGTYPES,
+                                                  DECODE_M, decode_case,
+                                                  decode_launcher,
+                                                  decode_shapes)
+    from karanta_tpu_torch.ops import decode_attention as DA
+
+    fn = lib.karanta_decode_append_quant
+    fn.restype = ctypes.c_int
+    fn.argtypes = DECODE_ARGTYPES
+    n = len(DECODE_PHASES)
+    buf = (ctypes.c_ulonglong * (MAX_SLOTS * n))()
+    dev = torch.device("cuda")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    info = DA.paged_decode_append_quant_info(128, 7)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    results = {}
+    for name, (b, kvh, lens) in decode_shapes().items():
+        if wanted and name not in wanted:
+            continue
+        q, new, caches, lens_t, _, _ = decode_case(b, kvh, lens, gen)
+        run = DA.quant_run_rows(b, kvh, DECODE_M,
+                                info["blocks_per_sm"] * n_sm, info["max_runs"])
+        call, _, _ = decode_launcher(fn, q, new, caches, lens_t, run)
+        call()
+        torch.cuda.synchronize()
+        if lib.karanta_ftrace_reset() != 0:
+            raise RuntimeError("flash_trace: reset failed")
+        call()
+        torch.cuda.synchronize()
+        if lib.karanta_ftrace_read(buf) != 0:
+            raise RuntimeError("flash_trace: read failed")
+        rows = torch.tensor(list(buf[:MAX_SLOTS * n]),
+                            dtype=torch.float64).view(-1, 2, n)
+        rows = rows[rows.sum((1, 2)) > 0]  # the blocks that had chunks
+        chunks = kvh * sum(max(1, -(-x // info["chunk_rows"])) for x in lens)
+        row = {"run_rows": run, "blocks": int(rows.shape[0])}
+        for role, idx in (("consumer", 0), ("producer", 1)):
+            sums = rows[:, idx].sum(0)
+            total = float(sums.sum())
+            row[role] = {ph: float(x) / total for ph, x in
+                         zip(DECODE_PHASES, sums) if x > 0}
+        row["consumer_cycles_per_chunk"] = float(rows[:, 0].sum()) / chunks
+        row["longest_block_cycles"] = float(rows[:, 0].sum(1).max())
+        results[name] = row
+        print(f"  #3 {name} B={b} KVH={kvh}, runs of {run}, {row['blocks']} "
+              f"blocks: {row['consumer_cycles_per_chunk']:.0f} consumer "
+              f"cycles a chunk, longest block {row['longest_block_cycles']:.0f}"
+              f" cycles; consumer " + ", ".join(
+                  f"{ph} {100 * x:.1f}%" for ph, x in row["consumer"].items())
+              + "; producer " + ", ".join(
+                  f"{ph} {100 * x:.1f}%" for ph, x in row["producer"].items()),
+              flush=True)
+        del q, new, caches
+        torch.cuda.empty_cache()
+    print(json.dumps({"decode_trace": results}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--csrc", type=Path, default=None)
-    parser.add_argument("--only", default="vision,prefill,prefix",
-                        help="comma-separated flash_ab shape names")
+    parser.add_argument("--only", default=None,
+                        help="comma-separated flash_ab shape names (default "
+                             "vision,prefill,prefix; #3: all)")
+    parser.add_argument("--kernel", choices=("2", "3"), default="2")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("flash_trace: needs a CUDA device")
+    if args.kernel == "3":
+        return decode_trace(build_traced(args.csrc, "decode_append_quant"),
+                            [x for x in (args.only or "").split(",") if x])
+    args.only = args.only or "vision,prefill,prefix"
     lib = build_traced(args.csrc)
     fn = lib.karanta_flash_attention
     fn.restype = ctypes.c_int

@@ -43,7 +43,7 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # per kernel: cache tokens, fresh tokens per slot, default batches and runs
 SHAPES = {"4": (4096, 4, "1,4,8,32,64", "256,512,1024,2048"),
           "7": (4096, 4, "1,4,8,32,64", "256,512,1024,2048,4096"),
-          "3": (1920, 1, "4,16,32,80", "128,256,512,1024,2048"),
+          "3": (1920, 1, "4,16,32,80", "128,256,512,1024"),
           "6": (4096, 1, "1,4,8,32,64", "256,512,1024,2048,4096")}
 SMOKE_LENS = {"4": [0, 1700, 2100, 4091], "7": [0, 1700, 2100, 4091],
               "3": [0, 700, 1919, 1390], "6": [0, 700, 1919, 1390]}
@@ -139,8 +139,10 @@ def case(kernel: str, b: int, lens: list, gen: torch.Generator):
                    + b * KVH * (D * 2 + 4) * 2 + 2 * b * KVH * G * D * 2)
     else:
         fn = DA._decode_fns()[0]
-        max_runs = DA.paged_decode_append_quant_info(D, G)["max_runs"]
-        rule = DA.quant_run_rows(b, KVH, m, n_sm, max_runs)
+        info = DA.paged_decode_append_quant_info(D, G)
+        max_runs = info["max_runs"]
+        rule = DA.quant_run_rows(b, KVH, m, info["blocks_per_sm"] * n_sm,
+                                 max_runs)
 
         def tail(run):
             return (b, KVH, G, m, D, 1, run)

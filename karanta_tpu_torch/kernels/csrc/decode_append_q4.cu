@@ -17,8 +17,8 @@
 // layer at 3.35 TB/s.
 //
 // The bf16 instance is decode_split_kernel (decode_split.cuh, with
-// kAppend = true, kBits = 4), the one body it shares with kernels #3, #5, #8
-// and #9: each slot's tokens [0, cache_len) in runs over blocks (the run
+// kAppend = true, kBits = 4), the one body it shares with kernels #5, #8,
+// #9 and #11's attention: each slot's tokens [0, cache_len) in runs over blocks (the run
 // length in tokens, a multiple of 64, so no window is split; the wrapper's
 // rule, q4_run_tokens, was measured on the card), a cp.async ring of packed
 // rows and their scales per warp (a quarter of the bf16 rows' bytes per

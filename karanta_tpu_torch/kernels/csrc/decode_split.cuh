@@ -6,11 +6,6 @@
 //   of run 0 writes this step's K/V row at cache_len[b], and the block that
 //   finishes the slot folds that row in last, in float32, from the inputs
 //   (karanta_tpu/ops/decode_attention.py:496-512);
-// - kernel #3, paged_decode_append_quant (decode_append_quant.cu, kAppend =
-//   true, kBits = 8): the same over the int8 cache with a bf16 scale per
-//   row: ksc multiplies the scores, vsc multiplies p before p is rounded
-//   (decode_attention.py:821-846), and the new row folds in float32 from its
-//   int8 values times its scales (:852-873);
 // - kernel #6, paged_decode_append_q4 (decode_append_q4.cu, kAppend = true,
 //   kBits = 4): the same over the nibble-packed int4 cache (common.cuh,
 //   q4_row; scales in two planes 2h and 2h + 1, M packed rows apart): run 0
@@ -25,10 +20,15 @@
 // - kernels #8 and #9, paged_decode_attention(_stacked) (decode_attention.cu,
 //   kAppend = false): slot b attends over the rows [0, cache_len[b]], this
 //   step's row having been written at cache_len[b] before the call;
-// - the attention phase of kernel #11, decode_megakernel (decode_stream.cu),
-//   #3's body over its int8 cache: the per-item function split_item runs in
-//   each half of the megakernel's persistent blocks, with a named barrier
-//   per half in place of the block barrier.
+// - the attention phase of kernel #11, decode_megakernel (decode_stream.cu,
+//   kAppend = true, kBits = 8): the same over the int8 cache with a bf16
+//   scale per row: ksc multiplies the scores, vsc multiplies p before p is
+//   rounded (decode_attention.py:821-846), and the new row folds in float32
+//   from its int8 values times its scales (:852-873); the per-item function
+//   split_item runs in each half of the megakernel's persistent blocks,
+//   with a named barrier per half in place of the block barrier. (Kernel
+//   #3 ran this int8 body until it was redesigned around bulk copies,
+//   decode_append_quant.cu.)
 //
 // What bounds it on this card: every live cache byte is used once per call
 // for about G flops, so device-memory bytes bound it:
@@ -36,8 +36,8 @@
 // 3.35 TB/s.
 //
 // The rows of one (slot, kv head) are split into runs of run_rows rows (an
-// argument: kSplitRows = 1,024 for the bf16 cache; the int8 cache's wrapper
-// picks it by a rule measured on the card), one block of 4 warps each, so a
+// argument: kSplitRows = 1,024 for the bf16 cache; over the int8 and int4
+// caches a rule measured on the card picks it), one block of 4 warps each, so a
 // 4,096-row slot spreads over 4 blocks instead of one. The wrapper cannot
 // read cache_len without a host sync, so the grid is sized from M and a
 // block whose run starts past its slot's rows exits at once; run 0 always

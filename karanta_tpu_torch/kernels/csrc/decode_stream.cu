@@ -60,8 +60,8 @@
 // to count in on the unit's counter. Scratch written during the kernel is
 // read with __ldcg or cp.async.cg (L2), never through the non-coherent L1.
 //
-// Attention (megakernel): decode_split.cuh's int8 body (kernel #3's bf16
-// instance), each half of a block one (slot, kv head, run) item at a time
+// Attention (megakernel): decode_split.cuh's int8 body (split_item, kBits
+// = 8), each half of a block one (slot, kv head, run) item at a time
 // with its own named barrier; the last item of a slot merges the runs'
 // partials in run order and folds in the new row.
 //
@@ -767,8 +767,9 @@ cudaError_t grid_of(int H, int device, int* grid) {
   return *grid > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
-// cache rows per attention item: kernel #3's rule for its bf16 instance
-// (decode_attention.quant_run_rows, measured on the card): the shortest of
+// cache rows per attention item: the rule measured on the card for this
+// body over the int8 cache (kernel #3's bf16 instance until it was
+// redesigned around bulk copies; PERF.md): the shortest of
 // 256 to 1,024 rows that leaves at most two live items an SM (one a half
 // block) at half-full slots, longer if a slot would have more runs than the
 // last item can merge

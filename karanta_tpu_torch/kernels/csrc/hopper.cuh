@@ -1,4 +1,4 @@
-// Hopper (sm_90a) helpers: mbarriers, TMA tensor loads, named barriers,
+// Hopper (sm_90a) helpers: mbarriers, TMA tensor and bulk loads, named barriers,
 // register reallocation between warpgroups (setmaxnreg) and the warpgroup
 // matrix products (wgmma) with their shared-memory operand descriptors.
 //
@@ -79,6 +79,35 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
          "r"(c0) : "memory");
+}
+
+// `bytes` contiguous bytes from global to shared memory without a tensor
+// map (both addresses 16-byte aligned, bytes a multiple of 16); completion
+// is counted on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+// an L2 policy that evicts these lines first: for bytes read once, so that
+// they do not push out what is read again
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// bulk_load under an L2 cache policy
+__device__ __forceinline__ void bulk_load_hint(void* dst, const void* src, uint32_t bytes,
+                                               uint64_t* bar, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1], %2, [%3], %4;\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy)
+      : "memory");
 }
 
 // --- warpgroups ----------------------------------------------------------------

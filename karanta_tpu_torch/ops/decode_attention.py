@@ -104,20 +104,31 @@ def _decode_fns():
     return fn, supported
 
 
-# The bf16 instance's run-length rule over the int8 cache (measured on an
-# H100 with ``python -m karanta_tpu_torch.bench.verify_runs --kernel 3``):
-# split_run_rows with runs of QUANT_MIN_RUN to QUANT_MAX_RUN rows and up to
-# QUANT_BLOCKS_PER_SM live blocks an SM (its blocks of 4 warps fit two an
-# SM; the verify kernels' blocks of 8 warps one).
-QUANT_MIN_RUN, QUANT_MAX_RUN, QUANT_BLOCKS_PER_SM = 256, 1024, 2
+# The bf16 instance's run rule over the int8 cache (measured on an H100
+# with ``python -m karanta_tpu_torch.bench.verify_runs --kernel 3``). The
+# kernel cuts each (slot, kv head) into runs of the rule's rows, and its
+# persistent grid (every block the card holds) walks those runs in a fixed
+# order, so a slot's bits depend on its own length and the rule, not on
+# the slots beside it. The rule takes the shortest power-of-two run from
+# QUANT_MIN_RUN to QUANT_MAX_RUN rows whose runs fit the grid with every
+# slot full (one run a block), and QUANT_MAX_RUN when none does: each run
+# costs its block a start and a merge, which outweigh an uneven walk.
+QUANT_MIN_RUN, QUANT_MAX_RUN = 256, 1024
 
 
-def quant_run_rows(b: int, kvh: int, m: int, n_sm: int,
+def quant_run_rows(b: int, kvh: int, m: int, n_blocks: int,
                    max_runs: int) -> int:
-    """Rows per run of the int8 decode kernel's bf16 instance for B slots,
-    KVH kv heads and M cache rows on a card with n_sm SMs."""
-    return split_run_rows(b, kvh, m, n_sm, QUANT_MIN_RUN, QUANT_MAX_RUN,
-                          max_runs, blocks_per_sm=QUANT_BLOCKS_PER_SM)
+    """Rows a run of the int8 decode kernel's bf16 instance for B slots, KVH
+    kv heads and M cache rows, with n_blocks blocks resident on the card:
+    the shortest run whose B * KVH * ceil(M / run) runs fit the blocks (one
+    a block), else QUANT_MAX_RUN; longer if a slot would have more than
+    max_runs runs."""
+    run = QUANT_MIN_RUN
+    while run < QUANT_MAX_RUN and b * kvh * -(-m // run) > n_blocks:
+        run *= 2
+    while -(-m // run) > max_runs:
+        run *= 2
+    return run
 
 
 @functools.cache
@@ -125,16 +136,18 @@ def paged_decode_append_quant_info(d: int, g: int, b: Optional[int] = None,
                                    kvh: Optional[int] = None,
                                    m: Optional[int] = None) -> dict:
     """Registers and spilled bytes per thread, dynamic shared bytes per
-    block, resident blocks per SM and the most runs a slot may have of the
-    int8 decode kernel's bf16 (tensor-core) instance for head dim d with g
-    query heads per kv head, as the CUDA runtime reports them (needs the
-    card); given a shape (B slots, KVH kv heads, M cache rows), also its rows
-    per run on the current card."""
+    block (at B = 0; 8 bytes more a slot), resident blocks per SM, the most
+    runs a slot may have (ceil(M / run_rows)), rows a chunk, ring stages and
+    consumer warps of the int8 decode kernel's bf16 (TMA-fed tensor-core)
+    instance for head dim d with g query heads per kv head, as the CUDA
+    runtime reports them (needs the card); given a shape (B slots, KVH kv
+    heads, M cache rows), also its run rows on the current card."""
     info = _info("decode_append_quant", "karanta_decode_append_quant_info", d,
-                 g, "max_runs")
+                 g, "max_runs", "chunk_rows", "stages", "consumer_warps")
     if b is not None:
         info["run_rows"] = quant_run_rows(
-            b, kvh, m, _sm_count(torch.cuda.current_device()),
+            b, kvh, m,
+            info["blocks_per_sm"] * _sm_count(torch.cuda.current_device()),
             info["max_runs"])
     return info
 
@@ -204,9 +217,10 @@ def paged_decode_append_quant(
     partials = counters = None
     run_rows = 0
     if q.dtype == torch.bfloat16:
+        info = paged_decode_append_quant_info(d, h // kvh)
         run_rows = quant_run_rows(
-            b, kvh, m, _sm_count(q.device),
-            paged_decode_append_quant_info(d, h // kvh)["max_runs"])
+            b, kvh, m, info["blocks_per_sm"] * _sm_count(q.device),
+            info["max_runs"])
         partials, counters = _split_workspace(q, b * kvh, -(-m // run_rows),
                                               SPLIT_PARTIAL_ROWS)
     code = fn(kernels.ptr(q), kernels.ptr(new_k), kernels.ptr(new_v),

@@ -440,7 +440,8 @@ def test_split_run_rules(m):
     Python; the card only times them): powers of two within each kernel's
     range, the shortest that leaves at most one live block per two SMs at
     half-full slots, longer only to respect the last block's merge limit,
-    never shorter as the batch grows."""
+    never shorter as the batch grows. The int8 decode kernel's rule has its
+    own test below; its engine points are here."""
     from karanta_tpu_torch.ops import decode_attention as DA
 
     n_sm = 132
@@ -448,8 +449,6 @@ def test_split_run_rules(m):
               DA.MULTI_MIN_RUN, DA.MULTI_MAX_RUN, 0.5),
              (lambda b: DA.multi_q4_run_tokens(b, 4, m, n_sm, 64),
               DA.MULTI_Q4_MIN_RUN, DA.MULTI_Q4_MAX_RUN, 0.5),
-             (lambda b: DA.quant_run_rows(b, 4, m, n_sm, 64),
-              DA.QUANT_MIN_RUN, DA.QUANT_MAX_RUN, DA.QUANT_BLOCKS_PER_SM),
              (lambda b: DA.q4_run_tokens(b, 4, m, n_sm, 64),
               DA.Q4_MIN_RUN, DA.Q4_MAX_RUN, DA.Q4_BLOCKS_PER_SM))
     # the int4 rules count tokens in whole 64-token windows
@@ -468,9 +467,13 @@ def test_split_run_rules(m):
     assert DA.multi_quant_run_rows(32, 4, 4096, n_sm, 64) == 1024
     assert DA.multi_q4_run_tokens(4, 4, 4096, n_sm, 64) == 512
     assert DA.multi_q4_run_tokens(8, 4, 4096, n_sm, 64) == 1024
-    assert DA.quant_run_rows(4, 4, 1920, n_sm, 64) == 256
-    assert DA.quant_run_rows(32, 4, 1920, n_sm, 64) == 512
-    assert DA.quant_run_rows(80, 4, 1920, n_sm, 64) == 1024
+    # the int8 decode kernel at two blocks an SM: one run a block while the
+    # runs of full slots fit, else the grid walks the longest runs
+    assert DA.quant_run_rows(4, 4, 1920, 2 * n_sm, 32) == 256
+    assert DA.quant_run_rows(16, 4, 1920, 2 * n_sm, 32) == 512
+    assert DA.quant_run_rows(32, 4, 1920, 2 * n_sm, 32) == 1024
+    assert DA.quant_run_rows(80, 4, 1920, 2 * n_sm, 32) == 1024
+    assert DA.quant_run_rows(1, 1, 65536, 2 * n_sm, 32) == 2048
     assert DA.q4_run_tokens(4, 4, 2048, n_sm, 64) == 256
     assert DA.q4_run_tokens(8, 4, 4096, n_sm, 64) == 512
     assert DA.q4_run_tokens(32, 4, 4096, n_sm, 64) == 1024
@@ -478,3 +481,126 @@ def test_split_run_rules(m):
     # a slot never gets more runs than the last block can merge
     assert DA.split_run_rows(1, 1, 4096, n_sm, 64, 64, max_runs=16) == 256
     assert DA.split_run_rows(1, 1, 4096, n_sm, 64, 4096, 64) == 64
+
+
+def _quant_items(lens, kvh, m, run_rows, chunk=128):
+    """The items of the int8 decode kernel's bf16 instance
+    (kernels/csrc/decode_append_quant.cu) in their fixed order: every (slot,
+    kv head)'s first run, then every second run, ...; each as (slot, kv
+    head, first chunk, chunks)."""
+    run = run_rows // chunk
+    nch = [max(1, -(-min(n, m - 1) // chunk)) for n in lens]
+    return [(b, h, r * run, min(run, c - r * run))
+            for r in range(-(-m // run_rows))
+            for b, c in enumerate(nch) if c > r * run for h in range(kvh)]
+
+
+def _quant_walk(n_items, n_grid, blk):
+    """The items block blk takes: item blk of each even round of n_grid,
+    item n_grid - 1 - blk of each odd one."""
+    return [k * n_grid + (n_grid - 1 - blk if k % 2 else blk)
+            for k in range(-(-n_items // n_grid))
+            if k * n_grid + (n_grid - 1 - blk if k % 2 else blk) < n_items]
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_quant_items_bound_the_workspace(seed):
+    """The rule's runs cover every (slot, kv head)'s chunks once, in at most
+    ceil(M / run) runs (the partials the wrapper allocates a slot) and the
+    kernel's 32; the grid's walk takes every item once; and a slot's runs
+    depend on its own length only, not on the slots batched beside it."""
+    from karanta_tpu_torch.ops import decode_attention as DA
+
+    rng = np.random.default_rng(seed)
+    for _ in range(40):
+        m = int(rng.choice([256, 300, 640, 1920, 1923, 4096]))
+        b, kvh = int(rng.integers(1, 90)), int(rng.choice([1, 2, 4]))
+        n_grid = int(rng.choice([16, 132, 264]))
+        lens = [int(x) for x in rng.integers(0, m, b)]
+        if rng.random() < 0.3:
+            lens = [m - 1] * b
+        run = DA.quant_run_rows(b, kvh, m, n_grid, 32)
+        assert run % 128 == 0 and -(-m // run) <= 32
+        items = _quant_items(lens, kvh, m, run)
+        for slot, n in enumerate(lens):
+            for h in range(kvh):
+                mine = [(c, nc) for s_, h_, c, nc in items
+                        if (s_, h_) == (slot, h)]
+                chunks = [c + j for c, nc in mine for j in range(nc)]
+                assert chunks == list(range(max(1, -(-n // 128))))
+                assert len(mine) <= -(-m // run)
+        taken = sorted(i for blk in range(n_grid)
+                       for i in _quant_walk(len(items), n_grid, blk))
+        assert taken == list(range(len(items)))
+        others = [int(x) for x in rng.integers(0, m, b)]
+        others[0] = lens[0]
+        assert ([x for x in _quant_items(others, kvh, m, run) if x[0] == 0]
+                == [x for x in items if x[0] == 0])
+
+
+@pytest.mark.parametrize("lens", [[127, 128, 129, 0], [255, 256, 257, 383]])
+def test_quant_plain_matches_pallas_at_chunk_edges(lens):
+    """Kernel #3's plain version against the JAX Pallas kernel
+    (``interpret=True``) with cache_len at -1, 0 and +1 of the bf16
+    instance's 128-row chunk and of its two-stage ring's 256 rows, 0 and M
+    - 1: attention within atol 5e-3, all four caches exactly equal."""
+    L, B, M, H, KVH, D = 2, 4, 384, 8, 2, 64
+    q, kq, ks, vq, vs, nkq, nks, nvq, nvs = _inputs(31 + lens[0], L, B, M, H,
+                                                    KVH, D)
+    attn_j, k2, v2, ks2, vs2 = j_append_quant(
+        jnp.asarray(q), nkq, nvq, nks, nvs, kq, vq, ks, vs, jnp.asarray(1),
+        jnp.asarray(lens, jnp.int32), block=128, interpret=True)
+    tk, tv = _t(kq), _t(vq)
+    tks = _t(np.asarray(ks, np.float32)).to(torch.bfloat16)
+    tvs = _t(np.asarray(vs, np.float32)).to(torch.bfloat16)
+    attn_t = paged_decode_append_quant(
+        _t(q), _t(nkq), _t(nvq),
+        _t(np.asarray(nks, np.float32)).to(torch.bfloat16),
+        _t(np.asarray(nvs, np.float32)).to(torch.bfloat16),
+        tk, tv, tks, tvs, 1, torch.tensor(lens, dtype=torch.int32))
+    np.testing.assert_allclose(attn_t.numpy(), np.asarray(attn_j), atol=5e-3)
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(k2))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(v2))
+    np.testing.assert_array_equal(tks.float().numpy(),
+                                  np.asarray(ks2, np.float32))
+    np.testing.assert_array_equal(tvs.float().numpy(),
+                                  np.asarray(vs2, np.float32))
+
+
+def test_quant_plain_reads_nothing_past_the_slot():
+    """The plain version over caches whose rows and scales past each slot's
+    cache_len hold finite garbage equals it over the same caches with
+    those rows zeroed, and leaves every row past cache_len but the new one
+    as it was."""
+    L, B, M, H, KVH, D = 2, 5, 200, 8, 2, 32
+    rng = np.random.default_rng(41)
+    q, kq, ks, vq, vs, nkq, nks, nvq, nvs = _inputs(41, L, B, M, H, KVH, D)
+    lens = torch.tensor([0, 1, 127, 128, 199], dtype=torch.int32)
+    dead = (torch.arange(M)[None, :] >= lens.long()[:, None])[:, None, :]
+    new = (_t(nkq), _t(nvq), _t(np.asarray(nks, np.float32)),
+           _t(np.asarray(nvs, np.float32)))
+    base = [_t(kq), _t(vq), _t(np.asarray(ks, np.float32)),
+            _t(np.asarray(vs, np.float32))]
+    garbage = [x.clone() for x in base]
+    for x in garbage[:2]:
+        noise = torch.from_numpy(rng.integers(-128, 128, x.shape[1:]).astype(
+            np.int8))
+        x[1] = torch.where(dead[..., None], noise, x[1])
+    for x in garbage[2:]:
+        noise = torch.from_numpy(rng.uniform(-1e4, 1e4, x.shape[1:]).astype(
+            np.float32))
+        x[1] = torch.where(dead, noise, x[1])
+    zeroed = [x.clone() for x in base]
+    for x in zeroed[:2]:
+        x[1] = torch.where(dead[..., None], torch.zeros_like(x[1]), x[1])
+    for x in zeroed[2:]:
+        x[1] = torch.where(dead, torch.zeros_like(x[1]), x[1])
+    before = [x.clone() for x in garbage]
+    got = paged_decode_append_quant_plain(_t(q), *new, *garbage, 1, lens)
+    want = paged_decode_append_quant_plain(_t(q), *new, *zeroed, 1, lens)
+    assert torch.equal(got, want)
+    past = (dead & (torch.arange(M)[None, :]
+                    != lens.long()[:, None])[:, None, :]).expand(-1, KVH, -1)
+    for x, y in zip(garbage, before):
+        assert torch.equal(x[1][past], y[1][past])
+        assert torch.equal(x[0], y[0])

@@ -1,6 +1,7 @@
-"""The flash kernel's measuring tools on the CPU: the instrumented copy
-that bench/flash_trace.py builds, and the work bench/flash_ab.py divides
-by. The tools themselves run on the card."""
+"""The measuring tools of the flash kernel (#2) and the int8 decode kernel
+(#3) on the CPU: the instrumented copies that bench/flash_trace.py builds,
+and the work bench/flash_ab.py divides by. The tools themselves run on the
+card."""
 
 import numpy as np
 import pytest
@@ -45,3 +46,40 @@ def test_flash_work_counts_the_live_pairs(causal, q_offset):
     assert flops == 4.0 * d * h * pairs
     assert n_bytes == len(lives) * ((2 * sq * h * d + 2 * sk * kvh * d) * 2
                                     + sk * 4)
+
+
+def test_flash_trace_instruments_the_int8_decode_kernel():
+    """Every phase's reading of #3's trace lands once in the tree's
+    decode_append_quant.cu, the producer's and the consumer's sums are
+    stored, and the two C entries are exported."""
+    out = flash_trace.instrument_decode(
+        (CSRC / "decode_append_quant.cu").read_text())
+    for k in range(len(flash_trace.DECODE_PHASES)):
+        assert out.count(f"FT_STAMP({k});") == 1, k
+    assert out.count("karanta_ftrace[ft_slot") == 2
+    assert "karanta_ftrace_reset" in out and "karanta_ftrace_read" in out
+
+
+def test_flash_trace_refuses_a_decode_source_without_its_anchors():
+    src = (CSRC / "decode_append_quant.cu").read_text()
+    with pytest.raises(ValueError, match="flash_trace"):
+        flash_trace.instrument_decode(
+            src.replace("mbar_wait(&seg_full[p], (seg >> 1) & 1);", ""))
+
+
+@pytest.mark.parametrize("kvh,lens", [(4, [0, 700, 1919, 1390]),
+                                      (2, [5, 0, 1, 33]), (1, [1650] * 3)])
+def test_decode_work_counts_the_live_rows(kvh, lens):
+    """Bytes of flash_ab.decode_work (what #3's bound divides by) against a
+    count over every slot, kv head and live row: its int8 K and V bytes and
+    two bf16 scales; per slot and kv head the new K/V rows and scales read
+    and written; q read and the output written."""
+    d, g = 16, 7
+    b, h = len(lens), kvh * g
+    n = 0
+    for live in lens:
+        for _ in range(kvh):
+            n += sum(2 * d + 2 * 2 for _ in range(live))  # cache rows + scales
+            n += 2 * (2 * d + 2 * 2)                      # new rows in + out
+    n += b * h * d * 2 * 2                                # q in, attn out
+    assert flash_ab.decode_work(b, kvh, h, d, lens) == n

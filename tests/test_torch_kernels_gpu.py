@@ -908,6 +908,144 @@ def test_quant_kernel_is_deterministic(cuda):
         assert torch.equal(x, y)
 
 
+# every (D, G) pair the int8 decode kernel is built for (decode_rows.cuh)
+QUANT_ROW_PAIRS = [(128, 7), (128, 8), (128, 4), (128, 2), (64, 4), (64, 2),
+                   (32, 2), (16, 2)]
+
+
+def _quant_check(q, new, caches, lens):
+    a = [x.clone() for x in caches]
+    got = DA.paged_decode_append_quant(q, *new, *a, 1, lens)
+    want = DA.paged_decode_append_quant_plain(q, *new, *caches, 1, lens)
+    torch.cuda.synchronize()
+    _assert_close(got, want, q.dtype)
+    for x, y in zip(a, caches):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("d,g", QUANT_ROW_PAIRS)
+def test_quant_kernel_chunk_and_ring_edges(cuda, d, g):
+    """Kernel #3's bf16 instance at every (D, G) pair, B = 8 at layer 1 of
+    2: cache_len at -1, 0 and +1 of one chunk's rows and of a whole ring's
+    rows, 0 and M - 1 (M = 640, a multiple of 8: the scales come by bulk
+    copy); all four caches bit-equal."""
+    info = DA.paged_decode_append_quant_info(d, g)
+    chunk = info["chunk_rows"]
+    ring = chunk * info["stages"]
+    lens = [chunk - 1, chunk, chunk + 1, ring - 1, ring, ring + 1, 0, 639]
+    gen = torch.Generator(device=cuda).manual_seed(90 + d + g)
+    _quant_check(*_quant_case(gen, cuda, torch.bfloat16, 2, 8, 2, g, 640, d,
+                              lens))
+
+
+@pytest.mark.parametrize("d,g", [(128, 7), (16, 2)])
+@pytest.mark.parametrize("m", [300, 1923])
+def test_quant_kernel_unaligned_scales(cuda, d, g, m):
+    """M not a multiple of 8: a slab's scales start off a 16-byte boundary
+    (the producer's lanes load them); lengths at chunk edges, 0 and M - 1;
+    all four caches bit-equal."""
+    chunk = DA.paged_decode_append_quant_info(d, g)["chunk_rows"]
+    lens = [0, chunk - 1, chunk, chunk + 1, 2 * chunk + 5, m - 1]
+    gen = torch.Generator(device=cuda).manual_seed(m + d)
+    _quant_check(*_quant_case(gen, cuda, torch.bfloat16, 2, 6, 3, g, m, d,
+                              lens))
+
+
+def test_quant_kernel_decode_ab_point(cuda):
+    """The decode A/B point: B = 80 slots of the 7B heads (KVH 4, G 7, D
+    128) each filled to 1,650 of 1,920 rows; all four caches bit-equal."""
+    gen = torch.Generator(device=cuda).manual_seed(93)
+    _quant_check(*_quant_case(gen, cuda, torch.bfloat16, 2, 80, 4, 7, 1920,
+                              128, [1650] * 80))
+
+
+def test_quant_kernel_after_an_info_call(cuda):
+    """Kernel #3's bf16 instance launches at a batch it has launched at
+    before after its info entry ran for another shape (the info must not
+    shrink the shared memory the launch needs), at B = 4 and 80."""
+    gen = torch.Generator(device=cuda).manual_seed(97)
+    for b in (4, 80, 4):
+        q, new, caches, lens = _quant_case(gen, cuda, torch.bfloat16, 2, b, 2,
+                                           7, 640, 128, [300] * b)
+        _quant_check(q, new, caches, lens)
+        DA.paged_decode_append_quant_info(128, 7, b + 1, 2, 640 + b)
+        _quant_check(q, new, caches, lens)
+
+
+@pytest.mark.parametrize("b", [4, 80])
+def test_quant_kernel_slot_bits_ignore_the_batch(cuda, b):
+    """A slot's output bits do not depend on the other slots' lengths at
+    the same B: its runs, and so its partials and their merge, follow from
+    its own length and the run rule. B = 4 (a block a run) and B = 80 (the
+    grid walks more runs than it has blocks), 7B heads over 1,920 rows."""
+    gen = torch.Generator(device=cuda).manual_seed(99 + b)
+    lens_l = [1650, 700, 1919, 1] * (b // 4)
+    q, new, caches, lens = _quant_case(gen, cuda, torch.bfloat16, 2, b, 4, 7,
+                                       1920, 128, lens_l)
+    got = DA.paged_decode_append_quant(q, *new, *[x.clone() for x in caches],
+                                       1, lens)
+    others = lens.clone()
+    others[4:] = torch.randint(0, 1920, (b - 4,), generator=gen, device=cuda)
+    others[1] = 5
+    again = DA.paged_decode_append_quant(q, *new,
+                                         *[x.clone() for x in caches], 1,
+                                         others)
+    torch.cuda.synchronize()
+    keep = [0, 2, 3]
+    assert torch.equal(got[keep].view(torch.int16),
+                       again[keep].view(torch.int16))
+
+
+@pytest.mark.parametrize("d,g", [(128, 7), (64, 4), (16, 2)])
+def test_quant_kernel_reads_nothing_past_the_slot(cuda, d, g):
+    """Rows and scales past each slot's cache_len hold garbage (random
+    bytes; NaN, inf and huge scales): the kernel's output equals the plain
+    version's over the same caches with those rows zeroed, and every row
+    past cache_len but the new one is left as it was."""
+    b, kvh, m = 6, 2, 520
+    chunk = DA.paged_decode_append_quant_info(d, g)["chunk_rows"]
+    lens_l = [0, 1, chunk - 1, chunk + 3, 3 * chunk, m - 1]
+    gen = torch.Generator(device=cuda).manual_seed(95 + d)
+    q, new, caches, lens = _quant_case(gen, cuda, torch.bfloat16, 2, b, kvh,
+                                       g, m, d, lens_l)
+    dead = (torch.arange(m, device=cuda)[None, :]
+            >= lens.long()[:, None])[:, None, :]            # (B, 1, M)
+    garbage = [x.clone() for x in caches]
+    for x in garbage[:2]:
+        noise = torch.randint(-128, 128, x.shape, generator=gen,
+                              device=cuda).to(torch.int8)
+        x[1] = torch.where(dead[..., None], noise[1], x[1])
+    specials = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                             3e38, 0.0], device=cuda).bfloat16()
+    for x in garbage[2:]:
+        pick = torch.randint(0, 5, x.shape, generator=gen, device=cuda)
+        x[1] = torch.where(dead, specials[pick[1]], x[1])
+    zeroed = [x.clone() for x in caches]
+    for x in zeroed[:2]:
+        x[1] = torch.where(dead[..., None], torch.zeros_like(x[1]), x[1])
+    for x in zeroed[2:]:
+        x[1] = torch.where(dead, torch.zeros_like(x[1]), x[1])
+    before = [x.clone() for x in garbage]
+    got = DA.paged_decode_append_quant(q, *new, *garbage, 1, lens)
+    want = DA.paged_decode_append_quant_plain(q, *new, *zeroed, 1, lens)
+    torch.cuda.synchronize()
+    _assert_close(got, want, torch.bfloat16)
+    past = dead & (torch.arange(m, device=cuda)[None, :]
+                   != lens.long()[:, None])[:, None, :]
+    for x, y in zip(garbage[:2], before[:2]):
+        assert torch.equal(x[1][past.expand(-1, kvh, -1)],
+                           y[1][past.expand(-1, kvh, -1)])
+        assert torch.equal(x[0], y[0])
+    for x, y in zip(garbage[2:], before[2:]):
+        assert torch.equal(x[1][past.expand(-1, kvh, -1)].view(torch.int16),
+                           y[1][past.expand(-1, kvh, -1)].view(torch.int16))
+        assert torch.equal(x[0].view(torch.int16), y[0].view(torch.int16))
+    # the live rows and the new row: as the plain version wrote them
+    for x, y in zip(garbage, zeroed):
+        live = ~past.expand(-1, kvh, -1)
+        assert torch.equal(x[1][live].float(), y[1][live].float())
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("g,tq", [(7, 4), (8, 4), (7, 2), (2, 5)])
 def test_multi_q4_kernel_split_boundaries(cuda, dtype, g, tq):
