@@ -23,11 +23,12 @@ Phases (any failed check raises and the script exits non-zero):
    kernel likewise (GB/s of live bytes, share of the bound, resources; the
    int8 verify kernel also at B = 32 with ragged lengths, the int4 verify
    and decode kernels at the served int4 point's B = 8 with ragged lengths,
-   the int8 decode kernel at the decode A/B point, B = 80 with every slot
-   filled to 1,650 of 1,920 rows, each checked against its plain version;
+   the int8 decode and verify kernels at the decode A/B point, B = 80 with
+   every slot filled to 1,650 of 1,920 rows, each checked against its plain
+   version;
    beside the append kernel, SDPA over the bucket with the new row
-   scattered, for context); the split decode kernels' device time without
-   the host's
+   scattered, for context); the split decode kernels' and window
+   attention's device time (and SDPA's beside #1's) without the host's
    launch overhead, from a CUDA graph of 20 calls; kernels #10 and
    #11, the decode weight streams, at full 7B width and depth: checked at
    B = 4 over ragged lengths, timed at the JAX package's decode A/B point
@@ -511,22 +512,30 @@ def kernel_window(cfg, dev, gen) -> dict:
         return torch.nn.functional.scaled_dot_product_attention(
             qw, kw, vw, attn_mask=mw)
 
-    t_k = cuda_ms(lambda: A.window_attention_kernel_call(
-        q, k, v, w, mask, cos=cos, sin=sin), 20)
+    def kernel():
+        return A.window_attention_kernel_call(q, k, v, w, mask, cos=cos,
+                                              sin=sin)
+
+    t_k = cuda_ms(kernel, 20)
+    t_dev = graph_ms(kernel)
     t_p = cuda_ms(lambda: A.window_attention_plain(q, k, v, w, mask, cos=cos,
                                                    sin=sin), 5)
     t_l = cuda_ms(lib, 20)
+    t_ldev = graph_ms(lib)
     n_bytes = 4 * s * h * d * 2 + 2 * s * d * 4 + s * 4
     flops = 4.0 * w * d * s * h
     b, by = bound_ms(n_bytes, flops)
-    # the bf16 instance's rate, share of the bound and resources
-    rates = {"tflops": flops / t_k * 1e-9, "bound_share": b / t_k,
-             "sdpa_ratio": t_k / t_l,
+    # the bf16 instance's device time (a CUDA graph: the wrapper's host time
+    # left out), rate, share of the bound and resources
+    rates = {"device_ms": t_dev, "library_device_ms": t_ldev,
+             "tflops": flops / t_dev * 1e-9, "bound_share": b / t_dev,
+             "sdpa_ratio": t_dev / t_ldev,
              "resources": A.window_attention_info(d, w)}
-    log(f"  window: kernel {t_k:.4f} ms, {rates['tflops']:.1f} TFLOP/s, "
-        f"{100 * rates['bound_share']:.1f}% of the bound {b:.4f} ms; "
-        f"{rates['sdpa_ratio']:.2f}x SDPA's {t_l:.4f} ms; bf16 instance "
-        f"{rates['resources']}")
+    log(f"  window: kernel {t_k:.4f} ms ({t_dev:.4f} ms of device time), "
+        f"{rates['tflops']:.1f} TFLOP/s, {100 * rates['bound_share']:.1f}% "
+        f"of the bound {b:.4f} ms; {rates['sdpa_ratio']:.2f}x SDPA's "
+        f"{t_ldev:.4f} ms of device time ({t_l:.4f} ms by events); bf16 "
+        f"instance {rates['resources']}")
     rates["concat4"] = window_concat(layout, dev, gen, BATCHED_PAGES)
     return dict(name="window_attention", route="cuda",
                 source="karanta_tpu_torch/kernels/csrc/window_attention.cu",
@@ -567,20 +576,30 @@ def window_concat(layout, dev, gen, n: int) -> dict:
     qw, kw, vw = (x.reshape(s // w, w, h, d).transpose(1, 2).contiguous()
                   for x in (qr, kr, v))
     mw = mask.reshape(s // w, 1, 1, w) > 0
-    t_k = cuda_ms(lambda: A.window_attention_kernel_call(
-        q, k, v, w, mask, cos=cos, sin=sin), 20)
+    def kernel():
+        return A.window_attention_kernel_call(q, k, v, w, mask, cos=cos,
+                                              sin=sin)
+
+    def lib():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qw, kw, vw, attn_mask=mw)
+
+    t_k = cuda_ms(kernel, 20)
+    t_dev = graph_ms(kernel)
     t_p = cuda_ms(lambda: A.window_attention_plain(q, k, v, w, mask,
                                                    cos=cos, sin=sin), 3)
-    t_l = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qw, kw, vw, attn_mask=mw), 20)
+    t_l = cuda_ms(lib, 20)
+    t_ldev = graph_ms(lib)
     b, by = bound_ms(4 * s * h * d * 2 + 2 * s * d * 4 + s * 4,
                      4.0 * w * d * s * h)
-    log(f"  window batched ({n} pages): kernel {t_k:.4f} ms "
-        f"({t_k / n:.4f} a page), {100 * b / t_k:.1f}% of the bound "
-        f"{b:.4f} ms ({by}); plain {t_p:.4f} ms; {t_k / t_l:.2f}x SDPA's "
-        f"{t_l:.4f} ms")
+    log(f"  window batched ({n} pages): kernel {t_k:.4f} ms ({t_dev:.4f} "
+        f"device, {t_dev / n:.4f} a page), {100 * b / t_dev:.1f}% of the "
+        f"bound {b:.4f} ms ({by}); plain {t_p:.4f} ms; {t_dev / t_ldev:.2f}x "
+        f"SDPA's {t_ldev:.4f} ms of device time ({t_l:.4f} by events)")
     return dict(shape=list(q.shape), max_abs_err=err, ms=t_k, plain_ms=t_p,
-                library_ms=t_l, bound_ms=b, bound_by=by)
+                library_ms=t_l, device_ms=t_dev, library_device_ms=t_ldev,
+                bound_ms=b, bound_by=by, bound_share=b / t_dev,
+                sdpa_ratio=t_dev / t_ldev)
 
 
 def _flash_case(dev, gen, b, sq, sk, h, kvh, d, dtype, live_len):
@@ -904,7 +923,9 @@ def _check_caches(name: str, got, want) -> None:
 def kernel_decode_multi(cfg, dev, gen) -> dict:
     """One verify pass of one layer over the 7B int8 cache: T = 4 rows per
     slot (gamma 3) at B = 4, M = 4096 (the served context), cache_len 0, a
-    page prompt's length, a longer one and M - T - 1."""
+    page prompt's length, a longer one and M - T - 1; then B = 32 with
+    ragged lengths and the decode A/B point's B = 80, every slot filled to
+    1,650 of 1,920 rows (device time, share of the bound, GB/s)."""
     t = cfg.text
     m, layer, batch, tq = 4096, 5, 4, 4
     lens = [0, 1700, 2100, m - tq - 1]
@@ -991,18 +1012,49 @@ def kernel_decode_multi(cfg, dev, gen) -> dict:
     res3 = DA.paged_decode_append_multi_quant_info(d, g * tq, b32, kvh, m)
     del a3, c3
     torch.cuda.empty_cache()
-    rates = {"device_ms": t_dev, "live_gbps": n_bytes / t_k * 1e-6,
-             "bound_share": bd / t_k, "resources": resources,
+    # the third: the decode A/B point's batch, B = 80 slots each filled to
+    # 1,650 of the int8 engine's 1,920 rows; two layers of cache
+    lens80 = [AB_FILL] * AB_BATCH
+    q8, new8, c8 = inputs(2, AB_BATCH, kvh, AB_BUCKET, d, t.num_heads, tq,
+                          torch.bfloat16)
+    l8 = torch.tensor(lens80, dtype=torch.int32, device=dev)
+    a8 = [c.clone() for c in c8]
+    got8 = DA.paged_decode_append_multi_quant(q8, *new8, *a8, 1, l8)
+    torch.cuda.synchronize()
+    want8 = DA.paged_decode_append_multi_quant_plain(q8, *new8, *c8, 1, l8)
+    err8 = check_bf16(f"paged_decode_append_multi_quant 7B B={AB_BATCH} "
+                      f"T={tq} M={AB_BUCKET} fill {AB_FILL} bf16", got8, want8)
+    _check_caches(f"paged_decode_append_multi_quant B={AB_BATCH}", a8, c8)
+    t8 = cuda_ms(lambda: DA.paged_decode_append_multi_quant(
+        q8, *new8, *a8, 1, l8), 50)
+    t8_dev = graph_ms(lambda: DA.paged_decode_append_multi_quant(
+        q8, *new8, *a8, 1, l8))
+    n8, f8 = work(lens80, AB_BATCH)
+    bd8, _ = bound_ms(n8, f8)
+    res8 = DA.paged_decode_append_multi_quant_info(d, g * tq, AB_BATCH, kvh,
+                                                   AB_BUCKET)
+    del a8, c8
+    torch.cuda.empty_cache()
+    rates = {"device_ms": t_dev, "live_gbps": n_bytes / t_dev * 1e-6,
+             "bound_share": bd / t_dev, "resources": resources,
              "b32": {"ms": t3, "device_ms": t3_dev, "bound_ms": bd3,
-                     "bound_share": bd3 / t3, "live_gbps": n3 / t3 * 1e-6,
-                     "max_abs_err": err3, "run_rows": res3["run_rows"]}}
+                     "bound_share": bd3 / t3_dev,
+                     "live_gbps": n3 / t3_dev * 1e-6,
+                     "max_abs_err": err3, "run_rows": res3["run_rows"]},
+             "b80": {"ms": t8, "device_ms": t8_dev, "bound_ms": bd8,
+                     "bound_share": bd8 / t8_dev,
+                     "live_gbps": n8 / t8_dev * 1e-6,
+                     "max_abs_err": err8, "run_rows": res8["run_rows"]}}
     log(f"  paged_decode_append_multi_quant B={batch}: kernel {t_k:.4f} ms "
         f"({t_dev:.4f} ms of device time), {rates['live_gbps']:.0f} GB/s of "
         f"live bytes, {100 * rates['bound_share']:.1f}% of the bound "
         f"{bd:.4f} ms; B={b32}: {t3:.4f} ms ({t3_dev:.4f} device), "
-        f"{100 * bd3 / t3:.1f}% of its bound {bd3:.4f} ms, "
-        f"{n3 / t3 * 1e-6:.0f} GB/s; bf16 instance {resources}, runs of "
-        f"{res3['run_rows']} rows at B={b32}")
+        f"{100 * bd3 / t3_dev:.1f}% of its bound {bd3:.4f} ms, "
+        f"{n3 / t3_dev * 1e-6:.0f} GB/s; B={AB_BATCH} fill {AB_FILL}: "
+        f"{t8:.4f} ms ({t8_dev:.4f} device), {100 * bd8 / t8_dev:.1f}% of "
+        f"its bound {bd8:.4f} ms, {n8 / t8_dev * 1e-6:.0f} GB/s; bf16 "
+        f"instance {resources}, runs of {res3['run_rows']} rows at B={b32}, "
+        f"{res8['run_rows']} at B={AB_BATCH}")
     return dict(name="paged_decode_append_multi_quant", route="cuda",
                 source="karanta_tpu_torch/kernels/csrc/"
                        "decode_append_multi_quant.cu",
@@ -1499,7 +1551,8 @@ def kernel_per_rank(cfg, dev, gen) -> dict:
             (4 * s_vis * vh * vc.head_dim * 2 + 2 * s_vis * vc.head_dim * 4
              + s_vis * 4, 4.0 * w * vc.head_dim * s_vis * vh),
             lib=lambda: torch.nn.functional.scaled_dot_product_attention(
-                qw, kw, vw, attn_mask=mw)))
+                qw, kw, vw, attn_mask=mw),
+            graph=True))
         del q, k, v, qr, kr, qw, kw, vw
         # #2: the vision full layers, the decoder prefill, the prefix
         for dd in sorted({vc.head_dim, d}):

@@ -40,6 +40,23 @@ bit-equal; the bound is the bytes (the live rows and their scales, the new
 rows read and written, q and the output) at 3.35 TB/s.
 
     python -m karanta_tpu_torch.bench.flash_ab --kernel 3 --baseline old/csrc
+
+With ``--kernel 4`` or ``--kernel 7`` the same turns time the bf16
+instance of the int8 verify kernel (#4, ``paged_decode_append_multi_quant``,
+from each source's ``decode_append_multi_quant.cu``) or of the int4 one (#7,
+``paged_decode_append_multi_q4``, ``decode_append_multi_q4.cu``) at the 7B
+verify pass's shapes (one layer of a two-layer cache, D = 128, G = 7, T =
+4): ``chip_smoke.py``'s B = 4 over 4,096 tokens (lengths 0/1700/2100/4091)
+and its ragged B = 32 (#4) or B = 8 (#7), #4 at B = 80 with every slot
+filled to 1,650 of 1,920 rows and at T = 2, and one rank's kv heads at tp =
+2 and 4 (KVH 2 and 1, B = 4 over the smoke's per-rank caches). Each source
+runs with its library's own run rule: the resident-run rule
+(``resident_run``) where its info entry reports rows a chunk (the Hopper
+body), else the rule of the split body it replaced (``SPLIT_VERIFY_RULES``);
+outputs are held to the plain version at the bf16 limit and the caches
+bit-equal; the bound is the bytes (``verify_work``) at 3.35 TB/s.
+
+    python -m karanta_tpu_torch.bench.flash_ab --kernel 4 --baseline old/csrc
 """
 
 from __future__ import annotations
@@ -51,9 +68,10 @@ import json
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
-from karanta_tpu_torch.bench.verify_runs import graph_ms
+from karanta_tpu_torch.bench.verify_runs import graph_ms, verify_work
 from karanta_tpu_torch.kernels import build
 from karanta_tpu_torch.models.qwen25_vl.config import get_config
 from karanta_tpu_torch.models.qwen25_vl.layout import build_vision_layout
@@ -356,6 +374,205 @@ def decode_ab(others: dict, wanted: list, smi: str) -> dict:
             "resources": info_this}
 
 
+# kernels #4 and #7: one layer of the 7B verify pass over the int8 or int4
+# cache (chip_smoke.py's shapes)
+VERIFY_D, VERIFY_G, VERIFY_KVH, VERIFY_T, VERIFY_M = 128, 7, 4, 4, 4096
+VERIFY_SOURCES = {"4": "decode_append_multi_quant", "7": "decode_append_multi_q4"}
+VERIFY_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+# the run rules of the split body that #4's and #7's Hopper body replaced
+# (verify_split.cuh): runs of lo to hi rows (#4) or tokens (#7), one
+# live block per two SMs at half-full slots
+SPLIT_VERIFY_RULES = {"4": (256, 1024), "7": (256, 2048)}
+
+
+def verify_shapes(kernel: str) -> dict:
+    """name -> (B, KVH, T, M tokens, lengths); ragged lengths from the
+    smoke's seeds."""
+    m, tq = VERIFY_M, VERIFY_T
+
+    def ragged(b, seed):
+        rng = np.random.default_rng(seed)
+        return [0, m - tq - 1] + sorted(int(x) for x in rng.integers(
+            1, m - tq - 1, b - 2))
+
+    smoke = [0, 1700, 2100, m - tq - 1]
+    out = {"b4": (4, VERIFY_KVH, tq, m, smoke)}
+    if kernel == "4":
+        out["b32"] = (32, VERIFY_KVH, tq, m, ragged(32, 11))
+        out["b80"] = (80, VERIFY_KVH, tq, DECODE_M, [DECODE_AB_FILL] * 80)
+        out["t2"] = (4, VERIFY_KVH, 2, m, [0, 1700, 2100, m - 3])
+        rank_m = DECODE_M
+    else:
+        out["b8"] = (8, VERIFY_KVH, tq, m, ragged(8, 13))
+        rank_m = 2048
+    rank = [0, 700, 1390, rank_m - tq - 1]
+    for tp in (2, 4):
+        out[f"tp{tp}"] = (4, VERIFY_KVH // tp, tq, rank_m, rank)
+    return out
+
+
+def verify_case(kernel: str, b: int, kvh: int, tq: int, m: int, lens: list,
+                gen: torch.Generator):
+    """#4's or #7's inputs over a two-layer 7B cache (bf16 scales) and the
+    plain version's output and caches at layer 1."""
+    from karanta_tpu_torch.models.qwen25_vl.decoder import (
+        q4_pack_prefill, quantize_kv_rows, quantize_kv_rows_q4)
+    from karanta_tpu_torch.ops import decode_attention as DA
+
+    dev, d = torch.device("cuda"), VERIFY_D
+
+    def rows(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    quant = quantize_kv_rows if kernel == "4" else quantize_kv_rows_q4
+    nkq, nks = quant(rows((b, tq, kvh, d)))
+    nvq, nvs = quant(rows((b, tq, kvh, d)))
+    q = rows((b, tq, kvh * VERIFY_G, d)).bfloat16()
+    new = (nkq, nvq, nks.bfloat16(), nvs.bfloat16())
+    if kernel == "4":
+        kq, ks = quantize_kv_rows(rows((2, b, kvh, m, d)))
+        vq, vs = quantize_kv_rows(rows((2, b, kvh, m, d)))
+        caches = [kq, vq, ks, vs]
+        plain = DA.paged_decode_append_multi_quant_plain
+    else:
+        caches = list(q4_pack_prefill(rows((2, b, kvh, m, d)),
+                                      rows((2, b, kvh, m, d))))
+        plain = DA.paged_decode_append_multi_q4_plain
+    caches[2], caches[3] = caches[2].bfloat16(), caches[3].bfloat16()
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    want_caches = [c.clone() for c in caches]
+    want = plain(q, *new, *want_caches, 1, lens_t)
+    return q, new, caches, lens_t, want, want_caches
+
+
+def verify_launcher(kernel: str, fn, q, new, caches, lens_t, run: int):
+    """One call of a #4 or #7 C entry `fn` with runs of `run` rows (#4) or
+    tokens (#7) over copies of the caches: (call, output, the copies)."""
+    from karanta_tpu_torch import kernels
+    from karanta_tpu_torch.ops import decode_attention as DA
+
+    b, tq, h, d = q.shape
+    kvh, stored = caches[0].shape[2], caches[0].shape[3]
+    tokens = stored * (1 if kernel == "4" else 2)
+    partials, counters = DA._split_workspace(
+        q, b * kvh, -(-tokens // run), DA.MULTI_PARTIAL_ROWS)
+    out = torch.empty_like(q)
+    work = [c.clone() for c in caches]
+    # the call holds the tensors: the pointers alone would not keep them
+    tensors = (q, *new, *work, lens_t, out, partials, counters)
+    args = [kernels.ptr(x) for x in tensors]
+
+    def call(tensors=tensors):
+        kernels.raise_on_error(f"#{kernel}", fn(
+            *args, b, tq, kvh, h // kvh, stored, d, 1, run, d ** -0.5,
+            kernels.DTYPE_CODES[torch.bfloat16],
+            kernels.stream_ptr(q.device)))
+
+    return call, out, work
+
+
+def verify_info(lib, kernel: str, nq: int) -> list:
+    """The first 8 entries of a library's #4 or #7 info at (D, nq): a split
+    body's library fills 5 (no rows a chunk)."""
+    from karanta_tpu_torch import kernels
+
+    name = {"4": "karanta_decode_append_multi_quant_info",
+            "7": "karanta_decode_append_multi_q4_info"}[kernel]
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    buf = (ctypes.c_int * 16)()
+    kernels.raise_on_error(name, fn(VERIFY_D, nq, buf))
+    return list(buf[:8])
+
+
+def verify_run(kernel: str, info: list, b: int, kvh: int, m: int,
+               n_sm: int) -> int:
+    """A library's run rule from its own info: the resident-run rule of the
+    Hopper body where it reports rows a chunk, else the split body's."""
+    from karanta_tpu_torch.ops import decode_attention as DA
+
+    if info[5]:
+        rule = (DA.multi_quant_run_rows if kernel == "4"
+                else DA.multi_q4_run_tokens)
+        return rule(b, kvh, m, info[3] * n_sm, info[4])
+    lo, hi = SPLIT_VERIFY_RULES[kernel]
+    return DA.split_run_rows(b, kvh, m, n_sm, lo, hi, info[4])
+
+
+def verify_ab(kernel: str, others: dict, wanted: list, smi: str) -> dict:
+    """Kernel #4 or #7 from this tree and from each baseline library, in
+    turns."""
+    from karanta_tpu_torch.kernels import build as kbuild
+
+    dev = torch.device("cuda")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    source = VERIFY_SOURCES[kernel]
+    entry = "karanta_" + source
+    libs = {"this": kbuild.library(source), **others}
+    fns = {}
+    for name, lib in libs.items():
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = VERIFY_ARGTYPES
+        fns[name] = fn
+    order = [*others, "this", "this", *reversed(others)]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    results, resources = {}, {}
+    for name, (b, kvh, tq, m, lens) in verify_shapes(kernel).items():
+        if wanted and name not in wanted:
+            continue
+        nq = VERIFY_G * tq
+        infos = {tree: verify_info(libs[tree], kernel, nq) for tree in libs}
+        for tree, info in infos.items():
+            if (tree, nq) not in resources:
+                resources[(tree, nq)] = info
+                print(f"  {tree} bf16 #{kernel} NQ={nq}: registers {info[0]}, "
+                      f"spills {info[1]}, shared {info[2]}, blocks/SM "
+                      f"{info[3]}, max runs {info[4]}, rows a chunk "
+                      f"{info[5]}, stages {info[6]}, consumer warps "
+                      f"{info[7]}", flush=True)
+        q, new, caches, lens_t, want, want_caches = verify_case(
+            kernel, b, kvh, tq, m, lens, gen)
+        n_bytes = verify_work(b, kvh, kvh * VERIFY_G, VERIFY_D, tq, lens,
+                              8 if kernel == "4" else 4)
+        bound = n_bytes / PEAK_BYTES * 1e3
+        row = {"batch": b, "kv_heads": kvh, "tokens": tq, "m": m,
+               "live_tokens": sum(lens), "bound_ms": bound, "ms": {},
+               "worst": {}, "run": {}}
+        for tree in order:
+            run = verify_run(kernel, infos[tree], b, kvh, m, n_sm)
+            row["run"][tree] = run
+            call, out, work = verify_launcher(kernel, fns[tree], q, new,
+                                              caches, lens_t, run)
+            call()
+            torch.cuda.synchronize()
+            for x, y, part in zip(work, want_caches, ("k", "v", "ks", "vs")):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"#{kernel} {name} {tree}: cache "
+                                         f"{part} differs from the plain "
+                                         f"version")
+            row["worst"].setdefault(tree, []).append(check_bf16(out, want))
+            row["ms"].setdefault(tree, []).append(graph_ms(call))
+            del work
+        for tree, times in row["ms"].items():
+            best = min(times)
+            print(f"  #{kernel} {name} B={b} KVH={kvh} T={tq} M={m} "
+                  f"({sum(lens)} live tokens) {tree}: "
+                  f"{', '.join(f'{x:.4f}' for x in times)} ms (runs of "
+                  f"{row['run'][tree]}); bound {bound:.4f} ms, "
+                  f"{100 * bound / best:.1f}% of it, "
+                  f"{n_bytes / best * 1e-6:.0f} GB/s; worst err/limit "
+                  f"{max(row['worst'][tree]):.3f}", flush=True)
+        results[name] = row
+        del q, new, caches, want_caches
+        torch.cuda.empty_cache()
+    return {"card": smi, f"verify_{kernel}_bf16": results,
+            "resources": {f"{tree} NQ={nq}": info
+                          for (tree, nq), info in resources.items()}}
+
+
 def check_bf16(got, want) -> float:
     """Worst |got - want| over the bf16 limit; raises above 1."""
     got, want = got.float(), want.float()
@@ -373,9 +590,11 @@ def main(argv=None) -> int:
                              "turns with this tree's (repeatable)")
     parser.add_argument("--only", default="",
                         help="comma-separated shape names (default: all)")
-    parser.add_argument("--kernel", choices=("2", "3"), default="2",
+    parser.add_argument("--kernel", choices=("2", "3", "4", "7"),
+                        default="2",
                         help="2: the flash kernel (default), 3: the int8 "
-                             "decode kernel")
+                             "decode kernel, 4 / 7: the int8 / int4 verify "
+                             "kernel")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("flash_ab: needs a CUDA device")
@@ -388,6 +607,11 @@ def main(argv=None) -> int:
     if args.kernel == "3":
         result = decode_ab(
             baseline_libs(args.baseline, "decode_append_quant"), wanted, smi)
+        print(json.dumps(result), flush=True)
+        return 0
+    if args.kernel in VERIFY_SOURCES:
+        result = verify_ab(args.kernel, baseline_libs(
+            args.baseline, VERIFY_SOURCES[args.kernel]), wanted, smi)
         print(json.dumps(result), flush=True)
         return 0
     this = A._flash_fn()

@@ -30,7 +30,13 @@ the last block's merge, the output). At
 ``flash_ab``'s #3 shapes it prints each phase's share of the consumer's and
 of the producer's cycles summed over the blocks, the consumer cycles per
 chunk and the longest block's cycles. The readings cost a little, so times
-come from ``flash_ab``. Needs a CUDA device.
+come from ``flash_ab``. With ``--kernel 4`` (or 7) the same phases come
+from the verify kernels' Hopper body (``kernels/csrc/verify_tma.cuh``, built
+into ``decode_append_multi_quant.cu``, or ``decode_append_multi_q4.cu``):
+thread 0 of each consumer warpgroup and the producer's lane 0 of every
+block, at ``flash_ab``'s #4 (or #7) shapes. Needs a CUDA device.
+
+    python -m karanta_tpu_torch.bench.flash_trace --kernel 4 --only b4,b32
 """
 
 from __future__ import annotations
@@ -183,22 +189,85 @@ def instrument_decode(src: str) -> str:
     return out + _exports(n)
 
 
+VERIFY_PHASES = ("set-up", "producer: wait for an item slot",
+                 "producer: wait for a stage", "producer: issue copies",
+                 "wait for Q", "item start", "wait for a chunk",
+                 "Q.K^T + scales + max", "wait for the warps' maxima",
+                 "softmax + P to shared memory", "wait for P", "P.V",
+                 "item end: l, partial, counter",
+                 "item end: merge, fold, output")
+# (anchor in verify_tma.cuh, phase stamped after it, or before it)
+_VERIFY_AFTER = [
+    ("  if (static_cast<int>(blockIdx.x) >= n_items) return;\n", 0, False),
+    ("      mbar_wait(&seg_empty[p], ((seg >> 1) & 1) ^ 1);\n", 1, False),
+    ("        mbar_wait(&empty[s], ((i / kS) & 1) ^ 1);\n", 2, False),
+    ("        } else {\n          mbar_arrive(&full[s]);\n        }\n", 3,
+     False),
+    ("    mbar_wait(&seg_full[p], (seg >> 1) & 1);\n", 4, False),
+    ("    named_sync(1, kCT);  // the fragments are in place\n", 5, False),
+    ("      mbar_wait(&full[s], (i / kS) & 1);\n", 6, False),
+    ("      named_sync(1, kCT);  // the warps' maxima are in; the last P.V has "
+     "read P\n", 7, True),
+    ("      named_sync(1, kCT);  // the warps' maxima are in; the last P.V has "
+     "read P\n", 8, False),
+    ("      named_sync(1, kCT);  // P is whole\n", 9, True),
+    ("      named_sync(1, kCT);  // P is whole\n", 10, False),
+    ("      if (lane == 0) mbar_arrive(&empty[s]);\n", 11, False),
+    ("      finish = *flag;\n", 12, False),
+    ("    named_sync(1, kCT);  // P's area, the merge's and the flag are free "
+     "again\n", 13, False),
+]
+VERIFY_HEADER = "verify_tma.cuh"
+
+
+def instrument_verify(src: str) -> str:
+    """verify_tma.cuh with clock readings in the producer (lane 0 stores,
+    slot 2 block + 1) and the consumers (thread 0 stores, slot 2 block); the
+    C entries are appended to the source that includes it."""
+    n, name = len(VERIFY_PHASES), VERIFY_HEADER
+    out = _replace_once(src, '#include "quant_tma.cuh"\n',
+                        '#include "quant_tma.cuh"\n' + _defs(n), name)
+    out = _stamp_after(
+        out, "  // every slot's tokens before the T fresh ones",
+        f"  unsigned long long ft[{n}] = {{}}, ft_last = clock64();\n", name,
+        before=True)
+    for anchor, k, before in _VERIFY_AFTER:
+        out = _stamp_after(out, anchor, f"      FT_STAMP({k});\n", name,
+                           before=before)
+    out = _stamp_after(
+        out, "    return;\n  }\n\n  // the consumers.",
+        _store(n, "blockIdx.x * 2 + 1", "lane == 0", "    "), name,
+        before=True)
+    return _replace_once(
+        out, "      FT_STAMP(13);\n    ++seg;\n  }\n}\n",
+        "      FT_STAMP(13);\n    ++seg;\n  }\n"
+        + _store(n, "blockIdx.x * 2", "tid == 0", "  ") + "}\n", name)
+
+
 def build_traced(csrc: Path | None = None,
                  source: str = "flash_attention") -> ctypes.CDLL:
     """Build (once per source) and load the instrumented library of
-    csrc/<source>.cu."""
+    csrc/<source>.cu (for the verify kernels: with an instrumented
+    verify_tma.cuh)."""
     csrc = Path(csrc or build.CSRC)
-    fn = instrument_decode if source == "decode_append_quant" else instrument
-    src = fn((csrc / f"{source}.cu").read_text())
+    headers = {h.name: h.read_text() for h in sorted(csrc.glob("*.cuh"))}
+    if source in ("decode_append_multi_quant", "decode_append_multi_q4"):
+        headers[VERIFY_HEADER] = instrument_verify(headers[VERIFY_HEADER])
+        src = (csrc / f"{source}.cu").read_text() + _exports(
+            len(VERIFY_PHASES))
+    else:
+        fn = (instrument_decode if source == "decode_append_quant"
+              else instrument)
+        src = fn((csrc / f"{source}.cu").read_text())
     digest = hashlib.sha1(src.encode() + " ".join(build.NVCC_FLAGS).encode())
-    for header in sorted(csrc.glob("*.cuh")):
-        digest.update(header.read_bytes())
+    for text in headers.values():
+        digest.update(text.encode())
     out_dir = build.BUILD_DIR / f"ftrace-{digest.hexdigest()[:12]}"
     lib = out_dir / "libflash_trace.so"
     if not lib.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        for header in csrc.glob("*.cuh"):
-            (out_dir / header.name).write_bytes(header.read_bytes())
+        for name, text in headers.items():
+            (out_dir / name).write_text(text)
         (out_dir / "flash_trace.cu").write_text(src)
         tmp = lib.with_suffix(".tmp")
         proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(tmp),
@@ -271,19 +340,91 @@ def decode_trace(lib: ctypes.CDLL, wanted: list) -> int:
     return 0
 
 
+def verify_trace(lib: ctypes.CDLL, kernel: str, wanted: list) -> int:
+    """#4's or #7's phases at flash_ab's shapes, with this tree's run
+    rule."""
+    from karanta_tpu_torch.bench.flash_ab import (VERIFY_ARGTYPES,
+                                                  VERIFY_G, VERIFY_SOURCES,
+                                                  verify_case, verify_info,
+                                                  verify_launcher,
+                                                  verify_run, verify_shapes)
+
+    fn = getattr(lib, "karanta_" + VERIFY_SOURCES[kernel])
+    fn.restype = ctypes.c_int
+    fn.argtypes = VERIFY_ARGTYPES
+    n = len(VERIFY_PHASES)
+    buf = (ctypes.c_ulonglong * (MAX_SLOTS * n))()
+    dev = torch.device("cuda")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(0)
+    this = build.library(VERIFY_SOURCES[kernel])
+    results = {}
+    for name, (b, kvh, tq, m, lens) in verify_shapes(kernel).items():
+        if wanted and name not in wanted:
+            continue
+        info = verify_info(this, kernel, VERIFY_G * tq)
+        q, new, caches, lens_t, _, _ = verify_case(kernel, b, kvh, tq, m,
+                                                   lens, gen)
+        run = verify_run(kernel, info, b, kvh, m, n_sm)
+        call, _, _ = verify_launcher(kernel, fn, q, new, caches, lens_t, run)
+        call()
+        torch.cuda.synchronize()
+        if lib.karanta_ftrace_reset() != 0:
+            raise RuntimeError("flash_trace: reset failed")
+        call()
+        torch.cuda.synchronize()
+        if lib.karanta_ftrace_read(buf) != 0:
+            raise RuntimeError("flash_trace: read failed")
+        rows = torch.tensor(list(buf[:MAX_SLOTS * n]),
+                            dtype=torch.float64).view(-1, 2, n)
+        rows = rows[rows.sum((1, 2)) > 0]  # the blocks that had items
+        chunk_tokens = info[5] * (1 if kernel == "4" else 2)
+        chunks = kvh * sum(max(1, -(-x // chunk_tokens)) for x in lens)
+        row = {"run": run, "blocks": int(rows.shape[0])}
+        for role, idx in (("consumer", 0), ("producer", 1)):
+            sums = rows[:, idx].sum(0)
+            total = float(sums.sum())
+            row[role] = {ph: float(x) / total for ph, x in
+                         zip(VERIFY_PHASES, sums) if x > 0}
+        row["consumer_cycles_per_chunk"] = float(rows[:, 0].sum()) / chunks
+        row["longest_block_cycles"] = float(rows[:, 0].sum(1).max())
+        results[name] = row
+        print(f"  #{kernel} {name} B={b} KVH={kvh} T={tq}, runs of {run}, "
+              f"{row['blocks']} blocks: "
+              f"{row['consumer_cycles_per_chunk']:.0f} consumer cycles a "
+              f"chunk, longest block "
+              f"{row['longest_block_cycles']:.0f} cycles; consumer "
+              + ", ".join(f"{ph} {100 * x:.1f}%" for ph, x in
+                          row["consumer"].items())
+              + "; producer " + ", ".join(
+                  f"{ph} {100 * x:.1f}%" for ph, x in row["producer"].items()),
+              flush=True)
+        del q, new, caches
+        torch.cuda.empty_cache()
+    print(json.dumps({f"verify_{kernel}_trace": results}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--csrc", type=Path, default=None)
     parser.add_argument("--only", default=None,
                         help="comma-separated flash_ab shape names (default "
                              "vision,prefill,prefix; #3: all)")
-    parser.add_argument("--kernel", choices=("2", "3"), default="2")
+    parser.add_argument("--kernel", choices=("2", "3", "4", "7"),
+                        default="2")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("flash_trace: needs a CUDA device")
     if args.kernel == "3":
         return decode_trace(build_traced(args.csrc, "decode_append_quant"),
                             [x for x in (args.only or "").split(",") if x])
+    if args.kernel in ("4", "7"):
+        from karanta_tpu_torch.bench.flash_ab import VERIFY_SOURCES
+
+        return verify_trace(
+            build_traced(args.csrc, VERIFY_SOURCES[args.kernel]), args.kernel,
+            [x for x in (args.only or "").split(",") if x])
     args.only = args.only or "vision,prefill,prefix"
     lib = build_traced(args.csrc)
     fn = lib.karanta_flash_attention

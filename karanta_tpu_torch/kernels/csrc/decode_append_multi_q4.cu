@@ -18,18 +18,31 @@
 // the bytes one, B * KVH * (live_packed_rows * D * 2 + live_tokens * 2 * 2)
 // per layer at 3.35 TB/s. One read of the cache serves all T queries.
 //
-// The bf16 instance is verify_split_kernel (verify_split.cuh, with
-// kBits = 4), the int8 verify kernel's (#4) body with a nibble unpack in
-// place of its int8 conversion: each slot's tokens in runs over blocks (the
-// run length, in tokens, a multiple of 64, so no window is split; the
-// wrapper's rule, multi_q4_run_tokens, was measured on the card), a chunk of
-// 16 packed rows unpacked in shared memory into two 16-key bf16 tiles (the
-// low plane, tokens 64w + r, and the high plane, 64w + 32 + r, each with its
-// own scale plane), Q.K^T and P.V on the tensor cores, each key masked by its
-// own token index, a last-block merge of the runs' partials in a fixed
-// order, then the T fresh tokens folded in float32. Run 0 merges the fresh
-// nibbles into their bytes (one thread and one store per byte, the other
-// nibble kept) and writes their scales after its row loop.
+// The bf16 instance is verify_tma_kernel (verify_tma.cuh, with kBits =
+// 4), the int8 verify kernel's (#4) body with the nibbles unpacked in
+// registers in place of its int8 conversion. It replaces the earlier split body
+// (verify_split.cuh: a chunk of 16 packed rows landed by cp.async and
+// unpacked in shared memory into two 16-key bf16 tiles), which reached 6.1%
+// of the bound at B = 4 and 13.1% at B = 8 on an NVIDIA H100 80GB HBM3 at
+// 700 W (PERF.md): a producer warp bulk-copies 64 packed rows (128 tokens)
+// a chunk with the low and the high scale plane of K and of V into an
+// mbarrier ring; each packed byte's two nibbles become the B operands of
+// two 16-key tiles (the low plane, tokens 64w + r, and the high plane, 64w
+// + 32 + r), each key masked by its own token index; every resident block
+// walks fixed (slot, kv head, run) items. The run length, in tokens, is an
+// argument (whole chunks of 128 tokens, so no window is split); the
+// wrapper's rule (ops/decode_attention.py multi_q4_run_tokens) takes the
+// shortest run from 256 to 2,048 tokens whose runs fit the grid with every
+// slot full, else 2,048. The first run's block merges the fresh nibbles
+// into their bytes (one thread and one store per byte, the other nibble
+// kept) and writes their scales.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (bench/flash_ab.py --kernel
+// 7, the earlier body built from its source and timed in turns; PERF.md has
+// every shape): B = 4 over 4,096 tokens 0.0193-0.0195 ms against
+// 0.0215-0.0216, B = 8 ragged 0.0241-0.0247 against 0.0277, one rank's kv
+// heads at tp = 2 / 4 1.11-1.15x; a B = 4 call stays a latency chain (7% of
+// its bytes bound).
 //
 // The float32 instance (decode_append_multi_q4_kernel) stays on the CUDA
 // cores (the tensor cores would multiply in TF32): one block per (kv head,
@@ -44,7 +57,7 @@
 // against cache_len. The T rows may cross a 32-row or 64-token window
 // boundary; nothing in either instance depends on where they fall.
 #include "common.cuh"
-#include "verify_split.cuh"
+#include "verify_tma.cuh"
 
 namespace karanta {
 
@@ -295,7 +308,7 @@ cudaError_t launch_pair_q4(int dtype, const void* q, const int8_t* nk, const int
                            int* counters, int B, int TQ, int KVH, int G, int PM, int layer,
                            int run_tokens, float scale, cudaStream_t st) {
   if (dtype == kBFloat16) {
-    return launch_verify<D, NQ, 4>(q, nk, nv, nks, nvs, kc, vc, ksc, vsc, lens, out,
+    return launch_verify_tma<D, NQ, 4>(q, nk, nv, nks, nvs, kc, vc, ksc, vsc, lens, out,
                                    partials, counters, B, TQ, KVH, G, PM, layer, run_tokens,
                                    scale, st);
   }
@@ -333,9 +346,9 @@ inline int multi_q4_entry(int D, int NQ, const void* q, const int8_t* nk, const 
 // (32 D + 64)), and `counters`, int32 (B * KVH), zero before the first call
 // (each call leaves them zero; the other split kernels' counters may be the
 // same array on one stream), and takes runs of `run_tokens` tokens (a
-// multiple of 64, at most info[4] of karanta_decode_append_multi_q4_info
-// runs a slot; the wrapper's rule picks it) and T <= 8; the float32 instance
-// ignores the three.
+// multiple of twice info[5], the packed rows a chunk, at most info[4] of
+// karanta_decode_append_multi_q4_info runs a slot; the wrapper's rule picks
+// it) and T <= 8; the float32 instance ignores the three.
 extern "C" int karanta_decode_append_multi_q4(
     const void* q, const int8_t* new_k, const int8_t* new_v, const void* new_ks,
     const void* new_vs, int8_t* k_cache, int8_t* v_cache, void* ks_cache, void* vs_cache,
@@ -356,12 +369,13 @@ extern "C" int karanta_decode_multi_q4_supported(int D, int NQ) {
 }
 
 #define KARANTA_MQ4_INFO(DD, NN) \
-  if (D == DD && NQ == NN) return static_cast<int>(karanta::verify_info<DD, NN, 4>(info));
+  if (D == DD && NQ == NN) return static_cast<int>(karanta::verify_tma_info<DD, NN, 4>(info));
 
-// info[5] = registers per thread, local (spilled) bytes per thread, dynamic
-// shared bytes per block, resident blocks per SM and the most runs a slot
-// may have (ceil(M / run_tokens)) of the bf16 instance for (D, G * T).
-// Returns the CUDA error code.
+// info[8] = registers per thread, local (spilled) bytes per thread, dynamic
+// shared bytes per block (at B = 0; 12 more a slot), resident blocks per
+// SM, the most runs a slot may have (ceil(M / run_tokens)), packed rows a
+// chunk, ring stages and consumer warps of the bf16 instance for (D, G *
+// T). Returns the CUDA error code.
 extern "C" int karanta_decode_append_multi_q4_info(int D, int NQ, int* info) {
   KARANTA_MQ4_PAIRS(KARANTA_MQ4_INFO)
   return static_cast<int>(cudaErrorInvalidValue);

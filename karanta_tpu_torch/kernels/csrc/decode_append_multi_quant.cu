@@ -18,19 +18,33 @@
 // One read of the cache serves all T queries, which is the point of the
 // verify pass.
 //
-// The bf16 instance is verify_split_kernel (verify_split.cuh, with
-// kBits = 8), the one body it shares with the int4 cache's verify kernel
-// (#7): flash-decoding on the tensor cores, each slot's rows in runs over
-// blocks, int8 rows converted to bf16 in shared memory, two warps per chunk
-// with one 16-row query tile each, a last-block merge of the runs'
-// partials in a fixed order, then the T fresh rows folded in float32. The
-// run length is an argument (a multiple of 64). The wrapper's rule
-// (ops/decode_attention.py multi_quant_run_rows, measured on the card): the
-// shortest power of two from 256 to 1,024 rows that gives at most one live
-// block per two SMs when the slots are half full; 512 at the served int8
-// point (B = 4, KVH = 4, M = 4096), 1,024 from B = 8. Shorter runs put more
-// SMs to work, but the last block of a slot then merges more partials,
-// which costs more than the SMs save.
+// The bf16 instance is verify_tma_kernel (verify_tma.cuh, with kBits =
+// 8), the one body it shares with the int4 cache's verify kernel (#7),
+// built on the int8 decode kernel's pieces (#3, quant_tma.cuh). It replaces
+// the earlier split body (verify_split.cuh: a cp.async ring per pair of warps,
+// each landed 16-row chunk converted into a bf16 stage and read back with
+// ldmatrix, blocks of (slot, kv head, run) in a grid whose blocks past a
+// slot's rows exited at once), which reached 27.4% of the bound at B = 32
+// and 31.6% at B = 80 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): a
+// producer warp bulk-copies 128-row chunks of int8 rows and their scales
+// into an mbarrier ring; one consumer warpgroup shares each chunk, its
+// warps splitting the keys for Q.K^T (each converted K byte the B operand
+// of both query tiles) and the output columns for P.V (P through shared
+// memory, each V byte converted once); every resident block (two an SM)
+// walks fixed (slot, kv head, run) items. The run length is an argument
+// (a multiple of 128 rows); the wrapper's rule (ops/decode_attention.py
+// multi_quant_run_rows) takes the shortest run from 512 to 1,024 rows
+// whose runs fit the grid with every slot full, else 1,024.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (bench/flash_ab.py --kernel
+// 4, the earlier body built from its source and timed in turns; PERF.md has
+// every shape): B = 80 filled to 1,650 of 1,920 rows 0.0766-0.0769 ms
+// against 0.1339-0.1343 (56% of the 0.0425 ms bound), B = 32 ragged
+// 0.0525-0.0533 against 0.0773-0.0775, B = 4 0.0200-0.0203 against
+// 0.0236-0.0239, one rank's kv heads at tp = 2 / 4 1.05x. A warpgroup a
+// query tile, each converting every byte, was slower than the earlier body
+// at every shape; 256-row runs cost 48% more than 512 at B = 8
+// (bench/verify_runs.py).
 //
 // The float32 instance (decode_append_multi_quant_kernel) stays on the CUDA
 // cores (the tensor cores would multiply in TF32): one block per (kv head,
@@ -45,7 +59,7 @@
 // The TPU-only layout rules of the Pallas kernel (the 64-row slab, M % 128)
 // do not carry over: any M works.
 #include "common.cuh"
-#include "verify_split.cuh"
+#include "verify_tma.cuh"
 
 namespace karanta {
 
@@ -282,7 +296,7 @@ cudaError_t launch_pair(int dtype, const void* q, const int8_t* nk, const int8_t
                         int B, int TQ, int KVH, int G, int M, int layer, int run_rows,
                         float scale, cudaStream_t st) {
   if (dtype == kBFloat16) {
-    return launch_verify<D, NQ, 8>(q, nk, nv, nks, nvs, kc, vc, ksc, vsc, lens, out,
+    return launch_verify_tma<D, NQ, 8>(q, nk, nv, nks, nvs, kc, vc, ksc, vsc, lens, out,
                                    partials, counters, B, TQ, KVH, G, M, layer, run_rows,
                                    scale, st);
   }
@@ -319,7 +333,7 @@ inline int multi_entry(int D, int NQ, const void* q, const int8_t* nk, const int
 // (B * KVH * ceil(M / run_rows) * (32 D + 64)), and `counters`, int32
 // (B * KVH), zero before the first call (each call leaves them zero; the
 // other split kernels' counters may be the same array on one stream), and
-// takes runs of `run_rows` rows (a multiple of 64, at most info[4] of
+// takes runs of `run_rows` rows (a multiple of info[5], at most info[4] of
 // karanta_decode_append_multi_quant_info runs a slot; the wrapper's rule
 // picks it) and T <= 8; the float32 instance ignores the three.
 extern "C" int karanta_decode_append_multi_quant(
@@ -342,11 +356,12 @@ extern "C" int karanta_decode_multi_supported(int D, int NQ) {
 }
 
 #define KARANTA_MULTI_INFO(DD, NN) \
-  if (D == DD && NQ == NN) return static_cast<int>(karanta::verify_info<DD, NN, 8>(info));
+  if (D == DD && NQ == NN) return static_cast<int>(karanta::verify_tma_info<DD, NN, 8>(info));
 
-// info[5] = registers per thread, local (spilled) bytes per thread, dynamic
-// shared bytes per block, resident blocks per SM and the most runs a slot
-// may have (ceil(M / run_rows)) of the bf16 instance for (D, G * T).
+// info[8] = registers per thread, local (spilled) bytes per thread, dynamic
+// shared bytes per block (at B = 0; 12 more a slot), resident blocks per
+// SM, the most runs a slot may have (ceil(M / run_rows)), rows a chunk,
+// ring stages and consumer warps of the bf16 instance for (D, G * T).
 // Returns the CUDA error code.
 extern "C" int karanta_decode_append_multi_quant_info(int D, int NQ, int* info) {
   KARANTA_MULTI_PAIRS(KARANTA_MULTI_INFO)

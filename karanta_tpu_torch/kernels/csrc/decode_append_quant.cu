@@ -18,7 +18,8 @@
 // warp, each landed 16-row chunk converted into a bf16 stage and read back
 // with ldmatrix, blocks of (slot, kv head, run) in a grid whose last wave
 // was ragged at B = 80), which reached 47% of the bound at B = 80 on an
-// NVIDIA H100 80GB HBM3 at 700 W (PERF.md). Its design:
+// NVIDIA H100 80GB HBM3 at 700 W (PERF.md). Its design (the pieces the
+// verify kernels #4 and #7 share are in quant_tma.cuh):
 //
 // - Work. A (slot, kv head) segment's live rows are cut into chunks of
 //   kQRows rows (one chunk when cache_len is 0) and the chunks into runs
@@ -107,6 +108,7 @@
 // happens in registers; the dequantized cache never exists.
 #include "decode_rows.cuh"
 #include "hopper.cuh"
+#include "quant_tma.cuh"
 
 namespace karanta {
 
@@ -309,6 +311,27 @@ cudaError_t launch_decode(const void* q, const int8_t* nk, const int8_t* nv,
 
 // --- the bf16 instance ---------------------------------------------------------
 
+// D / 8 bytes of one stored V row at byte g * D / 8 (D = 16: two bytes in
+// the low half of the word), each word XORed with 0x80808080
+template <int D>
+__device__ __forceinline__ void load_v_words(const int8_t* row, int g,
+                                             uint32_t (&w)[D >= 32 ? D / 32 : 1]) {
+  const int8_t* p = row + g * (D / 8);
+  if constexpr (D == 128) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
+  } else if constexpr (D == 64) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    w[0] = x.x, w[1] = x.y;
+  } else if constexpr (D == 32) {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else {
+    w[0] = *reinterpret_cast<const unsigned short*>(p);
+  }
+#pragma unroll
+  for (int i = 0; i < (D >= 32 ? D / 32 : 1); ++i) w[i] ^= 0x80808080u;
+}
+
 constexpr int kQWarps = 4;                     // consumer warps (a warpgroup)
 constexpr int kQThreads = (kQWarps + 4) * 32;  // and a producer warpgroup (one warp works)
 // registers a thread after setmaxnreg: the producer warpgroup gives its
@@ -316,8 +339,6 @@ constexpr int kQThreads = (kQWarps + 4) * 32;  // and a producer warpgroup (one 
 constexpr int kQProducerRegs = 40, kQConsumerRegs = 216;
 constexpr int kQRows = 128;                    // cache rows a chunk (one stage)
 constexpr int kQStages = 2;                    // ring depth
-constexpr int kQMaxPieces = 32;                // runs a (slot, kv head) may have
-static_assert(kQMaxPieces <= 32, "a lane counts the items of each run");
 constexpr int kQTiles = kQRows / (16 * kQWarps);  // 16-key tiles of a chunk a warp takes
 static_assert(kQTiles >= 1 && kQRows == 16 * kQWarps * kQTiles, "whole 16-key tiles a warp");
 
@@ -344,110 +365,6 @@ struct QuantTma {
   }
   static_assert(kStage % 16 == 0 && kSeg % 16 == 0, "16-byte aligned regions");
 };
-
-// byte j of u = (four int8 values) ^ 0x80808080 as the exact float: the byte
-// b + 128 becomes the low mantissa bits of 2^23 + 128 + b
-__device__ __forceinline__ float biased_byte(uint32_t u, int j) {
-  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + j)) - 8388736.f;
-}
-
-// two floats that are exact in bf16 -> bf16x2 (lo in the low half): their
-// upper halves
-__device__ __forceinline__ uint32_t upper_halves(float lo, float hi) {
-  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
-}
-
-// D / 4 bytes of one stored key row at byte t * D / 4, as D / 16 words. At
-// D = 128 the two 16-byte halves are read in an order set by the row's
-// parity, so the rows g and g + 1 of one load phase meet no bank conflict.
-template <int D>
-__device__ __forceinline__ void load_k_words(const int8_t* row, int t, int odd,
-                                             uint32_t (&w)[D / 16]) {
-  const int8_t* p = row + t * (D / 4);
-  if constexpr (D == 128) {
-    const uint4 x = *reinterpret_cast<const uint4*>(p + 16 * odd);
-    const uint4 y = *reinterpret_cast<const uint4*>(p + 16 * (odd ^ 1));
-    const uint4 lo = odd ? y : x, hi = odd ? x : y;
-    w[0] = lo.x, w[1] = lo.y, w[2] = lo.z, w[3] = lo.w;
-    w[4] = hi.x, w[5] = hi.y, w[6] = hi.z, w[7] = hi.w;
-  } else if constexpr (D == 64) {
-    const uint4 x = *reinterpret_cast<const uint4*>(p);
-    w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
-  } else if constexpr (D == 32) {
-    const uint2 x = *reinterpret_cast<const uint2*>(p);
-    w[0] = x.x, w[1] = x.y;
-  } else {
-    static_assert(D == 16, "head dims 16, 32, 64, 128");
-    w[0] = *reinterpret_cast<const uint32_t*>(p);
-  }
-}
-
-// D / 8 bytes of one stored V row at byte g * D / 8 (D = 16: two bytes in
-// the low half of the word), each word XORed with 0x80808080
-template <int D>
-__device__ __forceinline__ void load_v_words(const int8_t* row, int g,
-                                             uint32_t (&w)[D >= 32 ? D / 32 : 1]) {
-  const int8_t* p = row + g * (D / 8);
-  if constexpr (D == 128) {
-    const uint4 x = *reinterpret_cast<const uint4*>(p);
-    w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
-  } else if constexpr (D == 64) {
-    const uint2 x = *reinterpret_cast<const uint2*>(p);
-    w[0] = x.x, w[1] = x.y;
-  } else if constexpr (D == 32) {
-    w[0] = *reinterpret_cast<const uint32_t*>(p);
-  } else {
-    w[0] = *reinterpret_cast<const unsigned short*>(p);
-  }
-#pragma unroll
-  for (int i = 0; i < (D >= 32 ? D / 32 : 1); ++i) w[i] ^= 0x80808080u;
-}
-
-// one item of work: run `piece` of the `pieces` of (slot b, kv head kvh),
-// chunks [c, c + nc) of the slot's nch (len live rows)
-struct QuantItem {
-  int b, kvh, piece, pieces, c, nc, nch, len;
-};
-
-// item `it` of the fixed order: run r of every (slot, kv head) that has
-// more than r runs, in slot and kv head order, for r = 0, 1, ... (lvl[r]
-// items come before run r's); a warp's lanes find it together. An item's
-// rows depend only on its slot's own length and the run.
-__device__ __forceinline__ QuantItem find_item(const int* lens, const int* nruns, const int* lvl,
-                                               int B, int KVH, int run, int it, int lane) {
-  int r = 0;
-  while (lvl[r + 1] <= it) ++r;
-  const int j = it - lvl[r];
-  QuantItem w;
-  w.kvh = j % KVH;
-  w.b = B - 1;
-  int q = j / KVH;  // the q-th slot with more than r runs, by ballots
-  for (int base = 0; base < B; base += 32) {
-    const unsigned hit = __ballot_sync(0xffffffffu, base + lane < B && nruns[base + lane] > r);
-    const int n = __popc(hit);
-    if (q < n) {
-      const bool mine = ((hit >> lane) & 1u) && __popc(hit & ((1u << lane) - 1u)) == q;
-      w.b = base + __ffs(__ballot_sync(0xffffffffu, mine)) - 1;
-      break;
-    }
-    q -= n;
-  }
-  w.piece = r;
-  w.pieces = nruns[w.b];
-  w.len = lens[w.b];
-  w.nch = max(1, (w.len + kQRows - 1) / kQRows);
-  w.c = r * run;
-  w.nc = min(run, w.nch - w.c);
-  return w;
-}
-
-// the item a block takes in round k of the walk: block i takes item i of
-// each even round and item grid - 1 - i of each odd one (so that one block
-// does not take the first, longest run in every round)
-__device__ __forceinline__ int walk_item(int k) {
-  const int i = blockIdx.x, grid = gridDim.x;
-  return k * grid + ((k & 1) ? grid - 1 - i : i);
-}
 
 template <int D, int G>
 __global__ void __launch_bounds__(kQThreads, 2) decode_quant_tma_kernel(
@@ -507,22 +424,7 @@ __global__ void __launch_bounds__(kQThreads, 2) decode_quant_tma_kernel(
     nruns[b] = (max(1, (len + kQRows - 1) / kQRows) + run - 1) / run;
   }
   __syncthreads();
-  if (warp == 0) {
-    // lane r counts the slots with more than r runs (n_runs <= 32), then
-    // the lanes' inclusive sums of their items are the offsets
-    int items = 0;
-    if (lane < n_runs) {
-      for (int b = 0; b < B; ++b) items += nruns[b] > lane;
-    }
-    items *= KVH;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, items, off);
-      if (lane >= off) items += y;
-    }
-    if (lane == 0) lvl[0] = 0;
-    if (lane < n_runs) lvl[lane + 1] = items;
-  }
+  if (warp == 0) item_offsets(nruns, B, KVH, n_runs, lvl, lane);
   __syncthreads();
 
   // This block's items: walk_item(k) for k = 0, 1, ... below n_items
@@ -540,7 +442,7 @@ __global__ void __launch_bounds__(kQThreads, 2) decode_quant_tma_kernel(
     for (int k = 0; k * static_cast<int>(gridDim.x) < n_items; ++k) {
       const int it = walk_item(k);
       if (it >= n_items) continue;
-      const QuantItem w = find_item(lens, nruns, lvl, B, KVH, run, it, lane);
+      const QuantItem w = find_item<kQRows>(lens, nruns, lvl, B, KVH, run, it, lane);
       const size_t bh = static_cast<size_t>(w.b) * KVH + w.kvh;
       const size_t slab = (static_cast<size_t>(layer) * B * KVH + bh) * M;
       const int p = seg & 1;
@@ -602,7 +504,7 @@ __global__ void __launch_bounds__(kQThreads, 2) decode_quant_tma_kernel(
     const int it = walk_item(k);
     if (it >= n_items) continue;
     // an item starts: Q, the new row's scores and the append
-    const QuantItem w = find_item(lens, nruns, lvl, B, KVH, run, it, lane);
+    const QuantItem w = find_item<kQRows>(lens, nruns, lvl, B, KVH, run, it, lane);
     const int p = seg & 1, piece = w.piece, n_pieces = w.pieces;
     const size_t bh = static_cast<size_t>(w.b) * KVH + w.kvh;
     const unsigned char* sg = smem + L::kOffSeg + p * L::kSeg;
@@ -920,22 +822,6 @@ __global__ void __launch_bounds__(kQThreads, 2) decode_quant_tma_kernel(
   }
 }
 
-// Let the kernel take all the shared memory a block may opt into on the
-// current device: its size grows with B, and neither the launcher nor the
-// info entry may leave the attribute below a size the other launches with.
-template <typename Kernel>
-cudaError_t allow_all_smem(Kernel kernel) {
-  int dev = 0, most = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-  }
-  return err;
-}
-
 // internal linkage: its cache is this library's own (a function-local static
 // of a template with external linkage is one object in the whole process,
 // shared by every library built from this source)
@@ -952,30 +838,15 @@ cudaError_t launch_quant_tma(const void* q, const int8_t* nk, const int8_t* nv, 
   }
   auto kernel = decode_quant_tma_kernel<D, G>;
   const size_t smem = QuantTma<D, G>::smem(B);
-  // the grid: every block the card holds at once, found once per device and
-  // shared size
-  static int cached_dev = -1, cached_grid = 0;
-  static size_t cached_smem = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  // the grid: every block the card holds at once
+  static ResidentGrid cache;
+  int grid = 0;
+  const cudaError_t err = resident_grid(kernel, kQThreads, smem, cache, &grid);
   if (err != cudaSuccess) return err;
-  if (dev != cached_dev || smem != cached_smem) {
-    int n_sm = 0, per_sm = 0;
-    err = allow_all_smem(kernel);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kQThreads, smem);
-    }
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    cached_dev = dev;
-    cached_smem = smem;
-    cached_grid = n_sm * per_sm;
-  }
   // the kernel's item indices (items and the grid) stay in 32 bits
   const long long items = static_cast<long long>(B) * KVH * ((M + kQRows - 1) / kQRows);
-  if (items + cached_grid >= (1LL << 31)) return cudaErrorInvalidValue;
-  kernel<<<cached_grid, kQThreads, smem, stream>>>(
+  if (items + grid >= (1LL << 31)) return cudaErrorInvalidValue;
+  kernel<<<grid, kQThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), nk, nv, static_cast<const __nv_bfloat16*>(nks),
       static_cast<const __nv_bfloat16*>(nvs), kc, vc, static_cast<__nv_bfloat16*>(ksc),
       static_cast<__nv_bfloat16*>(vsc), lens, static_cast<__nv_bfloat16*>(out), partials,

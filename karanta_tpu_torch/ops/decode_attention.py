@@ -116,19 +116,27 @@ def _decode_fns():
 QUANT_MIN_RUN, QUANT_MAX_RUN = 256, 1024
 
 
-def quant_run_rows(b: int, kvh: int, m: int, n_blocks: int,
-                   max_runs: int) -> int:
-    """Rows a run of the int8 decode kernel's bf16 instance for B slots, KVH
-    kv heads and M cache rows, with n_blocks blocks resident on the card:
-    the shortest run whose B * KVH * ceil(M / run) runs fit the blocks (one
-    a block), else QUANT_MAX_RUN; longer if a slot would have more than
-    max_runs runs."""
-    run = QUANT_MIN_RUN
-    while run < QUANT_MAX_RUN and b * kvh * -(-m // run) > n_blocks:
+def resident_run(b: int, kvh: int, m: int, n_blocks: int, max_runs: int,
+                 lo: int, hi: int) -> int:
+    """The run rule of the persistent (TMA-fed) kernels over the quantized
+    caches: for B slots, KVH kv heads and M cache rows (or tokens), with
+    n_blocks blocks resident on the card, the shortest power-of-two run from
+    lo to hi whose B * KVH * ceil(M / run) runs fit the blocks (one a
+    block), else hi; longer if a slot would have more than max_runs runs."""
+    run = lo
+    while run < hi and b * kvh * -(-m // run) > n_blocks:
         run *= 2
     while -(-m // run) > max_runs:
         run *= 2
     return run
+
+
+def quant_run_rows(b: int, kvh: int, m: int, n_blocks: int,
+                   max_runs: int) -> int:
+    """Rows a run of the int8 decode kernel's bf16 instance (#3): the
+    resident-run rule from QUANT_MIN_RUN to QUANT_MAX_RUN rows."""
+    return resident_run(b, kvh, m, n_blocks, max_runs, QUANT_MIN_RUN,
+                        QUANT_MAX_RUN)
 
 
 @functools.cache
@@ -312,10 +320,18 @@ def _multi_fns():
 # it folds in at most this many fresh rows
 MULTI_PARTIAL_ROWS = 32
 MULTI_MAX_TOKENS = 8
-# The int8 verify kernel's run lengths for split_run_rows (measured on an
-# H100 at B = 1..64, M = 4096 with ``python -m
-# karanta_tpu_torch.bench.verify_runs``)
-MULTI_MIN_RUN, MULTI_MAX_RUN = 256, 1024
+# The int8 verify kernel's run lengths in rows for resident_run (measured on
+# an H100 with ``python -m karanta_tpu_torch.bench.verify_runs --kernel 4``
+# and ``bench.flash_ab --kernel 4``): its bf16 instance, like #3's, walks
+# fixed runs of 128-key chunks with a persistent grid. 256-row runs leave
+# a slot's last block twice the partials to merge (48% slower than 512 at
+# B = 8); where the runs of full slots do not fit the grid, 1,024. Which of
+# 512 and 1,024 is faster at B = 32, M = 4096 changes with the lengths
+# (each best in four of eight ragged draws, equal on average within 0.5%;
+# ``verify_runs --batches 32,32,...``), and the rule may not read them: a
+# slot's bits must not depend on the other slots' lengths. At B = 16, 64
+# and 80 1,024 is best or within 3% of 2,048.
+MULTI_MIN_RUN, MULTI_MAX_RUN = 512, 1024
 
 
 @functools.cache
@@ -341,12 +357,17 @@ def split_run_rows(b: int, kvh: int, m: int, n_sm: int, lo: int, hi: int,
     return run
 
 
-def multi_quant_run_rows(b: int, kvh: int, m: int, n_sm: int,
+def multi_quant_run_rows(b: int, kvh: int, m: int, n_blocks: int,
                          max_runs: int) -> int:
-    """Rows per run of the multi-token kernel's bf16 instance for B slots,
-    KVH kv heads and M cache rows on a card with n_sm SMs."""
-    return split_run_rows(b, kvh, m, n_sm, MULTI_MIN_RUN, MULTI_MAX_RUN,
-                          max_runs)
+    """Rows per run of the multi-token kernel's bf16 instance (#4) for B
+    slots, KVH kv heads and M cache rows with n_blocks blocks resident on
+    the card: the resident-run rule from MULTI_MIN_RUN to MULTI_MAX_RUN."""
+    return resident_run(b, kvh, m, n_blocks, max_runs, MULTI_MIN_RUN,
+                        MULTI_MAX_RUN)
+
+
+def _resident_blocks(info: dict) -> int:
+    return info["blocks_per_sm"] * _sm_count(torch.cuda.current_device())
 
 
 @functools.cache
@@ -354,18 +375,19 @@ def paged_decode_append_multi_quant_info(d: int, nq: int,
                                          b: Optional[int] = None,
                                          kvh: Optional[int] = None,
                                          m: Optional[int] = None) -> dict:
-    """Registers and spilled bytes per thread, dynamic shared bytes per block,
-    resident blocks per SM and the most runs a slot may have of the
-    multi-token kernel's bf16 (tensor-core) instance for head dim d with
-    nq = G * T query rows per kv head, as the CUDA runtime reports them
+    """Registers and spilled bytes per thread, dynamic shared bytes per block
+    (at B = 0; 12 bytes more a slot), resident blocks per SM, the most runs a
+    slot may have, rows a chunk, ring stages and consumer warps of the
+    multi-token kernel's bf16 (TMA-fed tensor-core) instance for head dim d
+    with nq = G * T query rows per kv head, as the CUDA runtime reports them
     (needs the card); given a shape (B slots, KVH kv heads, M cache rows),
     also its rows per run on the current card."""
     info = _info("decode_append_multi_quant",
-                 "karanta_decode_append_multi_quant_info", d, nq, "max_runs")
+                 "karanta_decode_append_multi_quant_info", d, nq, "max_runs",
+                 "chunk_rows", "stages", "consumer_warps")
     if b is not None:
         info["run_rows"] = multi_quant_run_rows(
-            b, kvh, m, _sm_count(torch.cuda.current_device()),
-            info["max_runs"])
+            b, kvh, m, _resident_blocks(info), info["max_runs"])
     return info
 
 
@@ -448,9 +470,10 @@ def paged_decode_append_multi_quant(
     partials = counters = None
     run_rows = 0
     if q.dtype == torch.bfloat16:
+        info = paged_decode_append_multi_quant_info(d, g * tq)
         run_rows = multi_quant_run_rows(
-            b, kvh, m, _sm_count(q.device),
-            paged_decode_append_multi_quant_info(d, g * tq)["max_runs"])
+            b, kvh, m, info["blocks_per_sm"] * _sm_count(q.device),
+            info["max_runs"])
         partials, counters = _split_workspace(q, b * kvh, -(-m // run_rows),
                                               MULTI_PARTIAL_ROWS)
     code = fn(kernels.ptr(q), kernels.ptr(new_k), kernels.ptr(new_v),
@@ -897,18 +920,21 @@ def _multi_q4_fns():
     return fn, supported
 
 
-# The int4 verify kernel's run lengths in tokens for split_run_rows (measured
+# The int4 verify kernel's run lengths in tokens for resident_run (measured
 # on an H100 with ``python -m karanta_tpu_torch.bench.verify_runs --kernel
-# 7``): multiples of 64, so that no 64-token window is split across runs.
+# 7`` and ``bench.flash_ab --kernel 7``): whole chunks of 64 packed rows
+# (128 tokens), so that no 64-token window is split across runs.
 MULTI_Q4_MIN_RUN, MULTI_Q4_MAX_RUN = 256, 2048
 
 
-def multi_q4_run_tokens(b: int, kvh: int, m: int, n_sm: int,
+def multi_q4_run_tokens(b: int, kvh: int, m: int, n_blocks: int,
                         max_runs: int) -> int:
-    """Tokens per run of the int4 multi-token kernel's bf16 instance for B
-    slots, KVH kv heads and M cache tokens on a card with n_sm SMs."""
-    return split_run_rows(b, kvh, m, n_sm, MULTI_Q4_MIN_RUN,
-                          MULTI_Q4_MAX_RUN, max_runs)
+    """Tokens per run of the int4 multi-token kernel's bf16 instance (#7)
+    for B slots, KVH kv heads and M cache tokens with n_blocks blocks
+    resident on the card: the resident-run rule from MULTI_Q4_MIN_RUN to
+    MULTI_Q4_MAX_RUN tokens."""
+    return resident_run(b, kvh, m, n_blocks, max_runs, MULTI_Q4_MIN_RUN,
+                        MULTI_Q4_MAX_RUN)
 
 
 @functools.cache
@@ -916,15 +942,16 @@ def paged_decode_append_multi_q4_info(d: int, nq: int,
                                       b: Optional[int] = None,
                                       kvh: Optional[int] = None,
                                       m: Optional[int] = None) -> dict:
-    """The resources of the int4 multi-token kernel's bf16 (tensor-core)
-    instance, as ``paged_decode_append_multi_quant_info`` reports them (m in
-    tokens; needs the card); given a shape, also its tokens per run."""
+    """The resources of the int4 multi-token kernel's bf16 (TMA-fed
+    tensor-core) instance, as ``paged_decode_append_multi_quant_info``
+    reports them (chunk_rows in packed rows, m in tokens; needs the card);
+    given a shape, also its tokens per run."""
     info = _info("decode_append_multi_q4",
-                 "karanta_decode_append_multi_q4_info", d, nq, "max_runs")
+                 "karanta_decode_append_multi_q4_info", d, nq, "max_runs",
+                 "chunk_rows", "stages", "consumer_warps")
     if b is not None:
         info["run_tokens"] = multi_q4_run_tokens(
-            b, kvh, m, _sm_count(torch.cuda.current_device()),
-            info["max_runs"])
+            b, kvh, m, _resident_blocks(info), info["max_runs"])
     return info
 
 
@@ -979,9 +1006,10 @@ def paged_decode_append_multi_q4(
     partials = counters = None
     run_tokens = 0
     if q.dtype == torch.bfloat16:
+        info = paged_decode_append_multi_q4_info(d, g * tq)
         run_tokens = multi_q4_run_tokens(
-            b, kvh, 2 * pm, _sm_count(q.device),
-            paged_decode_append_multi_q4_info(d, g * tq)["max_runs"])
+            b, kvh, 2 * pm, info["blocks_per_sm"] * _sm_count(q.device),
+            info["max_runs"])
         partials, counters = _split_workspace(
             q, b * kvh, -(-2 * pm // run_tokens), MULTI_PARTIAL_ROWS)
     code = fn(kernels.ptr(q), kernels.ptr(new_k), kernels.ptr(new_v),

@@ -436,37 +436,53 @@ def test_quant_plain_matches_pallas_bf16(layer, lens):
 
 @pytest.mark.parametrize("m", [4096, 1920, 64])
 def test_split_run_rules(m):
-    """The run-length rules of the split kernels' bf16 instances (pure
-    Python; the card only times them): powers of two within each kernel's
-    range, the shortest that leaves at most one live block per two SMs at
-    half-full slots, longer only to respect the last block's merge limit,
-    never shorter as the batch grows. The int8 decode kernel's rule has its
-    own test below; its engine points are here."""
+    """The run-length rules of the split and the persistent kernels' bf16
+    instances (pure Python; the card only times them). The int4 decode
+    kernel's split rule: powers of two within its range, the shortest that
+    leaves at most Q4_BLOCKS_PER_SM live blocks an SM at half-full slots,
+    longer only to respect the last block's merge limit. The persistent
+    kernels' resident-run rule (#3, and #4 and #7 since they walk fixed
+    items too): the shortest power of two in range whose runs of full slots
+    fit the resident blocks, else the longest; never shorter as the batch
+    grows. The int4 rules count tokens in whole 64-token windows (#7: whole
+    128-token chunks)."""
     from karanta_tpu_torch.ops import decode_attention as DA
 
     n_sm = 132
-    rules = ((lambda b: DA.multi_quant_run_rows(b, 4, m, n_sm, 64),
-              DA.MULTI_MIN_RUN, DA.MULTI_MAX_RUN, 0.5),
-             (lambda b: DA.multi_q4_run_tokens(b, 4, m, n_sm, 64),
-              DA.MULTI_Q4_MIN_RUN, DA.MULTI_Q4_MAX_RUN, 0.5),
-             (lambda b: DA.q4_run_tokens(b, 4, m, n_sm, 64),
-              DA.Q4_MIN_RUN, DA.Q4_MAX_RUN, DA.Q4_BLOCKS_PER_SM))
-    # the int4 rules count tokens in whole 64-token windows
-    assert DA.MULTI_Q4_MIN_RUN % 64 == 0 and DA.Q4_MIN_RUN % 64 == 0
-    for rule, lo, hi, per_sm in rules:
-        runs = [rule(b) for b in (1, 2, 4, 8, 16, 32, 64, 80, 128)]
+    batches = (1, 2, 4, 8, 16, 32, 64, 80, 128)
+    assert DA.Q4_MIN_RUN % 64 == 0 and DA.MULTI_Q4_MIN_RUN % 128 == 0
+    runs = [DA.q4_run_tokens(b, 4, m, n_sm, 64) for b in batches]
+    assert runs == sorted(runs)
+    for b, run in zip(batches, runs):
+        assert DA.Q4_MIN_RUN <= run <= DA.Q4_MAX_RUN and run & (run - 1) == 0
+        blocks = b * 4 * -(-m // (2 * run))   # live at half-full slots
+        assert blocks <= DA.Q4_BLOCKS_PER_SM * n_sm or run == DA.Q4_MAX_RUN
+        if run > DA.Q4_MIN_RUN:  # the next shorter run would overfill
+            assert b * 4 * -(-m // run) > DA.Q4_BLOCKS_PER_SM * n_sm
+    grid = 2 * n_sm
+    for rule, lo, hi in (
+            (DA.quant_run_rows, DA.QUANT_MIN_RUN, DA.QUANT_MAX_RUN),
+            (DA.multi_quant_run_rows, DA.MULTI_MIN_RUN, DA.MULTI_MAX_RUN),
+            (DA.multi_q4_run_tokens, DA.MULTI_Q4_MIN_RUN,
+             DA.MULTI_Q4_MAX_RUN)):
+        runs = [rule(b, 4, m, grid, 32) for b in batches]
         assert runs == sorted(runs)
-        for b, run in zip((1, 2, 4, 8, 16, 32, 64, 80, 128), runs):
+        for b, run in zip(batches, runs):
             assert lo <= run <= hi and run & (run - 1) == 0
-            blocks = b * 4 * -(-m // (2 * run))   # live at half-full slots
-            assert blocks <= per_sm * n_sm or run == hi
-            if run > lo:  # the next shorter run would overfill the card
-                assert b * 4 * -(-m // run) > per_sm * n_sm
-    # the served and engine points (measured on the card: PERF.md)
-    assert DA.multi_quant_run_rows(4, 4, 4096, n_sm, 64) == 512
-    assert DA.multi_quant_run_rows(32, 4, 4096, n_sm, 64) == 1024
-    assert DA.multi_q4_run_tokens(4, 4, 4096, n_sm, 64) == 512
-    assert DA.multi_q4_run_tokens(8, 4, 4096, n_sm, 64) == 1024
+            assert b * 4 * -(-m // run) <= grid or run == hi
+            if run > lo:  # the next shorter run's items would not fit
+                assert b * 4 * -(-m // (run // 2)) > grid
+    # the served and engine points (measured on the card: PERF.md); #3, #4
+    # and #7 hold two blocks an SM
+    assert DA.multi_quant_run_rows(4, 4, 4096, 2 * n_sm, 32) == 512
+    assert DA.multi_quant_run_rows(8, 4, 4096, 2 * n_sm, 32) == 512
+    assert DA.multi_quant_run_rows(32, 4, 4096, 2 * n_sm, 32) == 1024
+    assert DA.multi_quant_run_rows(80, 4, 1920, 2 * n_sm, 32) == 1024
+    assert DA.multi_quant_run_rows(4, 2, 1920, 2 * n_sm, 32) == 512
+    assert DA.multi_q4_run_tokens(4, 4, 4096, 2 * n_sm, 32) == 256
+    assert DA.multi_q4_run_tokens(8, 4, 4096, 2 * n_sm, 32) == 512
+    assert DA.multi_q4_run_tokens(32, 4, 4096, 2 * n_sm, 32) == 2048
+    assert DA.multi_q4_run_tokens(4, 1, 2048, 2 * n_sm, 32) == 256
     # the int8 decode kernel at two blocks an SM: one run a block while the
     # runs of full slots fit, else the grid walks the longest runs
     assert DA.quant_run_rows(4, 4, 1920, 2 * n_sm, 32) == 256
@@ -481,6 +497,8 @@ def test_split_run_rules(m):
     # a slot never gets more runs than the last block can merge
     assert DA.split_run_rows(1, 1, 4096, n_sm, 64, 64, max_runs=16) == 256
     assert DA.split_run_rows(1, 1, 4096, n_sm, 64, 4096, 64) == 64
+    assert DA.multi_q4_run_tokens(1, 1, 65536, 2 * n_sm, 32) == 2048
+    assert DA.multi_quant_run_rows(1, 1, 65536, 2 * n_sm, 32) == 2048
 
 
 def _quant_items(lens, kvh, m, run_rows, chunk=128):

@@ -1,5 +1,5 @@
-"""The measuring tools of the flash kernel (#2) and the int8 decode kernel
-(#3) on the CPU: the instrumented copies that bench/flash_trace.py builds,
+"""The measuring tools of the flash kernel (#2), the int8 decode kernel
+(#3) and the verify kernels (#4, #7) on the CPU: the instrumented copies that bench/flash_trace.py builds,
 and the work bench/flash_ab.py divides by. The tools themselves run on the
 card."""
 
@@ -83,3 +83,63 @@ def test_decode_work_counts_the_live_rows(kvh, lens):
             n += 2 * (2 * d + 2 * 2)                      # new rows in + out
     n += b * h * d * 2 * 2                                # q in, attn out
     assert flash_ab.decode_work(b, kvh, h, d, lens) == n
+
+
+def test_flash_trace_instruments_the_verify_kernels():
+    """Every phase's reading of the verify trace lands once in the tree's
+    verify_tma.cuh (the one body of #4 and #7, which both sources include),
+    the producer's and the consumers' sums are stored, and the two C entries
+    are appended to the source."""
+    out = flash_trace.instrument_verify(
+        (CSRC / flash_trace.VERIFY_HEADER).read_text())
+    for k in range(len(flash_trace.VERIFY_PHASES)):
+        assert out.count(f"FT_STAMP({k});") == 1, k
+    assert out.count("karanta_ftrace[ft_slot") == 2
+    for source in flash_ab.VERIFY_SOURCES.values():
+        text = (CSRC / f"{source}.cu").read_text()
+        assert f'#include "{flash_trace.VERIFY_HEADER}"' in text
+
+
+def test_flash_trace_refuses_a_verify_source_without_its_anchors():
+    src = (CSRC / flash_trace.VERIFY_HEADER).read_text()
+    with pytest.raises(ValueError, match="flash_trace"):
+        flash_trace.instrument_verify(
+            src.replace("// P is whole", "// P is complete"))
+
+
+def _q4_rows_holding(n: int) -> int:
+    """Packed int4 rows (32 a 64-token window) that hold a token below n,
+    counted row by row: row 32 w + r holds tokens 64 w + r and 64 w + 32 + r."""
+    return sum(1 for row in range(n) if 64 * (row // 32) + row % 32 < n)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("kvh,tq,lens", [(4, 4, [0, 1700, 2100, 4091]),
+                                         (2, 2, [5, 0, 1, 33, 64, 95]),
+                                         (1, 4, [1650] * 3)])
+def test_verify_work_counts_the_live_rows(bits, kvh, tq, lens):
+    """Bytes of flash_ab.verify_work (what #4's and #7's bound divides by)
+    against a count over every slot, kv head and stored row: its K and V
+    bytes (int8 rows one token each; packed int4 rows holding a live
+    token), two bf16 scales per live token; per slot and kv head the T fresh
+    rows and scales read and written; q read and the output written."""
+    d, g = 16, 7
+    b, h = len(lens), kvh * g
+    n = 0
+    for live in lens:
+        rows = live if bits == 8 else _q4_rows_holding(live)
+        for _ in range(kvh):
+            n += rows * 2 * d + live * 2 * 2          # cache rows + scales
+            n += tq * 2 * (2 * d + 2 * 2)             # fresh rows in + out
+    n += b * tq * h * d * 2 * 2                       # q in, attn out
+    assert flash_ab.verify_work(b, kvh, h, d, tq, lens, bits) == n
+
+
+@pytest.mark.parametrize("kernel", ["3", "6"])
+def test_verify_runs_smoke_shapes_take_the_verify_kernels_only(kernel):
+    """--smoke-shapes sweeps #4's and #7's shapes from flash_ab; a decode
+    kernel's sweep refuses it before it looks for a card."""
+    from karanta_tpu_torch.bench import verify_runs
+    with pytest.raises(SystemExit) as err:
+        verify_runs.main(["--kernel", kernel, "--smoke-shapes"])
+    assert err.value.code == 2

@@ -1130,6 +1130,194 @@ def test_q4_kernel_is_deterministic(cuda):
         assert torch.equal(x, y)
 
 
+# kernels #4 and #7's bf16 instances (one Hopper body, verify_tma.cuh)
+
+def _verify_case(gen, dev, kernel, n_layers, b, kvh, g, tq, m, d, lens):
+    """q, fresh rows, caches and lengths of #4 (int8, m rows) or #7 (int4,
+    m tokens) in bf16."""
+    if kernel == 4:
+        return _multi_quant_case(gen, dev, torch.bfloat16, n_layers, b, kvh,
+                                 g, tq, m, d, lens)
+    caches, new = _q4_inputs(gen, dev, torch.bfloat16, n_layers, b, kvh, m, d,
+                             (b, tq))
+    q = _randn(gen, (b, tq, kvh * g, d), dev, torch.bfloat16)
+    return q, new, caches, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+def _verify_fns(kernel):
+    if kernel == 4:
+        return (DA.paged_decode_append_multi_quant,
+                DA.paged_decode_append_multi_quant_plain)
+    return DA.paged_decode_append_multi_q4, DA.paged_decode_append_multi_q4_plain
+
+
+def _verify_check(kernel, q, new, caches, lens):
+    fn, plain = _verify_fns(kernel)
+    a = [x.clone() for x in caches]
+    got = fn(q, *new, *a, 1, lens)
+    want = plain(q, *new, *caches, 1, lens)
+    torch.cuda.synchronize()
+    _assert_close(got, want, q.dtype)
+    for x, y in zip(a, caches):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("kernel", [4, 7])
+@pytest.mark.parametrize("b", [4, 80])
+def test_verify_kernels_slot_bits_ignore_the_batch(cuda, kernel, b):
+    """A slot's output bits from #4 and #7 do not depend on the other
+    slots' lengths at the same B: its runs, partials and their merge follow
+    from its own length and the run rule. B = 4 (a block a run) and B = 80
+    (the grid walks more runs than it has blocks); 7B heads, T = 4, over
+    1,920 rows (#4) or 4,096 tokens (#7)."""
+    m = 1920 if kernel == 4 else 4096
+    gen = torch.Generator(device=cuda).manual_seed(101 + b + kernel)
+    lens_l = [m - 300, 700, m - 5, 1] * (b // 4)
+    q, new, caches, lens = _verify_case(gen, cuda, kernel, 2, b, 4, 7, 4, m,
+                                        128, lens_l)
+    fn, _ = _verify_fns(kernel)
+    got = fn(q, *new, *[x.clone() for x in caches], 1, lens)
+    others = lens.clone()
+    others[4:] = torch.randint(0, m - 5, (b - 4,), generator=gen,
+                               device=cuda)
+    others[1] = 5
+    again = fn(q, *new, *[x.clone() for x in caches], 1, others)
+    torch.cuda.synchronize()
+    keep = [0, 2, 3]
+    assert torch.equal(got[keep].view(torch.int16),
+                       again[keep].view(torch.int16))
+
+
+@pytest.mark.parametrize("kernel", [4, 7])
+def test_verify_kernels_read_nothing_past_the_slot(cuda, kernel):
+    """Tokens past each slot's cache_len hold garbage (random bytes or
+    nibbles; NaN, inf and huge scales): the output of #4 or #7 is finite
+    and equals the plain version's over the same caches with those tokens
+    zeroed, and the caches after the call equal the plain version's written
+    over the garbage (only the T fresh tokens change)."""
+    from karanta_tpu_torch.ops.decode_attention import (pack_q4_rows,
+                                                        pack_q4_scales,
+                                                        unpack_q4_rows,
+                                                        unpack_q4_scales)
+
+    b, kvh, g, tq, d = 6, 2, 7, 4, 128
+    m = 640
+    lens_l = [0, 1, 127, 131, 300, m - tq - 1]
+    gen = torch.Generator(device=cuda).manual_seed(103 + kernel)
+    q, new, caches, lens = _verify_case(gen, cuda, kernel, 2, b, kvh, g, tq,
+                                        m, d, lens_l)
+    dead = (torch.arange(m, device=cuda)[None, :]
+            >= lens.long()[:, None])[:, None, :]              # (B, 1, M)
+    specials = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                             3e38, 0.0], device=cuda).bfloat16()
+    garbage, zeroed = [x.clone() for x in caches], [x.clone() for x in caches]
+    for i in range(2):
+        if kernel == 4:
+            rows = garbage[i][1]
+        else:
+            rows = unpack_q4_rows(garbage[i][1])              # (B, KVH, M, D)
+        noise = torch.randint(-8 if kernel == 7 else -128,
+                              8 if kernel == 7 else 128, rows.shape,
+                              generator=gen, device=cuda).to(torch.int8)
+        bad = torch.where(dead[..., None], noise, rows)
+        zero = torch.where(dead[..., None], torch.zeros_like(rows), rows)
+        garbage[i][1] = bad if kernel == 4 else pack_q4_rows(bad)
+        zeroed[i][1] = zero if kernel == 4 else pack_q4_rows(zero)
+    for i in range(2, 4):
+        sc = garbage[i][1] if kernel == 4 else unpack_q4_scales(garbage[i][1])
+        pick = torch.randint(0, 5, sc.shape, generator=gen, device=cuda)
+        bad = torch.where(dead, specials[pick], sc)
+        zero = torch.where(dead, torch.zeros_like(sc), sc)
+        garbage[i][1] = bad if kernel == 4 else pack_q4_scales(bad)
+        zeroed[i][1] = zero if kernel == 4 else pack_q4_scales(zero)
+    fn, plain = _verify_fns(kernel)
+    want_caches = [x.clone() for x in garbage]
+    plain(q, *new, *want_caches, 1, lens)
+    got = fn(q, *new, *garbage, 1, lens)
+    want = plain(q, *new, *zeroed, 1, lens)
+    torch.cuda.synchronize()
+    _assert_close(got, want, torch.bfloat16)
+    for x, y in zip(garbage, want_caches):
+        assert torch.equal(x.view(torch.int8) if x.dtype == torch.int8
+                           else x.view(torch.int16),
+                           y.view(torch.int8) if y.dtype == torch.int8
+                           else y.view(torch.int16))
+
+
+@pytest.mark.parametrize("m", [300, 1923])
+def test_multi_quant_kernel_unaligned_scales(cuda, m):
+    """#4 with M not a multiple of 8: a slab's scales start off a 16-byte
+    boundary (the producer's lanes load them); lengths at the 128-row
+    chunk's edges, 0 and M - T - 1; all four caches bit-equal."""
+    tq = 4
+    lens = [0, 127, 128, 129, 2 * 128 + 5, m - tq - 1]
+    gen = torch.Generator(device=cuda).manual_seed(107 + m)
+    _verify_check(4, *_verify_case(gen, cuda, 4, 2, len(lens), 3, 7, tq, m,
+                                   128, lens))
+
+
+@pytest.mark.parametrize("pm,lens", [
+    (300, [0, 31, 33, 255, 256, 257, 290, 583]),
+    (1932, [0, 255, 256, 257, 1000, 2049, 3000, 3847])])
+def test_multi_q4_kernel_unaligned_scale_planes(cuda, pm, lens):
+    """#7's C entry over a bucket of PM packed rows not a multiple of 8 (the
+    wrapper takes multiples of 32): each slab's scale planes start off a
+    16-byte boundary and the producer's lanes load them. Lengths at the
+    64-token window's and the 256-token chunk's edges, the fresh tokens
+    inside the mapped rows; held against the plain version over the caches
+    padded to a whole window (the padding never read), caches bit-equal."""
+    from karanta_tpu_torch import kernels
+
+    b, kvh, g, tq, d = len(lens), 3, 7, 4, 128
+    gen = torch.Generator(device=cuda).manual_seed(109 + pm)
+    caches, new = _q4_inputs(gen, cuda, torch.bfloat16, 2, b, kvh, 2 * pm, d,
+                             (b, tq))
+    q = _randn(gen, (b, tq, kvh * g, d), cuda, torch.bfloat16)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    padded = []
+    for x in caches:
+        y = torch.zeros(x.shape[:3] + (-(-pm // 32) * 32,) + x.shape[4:],
+                        dtype=x.dtype, device=cuda)
+        y[:, :, :, :pm] = x
+        padded.append(y)
+    want = DA.paged_decode_append_multi_q4_plain(q, *new, *padded, 1, lens_t)
+    fn = DA._multi_q4_fns()[0]
+    info = DA.paged_decode_append_multi_q4_info(d, g * tq)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    run = DA.multi_q4_run_tokens(b, kvh, 2 * pm, info["blocks_per_sm"] * n_sm,
+                                 info["max_runs"])
+    partials, counters = DA._split_workspace(q, b * kvh, -(-2 * pm // run),
+                                             DA.MULTI_PARTIAL_ROWS)
+    got = torch.empty_like(q)
+    kernels.raise_on_error("#7", fn(
+        *[kernels.ptr(x) for x in (q, *new, *caches, lens_t, got, partials,
+                                   counters)],
+        b, tq, kvh, g, pm, d, 1, run, d ** -0.5,
+        kernels.DTYPE_CODES[torch.bfloat16], kernels.stream_ptr(cuda)))
+    torch.cuda.synchronize()
+    _assert_close(got, want, torch.bfloat16)
+    for x, y in zip(caches, padded):
+        assert torch.equal(x, y[:, :, :, :pm])
+
+
+@pytest.mark.parametrize("kernel", [4, 7])
+@pytest.mark.parametrize("d,nq", [(128, 28), (128, 14), (128, 32), (16, 12)])
+def test_verify_kernels_info(cuda, kernel, d, nq):
+    """The info entries of #4's and #7's Hopper body: chunks of 128 keys
+    (128 int8 rows, 64 packed int4 rows), a ring of at least two stages, one
+    consumer warpgroup, no spills, at least one block an SM, at most 32 runs
+    a slot; the run of a shape is a whole number of chunks."""
+    info = (DA.paged_decode_append_multi_quant_info if kernel == 4
+            else DA.paged_decode_append_multi_q4_info)(d, nq, 8, 4, 4096)
+    tokens_a_row = 1 if kernel == 4 else 2
+    assert info["chunk_rows"] * tokens_a_row == 128 and info["stages"] >= 2
+    assert info["consumer_warps"] == 4
+    assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= 1
+    assert info["max_runs"] == 32
+    run = info["run_rows"] if kernel == 4 else info["run_tokens"]
+    assert run % (info["chunk_rows"] * tokens_a_row) == 0
+
+
 def test_int_split_kernels_leave_counters_zero(cuda):
     """Kernels #3, #7, #4 and #6 one after another on one stream share the
     merge counters with #5, #8 and #9; each call leaves them at 0, and each
