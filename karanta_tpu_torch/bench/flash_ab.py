@@ -57,6 +57,19 @@ outputs are held to the plain version at the bf16 limit and the caches
 bit-equal; the bound is the bytes (``verify_work``) at 3.35 TB/s.
 
     python -m karanta_tpu_torch.bench.flash_ab --kernel 4 --baseline old/csrc
+
+With ``--kernel 6`` the same turns time the bf16 instance of the int4
+decode kernel (#6, ``paged_decode_append_q4``, from each source's
+``decode_append_q4.cu``) at ``chip_smoke.py``'s #6 shapes (7B heads, D =
+128, G = 7, one layer of a two-layer cache): B = 4 over 2,048 tokens
+(lengths 0/700/1919/1390), the served int4 point's B = 8 over 4,096 tokens
+with the smoke's ragged lengths, one rank's kv heads at tp = 2 and 4 (KVH 2
+and 1, B = 4 over 2,048 tokens), and B = 32 and 80 with ragged lengths over
+4,096 tokens from a seed. Each source runs with its library's own run
+rule, as for #4 and #7 (the split body's: ``SPLIT_VERIFY_RULES``, one live
+block an SM); the bound is ``verify_work`` at T = 1.
+
+    python -m karanta_tpu_torch.bench.flash_ab --kernel 6 --baseline old/csrc
 """
 
 from __future__ import annotations
@@ -277,14 +290,16 @@ def decode_case(b: int, kvh: int, lens: list, gen: torch.Generator):
 
 def decode_launcher(fn, q, new, caches, lens_t, run: int):
     """One call of a #3 C entry `fn` with `run` rows over copies of the
-    caches: (call, output, the copies)."""
+    caches: (call, output, the copies). The partials have room for the
+    records of either Hopper body (#3's own, or the verify body's at
+    T = 1)."""
     from karanta_tpu_torch import kernels
     from karanta_tpu_torch.ops import decode_attention as DA
 
     b, _, h, d = q.shape
     kvh = caches[0].shape[2]
     partials, counters = DA._split_workspace(
-        q, b * kvh, -(-DECODE_M // run), DA.SPLIT_PARTIAL_ROWS)
+        q, b * kvh, -(-DECODE_M // run), DA.MULTI_PARTIAL_ROWS)
     out = torch.empty_like(q)
     work = [c.clone() for c in caches]
     # the call holds the tensors: the pointers alone would not keep them
@@ -346,8 +361,8 @@ def decode_ab(others: dict, wanted: list, smi: str) -> dict:
                                         max_runs)
             else:
                 lo, hi, split_per_sm = SPLIT_RULE
-                run = DA.split_run_rows(b, kvh, DECODE_M, n_sm, lo, hi,
-                                        max_runs, blocks_per_sm=split_per_sm)
+                run = split_run_rows(b, kvh, DECODE_M, n_sm, lo, hi,
+                                     max_runs, blocks_per_sm=split_per_sm)
             row["run_rows"][tree] = run
             call, out, work = decode_launcher(fn, q, new, caches, lens_t, run)
             call()
@@ -375,20 +390,48 @@ def decode_ab(others: dict, wanted: list, smi: str) -> dict:
 
 
 # kernels #4 and #7: one layer of the 7B verify pass over the int8 or int4
-# cache (chip_smoke.py's shapes)
+# cache (chip_smoke.py's shapes); #6: one layer of the 7B decode step over
+# the int4 cache, on #7's body at T = 1
 VERIFY_D, VERIFY_G, VERIFY_KVH, VERIFY_T, VERIFY_M = 128, 7, 4, 4, 4096
-VERIFY_SOURCES = {"4": "decode_append_multi_quant", "7": "decode_append_multi_q4"}
+VERIFY_SOURCES = {"4": "decode_append_multi_quant",
+                  "7": "decode_append_multi_q4", "6": "decode_append_q4"}
 VERIFY_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-# the run rules of the split body that #4's and #7's Hopper body replaced
-# (verify_split.cuh): runs of lo to hi rows (#4) or tokens (#7), one
-# live block per two SMs at half-full slots
-SPLIT_VERIFY_RULES = {"4": (256, 1024), "7": (256, 2048)}
+# the run rules of the split bodies that the Hopper body replaced
+# (verify_split.cuh for #4 and #7, decode_split.cuh for #6): runs of lo to
+# hi rows (#4) or tokens (#7, #6), at most that many live blocks an SM at
+# half-full slots
+SPLIT_VERIFY_RULES = {"4": (256, 1024, 0.5), "7": (256, 2048, 0.5),
+                      "6": (256, 1024, 1)}
+
+
+def split_run_rows(b: int, kvh: int, m: int, n_sm: int, lo: int, hi: int,
+                   max_runs: int, blocks_per_sm: float = 0.5) -> int:
+    """The run-length rule of the split bodies, for their libraries timed as
+    baselines: the shortest run of cache rows (or tokens), a power of two
+    from lo to hi, that gives at most blocks_per_sm live blocks an SM when
+    the B slots of KVH kv heads are half full (B * KVH * ceil(M / 2 / run)
+    blocks); longer if a slot would otherwise have more than max_runs runs
+    (what the last block can merge)."""
+    run = lo
+    while run < hi and b * kvh * -(-m // (2 * run)) > blocks_per_sm * n_sm:
+        run *= 2
+    while -(-m // run) > max_runs:
+        run *= 2
+    return run
+
+
+def verify_argtypes(kernel: str) -> list:
+    """The C entry's argument types: #6's takes no T (the decode kernels'
+    signature)."""
+    return DECODE_ARGTYPES if kernel == "6" else VERIFY_ARGTYPES
 
 
 def verify_shapes(kernel: str) -> dict:
     """name -> (B, KVH, T, M tokens, lengths); ragged lengths from the
     smoke's seeds."""
+    if kernel == "6":
+        return q4_decode_shapes()
     m, tq = VERIFY_M, VERIFY_T
 
     def ragged(b, seed):
@@ -412,10 +455,29 @@ def verify_shapes(kernel: str) -> dict:
     return out
 
 
+def q4_decode_shapes() -> dict:
+    """#6's shapes (T = 1): the smoke's B = 4 over 2,048 tokens and B = 8
+    over 4,096 with its ragged lengths (seed 17, chip_smoke.py kernel_q4),
+    one rank's kv heads (its per-rank rows), and B = 32 and 80 ragged over
+    4,096 tokens."""
+    def ragged(b, m, seed):
+        rng = np.random.default_rng(seed)
+        return [0, m - 1] + sorted(int(x) for x in rng.integers(1, m - 1,
+                                                                 b - 2))
+
+    out = {"b4": (4, VERIFY_KVH, 1, 2048, [0, 700, 1919, 1390]),
+           "b8": (8, VERIFY_KVH, 1, VERIFY_M, ragged(8, VERIFY_M, 17))}
+    for tp in (2, 4):
+        out[f"tp{tp}"] = (4, VERIFY_KVH // tp, 1, 2048, [0, 700, 1390, 2043])
+    for b, seed in ((32, 19), (80, 23)):
+        out[f"b{b}"] = (b, VERIFY_KVH, 1, VERIFY_M, ragged(b, VERIFY_M, seed))
+    return out
+
+
 def verify_case(kernel: str, b: int, kvh: int, tq: int, m: int, lens: list,
                 gen: torch.Generator):
-    """#4's or #7's inputs over a two-layer 7B cache (bf16 scales) and the
-    plain version's output and caches at layer 1."""
+    """#4's, #7's or #6's inputs over a two-layer 7B cache (bf16 scales) and
+    the plain version's output and caches at layer 1."""
     from karanta_tpu_torch.models.qwen25_vl.decoder import (
         q4_pack_prefill, quantize_kv_rows, quantize_kv_rows_q4)
     from karanta_tpu_torch.ops import decode_attention as DA
@@ -426,8 +488,9 @@ def verify_case(kernel: str, b: int, kvh: int, tq: int, m: int, lens: list,
         return torch.randn(shape, generator=gen, device=dev)
 
     quant = quantize_kv_rows if kernel == "4" else quantize_kv_rows_q4
-    nkq, nks = quant(rows((b, tq, kvh, d)))
-    nvq, nvs = quant(rows((b, tq, kvh, d)))
+    lead = (b,) if kernel == "6" else (b, tq)
+    nkq, nks = quant(rows(lead + (kvh, d)))
+    nvq, nvs = quant(rows(lead + (kvh, d)))
     q = rows((b, tq, kvh * VERIFY_G, d)).bfloat16()
     new = (nkq, nvq, nks.bfloat16(), nvs.bfloat16())
     if kernel == "4":
@@ -438,7 +501,8 @@ def verify_case(kernel: str, b: int, kvh: int, tq: int, m: int, lens: list,
     else:
         caches = list(q4_pack_prefill(rows((2, b, kvh, m, d)),
                                       rows((2, b, kvh, m, d))))
-        plain = DA.paged_decode_append_multi_q4_plain
+        plain = (DA.paged_decode_append_q4_plain if kernel == "6"
+                 else DA.paged_decode_append_multi_q4_plain)
     caches[2], caches[3] = caches[2].bfloat16(), caches[3].bfloat16()
     lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
     want_caches = [c.clone() for c in caches]
@@ -447,8 +511,9 @@ def verify_case(kernel: str, b: int, kvh: int, tq: int, m: int, lens: list,
 
 
 def verify_launcher(kernel: str, fn, q, new, caches, lens_t, run: int):
-    """One call of a #4 or #7 C entry `fn` with runs of `run` rows (#4) or
-    tokens (#7) over copies of the caches: (call, output, the copies)."""
+    """One call of a #4, #7 or #6 C entry `fn` with runs of `run` rows (#4)
+    or tokens (#7, #6) over copies of the caches: (call, output, the
+    copies)."""
     from karanta_tpu_torch import kernels
     from karanta_tpu_torch.ops import decode_attention as DA
 
@@ -463,9 +528,12 @@ def verify_launcher(kernel: str, fn, q, new, caches, lens_t, run: int):
     tensors = (q, *new, *work, lens_t, out, partials, counters)
     args = [kernels.ptr(x) for x in tensors]
 
+    shape = ((b, kvh, h // kvh, stored, d) if kernel == "6"
+             else (b, tq, kvh, h // kvh, stored, d))
+
     def call(tensors=tensors):
         kernels.raise_on_error(f"#{kernel}", fn(
-            *args, b, tq, kvh, h // kvh, stored, d, 1, run, d ** -0.5,
+            *args, *shape, 1, run, d ** -0.5,
             kernels.DTYPE_CODES[torch.bfloat16],
             kernels.stream_ptr(q.device)))
 
@@ -473,12 +541,11 @@ def verify_launcher(kernel: str, fn, q, new, caches, lens_t, run: int):
 
 
 def verify_info(lib, kernel: str, nq: int) -> list:
-    """The first 8 entries of a library's #4 or #7 info at (D, nq): a split
-    body's library fills 5 (no rows a chunk)."""
+    """The first 8 entries of a library's #4, #7 or #6 info at (D, nq): a
+    split body's library fills 5 (no rows a chunk)."""
     from karanta_tpu_torch import kernels
 
-    name = {"4": "karanta_decode_append_multi_quant_info",
-            "7": "karanta_decode_append_multi_q4_info"}[kernel]
+    name = f"karanta_{VERIFY_SOURCES[kernel]}_info"
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -494,15 +561,16 @@ def verify_run(kernel: str, info: list, b: int, kvh: int, m: int,
     from karanta_tpu_torch.ops import decode_attention as DA
 
     if info[5]:
-        rule = (DA.multi_quant_run_rows if kernel == "4"
-                else DA.multi_q4_run_tokens)
+        rule = {"4": DA.multi_quant_run_rows, "7": DA.multi_q4_run_tokens,
+                "6": DA.q4_run_tokens}[kernel]
         return rule(b, kvh, m, info[3] * n_sm, info[4])
-    lo, hi = SPLIT_VERIFY_RULES[kernel]
-    return DA.split_run_rows(b, kvh, m, n_sm, lo, hi, info[4])
+    lo, hi, per_sm = SPLIT_VERIFY_RULES[kernel]
+    return split_run_rows(b, kvh, m, n_sm, lo, hi, info[4],
+                          blocks_per_sm=per_sm)
 
 
 def verify_ab(kernel: str, others: dict, wanted: list, smi: str) -> dict:
-    """Kernel #4 or #7 from this tree and from each baseline library, in
+    """Kernel #4, #7 or #6 from this tree and from each baseline library, in
     turns."""
     from karanta_tpu_torch.kernels import build as kbuild
 
@@ -515,7 +583,7 @@ def verify_ab(kernel: str, others: dict, wanted: list, smi: str) -> dict:
     for name, lib in libs.items():
         fn = getattr(lib, entry)
         fn.restype = ctypes.c_int
-        fn.argtypes = VERIFY_ARGTYPES
+        fn.argtypes = verify_argtypes(kernel)
         fns[name] = fn
     order = [*others, "this", "this", *reversed(others)]
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -590,11 +658,11 @@ def main(argv=None) -> int:
                              "turns with this tree's (repeatable)")
     parser.add_argument("--only", default="",
                         help="comma-separated shape names (default: all)")
-    parser.add_argument("--kernel", choices=("2", "3", "4", "7"),
+    parser.add_argument("--kernel", choices=("2", "3", "4", "7", "6"),
                         default="2",
                         help="2: the flash kernel (default), 3: the int8 "
                              "decode kernel, 4 / 7: the int8 / int4 verify "
-                             "kernel")
+                             "kernel, 6: the int4 decode kernel")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("flash_ab: needs a CUDA device")

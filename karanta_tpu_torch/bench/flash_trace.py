@@ -30,11 +30,12 @@ the last block's merge, the output). At
 ``flash_ab``'s #3 shapes it prints each phase's share of the consumer's and
 of the producer's cycles summed over the blocks, the consumer cycles per
 chunk and the longest block's cycles. The readings cost a little, so times
-come from ``flash_ab``. With ``--kernel 4`` (or 7) the same phases come
-from the verify kernels' Hopper body (``kernels/csrc/verify_tma.cuh``, built
-into ``decode_append_multi_quant.cu``, or ``decode_append_multi_q4.cu``):
-thread 0 of each consumer warpgroup and the producer's lane 0 of every
-block, at ``flash_ab``'s #4 (or #7) shapes. Needs a CUDA device.
+come from ``flash_ab``. With ``--kernel 4`` (or 7, or 6) the same phases
+come from the verify kernels' Hopper body (``kernels/csrc/verify_tma.cuh``,
+built into ``decode_append_multi_quant.cu``, ``decode_append_multi_q4.cu``
+or, at T = 1, ``decode_append_q4.cu``): thread 0 of each consumer warpgroup
+and the producer's lane 0 of every block, at ``flash_ab``'s #4 (or #7, or
+#6) shapes. Needs a CUDA device.
 
     python -m karanta_tpu_torch.bench.flash_trace --kernel 4 --only b4,b32
 """
@@ -50,7 +51,7 @@ from pathlib import Path
 
 import torch
 
-from karanta_tpu_torch.bench.flash_ab import shapes
+from karanta_tpu_torch.bench.flash_ab import VERIFY_SOURCES, shapes
 from karanta_tpu_torch.kernels import build
 from karanta_tpu_torch.ops import attention as A
 
@@ -251,7 +252,7 @@ def build_traced(csrc: Path | None = None,
     verify_tma.cuh)."""
     csrc = Path(csrc or build.CSRC)
     headers = {h.name: h.read_text() for h in sorted(csrc.glob("*.cuh"))}
-    if source in ("decode_append_multi_quant", "decode_append_multi_q4"):
+    if source in VERIFY_SOURCES.values():
         headers[VERIFY_HEADER] = instrument_verify(headers[VERIFY_HEADER])
         src = (csrc / f"{source}.cu").read_text() + _exports(
             len(VERIFY_PHASES))
@@ -341,17 +342,17 @@ def decode_trace(lib: ctypes.CDLL, wanted: list) -> int:
 
 
 def verify_trace(lib: ctypes.CDLL, kernel: str, wanted: list) -> int:
-    """#4's or #7's phases at flash_ab's shapes, with this tree's run
+    """#4's, #7's or #6's phases at flash_ab's shapes, with this tree's run
     rule."""
-    from karanta_tpu_torch.bench.flash_ab import (VERIFY_ARGTYPES,
-                                                  VERIFY_G, VERIFY_SOURCES,
+    from karanta_tpu_torch.bench.flash_ab import (VERIFY_G,
+                                                  verify_argtypes,
                                                   verify_case, verify_info,
                                                   verify_launcher,
                                                   verify_run, verify_shapes)
 
     fn = getattr(lib, "karanta_" + VERIFY_SOURCES[kernel])
     fn.restype = ctypes.c_int
-    fn.argtypes = VERIFY_ARGTYPES
+    fn.argtypes = verify_argtypes(kernel)
     n = len(VERIFY_PHASES)
     buf = (ctypes.c_ulonglong * (MAX_SLOTS * n))()
     dev = torch.device("cuda")
@@ -411,7 +412,7 @@ def main(argv=None) -> int:
     parser.add_argument("--only", default=None,
                         help="comma-separated flash_ab shape names (default "
                              "vision,prefill,prefix; #3: all)")
-    parser.add_argument("--kernel", choices=("2", "3", "4", "7"),
+    parser.add_argument("--kernel", choices=("2", "3", "4", "7", "6"),
                         default="2")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -419,9 +420,7 @@ def main(argv=None) -> int:
     if args.kernel == "3":
         return decode_trace(build_traced(args.csrc, "decode_append_quant"),
                             [x for x in (args.only or "").split(",") if x])
-    if args.kernel in ("4", "7"):
-        from karanta_tpu_torch.bench.flash_ab import VERIFY_SOURCES
-
+    if args.kernel in VERIFY_SOURCES:
         return verify_trace(
             build_traced(args.csrc, VERIFY_SOURCES[args.kernel]), args.kernel,
             [x for x in (args.only or "").split(",") if x])

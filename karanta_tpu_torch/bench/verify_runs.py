@@ -1,5 +1,5 @@
-"""Run-length sweep of the split decode kernels over the quantized caches on
-the card: the bf16 instances of the int8 verify kernel (#4,
+"""Run-length sweep of the persistent decode kernels over the quantized
+caches on the card: the bf16 instances of the int8 verify kernel (#4,
 ``ops/decode_attention.py paged_decode_append_multi_quant``), the int4
 verify kernel (#7, ``paged_decode_append_multi_q4``), the int8 decode
 kernel (#3, ``paged_decode_append_quant``) and the int4 decode kernel (#6,
@@ -20,12 +20,13 @@ version (the bf16 rule), and is timed on the device: 20 calls captured in a
 CUDA graph and replayed, so the wrapper's host time is left out. Batch 4
 takes the smoke's lengths; #3 and #4 at batch 80 fill every slot to 1,650
 rows (the decode A/B point's fill); the others take ragged lengths from a
-seed. With --smoke-shapes, #4 and #7 run instead at the shapes that
+seed. With --smoke-shapes, #4, #7 and #6 run instead at the shapes that
 ``chip_smoke.py`` and ``bench.flash_ab`` time (``flash_ab.verify_shapes``:
-the smoke's B = 4 and ragged B = 32 (#4) or B = 8 (#7) lengths over 4,096
-tokens, #4 at B = 80 filled to 1,650 of 1,920 rows and at T = 2, and one
-rank's kv heads at tp = 2 and 4). A run length a kernel does not take (#4:
-not a multiple of 128 rows; #7: of 256 tokens) fails its call. One line
+the smoke's B = 4 and ragged B = 32 (#4) or B = 8 (#7, #6) lengths over
+4,096 tokens (#6: B = 4 over 2,048, and B = 32 and 80 ragged), #4 at B = 80
+filled to 1,650 of 1,920 rows and at T = 2, and one rank's kv heads at tp =
+2 and 4). A run length a kernel does not take (#4: not a multiple of 128
+rows; #7 and #6: of 128 tokens) fails its call. One line
 per shape with the time per run length and the length the wrapper's rule
 picks, then one JSON object. Needs a CUDA device.
 """
@@ -152,8 +153,10 @@ def case(kernel: str, b: int, kvh: int, tq: int, m: int, lens: list,
         n_bytes = verify_work(b, kvh, kvh * G, D, tq, lens, 4)
     elif kernel == "6":
         fn = DA._q4_fns()[0]
-        max_runs = DA.paged_decode_append_q4_info(D, G)["max_runs"]
-        rule = DA.q4_run_tokens(b, kvh, m, n_sm, max_runs)
+        info = DA.paged_decode_append_q4_info(D, G)
+        max_runs = info["max_runs"]
+        rule = DA.q4_run_tokens(b, kvh, m, info["blocks_per_sm"] * n_sm,
+                                max_runs)
 
         def tail(run):
             return (b, kvh, G, m // 2, D, 1, run)
@@ -180,7 +183,7 @@ def sweep(kernel: str, b: int, kvh: int, tq: int, m: int, lens: list,
     (q, new, caches, lens_t, want, fn, tail, rule, max_runs,
      bound) = case(kernel, b, kvh, tq, m, lens, gen)
     limit = 2.0 ** -7 * want.abs() + 2.0 ** -9 * want.abs().max()
-    rows = DA.SPLIT_PARTIAL_ROWS if kernel in "36" else DA.MULTI_PARTIAL_ROWS
+    rows = DA.SPLIT_PARTIAL_ROWS if kernel == "3" else DA.MULTI_PARTIAL_ROWS
     out = torch.empty_like(q)
     times = {}
     for run in runs:
@@ -220,11 +223,11 @@ def main(argv=None) -> int:
                              "#6)")
     parser.add_argument("--seed", type=int, default=5)
     parser.add_argument("--smoke-shapes", action="store_true",
-                        help="#4 and #7: the smoke's and flash_ab's shapes "
-                             "in place of the batch sweep")
+                        help="#4, #7 and #6: the smoke's and flash_ab's "
+                             "shapes in place of the batch sweep")
     args = parser.parse_args(argv)
-    if args.smoke_shapes and args.kernel not in "47":
-        parser.error("--smoke-shapes takes --kernel 4 or 7")
+    if args.smoke_shapes and args.kernel == "3":
+        parser.error("--smoke-shapes takes --kernel 4, 7 or 6")
     if not torch.cuda.is_available():
         raise SystemExit("verify_runs: no CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -16,23 +16,29 @@
 // B * KVH * (live_packed_rows * D * 2 + live_tokens * 2 * sizeof(T)) per
 // layer at 3.35 TB/s.
 //
-// The bf16 instance is decode_split_kernel (decode_split.cuh, with
-// kAppend = true, kBits = 4), the one body it shares with kernels #5, #8,
-// #9 and #11's attention: each slot's tokens [0, cache_len) in runs over blocks (the run
-// length in tokens, a multiple of 64, so no window is split; the wrapper's
-// rule, q4_run_tokens, was measured on the card), a cp.async ring of packed
-// rows and their scales per warp (a quarter of the bf16 rows' bytes per
-// token), each landed chunk of 16 packed rows unpacked exactly into two
-// 16-key bf16 tiles (the low plane, tokens 64w + r, and the high plane,
-// 64w + 32 + r, each with its own scale plane) before ldmatrix, Q.K^T and
-// P.V on the tensor cores (mma.sync bf16, float32 accumulators) with ksc on
-// the scores and p * vsc rounded to bf16 before P.V as the TPU kernel rounds
-// it (decode_attention.py:1577), each key masked by its own token index, and
-// a last-block merge of the runs' partials in a fixed order. The block of
-// run 0 merges the new token's nibbles into their bytes (one thread and one
-// store per byte, the other nibble kept) and writes its scales, and the
-// block that finishes the slot folds the new token in last, in float32 from
-// its int4 values times its scales (:1590-1606), then normalises.
+// The bf16 instance is verify_tma_kernel (verify_tma.cuh, kBits = 4) with
+// one fresh token (T = 1, NQ = G query rows): the int4 verify kernel's (#7)
+// body, whose causal rule at T = 1 is this kernel's function (the one query
+// sees the new token). It replaces the earlier split body (#5's, over packed
+// rows: a cp.async ring per warp, each landed 16-row chunk unpacked into two
+// 16-key bf16 tiles in shared memory and read back with ldmatrix, a block
+// for each (slot, kv head, run)), which reached 4.7% of the bound at
+// B = 4 and 12.7% at B = 8 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md):
+// a producer warp bulk-copies chunks of 64 packed rows (128 tokens) with the
+// low and high scale planes of K and of V into an mbarrier ring; one
+// consumer warpgroup turns each packed byte's two nibbles into the B
+// operands of two 16-key tiles in registers (no bf16 stage), each key masked
+// by its own token index; ksc multiplies the scores and p * vsc is rounded
+// to bf16 before P.V, as the TPU kernel rounds it (decode_attention.py:1577);
+// every resident block walks fixed (slot, kv head, run) items, so a slot's
+// bits do not depend on the other slots. The run length, in tokens, is an
+// argument (whole chunks of 128 tokens, so no 64-token window is split); the
+// wrapper's rule (ops/decode_attention.py q4_run_tokens) takes the shortest
+// run in its range whose runs of full slots fit the resident blocks. The
+// first run's block merges the new token's nibbles into their bytes (one
+// thread and one store per byte, the other nibble kept) and writes its
+// scales; the block that finishes the slot folds the new token in last, in
+// float32 from its int4 values times its scales (:1590-1606).
 //
 // The float32 instance (decode_append_q4_kernel) stays on the CUDA cores
 // (the tensor cores would multiply in TF32), decode_append_quant.cu's
@@ -49,7 +55,7 @@
 // chunks), and each thread then owns one output dim. The TPU kernel's ring,
 // slots per program and scale slab are TPU tiling and do not carry over.
 #include "common.cuh"
-#include "decode_split.cuh"
+#include "verify_tma.cuh"
 
 namespace karanta {
 
@@ -292,10 +298,10 @@ cudaError_t launch_pair_q4(int dtype, const void* q, const int8_t* nk, const int
                            int* counters, int B, int KVH, int PM, int layer, int run_tokens,
                            float scale, cudaStream_t st) {
   if (dtype == kBFloat16) {
-    if (run_tokens % 2) return cudaErrorInvalidValue;
-    return launch_split<D, G, true, 4>(q, nk, nv, nks, nvs, kc, vc, ksc, vsc, lens, out,
-                                       partials, counters, B, KVH, PM, layer, run_tokens / 2,
-                                       scale, st);
+    // one fresh token: NQ = G query rows, the new token visible to all
+    return launch_verify_tma<D, G, 4>(q, nk, nv, nks, nvs, kc, vc, ksc, vsc, lens, out,
+                                      partials, counters, B, 1, KVH, G, PM, layer, run_tokens,
+                                      scale, st);
   }
   if (dtype == kFloat32) {
     return launch_q4<float, D, G>(q, nk, nv, nks, nvs, kc, vc, ksc, vsc, lens, out, B, KVH, PM,
@@ -328,11 +334,12 @@ inline int q4_entry(int D, int G, const void* q, const int8_t* nk, const int8_t*
 // packed row count (M / 2 tokens). Returns the CUDA error code of the launch;
 // cudaErrorInvalidValue for a (D, G) pair without an instantiation. The bf16
 // instance needs `partials`, float32 (B * KVH * ceil(M / run_tokens) *
-// (8 D + 16)), and `counters`, int32 (B * KVH), zero before the first call
+// (32 D + 64)), and `counters`, int32 (B * KVH), zero before the first call
 // (each call leaves them zero; the other split kernels' counters may be the
 // same array on one stream), and takes runs of `run_tokens` tokens (a
-// multiple of 64, at most info[4] of karanta_decode_append_q4_info runs a
-// slot; the wrapper's rule picks it); the float32 instance ignores the three.
+// multiple of twice info[5], the packed rows a chunk, at most info[4] of
+// karanta_decode_append_q4_info runs a slot; the wrapper's rule picks it);
+// the float32 instance ignores the three.
 extern "C" int karanta_decode_append_q4(
     const void* q, const int8_t* new_k, const int8_t* new_v, const void* new_ks,
     const void* new_vs, int8_t* k_cache, int8_t* v_cache, void* ks_cache, void* vs_cache,
@@ -352,17 +359,14 @@ extern "C" int karanta_decode_q4_supported(int D, int G) {
   return 0;
 }
 
-#define KARANTA_Q4_INFO(DD, GG)                                                   \
-  if (D == DD && G == GG) {                                                        \
-    const cudaError_t err = karanta::split_info<DD, GG, true, 4>(info);            \
-    info[4] = karanta::SplitTile<DD, 4>::kMaxSplits;                               \
-    return static_cast<int>(err);                                                  \
-  }
+#define KARANTA_Q4_INFO(DD, GG) \
+  if (D == DD && G == GG) return static_cast<int>(karanta::verify_tma_info<DD, GG, 4>(info));
 
-// info[5] = registers per thread, local (spilled) bytes per thread, dynamic
-// shared bytes per block, resident blocks per SM and the most runs a slot
-// may have (ceil(M / run_tokens)) of the bf16 instance for (D, G). Returns
-// the CUDA error code.
+// info[8] = registers per thread, local (spilled) bytes per thread, dynamic
+// shared bytes per block (at B = 0; 12 more a slot), resident blocks per
+// SM, the most runs a slot may have (ceil(M / run_tokens)), packed rows a
+// chunk, ring stages and consumer warps of the bf16 instance for (D, G).
+// Returns the CUDA error code.
 extern "C" int karanta_decode_append_q4_info(int D, int G, int* info) {
   KARANTA_Q4_PAIRS(KARANTA_Q4_INFO)
   return static_cast<int>(cudaErrorInvalidValue);

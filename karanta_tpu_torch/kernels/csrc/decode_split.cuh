@@ -1,4 +1,4 @@
-// Flash-decoding over a bf16, int8 or packed int4 cache on the tensor cores,
+// Flash-decoding over a bf16 or int8 cache on the tensor cores,
 // rows split over blocks: the one kernel body of the bf16 instances of
 //
 // - kernel #5, paged_decode_append (decode_append.cu, kAppend = true): slot b
@@ -6,17 +6,6 @@
 //   of run 0 writes this step's K/V row at cache_len[b], and the block that
 //   finishes the slot folds that row in last, in float32, from the inputs
 //   (karanta_tpu/ops/decode_attention.py:496-512);
-// - kernel #6, paged_decode_append_q4 (decode_append_q4.cu, kAppend = true,
-//   kBits = 4): the same over the nibble-packed int4 cache (common.cuh,
-//   q4_row; scales in two planes 2h and 2h + 1, M packed rows apart): run 0
-//   merges the new token's nibble into its byte and keeps the other one
-//   (decode_attention.py:1463-1468), and writes the two scales; a landed
-//   chunk of 16 packed rows is unpacked into two 16-key bf16 tiles (tokens
-//   64w + r and 64w + 32 + r, int4x8_to_bf16), each key masked by its own
-//   token index and its scales read as 0 at or past cache_len (a packed row
-//   is not live or dead as a whole); runs are whole 64-token windows. No
-//   block reads a value the merge changes: the byte's other nibble is the
-//   same before and after, and the new token is masked;
 // - kernels #8 and #9, paged_decode_attention(_stacked) (decode_attention.cu,
 //   kAppend = false): slot b attends over the rows [0, cache_len[b]], this
 //   step's row having been written at cache_len[b] before the call;
@@ -28,7 +17,8 @@
 //   split_item runs in each half of the megakernel's persistent blocks,
 //   with a named barrier per half in place of the block barrier. (Kernel
 //   #3 ran this int8 body until it was redesigned around bulk copies,
-//   decode_append_quant.cu.)
+//   decode_append_quant.cu; kernel #6 ran it over packed int4 rows until it
+//   moved onto the int4 verify kernel's body, verify_tma.cuh.)
 //
 // What bounds it on this card: every live cache byte is used once per call
 // for about G flops, so device-memory bytes bound it:
@@ -36,8 +26,8 @@
 // 3.35 TB/s.
 //
 // The rows of one (slot, kv head) are split into runs of run_rows rows (an
-// argument: kSplitRows = 1,024 for the bf16 cache; over the int8 and int4
-// caches a rule measured on the card picks it), one block of 4 warps each, so a
+// argument: kSplitRows = 1,024 for the bf16 cache; over the int8 cache the
+// megakernel's rule picks it), one block of 4 warps each, so a
 // 4,096-row slot spreads over 4 blocks instead of one. The wrapper cannot
 // read cache_len without a host sync, so the grid is sized from M and a
 // block whose run starts past its slot's rows exits at once; run 0 always
@@ -52,7 +42,7 @@
 // bytes, with the chunk's 32 scales (plain loads issued with the rows and
 // stored beside them one iteration later; a row past the slot reads 0), and
 // the warp converts the landed chunk into its own bf16 stage
-// (int8x8_to_bf16 or int4x8_to_bf16, exact; stage_rows) before ldmatrix. Q.K^T and P.V are
+// (int8x8_to_bf16, exact; stage_rows) before ldmatrix. Q.K^T and P.V are
 // mma.sync.m16n8k16 in bf16 with float32 accumulators, the flash kernel's
 // mapping: the G query heads of the kv head are rows of the 16-row A tile
 // (G <= 8 live; the dead rows cost nothing in a byte-bound kernel), K
@@ -102,17 +92,15 @@ static_assert(kDecodeStages >= 2, "the ring needs two stages");
 // rows per run over the bf16 cache
 constexpr int kSplitRows = kSplitWarps * 16 * kDecodeChunks;
 
-// kBits: 16 for bf16 rows, 8 for int8 rows, 4 for packed int4 rows
+// kBits: 16 for bf16 rows, 8 for int8 rows
 template <int D, int kBits>
 struct SplitTile {
-  static_assert(kBits == 16 || kBits == 8 || kBits == 4, "bf16, int8 or int4 rows");
+  static_assert(kBits == 16 || kBits == 8, "bf16 or int8 rows");
   static constexpr bool kQuant = kBits != 16;
-  static constexpr int kKeyT = kBits == 4 ? 2 : 1;  // 16-key tiles of a 16-row chunk
-  static constexpr int kScales = kQuant ? 32 * kKeyT : 0;  // K, then V scales of a chunk
+  static constexpr int kScales = kQuant ? 32 : 0;  // K, then V scales of a chunk
   static constexpr int kPitch = D + 8;  // bf16 rows in shared memory (elements)
-  static constexpr int kStageBytes = 2 * 16 * kKeyT * kPitch * 2;  // bf16 K and V tiles
-  // ring depth: an int4 warp's 2 stages keep two blocks an SM
-  static constexpr int kStages = kBits == 4 ? 2 : kDecodeStages;
+  static constexpr int kStageBytes = 2 * 16 * kPitch * 2;  // bf16 K and V tiles
+  static constexpr int kStages = kDecodeStages;
   // one ring stage: bf16 K and V rows (pitch kPitch), or stored K and V rows
   // (pitch D) and the chunk's kScales scales
   static constexpr int kRingStage = kQuant ? 2 * 16 * D + 2 * kScales : kStageBytes;
@@ -153,7 +141,7 @@ __device__ __forceinline__ void split_item(
     const __nv_bfloat16* __restrict__ new_vs,
     const void* k_cache_,  // (L, B, KVH, M, D) stored rows; written if kAppend
     const void* v_cache_,
-    __nv_bfloat16* ks_cache,  // int8: (L, B, KVH, M), int4: (L, B, 2*KVH, M); written
+    __nv_bfloat16* ks_cache,  // int8: (L, B, KVH, M); written
     __nv_bfloat16* vs_cache,
     const int* __restrict__ cache_len,  // (B,) tokens
     __nv_bfloat16* __restrict__ out,    // (B, KVH*G, D)
@@ -167,8 +155,7 @@ __device__ __forceinline__ void split_item(
   static_assert(kAppend || !kQuant, "a quantized cache is read by the append kernels only");
   using Row = typename std::conditional<kQuant, int8_t, __nv_bfloat16>::type;
   constexpr int P = Tile::kPitch, kVecs = D / 8, kKT = D / 16;
-  constexpr int kS = Tile::kStages, kKeyT = Tile::kKeyT, kSc = Tile::kScales;
-  constexpr int kTok = kBits == 4 ? 2 : 1;  // tokens of a stored row
+  constexpr int kS = Tile::kStages, kSc = Tile::kScales;
   constexpr int kRowVecs = D * sizeof(Row) / 16;  // 16-byte vectors of a stored row
   const Row* new_k = static_cast<const Row*>(new_k_);
   const Row* new_v = static_cast<const Row*>(new_v_);
@@ -179,12 +166,10 @@ __device__ __forceinline__ void split_item(
 
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  // the clamp keeps a bad value inside the slab. Read-only: tokens [0, len];
-  // append: tokens [0, len), the new one goes to len.
-  const int len = min(max(cache_len[b], 0), kTok * M - 1);
-  const int n_tok = kAppend ? len : len + 1;
-  // stored rows that hold a live token
-  const int n_rows = kBits == 4 ? q4_live_rows(n_tok) : n_tok;
+  // the clamp keeps a bad value inside the slab. Read-only: rows [0, len];
+  // append: rows [0, len), the new one goes to len.
+  const int len = min(max(cache_len[b], 0), M - 1);
+  const int n_rows = kAppend ? len : len + 1;
   const int r0 = split * run_rows;
   if (split > 0 && r0 >= n_rows) return;  // past this slot's rows
   const int r_end = min(r0 + run_rows, n_rows);
@@ -193,39 +178,23 @@ __device__ __forceinline__ void split_item(
   const size_t slab = ((static_cast<size_t>(layer) * B + b) * KVH + kvh) * M;
   const Row* k_rows = static_cast<const Row*>(k_cache_) + slab * D;
   const Row* v_rows = static_cast<const Row*>(v_cache_) + slab * D;
-  // int8: the slab's scales; int4: the low plane, the high plane M later
-  __nv_bfloat16* k_sc = kQuant ? ks_cache + kTok * slab : nullptr;
-  __nv_bfloat16* v_sc = kQuant ? vs_cache + kTok * slab : nullptr;
+  // int8: the slab's scales
+  __nv_bfloat16* k_sc = kQuant ? ks_cache + slab : nullptr;
+  __nv_bfloat16* v_sc = kQuant ? vs_cache + slab : nullptr;
 
   if constexpr (kAppend) {
     // run 0 writes this step's row (and its scales) at len (read by no
     // block of this call)
     if (split == 0) {
-      if constexpr (kBits == 4) {
-        // one thread and one store per byte: the new nibble merged, the
-        // byte's other nibble (token len - 32, or one not yet written) kept
-        const int r = q4_row(len), nib = q4_nib(len);
-        for (int c = tid; c < 2 * D; c += kSplitThreads) {
-          const bool is_v = c >= D;
-          const int d = is_v ? c - D : c;
-          int8_t* at = const_cast<int8_t*>(is_v ? v_rows : k_rows) +
-                       static_cast<size_t>(r) * D + d;
-          *at = q4_merge(*at, (is_v ? new_v : new_k)[static_cast<size_t>(bh) * D + d], nib);
-        }
-        if (tid < 2) {
-          (tid ? v_sc : k_sc)[static_cast<size_t>(nib) * M + r] = (tid ? new_vs : new_ks)[bh];
-        }
-      } else {
-        for (int c = tid; c < 2 * kRowVecs; c += kSplitThreads) {
-          const bool is_v = c >= kRowVecs;
-          const int col = (is_v ? c - kRowVecs : c) * (16 / sizeof(Row));
-          const Row* src = (is_v ? new_v : new_k) + static_cast<size_t>(bh) * D;
-          Row* dst = const_cast<Row*>(is_v ? v_rows : k_rows) + static_cast<size_t>(len) * D;
-          *reinterpret_cast<uint4*>(dst + col) = *reinterpret_cast<const uint4*>(src + col);
-        }
-        if constexpr (kQuant) {
-          if (tid < 2) (tid ? v_sc : k_sc)[len] = (tid ? new_vs : new_ks)[bh];
-        }
+      for (int c = tid; c < 2 * kRowVecs; c += kSplitThreads) {
+        const bool is_v = c >= kRowVecs;
+        const int col = (is_v ? c - kRowVecs : c) * (16 / sizeof(Row));
+        const Row* src = (is_v ? new_v : new_k) + static_cast<size_t>(bh) * D;
+        Row* dst = const_cast<Row*>(is_v ? v_rows : k_rows) + static_cast<size_t>(len) * D;
+        *reinterpret_cast<uint4*>(dst + col) = *reinterpret_cast<const uint4*>(src + col);
+      }
+      if constexpr (kQuant) {
+        if (tid < 2) (tid ? v_sc : k_sc)[len] = (tid ? new_vs : new_ks)[bh];
       }
     }
   }
@@ -255,26 +224,17 @@ __device__ __forceinline__ void split_item(
       }
     }
   };
-  // quantized: lane l carries scale slots l + 32 j of each chunk (slot s:
-  // K below kSc / 2, then V; key tile (s / 16) % kKeyT, key s % 16), loaded
-  // one iteration ahead and stored beside the rows; a key at or past the
-  // slot's tokens reads 0
-  constexpr int kScLane = kQuant ? kSc / 32 : 1;
-  auto load_scales = [&](int i, __nv_bfloat16 (&v)[kScLane]) {
-    const int c0 = w0 + kStride * i;
-#pragma unroll
-    for (int j = 0; j < kScLane; ++j) {
-      const int s = lane + 32 * j, p = (s >> 4) % kKeyT, r = s & 15;
-      v[j] = chunk_token<kBits>(c0, p, r) < n_tok
-                 ? (s < kSc / 2 ? k_sc : v_sc)[static_cast<size_t>(p) * M + c0 + r]
-                 : __float2bfloat16_rn(0.f);
-    }
+  // quantized: lane l carries scale slot l of each chunk (K below kSc / 2,
+  // then V; key l % 16), loaded one iteration ahead and stored beside the
+  // rows; a key at or past the slot's rows reads 0
+  auto load_scales = [&](int i, __nv_bfloat16& v) {
+    const int c0 = w0 + kStride * i, r = lane & 15;
+    v = c0 + r < n_rows ? (lane < kSc / 2 ? k_sc : v_sc)[c0 + r] : __float2bfloat16_rn(0.f);
   };
-  auto store_scales = [&](int i, const __nv_bfloat16 (&v)[kScLane]) {
+  auto store_scales = [&](int i, __nv_bfloat16 v) {
     __nv_bfloat16* sc =
         reinterpret_cast<__nv_bfloat16*>(my_ring + (i % kS) * Tile::kRingStage + 32 * D);
-#pragma unroll
-    for (int j = 0; j < kScLane; ++j) sc[lane + 32 * j] = v[j];
+    sc[lane] = v;
   };
   if constexpr (kAppend) {
     // every block copies the new row now, for whichever block finishes the
@@ -286,7 +246,7 @@ __device__ __forceinline__ void split_item(
                  (is_v ? new_v : new_k) + static_cast<size_t>(bh) * D + col, 16);
     }
   }
-  __nv_bfloat16 sc_first[kS - 1][kScLane];
+  __nv_bfloat16 sc_first[kS - 1];
 #pragma unroll
   for (int st = 0; st < kS - 1; ++st) {
     if (st < n_mine) load_chunk(st);
@@ -329,7 +289,7 @@ __device__ __forceinline__ void split_item(
   for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = 0.f;
   float m = kNegInf, l = 0.f;
 
-  __nv_bfloat16 sc_pending[kScLane];
+  __nv_bfloat16 sc_pending;
   for (int i = 0; i < n_mine; ++i) {
     cp_async_wait<kS - 2>();
     __syncwarp();  // chunk i landed for every lane; chunk i - 1's stage is free
@@ -341,66 +301,54 @@ __device__ __forceinline__ void split_item(
     cp_async_commit();
     const unsigned char* st = my_ring + (i % kS) * Tile::kRingStage;
     const __nv_bfloat16* ks;
-    float ksc[kKeyT][2][2], vsc[kKeyT][2][2];
+    float ksc[2][2], vsc[2][2];
     if constexpr (kQuant) {
       if (more) load_scales(i + kS - 1, sc_pending);
-      // the landed chunk into the bf16 stage: K tiles, then V tiles
-      stage_rows<kBits, D, P, 32>(reinterpret_cast<const int8_t*>(st), stage, 0, lane);
+      // the landed chunk into the bf16 stage: K rows, then V rows
+      stage_rows<D, P, 32>(reinterpret_cast<const int8_t*>(st), stage, 0, lane);
       __syncwarp();
       ks = stage;
-      // the scales of this lane's keys 8j + 2t + e of key tile p
+      // the scales of this lane's keys 8j + 2t + e
       const __nv_bfloat16* sc = reinterpret_cast<const __nv_bfloat16*>(st + 32 * D);
 #pragma unroll
-      for (int p = 0; p < kKeyT; ++p) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float2 kf = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(sc + 16 * p + 8 * j + 2 * t));
-          const float2 vf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-              sc + kSc / 2 + 16 * p + 8 * j + 2 * t));
-          ksc[p][j][0] = kf.x;
-          ksc[p][j][1] = kf.y;
-          vsc[p][j][0] = vf.x;
-          vsc[p][j][1] = vf.y;
-        }
+      for (int j = 0; j < 2; ++j) {
+        const float2 kf = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(sc + 8 * j + 2 * t));
+        const float2 vf = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(sc + kSc / 2 + 8 * j + 2 * t));
+        ksc[j][0] = kf.x;
+        ksc[j][1] = kf.y;
+        vsc[j][0] = vf.x;
+        vsc[j][1] = vf.y;
       }
     } else {
       ks = reinterpret_cast<const __nv_bfloat16*>(st);
     }
-    const __nv_bfloat16* vs = ks + 16 * kKeyT * P;
+    const __nv_bfloat16* vs = ks + 16 * P;
     const int c0 = w0 + kStride * i;
 
     // S = Q K^T over the chunk's keys: fragment j, element e of row g is key
-    // 8j + 2t + e of key tile p
-    float s[kKeyT][2][4];
+    // 8j + 2t + e
+    float s[2][4];
 #pragma unroll
-    for (int p = 0; p < kKeyT; ++p) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) s[p][j][0] = s[p][j][1] = s[p][j][2] = s[p][j][3] = 0.f;
-    }
+    for (int j = 0; j < 2; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < kKT; ++kk) {
-#pragma unroll
-      for (int p = 0; p < kKeyT; ++p) {
-        uint32_t bb[4];
-        ldmatrix_x4(bb, ks + 16 * p * P + k_lane + kk * 16);
-        mma_bf16_16816(s[p][0], qa[kk], bb[0], bb[1]);
-        mma_bf16_16816(s[p][1], qa[kk], bb[2], bb[3]);
-      }
+      uint32_t bb[4];
+      ldmatrix_x4(bb, ks + k_lane + kk * 16);
+      mma_bf16_16816(s[0], qa[kk], bb[0], bb[1]);
+      mma_bf16_16816(s[1], qa[kk], bb[2], bb[3]);
     }
     float mx = m;
 #pragma unroll
-    for (int p = 0; p < kKeyT; ++p) {
+    for (int j = 0; j < 2; ++j) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool live = chunk_token<kBits>(c0, p, 8 * j + 2 * t + e) < n_tok;
-          float x = s[p][j][e];
-          if constexpr (kQuant) x *= ksc[p][j][e];  // the K scale, then the softmax scale
-          s[p][j][e] = live ? x * scale_log2 : -CUDART_INF_F;
-          mx = fmaxf(mx, s[p][j][e]);
-        }
+      for (int e = 0; e < 2; ++e) {
+        const bool live = c0 + 8 * j + 2 * t + e < n_rows;
+        float x = s[j][e];
+        if constexpr (kQuant) x *= ksc[j][e];  // the K scale, then the softmax scale
+        s[j][e] = live ? x * scale_log2 : -CUDART_INF_F;
+        mx = fmaxf(mx, s[j][e]);
       }
     }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -409,15 +357,12 @@ __device__ __forceinline__ void split_item(
     m = mx;
     l *= alpha;
 #pragma unroll
-    for (int p = 0; p < kKeyT; ++p) {
+    for (int j = 0; j < 2; ++j) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          s[p][j][e] = fast_exp2(s[p][j][e] - mx);
-          l += s[p][j][e];  // this lane's share of the row sum, unrounded P
-          if constexpr (kQuant) s[p][j][e] *= vsc[p][j][e];  // the V scale folds into p
-        }
+      for (int e = 0; e < 2; ++e) {
+        s[j][e] = fast_exp2(s[j][e] - mx);
+        l += s[j][e];  // this lane's share of the row sum, unrounded P
+        if constexpr (kQuant) s[j][e] *= vsc[j][e];  // the V scale folds into p
       }
     }
 #pragma unroll
@@ -425,25 +370,20 @@ __device__ __forceinline__ void split_item(
       o[n][0] *= alpha;
       o[n][1] *= alpha;
     }
-    // O += P V, one k-step per key tile: P rounded to bf16, the padding
-    // rows zero
+    // O += P V, one k-step: P rounded to bf16, the padding rows zero
+    const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), 0u, pack_bf16(s[1][0], s[1][1]), 0u};
 #pragma unroll
-    for (int p = 0; p < kKeyT; ++p) {
-      const uint32_t pa[4] = {pack_bf16(s[p][0][0], s[p][0][1]), 0u,
-                              pack_bf16(s[p][1][0], s[p][1][1]), 0u};
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        uint32_t bb[4];
-        ldmatrix_x4_trans(bb, vs + 16 * p * P + v_lane + np * 16);
-        float c0f[4] = {o[2 * np][0], o[2 * np][1], 0.f, 0.f};
-        float c1f[4] = {o[2 * np + 1][0], o[2 * np + 1][1], 0.f, 0.f};
-        mma_bf16_16816(c0f, pa, bb[0], bb[1]);
-        mma_bf16_16816(c1f, pa, bb[2], bb[3]);
-        o[2 * np][0] = c0f[0];
-        o[2 * np][1] = c0f[1];
-        o[2 * np + 1][0] = c1f[0];
-        o[2 * np + 1][1] = c1f[1];
-      }
+    for (int np = 0; np < D / 16; ++np) {
+      uint32_t bb[4];
+      ldmatrix_x4_trans(bb, vs + v_lane + np * 16);
+      float c0f[4] = {o[2 * np][0], o[2 * np][1], 0.f, 0.f};
+      float c1f[4] = {o[2 * np + 1][0], o[2 * np + 1][1], 0.f, 0.f};
+      mma_bf16_16816(c0f, pa, bb[0], bb[1]);
+      mma_bf16_16816(c1f, pa, bb[2], bb[3]);
+      o[2 * np][0] = c0f[0];
+      o[2 * np][1] = c0f[1];
+      o[2 * np + 1][0] = c1f[0];
+      o[2 * np + 1][1] = c1f[1];
     }
   }
   cp_async_wait<0>();
@@ -635,9 +575,8 @@ cudaError_t launch_split(const void* q, const void* nk, const void* nv, const vo
                          int KVH, int M, int layer, int run_rows, float scale,
                          cudaStream_t stream) {
   using Tile = SplitTile<D, kBits>;
-  // runs of whole 16-row chunks; of whole 64-token windows over int4 rows
-  constexpr int kRunUnit = kBits == 4 ? 32 : 16;
-  if (run_rows < kRunUnit || run_rows % kRunUnit ||
+  // runs of whole 16-row chunks
+  if (run_rows < 16 || run_rows % 16 ||
       (M + run_rows - 1) / run_rows > Tile::kMaxSplits) {
     return cudaErrorInvalidValue;
   }

@@ -2,7 +2,7 @@
 // sm_90a): cp.async into shared memory, ldmatrix, the bf16
 // mma.sync.m16n8k16 and the TF32 mma.sync.m16n8k8 with float32
 // accumulators, the hi/lo split of a float into two TF32 values, and the
-// exact conversions of int8 and packed int4 cache rows to bf16 operands.
+// exact conversion of int8 cache rows to bf16 operands.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16x16 row-major, 4 x bf16x2: a0 (g, 2t..2t+1), a1 (g+8, 2t..),
@@ -144,39 +144,10 @@ __device__ __forceinline__ uint4 int8x8_to_bf16(uint2 raw) {
   return make_uint4(r[0], r[1], r[2], r[3]);
 }
 
-// eight packed int4 bytes (one 8-byte word pair) -> their eight low nibbles
-// and their eight high nibbles as bf16, exactly. Each nibble n is biased to
-// n + 8 in [0, 15]; a prmt spreads two bytes to the two halves of a word, a
-// mask puts a nibble into the low mantissa bits of the bf16 128 + (n + 8),
-// and one packed bf16 subtraction of 136 gives n.
-__device__ __forceinline__ void int4x8_to_bf16(uint2 raw, uint4& lo, uint4& hi) {
-  const uint32_t w[2] = {raw.x ^ 0x88888888u, raw.y ^ 0x88888888u};
-  const __nv_bfloat162 bias = __floats2bfloat162_rn(136.f, 136.f);
-  uint32_t l[4], h[4];
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      // bytes 2p and 2p + 1 of word k to bytes 0 and 2
-      const uint32_t pair = __byte_perm(w[k], 0u, 0x4140 + 0x0202 * p);
-      uint32_t x = (pair & 0x000F000Fu) | 0x43004300u;
-      uint32_t y = ((pair >> 4) & 0x000F000Fu) | 0x43004300u;
-      __nv_bfloat162 xv = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&x), bias);
-      __nv_bfloat162 yv = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&y), bias);
-      l[2 * k + p] = *reinterpret_cast<uint32_t*>(&xv);
-      h[2 * k + p] = *reinterpret_cast<uint32_t*>(&yv);
-    }
-  }
-  lo = make_uint4(l[0], l[1], l[2], l[3]);
-  hi = make_uint4(h[0], h[1], h[2], h[3]);
-}
-
-// Rows [r_lo, r_lo + kRows) of one landed chunk of a quantized cache (stored
-// K rows 0..15, then V rows 16..31, pitch D) into a bf16 stage (pitch P): int8 row rr
-// to stage row rr (K keys 0..15, V keys 16..31); packed int4 row rr to stage
-// rows lo(rr) (its low nibbles) and lo(rr) + 16 (its high nibbles), with
-// lo(rr) = rr for K and rr + 16 for V (K tiles 0..31, V tiles 32..63).
-template <int kBits, int D, int P, int kRows>
+// Rows [r_lo, r_lo + kRows) of one landed chunk of the int8 cache (stored K
+// rows 0..15, then V rows 16..31, pitch D) into a bf16 stage (pitch P): row
+// rr to stage row rr (K keys 0..15, V keys 16..31).
+template <int D, int P, int kRows>
 __device__ __forceinline__ void stage_rows(const int8_t* __restrict__ src,
                                            __nv_bfloat16* __restrict__ dst, int r_lo,
                                            int lane) {
@@ -185,15 +156,7 @@ __device__ __forceinline__ void stage_rows(const int8_t* __restrict__ src,
   for (int c = lane; c < kRows * kV; c += 32) {
     const int r = r_lo + c / kV, col = (c % kV) * 8;
     const uint2 raw = *reinterpret_cast<const uint2*>(src + r * D + col);
-    if constexpr (kBits == 8) {
-      *reinterpret_cast<uint4*>(dst + r * P + col) = int8x8_to_bf16(raw);
-    } else {
-      const int lo_row = r < 16 ? r : r + 16;
-      uint4 lo, hi;
-      int4x8_to_bf16(raw, lo, hi);
-      *reinterpret_cast<uint4*>(dst + lo_row * P + col) = lo;
-      *reinterpret_cast<uint4*>(dst + (lo_row + 16) * P + col) = hi;
-    }
+    *reinterpret_cast<uint4*>(dst + r * P + col) = int8x8_to_bf16(raw);
   }
 }
 

@@ -7,7 +7,10 @@
 //   kBits = 4): the nibble-packed int4 cache (common.cuh, q4_row): packed
 //   row 32w + r holds token 64w + r in its low nibble and token 64w + 32 + r
 //   in its high nibble, with the scales of kv head h in the two planes 2h
-//   (low) and 2h + 1 (high), M packed rows apart.
+//   (low) and 2h + 1 (high), M packed rows apart;
+// - kernel #6, paged_decode_append_q4 (decode_append_q4.cu, kBits = 4, T =
+//   1): the int4 decode step, #7's function with one fresh token, which the
+//   one query row of each head sees (NQ = G).
 //
 // For each slot b it appends the T speculative tokens' K/V values and their
 // scales at tokens cache_len[b] + [0, T) of layer `layer`, in place (the
@@ -105,10 +108,13 @@ struct VerifyTma {
   static constexpr int kCRows = kVKeys / kTok;     // stored rows a chunk
   static constexpr int kStages = 2 * kTok;         // ring depth: 64 KB in flight
   static constexpr int kRowsA = 16 * NT;
-  // P.V: each of kPVWarps warps owns kCols output columns, kWN n-tiles
-  static constexpr int kPVWarps = D >= 32 ? kVWarps : D / 8;
-  static constexpr int kCols = D / kPVWarps;
-  static constexpr int kWN = kCols / 8;
+  // P.V: each of kPVWarps warps owns kCols output columns, kWN n-tiles: a
+  // lane's columns are a word of a V row where each warp keeps 32 columns
+  // (D = 128: four warps; D = 64: two), else a byte (D = 32: four warps;
+  // D = 16: two)
+  static constexpr int kWN = D >= 64 ? 4 : 1;
+  static constexpr int kCols = 8 * kWN;
+  static constexpr int kPVWarps = D / kCols;
   // a stage: K rows [kCRows][D], V rows, then the scales of K [kTok][kCRows]
   // and of V (bf16; int4: the low plane, then the high plane)
   static constexpr int kStage = 2 * kCRows * D + 4 * kTok * kCRows;
@@ -148,7 +154,8 @@ struct VerifyTma {
   }
   static_assert(kStage % 16 == 0 && kSeg % 16 == 0 && kSegSc % 16 == 0 && kSegS % 16 == 0,
                 "16-byte aligned regions");
-  static_assert(kWN >= 1 && kWN <= 4, "a lane's columns are bytes of one word");
+  static_assert(kPVWarps >= 1 && kPVWarps <= kVWarps && D % kCols == 0,
+                "P.V's columns over at most a warpgroup");
 };
 
 // two biased nibbles n + 8 in bits 0-3 and 16-19 (the other bits zero) ->

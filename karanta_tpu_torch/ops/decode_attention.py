@@ -339,24 +339,6 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def split_run_rows(b: int, kvh: int, m: int, n_sm: int, lo: int, hi: int,
-                   max_runs: int, blocks_per_sm: float = 0.5) -> int:
-    """The split kernels' run-length rule: the shortest run of cache rows (or
-    tokens), a power of two from lo to hi, that gives at most blocks_per_sm
-    live blocks an SM (one per two SMs by default) when the B slots of KVH
-    kv heads are half full (B * KVH * ceil(M / 2 / run) blocks); longer if a
-    slot would otherwise have more than max_runs runs (what the last block
-    can merge). Shorter runs put more SMs to work; longer runs leave fewer
-    partials for the last block of a slot to merge, which costs more than it
-    saves once the card is full."""
-    run = lo
-    while run < hi and b * kvh * -(-m // (2 * run)) > blocks_per_sm * n_sm:
-        run *= 2
-    while -(-m // run) > max_runs:
-        run *= 2
-    return run
-
-
 def multi_quant_run_rows(b: int, kvh: int, m: int, n_blocks: int,
                          max_runs: int) -> int:
     """Rows per run of the multi-token kernel's bf16 instance (#4) for B
@@ -793,34 +775,41 @@ def _q4_fns():
     return fn, supported
 
 
-# The int4 decode kernel's run lengths in tokens for split_run_rows (measured
+# The int4 decode kernel's run lengths in tokens for resident_run (measured
 # on an H100 with ``python -m karanta_tpu_torch.bench.verify_runs --kernel
-# 6``): multiples of 64, so that no 64-token window is split across runs, and
-# up to Q4_BLOCKS_PER_SM live blocks an SM at half-full slots (its blocks of
-# 4 warps fit two an SM, but one was faster from B = 8 on).
-Q4_MIN_RUN, Q4_MAX_RUN, Q4_BLOCKS_PER_SM = 256, 1024, 1
+# 6`` and ``bench.flash_ab --kernel 6``): its bf16 instance is the int4
+# verify kernel's body with one fresh token, so runs are whole chunks of 64
+# packed rows (128 tokens) and no 64-token window is split across runs.
+# Where the runs of full slots do not fit the grid (B >= 32 at 4,096
+# tokens), 1,024 was 4-13% faster than 2,048 over every draw of lengths
+# at B = 32, 64 and 80 (at B = 32 512 was faster still on average, but a
+# rule that picks it there picks 256 at B = 16, which lost).
+Q4_MIN_RUN, Q4_MAX_RUN = 256, 1024
 
 
-def q4_run_tokens(b: int, kvh: int, m: int, n_sm: int, max_runs: int) -> int:
-    """Tokens per run of the int4 decode kernel's bf16 instance for B slots,
-    KVH kv heads and M cache tokens on a card with n_sm SMs."""
-    return split_run_rows(b, kvh, m, n_sm, Q4_MIN_RUN, Q4_MAX_RUN, max_runs,
-                          blocks_per_sm=Q4_BLOCKS_PER_SM)
+def q4_run_tokens(b: int, kvh: int, m: int, n_blocks: int,
+                  max_runs: int) -> int:
+    """Tokens per run of the int4 decode kernel's bf16 instance (#6) for B
+    slots, KVH kv heads and M cache tokens with n_blocks blocks resident on
+    the card: the resident-run rule from Q4_MIN_RUN to Q4_MAX_RUN tokens."""
+    return resident_run(b, kvh, m, n_blocks, max_runs, Q4_MIN_RUN,
+                        Q4_MAX_RUN)
 
 
 @functools.cache
 def paged_decode_append_q4_info(d: int, g: int, b: Optional[int] = None,
                                 kvh: Optional[int] = None,
                                 m: Optional[int] = None) -> dict:
-    """The resources of the int4 decode kernel's bf16 (tensor-core)
-    instance, as ``paged_decode_append_quant_info`` reports them (m in
-    tokens; needs the card); given a shape, also its tokens per run."""
+    """The resources of the int4 decode kernel's bf16 instance (the int4
+    verify kernel's TMA-fed tensor-core body at T = 1), as
+    ``paged_decode_append_multi_q4_info`` reports them (chunk_rows in packed
+    rows, m in tokens; needs the card); given a shape, also its tokens per
+    run."""
     info = _info("decode_append_q4", "karanta_decode_append_q4_info", d, g,
-                 "max_runs")
+                 "max_runs", "chunk_rows", "stages", "consumer_warps")
     if b is not None:
         info["run_tokens"] = q4_run_tokens(
-            b, kvh, m, _sm_count(torch.cuda.current_device()),
-            info["max_runs"])
+            b, kvh, m, _resident_blocks(info), info["max_runs"])
     return info
 
 
@@ -865,11 +854,12 @@ def paged_decode_append_q4(
     partials = counters = None
     run_tokens = 0
     if q.dtype == torch.bfloat16:
+        info = paged_decode_append_q4_info(d, h // kvh)
         run_tokens = q4_run_tokens(
-            b, kvh, 2 * pm, _sm_count(q.device),
-            paged_decode_append_q4_info(d, h // kvh)["max_runs"])
+            b, kvh, 2 * pm, info["blocks_per_sm"] * _sm_count(q.device),
+            info["max_runs"])
         partials, counters = _split_workspace(
-            q, b * kvh, -(-2 * pm // run_tokens), SPLIT_PARTIAL_ROWS)
+            q, b * kvh, -(-2 * pm // run_tokens), MULTI_PARTIAL_ROWS)
     code = fn(kernels.ptr(q), kernels.ptr(new_k), kernels.ptr(new_v),
               kernels.ptr(new_ks), kernels.ptr(new_vs), kernels.ptr(k_cache),
               kernels.ptr(v_cache), kernels.ptr(ks_cache),

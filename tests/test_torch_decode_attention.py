@@ -436,35 +436,38 @@ def test_quant_plain_matches_pallas_bf16(layer, lens):
 
 @pytest.mark.parametrize("m", [4096, 1920, 64])
 def test_split_run_rules(m):
-    """The run-length rules of the split and the persistent kernels' bf16
-    instances (pure Python; the card only times them). The int4 decode
-    kernel's split rule: powers of two within its range, the shortest that
-    leaves at most Q4_BLOCKS_PER_SM live blocks an SM at half-full slots,
-    longer only to respect the last block's merge limit. The persistent
-    kernels' resident-run rule (#3, and #4 and #7 since they walk fixed
-    items too): the shortest power of two in range whose runs of full slots
-    fit the resident blocks, else the longest; never shorter as the batch
-    grows. The int4 rules count tokens in whole 64-token windows (#7: whole
-    128-token chunks)."""
+    """The run-length rules of the persistent kernels' bf16 instances and of
+    the split bodies that the A/B tool times as baselines (pure Python; the
+    card only times them). The split rule: powers of two within its range,
+    the shortest that leaves at most the given live blocks an SM at
+    half-full slots, longer only to respect the last block's merge limit.
+    The persistent kernels' resident-run rule (#3, #4, #7 and #6, which
+    walk fixed items): the shortest power of two in range whose runs of
+    full slots fit the resident blocks, else the longest; never shorter as
+    the batch grows. The int4 rules (#7, #6) count tokens in whole 128-token
+    chunks, so no 64-token window is split."""
+    from karanta_tpu_torch.bench.flash_ab import split_run_rows
     from karanta_tpu_torch.ops import decode_attention as DA
 
     n_sm = 132
     batches = (1, 2, 4, 8, 16, 32, 64, 80, 128)
-    assert DA.Q4_MIN_RUN % 64 == 0 and DA.MULTI_Q4_MIN_RUN % 128 == 0
-    runs = [DA.q4_run_tokens(b, 4, m, n_sm, 64) for b in batches]
+    assert DA.Q4_MIN_RUN % 128 == 0 and DA.MULTI_Q4_MIN_RUN % 128 == 0
+    runs = [split_run_rows(b, 4, m, n_sm, 256, 1024, 64, blocks_per_sm=1)
+            for b in batches]
     assert runs == sorted(runs)
     for b, run in zip(batches, runs):
-        assert DA.Q4_MIN_RUN <= run <= DA.Q4_MAX_RUN and run & (run - 1) == 0
+        assert 256 <= run <= 1024 and run & (run - 1) == 0
         blocks = b * 4 * -(-m // (2 * run))   # live at half-full slots
-        assert blocks <= DA.Q4_BLOCKS_PER_SM * n_sm or run == DA.Q4_MAX_RUN
-        if run > DA.Q4_MIN_RUN:  # the next shorter run would overfill
-            assert b * 4 * -(-m // run) > DA.Q4_BLOCKS_PER_SM * n_sm
+        assert blocks <= n_sm or run == 1024
+        if run > 256:  # the next shorter run would overfill
+            assert b * 4 * -(-m // run) > n_sm
     grid = 2 * n_sm
     for rule, lo, hi in (
             (DA.quant_run_rows, DA.QUANT_MIN_RUN, DA.QUANT_MAX_RUN),
             (DA.multi_quant_run_rows, DA.MULTI_MIN_RUN, DA.MULTI_MAX_RUN),
             (DA.multi_q4_run_tokens, DA.MULTI_Q4_MIN_RUN,
-             DA.MULTI_Q4_MAX_RUN)):
+             DA.MULTI_Q4_MAX_RUN),
+            (DA.q4_run_tokens, DA.Q4_MIN_RUN, DA.Q4_MAX_RUN)):
         runs = [rule(b, 4, m, grid, 32) for b in batches]
         assert runs == sorted(runs)
         for b, run in zip(batches, runs):
@@ -490,24 +493,40 @@ def test_split_run_rules(m):
     assert DA.quant_run_rows(32, 4, 1920, 2 * n_sm, 32) == 1024
     assert DA.quant_run_rows(80, 4, 1920, 2 * n_sm, 32) == 1024
     assert DA.quant_run_rows(1, 1, 65536, 2 * n_sm, 32) == 2048
-    assert DA.q4_run_tokens(4, 4, 2048, n_sm, 64) == 256
-    assert DA.q4_run_tokens(8, 4, 4096, n_sm, 64) == 512
-    assert DA.q4_run_tokens(32, 4, 4096, n_sm, 64) == 1024
-    assert DA.q4_run_tokens(64, 4, 4096, n_sm, 64) == 1024
+    # the int4 decode kernel, on #7's body at T = 1 (two blocks an SM): the
+    # smoke's B = 4 over 2,048 tokens, the served B = 8 over 4,096, one
+    # rank's kv heads, and larger batches
+    assert DA.q4_run_tokens(4, 4, 2048, 2 * n_sm, 32) == 256
+    assert DA.q4_run_tokens(8, 4, 4096, 2 * n_sm, 32) == 512
+    assert DA.q4_run_tokens(4, 2, 2048, 2 * n_sm, 32) == 256
+    assert DA.q4_run_tokens(16, 4, 4096, 2 * n_sm, 32) == 1024
+    assert DA.q4_run_tokens(32, 4, 4096, 2 * n_sm, 32) == 1024
+    assert DA.q4_run_tokens(80, 4, 4096, 2 * n_sm, 32) == 1024
     # a slot never gets more runs than the last block can merge
-    assert DA.split_run_rows(1, 1, 4096, n_sm, 64, 64, max_runs=16) == 256
-    assert DA.split_run_rows(1, 1, 4096, n_sm, 64, 4096, 64) == 64
+    assert split_run_rows(1, 1, 4096, n_sm, 64, 64, max_runs=16) == 256
+    assert split_run_rows(1, 1, 4096, n_sm, 64, 4096, 64) == 64
     assert DA.multi_q4_run_tokens(1, 1, 65536, 2 * n_sm, 32) == 2048
+    assert DA.q4_run_tokens(1, 1, 65536, 2 * n_sm, 32) == 2048
     assert DA.multi_quant_run_rows(1, 1, 65536, 2 * n_sm, 32) == 2048
 
 
-def _quant_items(lens, kvh, m, run_rows, chunk=128):
+def _q4_live_rows(n):
+    """Packed int4 rows that hold a token below n (32 a 64-token window)."""
+    return (n // 64) * 32 + min(n % 64, 32)
+
+
+def _quant_items(lens, kvh, m, run_rows, chunk=128, tok=1):
     """The items of the int8 decode kernel's bf16 instance
-    (kernels/csrc/decode_append_quant.cu) in their fixed order: every (slot,
-    kv head)'s first run, then every second run, ...; each as (slot, kv
-    head, first chunk, chunks)."""
-    run = run_rows // chunk
-    nch = [max(1, -(-min(n, m - 1) // chunk)) for n in lens]
+    (kernels/csrc/decode_append_quant.cu; tok = 1: one token a stored row,
+    chunks of 128 rows) or of the verify body's over the int4 cache
+    (verify_tma.cuh, #6 at T = 1; tok = 2: packed rows, chunks of 64, m and
+    run_rows in tokens) in their fixed order: every (slot, kv head)'s first
+    run, then every second run, ...; each as (slot, kv head, first chunk,
+    chunks)."""
+    run = run_rows // (chunk * tok)
+    rows = [min(n, m - 1) if tok == 1 else _q4_live_rows(min(n, m - 1))
+            for n in lens]
+    nch = [max(1, -(-x // chunk)) for x in rows]
     return [(b, h, r * run, min(run, c - r * run))
             for r in range(-(-m // run_rows))
             for b, c in enumerate(nch) if c > r * run for h in range(kvh)]
@@ -521,39 +540,48 @@ def _quant_walk(n_items, n_grid, blk):
             if k * n_grid + (n_grid - 1 - blk if k % 2 else blk) < n_items]
 
 
+@pytest.mark.parametrize("kernel", ["3", "6"])
 @pytest.mark.parametrize("seed", range(6))
-def test_quant_items_bound_the_workspace(seed):
+def test_quant_items_bound_the_workspace(seed, kernel):
     """The rule's runs cover every (slot, kv head)'s chunks once, in at most
     ceil(M / run) runs (the partials the wrapper allocates a slot) and the
     kernel's 32; the grid's walk takes every item once; and a slot's runs
-    depend on its own length only, not on the slots batched beside it."""
+    depend on its own length only, not on the slots batched beside it. #3
+    counts rows (chunks of 128); #6 counts tokens, its chunks 64 packed rows
+    (128 tokens), M a whole number of 64-token windows."""
     from karanta_tpu_torch.ops import decode_attention as DA
 
     rng = np.random.default_rng(seed)
+    tok = 1 if kernel == "3" else 2
+    sizes = ([256, 300, 640, 1920, 1923, 4096] if kernel == "3"
+             else [256, 640, 1920, 2048, 4096, 8192])
+    rule = DA.quant_run_rows if kernel == "3" else DA.q4_run_tokens
     for _ in range(40):
-        m = int(rng.choice([256, 300, 640, 1920, 1923, 4096]))
+        m = int(rng.choice(sizes))
         b, kvh = int(rng.integers(1, 90)), int(rng.choice([1, 2, 4]))
         n_grid = int(rng.choice([16, 132, 264]))
         lens = [int(x) for x in rng.integers(0, m, b)]
         if rng.random() < 0.3:
             lens = [m - 1] * b
-        run = DA.quant_run_rows(b, kvh, m, n_grid, 32)
+        run = rule(b, kvh, m, n_grid, 32)
         assert run % 128 == 0 and -(-m // run) <= 32
-        items = _quant_items(lens, kvh, m, run)
+        items = _quant_items(lens, kvh, m, run, chunk=128 // tok, tok=tok)
         for slot, n in enumerate(lens):
+            rows = n if tok == 1 else _q4_live_rows(n)
             for h in range(kvh):
                 mine = [(c, nc) for s_, h_, c, nc in items
                         if (s_, h_) == (slot, h)]
                 chunks = [c + j for c, nc in mine for j in range(nc)]
-                assert chunks == list(range(max(1, -(-n // 128))))
+                assert chunks == list(range(max(1, -(-rows // (128 // tok)))))
                 assert len(mine) <= -(-m // run)
         taken = sorted(i for blk in range(n_grid)
                        for i in _quant_walk(len(items), n_grid, blk))
         assert taken == list(range(len(items)))
         others = [int(x) for x in rng.integers(0, m, b)]
         others[0] = lens[0]
-        assert ([x for x in _quant_items(others, kvh, m, run) if x[0] == 0]
-                == [x for x in items if x[0] == 0])
+        assert ([x for x in _quant_items(others, kvh, m, run,
+                                         chunk=128 // tok, tok=tok)
+                 if x[0] == 0] == [x for x in items if x[0] == 0])
 
 
 @pytest.mark.parametrize("lens", [[127, 128, 129, 0], [255, 256, 257, 383]])
@@ -622,3 +650,169 @@ def test_quant_plain_reads_nothing_past_the_slot():
     for x, y in zip(garbage, before):
         assert torch.equal(x[1][past], y[1][past])
         assert torch.equal(x[0], y[0])
+
+
+def _q4_case(rng, L, B, M, H, KVH, D, lead):
+    """Packed int4 caches (token-ordered nibbles and scales packed with the
+    port's helpers), q and int4 fresh rows with leading shape `lead`, all
+    float32 scales, as numpy arrays."""
+    from karanta_tpu_torch.ops.decode_attention import (pack_q4_rows,
+                                                        pack_q4_scales)
+
+    def nibbles(shape):
+        return torch.from_numpy(rng.integers(-7, 8, size=shape).astype(np.int8))
+
+    def scales(shape):
+        return torch.from_numpy(rng.uniform(0.01, 0.1, size=shape).astype(
+            np.float32))
+
+    caches = [pack_q4_rows(nibbles((L, B, KVH, M, D))),
+              pack_q4_rows(nibbles((L, B, KVH, M, D))),
+              pack_q4_scales(scales((L, B, KVH, M))),
+              pack_q4_scales(scales((L, B, KVH, M)))]
+    q = torch.from_numpy(rng.normal(size=(B, 1, H, D)).astype(np.float32))
+    new = (nibbles(lead + (KVH, D)), nibbles(lead + (KVH, D)),
+           scales(lead + (KVH,)), scales(lead + (KVH,)))
+    return q, new, caches
+
+
+@pytest.mark.parametrize("lens", [[0, 31, 32, 33], [63, 64, 65, 255],
+                                  [5, 127, 128, 200]])
+def test_q4_decode_step_is_the_verify_pass_at_one_token(lens):
+    """The premise of running #6 on #7's body: the port's int4 decode step
+    (paged_decode_append_q4_plain) equals its int4 verify pass at T = 1
+    (paged_decode_append_multi_q4_plain) on the same inputs, float32:
+    outputs within 1e-5, all four caches bit-equal. Lengths on and beside
+    the 32-row tile, the 64-token window and the 128-token chunk, 0 and
+    M - 1."""
+    from karanta_tpu_torch.ops import decode_attention as DA
+
+    L, B, M, H, KVH, D = 2, 4, 256, 8, 2, 32
+    rng = np.random.default_rng(120 + lens[1])
+    q, new, caches = _q4_case(rng, L, B, M, H, KVH, D, (B,))
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    one = [c.clone() for c in caches]
+    multi = [c.clone() for c in caches]
+    got = DA.paged_decode_append_q4_plain(q, *new, *one, 1, lens_t)
+    want = DA.paged_decode_append_multi_q4_plain(
+        q, *(x[:, None] for x in new), *multi, 1, lens_t)
+    assert got.shape == want.shape == (B, 1, H, D)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+    for x, y in zip(one, multi):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("lens", [[0, 5, 200, 255], [127, 128, 129, 64]])
+def test_quant_decode_step_is_the_verify_pass_at_one_token(lens):
+    """The same premise for #3 and #4 over the int8 cache: the port's int8
+    decode step (paged_decode_append_quant_plain) equals its int8 verify
+    pass at T = 1 (paged_decode_append_multi_quant_plain), float32: outputs
+    within 1e-5, all four caches bit-equal."""
+    L, B, M, H, KVH, D = 2, 4, 256, 8, 2, 64
+    q, kq, ks, vq, vs, nkq, nks, nvq, nvs = _inputs(130 + lens[0], L, B, M,
+                                                    H, KVH, D)
+    new = (_t(nkq), _t(nvq), _t(np.asarray(nks, np.float32)),
+           _t(np.asarray(nvs, np.float32)))
+    base = [_t(kq), _t(vq), _t(np.asarray(ks, np.float32)),
+            _t(np.asarray(vs, np.float32))]
+    from karanta_tpu_torch.ops.decode_attention import (
+        paged_decode_append_multi_quant_plain)
+
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    one = [c.clone() for c in base]
+    multi = [c.clone() for c in base]
+    got = paged_decode_append_quant_plain(_t(q), *new, *one, 1, lens_t)
+    want = paged_decode_append_multi_quant_plain(
+        _t(q), *(x[:, None] for x in new), *multi, 1, lens_t)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+    for x, y in zip(one, multi):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("lens", [[0, 31, 64, 255], [63, 127, 128, 200]])
+def test_jax_q4_verify_kernel_at_one_token_is_the_decode_kernel(lens):
+    """In the JAX package itself, the int4 verify kernel at T = 1
+    (paged_decode_append_multi_q4, interpret mode) against the int4 decode
+    kernel (paged_decode_append_q4) on the same inputs, float32: attention
+    within 1e-5, caches equal; and the port's #6 wrapper (its plain version
+    on the CPU) against both."""
+    from karanta_tpu.models.qwen25_vl import decoder as jdec
+    from karanta_tpu.ops.decode_attention import (
+        paged_decode_append_multi_q4 as j_multi_q4,
+        paged_decode_append_q4 as j_q4,
+    )
+    from karanta_tpu_torch.ops.decode_attention import paged_decode_append_q4
+
+    L, B, M, H, KVH, D = 2, 4, 256, 8, 2, 64
+    rng = np.random.default_rng(140 + lens[1])
+    k = rng.integers(-7, 8, size=(L, B, KVH, M, D)).astype(np.int8)
+    v = rng.integers(-7, 8, size=(L, B, KVH, M, D)).astype(np.int8)
+    ks = rng.uniform(0.01, 0.1, size=(L, B, KVH, M)).astype(np.float32)
+    vs = rng.uniform(0.01, 0.1, size=(L, B, KVH, M)).astype(np.float32)
+    caches = (jdec.pack_q4_rows(jnp.asarray(k)),
+              jdec.pack_q4_rows(jnp.asarray(v)),
+              jdec.pack_q4_scales(jnp.asarray(ks)),
+              jdec.pack_q4_scales(jnp.asarray(vs)))
+    q = rng.normal(size=(B, 1, H, D)).astype(np.float32)
+    nkq, nks = jdec.quantize_kv_rows_q4(
+        jnp.asarray(rng.normal(size=(B, KVH, D)), jnp.float32))
+    nvq, nvs = jdec.quantize_kv_rows_q4(
+        jnp.asarray(rng.normal(size=(B, KVH, D)), jnp.float32))
+    new = (nkq, nvq, nks.astype(jnp.float32), nvs.astype(jnp.float32))
+    lens_j = jnp.asarray(lens, jnp.int32)
+    attn_1, *caches_1 = j_q4(jnp.asarray(q), *new, *caches, jnp.asarray(1),
+                             lens_j, block=128, interpret=True)
+    attn_m, *caches_m = j_multi_q4(
+        jnp.asarray(q), *(x[:, None] for x in new), *caches, jnp.asarray(1),
+        lens_j, block=128, interpret=True)
+    np.testing.assert_allclose(np.asarray(attn_m), np.asarray(attn_1),
+                               atol=1e-5)
+    for x, y in zip(caches_m, caches_1):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    caches_t = [_t(c) for c in caches]
+    got = paged_decode_append_q4(_t(q), *(_t(x) for x in new), *caches_t, 1,
+                                 torch.tensor(lens, dtype=torch.int32))
+    np.testing.assert_allclose(got.numpy(), np.asarray(attn_1), atol=5e-3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(attn_m), atol=5e-3)
+    for x, y in zip(caches_t, caches_1):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+
+
+@pytest.mark.parametrize("lens", [[0, 5, 200, 255], [127, 128, 129, 64]])
+def test_jax_quant_verify_kernel_at_one_token_is_the_decode_kernel(lens):
+    """The same for the int8 kernels of the JAX package: the verify kernel
+    at T = 1 (paged_decode_append_multi_quant, interpret mode) against the
+    decode kernel (paged_decode_append_quant), float32: attention within
+    1e-5, caches equal; and the port's #3 wrapper against both."""
+    from karanta_tpu.ops.decode_attention import (
+        paged_decode_append_multi_quant as j_multi,
+    )
+
+    L, B, M, H, KVH, D = 2, 4, 256, 8, 2, 64
+    q, kq, ks, vq, vs, nkq, nks, nvq, nvs = _inputs(150 + lens[0], L, B, M,
+                                                    H, KVH, D)
+    lens_j = jnp.asarray(lens, jnp.int32)
+    attn_1, *caches_1 = j_append_quant(
+        jnp.asarray(q), nkq, nvq, nks, nvs, kq, vq, ks, vs, jnp.asarray(1),
+        lens_j, block=128, interpret=True)
+    attn_m, *caches_m = j_multi(
+        jnp.asarray(q), nkq[:, None], nvq[:, None], nks[:, None],
+        nvs[:, None], kq, vq, ks, vs, jnp.asarray(1), lens_j, block=128,
+        interpret=True)
+    np.testing.assert_allclose(np.asarray(attn_m), np.asarray(attn_1),
+                               atol=1e-5)
+    for x, y in zip(caches_m, caches_1):
+        np.testing.assert_array_equal(np.asarray(x, np.float32),
+                                      np.asarray(y, np.float32))
+    tk, tv = _t(kq), _t(vq)
+    tks = _t(np.asarray(ks, np.float32)).to(torch.bfloat16)
+    tvs = _t(np.asarray(vs, np.float32)).to(torch.bfloat16)
+    got = paged_decode_append_quant(
+        _t(q), _t(nkq), _t(nvq),
+        _t(np.asarray(nks, np.float32)).to(torch.bfloat16),
+        _t(np.asarray(nvs, np.float32)).to(torch.bfloat16),
+        tk, tv, tks, tvs, 1, torch.tensor(lens, dtype=torch.int32))
+    np.testing.assert_allclose(got.numpy(), np.asarray(attn_1), atol=5e-3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(attn_m), atol=5e-3)
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(caches_1[0]))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(caches_1[1]))

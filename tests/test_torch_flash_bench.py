@@ -1,7 +1,7 @@
 """The measuring tools of the flash kernel (#2), the int8 decode kernel
-(#3) and the verify kernels (#4, #7) on the CPU: the instrumented copies that bench/flash_trace.py builds,
-and the work bench/flash_ab.py divides by. The tools themselves run on the
-card."""
+(#3) and the verify body's kernels (#4, #7, #6) on the CPU: the
+instrumented copies that bench/flash_trace.py builds, and the work
+bench/flash_ab.py divides by. The tools themselves run on the card."""
 
 import numpy as np
 import pytest
@@ -87,7 +87,8 @@ def test_decode_work_counts_the_live_rows(kvh, lens):
 
 def test_flash_trace_instruments_the_verify_kernels():
     """Every phase's reading of the verify trace lands once in the tree's
-    verify_tma.cuh (the one body of #4 and #7, which both sources include),
+    verify_tma.cuh (the one body of #4, #7 and #6, which their sources
+    include),
     the producer's and the consumers' sums are stored, and the two C entries
     are appended to the source."""
     out = flash_trace.instrument_verify(
@@ -137,9 +138,35 @@ def test_verify_work_counts_the_live_rows(bits, kvh, tq, lens):
 
 @pytest.mark.parametrize("kernel", ["3", "6"])
 def test_verify_runs_smoke_shapes_take_the_verify_kernels_only(kernel):
-    """--smoke-shapes sweeps #4's and #7's shapes from flash_ab; a decode
-    kernel's sweep refuses it before it looks for a card."""
+    """--smoke-shapes sweeps the shapes of the kernels on the verify body
+    from flash_ab (#4, #7 and, at T = 1, #6): #3's sweep refuses it before
+    it looks for a card; #6's takes it and stops only for want of one."""
     from karanta_tpu_torch.bench import verify_runs
     with pytest.raises(SystemExit) as err:
         verify_runs.main(["--kernel", kernel, "--smoke-shapes"])
-    assert err.value.code == 2
+    if kernel == "3":
+        assert err.value.code == 2
+    else:
+        assert "no CUDA device" in str(err.value.code)
+
+
+def test_q4_decode_shapes_are_the_smokes():
+    """flash_ab's #6 shapes are chip_smoke.py's: B = 4 over 2,048 tokens at
+    its lengths, B = 8 over 4,096 with its ragged lengths (seed 17), one
+    rank's B and kv heads over 2,048 tokens at its lengths; every length
+    below M; and the bound's bytes at T = 1 are the smoke's count."""
+    import chip_smoke
+
+    shapes = flash_ab.q4_decode_shapes()
+    assert shapes["b4"] == (4, 4, 1, 2048, [0, 700, 1919, 1390])
+    rng = np.random.default_rng(17)
+    lens8 = [0, 4095] + sorted(int(x) for x in rng.integers(1, 4095, 6))
+    assert shapes["b8"] == (8, 4, 1, 4096, lens8)
+    rank = [0, 700, 1390, 2048 - chip_smoke.PER_RANK_T - 1]
+    for tp in chip_smoke.PER_RANK_TP:
+        assert shapes[f"tp{tp}"] == (chip_smoke.PER_RANK_B, 4 // tp, 1, 2048,
+                                     rank)
+    for b, kvh, tq, m, lens in shapes.values():
+        assert tq == 1 and len(lens) == b and max(lens) <= m - 1
+        assert flash_ab.verify_work(b, kvh, 7 * kvh, 128, 1, lens, 4) == (
+            chip_smoke._q4_bytes(lens, kvh, 128, 7 * kvh, b, 1))

@@ -1130,16 +1130,17 @@ def test_q4_kernel_is_deterministic(cuda):
         assert torch.equal(x, y)
 
 
-# kernels #4 and #7's bf16 instances (one Hopper body, verify_tma.cuh)
+# kernels #4 and #7's bf16 instances, and #6's (one Hopper body,
+# verify_tma.cuh; #6 at T = 1)
 
 def _verify_case(gen, dev, kernel, n_layers, b, kvh, g, tq, m, d, lens):
-    """q, fresh rows, caches and lengths of #4 (int8, m rows) or #7 (int4,
-    m tokens) in bf16."""
+    """q, fresh rows, caches and lengths of #4 (int8, m rows), #7 (int4, m
+    tokens) or #6 (int4, m tokens, one fresh token: tq is 1) in bf16."""
     if kernel == 4:
         return _multi_quant_case(gen, dev, torch.bfloat16, n_layers, b, kvh,
                                  g, tq, m, d, lens)
     caches, new = _q4_inputs(gen, dev, torch.bfloat16, n_layers, b, kvh, m, d,
-                             (b, tq))
+                             (b,) if kernel == 6 else (b, tq))
     q = _randn(gen, (b, tq, kvh * g, d), dev, torch.bfloat16)
     return q, new, caches, torch.tensor(lens, dtype=torch.int32, device=dev)
 
@@ -1148,6 +1149,8 @@ def _verify_fns(kernel):
     if kernel == 4:
         return (DA.paged_decode_append_multi_quant,
                 DA.paged_decode_append_multi_quant_plain)
+    if kernel == 6:
+        return DA.paged_decode_append_q4, DA.paged_decode_append_q4_plain
     return DA.paged_decode_append_multi_q4, DA.paged_decode_append_multi_q4_plain
 
 
@@ -1162,18 +1165,19 @@ def _verify_check(kernel, q, new, caches, lens):
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("kernel", [4, 7])
+@pytest.mark.parametrize("kernel", [4, 7, 6])
 @pytest.mark.parametrize("b", [4, 80])
 def test_verify_kernels_slot_bits_ignore_the_batch(cuda, kernel, b):
-    """A slot's output bits from #4 and #7 do not depend on the other
+    """A slot's output bits from #4, #7 and #6 do not depend on the other
     slots' lengths at the same B: its runs, partials and their merge follow
     from its own length and the run rule. B = 4 (a block a run) and B = 80
-    (the grid walks more runs than it has blocks); 7B heads, T = 4, over
-    1,920 rows (#4) or 4,096 tokens (#7)."""
+    (the grid walks more runs than it has blocks); 7B heads, T = 4 (#6: 1),
+    over 1,920 rows (#4) or 4,096 tokens (#7, #6)."""
     m = 1920 if kernel == 4 else 4096
+    tq = 1 if kernel == 6 else 4
     gen = torch.Generator(device=cuda).manual_seed(101 + b + kernel)
     lens_l = [m - 300, 700, m - 5, 1] * (b // 4)
-    q, new, caches, lens = _verify_case(gen, cuda, kernel, 2, b, 4, 7, 4, m,
+    q, new, caches, lens = _verify_case(gen, cuda, kernel, 2, b, 4, 7, tq, m,
                                         128, lens_l)
     fn, _ = _verify_fns(kernel)
     got = fn(q, *new, *[x.clone() for x in caches], 1, lens)
@@ -1188,19 +1192,20 @@ def test_verify_kernels_slot_bits_ignore_the_batch(cuda, kernel, b):
                        again[keep].view(torch.int16))
 
 
-@pytest.mark.parametrize("kernel", [4, 7])
+@pytest.mark.parametrize("kernel", [4, 7, 6])
 def test_verify_kernels_read_nothing_past_the_slot(cuda, kernel):
     """Tokens past each slot's cache_len hold garbage (random bytes or
-    nibbles; NaN, inf and huge scales): the output of #4 or #7 is finite
-    and equals the plain version's over the same caches with those tokens
-    zeroed, and the caches after the call equal the plain version's written
-    over the garbage (only the T fresh tokens change)."""
+    nibbles; NaN, inf and huge scales): the output of #4, #7 or #6 is
+    finite and equals the plain version's over the same caches with those
+    tokens zeroed, and the caches after the call equal the plain version's
+    written over the garbage (only the T fresh tokens change; #6: T = 1)."""
     from karanta_tpu_torch.ops.decode_attention import (pack_q4_rows,
                                                         pack_q4_scales,
                                                         unpack_q4_rows,
                                                         unpack_q4_scales)
 
-    b, kvh, g, tq, d = 6, 2, 7, 4, 128
+    b, kvh, g, d = 6, 2, 7, 128
+    tq = 1 if kernel == 6 else 4
     m = 640
     lens_l = [0, 1, 127, 131, 300, m - tq - 1]
     gen = torch.Generator(device=cuda).manual_seed(103 + kernel)
@@ -1216,8 +1221,8 @@ def test_verify_kernels_read_nothing_past_the_slot(cuda, kernel):
             rows = garbage[i][1]
         else:
             rows = unpack_q4_rows(garbage[i][1])              # (B, KVH, M, D)
-        noise = torch.randint(-8 if kernel == 7 else -128,
-                              8 if kernel == 7 else 128, rows.shape,
+        noise = torch.randint(-128 if kernel == 4 else -8,
+                              128 if kernel == 4 else 8, rows.shape,
                               generator=gen, device=cuda).to(torch.int8)
         bad = torch.where(dead[..., None], noise, rows)
         zero = torch.where(dead[..., None], torch.zeros_like(rows), rows)
@@ -1316,6 +1321,100 @@ def test_verify_kernels_info(cuda, kernel, d, nq):
     assert info["max_runs"] == 32
     run = info["run_rows"] if kernel == 4 else info["run_tokens"]
     assert run % (info["chunk_rows"] * tokens_a_row) == 0
+
+
+@pytest.mark.parametrize("pm,lens", [
+    (300, [0, 31, 33, 127, 128, 129, 290, 583, 587]),
+    (1932, [0, 255, 256, 257, 1000, 2049, 3000, 3847, 3851])])
+def test_q4_kernel_unaligned_scale_planes(cuda, pm, lens):
+    """#6's C entry over a bucket of PM packed rows not a multiple of 8 (the
+    wrapper takes multiples of 32): each slab's scale planes start off a
+    16-byte boundary and the producer's lanes load them. Lengths at the
+    64-token window's and the 128-token chunk's edges, 0, and the last
+    token whose packed row lies inside the PM rows (the low nibble of row
+    PM - 1: a bucket that ends inside a window has no row for the window's
+    later tokens); held against the plain version over the caches padded
+    to a whole window (the padding never read), caches bit-equal."""
+    from karanta_tpu_torch import kernels
+
+    b, kvh, g, d = len(lens), 3, 7, 128
+    gen = torch.Generator(device=cuda).manual_seed(113 + pm)
+    caches, new = _q4_inputs(gen, cuda, torch.bfloat16, 2, b, kvh, 2 * pm, d,
+                             (b,))
+    q = _randn(gen, (b, 1, kvh * g, d), cuda, torch.bfloat16)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    padded = []
+    for x in caches:
+        y = torch.zeros(x.shape[:3] + (-(-pm // 32) * 32,) + x.shape[4:],
+                        dtype=x.dtype, device=cuda)
+        y[:, :, :, :pm] = x
+        padded.append(y)
+    want = DA.paged_decode_append_q4_plain(q, *new, *padded, 1, lens_t)
+    fn = DA._q4_fns()[0]
+    info = DA.paged_decode_append_q4_info(d, g)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    run = DA.q4_run_tokens(b, kvh, 2 * pm, info["blocks_per_sm"] * n_sm,
+                           info["max_runs"])
+    partials, counters = DA._split_workspace(q, b * kvh, -(-2 * pm // run),
+                                             DA.MULTI_PARTIAL_ROWS)
+    got = torch.empty_like(q)
+    kernels.raise_on_error("#6", fn(
+        *[kernels.ptr(x) for x in (q, *new, *caches, lens_t, got, partials,
+                                   counters)],
+        b, kvh, g, pm, d, 1, run, d ** -0.5,
+        kernels.DTYPE_CODES[torch.bfloat16], kernels.stream_ptr(cuda)))
+    torch.cuda.synchronize()
+    _assert_close(got, want, torch.bfloat16)
+    for x, y in zip(caches, padded):
+        assert torch.equal(x, y[:, :, :, :pm])
+
+
+# every (D, G) pair the int4 decode kernel is built for (decode_append_q4.cu)
+Q4_PAIRS = [(128, 7), (128, 8), (128, 4), (128, 2), (64, 4), (64, 2),
+            (32, 2), (16, 2)]
+
+
+@pytest.mark.parametrize("d,g", Q4_PAIRS)
+def test_q4_kernel_chunk_and_ring_edges(cuda, d, g):
+    """#6's bf16 instance at every (D, G) pair, B = 12 at layer 1 of 2 over
+    640 tokens: cache_len at -1, 0 and +1 of the 64-token window, of one
+    chunk's 128 tokens and of a whole ring's tokens, 0 and M - 1; all four
+    caches bit-equal."""
+    info = DA.paged_decode_append_q4_info(d, g)
+    chunk = 2 * info["chunk_rows"]
+    ring = chunk * info["stages"]
+    m = 640 if ring + 1 < 640 else ring + 128
+    lens = [63, 64, 65, chunk - 1, chunk, chunk + 1, ring - 1, ring,
+            ring + 1, 0, m - 1, chunk + 33]
+    gen = torch.Generator(device=cuda).manual_seed(115 + d + g)
+    _verify_check(6, *_verify_case(gen, cuda, 6, 2, len(lens), 2, g, 1, m, d,
+                                   lens))
+
+
+@pytest.mark.parametrize("d,g", Q4_PAIRS)
+def test_q4_kernel_info(cuda, d, g):
+    """The info entry of #6's Hopper body at every pair: chunks of 64
+    packed rows (128 tokens), a ring of at least two stages, one consumer
+    warpgroup, no spills, at least one block an SM, at most 32 runs a slot;
+    the run of a shape is a whole number of chunks."""
+    info = DA.paged_decode_append_q4_info(d, g, 8, 4, 4096)
+    assert info["chunk_rows"] * 2 == 128 and info["stages"] >= 2
+    assert info["consumer_warps"] == 4
+    assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= 1
+    assert info["max_runs"] == 32
+    assert info["run_tokens"] % 128 == 0
+
+
+def test_q4_kernel_after_an_info_call(cuda):
+    """#6's bf16 instance launches at a batch it has launched at before
+    after its info entry ran for another shape (the info must not shrink
+    the shared memory the launch needs), at B = 4 and 80."""
+    gen = torch.Generator(device=cuda).manual_seed(117)
+    for b in (4, 80, 4):
+        case = _verify_case(gen, cuda, 6, 2, b, 2, 7, 1, 640, 128, [300] * b)
+        _verify_check(6, *case)
+        DA.paged_decode_append_q4_info(128, 7, b + 1, 2, 640 + 64 * b)
+        _verify_check(6, *case)
 
 
 def test_int_split_kernels_leave_counters_zero(cuda):
