@@ -7,7 +7,9 @@ Phases (any failed check raises and the script exits non-zero):
 
 1. card: name, power limit, TF32 off for float32 products;
 2. build: nvcc builds the nine kernel sources from
-   karanta_tpu_torch/kernels/csrc, one process per source, all at once;
+   karanta_tpu_torch/kernels/csrc, one process per source, all at once,
+   and beside them the decode streams' instrumented copy that phase 3
+   traces (bench/stream_trace.py);
 3. kernels vs plain: each of the eleven kernels against its plain PyTorch
    version at the Qwen2.5-VL-7B shapes of the paths below and at small
    ragged shapes (the int4 kernels at lengths on the 32-row and 64-token
@@ -442,10 +444,20 @@ def phase_card() -> str:
 
 
 def phase_build() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
+    from karanta_tpu_torch.bench import stream_trace as ST
+
     t0 = time.perf_counter()
-    secs = build_all()
-    log(f"[build] {', '.join(f'{k} {v:.1f}s' for k, v in secs.items())}; "
-        f"wall {time.perf_counter() - t0:.1f}s")
+    # the decode streams' instrumented copy (phase 3) compiles beside the
+    # sources: it is as long a build as decode_stream.cu, and after them it
+    # would run alone
+    with ThreadPoolExecutor(1) as pool:
+        traced = pool.submit(ST.build_traced)
+        secs = build_all()
+        traced.result()
+    log(f"[build] {', '.join(f'{k} {v:.1f}s' for k, v in secs.items())}, "
+        f"with the traced decode streams; wall {time.perf_counter() - t0:.1f}s")
 
 
 # ---------------------------------------------------------------------------

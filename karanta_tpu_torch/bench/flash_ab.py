@@ -70,6 +70,20 @@ rule, as for #4 and #7 (the split body's: ``SPLIT_VERIFY_RULES``, one live
 block an SM); the bound is ``verify_work`` at T = 1.
 
     python -m karanta_tpu_torch.bench.flash_ab --kernel 6 --baseline old/csrc
+
+With ``--kernel 1`` the same turns time the bf16 instance of the window
+kernel (#1, ``window_attention_kernel_call``, from each source's
+``window_attention.cu``) at the vision window layers' shapes: the bench
+page's window-ordered tokens at the 7B tower's width, (1, 5120, 16, 80) with
+W = 64, the page's validity mask and its rope (``page``), the same without
+rope (``page_norope``, the training forward), four pages concatenated
+(``pages4``, batched prefill) and one rank's heads at tp = 2 and 4 (``tp2``,
+``tp4``); each output is held to the plain version at the bf16 limit on the
+rows whose window has a live key, SDPA over the windows (rope applied
+beforehand) is timed beside it, and the bound is ``window_work``'s bytes
+at 3.35 TB/s or flops at 989 TFLOP/s.
+
+    python -m karanta_tpu_torch.bench.flash_ab --kernel 1 --baseline old/csrc
 """
 
 from __future__ import annotations
@@ -551,7 +565,7 @@ def verify_info(lib, kernel: str, nq: int) -> list:
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     buf = (ctypes.c_int * 16)()
     kernels.raise_on_error(name, fn(VERIFY_D, nq, buf))
-    return list(buf[:8])
+    return list(buf[:10])
 
 
 def verify_run(kernel: str, info: list, b: int, kvh: int, m: int,
@@ -641,6 +655,150 @@ def verify_ab(kernel: str, others: dict, wanted: list, smi: str) -> dict:
                           for (tree, nq), info in resources.items()}}
 
 
+# kernel #1: the 7B vision tower's window layers over the bench page
+WINDOW_D, WINDOW_H, WINDOW_W = 80, 16, 64
+# name -> (pages concatenated, heads, rope)
+WINDOW_SHAPES = {"page": (1, WINDOW_H, True), "page_norope": (1, WINDOW_H, False),
+                 "pages4": (4, WINDOW_H, True), "tp2": (1, WINDOW_H // 2, True),
+                 "tp4": (1, WINDOW_H // 4, True)}
+WINDOW_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def window_work(b: int, s: int, h: int, d: int, w: int, lives, rope: bool):
+    """Bytes #1 must move in one call (q, k and v read and the output
+    written once, cos/sin read once with rope, the mask) and the flops of
+    its (query, live key) pairs (4 D H a pair: every query of a window with
+    each live key of its window; a window with no live key has none).
+    lives: the (b, s) kv mask, or None where every key is live."""
+    if lives is None:
+        live = np.full((b * s // w,), w)
+    else:
+        live = (np.asarray(lives, dtype=np.float64).reshape(b * s // w, w)
+                > 0).sum(-1)
+    pairs = int(w * live.sum())
+    n_bytes = (4 * b * s * h * d * 2 + (2 * b * s * d * 4 if rope else 0)
+               + (b * s * 4 if lives is not None else 0))
+    return n_bytes, 4.0 * d * h * pairs
+
+
+def window_case(pages: int, h: int, rope: bool, gen: torch.Generator):
+    """#1's inputs over `pages` concatenated bench pages (each with its valid
+    mask and rope, cos/sin rounded through bf16 as the tower holds them),
+    the plain version's output and the rows whose window has a live key."""
+    from karanta_tpu_torch.ops.rotary import vision_rope_cos_sin
+
+    dev = torch.device("cuda")
+    layout = build_vision_layout(plan_image(1288, 994),
+                                 get_config("qwen2.5-vl-7b").vision)
+    s = pages * len(layout.valid)
+    q, k, v = (torch.randn((1, s, h, WINDOW_D), generator=gen, device=dev)
+               .bfloat16() for _ in range(3))
+    mask = torch.from_numpy(np.concatenate([layout.valid] * pages)).to(dev)
+    mask = mask.float()[None].contiguous()
+    cos = sin = None
+    if rope:
+        pos = torch.from_numpy(np.concatenate([layout.pos_hw] * pages)).to(dev)
+        cos, sin = vision_rope_cos_sin(pos, WINDOW_D)
+        cos = cos.bfloat16().float()[None].contiguous()
+        sin = sin.bfloat16().float()[None].contiguous()
+    want = A.window_attention_plain(q, k, v, WINDOW_W, mask, cos=cos, sin=sin)
+    rows = (mask.reshape(1, s // WINDOW_W, WINDOW_W).amax(-1) > 0
+            ).repeat_interleave(WINDOW_W, 1)
+    return q, k, v, mask, cos, sin, want, rows
+
+
+def window_launcher(fn, q, k, v, mask, cos, sin):
+    """One call of a #1 C entry `fn` at W = 64: (call, output)."""
+    from karanta_tpu_torch import kernels
+
+    b, s, h, d = q.shape
+    out = torch.empty_like(q)
+    # the call holds the tensors: the pointers alone would not keep them
+    tensors = (q, k, v, mask, cos, sin, out)
+    args = [kernels.ptr(x) for x in tensors]
+
+    def call(tensors=tensors):
+        kernels.raise_on_error("#1", fn(
+            *args, b, s, h, d, WINDOW_W, d ** -0.5,
+            kernels.DTYPE_CODES[torch.bfloat16], kernels.stream_ptr(q.device)))
+
+    return call, out
+
+
+def window_info(lib) -> list:
+    """A library's #1 info at (80, 64): 10 entries (the Hopper body), 5 from
+    PR 6's body (registers, spills, shared bytes, blocks an SM, heads a
+    block), the rest 0."""
+    from karanta_tpu_torch import kernels
+
+    fn = lib.karanta_window_attention_info
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    buf = (ctypes.c_int * 16)()
+    kernels.raise_on_error("window_attention_info",
+                           fn(WINDOW_D, WINDOW_W, buf))
+    return list(buf[:10])
+
+
+def window_ab(others: dict, wanted: list, smi: str) -> dict:
+    """Kernel #1 from this tree and from each baseline library, in turns,
+    beside SDPA over the windows."""
+    from karanta_tpu_torch.ops.rotary import apply_rope
+
+    libs = {"this": build.library("window_attention"), **others}
+    fns, resources = {}, {}
+    for name, lib in libs.items():
+        fn = lib.karanta_window_attention
+        fn.restype = ctypes.c_int
+        fn.argtypes = WINDOW_ARGTYPES
+        fns[name] = fn
+        resources[name] = window_info(lib)
+        print(f"  {name} bf16 #1 (80, 64): {resources[name]}", flush=True)
+    order = [*others, "this", "this", *reversed(others)]
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(0)
+    results = {}
+    for name, (pages, h, rope) in WINDOW_SHAPES.items():
+        if wanted and name not in wanted:
+            continue
+        q, k, v, mask, cos, sin, want, rows = window_case(pages, h, rope, gen)
+        b, s, _, d = q.shape
+        n_bytes, flops = window_work(b, s, h, d, WINDOW_W, mask.cpu().numpy(),
+                                     rope)
+        bound = max(n_bytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS) * 1e3
+        qr, kr = apply_rope(q, k, cos, sin) if rope else (q, k)
+        qw, kw, vw = (x.reshape(s // WINDOW_W, WINDOW_W, h, d).transpose(1, 2)
+                      .contiguous() for x in (qr, kr, v))
+        mw = mask.reshape(s // WINDOW_W, 1, 1, WINDOW_W) > 0
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qw, kw, vw, attn_mask=mw)
+
+        row = {"shape": list(q.shape), "rope": rope, "bound_ms": bound,
+               "bytes": n_bytes, "flops": flops, "ms": {}, "worst": {}}
+        for tree in order:
+            call, out = window_launcher(fns[tree], q, k, v, mask, cos, sin)
+            call()
+            torch.cuda.synchronize()
+            row["worst"].setdefault(tree, []).append(
+                check_bf16(out[rows], want[rows]))
+            row["ms"].setdefault(tree, []).append(graph_ms(call))
+        row["sdpa_ms"] = graph_ms(sdpa)
+        for tree, times in row["ms"].items():
+            best = min(times)
+            print(f"  #1 {name} {tuple(q.shape)} rope={rope} {tree}: "
+                  f"{', '.join(f'{x:.4f}' for x in times)} ms; bound "
+                  f"{bound:.4f} ms, {100 * bound / best:.1f}% of it; SDPA "
+                  f"{row['sdpa_ms']:.4f} ms, {best / row['sdpa_ms']:.2f}x; "
+                  f"worst err/limit {max(row['worst'][tree]):.3f}",
+                  flush=True)
+        results[name] = row
+        del q, k, v, mask, cos, sin, want, qw, kw, vw
+        torch.cuda.empty_cache()
+    return {"card": smi, "window_bf16": results, "resources": resources}
+
+
 def check_bf16(got, want) -> float:
     """Worst |got - want| over the bf16 limit; raises above 1."""
     got, want = got.float(), want.float()
@@ -658,11 +816,12 @@ def main(argv=None) -> int:
                              "turns with this tree's (repeatable)")
     parser.add_argument("--only", default="",
                         help="comma-separated shape names (default: all)")
-    parser.add_argument("--kernel", choices=("2", "3", "4", "7", "6"),
+    parser.add_argument("--kernel", choices=("1", "2", "3", "4", "7", "6"),
                         default="2",
-                        help="2: the flash kernel (default), 3: the int8 "
-                             "decode kernel, 4 / 7: the int8 / int4 verify "
-                             "kernel, 6: the int4 decode kernel")
+                        help="1: the window kernel, 2: the flash kernel "
+                             "(default), 3: the int8 decode kernel, 4 / 7: "
+                             "the int8 / int4 verify kernel, 6: the int4 "
+                             "decode kernel")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("flash_ab: needs a CUDA device")
@@ -672,6 +831,11 @@ def main(argv=None) -> int:
                          text=True, check=True).stdout.strip()
     print(f"[card] {smi}; torch {torch.__version__}", flush=True)
     wanted = [x for x in args.only.split(",") if x]
+    if args.kernel == "1":
+        result = window_ab(
+            baseline_libs(args.baseline, "window_attention"), wanted, smi)
+        print(json.dumps(result), flush=True)
+        return 0
     if args.kernel == "3":
         result = decode_ab(
             baseline_libs(args.baseline, "decode_append_quant"), wanted, smi)

@@ -38,6 +38,18 @@ and the producer's lane 0 of every block, at ``flash_ab``'s #4 (or #7, or
 #6) shapes. Needs a CUDA device.
 
     python -m karanta_tpu_torch.bench.flash_trace --kernel 4 --only b4,b32
+
+With ``--kernel 1`` the phases come from the window kernel's bf16 instance
+(``kernels/csrc/window_attention.cu``): the producer thread's waits for a
+cos/sin slot and for a stage and its issue of the copies; each consumer
+warpgroup's thread 0 draining its last store and freeing cos/sin slots,
+waiting for an item, the rope (with the warpgroup's barrier), Q.K^T, the
+softmax, P.V (with rounding P and freeing the stage) and the store; at
+``flash_ab``'s #1 shapes, each phase's share of the consumers' and of the
+producer's cycles summed over the blocks, the consumer cycles an item and
+the longest consumer warpgroup's.
+
+    python -m karanta_tpu_torch.bench.flash_trace --kernel 1 --only page,pages4
 """
 
 from __future__ import annotations
@@ -245,6 +257,107 @@ def instrument_verify(src: str) -> str:
         + _store(n, "blockIdx.x * 2", "tid == 0", "  ") + "}\n", name)
 
 
+WINDOW_PHASES = ("producer: wait for a cos/sin slot",
+                 "producer: wait for a stage", "producer: issue copies",
+                 "drain the last store, free cos/sin slots",
+                 "wait for an item", "rope (with the warpgroup's barrier)",
+                 "Q.K^T", "softmax", "P.V", "store")
+# (anchor in window_attention.cu, phase stamped after it)
+_WINDOW_AFTER = [
+    ("            mbar_wait(&cs_empty[slot], ((ord >> 1) & 1) ^ 1);\n", 0),
+    ("        mbar_wait(&empty[st], w.phase ^ 1);  // first pass: free\n", 1),
+    ("        if (g.has_mask) bulk_load(mask_s + st * g.kr, mask + key0, "
+     "mask_bytes, &full[st]);\n", 2),
+    ("      free_slots(ord);\n    }\n", 3),
+    ("    mbar_wait(&full[st], w.phase);\n", 4),
+    ("    named_sync(1 + cw, 128);  // Q and K rotated and fenced; the out "
+     "buffer is free\n", 5),
+    ("      wgmma_wait<0>();\n      reg_fence(s);\n", 6),
+    ("      inv[i2] = 1.f / fmaxf(l[i2], 1e-30f);  // >= 1 in a tile row: its "
+     "max gives exp2(0)\n    }\n", 7),
+    ("    if (lane == 0) mbar_arrive(&empty[st]);  // the warp's products have "
+     "read the stage\n", 8),
+    ("      bulk_commit();\n    }\n", 9),
+]
+
+
+def instrument_window(src: str) -> str:
+    """window_attention.cu with clock readings in the bf16 instance's
+    producer thread (slot 3 block) and thread 0 of each consumer warpgroup
+    (3 block + 1 + warpgroup)."""
+    n, name = len(WINDOW_PHASES), "window_attention.cu"
+    out = _replace_once(src, '#include "mma.cuh"\n',
+                        '#include "mma.cuh"\n' + _defs(n), name)
+    out = _stamp_after(
+        out, "      static_cast<int>(static_cast<long long>(g.n_items) * "
+        "(blockIdx.x + 1) / gridDim.x);\n",
+        f"  unsigned long long ft[{n}] = {{}}, ft_last = clock64();\n", name)
+    for anchor, k in _WINDOW_AFTER:
+        out = _stamp_after(out, anchor, f"      FT_STAMP({k});\n", name)
+    out = _stamp_after(
+        out, "    return;\n  }\n\n  // the consumers",
+        _store(n, "blockIdx.x * 3", "tid == 0", "    "), name, before=True)
+    end = ("    bulk_wait<0>();  // the stores are done before the block's shared "
+           "memory goes\n  }\n}\n")
+    return _replace_once(
+        out, end, end[:-2] + _store(n, "blockIdx.x * 3 + 1 + cw", "ct == 0",
+                                    "  ") + "}\n", name) + _exports(n)
+
+
+def window_trace(lib: ctypes.CDLL, wanted: list) -> int:
+    """#1's phases at flash_ab's #1 shapes."""
+    from karanta_tpu_torch.bench.flash_ab import (WINDOW_ARGTYPES,
+                                                  WINDOW_SHAPES, window_case,
+                                                  window_launcher)
+
+    fn = lib.karanta_window_attention
+    fn.restype = ctypes.c_int
+    fn.argtypes = WINDOW_ARGTYPES
+    n = len(WINDOW_PHASES)
+    buf = (ctypes.c_ulonglong * (MAX_SLOTS * n))()
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(0)
+    results = {}
+    for name, (pages, h, rope) in WINDOW_SHAPES.items():
+        if wanted and name not in wanted:
+            continue
+        q, k, v, mask, cos, sin, _, _ = window_case(pages, h, rope, gen)
+        call, _ = window_launcher(fn, q, k, v, mask, cos, sin)
+        call()
+        torch.cuda.synchronize()
+        if lib.karanta_ftrace_reset() != 0:
+            raise RuntimeError("flash_trace: reset failed")
+        call()
+        torch.cuda.synchronize()
+        if lib.karanta_ftrace_read(buf) != 0:
+            raise RuntimeError("flash_trace: read failed")
+        rows = torch.tensor(list(buf[:MAX_SLOTS // 3 * 3 * n]),
+                            dtype=torch.float64).view(-1, 3, n)
+        rows = rows[rows.sum((1, 2)) > 0]  # the blocks of the grid
+        items = q.shape[1] // 64 * h
+        row = {"blocks": int(rows.shape[0]), "items": items}
+        for role, cols in (("consumer", [1, 2]), ("producer", [0])):
+            sums = rows[:, cols].sum((0, 1))
+            total = float(sums.sum())
+            row[role] = {ph: float(x) / total for ph, x in
+                         zip(WINDOW_PHASES, sums) if x > 0}
+        row["consumer_cycles_per_item"] = float(rows[:, 1:].sum()) / items
+        row["longest_block_cycles"] = float(rows[:, 1:].sum(2).max())
+        results[name] = row
+        print(f"  #1 {name} {tuple(q.shape)} rope={rope}, {row['blocks']} "
+              f"blocks, {items} items: "
+              f"{row['consumer_cycles_per_item']:.0f} consumer cycles an "
+              f"item, longest warpgroup {row['longest_block_cycles']:.0f} "
+              f"cycles; consumer " + ", ".join(
+                  f"{ph} {100 * x:.1f}%" for ph, x in row["consumer"].items())
+              + "; producer " + ", ".join(
+                  f"{ph} {100 * x:.1f}%" for ph, x in row["producer"].items()),
+              flush=True)
+        del q, k, v, mask, cos, sin
+        torch.cuda.empty_cache()
+    print(json.dumps({"window_trace": results}), flush=True)
+    return 0
+
+
 def build_traced(csrc: Path | None = None,
                  source: str = "flash_attention") -> ctypes.CDLL:
     """Build (once per source) and load the instrumented library of
@@ -257,8 +370,8 @@ def build_traced(csrc: Path | None = None,
         src = (csrc / f"{source}.cu").read_text() + _exports(
             len(VERIFY_PHASES))
     else:
-        fn = (instrument_decode if source == "decode_append_quant"
-              else instrument)
+        fn = {"decode_append_quant": instrument_decode,
+              "window_attention": instrument_window}.get(source, instrument)
         src = fn((csrc / f"{source}.cu").read_text())
     digest = hashlib.sha1(src.encode() + " ".join(build.NVCC_FLAGS).encode())
     for text in headers.values():
@@ -412,11 +525,14 @@ def main(argv=None) -> int:
     parser.add_argument("--only", default=None,
                         help="comma-separated flash_ab shape names (default "
                              "vision,prefill,prefix; #3: all)")
-    parser.add_argument("--kernel", choices=("2", "3", "4", "7", "6"),
+    parser.add_argument("--kernel", choices=("1", "2", "3", "4", "7", "6"),
                         default="2")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("flash_trace: needs a CUDA device")
+    if args.kernel == "1":
+        return window_trace(build_traced(args.csrc, "window_attention"),
+                            [x for x in (args.only or "").split(",") if x])
     if args.kernel == "3":
         return decode_trace(build_traced(args.csrc, "decode_append_quant"),
                             [x for x in (args.only or "").split(",") if x])

@@ -116,12 +116,6 @@ namespace karanta {
 // bf16: TMA, wgmma, warp specialisation
 // ---------------------------------------------------------------------------
 
-// the wgmma descriptor's layout type and the tensor map's swizzle of a
-// plane `w` bf16 columns wide (2 w bytes a row, swizzled across them)
-__host__ __device__ constexpr uint32_t plane_layout(int w) {
-  return w == 64 ? 1 : w == 32 ? 2 : 3;  // 128-, 64-, 32-byte swizzle
-}
-
 // One block: kBM = 128 query rows of one (batch, head). Warpgroup 0 is the
 // producer (one thread issues every TMA load), warpgroups 1 and 2 the
 // consumers, 64 rows each. K and V come in kBN-key tiles through a ring of
@@ -165,12 +159,6 @@ struct WgTile {
   }
   __device__ static constexpr uint32_t in_row(int col) { return (col % kWide) * 2; }
 };
-
-// shared descriptor of a K-major operand (Q, K): rows 2 w bytes apart, 8-row
-// groups 16 w bytes apart
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr, int w) {
-  return gmma_desc(addr, 16, 16 * w, plane_layout(w));
-}
 
 // S = Q K^T of one warpgroup's 64 rows (from row q_row of Q's planes) over
 // the depth's 16-wide k-steps, Q and K K-major; a k-step is 32 bytes along
@@ -473,51 +461,6 @@ __global__ void __launch_bounds__(WgTile<D>::kThreads, 1)
       }
     }
   }
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
-// (the library links no libcuda)
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// the tensor map of a contiguous bf16 (B, S, NH, D) tensor whose box is
-// `rows` rows of one (batch, head) by w columns, swizzled across them
-inline CUresult encode_bshd(CUtensorMap* map, const void* base, int B, int S, int NH, int D,
-                            int w, int rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(NH), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(NH) * D * 2,
-                                 static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(S) * NH * D * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(w), static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  const uint32_t layout = plane_layout(w);
-  const CUtensorMapSwizzle swizzle = layout == 1   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : layout == 2 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                        strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 // the float32 mask (B, Sk) as one row of B Sk values, boxes of `n` (a box

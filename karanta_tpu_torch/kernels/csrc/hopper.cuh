@@ -1,6 +1,8 @@
-// Hopper (sm_90a) helpers: mbarriers, TMA tensor and bulk loads, named barriers,
-// register reallocation between warpgroups (setmaxnreg) and the warpgroup
-// matrix products (wgmma) with their shared-memory operand descriptors.
+// Hopper (sm_90a) helpers: mbarriers, TMA tensor and bulk loads, TMA tensor
+// stores, named barriers, register reallocation between warpgroups
+// (setmaxnreg) and the warpgroup matrix products (wgmma) with their
+// shared-memory operand descriptors; on the host, the tensor maps of BSHD
+// tensors and the grid of a persistent kernel.
 //
 // wgmma accumulator layout of m64nNk16 (warp w of the warpgroup, g = lane / 4,
 // t = lane % 4): d[4j + 2i + e] is row 16w + g + 8i, column 8j + 2t + e. A
@@ -13,6 +15,7 @@
 #include <cuda.h>
 #include <stdint.h>
 
+#include "common.cuh"
 #include "mma.cuh"
 
 namespace karanta {
@@ -110,6 +113,40 @@ __device__ __forceinline__ void bulk_load_hint(void* dst, const void* src, uint3
       : "memory");
 }
 
+// one box of a rank-5 tensor map at coordinates (c0, .., c4) from shared
+// memory to global memory, in this thread's current bulk group; rows past
+// the tensor's bounds are not written
+__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5, %6}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3), "r"(c4) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// wait until at most N of this thread's bulk groups are incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// make this thread's generic-proxy writes to shared memory visible to the
+// asynchronous proxy (wgmma operands, TMA stores)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // --- warpgroups ----------------------------------------------------------------
 
 template <int R>
@@ -178,6 +215,25 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t
 template <int N>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&a)[4],
                                             uint64_t b, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64_t b,
@@ -298,6 +354,121 @@ __device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64], const uint32_t 
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+
+// --- tensor maps and descriptors of bf16 column planes --------------------------
+
+// the wgmma descriptor's layout type and the tensor map's swizzle of a
+// plane `w` bf16 columns wide (2 w bytes a row, swizzled across them)
+__host__ __device__ constexpr uint32_t plane_layout(int w) {
+  return w == 64 ? 1 : w == 32 ? 2 : 3;  // 128-, 64-, 32-byte swizzle
+}
+
+// shared descriptor of a K-major operand (Q, K): rows 2 w bytes apart, 8-row
+// groups 16 w bytes apart
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr, int w) {
+  return gmma_desc(addr, 16, 16 * w, plane_layout(w));
+}
+
+// --- host: tensor maps, persistent grids -----------------------------------------
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// (the library links no libcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// the tensor map's swizzle of a plane `w` bf16 columns wide
+inline CUtensorMapSwizzle plane_swizzle(int w) {
+  const uint32_t layout = plane_layout(w);
+  return layout == 1 ? CU_TENSOR_MAP_SWIZZLE_128B
+                     : layout == 2 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+}
+
+// the tensor map of a contiguous bf16 (B, S, NH, D) tensor whose box is
+// `rows` rows of one (batch, head) by w columns, swizzled across them
+inline CUresult encode_bshd(CUtensorMap* map, const void* base, int B, int S, int NH, int D,
+                            int w, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(NH), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(NH) * D * 2,
+                                 static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(S) * NH * D * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(w), static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, plane_swizzle(w),
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Let the kernel take all the shared memory a block may opt into on the
+// current device: where its size depends on the call's arguments, neither
+// the launcher nor the info entry may leave the attribute below a size the
+// other launches with.
+template <typename Kernel>
+cudaError_t allow_all_smem(Kernel kernel) {
+  int dev = 0, most = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  }
+  return err;
+}
+
+// the grid of a persistent kernel: every block the current device holds at
+// once. A launcher keeps one cache per kernel in its library's own storage
+// (an anonymous namespace: a function-local static of a template with
+// external linkage is one object in the whole process, shared by every
+// library built from the same source).
+struct ResidentGrid {
+  int dev = -1, grid = 0;
+  size_t smem = 0;
+};
+
+template <typename Kernel>
+cudaError_t resident_grid(Kernel kernel, int threads, size_t smem, ResidentGrid& cache,
+                          int* grid) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev != cache.dev || smem != cache.smem) {
+    int n_sm = 0, per_sm = 0;
+    err = allow_all_smem(kernel);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    }
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cache.dev = dev;
+    cache.smem = smem;
+    cache.grid = n_sm * per_sm;
+  }
+  *grid = cache.grid;
+  return cudaSuccess;
 }
 
 }  // namespace karanta

@@ -191,13 +191,16 @@ def _activation(cfg: VisionConfig, x):
 
 
 def _attn_block(x, p, cos, sin, valid, cfg: VisionConfig, full: bool,
-                trainable: bool = False, n_images: int = 1, group=None):
+                trainable: bool = False, n_images: int = 1, group=None,
+                rope32=None):
     """x: (pad_tokens, hidden) window-ordered -> attention output.
 
     With n_images > 1, x is the token-axis concatenation of that many
     same-shaped images: window layers run over the whole concatenation
     (no window straddles two images), full-attention layers take the image
-    axis as the attention batch, so no image attends to another."""
+    axis as the attention batch, so no image attends to another. rope32:
+    cos/sin in float32, (pad_tokens, head_dim) contiguous, for the window
+    kernel's fused rope (made once an encode)."""
     tokens = x.shape[0]
     hd = cfg.head_dim
     b = n_images if full else 1
@@ -220,9 +223,10 @@ def _attn_block(x, p, cos, sin, valid, cfg: VisionConfig, full: bool,
     else:
         # rope fused into the window kernel (cos/sin in float32, holding the
         # activation-dtype values the JAX encoder hands its kernel)
+        cs32, sn32 = rope32
         out = window_attention_kernel_call(
             q, k, v, cfg.window_patches ** 2, kv_mask=mask,
-            cos=cs.float().contiguous(), sin=sn.float().contiguous())
+            cos=cs32.reshape(1, tokens, hd), sin=sn32.reshape(1, tokens, hd))
     out = out.reshape(tokens, -1)
     return _out_product(out, p["wo"], group) + p["bo"]
 
@@ -272,13 +276,17 @@ def encode_image(params: Params, cfg: VisionConfig,
     valid = valid.float()
     cos, sin = vision_rope_cos_sin(pos_hw, cfg.head_dim, cfg.rope_theta)
     cos, sin = cos.to(x.dtype), sin.to(x.dtype)
+    # the window layers' fused rope takes float32 cos/sin: cast once here,
+    # not in each of the window layers
+    rope32 = (None if trainable
+              else (cos.float().contiguous(), sin.float().contiguous()))
 
     full_idx = cfg.fullatt_block_indexes
 
     def block(x, lp, full):
         x = x + _attn_block(_vnorm(cfg, x, lp["norm1"], lp.get("norm1_b")),
                             lp["attn"], cos, sin, valid, cfg, full,
-                            trainable, n_images, group)
+                            trainable, n_images, group, rope32)
         return x + _mlp(cfg, _vnorm(cfg, x, lp["norm2"], lp.get("norm2_b")),
                         lp["mlp"], group)
 

@@ -42,6 +42,11 @@ NEG_INF = -1e30
 FLASH_HEAD_DIMS = (16, 32, 64, 80, 128)
 FLASH_F32_HEAD_DIMS = (8,) + FLASH_HEAD_DIMS
 WINDOW_HEAD_DIMS = (16, 64, 80)
+# the fields of window_attention_info, in the C entry's order
+WINDOW_INFO_KEYS = ("registers", "spill_bytes", "smem_bytes", "blocks_per_sm",
+                    "heads_per_item", "stages", "consumer_warpgroups",
+                    "producer_registers", "consumer_registers",
+                    "cos_sin_staged")
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -467,17 +472,19 @@ def window_attention_kernel_call(q: torch.Tensor, k: torch.Tensor,
 
 
 def window_attention_info(d: int, window: int) -> dict:
-    """Registers and spilled bytes per thread, dynamic shared bytes per block,
-    resident blocks per SM and heads per block of the window kernel's bf16
-    (tensor-core) instance for head dim d and `window`, as the CUDA runtime
-    reports them (needs the card)."""
+    """The window kernel's bf16 instance for head dim d and `window` with
+    rope and a mask, as the CUDA runtime reports it (needs the card):
+    registers and spilled bytes per thread, dynamic shared bytes per block,
+    resident blocks per SM, heads an item, ring stages, consumer
+    warpgroups, the producer's and the consumers' registers after
+    ``setmaxnreg``, and whether cos/sin are staged in shared memory (1) or
+    read in place (0)."""
     fn = library("window_attention").karanta_window_attention_info
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    info = (ctypes.c_int * 5)()
+    info = (ctypes.c_int * len(WINDOW_INFO_KEYS))()
     kernels.raise_on_error("window_attention_info", fn(d, window, info))
-    return dict(zip(("registers", "spill_bytes", "smem_bytes",
-                     "blocks_per_sm", "heads_per_block"), info))
+    return dict(zip(WINDOW_INFO_KEYS, info))
 
 
 class _WindowAttentionFn(torch.autograd.Function):

@@ -187,24 +187,44 @@ def test_window_plain_matches_pallas(rope):
         np.testing.assert_allclose(got, ref, atol=ATOL)
 
 
-@pytest.mark.parametrize("rope", [False, True])
-def test_window_plain_matches_pallas_bf16(rope):
+WINDOW_BF16_CASES = [
+    # (b, s, h, d, w, rope): the vision width at W = 64 (the JAX package's
+    # fused-rope shape), then the edges of the card kernel's walk: windows of
+    # 16 and 32 (several a 64-row tile), 48 (a tile's last 16 rows left out)
+    # and 128 (two query tiles a window); head counts 3 and 5; head dims 16
+    # and 64; two batch rows
+    (1, 512, 4, 80, 64, False),
+    (1, 512, 4, 80, 64, True),
+    (1, 256, 3, 80, 16, True),
+    (2, 256, 5, 64, 32, False),
+    (1, 288, 3, 80, 48, True),
+    (2, 192, 2, 80, 48, False),
+    (1, 512, 5, 16, 128, True),
+    (2, 256, 3, 16, 64, False),
+    (1, 256, 5, 64, 64, True),
+    (2, 256, 4, 80, 128, False),
+]
+
+
+@pytest.mark.parametrize("case", WINDOW_BF16_CASES)
+def test_window_plain_matches_pallas_bf16(case):
     """bf16 inputs through the window plain version and the Pallas kernel,
     with and without fused rope, held to the card's bf16 rule on rows whose
     window has a live key (the Pallas kernel also rounds the normalised P to
     bf16 before P.V, as the card's kernel does; the plain version does
-    not)."""
-    rng = np.random.default_rng(20 + rope)
-    b, s, h, d, w = 1, 512, 4, 80, 64
+    not). Each case has a window with no live key."""
+    b, s, h, d, w, rope = case
+    rng = np.random.default_rng([20 + rope, b, s, h, d, w])
     q, k, v = (rng.normal(size=(b, s, h, d)).astype(np.float32)
                for _ in range(3))
     mask = (rng.random(size=(b, s)) > 0.1).astype(np.float32)
-    mask[0, 320:384] = 0.0   # one window with no live key
+    mask[b - 1, s - w:] = 0.0   # one window with no live key
     cos = sin = None
     if rope:
         pos = rng.integers(0, 40, size=(s, 2)).astype(np.int32)
         jc, js = j_vision_rope(jnp.asarray(pos), d)
-        cos, sin = np.asarray(jc)[None], np.asarray(js)[None]
+        cos, sin = (np.broadcast_to(np.asarray(x)[None], (b, s, d)).copy()
+                    for x in (jc, js))
     want = np.asarray(j_window(
         *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), w,
         kv_mask=jnp.asarray(mask),
@@ -217,6 +237,7 @@ def test_window_plain_matches_pallas_bf16(rope):
         sin=None if sin is None else _t(sin))
     assert got.dtype == torch.bfloat16
     rows = np.repeat(mask.reshape(b, s // w, w).max(-1) > 0, w, axis=1)
+    assert not rows.all()
     _assert_bf16_rule(got.float().numpy()[rows], want[rows])
 
 

@@ -1,7 +1,7 @@
-"""The measuring tools of the flash kernel (#2), the int8 decode kernel
-(#3) and the verify body's kernels (#4, #7, #6) on the CPU: the
-instrumented copies that bench/flash_trace.py builds, and the work
-bench/flash_ab.py divides by. The tools themselves run on the card."""
+"""The measuring tools of the window kernel (#1), the flash kernel (#2),
+the int8 decode kernel (#3) and the verify body's kernels (#4, #7, #6) on
+the CPU: the instrumented copies that bench/flash_trace.py builds, and the
+work bench/flash_ab.py divides by. The tools themselves run on the card."""
 
 import numpy as np
 import pytest
@@ -170,3 +170,48 @@ def test_q4_decode_shapes_are_the_smokes():
         assert tq == 1 and len(lens) == b and max(lens) <= m - 1
         assert flash_ab.verify_work(b, kvh, 7 * kvh, 128, 1, lens, 4) == (
             chip_smoke._q4_bytes(lens, kvh, 128, 7 * kvh, b, 1))
+
+
+def test_flash_trace_instruments_the_window_kernel():
+    """Every phase's reading of #1's trace lands once in the tree's
+    window_attention.cu, the producer's and the consumers' sums are stored,
+    and the two C entries are exported."""
+    out = flash_trace.instrument_window(
+        (CSRC / "window_attention.cu").read_text())
+    for k in range(len(flash_trace.WINDOW_PHASES)):
+        assert out.count(f"FT_STAMP({k});") == 1, k
+    assert out.count("karanta_ftrace[ft_slot") == 2
+    assert "karanta_ftrace_reset" in out and "karanta_ftrace_read" in out
+
+
+def test_flash_trace_refuses_a_window_source_without_its_anchors():
+    src = (CSRC / "window_attention.cu").read_text()
+    with pytest.raises(ValueError, match="flash_trace"):
+        flash_trace.instrument_window(
+            src.replace("mbar_wait(&full[st], w.phase);", ""))
+
+
+@pytest.mark.parametrize("rope", [False, True])
+def test_window_work_counts_the_live_pairs(rope):
+    """Bytes and flops of flash_ab.window_work (what #1's bound divides by)
+    against a count over every (query, key) pair of a scattered mask with a
+    dead window: a pair counts where the key is live and in the query's
+    window; q, k, v and out move once, cos/sin once with rope, the mask."""
+    b, s, h, d, w = 2, 192, 3, 16, 64
+    rng = np.random.default_rng(5)
+    mask = (rng.random((b, s)) > 0.3).astype(np.float32)
+    mask[1, 64:128] = 0.0
+    n_bytes, flops = flash_ab.window_work(b, s, h, d, w, mask, rope)
+    pairs = 0
+    for bb in range(b):
+        for i in range(s):
+            for j in range(s):
+                pairs += int(i // w == j // w and mask[bb, j] > 0)
+    assert flops == 4.0 * d * h * pairs
+    assert n_bytes == (4 * b * s * h * d * 2 + (2 * b * s * d * 4 if rope
+                                                else 0) + b * s * 4)
+    # every key live, no mask read
+    n_bytes, flops = flash_ab.window_work(b, s, h, d, w, None, rope)
+    assert flops == 4.0 * d * h * b * s * w
+    assert n_bytes == 4 * b * s * h * d * 2 + (2 * b * s * d * 4 if rope
+                                               else 0)

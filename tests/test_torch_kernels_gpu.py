@@ -494,6 +494,129 @@ def test_window_kernel_is_deterministic(cuda):
     assert torch.equal(first, second)
 
 
+def _window_pages(gen, dev, n):
+    """n 1288x994 pages' window-ordered tokens concatenated, (1, n x 5120,
+    16, 80) bf16, each page with its valid mask and rope."""
+    layout = _page_vision_layout()
+    s = n * len(layout.valid)
+    q, k, v = (_randn(gen, (1, s, 16, 80), dev, torch.bfloat16)
+               for _ in range(3))
+    mask = torch.from_numpy(np.concatenate([layout.valid] * n)).to(dev)
+    pos = torch.from_numpy(np.concatenate([layout.pos_hw] * n)).to(dev)
+    cos, sin = vision_rope_cos_sin(pos, 80)
+    cos = cos.to(torch.bfloat16).float()[None].contiguous()
+    sin = sin.to(torch.bfloat16).float()[None].contiguous()
+    return q, k, v, mask[None].float().contiguous(), cos, sin
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_window_kernel_page_of_a_concatenation_is_the_page_alone(cuda, n):
+    """#1 over n concatenated pages: each page's rows are bit-equal to the
+    page called alone (the persistent grid deals items by the call's size,
+    and an item's output depends on its own inputs only)."""
+    gen = torch.Generator(device=cuda).manual_seed(40 + n)
+    q, k, v, mask, cos, sin = _window_pages(gen, cuda, n)
+    whole = A.window_attention_kernel_call(q, k, v, 64, mask, cos=cos,
+                                           sin=sin)
+    page = q.shape[1] // n
+    for i in range(n):
+        sl = slice(i * page, (i + 1) * page)
+        one = A.window_attention_kernel_call(
+            q[:, sl].contiguous(), k[:, sl].contiguous(),
+            v[:, sl].contiguous(), 64, mask[:, sl].contiguous(),
+            cos=cos[:, sl].contiguous(), sin=sin[:, sl].contiguous())
+        torch.cuda.synchronize()
+        assert torch.equal(whole[:, sl], one), i
+
+
+WINDOW_EDGE_CASES = [
+    # (b, s, h, d, w, rope): grids with fewer items than SMs (one item; six)
+    (1, 64, 1, 80, 64, True),
+    (1, 128, 3, 16, 64, False),
+    # items that do not divide evenly among the blocks (315 and 70)
+    (3, 1344, 5, 80, 64, True),
+    (2, 320, 7, 64, 64, False),
+    # windows that do not tile 64 rows: 48 (16 rows of each tile left out),
+    # 80 and 112 (a window's second query tile partly past the window)
+    (1, 480, 3, 80, 48, True),
+    (2, 240, 2, 64, 48, False),
+    (1, 400, 5, 80, 80, True),
+    (2, 448, 5, 64, 112, True),
+    (1, 336, 3, 16, 112, False),
+    # the ring's wrap: many more items a block than stages (2,048 items over
+    # four stages; 512 items over the two stages of W = 256)
+    (4, 4096, 8, 80, 64, True),
+    (2, 4096, 4, 80, 256, True),
+]
+
+
+@pytest.mark.parametrize("case", WINDOW_EDGE_CASES)
+def test_window_kernel_edges_match_plain(cuda, case):
+    """#1's bf16 instance at the edges of its persistent walk against the
+    plain version, rows whose window has a live key."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v, mask, cos, sin = _window_inputs(gen, case, cuda, torch.bfloat16)
+    b, s, w = case[0], case[1], case[4]
+    got = A.window_attention_kernel_call(q, k, v, w, mask, cos=cos, sin=sin)
+    want = A.window_attention_plain(q, k, v, w, mask, cos=cos, sin=sin)
+    torch.cuda.synchronize()
+    rows = (mask.reshape(b, s // w, w).amax(-1) > 0).repeat_interleave(w, 1)
+    _assert_close(got[rows], want[rows], torch.bfloat16)
+
+
+_WINDOW_INFO_FIRST = """
+import torch
+from karanta_tpu_torch.ops import attention as A
+from karanta_tpu_torch.ops.rotary import vision_rope_cos_sin
+before = {d: A.window_attention_info(d, 64) for d in A.WINDOW_HEAD_DIMS}
+gen = torch.Generator(device="cuda").manual_seed(3)
+q, k, v = (torch.randn((1, 512, 16, 80), generator=gen, device="cuda")
+           .bfloat16() for _ in range(3))
+mask = (torch.rand((1, 512), generator=gen, device="cuda") > 0.2).float()
+pos = torch.randint(0, 40, (512, 2), generator=gen, device="cuda")
+cos, sin = vision_rope_cos_sin(pos, 80)
+cos, sin = cos[None].contiguous(), sin[None].contiguous()
+got = A.window_attention_kernel_call(q, k, v, 64, mask, cos=cos, sin=sin)
+want = A.window_attention_plain(q, k, v, 64, mask, cos=cos, sin=sin)
+torch.cuda.synchronize()
+limit = 2.0 ** -7 * want.float().abs() + 2.0 ** -9 * want.float().abs().max()
+assert ((got.float() - want.float()).abs() <= limit).all()
+after = {d: A.window_attention_info(d, 64) for d in A.WINDOW_HEAD_DIMS}
+assert before == after, (before, after)
+print("ok")
+"""
+
+
+def test_window_kernel_info_before_and_after_a_launch(cuda):
+    """window_attention_info in a fresh process before any launch, then a
+    launch within the bf16 limit, then the same info; at W = 64 with rope:
+    one block an SM of a producer and two consumer warpgroups, no spills,
+    cos/sin staged, at least two stages, the producer's registers handed
+    to the consumers."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _WINDOW_INFO_FIRST],
+                          cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr[-3000:]
+    for d in A.WINDOW_HEAD_DIMS:
+        info = A.window_attention_info(d, 64)
+        assert info["blocks_per_sm"] == 1, (d, info)
+        assert info["spill_bytes"] == 0, (d, info)
+        assert info["consumer_warpgroups"] == 2, (d, info)
+        assert info["heads_per_item"] == 1, (d, info)
+        assert info["cos_sin_staged"] == 1, (d, info)
+        assert info["stages"] >= 2, (d, info)
+        assert info["producer_registers"] < info["registers"] \
+            < info["consumer_registers"], (d, info)
+    for w in (16, 48, 112, 256):
+        info = A.window_attention_info(80, w)
+        assert info["spill_bytes"] == 0 and info["stages"] >= 2, (w, info)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_decode_kernel_matches_plain(cuda, dtype):
     from karanta_tpu_torch.models.qwen25_vl.decoder import quantize_kv_rows
