@@ -256,7 +256,7 @@ from karanta_tpu_torch.bench.flash_ab import (BATCHED_PREFILL_LIVE,
                                               flash_work)
 from karanta_tpu_torch.bench.stream_trace import (AB_BUCKET, AB_FILL,
                                                   STREAM_CHECK_LENS,
-                                                  stream_inputs)
+                                                  stream_inputs, stream_work)
 from karanta_tpu_torch.inference.engine import Engine, EngineConfig, GenRequest
 from karanta_tpu_torch.inference.server import (InferenceServer,
                                                 build_engine_from_args,
@@ -1709,29 +1709,6 @@ def normwise(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).norm() / want.norm())
 
 
-def stream_work(cfg, b: int, lens, mega: bool) -> tuple[float, float]:
-    """Bytes (each input read once, each output written once: the int8
-    weights with their scales, norms and biases, the activations, and for
-    the megakernel the live K/V rows with their scales and the new rows) and
-    flops (the products, and the megakernel's attention over cache_len + 1
-    rows) of one call."""
-    t = cfg.text
-    n, h, ff, d, kvh = t.num_layers, t.hidden_size, t.intermediate_size, \
-        t.head_dim, t.num_kv_heads
-    qd, qkv = t.num_heads * d, t.num_heads * d + 2 * kvh * d
-    weights = n * (h * qkv + qd * h + 3 * h * ff)
-    n_bytes = (weights + 4 * n * (qkv + 2 * h + 2 * ff) + 2 * n * (2 * h + qkv)
-               + 2 * b * h * 2)
-    flops = 2.0 * b * weights
-    if mega:
-        n_bytes += (2 * b * d * 4 + b * 4
-                    + n * kvh * (d + 2) * 2 * (sum(lens) + b))
-        flops += 4.0 * d * t.num_heads * n * sum(x + 1 for x in lens)
-    else:
-        n_bytes += n * b * (h + qkv) * 2  # attention outputs in, qkv out
-    return n_bytes, flops
-
-
 def check_streams(cfg, sp, x, cos, sin, caches, lens_t, attn,
                   label: str) -> tuple[float, float]:
     """#10 and #11 against their plain versions on the same inputs, full
@@ -1964,8 +1941,9 @@ def barrier_probe(cfg, dev, gen) -> dict:
     """The grid barriers' cost: both kernels at 28 layers but tiny widths
     (hidden 256, ffn 512, one kv head with the 7B's 7 query heads of 128,
     B = 4, a 128-row bucket), where each phase has almost no work; the time
-    per barrier (7 a layer for #11, 5 for #10) is an upper bound, since it
-    includes each phase's own least time."""
+    per barrier (8 a layer and one more for #11, 5 a layer and one more for
+    #10) is an upper bound, since it includes each phase's own least
+    time."""
     from karanta_tpu_torch.ops import decode_stream as DS
     from karanta_tpu_torch.ops.quantization import quantize_weight
 
@@ -2002,8 +1980,8 @@ def barrier_probe(cfg, dev, gen) -> dict:
     t_mega = cuda_ms(lambda: DS.decode_megakernel(
         x, cos, sin, sp, *caches, lens, qd=qd, kvd=kvd), 20)
     t_dense = cuda_ms(lambda: DS.dense_stream(x, attn, sp_dense), 20)
-    out = {"megakernel": t_mega * 1e3 / (7 * n + 0.0),
-           "dense_stream": t_dense * 1e3 / (5 * n + 0.0),
+    out = {"megakernel": t_mega * 1e3 / (8 * n + 1.0),
+           "dense_stream": t_dense * 1e3 / (5 * n + 1.0),
            "megakernel_call_ms": t_mega, "dense_stream_call_ms": t_dense}
     log(f"[streams] barrier probe at 28 layers, tiny widths: megakernel "
         f"{t_mega:.3f} ms a call ({out['megakernel']:.2f} us per barrier, "
@@ -2047,7 +2025,7 @@ def phase_decode_streams(cfg, dev, gen) -> tuple[list, dict, dict]:
         calls = ST.stream_calls(sp, x, cos, sin, caches, lens_t, attn, qd, kvd)
         for name, call in calls.items():
             dev_ms = cuda_ms(lambda: call(None), STREAM_CALLS)
-            res = ST.trace_call(traced, call, t.num_layers)
+            res = ST.trace_call(traced, call, name, t.num_layers)
             res["device_ms"] = dev_ms
             phases.setdefault(name, {})[f"B={b}"] = res
             log(f"  {name} {label}: {dev_ms:.3f} ms device time by events")
@@ -2082,24 +2060,10 @@ def phase_decode_streams(cfg, dev, gen) -> tuple[list, dict, dict]:
     # calls over weights dequantized to bf16 beforehand (out-major, x @ W.T)
     t_split = cuda_ms(lambda: dec.decode_step(text, t, x[:, None], positions,
                                               cache, lens_t), 5)
-    lay = text["layers"]
-    w16 = [[lay[g][n]["int8_q"][i].t().to(torch.bfloat16)
-            for g, n in (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
-                         ("attn", "wo"), ("mlp", "gate"), ("mlp", "up"),
-                         ("mlp", "down"))] for i in range(t.num_layers)]
+    w16 = ST.dequantized_layers(text["layers"], t.num_layers)
     h_mid = (torch.randn((b, t.intermediate_size), generator=gen, device=dev)
              * 0.3).bfloat16()
-
-    def cublas_products():
-        for ws in w16:
-            for w in ws[:3]:
-                x @ w.t()
-            attn[0] @ ws[3].t()
-            x @ ws[4].t()
-            x @ ws[5].t()
-            h_mid @ ws[6].t()
-
-    t_lib10 = cuda_ms(cublas_products, 5)
+    t_lib10 = cuda_ms(ST.cublas_products(w16, x, attn[0], h_mid), 5)
     del w16, cache, caches, attn
     torch.cuda.empty_cache()
     rows = []

@@ -247,7 +247,8 @@ DECODE_M, DECODE_D, DECODE_G, DECODE_KVH = 1920, 128, 7, 4
 DECODE_SMOKE_LENS = [0, 700, 1919, 1390]
 DECODE_RANK_LENS = [0, 700, 1390, 1915]
 DECODE_AB_FILL = 1650
-# the run rule of #3's earlier bf16 instance (decode_split.cuh's int8 body):
+# the run rule of #3's earlier bf16 instance (decode_split.cuh's int8 body,
+# since deleted; a baseline built from an older csrc still has it):
 # runs of 256 to 1,024 rows, two blocks an SM
 SPLIT_RULE = (256, 1024, 2)
 

@@ -163,42 +163,59 @@ DECODE_PHASES = ("set-up", "producer: wait for an item slot",
                  "producer: wait for a stage", "producer: issue copies",
                  "wait for Q", "item start", "wait for a chunk",
                  "Q.K^T + scales + max", "softmax + P.V", "item end")
-# (anchor, phase stamped after it)
+# (anchor in quant_tma.cuh's walker pieces, phase stamped after it)
 _DECODE_AFTER = [
-    ("  if (static_cast<int>(blockIdx.x) >= n_items) return;\n", 0),
-    ("      mbar_wait(&seg_empty[p], ((seg >> 1) & 1) ^ 1);\n", 1),
-    ("        mbar_wait(&empty[s], ((i / kQStages) & 1) ^ 1);\n", 2),
-    ("        } else {\n          mbar_arrive(&full[s]);\n        }\n", 3),
+    ("    mbar_wait(&seg_empty[p], ((seg >> 1) & 1) ^ 1);\n", 1),
+    ("      mbar_wait(&empty[s], ((i / kQStages) & 1) ^ 1);\n", 2),
+    ("      } else {\n        mbar_arrive(&full[s]);\n      }\n", 3),
     ("    mbar_wait(&seg_full[p], (seg >> 1) & 1);\n", 4),
     ("    for (int nt = 0; nt < kNT; ++nt) o[nt][0] = o[nt][1] = 0.f;\n\n", 5),
     ("      mbar_wait(&full[s], (i / kQStages) & 1);\n", 6),
     ("      const float alpha = fast_exp2(m - mx);\n", 7),
     ("      if (lane == 0) mbar_arrive(&empty[s]);\n", 8),
-    ("    named_sync(1, kCT);  // the merge area is free again\n", 9),
+    ("    named_sync(bar_id, kCT);  // the merge area is free again\n", 9),
 ]
+# the walker pieces' parameter lists, which take the clock readings along
+_DECODE_SIGNATURES = ("int n_items, int vb, int vgrid, int lane) {\n",
+                      "int n_items, int vb, int vgrid, int tid,\n"
+                      "                                              int bar_id) {\n")
 
 
-def instrument_decode(src: str) -> str:
+def instrument_decode(src: str, header: str | None = None) -> str:
     """decode_append_quant.cu with clock readings in the bf16 instance's
-    producer (lane 0 stores, slot 2 block + 1) and consumers (thread 0
-    stores, slot 2 block)."""
+    set-up and in its walker's pieces (quant_tma.cuh, `header`, by default
+    the tree's; an instrumented copy takes the include's place): the
+    producer's lane 0 stores its sums in slot 2 block + 1, the consumers'
+    thread 0 in slot 2 block."""
     n, name = len(DECODE_PHASES), "decode_append_quant.cu"
-    out = src.replace('#include "hopper.cuh"\n',
-                      '#include "hopper.cuh"\n' + _defs(n), 1)
+    if header is None:
+        header = (build.CSRC / "quant_tma.cuh").read_text()
+    ft = f"unsigned long long (&ft)[{n}], unsigned long long& ft_last"
+    for sig in _DECODE_SIGNATURES:
+        header = _replace_once(header, sig, sig[:-4] + ", " + ft + ") {\n",
+                               "quant_tma.cuh")
+    for anchor, k in _DECODE_AFTER:
+        header = _stamp_after(header, anchor, f"      FT_STAMP({k});\n",
+                              "quant_tma.cuh")
+    out = _replace_once(src, '#include "quant_tma.cuh"\n',
+                        _defs(n) + header.replace("#pragma once\n", "", 1),
+                        name)
     out = _stamp_after(
         out, "  // every slot's live rows (the clamp",
         f"  unsigned long long ft[{n}] = {{}}, ft_last = clock64();\n", name,
         before=True)
-    for anchor, k in _DECODE_AFTER:
-        out = _stamp_after(out, anchor, f"      FT_STAMP({k});\n", name)
     out = _stamp_after(
-        out, "    return;\n  }\n\n  // the consumers\n",
-        _store(n, "blockIdx.x * 2 + 1", "lane == 0", "    "), name,
-        before=True)
-    out = _replace_once(
-        out, "      FT_STAMP(9);\n    ++seg;\n  }\n}\n",
-        "      FT_STAMP(9);\n    ++seg;\n  }\n"
-        + _store(n, "blockIdx.x * 2", "tid == 0", "  ") + "}\n", name)
+        out, "  if (static_cast<int>(blockIdx.x) >= n_items) return;\n",
+        "  FT_STAMP(0);\n", name)
+    out = _replace_once(out, "gridDim.x, lane);\n",
+                        "gridDim.x, lane, ft, ft_last);\n"
+                        + _store(n, "blockIdx.x * 2 + 1", "lane == 0", "    "),
+                        name)
+    out = _replace_once(out, "gridDim.x, tid, 1);\n}\n",
+                        "gridDim.x, tid, 1, ft,\n"
+                        "                             ft_last);\n"
+                        + _store(n, "blockIdx.x * 2", "tid == 0", "  ") + "}\n",
+                        name)
     return out + _exports(n)
 
 
@@ -370,7 +387,8 @@ def build_traced(csrc: Path | None = None,
         src = (csrc / f"{source}.cu").read_text() + _exports(
             len(VERIFY_PHASES))
     else:
-        fn = {"decode_append_quant": instrument_decode,
+        fn = {"decode_append_quant": lambda text: instrument_decode(
+                  text, headers["quant_tma.cuh"]),
               "window_attention": instrument_window}.get(source, instrument)
         src = fn((csrc / f"{source}.cu").read_text())
     digest = hashlib.sha1(src.encode() + " ".join(build.NVCC_FLAGS).encode())

@@ -115,9 +115,8 @@ cudaError_t launch_pair(int dtype, const void* q, const void* nk, const void* nv
                         void* vc, const int* lens, void* out, float* partials, int* counters,
                         int B, int KVH, int M, int layer, float scale, cudaStream_t st) {
   if (dtype == kBFloat16) {
-    return launch_split<D, G, true>(q, nk, nv, nullptr, nullptr, kc, vc, nullptr, nullptr, lens,
-                                    out, partials, counters, B, KVH, M, layer, kSplitRows, scale,
-                                    st);
+    return launch_split<D, G, true>(q, nk, nv, kc, vc, lens, out, partials, counters, B, KVH, M,
+                                    layer, kSplitRows, scale, st);
   }
   if (dtype == kFloat32) {
     return launch_append<float, D, G>(q, nk, nv, kc, vc, lens, out, B, KVH, M, layer, scale,

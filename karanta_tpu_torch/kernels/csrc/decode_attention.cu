@@ -82,9 +82,8 @@ cudaError_t launch_pair(int dtype, const void* q, const void* kc, const void* vc
                         const int* lens, void* out, float* partials, int* counters, int B,
                         int KVH, int M, int layer, float scale, cudaStream_t st) {
   if (dtype == kBFloat16) {
-    return launch_split<D, G, false>(q, nullptr, nullptr, nullptr, nullptr, kc, vc, nullptr,
-                                     nullptr, lens, out, partials, counters, B, KVH, M, layer,
-                                     kSplitRows, scale, st);
+    return launch_split<D, G, false>(q, nullptr, nullptr, kc, vc, lens, out, partials, counters,
+                                     B, KVH, M, layer, kSplitRows, scale, st);
   }
   if (dtype == kFloat32) {
     return launch_attention<float, D, G>(q, kc, vc, lens, out, B, KVH, M, layer, scale, st);

@@ -1,5 +1,5 @@
-// Flash-decoding over a bf16 or int8 cache on the tensor cores,
-// rows split over blocks: the one kernel body of the bf16 instances of
+// Flash-decoding over a bf16 cache on the tensor cores, rows split over
+// blocks: the one kernel body of the bf16 instances of
 //
 // - kernel #5, paged_decode_append (decode_append.cu, kAppend = true): slot b
 //   attends over the rows [0, cache_len[b]) already in the cache; the block
@@ -8,26 +8,19 @@
 //   (karanta_tpu/ops/decode_attention.py:496-512);
 // - kernels #8 and #9, paged_decode_attention(_stacked) (decode_attention.cu,
 //   kAppend = false): slot b attends over the rows [0, cache_len[b]], this
-//   step's row having been written at cache_len[b] before the call;
-// - the attention phase of kernel #11, decode_megakernel (decode_stream.cu,
-//   kAppend = true, kBits = 8): the same over the int8 cache with a bf16
-//   scale per row: ksc multiplies the scores, vsc multiplies p before p is
-//   rounded (decode_attention.py:821-846), and the new row folds in float32
-//   from its int8 values times its scales (:852-873); the per-item function
-//   split_item runs in each half of the megakernel's persistent blocks,
-//   with a named barrier per half in place of the block barrier. (Kernel
-//   #3 ran this int8 body until it was redesigned around bulk copies,
-//   decode_append_quant.cu; kernel #6 ran it over packed int4 rows until it
-//   moved onto the int4 verify kernel's body, verify_tma.cuh.)
+//   step's row having been written at cache_len[b] before the call.
+// (An int8 instance of this body ran kernel #3 until it was redesigned
+// around bulk copies, decode_append_quant.cu, the megakernel's attention
+// (#11) until it moved onto #3's walker, quant_tma.cuh, and, over packed
+// int4 rows, kernel #6 until it moved onto the int4 verify kernel's body,
+// verify_tma.cuh.)
 //
 // What bounds it on this card: every live cache byte is used once per call
 // for about G flops, so device-memory bytes bound it:
-// KVH * sum_b live_rows[b] * 2 * (D * sizeof(row) + scale bytes) at
-// 3.35 TB/s.
+// KVH * sum_b live_rows[b] * 2 * D * 2 at 3.35 TB/s.
 //
 // The rows of one (slot, kv head) are split into runs of run_rows rows (an
-// argument: kSplitRows = 1,024 for the bf16 cache; over the int8 cache the
-// megakernel's rule picks it), one block of 4 warps each, so a
+// argument: kSplitRows = 1,024), one block of 4 warps each, so a
 // 4,096-row slot spreads over 4 blocks instead of one. The wrapper cannot
 // read cache_len without a host sync, so the grid is sized from M and a
 // block whose run starts past its slot's rows exits at once; run 0 always
@@ -37,12 +30,8 @@
 // chunk of the run and streams it through its own cp.async ring
 // (kDecodeStages = 3 chunks of K and V; rows past the slot's length are
 // zero-filled), so no block barrier sits in the row loop and the next
-// chunks load while this one computes. bf16 rows land padded by 16 bytes
-// for conflict-free ldmatrix; int8 rows land as they are stored, half the
-// bytes, with the chunk's 32 scales (plain loads issued with the rows and
-// stored beside them one iteration later; a row past the slot reads 0), and
-// the warp converts the landed chunk into its own bf16 stage
-// (int8x8_to_bf16, exact; stage_rows) before ldmatrix. Q.K^T and P.V are
+// chunks load while this one computes. Rows land padded by 16 bytes for
+// conflict-free ldmatrix. Q.K^T and P.V are
 // mma.sync.m16n8k16 in bf16 with float32 accumulators, the flash kernel's
 // mapping: the G query heads of the kv head are rows of the 16-row A tile
 // (G <= 8 live; the dead rows cost nothing in a byte-bound kernel), K
@@ -68,14 +57,11 @@
 // bf16 cache (PERF.md): runs of 1,024 rows with a 3-stage ring (two blocks
 // an SM, 150 registers) were fastest; runs of 256 rows were much slower
 // (more partials, more merges), runs of 512 or 2,048 rows and rings of 2 or
-// 4 stages a little slower. Over the int8 cache a 4-stage ring was no
-// faster either. A per-phase timer trace showed the finishing block's tail
+// 4 stages a little slower. A per-phase timer trace showed the finishing block's tail
 // (the runs' merge, the new row's fold, the output) as a third of a call
 // at B = 4 while it loaded the partials' m and the new row one global load
 // at a time; the batched loads above shortened the call by about a fifth.
 #pragma once
-
-#include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -92,19 +78,14 @@ static_assert(kDecodeStages >= 2, "the ring needs two stages");
 // rows per run over the bf16 cache
 constexpr int kSplitRows = kSplitWarps * 16 * kDecodeChunks;
 
-// kBits: 16 for bf16 rows, 8 for int8 rows
-template <int D, int kBits>
+template <int D>
 struct SplitTile {
-  static_assert(kBits == 16 || kBits == 8, "bf16 or int8 rows");
-  static constexpr bool kQuant = kBits != 16;
-  static constexpr int kScales = kQuant ? 32 : 0;  // K, then V scales of a chunk
   static constexpr int kPitch = D + 8;  // bf16 rows in shared memory (elements)
   static constexpr int kStageBytes = 2 * 16 * kPitch * 2;  // bf16 K and V tiles
   static constexpr int kStages = kDecodeStages;
-  // one ring stage: bf16 K and V rows (pitch kPitch), or stored K and V rows
-  // (pitch D) and the chunk's kScales scales
-  static constexpr int kRingStage = kQuant ? 2 * 16 * D + 2 * kScales : kStageBytes;
-  static constexpr int kWarpBytes = kStages * kRingStage + (kQuant ? kStageBytes : 0);
+  // one ring stage: K and V rows (pitch kPitch)
+  static constexpr int kRingStage = kStageBytes;
+  static constexpr int kWarpBytes = kStages * kRingStage;
   static constexpr int kNewRowBytes = 2 * D * 2;  // the new K and V rows (append kernels)
   static constexpr size_t kSmem =
       16 * kPitch * 2 + static_cast<size_t>(kSplitWarps) * kWarpBytes + kNewRowBytes;
@@ -129,20 +110,14 @@ __device__ __forceinline__ void split_sync(int bar_id) {
 
 // One (slot b, kv head kvh, run `split`) item of the kernel below, for the
 // 4 warps that call it (tid in [0, 128)). smem holds SplitTile::kSmem bytes
-// and an int behind them; n_runs is the partials' stride in runs. The
-// kernel calls it once a block; the decode megakernel (decode_stream.cu)
-// calls it from each half of its persistent blocks.
-template <int D, int G, bool kAppend, int kBits>
+// and an int behind them; n_runs is the partials' stride in runs.
+template <int D, int G, bool kAppend>
 __device__ __forceinline__ void split_item(
     const __nv_bfloat16* __restrict__ q,  // (B, KVH*G, D)
-    const void* __restrict__ new_k_,      // (B, KVH, D) rows of the cache's type; kAppend only
+    const void* __restrict__ new_k_,      // (B, KVH, D); kAppend only
     const void* __restrict__ new_v_,
-    const __nv_bfloat16* __restrict__ new_ks,  // (B, KVH); quantized caches only
-    const __nv_bfloat16* __restrict__ new_vs,
-    const void* k_cache_,  // (L, B, KVH, M, D) stored rows; written if kAppend
+    const void* k_cache_,  // (L, B, KVH, M, D); written if kAppend
     const void* v_cache_,
-    __nv_bfloat16* ks_cache,  // int8: (L, B, KVH, M); written
-    __nv_bfloat16* vs_cache,
     const int* __restrict__ cache_len,  // (B,) tokens
     __nv_bfloat16* __restrict__ out,    // (B, KVH*G, D)
     float* __restrict__ partials,       // (B*KVH, n_runs, kPartial)
@@ -150,17 +125,15 @@ __device__ __forceinline__ void split_item(
     int B, int KVH, int M, int layer, int run_rows, float scale_log2, int split, int kvh,
     int b, int n_runs, unsigned char* smem_raw, int tid, int bar_id) {
   static_assert(G <= 8, "the query heads fill at most half the 16-row tile");
-  using Tile = SplitTile<D, kBits>;
-  constexpr bool kQuant = Tile::kQuant;
-  static_assert(kAppend || !kQuant, "a quantized cache is read by the append kernels only");
-  using Row = typename std::conditional<kQuant, int8_t, __nv_bfloat16>::type;
+  using Tile = SplitTile<D>;
+  using Row = __nv_bfloat16;
   constexpr int P = Tile::kPitch, kVecs = D / 8, kKT = D / 16;
-  constexpr int kS = Tile::kStages, kSc = Tile::kScales;
+  constexpr int kS = Tile::kStages;
   constexpr int kRowVecs = D * sizeof(Row) / 16;  // 16-byte vectors of a stored row
   const Row* new_k = static_cast<const Row*>(new_k_);
   const Row* new_v = static_cast<const Row*>(new_v_);
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [16][P]
-  unsigned char* ring = smem_raw + 16 * P * 2;  // [warps][stages][ring stage] (+ bf16 stage)
+  unsigned char* ring = smem_raw + 16 * P * 2;  // [warps][stages][ring stage]
   // append kernels: this step's K row, then its V row, as the inputs hold them
   Row* new_s = reinterpret_cast<Row*>(ring + kSplitWarps * Tile::kWarpBytes);
 
@@ -178,13 +151,9 @@ __device__ __forceinline__ void split_item(
   const size_t slab = ((static_cast<size_t>(layer) * B + b) * KVH + kvh) * M;
   const Row* k_rows = static_cast<const Row*>(k_cache_) + slab * D;
   const Row* v_rows = static_cast<const Row*>(v_cache_) + slab * D;
-  // int8: the slab's scales
-  __nv_bfloat16* k_sc = kQuant ? ks_cache + slab : nullptr;
-  __nv_bfloat16* v_sc = kQuant ? vs_cache + slab : nullptr;
 
   if constexpr (kAppend) {
-    // run 0 writes this step's row (and its scales) at len (read by no
-    // block of this call)
+    // run 0 writes this step's row at len (read by no block of this call)
     if (split == 0) {
       for (int c = tid; c < 2 * kRowVecs; c += kSplitThreads) {
         const bool is_v = c >= kRowVecs;
@@ -192,9 +161,6 @@ __device__ __forceinline__ void split_item(
         const Row* src = (is_v ? new_v : new_k) + static_cast<size_t>(bh) * D;
         Row* dst = const_cast<Row*>(is_v ? v_rows : k_rows) + static_cast<size_t>(len) * D;
         *reinterpret_cast<uint4*>(dst + col) = *reinterpret_cast<const uint4*>(src + col);
-      }
-      if constexpr (kQuant) {
-        if (tid < 2) (tid ? v_sc : k_sc)[len] = (tid ? new_vs : new_ks)[bh];
       }
     }
   }
@@ -204,8 +170,6 @@ __device__ __forceinline__ void split_item(
   const int w0 = r0 + 16 * warp;
   const int n_mine = w0 < r_end ? (r_end - w0 + kStride - 1) / kStride : 0;
   unsigned char* my_ring = ring + warp * Tile::kWarpBytes;
-  // quantized: the warp's bf16 stage, after its ring stages
-  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(my_ring + kS * Tile::kRingStage);
   auto load_chunk = [&](int i) {
     const int c0 = w0 + kStride * i;
     unsigned char* st = my_ring + (i % kS) * Tile::kRingStage;
@@ -214,27 +178,10 @@ __device__ __forceinline__ void split_item(
       const int r = c / kRowVecs, col = (c % kRowVecs) * (16 / sizeof(Row));
       const bool ok = c0 + r < r_end;  // rows past the slot are zeros
       const size_t off = static_cast<size_t>(ok ? c0 + r : r0) * D + col;
-      if constexpr (kQuant) {
-        cp_async16(st + r * D + col, k_rows + off, ok ? 16 : 0);
-        cp_async16(st + (16 + r) * D + col, v_rows + off, ok ? 16 : 0);
-      } else {
-        __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(st);
-        cp_async16(ks + r * P + col, k_rows + off, ok ? 16 : 0);
-        cp_async16(ks + (16 + r) * P + col, v_rows + off, ok ? 16 : 0);
-      }
+      __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(st);
+      cp_async16(ks + r * P + col, k_rows + off, ok ? 16 : 0);
+      cp_async16(ks + (16 + r) * P + col, v_rows + off, ok ? 16 : 0);
     }
-  };
-  // quantized: lane l carries scale slot l of each chunk (K below kSc / 2,
-  // then V; key l % 16), loaded one iteration ahead and stored beside the
-  // rows; a key at or past the slot's rows reads 0
-  auto load_scales = [&](int i, __nv_bfloat16& v) {
-    const int c0 = w0 + kStride * i, r = lane & 15;
-    v = c0 + r < n_rows ? (lane < kSc / 2 ? k_sc : v_sc)[c0 + r] : __float2bfloat16_rn(0.f);
-  };
-  auto store_scales = [&](int i, __nv_bfloat16 v) {
-    __nv_bfloat16* sc =
-        reinterpret_cast<__nv_bfloat16*>(my_ring + (i % kS) * Tile::kRingStage + 32 * D);
-    sc[lane] = v;
   };
   if constexpr (kAppend) {
     // every block copies the new row now, for whichever block finishes the
@@ -246,20 +193,10 @@ __device__ __forceinline__ void split_item(
                  (is_v ? new_v : new_k) + static_cast<size_t>(bh) * D + col, 16);
     }
   }
-  __nv_bfloat16 sc_first[kS - 1];
 #pragma unroll
   for (int st = 0; st < kS - 1; ++st) {
     if (st < n_mine) load_chunk(st);
     cp_async_commit();
-    if constexpr (kQuant) {
-      if (st < n_mine) load_scales(st, sc_first[st]);
-    }
-  }
-  if constexpr (kQuant) {
-#pragma unroll
-    for (int st = 0; st < kS - 1; ++st) {
-      if (st < n_mine) store_scales(st, sc_first[st]);
-    }
   }
 
   // the G query heads as rows of the A tile, zero rows below them (loaded
@@ -289,41 +226,13 @@ __device__ __forceinline__ void split_item(
   for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = 0.f;
   float m = kNegInf, l = 0.f;
 
-  __nv_bfloat16 sc_pending;
   for (int i = 0; i < n_mine; ++i) {
     cp_async_wait<kS - 2>();
     __syncwarp();  // chunk i landed for every lane; chunk i - 1's stage is free
-    if constexpr (kQuant) {
-      if (i >= 1 && i + kS - 2 < n_mine) store_scales(i + kS - 2, sc_pending);
-    }
-    const bool more = i + kS - 1 < n_mine;
-    if (more) load_chunk(i + kS - 1);
+    if (i + kS - 1 < n_mine) load_chunk(i + kS - 1);
     cp_async_commit();
-    const unsigned char* st = my_ring + (i % kS) * Tile::kRingStage;
-    const __nv_bfloat16* ks;
-    float ksc[2][2], vsc[2][2];
-    if constexpr (kQuant) {
-      if (more) load_scales(i + kS - 1, sc_pending);
-      // the landed chunk into the bf16 stage: K rows, then V rows
-      stage_rows<D, P, 32>(reinterpret_cast<const int8_t*>(st), stage, 0, lane);
-      __syncwarp();
-      ks = stage;
-      // the scales of this lane's keys 8j + 2t + e
-      const __nv_bfloat16* sc = reinterpret_cast<const __nv_bfloat16*>(st + 32 * D);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float2 kf = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(sc + 8 * j + 2 * t));
-        const float2 vf = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(sc + kSc / 2 + 8 * j + 2 * t));
-        ksc[j][0] = kf.x;
-        ksc[j][1] = kf.y;
-        vsc[j][0] = vf.x;
-        vsc[j][1] = vf.y;
-      }
-    } else {
-      ks = reinterpret_cast<const __nv_bfloat16*>(st);
-    }
+    const __nv_bfloat16* ks =
+        reinterpret_cast<const __nv_bfloat16*>(my_ring + (i % kS) * Tile::kRingStage);
     const __nv_bfloat16* vs = ks + 16 * P;
     const int c0 = w0 + kStride * i;
 
@@ -345,9 +254,7 @@ __device__ __forceinline__ void split_item(
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const bool live = c0 + 8 * j + 2 * t + e < n_rows;
-        float x = s[j][e];
-        if constexpr (kQuant) x *= ksc[j][e];  // the K scale, then the softmax scale
-        s[j][e] = live ? x * scale_log2 : -CUDART_INF_F;
+        s[j][e] = live ? s[j][e] * scale_log2 : -CUDART_INF_F;
         mx = fmaxf(mx, s[j][e]);
       }
     }
@@ -362,7 +269,6 @@ __device__ __forceinline__ void split_item(
       for (int e = 0; e < 2; ++e) {
         s[j][e] = fast_exp2(s[j][e] - mx);
         l += s[j][e];  // this lane's share of the row sum, unrounded P
-        if constexpr (kQuant) s[j][e] *= vsc[j][e];  // the V scale folds into p
       }
     }
 #pragma unroll
@@ -475,17 +381,10 @@ __device__ __forceinline__ void split_item(
   if constexpr (kAppend) {
     // fold in the new row in float32 after the old rows, from the inputs:
     // s = q . k_new (log2 domain), one warp per query head
-    const float nks = kQuant ? __bfloat162float(new_ks[bh]) : 1.f;
     for (int gg = warp; gg < G; gg += kSplitWarps) {
       float dot = 0.f;
       for (int d = lane; d < D; d += 32) {
-        float kd;
-        if constexpr (kQuant) {
-          kd = static_cast<float>(new_s[d]) * nks;  // dequantized in float32
-        } else {
-          kd = __bfloat162float(new_s[d]);
-        }
-        dot += __bfloat162float(q_s[gg * P + d]) * kd;
+        dot += __bfloat162float(q_s[gg * P + d]) * __bfloat162float(new_s[d]);
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
@@ -533,71 +432,58 @@ __device__ __forceinline__ void split_item(
       }
     }
   }
-  const float nvs = kQuant ? __bfloat162float(new_vs[bh]) : 1.f;
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
     const int e = tid + kSplitThreads * k, gg = e / D, d = e % D;
     if (e >= G * D) continue;
     float a = acc[k];
-    if constexpr (kAppend) {
-      float vd;
-      if constexpr (kQuant) {
-        vd = static_cast<float>(new_s[D + d]) * nvs;
-      } else {
-        vd = __bfloat162float(new_s[D + d]);
-      }
-      a = a * new_a[gg] + new_p[gg] * vd;
-    }
+    if constexpr (kAppend) a = a * new_a[gg] + new_p[gg] * __bfloat162float(new_s[D + d]);
     out_bh[e] = __float2bfloat16_rn(a / row_l[gg]);  // >= 1: the max row's exp2(0)
   }
   if (n_splits > 1 && tid == 0) counters[bh] = 0;  // ready for the next call
 }
 
-template <int D, int G, bool kAppend, int kBits = 16>
+template <int D, int G, bool kAppend>
 __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(
     const __nv_bfloat16* __restrict__ q, const void* __restrict__ new_k,
-    const void* __restrict__ new_v, const __nv_bfloat16* __restrict__ new_ks,
-    const __nv_bfloat16* __restrict__ new_vs, const void* k_cache, const void* v_cache,
-    __nv_bfloat16* ks_cache, __nv_bfloat16* vs_cache, const int* __restrict__ cache_len,
-    __nv_bfloat16* __restrict__ out, float* __restrict__ partials, int* __restrict__ counters,
-    int B, int KVH, int M, int layer, int run_rows, float scale_log2) {
+    const void* __restrict__ new_v, const void* k_cache, const void* v_cache,
+    const int* __restrict__ cache_len, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ partials, int* __restrict__ counters, int B, int KVH, int M, int layer,
+    int run_rows, float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  split_item<D, G, kAppend, kBits>(q, new_k, new_v, new_ks, new_vs, k_cache, v_cache, ks_cache,
-                                   vs_cache, cache_len, out, partials, counters, B, KVH, M,
-                                   layer, run_rows, scale_log2, blockIdx.x, blockIdx.y,
-                                   blockIdx.z, gridDim.x, smem_raw, threadIdx.x, 0);
+  split_item<D, G, kAppend>(q, new_k, new_v, k_cache, v_cache, cache_len, out, partials,
+                            counters, B, KVH, M, layer, run_rows, scale_log2, blockIdx.x,
+                            blockIdx.y, blockIdx.z, gridDim.x, smem_raw, threadIdx.x, 0);
 }
 
-template <int D, int G, bool kAppend, int kBits = 16>
-cudaError_t launch_split(const void* q, const void* nk, const void* nv, const void* nks,
-                         const void* nvs, const void* kc, const void* vc, void* ksc, void* vsc,
-                         const int* lens, void* out, float* partials, int* counters, int B,
-                         int KVH, int M, int layer, int run_rows, float scale,
-                         cudaStream_t stream) {
-  using Tile = SplitTile<D, kBits>;
+template <int D, int G, bool kAppend>
+cudaError_t launch_split(const void* q, const void* nk, const void* nv, const void* kc,
+                         const void* vc, const int* lens, void* out, float* partials,
+                         int* counters, int B, int KVH, int M, int layer, int run_rows,
+                         float scale, cudaStream_t stream) {
+  using Tile = SplitTile<D>;
   // runs of whole 16-row chunks
   if (run_rows < 16 || run_rows % 16 ||
       (M + run_rows - 1) / run_rows > Tile::kMaxSplits) {
     return cudaErrorInvalidValue;
   }
-  auto kernel = decode_split_kernel<D, G, kAppend, kBits>;
+  auto kernel = decode_split_kernel<D, G, kAppend>;
   cudaError_t err = allow_smem(kernel, Tile::kItemSmem);
   if (err != cudaSuccess) return err;
   dim3 grid((M + run_rows - 1) / run_rows, KVH, B);
   kernel<<<grid, kSplitThreads, Tile::kItemSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), nk, nv, static_cast<const __nv_bfloat16*>(nks),
-      static_cast<const __nv_bfloat16*>(nvs), kc, vc, static_cast<__nv_bfloat16*>(ksc),
-      static_cast<__nv_bfloat16*>(vsc), lens, static_cast<__nv_bfloat16*>(out), partials,
-      counters, B, KVH, M, layer, run_rows, scale * kLog2e);
+      static_cast<const __nv_bfloat16*>(q), nk, nv, kc, vc, lens,
+      static_cast<__nv_bfloat16*>(out), partials, counters, B, KVH, M, layer, run_rows,
+      scale * kLog2e);
   return cudaGetLastError();
 }
 
 // registers, local (spilled) bytes, dynamic shared bytes, resident blocks per
 // SM and rows per run over the bf16 cache (kSplitRows) of one bf16 instance
-template <int D, int G, bool kAppend, int kBits = 16>
+template <int D, int G, bool kAppend>
 cudaError_t split_info(int* info) {
-  using Tile = SplitTile<D, kBits>;
-  auto kernel = decode_split_kernel<D, G, kAppend, kBits>;
+  using Tile = SplitTile<D>;
+  auto kernel = decode_split_kernel<D, G, kAppend>;
   const void* fn = reinterpret_cast<const void*>(kernel);
   cudaError_t err = allow_smem(kernel, Tile::kItemSmem);
   cudaFuncAttributes attr;

@@ -1,8 +1,7 @@
 // Tensor-core and asynchronous-copy helpers (sm_80+ instructions, used on
 // sm_90a): cp.async into shared memory, ldmatrix, the bf16
 // mma.sync.m16n8k16 and the TF32 mma.sync.m16n8k8 with float32
-// accumulators, the hi/lo split of a float into two TF32 values, and the
-// exact conversion of int8 cache rows to bf16 operands.
+// accumulators, and the hi/lo split of a float into two TF32 values.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16x16 row-major, 4 x bf16x2: a0 (g, 2t..2t+1), a1 (g+8, 2t..),
@@ -123,41 +122,5 @@ __device__ __forceinline__ float fast_exp2(float x) {
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
-
-// eight int8 values (one 8-byte word pair) -> eight bf16, exactly: the bytes
-// biased to unsigned become the low mantissa bits of 2^23 + 128 + b, and the
-// float subtraction of 2^23 + 128 gives b
-__device__ __forceinline__ uint4 int8x8_to_bf16(uint2 raw) {
-  const uint32_t w[2] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u};
-  uint32_t r[4];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const float lo = __uint_as_float(__byte_perm(w[h], 0x4B000000u, 0x7440 + 2 * p)) -
-                       8388736.f;
-      const float hi = __uint_as_float(__byte_perm(w[h], 0x4B000000u, 0x7441 + 2 * p)) -
-                       8388736.f;
-      r[2 * h + p] = pack_bf16(lo, hi);
-    }
-  }
-  return make_uint4(r[0], r[1], r[2], r[3]);
-}
-
-// Rows [r_lo, r_lo + kRows) of one landed chunk of the int8 cache (stored K
-// rows 0..15, then V rows 16..31, pitch D) into a bf16 stage (pitch P): row
-// rr to stage row rr (K keys 0..15, V keys 16..31).
-template <int D, int P, int kRows>
-__device__ __forceinline__ void stage_rows(const int8_t* __restrict__ src,
-                                           __nv_bfloat16* __restrict__ dst, int r_lo,
-                                           int lane) {
-  constexpr int kV = D / 8;  // 8-byte vectors per row
-#pragma unroll
-  for (int c = lane; c < kRows * kV; c += 32) {
-    const int r = r_lo + c / kV, col = (c % kV) * 8;
-    const uint2 raw = *reinterpret_cast<const uint2*>(src + r * D + col);
-    *reinterpret_cast<uint4*>(dst + r * P + col) = int8x8_to_bf16(raw);
-  }
-}
 
 }  // namespace karanta

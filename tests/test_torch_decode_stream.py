@@ -140,6 +140,26 @@ def test_dense_stream_matches_jax(dense_case, oracle):
     np.testing.assert_allclose(got_x, want_x, rtol=0.05, atol=0.05)
 
 
+@pytest.mark.parametrize("b", [1, 9])
+@pytest.mark.parametrize("oracle", ["kernel", "reference"])
+def test_dense_stream_matches_jax_at_batch_edges(dense_case, b, oracle):
+    """As test_dense_stream_matches_jax at the CUDA body's n-tile edges: one
+    batch row, and one row into a second tile of 8 (the instances hold 8,
+    32, 80 and 128 rows)."""
+    _, jsp, _, _ = dense_case
+    rng = np.random.default_rng(10 + b)
+    x = rng.normal(size=(b, H)) * 0.5
+    attn_out = rng.normal(size=(L, b, H)) * 0.5
+    fn = jds.dense_stream_reference if oracle == "reference" else (
+        lambda *args: jds.dense_stream(*args, interpret=True))
+    want_x, want_q = fn(_bf16(x), _bf16(attn_out), jsp)
+    got_x, got_q = _dense_port(jsp, x, attn_out, ds.dense_stream)
+    np.testing.assert_allclose(got_q, np.asarray(want_q, np.float32),
+                               rtol=0.05, atol=0.03)
+    np.testing.assert_allclose(got_x, np.asarray(want_x, np.float32),
+                               rtol=0.05, atol=0.05)
+
+
 def test_dense_stream_reference_matches_jax(dense_case):
     """The port's copy of the oracle against the JAX one (same rounding
     points: only float32 summation order differs)."""
@@ -181,8 +201,13 @@ MB, MM, LENS = 4, 128, [0, 5, 33, 100]
 def mega_case():
     """JAX int8 decoder params from a numpy seed, a random int8 cache, the
     step's embeddings and rope tables; the JAX megakernel's outputs."""
+    return _mega_case(MB, LENS, 2)
+
+
+def _mega_case(mb: int, lens: list, seed: int) -> dict:
+    """mega_case at mb slots of lengths lens, from numpy seed `seed`."""
     jcfg = JTextConfig(**MK)
-    rng = np.random.default_rng(2)
+    rng = np.random.default_rng(seed)
     h, nl, hd = jcfg.hidden_size, jcfg.num_layers, jcfg.head_dim
     qd, kvd, ff = jcfg.num_heads * hd, jcfg.num_kv_heads * hd, \
         jcfg.intermediate_size
@@ -202,23 +227,24 @@ def mega_case():
     qparams = j_qdp({"layers": layers,
                      "embed": _bf16(rng.normal(size=(256, h)) * 0.02),
                      "final_norm": _bf16(1.0 + 0.1 * rng.normal(size=(h,)))})
-    shape = (nl, MB, jcfg.num_kv_heads, MM, hd)
+    shape = (nl, mb, jcfg.num_kv_heads, MM, hd)
     caches = (rng.integers(-127, 128, size=shape, dtype=np.int8),
               rng.integers(-127, 128, size=shape, dtype=np.int8),
               np.asarray(_bf16(rng.uniform(0.002, 0.02, size=shape[:-1]))),
               np.asarray(_bf16(rng.uniform(0.002, 0.02, size=shape[:-1]))))
-    x = np.asarray(_bf16(rng.normal(size=(MB, h)) * 0.5))
-    positions = torch.tensor(LENS, dtype=torch.int32)[None].expand(3, MB)
+    x = np.asarray(_bf16(rng.normal(size=(mb, h)) * 0.5))
+    positions = torch.tensor(lens, dtype=torch.int32)[None].expand(3, mb)
     cos, sin = (t.numpy() for t in mrope_cos_sin(
         positions, hd, jcfg.mrope_section, jcfg.rope_theta))
     jsp = jds.pack_stream_params(qparams["layers"])
     out = jds.decode_megakernel(
         jnp.asarray(x), jnp.asarray(cos), jnp.asarray(sin), jsp,
-        *(jnp.asarray(c) for c in caches), jnp.asarray(LENS, jnp.int32),
-        qd=qd, kvd=kvd, eps=jcfg.rms_norm_eps, interpret=True)
+        *(jnp.asarray(c) for c in caches), jnp.asarray(lens, jnp.int32),
+        qd=qd, kvd=kvd, eps=jcfg.rms_norm_eps, interpret=True,
+        spp=2 if mb % 2 == 0 else 1)  # the JAX kernel's slots a step
     return dict(qparams=_np(qparams), jsp=_np(jsp), caches=caches, x=x,
                 cos=cos, sin=sin, positions=positions, qd=qd, kvd=kvd,
-                jout=[np.asarray(o) for o in out])
+                lens=lens, jout=[np.asarray(o) for o in out])
 
 
 def _port_mega(case):
@@ -229,13 +255,13 @@ def _port_mega(case):
     x, *out = ds.decode_megakernel(
         torch.from_numpy(case["x"].astype(np.float32)).bfloat16(),
         torch.from_numpy(case["cos"]), torch.from_numpy(case["sin"]), sp,
-        *caches, torch.tensor(LENS, dtype=torch.int32), qd=case["qd"],
+        *caches, torch.tensor(case["lens"], dtype=torch.int32), qd=case["qd"],
         kvd=case["kvd"])
     assert all(o is c for o, c in zip(out, caches))  # updated in place
     return x, out
 
 
-def _check_caches(got, want, inputs):
+def _check_caches(got, want, inputs, lens=LENS):
     """Every entry but each slot's new row equals the input (and `want`);
     the new rows, dequantized, agree within 0.05."""
     worst = 0.0
@@ -243,7 +269,7 @@ def _check_caches(got, want, inputs):
         q, s = (_as_np(got[part]), _as_np(got[part + 2]))
         wq, wsc = (_as_np(want[part]), _as_np(want[part + 2]))
         iq, isc = inputs[part], np.asarray(inputs[part + 2], np.float32)
-        for b, n in enumerate(LENS):
+        for b, n in enumerate(lens):
             keep = np.arange(MM) != n
             for arr, ref in ((q, iq), (q, wq), (s, isc), (s, wsc)):
                 np.testing.assert_array_equal(arr[:, b, :, keep],
@@ -263,6 +289,20 @@ def test_megakernel_matches_jax(mega_case):
     err = float(np.abs(x.float().numpy() - np.asarray(jx, np.float32)).max())
     print(f"megakernel vs JAX: x max err {err:.3e}, new rows max err "
           f"{worst:.3e}")
+    np.testing.assert_allclose(x.float().numpy(), np.asarray(jx, np.float32),
+                               rtol=0.06, atol=0.06)
+
+
+@pytest.mark.parametrize("mb,lens", [(1, [MM - 1]),
+                                     (9, [0, 5, 33, 100, MM - 1, 64, 1, 126,
+                                          17])])
+def test_megakernel_matches_jax_at_batch_edges(mb, lens):
+    """As test_megakernel_matches_jax at the CUDA body's n-tile edges (one
+    slot, and one slot into a second tile of 8), a slot at M - 1."""
+    case = _mega_case(mb, lens, 20 + mb)
+    x, out = _port_mega(case)
+    jx, *jcaches = case["jout"]
+    _check_caches(out, jcaches, case["caches"], lens)
     np.testing.assert_allclose(x.float().numpy(), np.asarray(jx, np.float32),
                                rtol=0.06, atol=0.06)
 
@@ -332,38 +372,99 @@ def test_megakernel_refuses_what_jax_refuses(mega_case):
 
 
 def test_stream_trace_instruments_the_kernel():
-    """bench/stream_trace.py finds its three anchors in the tree's
-    decode_stream.cu (the stamps in grid_sync, at the kernel's start and
-    after its final row phase) and exports its two C entries."""
+    """bench/stream_trace.py finds its anchors in the tree's decode_stream.cu
+    (the stamps in grid_sync, at the kernel's start and end, the two ring
+    waits it times) and exports its two C entries."""
     from karanta_tpu_torch.bench import stream_trace
     from karanta_tpu_torch.kernels.build import CSRC
 
-    out = stream_trace.instrument((CSRC / "decode_stream.cu").read_text())
+    src = (CSRC / "decode_stream.cu").read_text()
+    out = stream_trace.instrument(src)
     assert out.count("trace_stamp();") == 4  # 2 in grid_sync, start, end
+    for name, slot, _ in stream_trace._WAITS:
+        assert f"karanta_trace_wait[2 * blockIdx.x + {slot}]" in out, name
+        assert src.count(f"{name}(&") >= 1, name  # the products call it
     assert "karanta_trace_reset" in out and "karanta_trace_read" in out
 
 
-def test_stream_trace_analysis():
-    """The per-phase sums from synthetic stamps: two blocks, one layer of
-    the megakernel's seven barriers, phase j taking j + 1 us on block 0 and
-    j + 2 us on block 1, each barrier releasing 1 us after the last
-    arrival."""
-    from karanta_tpu_torch.bench import stream_trace
-
+def _synthetic_stamps(n_phases: int):
+    """Two blocks, one layer: interval j ("start", the prologue, then the
+    layer's phases) takes j + 1 us on block 0 and j + 2 us on block 1, each
+    barrier releasing 1 us after the last arrival; the last interval ends
+    the call."""
     stamps = [[0], [0]]
     t = 0
-    for j in range(7):
+    for j in range(n_phases + 2):
         arrive = [t + (j + 1) * 1000, t + (j + 2) * 1000]
+        if j == n_phases + 1:
+            for b in range(2):
+                stamps[b].append(arrive[b])
+            return stamps, arrive[1]
         leave = max(arrive) + 1000
         for b in range(2):
             stamps[b] += [arrive[b], leave]
         t = leave
-    for b in range(2):
-        stamps[b].append(t + 500)
-    res = stream_trace.analyse(stamps, 1)
-    names = stream_trace.PHASES[7]
-    assert [round(res["phase_ms"][k] * 1e3, 6) for k in names] == [
-        j + 2.0 for j in range(7)]
-    assert round(res["barrier_release_ms"] * 1e3, 6) == 7.0
-    assert round(res["mean_block_busy_ms"]["attention"] * 1e3, 6) == 3.5
-    assert round(res["total_ms"] * 1e3, 6) == round(t * 1e-3 + 0.5, 6)
+
+
+def test_stream_trace_analysis():
+    """The per-phase sums from synthetic stamps of the megakernel's barriers
+    (one before layer 0, then its eight phases a layer but the last), and
+    the ring waits' means and shares of the product phases."""
+    _check_analysis("decode_megakernel")
+
+
+def test_stream_trace_analysis_dense():
+    """As test_stream_trace_analysis for dense_stream's five phases."""
+    _check_analysis("dense_stream")
+
+
+def _check_analysis(name: str) -> None:
+    from karanta_tpu_torch.bench import stream_trace
+
+    names = stream_trace.PHASES[name]
+    stamps, end = _synthetic_stamps(len(names))
+    waits = [(1000, 2000), (3000, 4000)]
+    res = stream_trace.analyse(stamps, 1, name, waits)
+    assert res["barriers"] == len(names) + 1
+    assert [round(res["phase_ms"][k] * 1e3, 6)
+            for k in ("start", "prologue") + names] == [
+        j + 2.0 for j in range(len(names) + 2)]
+    assert round(res["barrier_release_ms"] * 1e3, 6) == len(names) + 1
+    for j, k in enumerate(names, start=2):
+        assert round(res["mean_block_busy_ms"][k] * 1e3, 6) == j + 1.5
+    assert round(res["total_ms"] * 1e3, 6) == round(end * 1e-3, 6)
+    products = sum(j + 1.5 for j, k in enumerate(names, start=2)
+                   if "products" in k) * 1e-3
+    assert res["producer_wait_free_ms"] == pytest.approx(2e-3)
+    assert res["consumer_wait_landed_ms"] == pytest.approx(3e-3)
+    assert res["producer_wait_free_share"] == pytest.approx(2e-3 / products)
+    with pytest.raises(ValueError, match="barriers"):
+        stream_trace.analyse(stamps, 2, name)
+
+
+def test_stream_work_counts_the_7b():
+    """The bytes both the smoke and the bench tool hold the streams to: the
+    7B decoder's 6.53 GB of int8 weights (with scales, norms, biases and the
+    activations), and for the megakernel the live K/V rows with their scales
+    plus the new rows."""
+    from karanta_tpu_torch.bench.stream_trace import stream_work
+    from karanta_tpu_torch.models.qwen25_vl.config import get_config
+
+    cfg = get_config("qwen2.5-vl-7b")
+    t = cfg.text
+    h, ff, d, kvh = t.hidden_size, t.intermediate_size, t.head_dim, \
+        t.num_kv_heads
+    qd, qkv = t.num_heads * d, t.num_heads * d + 2 * kvh * d
+    weights = t.num_layers * (h * qkv + qd * h + 3 * h * ff)
+    assert round(weights / 1e9, 2) == 6.53
+    dense, dense_flops = stream_work(cfg, 4, [0, 1, 2, 3], mega=False)
+    mega, mega_flops = stream_work(cfg, 4, [0, 1, 2, 3], mega=True)
+    assert weights < dense < weights * 1.01
+    assert dense_flops == 2.0 * 4 * weights
+    lens = [0, 33, 1390, 1919]
+    mega, _ = stream_work(cfg, 4, lens, mega=True)
+    base, _ = stream_work(cfg, 4, [0] * 4, mega=True)
+    row = t.num_layers * kvh * (d + 2) * 2  # a K and a V row and scales
+    assert mega - base == row * sum(lens)
+    assert base - dense == (2 * 4 * d * 4 + 4 * 4 + row * 4
+                            - t.num_layers * 4 * (h + qkv) * 2)

@@ -50,8 +50,9 @@ def test_flash_work_counts_the_live_pairs(causal, q_offset):
 
 def test_flash_trace_instruments_the_int8_decode_kernel():
     """Every phase's reading of #3's trace lands once in the tree's
-    decode_append_quant.cu, the producer's and the consumer's sums are
-    stored, and the two C entries are exported."""
+    decode_append_quant.cu and its walker's pieces (quant_tma.cuh), the
+    producer's and the consumer's sums are stored, and the two C entries
+    are exported."""
     out = flash_trace.instrument_decode(
         (CSRC / "decode_append_quant.cu").read_text())
     for k in range(len(flash_trace.DECODE_PHASES)):
@@ -62,9 +63,15 @@ def test_flash_trace_instruments_the_int8_decode_kernel():
 
 def test_flash_trace_refuses_a_decode_source_without_its_anchors():
     src = (CSRC / "decode_append_quant.cu").read_text()
+    header = (CSRC / "quant_tma.cuh").read_text()
     with pytest.raises(ValueError, match="flash_trace"):
         flash_trace.instrument_decode(
-            src.replace("mbar_wait(&seg_full[p], (seg >> 1) & 1);", ""))
+            src, header.replace("mbar_wait(&seg_full[p], (seg >> 1) & 1);",
+                                ""))
+    with pytest.raises(ValueError, match="flash_trace"):
+        flash_trace.instrument_decode(
+            src.replace("  if (static_cast<int>(blockIdx.x) >= n_items) "
+                        "return;\n", ""), header)
 
 
 @pytest.mark.parametrize("kvh,lens", [(4, [0, 700, 1919, 1390]),

@@ -1621,6 +1621,15 @@ def _normwise(got, want) -> float:
     (2, 1, 256, 64, 512),
     (2, 8, 512, 128, 768),
     (2, 9, 256, 80, 512),
+    # batches inside the 80- and 128-row instances
+    (2, 33, 256, 64, 512),
+    (2, 64, 512, 128, 768),
+    (2, 100, 256, 64, 512),
+    # more (unit, k tile) pairs a block than ring stages, at 8 and 80 rows
+    (2, 4, 2048, 256, 8192),
+    (1, 80, 2048, 256, 8192),
+    # fewer pairs than blocks: one 128-column qkv unit and k tile
+    (2, 3, 256, 64, 256),
 ])
 def test_dense_stream_kernel_matches_plain(cuda, shape):
     from karanta_tpu_torch import kernels
@@ -1661,6 +1670,15 @@ def test_dense_stream_kernel_matches_plain(cuda, shape):
     (2, 1, 256, 1, 7, 128, 512, 256, [255]),
     (2, 8, 256, 2, 2, 64, 512, 128, None),
     (2, 9, 256, 1, 7, 128, 512, 256, None),
+    # batches inside the 80- and 128-row instances
+    (2, 33, 256, 1, 7, 128, 512, 128, None),
+    (2, 64, 256, 2, 2, 64, 512, 128, None),
+    (2, 100, 256, 1, 7, 128, 512, 128, None),
+    # more (unit, k tile) pairs a block than ring stages, at 4 and 80 rows
+    (1, 4, 2048, 2, 7, 128, 8192, 256, [0, 100, 255, 17]),
+    (1, 80, 2048, 1, 7, 128, 8192, 128, None),
+    # fewer pairs than blocks: hidden 128, one kv head of two 64-wide heads
+    (2, 3, 128, 1, 2, 64, 256, 128, [0, 1, 127]),
 ])
 def test_megakernel_matches_plain(cuda, shape):
     from karanta_tpu_torch import kernels
@@ -1735,6 +1753,50 @@ def test_megakernel_matches_plain(cuda, shape):
     torch.cuda.synchronize()
     assert torch.equal(h_in, got_x)
     assert all(torch.equal(p, q) for p, q in zip(kern, runs[0]))
+
+
+@pytest.mark.parametrize("b", [4, 80])
+def test_streams_slot_bits_ignore_the_batch(cuda, b):
+    """A slot's outputs depend on its own inputs alone: slot 0's x (and, for
+    the megakernel, its new cache rows; for dense_stream its qkv rows) stay
+    bit-equal when the other slots' inputs and cache lengths change."""
+    from karanta_tpu_torch.ops import decode_stream as DS
+    from karanta_tpu_torch.ops.rotary import mrope_cos_sin
+
+    n_layers, h, kvh, g, d, ff, m = 2, 256, 1, 7, 128, 512, 256
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    qd, kvd = kvh * g * d, kvh * d
+    sp = _stream_params(gen, cuda, n_layers, h, qd, kvd, ff)
+    sp_dense = _stream_params(gen, cuda, n_layers, h, h, kvd, ff)
+    shape5 = (n_layers, b, kvh, m, d)
+    caches = [torch.randint(-127, 128, shape5, generator=gen, device=cuda,
+                            dtype=torch.int8) for _ in range(2)]
+    caches += [(torch.rand(shape5[:-1], generator=gen, device=cuda) * 0.02
+                + 0.002).bfloat16() for _ in range(2)]
+    outs = []
+    for trial in range(2):
+        x = _randn(gen, (b, h), cuda, torch.bfloat16)
+        attn = _randn(gen, (n_layers, b, h), cuda, torch.bfloat16)
+        lens = torch.randint(0, m, (b,), generator=gen, device=cuda)
+        x[0] = outs[0]["x0"] if trial else x[0]
+        attn[:, 0] = outs[0]["attn0"] if trial else attn[:, 0]
+        lens[0] = 201
+        lens_t = lens.int()
+        cos, sin = mrope_cos_sin(lens_t[None].expand(3, b), d,
+                                 (d // 8, 3 * d // 16, 3 * d // 16), 1e6)
+        run = [c.clone() for c in caches]
+        got_x = DS.decode_megakernel(x, cos, sin, sp, *run, lens_t, qd=qd,
+                                     kvd=kvd)[0]
+        dense_x, dense_q = DS.dense_stream(x, attn, sp_dense)
+        torch.cuda.synchronize()
+        outs.append({"x0": x[0].clone(), "attn0": attn[:, 0].clone(),
+                     "x": got_x[0], "rows": [c[:, 0, :, 201] for c in run],
+                     "dense_x": dense_x[0], "dense_q": dense_q[:, 0]})
+    first, second = outs
+    assert torch.equal(first["x"], second["x"])
+    assert all(torch.equal(p, q) for p, q in zip(first["rows"], second["rows"]))
+    assert torch.equal(first["dense_x"], second["dense_x"])
+    assert torch.equal(first["dense_q"], second["dense_q"])
 
 
 # The training path's shapes at Qwen2.5-VL-3B: the decoder's 16 query heads
@@ -1924,3 +1986,52 @@ def test_kernels_at_per_rank_shapes(cuda, tp, kernel):
     _assert_close(got, want, dtype)
     for x, y in writes:
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("b", [4, 80])
+def test_streams_silu_saturates(cuda, b):
+    """Gate pre-activations below -88.7, where exp(-g) overflows to inf, and
+    in (-88.7, -87.3), where 1 + exp(-g) passes 2^126: h = bf16(silu(g) * u)
+    stays finite (a signed zero or a tiny value, as in the plain version),
+    so x does, and both entries stay within their plain versions' limits."""
+    from karanta_tpu_torch.ops import decode_stream as DS
+    from karanta_tpu_torch.ops.rotary import mrope_cos_sin
+
+    n_layers, h, kvh, g, d, ff, m = 2, 256, 1, 7, 128, 512, 256
+    gen = torch.Generator(device=cuda).manual_seed(43)
+    qd, kvd = kvh * g * d, kvh * d
+    sp = _stream_params(gen, cuda, n_layers, h, qd, kvd, ff)
+    sp_dense = _stream_params(gen, cuda, n_layers, h, h, kvd, ff)
+    for p in (sp, sp_dense):
+        p["gs"] = p["gs"] * 100.0  # g spread over about +-300
+    x = _randn(gen, (b, h), cuda, torch.bfloat16)
+    attn = _randn(gen, (n_layers, b, h), cuda, torch.bfloat16)
+    # both regimes are reached (dense_stream's layer 0, from the plain pieces)
+    _, xn = DS._o_residual(x, attn[0], sp_dense, 0, 1e-6)
+    gate = DS._linear(xn, sp_dense["wg_t"][0].transpose(0, 1),
+                      sp_dense["gs"][0])
+    assert bool((gate < -88.8).any())
+    assert bool(((gate > -88.7) & (gate < -87.4)).any())
+    got_x, got_q = DS.dense_stream(x, attn, sp_dense)
+    want_x, want_q = DS.dense_stream_plain(x, attn, sp_dense)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got_x.float()).all())
+    assert _normwise(got_x, want_x) < 2e-2
+    assert _normwise(got_q, want_q) < 2e-2
+
+    lens_t = torch.randint(0, m, (b,), generator=gen, device=cuda).int()
+    cos, sin = mrope_cos_sin(lens_t[None].expand(3, b), d,
+                             (d // 8, 3 * d // 16, 3 * d // 16), 1e6)
+    shape5 = (n_layers, b, kvh, m, d)
+    caches = [torch.randint(-127, 128, shape5, generator=gen, device=cuda,
+                            dtype=torch.int8) for _ in range(2)]
+    caches += [(torch.rand(shape5[:-1], generator=gen, device=cuda) * 0.02
+                + 0.002).bfloat16() for _ in range(2)]
+    runs = [[c.clone() for c in caches] for _ in range(2)]
+    got_x = DS.decode_megakernel(x, cos, sin, sp, *runs[0], lens_t, qd=qd,
+                                 kvd=kvd)[0]
+    want_x = DS.decode_megakernel_plain(x, cos, sin, sp, *runs[1], lens_t,
+                                        qd, kvd, d ** -0.5)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got_x.float()).all())
+    assert _normwise(got_x, want_x) < 2e-2
